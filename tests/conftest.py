@@ -17,6 +17,9 @@ def pytest_configure(config):
                    "need >= 8 devices (CI runs the suite under XLA_FLAGS="
                    "--xla_force_host_platform_device_count=8), subprocess "
                    "variants set the flag themselves")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels have "
+                   "no CPU mode); skipped without one")
 
 
 @pytest.fixture
