@@ -7,21 +7,36 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``; exits non-zero, and
 prints no result, without them. Phases, any failure fatal:
 
   1. device   — the card's name and power limit (nvidia-smi).
-  2. build    — both kernels from ``src/repro_torch/csrc`` with nvcc.
+  2. build    — the four kernels from ``src/repro_torch/csrc``, one nvcc
+                per source, all started together.
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
-                card, at the serving path's shapes and at a larger size,
-                with times (CUDA events), the plain version's time, a
-                library yardstick where one exists, and the card's bound.
-  4. serve-cli  — ``repro_torch.launch.serve`` at full qwen3-0.6b width.
+                card, at the main paths' shapes (and a larger or smaller
+                one), f32 and bf16 for the attention kernels, with times
+                (CUDA events), the plain version's time, a library
+                yardstick where one exists, and the card's bound.
+  4. serve-cli  — ``repro_torch.launch.serve`` at full qwen3-0.6b width,
+                its startup tau probe (a gated forward) included.
   5. serve-long — ``ServeSession`` at full width with 384-token prompts,
                 so tokens leave the 256-token ring and lazy promotion
-                runs; launch counters prove both kernels carried it.
+                runs; launch counters prove the decode kernels carried it.
+  6. prefill-long  — ``inference.prefill`` (budgeted vertical-slash, paper
+                §4.2) of a 4096-token prompt at full width, budget 1024,
+                then 16 greedy ``decode_step``s from its dual caches.
+  7. forward-gated — ``transformer.forward(mode="gated")`` at full width
+                over 2048 tokens (the write-gated training forward).
+  8. substrate — the trained bench substrate
+                (``checkpoints/bench_model_lam0.15.npz``): one numpy
+                prompt through prefill + 16 greedy decode steps on the card
+                (kernels) and on the CPU (plain path); tokens and integer
+                cache state must be identical, logits within 1e-4.
 
-The weights are random (seeded); the point is that the port runs end to
-end on the card through its kernels and agrees with itself: the paged
-physical pool matches the logical cache (< 2e-3), every request completes.
-Any failed check raises, and the script exits non-zero. The last two lines
-are the ``kernels`` JSON and the ``ok`` JSON.
+The full-width weights are random (seeded); the point is that the port
+runs end to end on the card through its kernels and agrees with itself:
+the paged physical pool matches the logical cache (< 2e-3), every request
+completes, every logit is finite, and on trained weights the card and the
+CPU agree. The launch counts of each main path are set to 0 just before
+it and read just after. Any failed check raises, and the script exits
+non-zero. The last two lines are the ``kernels`` JSON and the ``ok`` JSON.
 """
 from __future__ import annotations
 
@@ -37,6 +52,9 @@ SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
+INT32_MAX = 2 ** 31 - 1
+PEAK = {"float32": H100_F32_FLOPS, "bfloat16": H100_BF16_FLOPS}
+TOL = {"float32": 5e-5, "bfloat16": 5e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -170,8 +188,138 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
+def vertical_slash_case(dtype: str, seed: int):
+    """The prefill path's shape: B = 1, 16 q / 8 kv heads, S = 4096,
+    hd 128, W 256, C 1024 globals chosen by ``select_global`` from random
+    gates (sinks, then the highest; unused slots at INT32_MAX)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.admission import select_global
+    from repro_torch.device import torch_dtype
+    from repro_torch.kernels.vertical_slash import (vertical_slash,
+                                                    vertical_slash_plain)
+    hq, hkv, s, hd, w, c = 16, 8, 4096, 128, 256, 1024
+    grp = hq // hkv
+    dt = torch_dtype(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    q, k, v = rn(hq, s, hd), rn(hkv, s, hd), rn(hkv, s, hd)
+    gates = torch.rand((1, hkv, s), generator=gen, device="cuda")
+    sel = select_global(gates, budget=c, tau=0.1, sink=16,
+                        exclude_from=s - w)
+    idx = sel.idx[0].long()                                    # [hkv, C]
+    rows = torch.arange(hkv, device="cuda")[:, None]
+    kg, vg = k[rows, idx].contiguous(), v[rows, idx].contiguous()
+    gpos = torch.where(sel.valid[0], sel.idx[0],
+                       torch.full_like(sel.idx[0], INT32_MAX)).contiguous()
+    args = (q, k, v, kg, vg, gpos)
+    got = vertical_slash(*args, w_local=w, group=grp)
+    want = vertical_slash_plain(*args, w_local=w, group=grp)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got.float()).all()),
+          f"vertical_slash {dtype}: non-finite output")
+    check(err <= TOL[dtype], f"vertical_slash {dtype} err {err:.3e} > "
+          f"{TOL[dtype]}")
+    ms = cuda_ms(lambda: vertical_slash(*args, w_local=w, group=grp), 10)
+    plain_ms = cuda_ms(lambda: vertical_slash_plain(*args, w_local=w,
+                                                    group=grp), 3, warmup=1)
+    # library yardstick: one SDPA call over [K ‖ Kg] with the same boolean
+    # visibility (K/V repeated over the group and the mask built outside
+    # the timed call)
+    qi = torch.arange(s, device="cuda")[:, None]
+    kj = torch.arange(s, device="cuda")[None, :]
+    local = (qi >= kj) & (qi - kj < w)                         # [S, S]
+    vis = gpos[:, None, :].long() <= (qi[None] - w)            # [hkv, S, C]
+    mask = torch.cat([local[None].expand(hkv, s, s), vis], dim=-1)
+    mask = mask.repeat_interleave(grp, dim=0)[None]
+    kk = torch.cat([k, kg], dim=1).repeat_interleave(grp, dim=0)[None]
+    vv = torch.cat([v, vg], dim=1).repeat_interleave(grp, dim=0)[None]
+    q4 = q[None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, kk, vv, attn_mask=mask), 5, warmup=1)
+    del mask, kk, vv
+    # the bound: every visible (query, key) pair once, 4 * hd FLOPs each;
+    # q, out, k, v, kg, vg and gpos each moved once
+    local_keys = int(torch.clamp(torch.arange(s) + 1, max=w).sum())
+    gp = gpos.long()
+    glob_keys = int(torch.where(gp < INT32_MAX,
+                                torch.clamp(s - (gp + w), min=0),
+                                torch.zeros_like(gp)).sum())
+    visible = grp * (hkv * local_keys + glob_keys)
+    isz = q.element_size()
+    nbytes = (isz * (2 * q.numel() + k.numel() + v.numel() + kg.numel()
+                     + vg.numel()) + 4 * gpos.numel())
+    b_ms, b_by = bound(nbytes, 4 * hd * visible, PEAK[dtype])
+    return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] C={c} W={w} "
+                     f"group={grp} {dtype}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "visible_pairs": visible,
+            "global_valid": int(sel.count.sum())}
+
+
+def gated_flash_case(s: int, dtype: str, seed: int):
+    """The gated forward's shape: 16 q / 8 kv heads, hd 128, W 256, at the
+    forward phase's S = 2048 or the tau probe's S = 32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.device import torch_dtype
+    from repro_torch.kernels.gated_flash import gated_flash, gated_flash_plain
+    hq, hkv, hd, w, eps = 16, 8, 128, 256, 1e-6
+    grp = hq // hkv
+    dt = torch_dtype(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    q, k, v = rn(hq, s, hd), rn(hkv, s, hd), rn(hkv, s, hd)
+    g = torch.rand((hkv, s), generator=gen, device="cuda")
+    args = (q, k, v, g)
+    got = gated_flash(*args, w_local=w, eps=eps, group=grp)
+    want = gated_flash_plain(*args, w_local=w, eps=eps, group=grp)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got.float()).all()),
+          f"gated_flash S={s} {dtype}: non-finite output")
+    check(err <= TOL[dtype], f"gated_flash S={s} {dtype} err {err:.3e} > "
+          f"{TOL[dtype]}")
+    iters = 200 if s <= 64 else 10
+    ms = cuda_ms(lambda: gated_flash(*args, w_local=w, eps=eps, group=grp),
+                 iters)
+    plain_ms = cuda_ms(lambda: gated_flash_plain(*args, w_local=w, eps=eps,
+                                                 group=grp),
+                       max(iters // 4, 3), warmup=1)
+    # library yardstick: one SDPA call with the additive float bias
+    # (0 in the window, log(g + eps) outside, -1e30 above the diagonal)
+    qi = torch.arange(s, device="cuda")[:, None]
+    kj = torch.arange(s, device="cuda")[None, :]
+    causal, in_win = qi >= kj, (qi >= kj) & (qi - kj < w)
+    logg = torch.log(g + eps)[:, None, :]                      # [hkv, 1, S]
+    bias = torch.where(causal, torch.where(in_win, torch.zeros_like(logg),
+                                           logg),
+                       torch.full_like(logg, -1e30))
+    bias = bias.repeat_interleave(grp, dim=0)[None].to(dt)
+    kk = k.repeat_interleave(grp, dim=0)[None]
+    vv = v.repeat_interleave(grp, dim=0)[None]
+    q4 = q[None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, kk, vv, attn_mask=bias), iters, warmup=1)
+    del bias, kk, vv
+    isz = q.element_size()
+    nbytes = isz * (2 * q.numel() + k.numel() + v.numel()) + 4 * g.numel()
+    flops = 4 * hd * hq * s * (s + 1) // 2
+    b_ms, b_by = bound(nbytes, flops, PEAK[dtype])
+    return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] W={w} "
+                     f"group={grp} {dtype}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
 # --------------------------------------------------------------------------
-# phases 4-5: the main path
+# phases 4-8: the main paths
 # --------------------------------------------------------------------------
 class Wrapped:
     """Counts and times calls of ``owner.name`` while the block runs (a
@@ -204,16 +352,20 @@ def position_counter():
     return Wrapped(I, "decode_step")
 
 
+def _counters():
+    from repro_torch.kernels import (gate_mlp, gated_flash, paged_decode,
+                                     vertical_slash)
+    return [m.launches for m in (gate_mlp, paged_decode, vertical_slash,
+                                 gated_flash)]
+
+
 def reset_counts():
-    from repro_torch.kernels import gate_mlp, paged_decode
-    gate_mlp.launches.reset()
-    paged_decode.launches.reset()
+    for c in _counters():
+        c.reset()
 
 
 def read_counts():
-    from repro_torch.kernels import gate_mlp, paged_decode
-    return {"gate_mlp": gate_mlp.launches.count,
-            "paged_decode": paged_decode.launches.count}
+    return {c.name: c.count for c in _counters()}
 
 
 def serve_cli(n_layers: int):
@@ -234,9 +386,14 @@ def serve_cli(n_layers: int):
           f"{[len(o) for o in outs]}")
     check(res["paged_dev"] < 2e-3,
           f"serve-cli: paged-vs-logical deviation {res['paged_dev']:.3e}")
-    check(counts["gate_mlp"] == n_layers * pc.count,
+    # the startup tau probe is one gated forward: one gate_mlp and one
+    # gated_flash launch per layer, before any position step
+    check(counts["gate_mlp"] == n_layers * (pc.count + 1),
           f"serve-cli: gate_mlp launches {counts['gate_mlp']} != "
-          f"{n_layers} x {pc.count} positions")
+          f"{n_layers} x ({pc.count} positions + 1 probe)")
+    check(counts["gated_flash"] == n_layers,
+          f"serve-cli: gated_flash launches {counts['gated_flash']} != "
+          f"{n_layers} (the tau probe)")
     check(counts["paged_decode"] >= n_layers * pc.count,
           f"serve-cli: paged_decode launches {counts['paged_decode']}")
     print(f"serve-cli: ok wall={wall:.3f}s positions={pc.count} "
@@ -371,6 +528,201 @@ def serve_long(card: str):
     return counts
 
 
+def full_model(seed: int):
+    """Full-width qwen3-0.6b (f32) with random weights drawn on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, init_model(cfg, gen, "cuda")
+
+
+def greedy_decode(params, cfg, logits, caches, steps: int):
+    """``steps`` greedy decode steps from a prefill's caches; returns the
+    tokens fed, every step's logits and the final caches."""
+    import torch
+    from repro_torch.models import inference as I
+    from repro_torch.models.transformer import layer_params
+    layers = layer_params(params, cfg)
+    toks, all_logits = [], [logits]
+    for _ in range(steps):
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        logits, caches, _ = I.decode_step(params, cfg, tok, caches,
+                                          layers=layers)
+        all_logits.append(logits)
+    return torch.stack(toks, 1), torch.stack(all_logits, 1), caches
+
+
+def prefill_long(cfg, params):
+    """``inference.prefill`` of a 4096-token prompt (budget 1024), then 16
+    greedy decode steps from its caches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import inference as I
+    s, budget, steps, n_layers = 4096, 1024, 16, cfg.n_layers
+    toks = torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab_size - 8, (1, s)), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out, caches = I.prefill(params, cfg, toks, budget=budget)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, logits, caches = greedy_decode(params, cfg, out.logits, caches,
+                                          steps)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counts = read_counts()
+    node = caches["blocks"]["b0"]
+    gcnt = node.gcnt
+    check(counts["vertical_slash"] == n_layers,
+          f"prefill-long: vertical_slash launches "
+          f"{counts['vertical_slash']} != {n_layers}")
+    check(counts["gate_mlp"] == n_layers * (1 + steps),
+          f"prefill-long: gate_mlp launches {counts['gate_mlp']} != "
+          f"{n_layers} + {n_layers} x {steps}")
+    check(counts["paged_decode"] == n_layers * steps,
+          f"prefill-long: paged_decode launches {counts['paged_decode']} "
+          f"!= {n_layers} x {steps}")
+    check(int(caches["t"][0]) == s + steps and bool((node.t == s + steps)
+                                                   .all()),
+          f"prefill-long: t {caches['t'].tolist()} != {s + steps}")
+    check(node.gk.shape[-2] == budget and int(gcnt.min()) > 0
+          and int(gcnt.max()) <= budget,
+          f"prefill-long: gcnt in [{int(gcnt.min())}, {int(gcnt.max())}], "
+          f"want (0, {budget}]")
+    check(bool(torch.isfinite(logits).all()), "prefill-long: non-finite "
+          "logits")
+    stats = {"prompt_len": s, "budget": budget, "decode_steps": steps,
+             "prefill_ms": (t1 - t0) * 1e3,
+             "decode_ms_per_step": (t2 - t1) * 1e3 / steps,
+             "mean_admission": float(out.mean_admission),
+             "gcnt_min": int(gcnt.min()), "gcnt_max": int(gcnt.max()),
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": counts}
+    print("prefill-long: " + json.dumps(stats))
+    return counts
+
+
+def forward_gated(cfg, params):
+    """The write-gated full-sequence forward over 2048 tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    s, n_layers = 2048, cfg.n_layers
+    toks = torch.as_tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab_size - 8, (1, s)), device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        res = T.forward(params, cfg, toks, mode="gated", with_logits=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    shape = tuple(res.gates.shape)
+    check(counts["gated_flash"] == n_layers,
+          f"forward-gated: gated_flash launches {counts['gated_flash']} != "
+          f"{n_layers}")
+    check(counts["gate_mlp"] == n_layers,
+          f"forward-gated: gate_mlp launches {counts['gate_mlp']} != "
+          f"{n_layers}")
+    check(shape == (n_layers, 1, cfg.n_kv_heads, s),
+          f"forward-gated: gates {shape}")
+    check(bool(torch.isfinite(res.hidden).all()
+               and ((res.gates > 0) & (res.gates < 1)).all()),
+          "forward-gated: non-finite hidden or gates outside (0, 1)")
+    stats = {"seq": s, "forward_ms": wall * 1e3, "gates": list(shape),
+             "admitted_frac": float((res.gates >= cfg.wgkv.tau).float()
+                                    .mean()),
+             "launches": counts}
+    print("forward-gated: " + json.dumps(stats))
+    return counts
+
+
+def substrate():
+    """The trained bench substrate through prefill + 16 greedy decode steps
+    on the card (kernels) and on the CPU (plain path): identical tokens and
+    integer cache state, logits within 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ModelConfig, WGKVConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.models import inference as I
+    path = ROOT / "checkpoints" / "bench_model_lam0.15.npz"
+    check(path.exists(), f"substrate: {path} missing")
+    # benchmarks/common.py::bench_cfg(lam=0.15), field for field
+    cfg = ModelConfig(
+        name="bench-tiny", arch_type="dense", d_model=128, n_heads=4,
+        n_kv_heads=2, head_dim=32, d_ff=256, vocab_size=256,
+        block_pattern=("attn",), n_repeats=2, rope_theta=10000.0,
+        dtype="float32", wgkv=WGKVConfig(
+            enabled=True, w_local=16, tau=0.1, gate_hidden=32,
+            global_budget_frac=1.0, sink=2, lam=0.15))
+    # prompt seed 20: every gate score of this prompt, in prefill and in
+    # the 16 decode steps, stays >= 1e-3 from tau (checked below)
+    prompt = np.random.default_rng(20).integers(0, cfg.vocab_size, (1, 128))
+    steps, tau = 16, cfg.wgkv.tau
+
+    def run(device: str):
+        params = params_from_numpy(path, cfg, device)
+        with torch.no_grad():
+            out, caches = I.prefill(params, cfg,
+                                    torch.as_tensor(prompt, device=device))
+            toks, logits, caches = greedy_decode(params, cfg, out.logits,
+                                                 caches, steps)
+        return out, toks.cpu(), logits.cpu(), caches
+
+    scores = []
+    inner = ops.write_gate
+
+    def recording(*a, **kw):
+        g = inner(*a, **kw)
+        scores.append(g)
+        return g
+    ops.write_gate = recording
+    try:
+        cpu_out, cpu_toks, cpu_logits, cpu_caches = run("cpu")
+    finally:
+        ops.write_gate = inner
+    margin = min(float((g - tau).abs().min()) for g in scores)
+    check(margin >= 1e-3, f"substrate: gate margin {margin:.2e} < 1e-3 "
+          "(pick another prompt seed)")
+    torch.cuda.synchronize()
+    reset_counts()
+    gpu_out, gpu_toks, gpu_logits, gpu_caches = run("cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["vertical_slash"] == cfg.n_layers
+          and counts["paged_decode"] == cfg.n_layers * steps,
+          f"substrate: the card run missed its kernels: {counts}")
+    check(torch.equal(gpu_toks, cpu_toks),
+          f"substrate: greedy tokens differ: {gpu_toks.tolist()} vs "
+          f"{cpu_toks.tolist()}")
+    err = float((gpu_logits - cpu_logits).abs().max())
+    check(err <= 1e-4, f"substrate: logits differ by {err:.3e} > 1e-4")
+    check(torch.equal(gpu_caches["t"].cpu(), cpu_caches["t"]),
+          "substrate: t differs")
+    gnode, cnode = gpu_caches["blocks"]["b0"], cpu_caches["blocks"]["b0"]
+    for name in ("t", "ptr", "lpos", "gpos", "gcnt", "overflow"):
+        check(torch.equal(getattr(gnode, name).cpu(), getattr(cnode, name)),
+              f"substrate: cache {name} differs between card and CPU")
+    adm = float(gpu_out.mean_admission)
+    check(abs(adm - float(cpu_out.mean_admission)) <= 1e-6 and 0 < adm < 1,
+          f"substrate: mean_admission {adm} (CPU "
+          f"{float(cpu_out.mean_admission)})")
+    stats = {"prompt_len": prompt.shape[1], "decode_steps": steps,
+             "tau_margin": margin, "mean_admission": adm,
+             "max_logit_err": err, "tokens": gpu_toks[0].tolist(),
+             "gcnt": gnode.gcnt[:, 0].tolist(), "launches": counts}
+    print("substrate: " + json.dumps(stats))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -397,21 +749,37 @@ def main() -> int:
         log = build.BUILD_DIR / f"{name}.log"
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
+                    print(f"  ptxas {name}: {line.strip()[:110]}")
     # 3. kernels vs plain (serving shapes first, then a larger size)
     gate_main = gate_case(rows=2 * 8, s=1, seed=0)
     gate_big = gate_case(rows=2 * 8, s=4096, seed=1)
     pd_main = dual_cache_case(2, 128, 256, torch.float32, seed=2)
     pd_bf16 = dual_cache_case(2, 128, 256, torch.bfloat16, seed=3)
     pd_big = dual_cache_case(8, 1024, 256, torch.float32, seed=4)
+    vs_main = vertical_slash_case("float32", seed=5)
+    vs_bf16 = vertical_slash_case("bfloat16", seed=6)
+    gf_main = gated_flash_case(2048, "float32", seed=7)
+    gf_bf16 = gated_flash_case(2048, "bfloat16", seed=8)
+    gf_probe = gated_flash_case(32, "float32", seed=9)
+    gf_probe_bf16 = gated_flash_case(32, "bfloat16", seed=10)
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
                    ("paged_decode", pd_main), ("paged_decode", pd_bf16),
-                   ("paged_decode", pd_big)):
-        print(f"kernel {tag}: " + json.dumps(r))
-    # 4-5. the main path, counts set to 0 just before each
+                   ("paged_decode", pd_big), ("vertical_slash", vs_main),
+                   ("vertical_slash", vs_bf16), ("gated_flash", gf_main),
+                   ("gated_flash", gf_bf16), ("gated_flash", gf_probe),
+                   ("gated_flash", gf_probe_bf16)):
+        print(f"kernel {tag}: " + json.dumps(r), flush=True)
+    # 4-8. the main paths, counts set to 0 just before each
     cli_counts = serve_cli(n_layers=28)
     long_counts = serve_long(card)
+    cfg, params = full_model(seed=2)
+    prefill_counts = prefill_long(cfg, params)
+    forward_counts = forward_gated(cfg, params)
+    del params
+    substrate()
+    attn = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "gate_mlp", "route": "cuda",
          "source": "src/repro_torch/csrc/gate_mlp.cu",
@@ -433,6 +801,24 @@ def main() -> int:
          "max_abs_err_bf16": pd_bf16["max_abs_err"],
          "launches_serve_cli": cli_counts["paged_decode"],
          "bf16": pd_bf16, "large": pd_big},
+        {"name": "vertical_slash", "route": "cuda",
+         "source": "src/repro_torch/csrc/vertical_slash.cu",
+         "replaces": "src/repro/kernels/vertical_slash.py:88",
+         "launches": prefill_counts["vertical_slash"],
+         "max_abs_err": vs_main["max_abs_err"],
+         **{k: vs_main[k] for k in attn}, "shape": vs_main["shape"],
+         "max_abs_err_bf16": vs_bf16["max_abs_err"], "bf16": vs_bf16},
+        {"name": "gated_flash", "route": "cuda",
+         "source": "src/repro_torch/csrc/gated_flash.cu",
+         "replaces": "src/repro/kernels/gated_flash.py:68",
+         "launches": forward_counts["gated_flash"],
+         "max_abs_err": max(gf_main["max_abs_err"],
+                            gf_probe["max_abs_err"]),
+         **{k: gf_main[k] for k in attn}, "shape": gf_main["shape"],
+         "max_abs_err_bf16": max(gf_bf16["max_abs_err"],
+                                 gf_probe_bf16["max_abs_err"]),
+         "launches_serve_cli": cli_counts["gated_flash"],
+         "bf16": gf_bf16, "probe": gf_probe, "probe_bf16": gf_probe_bf16},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

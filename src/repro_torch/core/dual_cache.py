@@ -1,5 +1,6 @@
 """Dual cache (local ring + budgeted global) with lazy promotion (port of
-``repro/core/dual_cache.py``, paper §4).
+``repro/core/dual_cache.py``, paper §4), and its initial population by a
+budgeted prefill (``prefill_populate``).
 
 The updates are functional, like the reference's: ``lazy_promote_and_write``
 returns a new :class:`DualCache` and leaves its input untouched, so a
@@ -16,7 +17,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.selection import init_page_meta, update_page_meta_on_write
+from repro_torch.core.admission import select_global
+from repro_torch.core.selection import (build_page_meta, init_page_meta,
+                                        update_page_meta_on_write)
 
 
 class DualCache(NamedTuple):
@@ -42,6 +45,11 @@ class DualCache(NamedTuple):
     def budget(self) -> int:
         return self.gk.shape[-2]
 
+    def memory_tokens(self) -> torch.Tensor:
+        """Current per-head resident token count: [B, H]."""
+        local = torch.clamp(self.t, max=self.w_local)[:, None]
+        return self.gcnt + local
+
 
 def init_dual_cache(batch: int, n_kv_heads: int, head_dim: int, *,
                     w_local: int, budget: int, dtype=torch.float32,
@@ -60,6 +68,68 @@ def init_dual_cache(batch: int, n_kv_heads: int, head_dim: int, *,
         gpos=z((b, h, c), i32), gcnt=z((b, h), i32),
         t=z((b,), i32), ptr=z((b,), i32), overflow=z((b, h), i32),
         pkmin=pkmin, pkmax=pkmax)
+
+
+def prefill_populate(cache: DualCache, k: torch.Tensor, v: torch.Tensor,
+                     g: torch.Tensor, *, tau: float,
+                     sink: int = 0) -> DualCache:
+    """Initial cache population (paper §4.2). k, v: [B, H, S, hd] post-RoPE
+    keys and values; g: [B, H, S].
+
+    The final min(W, S) tokens go to the local ring, the token at
+    absolute position p in slot p % W; earlier tokens go to the global
+    cache iff admitted (g >= tau, sinks always), up to the budget, padded
+    to the static budget. The page metadata is rebuilt once. Then
+    ``t = S`` and ``ptr = S % W``.
+
+    The ring slots that hold tokens are then exactly the first
+    min(t, W), the invariant the two-segment decode read relies on
+    (``kernels/ops.py::dual_cache_segments``): for S >= W every slot is
+    written (the last W positions cover every residue mod W), and for
+    S < W the positions 0..S-1 land in slots 0..S-1. With S % W == 0, as
+    the budgeted prefill requires, ``ptr`` is 0 and the ring is full."""
+    b, h, s, d = k.shape
+    w = cache.w_local
+    dev = k.device
+    # ---- local: last min(W, S) tokens at slots pos % W -------------------
+    n_local = min(w, s)
+    local_pos = torch.arange(s - n_local, s, device=dev)
+    slots = local_pos % w
+    lk, lv = cache.lk.clone(), cache.lv.clone()
+    lg, lpos = cache.lg.clone(), cache.lpos.clone()
+    lk[:, :, slots] = k[:, :, s - n_local:].to(lk.dtype)
+    lv[:, :, slots] = v[:, :, s - n_local:].to(lv.dtype)
+    lg[:, :, slots] = g[:, :, s - n_local:].float()
+    lpos[:, slots] = local_pos.to(torch.int32)
+    # ---- global: admitted tokens before the local window -----------------
+    sel = select_global(g, budget=cache.budget, tau=tau, sink=sink,
+                        exclude_from=s - n_local)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    hi = torch.arange(h, device=dev)[None, :, None]
+    idx = sel.idx.long()
+    keep = sel.valid[..., None]
+    gk = torch.where(keep, k[bi, hi, idx], torch.zeros((), dtype=k.dtype,
+                                                      device=dev))
+    gv = torch.where(keep, v[bi, hi, idx], torch.zeros((), dtype=v.dtype,
+                                                      device=dev))
+    gk, gv = gk.to(cache.gk.dtype), gv.to(cache.gv.dtype)
+    gpos = torch.where(sel.valid, sel.idx, torch.zeros_like(sel.idx))
+    pad = cache.budget - gk.shape[2]
+    if pad:
+        # short prefill (S < capacity): pad to the static budget
+        gk = torch.nn.functional.pad(gk, (0, 0, 0, pad))
+        gv = torch.nn.functional.pad(gv, (0, 0, 0, pad))
+        gpos = torch.nn.functional.pad(gpos, (0, pad))
+    gvalid = (torch.arange(cache.budget, device=dev)[None, None]
+              < sel.count[..., None])
+    meta = build_page_meta(gk, gvalid)
+    return cache._replace(
+        lk=lk, lv=lv, lg=lg, lpos=lpos,
+        gk=gk, gv=gv, gpos=gpos, gcnt=sel.count,
+        pkmin=meta.kmin.to(cache.pkmin.dtype),
+        pkmax=meta.kmax.to(cache.pkmax.dtype),
+        t=torch.full_like(cache.t, s),
+        ptr=torch.full_like(cache.ptr, s % w))
 
 
 def lazy_promote_and_write(cache: DualCache, k_new: torch.Tensor,

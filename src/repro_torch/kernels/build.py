@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("gate_mlp", "paged_decode")
+KERNELS = ("gate_mlp", "paged_decode", "vertical_slash", "gated_flash")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -56,6 +56,9 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: an edited header rebuilds its users
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        src += hdr.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -94,7 +97,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 
 def _declare(lib: ctypes.CDLL, name: str) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "gate_mlp":
         lib.gate_mlp_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.gate_mlp_f32.restype = i
@@ -102,6 +105,13 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.paged_decode.argtypes = [p, p, p, p, p, i, p, p, p, p, i,
                                      p, i, i, i, i, p]
         lib.paged_decode.restype = i
+    elif name == "vertical_slash":
+        lib.vertical_slash.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                       i, i, p]
+        lib.vertical_slash.restype = i
+    elif name == "gated_flash":
+        lib.gated_flash.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, p]
+        lib.gated_flash.restype = i
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,6 +1,11 @@
-"""Model-level folds around the kernels (port of the matching half of
-``repro/kernels/ops.py``): GQA head folding, the write-gate batch fold,
-and the dual cache viewed as two paged segments.
+"""Model-level folds around the kernels (port of ``repro/kernels/ops.py``
+minus the recurrence): GQA head folding, the write-gate batch fold, and
+the dual cache viewed as two paged segments.
+
+The GQA fold keeps the reference's stream order ``(b, kv head, group)``
+(``q.reshape(b, hkv, g, s, hd)``) but does not repeat K, V, the gates or
+the globals G times: the kernels take the group size and read kv stream
+``n // G`` for query stream n.
 """
 from __future__ import annotations
 
@@ -10,7 +15,9 @@ import torch
 
 from repro_torch.core.selection import PAGE_SIZE
 from repro_torch.kernels.gate_mlp import gate_mlp
+from repro_torch.kernels.gated_flash import gated_flash
 from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.vertical_slash import vertical_slash
 
 
 def write_gate(x, w1, b1, w2, b2):
@@ -22,6 +29,35 @@ def write_gate(x, w1, b1, w2, b2):
     g = gate_mlp(x.reshape(b * h, s, f).contiguous(), w1.contiguous(),
                  b1.contiguous(), w2.contiguous(), b2.contiguous())
     return g.reshape(b, h, s)
+
+
+def gated_flash_attention(q, k, v, g, *, w_local: int, eps: float):
+    """Model-level write-gated attention. q: [B, Hq, S, hd]; k, v:
+    [B, Hkv, S, hd]; g: [B, Hkv, S] float32 -> [B, Hq, S, hd]."""
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    of = gated_flash(q.reshape(b * hq, s, hd).contiguous(),
+                     k.reshape(b * hkv, s, hd).contiguous(),
+                     v.reshape(b * hkv, s, hd).contiguous(),
+                     g.reshape(b * hkv, s).contiguous(),
+                     w_local=w_local, eps=eps, group=hq // hkv)
+    return of.reshape(b, hq, s, hd)
+
+
+def vertical_slash_attention(q, k, v, kg, vg, gpos, *, w_local: int):
+    """Budgeted vertical-slash prefill. q: [B, Hq, S, hd]; k, v:
+    [B, Hkv, S, hd]; kg, vg: [B, Hkv, C, hd]; gpos: [B, Hkv, C] int32
+    -> [B, Hq, S, hd]."""
+    b, hq, s, hd = q.shape
+    hkv, c = kg.shape[1], kg.shape[2]
+    of = vertical_slash(q.reshape(b * hq, s, hd).contiguous(),
+                        k.reshape(b * hkv, s, hd).contiguous(),
+                        v.reshape(b * hkv, s, hd).contiguous(),
+                        kg.reshape(b * hkv, c, hd).contiguous(),
+                        vg.reshape(b * hkv, c, hd).contiguous(),
+                        gpos.reshape(b * hkv, c).contiguous(),
+                        w_local=w_local, group=hq // hkv)
+    return of.reshape(b, hq, s, hd)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):

@@ -37,3 +37,46 @@ def gate_mlp_ref(x, w1, b1, w2, b2):
     h = F.gelu(h, approximate="tanh")
     y = torch.einsum("hsm,hmo->hso", h, w2) + b2[:, None]
     return torch.sigmoid(y[..., 0].float())
+
+
+def gated_flash_ref(q, k, v, g, *, w_local: int, eps: float = 1e-6):
+    """Write-gated attention (training form), single head group.
+
+    q, k, v: [N, S, hd]; g: [N, S]. Bias 0 inside the local window,
+    log(g + eps) outside it, NEG_INF above the causal diagonal; one
+    softmax per query. Returns [N, S, hd]."""
+    n, sq, hd = q.shape
+    sk = k.shape[1]
+    qi = torch.arange(sq, device=q.device)[:, None]
+    kj = torch.arange(sk, device=q.device)[None, :]
+    causal = qi >= kj
+    in_win = causal & (qi - kj < w_local)
+    logits = torch.einsum("nqd,nkd->nqk", q, k).float() * (hd ** -0.5)
+    logg = torch.log(g.float() + eps)[:, None, :]
+    bias = torch.where(in_win[None], torch.zeros_like(logg), logg)
+    logits = logits + torch.where(causal[None], bias,
+                                  torch.full_like(bias, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("nqk,nkd->nqd", w.to(v.dtype), v)
+
+
+def vertical_slash_ref(q, k, v, kg, vg, gpos, *, w_local: int):
+    """Budgeted vertical-slash prefill attention, single head group.
+
+    q, k, v: [N, S, hd]; kg, vg: [N, C, hd] gathered global tokens at
+    absolute positions gpos [N, C] (int32; out of range => never
+    visible). Query i sees its local window (i - W < j <= i) from k and
+    the global tokens with gpos <= i - W, in one softmax."""
+    n, s, hd = q.shape
+    qi = torch.arange(s, device=q.device)[:, None]
+    kj = torch.arange(s, device=q.device)[None, :]
+    local_ok = (qi >= kj) & (qi - kj < w_local)
+    l1 = torch.einsum("nqd,nkd->nqk", q, k).float() * (hd ** -0.5)
+    l1 = torch.where(local_ok[None], l1, torch.full_like(l1, NEG_INF))
+    l2 = torch.einsum("nqd,ncd->nqc", q, kg).float() * (hd ** -0.5)
+    vis = gpos[:, None, :] <= (torch.arange(s, device=q.device)[None, :, None]
+                               - w_local)
+    l2 = torch.where(vis, l2, torch.full_like(l2, NEG_INF))
+    w = torch.softmax(torch.cat([l1, l2], dim=-1), dim=-1)
+    o = torch.einsum("nqk,nkd->nqd", w[..., :s].to(v.dtype), v)
+    return o + torch.einsum("nqc,ncd->nqd", w[..., s:].to(vg.dtype), vg)

@@ -11,18 +11,22 @@ admission-aware telemetry.
 Weights are random, drawn from ``--seed`` with a ``torch.Generator``;
 prompts are drawn with numpy from the same seed. Flags of the reference
 CLI that this port does not support yet exit with a message instead of
-being ignored. The reference's startup tau probe runs the gated training
-forward, which is not ported yet, so it is left out.
+being ignored. At startup a short gated forward probes the gate scores
+(:func:`tau_probe`) and warns on stderr when tau sits inside their
+cluster.
 """
 from __future__ import annotations
 
 import argparse
+import sys
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced_config
+from repro_torch.core.admission import check_tau_margin
 from repro_torch.device import resolve_device
 from repro_torch.models import inference as I
 from repro_torch.models import transformer as T
@@ -37,6 +41,35 @@ def pool_pages_for(cfg, slots: int, capacity: int) -> int:
     heads with a full ring and a full global budget, plus the null page."""
     per_stream = (cfg.wgkv.w_local + cfg.wgkv.global_budget(capacity)) // 16
     return slots * cfg.n_layers * cfg.n_kv_heads * per_stream + 1
+
+
+def tau_probe(params, cfg, *, prompt_len: int, seed: int,
+              device: torch.device) -> Optional[float]:
+    """The knife-edge tau guard at startup: one gated forward over a
+    ``min(prompt_len, 32)``-token probe drawn with numpy from ``seed + 99``,
+    then ``check_tau_margin`` on its gate scores. A tau inside the score
+    cluster flips admissions between numerically equivalent prefill
+    paths, so its RuntimeWarning becomes a one-line stderr notice.
+    Returns the margin min |g - tau| (None without gates). On CUDA the
+    forward runs the ``gate_mlp`` and ``gated_flash`` kernels once per
+    layer."""
+    rng = np.random.default_rng(seed + 99)
+    ptoks = rng.integers(0, cfg.vocab_size - 8, size=(1, min(prompt_len, 32)))
+    with torch.no_grad():
+        g = T.forward(params, cfg, torch.as_tensor(ptoks, device=device),
+                      mode="gated", with_logits=False).gates
+    if g is None:
+        return None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        margin = check_tau_margin(g, cfg.wgkv.tau)
+    if any(issubclass(w.category, RuntimeWarning) for w in caught):
+        print(f"WARNING: knife-edge admission tau={cfg.wgkv.tau}: "
+              f"min |g - tau| = {margin:.2e} over a "
+              f"{ptoks.shape[1]}-token probe; admission may flip "
+              "between numerically-equivalent prefill paths",
+              file=sys.stderr)
+    return margin
 
 
 _UNPORTED = {
@@ -121,6 +154,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = T.init_model(cfg, gen, device)
+    if cfg.wgkv.enabled:
+        tau_probe(params, cfg, prompt_len=args.prompt_len, seed=args.seed,
+                  device=device)
     eng = make_backend(args.backend, params, cfg, slots=args.slots,
                        capacity=args.capacity, opts=I.DecodeOptions(),
                        temperature=args.temperature, seed=args.seed,

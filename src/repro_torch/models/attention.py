@@ -1,18 +1,32 @@
-"""GQA self-attention with the write-gated dual cache (port of the decode
-half of ``repro/models/attention.py``).
+"""GQA self-attention with first-class WG-KV (port of the causal
+self-attention half of ``repro/models/attention.py``).
 
-On CUDA the gate runs in the ``gate_mlp`` kernel and the read over
-[admitted global ‖ local ring] in the two-segment ``paged_decode``
-kernel, straight from the cache buffers; on the CPU both wrappers run
-their plain PyTorch versions.
+Modes:
+  * train — full-sequence attention: the causal teacher (``off``), the
+    write-gated student (``gated``, the paper's log-space bias) or the
+    binary vertical-slash mask at tau (``hard``).
+  * prefill — budgeted vertical-slash attention (paper §4.2): each query
+    sees its local window and up to ``budget`` admitted tokens older than
+    the window; its K/V/gates populate the dual cache.
+  * decode — one token against the dual cache with lazy promotion.
+
+On CUDA the gate runs in the ``gate_mlp`` kernel, gated training
+attention in ``gated_flash``, the budgeted prefill in ``vertical_slash``
+and the decode read over [admitted global ‖ local ring] in the
+two-segment ``paged_decode`` kernel, straight from the cache buffers; on
+the CPU each wrapper runs its plain PyTorch version. The teacher and hard
+modes run :func:`sdpa` (an einsum and a softmax) on either device, as the
+reference computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import masks as M
+from repro_torch.core.admission import GlobalSelection, select_global
 from repro_torch.core.dual_cache import DualCache, lazy_promote_and_write
 from repro_torch.core.gate import gate_scores, init_gate
 from repro_torch.device import torch_dtype
@@ -54,6 +68,166 @@ def _qk_norm(p: Params, q, k):
     return q, k
 
 
+def project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """x: [B, S, D]; positions: [B, S] int. Returns (q_rope [B,Hq,S,hd],
+    k_pre [B,Hkv,S,hd], k_rope, v)."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)
+    k_pre = _heads(x @ p["w_k"].to(x.dtype), hkv, hd)
+    v = _heads(x @ p["w_v"].to(x.dtype), hkv, hd)
+    q, k_pre = _qk_norm(p, q, k_pre)
+    if cfg.rope_theta > 0:
+        posq = positions[:, None, :]
+        return (L.apply_rope(q, posq, cfg.rope_theta), k_pre,
+                L.apply_rope(k_pre, posq, cfg.rope_theta), v)
+    return q, k_pre, k_pre, v
+
+
+def compute_gates(p: Params, k_pre: torch.Tensor,
+                  k_rope: torch.Tensor) -> torch.Tensor:
+    """g: [B, Hkv, S] float32."""
+    return gate_scores(p["gate"], k_pre, k_rope)
+
+
+def _merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, hd] -> [B, S, H*hd]"""
+    b, h, s, hd = out.shape
+    return out.transpose(1, 2).reshape(b, s, h * hd)
+
+
+# ==========================================================================
+# scaled-dot-product attention with optional query chunking
+# ==========================================================================
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         bias_fn: Callable[[int, int], torch.Tensor], *,
+         q_chunk: Optional[int] = None) -> torch.Tensor:
+    """q: [B,Hq,Sq,hd]; k, v: [B,Hkv,Sk,hd]. ``bias_fn(q_start, q_len)``
+    returns an additive f32 bias broadcastable to [B,Hkv,G,q_len,Sk]
+    (``masks.NEG_INF`` where disallowed). Chunking bounds the
+    materialized score tensor for long sequences."""
+    b, hq, sq, hd = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, sq, hd)
+    scale = hd ** -0.5
+
+    def block(q_blk: torch.Tensor, q_start: int, q_len: int) -> torch.Tensor:
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, k).float()
+        logits = logits * scale + bias_fn(q_start, q_len)
+        w = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhgqk,bhkd->bhgqd", w.to(v.dtype), v)
+
+    if q_chunk is None or q_chunk >= sq:
+        out = block(qg, 0, sq)
+    else:
+        if sq % q_chunk:
+            raise ValueError(f"q_chunk {q_chunk} must divide {sq}")
+        out = torch.cat([block(qg[:, :, :, i:i + q_chunk], i, q_chunk)
+                         for i in range(0, sq, q_chunk)], dim=3)
+    return out.reshape(b, hq, sq, hd)
+
+
+# ==========================================================================
+# train-mode forward (teacher / write-gated student / hard eval)
+# ==========================================================================
+def attn_train(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, *, gate_mode: str = "off",
+               window: Optional[int] = None,
+               gate_override: Optional[torch.Tensor] = None,
+               q_chunk: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """gate_mode: "off" (causal teacher, windowed when ``window`` is
+    given), "gated" (the log-space write-gate bias; on CUDA the
+    ``gated_flash`` kernel) or "hard" (binary vertical-slash mask at
+    tau). ``window`` doubles as W_local in the gate bias. Returns
+    (out [B, S, D], g [B, Hkv, S] or None)."""
+    b, s, _ = x.shape
+    if gate_mode not in ("off", "gated", "hard"):
+        raise ValueError(gate_mode)
+    q, k_pre, k_rope, v = project_qkv(p, cfg, x, positions)
+    g = None
+    if gate_mode != "off":
+        g = (gate_override if gate_override is not None
+             else compute_gates(p, k_pre, k_rope))
+    w_local = window if window is not None else cfg.wgkv.w_local
+    if gate_mode == "gated":
+        out = ops.gated_flash_attention(q, k_rope, v, g.float(),
+                                        w_local=w_local,
+                                        eps=cfg.wgkv.log_eps)
+    else:
+        dev = x.device
+
+        def bias_fn(q_start: int, q_len: int) -> torch.Tensor:
+            if gate_mode == "hard":
+                vis = M.vertical_slash_mask(g, cfg.wgkv.tau, q_len, w_local,
+                                            q_start, sink=cfg.wgkv.sink)
+                vis = vis[:, :, None]                  # [B, Hkv, 1, q, S]
+            elif window is not None:
+                vis = M.local_window_mask(q_len, s, w_local, q_start, dev)
+            else:
+                vis = M.causal_mask(q_len, s, q_start, dev)
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            neg = torch.full((), M.NEG_INF, dtype=torch.float32, device=dev)
+            return torch.where(vis, zero, neg)
+
+        out = sdpa(q, k_rope, v, bias_fn, q_chunk=q_chunk)
+    y = _merge_heads(out) @ p["w_o"].to(x.dtype)
+    return y, g
+
+
+# ==========================================================================
+# budgeted vertical-slash prefill (production, sub-quadratic)
+# ==========================================================================
+class PrefillResult(NamedTuple):
+    out: torch.Tensor          # [B, S, D]
+    k_rope: torch.Tensor       # [B, Hkv, S, hd]
+    v: torch.Tensor
+    g: torch.Tensor            # [B, Hkv, S]
+    sel: GlobalSelection
+
+
+def attn_prefill_budgeted(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                          positions: torch.Tensor, *, budget: int,
+                          window: Optional[int] = None,
+                          gate_override: Optional[torch.Tensor] = None
+                          ) -> PrefillResult:
+    """Vertical-slash attention (paper §4.2), budgeted for static shapes.
+
+    Every query attends to its local window of width W (the slash) and
+    to up to ``budget`` admitted tokens (g >= tau, sinks always) strictly
+    older than the window (the vertical), in one softmax. The admitted
+    keys/values are gathered here, outside the kernel; unused budget
+    slots get ``gpos = INT32_MAX`` and are never visible. The kernel
+    tiles the queries itself, so the reference's ``block_chunk`` (a
+    memory bound on its dense einsum) has no counterpart."""
+    b, s, _ = x.shape
+    w = window if window is not None else cfg.wgkv.w_local
+    if s % w:
+        raise ValueError(f"seq {s} must be a multiple of the window {w}")
+    q, k_pre, k_rope, v = project_qkv(p, cfg, x, positions)
+    g = (gate_override if gate_override is not None
+         else compute_gates(p, k_pre, k_rope))
+    sel = select_global(g, budget=budget, tau=cfg.wgkv.tau,
+                        sink=cfg.wgkv.sink, exclude_from=s - min(w, s))
+    hkv = cfg.n_kv_heads
+    bi = torch.arange(b, device=x.device)[:, None, None]
+    hi = torch.arange(hkv, device=x.device)[None, :, None]
+    idx = sel.idx.long()
+    kg = k_rope[bi, hi, idx]                                   # [B,Hkv,C,hd]
+    vg = v[bi, hi, idx]
+    gpos = torch.where(sel.valid, sel.idx,
+                       torch.full_like(sel.idx, torch.iinfo(torch.int32).max))
+    out = ops.vertical_slash_attention(q, k_rope, v, kg, vg, gpos, w_local=w)
+    y = _merge_heads(out) @ p["w_o"].to(x.dtype)
+    return PrefillResult(y, k_rope, v, g, sel)
+
+
+# ==========================================================================
+# decode
+# ==========================================================================
 def _rope_single(cfg: ModelConfig, x: torch.Tensor,
                  t: torch.Tensor) -> torch.Tensor:
     """x: [B, H, hd] at per-batch position t [B]."""

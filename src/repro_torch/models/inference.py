@@ -1,5 +1,10 @@
-"""Decode-path inference (port of ``decode_step`` and
+"""Inference (port of ``prefill``, ``decode_step`` and
 ``prefill_extend_ragged`` of ``repro/models/inference.py``).
+
+:func:`prefill` is the offline budgeted vertical-slash prefill (paper
+§4.2) that fills every layer's dual cache at once; :func:`decode_step`
+continues from its caches. The serving engine instead ingests prompts
+position by position through :func:`prefill_extend_ragged`.
 
 Cache tree, as in the reference: ``{"t": [B] int32, "blocks": {"b0":
 DualCache}}`` with every DualCache leaf stacked ``[n_repeats, B, ...]``.
@@ -9,17 +14,19 @@ input untouched.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dual_cache import DualCache
+from repro_torch.core.dual_cache import (DualCache, init_dual_cache,
+                                         prefill_populate)
 from repro_torch.device import host_to_device, torch_dtype
 from repro_torch.launch.specs import cache_batch_axis
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _norm, layer_params
+from repro_torch.models.transformer import (_check_supported, _norm,
+                                            layer_params)
 from repro_torch.tree import tree_map_with_path
 
 Params = Dict[str, Any]
@@ -52,6 +59,77 @@ def _split_layers(node: DualCache) -> List[DualCache]:
 
 def _stack_layers(layers: List[DualCache]) -> DualCache:
     return DualCache(*(torch.stack(leaves) for leaves in zip(*layers)))
+
+
+class PrefillOut(NamedTuple):
+    logits: torch.Tensor           # [B, V] for the last position
+    hidden: torch.Tensor           # [B, S, D]
+    mean_admission: torch.Tensor   # scalar: fraction of tokens with g >= tau
+
+
+def _attn_block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, *, budget: int
+                        ) -> Tuple[torch.Tensor, DualCache, torch.Tensor]:
+    """One ``"attn"`` block of the budgeted prefill: vertical-slash
+    attention, then the dual cache populated from its K/V/gates.
+    Returns (x, cache, admitted fraction)."""
+    b = x.shape[0]
+    r = A.attn_prefill_budgeted(p["attn"], cfg, _norm(cfg, p["ln1"], x),
+                                positions, budget=budget)
+    cache = init_dual_cache(b, cfg.n_kv_heads, cfg.head_dim,
+                            w_local=cfg.wgkv.w_local, budget=budget,
+                            dtype=torch_dtype(cfg.dtype), device=x.device)
+    cache = prefill_populate(cache, r.k_rope, r.v, r.g, tau=cfg.wgkv.tau,
+                             sink=cfg.wgkv.sink)
+    x = x + r.out
+    x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+    return x, cache, (r.g >= cfg.wgkv.tau).float().mean()
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            use_wgkv: Optional[bool] = None, budget: Optional[int] = None,
+            max_len: Optional[int] = None
+            ) -> Tuple[PrefillOut, CacheTree]:
+    """Budgeted vertical-slash prefill of tokens [B, S] (S a multiple of
+    W). Every layer's dual cache is filled at once and stacked
+    ``[n_repeats, B, ...]``, so :func:`decode_step` continues from the
+    returned tree. ``budget`` defaults to the config's global budget at
+    ``max_len`` (or S). On CUDA each layer runs the ``gate_mlp`` and
+    ``vertical_slash`` kernels. The reference's decode-time ``opts``
+    (static admission, eviction) are not ported, so there are none."""
+    _check_supported(cfg)
+    if use_wgkv is None:
+        use_wgkv = cfg.wgkv.enabled
+    if not use_wgkv:
+        raise NotImplementedError(
+            "prefill(use_wgkv=False): the dense full-attention baseline "
+            "(attn_prefill_full, DenseCache) is not ported yet; see "
+            "ROADMAP.md Queue 1 item 5")
+    dt = torch_dtype(cfg.dtype)
+    x = L.embed(params["embed"], tokens, dt)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+    if budget is None:
+        budget = cfg.wgkv.global_budget(max_len or s)
+    per_block: Dict[str, List[DualCache]] = {
+        f"b{i}": [] for i in range(len(cfg.block_pattern))}
+    adm_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in layer_params(params, cfg):
+        for i, _bt in enumerate(cfg.block_pattern):
+            x, cache, adm = _attn_block_prefill(lp[f"b{i}"], cfg, x,
+                                                positions, budget=budget)
+            per_block[f"b{i}"].append(cache)
+            adm_sum = adm_sum + adm
+    adm_n = cfg.n_repeats * max(cfg.attn_blocks_per_pattern, 1)
+    caches: CacheTree = {
+        "t": torch.full((b,), s, dtype=torch.int32, device=x.device),
+        "blocks": {k: _stack_layers(v) for k, v in per_block.items()}}
+    hidden = _norm(cfg, params["ln_f"], x)
+    logits = L.unembed(params["embed"], hidden[:, -1])
+    return PrefillOut(logits, hidden, adm_sum / adm_n), caches
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,

@@ -1,14 +1,18 @@
-"""Parameter tree and init of the decoder (port of the ``"attn"``-block half
-of ``repro/models/transformer.py``).
+"""The decoder's parameter tree, init and full-sequence forward (port of
+the ``"attn"``-block half of ``repro/models/transformer.py``).
 
 The tree mirrors the reference's, so weights carry across by path
 (:mod:`repro_torch.convert`): ``{"embed": {"tok"}, "blocks": {"b0": ...},
 "ln_f": {"scale"}}`` with every block leaf stacked on a leading
 ``n_repeats`` axis.
+
+:func:`forward` is the training / teacher / hard-eval forward
+(``mode="teacher" | "gated" | "hard"``); on CUDA its gated mode runs the
+``gated_flash`` kernel in every layer.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,3 +79,77 @@ def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
         it = iter([c[r] for c in cols])
         out.append(tree_map(lambda _x, it=it: next(it), params["blocks"]))
     return out
+
+
+# ==========================================================================
+# full-sequence forward (teacher / write-gated / hard eval)
+# ==========================================================================
+class BlockAux(NamedTuple):
+    gates: Optional[torch.Tensor]   # [1, B, Hkv, S] or None
+    lb_loss: torch.Tensor
+
+
+def block_forward(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
+                  positions: torch.Tensor, *, mode: str,
+                  q_chunk: Optional[int] = None,
+                  gate_override: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, BlockAux]:
+    """One ``"attn"`` block. mode: "teacher" | "gated" | "hard".
+    ``gate_override``: [B, Hkv, S] static admission scores replacing the
+    learned gate."""
+    if bt != "attn":
+        raise NotImplementedError(f"block type {bt!r} is not ported")
+    gate_mode = {"teacher": "off", "gated": "gated", "hard": "hard"}[mode]
+    h, g = A.attn_train(p["attn"], cfg, _norm(cfg, p["ln1"], x), positions,
+                        gate_mode=gate_mode, q_chunk=q_chunk,
+                        gate_override=gate_override)
+    x = x + h
+    x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, BlockAux(None if g is None else g[None], zero)
+
+
+class ForwardResult(NamedTuple):
+    logits: torch.Tensor              # [B, S, V] (a 0-d zero without logits)
+    hidden: torch.Tensor              # final-layer hidden states [B, S, D]
+    gates: Optional[torch.Tensor]     # [L, B, Hkv, S]
+    lb_loss: torch.Tensor
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None, mode: str = "teacher",
+            q_chunk: Optional[int] = None, with_logits: bool = True,
+            gate_override: Optional[torch.Tensor] = None) -> ForwardResult:
+    """Full-sequence forward. tokens: [B, S] int; positions: [B, S]
+    (default 0..S-1). gate_override: [L, B, Hkv, S] (per layer) or
+    [B, Hkv, S] (one policy for every layer)."""
+    _check_supported(cfg)
+    dt = torch_dtype(cfg.dtype)
+    x = L.embed(params["embed"], tokens, dt)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+    overrides: List[Optional[torch.Tensor]] = [None] * cfg.n_layers
+    if gate_override is not None:
+        overrides = (list(gate_override.unbind(0)) if gate_override.ndim == 4
+                     else [gate_override] * cfg.n_layers)
+    gates = []
+    lb_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    li = 0
+    for lp in layer_params(params, cfg):
+        for i, bt in enumerate(cfg.block_pattern):
+            x, aux = block_forward(lp[f"b{i}"], cfg, bt, x, positions,
+                                   mode=mode, q_chunk=q_chunk,
+                                   gate_override=overrides[li])
+            li += 1
+            if aux.gates is not None:
+                gates.append(aux.gates)
+            lb_total = lb_total + aux.lb_loss
+    out_gates = None
+    if mode != "teacher" and cfg.wgkv.enabled and gates:
+        out_gates = torch.cat(gates, dim=0)
+    hidden = _norm(cfg, params["ln_f"], x)
+    logits = (L.unembed(params["embed"], hidden) if with_logits
+              else torch.zeros((), dtype=torch.float32, device=x.device))
+    return ForwardResult(logits, hidden, out_gates, lb_total)

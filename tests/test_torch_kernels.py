@@ -1,12 +1,14 @@
 """The port's kernel modules vs the reference's Pallas kernels (interpret
 mode) and oracles, on the CPU: each wrapper runs its plain PyTorch version
 for CPU tensors, and that version is what the CUDA kernel is held to on
-the card (``chip_smoke.py``; the ``cuda``-marked tests below repeat the
-comparison when a GPU is present).
+the card (``chip_smoke.py``, and the ``cuda``-marked tests of
+``tests/test_torch_cuda.py``, which import no JAX so that they run on a
+machine with a GPU).
 
-Sweeps and tolerances follow ``tests/test_kernels.py``: ``paged_decode``
-at 5e-5 in float32 and 5e-2 in bfloat16, ``gate_mlp`` at 1e-5 in float32.
-Inputs are drawn with numpy from a seed and handed to both packages.
+Sweeps and tolerances follow ``tests/test_kernels.py``: ``paged_decode``,
+``gated_flash`` and ``vertical_slash`` at 5e-5 in float32 and 5e-2 in
+bfloat16, ``gate_mlp`` at 1e-5 in float32. Inputs are drawn with numpy
+from a seed and handed to both packages.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,12 +19,16 @@ from repro.core import dual_cache as JDC
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.gate_mlp import gate_mlp as pallas_gate_mlp
+from repro.kernels.gated_flash import gated_flash as pallas_gated_flash
 from repro.kernels.paged_decode import paged_decode as pallas_paged_decode
+from repro.kernels.vertical_slash import vertical_slash as pallas_vertical_slash
 from repro_torch.core import dual_cache as TDC
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain
-from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
+from repro_torch.kernels.gate_mlp import gate_mlp
+from repro_torch.kernels.gated_flash import gated_flash
+from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.vertical_slash import vertical_slash
 
 torch.set_num_threads(2)
 
@@ -221,40 +227,129 @@ def test_dual_cache_attention_rejects_unaligned_window():
 
 
 # ==========================================================================
-# on the card: each CUDA kernel against its plain version
+# gated_flash
 # ==========================================================================
-def _need_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
-                    "mode); chip_smoke.py runs these checks on the card")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,s", [(16, 1), (16, 4096)])
-def test_gate_mlp_kernel_matches_plain_on_gpu(rows, s):
-    _need_cuda()
-    x, w1, b1, w2, b2 = _gate_inputs(np.random.default_rng(0), 8, s, 256, 64)
-    x = np.random.default_rng(1).standard_normal((rows, s, 256)).astype(
+def _gated_inputs(rng, n, s, hd):
+    q, k, v = (rng.standard_normal((n, s, hd)).astype(np.float32)
+               for _ in range(3))
+    g = (1.0 / (1.0 + np.exp(-rng.standard_normal((n, s))))).astype(
         np.float32)
-    args = [torch.from_numpy(a).cuda() for a in (x, w1, b1, w2, b2)]
-    got = gate_mlp(*args)
-    want = gate_mlp_plain(*args)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    return q, k, v, g
 
 
-@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,hd,w,bq,bk", [
+    (2, 256, 64, 32, 64, 64), (1, 128, 128, 16, 128, 32),
+    (3, 512, 64, 256, 128, 128), (1, 64, 256, 8, 32, 16),
+])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_paged_decode_kernel_matches_plain_on_gpu(dtype):
-    _need_cuda()
-    q, kp, vp, tbl, lens = _paged_inputs(np.random.default_rng(3), 32, 128,
-                                         16, 64, 24)
-    lens[0] = 0
-    args = [torch.from_numpy(a).cuda().to(TDT[dtype]) for a in (q, kp, vp)]
-    ti = [torch.from_numpy(a).cuda() for a in (tbl, lens)]
-    second = (args[1], args[2], ti[0][:, :8].contiguous(), ti[1] // 3)
-    got = paged_decode(*args, *ti, second=second)
-    want = paged_decode_plain(*args, *ti, second=second)
-    torch.cuda.synchronize()
+def test_gated_flash_matches_pallas_and_oracles(n, s, hd, w, bq, bk, dtype):
+    q, k, v, g = _gated_inputs(np.random.default_rng(7), n, s, hd)
+    jin = [jnp.asarray(a).astype(JDT[dtype]) for a in (q, k, v)]
+    pallas = _np32(pallas_gated_flash(*jin, jnp.asarray(g), w_local=w,
+                                      bq=bq, bk=bk))
+    jax_ref = _np32(jref.gated_flash_ref(
+        *(x.astype(jnp.float32) for x in jin), jnp.asarray(g), w_local=w))
+    tin = [torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v)]
+    tg = torch.from_numpy(g)
+    out = gated_flash(*tin, tg, w_local=w)
+    assert out.dtype == TDT[dtype] and tuple(out.shape) == (n, s, hd)
+    got = out.float().numpy()
     tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, pallas, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, jax_ref, atol=tol, rtol=tol)
+    oracle = tref.gated_flash_ref(*(t.float() for t in tin), tg, w_local=w)
+    np.testing.assert_allclose(got, oracle.numpy(), atol=tol, rtol=tol)
+
+
+def test_gated_flash_attention_gqa_fold_matches_reference():
+    """G = 2 query heads per kv head: the port passes the group to the
+    kernel (kv stream n // G) instead of repeating K, V and g."""
+    rng = np.random.default_rng(8)
+    b, hq, hkv, s, hd, w = 2, 4, 2, 128, 64, 32
+    q = rng.standard_normal((b, hq, s, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((b, hkv, s, hd)).astype(np.float32)
+            for _ in range(2))
+    g = rng.uniform(0.0, 1.0, (b, hkv, s)).astype(np.float32)
+    want = np.asarray(jops.gated_flash_attention(
+        *map(jnp.asarray, (q, k, v, g)), w_local=w, bq=64, bk=32))
+    got = tops.gated_flash_attention(*map(torch.from_numpy, (q, k, v, g)),
+                                     w_local=w, eps=1e-6)
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=5e-5)
+
+
+def test_gated_flash_plain_is_differentiable():
+    """On the CPU the plain version is ordinary autograd PyTorch (the CUDA
+    kernel is forward-only and refuses inputs that require grad)."""
+    q, k, v, g = (torch.from_numpy(a).requires_grad_()
+                  for a in _gated_inputs(np.random.default_rng(9), 2, 32, 16))
+    gated_flash(q, k, v, g, w_local=8).sum().backward()
+    for t in (q, k, v, g):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    assert float(g.grad.abs().sum()) > 0
+
+
+# ==========================================================================
+# vertical_slash
+# ==========================================================================
+def _vs_inputs(rng, n, s, hd, w, c, *, sort=True):
+    """q, k, v [n, s, hd]; globals gathered at random positions older than
+    the last window, a random number of them valid and the rest at
+    INT32_MAX (never visible), as the reference's sweep builds them."""
+    q, k, v = (rng.standard_normal((n, s, hd)).astype(np.float32)
+               for _ in range(3))
+    gpos = rng.integers(0, s - w, (n, c))
+    if sort:
+        gpos = np.sort(gpos, axis=-1)
+    nvalid = rng.integers(1, c, (n, 1))
+    gpos = np.where(np.arange(c)[None] < nvalid, gpos,
+                    np.iinfo(np.int32).max).astype(np.int32)
+    safe = np.minimum(gpos, s - 1)
+    bi = np.arange(n)[:, None]
+    ok = (gpos < s)[..., None]
+    kg = np.where(ok, k[bi, safe], 0).astype(np.float32)
+    vg = np.where(ok, v[bi, safe], 0).astype(np.float32)
+    return q, k, v, kg, vg, gpos
+
+
+@pytest.mark.parametrize("n,s,hd,w,c,bc", [
+    (2, 256, 64, 64, 64, 32), (1, 512, 128, 128, 128, 128),
+    (2, 384, 64, 128, 96, 32),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vertical_slash_matches_pallas_and_oracles(n, s, hd, w, c, bc, dtype):
+    q, k, v, kg, vg, gpos = _vs_inputs(np.random.default_rng(10), n, s, hd,
+                                       w, c)
+    jin = [jnp.asarray(a).astype(JDT[dtype]) for a in (q, k, v, kg, vg)]
+    pallas = _np32(pallas_vertical_slash(*jin, jnp.asarray(gpos),
+                                         w_local=w, bc=bc))
+    jax_ref = _np32(jref.vertical_slash_ref(
+        *(x.astype(jnp.float32) for x in jin), jnp.asarray(gpos), w_local=w))
+    tin = [torch.from_numpy(a).to(TDT[dtype]) for a in (q, k, v, kg, vg)]
+    tg = torch.from_numpy(gpos)
+    out = vertical_slash(*tin, tg, w_local=w)
+    assert out.dtype == TDT[dtype] and tuple(out.shape) == (n, s, hd)
+    got = out.float().numpy()
+    assert np.isfinite(got).all()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got, pallas, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, jax_ref, atol=tol, rtol=tol)
+    oracle = tref.vertical_slash_ref(*(t.float() for t in tin), tg,
+                                     w_local=w)
+    np.testing.assert_allclose(got, oracle.numpy(), atol=tol, rtol=tol)
+
+
+def test_vertical_slash_attention_gqa_fold_matches_reference():
+    """G = 2 with unsorted global positions (sorting is not part of the
+    kernel's contract)."""
+    rng = np.random.default_rng(12)
+    b, hq, hkv, s, hd, w, c = 2, 4, 2, 256, 64, 64, 64
+    q = rng.standard_normal((b, hq, s, hd)).astype(np.float32)
+    _, k, v, kg, vg, gpos = _vs_inputs(rng, b * hkv, s, hd, w, c, sort=False)
+    k, v = k.reshape(b, hkv, s, hd), v.reshape(b, hkv, s, hd)
+    kg, vg = kg.reshape(b, hkv, c, hd), vg.reshape(b, hkv, c, hd)
+    gpos = gpos.reshape(b, hkv, c)
+    want = np.asarray(jops.vertical_slash_attention(
+        *map(jnp.asarray, (q, k, v, kg, vg, gpos)), w_local=w, bc=32))
+    got = tops.vertical_slash_attention(
+        *map(torch.from_numpy, (q, k, v, kg, vg, gpos)), w_local=w)
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=5e-5)

@@ -149,8 +149,7 @@ def test_serve_rejects_unported_flags(flag, capsys):
 # ==========================================================================
 # import hygiene: the port stands alone
 # ==========================================================================
-def test_port_imports_no_jax_and_no_reference_package():
-    code = r"""
+_HYGIENE = r"""
 import ast, importlib, pkgutil, sys
 import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
@@ -169,10 +168,26 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 print(len(mods))
 """
+
+
+def _import_all_and(path: Path) -> subprocess.CompletedProcess:
+    """Import every module of the port and every import of ``path`` in a
+    fresh interpreter; fails if JAX or the reference package got in."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO / "src")
-    r = subprocess.run([sys.executable, "-c", code, str(REPO / "chip_smoke.py")],
-                       capture_output=True, text=True, env=env, cwd=REPO,
-                       timeout=120)
+    return subprocess.run([sys.executable, "-c", _HYGIENE, str(path)],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=120)
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    r = _import_all_and(REPO / "chip_smoke.py")
     assert r.returncode == 0, r.stdout + r.stderr
     assert int(r.stdout.strip()) >= 20
+
+
+def test_cuda_tests_import_no_jax():
+    """The GPU tests must run where only PyTorch is installed: their file
+    imports neither JAX nor the reference package."""
+    r = _import_all_and(REPO / "tests" / "test_torch_cuda.py")
+    assert r.returncode == 0, r.stdout + r.stderr
