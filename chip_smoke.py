@@ -54,7 +54,12 @@ H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
 INT32_MAX = 2 ** 31 - 1
 PEAK = {"float32": H100_F32_FLOPS, "bfloat16": H100_BF16_FLOPS}
-TOL = {"float32": 5e-5, "bfloat16": 5e-2}
+# max abs error of an attention kernel against its plain version: both
+# compute in f32 in different orders; in bf16 both round the output, so
+# they may differ by an ulp of an output (2**-9 under 0.5). A pair of
+# elements swapped or dropped in the bf16 load reads far above 1e-2
+# (tests/test_torch_cuda.py plants both).
+TOL = {"float32": 5e-5, "bfloat16": 1e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -157,7 +162,7 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int):
     want = paged_decode_plain(qf, *first, second=second)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    tol = 5e-5 if dtype == torch.float32 else 5e-2
+    tol = TOL["float32" if dtype == torch.float32 else "bfloat16"]
     check(err <= tol, f"paged_decode {dtype} slots={slots} C={c} W={w} "
           f"err {err:.3e} > {tol}")
     ms = cuda_ms(lambda: paged_decode(qf, *first, second=second), 200)

@@ -13,11 +13,11 @@ stays int32 as in the reference and is cast to int64 only to index.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.admission import select_global
+from repro_torch.core.admission import GlobalSelection, select_global
 from repro_torch.core.selection import (build_page_meta, init_page_meta,
                                         update_page_meta_on_write)
 
@@ -71,8 +71,8 @@ def init_dual_cache(batch: int, n_kv_heads: int, head_dim: int, *,
 
 
 def prefill_populate(cache: DualCache, k: torch.Tensor, v: torch.Tensor,
-                     g: torch.Tensor, *, tau: float,
-                     sink: int = 0) -> DualCache:
+                     g: torch.Tensor, *, tau: float, sink: int = 0,
+                     sel: Optional[GlobalSelection] = None) -> DualCache:
     """Initial cache population (paper §4.2). k, v: [B, H, S, hd] post-RoPE
     keys and values; g: [B, H, S].
 
@@ -80,7 +80,9 @@ def prefill_populate(cache: DualCache, k: torch.Tensor, v: torch.Tensor,
     absolute position p in slot p % W; earlier tokens go to the global
     cache iff admitted (g >= tau, sinks always), up to the budget, padded
     to the static budget. The page metadata is rebuilt once. Then
-    ``t = S`` and ``ptr = S % W``.
+    ``t = S`` and ``ptr = S % W``. ``sel`` may pass the selection the
+    budgeted prefill already made from the same gates (the same call of
+    ``select_global``), so it is not sorted twice.
 
     The ring slots that hold tokens are then exactly the first
     min(t, W), the invariant the two-segment decode read relies on
@@ -102,8 +104,9 @@ def prefill_populate(cache: DualCache, k: torch.Tensor, v: torch.Tensor,
     lg[:, :, slots] = g[:, :, s - n_local:].float()
     lpos[:, slots] = local_pos.to(torch.int32)
     # ---- global: admitted tokens before the local window -----------------
-    sel = select_global(g, budget=cache.budget, tau=tau, sink=sink,
-                        exclude_from=s - n_local)
+    if sel is None:
+        sel = select_global(g, budget=cache.budget, tau=tau, sink=sink,
+                            exclude_from=s - n_local)
     bi = torch.arange(b, device=dev)[:, None, None]
     hi = torch.arange(h, device=dev)[None, :, None]
     idx = sel.idx.long()

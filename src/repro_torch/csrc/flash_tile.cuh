@@ -1,5 +1,7 @@
 // Shared tile loop of the port's two prefill attention kernels
-// (vertical_slash.cu, gated_flash.cu) for Hopper (sm_90a).
+// (vertical_slash.cu, gated_flash.cu) for Hopper (sm_90a), and the host
+// side they share: the shape checks, the dtype / head-dim dispatch and the
+// launch over query tiles (at the end of the file).
 //
 // One CTA of THREADS = 256 threads owns TQ = 64 consecutive query rows of
 // one stream; four consecutive threads (one quad of a warp) own a row.
@@ -27,6 +29,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace flash {
 
@@ -203,6 +207,54 @@ __device__ __forceinline__ void store_row(T* __restrict__ out_row,
     for (int e = 0; e < 4; ++e)
       if (d + e < dm.hd) store(&out_row[d + e], a[e] / denom);
   }
+}
+
+// ---- host side: the checks, dispatch and launch both kernels share ------
+
+// Nq query streams of S rows, head dim hd, G query streams per kv stream:
+// what the kernels take (grid.y holds one block per query tile).
+inline bool shape_ok(int Nq, int S, int hd, int G) {
+  return (S + TQ - 1) / TQ <= 65535 && hd > 0 && hd <= 256 && G > 0 &&
+         Nq % G == 0;
+}
+
+// A type as a value (a tag for the generic lambdas of dispatch), and a
+// parameter type that template deduction does not look at.
+template <typename T>
+struct Id {
+  using type = T;
+};
+
+// Returns f(Id<T>{}, std::integral_constant<int, HDMAX>{}) for the element
+// type T of `dtype` (0 = float32, 1 = bfloat16) and the smallest HDMAX of
+// 64, 128 and 256 that holds hd; cudaErrorInvalidValue for another dtype.
+template <typename T, typename F>
+int dispatch_hd(int hd, F& f) {
+  if (hd <= 64) return f(Id<T>{}, std::integral_constant<int, 64>{});
+  if (hd <= 128) return f(Id<T>{}, std::integral_constant<int, 128>{});
+  return f(Id<T>{}, std::integral_constant<int, 256>{});
+}
+
+template <typename F>
+int dispatch(int dtype, int hd, F f) {
+  if (dtype == 0) return dispatch_hd<float>(hd, f);
+  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(hd, f);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launches `kern` on the grid of query tiles, (Nq, ceil(S / TQ)) blocks of
+// THREADS, with the shared memory of Dims(hd) plus `extra` floats. Above
+// 48 KB that needs the kernel's dynamic shared memory limit raised, which
+// is done first. Returns cudaGetLastError() after the launch.
+template <typename... P>
+int launch_tiles(void (*kern)(P...), int Nq, int S, int hd, int extra,
+                 cudaStream_t st, typename Id<P>::type... args) {
+  const size_t smem = Dims(hd).smem_floats(extra) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(Nq, (S + TQ - 1) / TQ), THREADS, smem, st>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace flash

@@ -86,32 +86,6 @@ gated_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (i < S) store_row<T, HDMAX>(out + ((size_t)n * S + i) * hd, dm, st);
 }
 
-template <typename T, int HDMAX>
-int launch(const void* q, const void* k, const void* v, const float* g,
-           void* out, int Nq, int S, int hd, int W, int G, float eps,
-           cudaStream_t st) {
-  const size_t smem = Dims(hd).smem_floats(BK) * sizeof(float);
-  auto kern = gated_flash_kernel<T, HDMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Nq, (S + TQ - 1) / TQ);
-  kern<<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), g, static_cast<T*>(out), S, hd, W, G, eps,
-      1.f / sqrtf((float)hd));
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, const float* g,
-                void* out, int Nq, int S, int hd, int W, int G, float eps,
-                cudaStream_t st) {
-  if (hd <= 64) return launch<T, 64>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
-  if (hd <= 128) return launch<T, 128>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
-  return launch<T, 256>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
@@ -120,13 +94,13 @@ extern "C" int gated_flash(const void* q, const void* k, const void* v,
                            const float* g, void* out, int Nq, int S, int hd,
                            int W, int G, float eps, int dtype, void* stream) {
   if (Nq <= 0 || S <= 0) return 0;
-  if ((S + TQ - 1) / TQ > 65535) return (int)cudaErrorInvalidValue;  // grid.y
-  if (hd <= 0 || hd > 256 || G <= 0 || Nq % G != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
-  return (int)cudaErrorInvalidValue;
+  if (!shape_ok(Nq, S, hd, G)) return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, hd, [&](auto t, auto hdmax) {
+    using T = typename decltype(t)::type;
+    return launch_tiles(gated_flash_kernel<T, decltype(hdmax)::value>, Nq, S,
+                        hd, /*extra=*/BK, (cudaStream_t)stream,
+                        static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), g, static_cast<T*>(out), S,
+                        hd, W, G, eps, 1.f / sqrtf((float)hd));
+  });
 }

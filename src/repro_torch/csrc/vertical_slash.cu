@@ -109,33 +109,6 @@ vertical_slash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (i < S) store_row<T, HDMAX>(out + ((size_t)n * S + i) * hd, dm, st);
 }
 
-template <typename T, int HDMAX>
-int launch(const void* q, const void* k, const void* v, const void* kg,
-           const void* vg, const int* gpos, void* out, int Nq, int S, int C,
-           int hd, int W, int G, cudaStream_t st) {
-  const size_t smem = Dims(hd).smem_floats(BK) * sizeof(float);
-  auto kern = vertical_slash_kernel<T, HDMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Nq, (S + TQ - 1) / TQ);
-  kern<<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(kg),
-      static_cast<const T*>(vg), gpos, static_cast<T*>(out), S, C, hd, W, G,
-      1.f / sqrtf((float)hd));
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, const void* kg,
-                const void* vg, const int* gpos, void* out, int Nq, int S,
-                int C, int hd, int W, int G, cudaStream_t st) {
-  if (hd <= 64) return launch<T, 64>(q, k, v, kg, vg, gpos, out, Nq, S, C, hd, W, G, st);
-  if (hd <= 128) return launch<T, 128>(q, k, v, kg, vg, gpos, out, Nq, S, C, hd, W, G, st);
-  return launch<T, 256>(q, k, v, kg, vg, gpos, out, Nq, S, C, hd, W, G, st);
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
@@ -145,13 +118,15 @@ extern "C" int vertical_slash(const void* q, const void* k, const void* v,
                               void* out, int Nq, int S, int C, int hd, int W,
                               int G, int dtype, void* stream) {
   if (Nq <= 0 || S <= 0) return 0;
-  if ((S + TQ - 1) / TQ > 65535) return (int)cudaErrorInvalidValue;  // grid.y
-  if (hd <= 0 || hd > 256 || W <= 0 || G <= 0 || Nq % G != 0 || C < 0)
+  if (!shape_ok(Nq, S, hd, G) || W <= 0 || C < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, kg, vg, gpos, out, Nq, S, C, hd, W, G, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, kg, vg, gpos, out, Nq, S, C, hd, W, G, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, hd, [&](auto t, auto hdmax) {
+    using T = typename decltype(t)::type;
+    return launch_tiles(vertical_slash_kernel<T, decltype(hdmax)::value>, Nq,
+                        S, hd, /*extra=*/BK, (cudaStream_t)stream,
+                        static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), static_cast<const T*>(kg),
+                        static_cast<const T*>(vg), gpos, static_cast<T*>(out),
+                        S, C, hd, W, G, 1.f / sqrtf((float)hd));
+  });
 }

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds. Libraries go to ``build/kernels/`` at
-the repository root (git-ignored), named by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+the repository root (git-ignored), named by a hash of the source, the
+local headers it includes and the flags, so an edited source or header
+rebuilds the kernels that include it and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -15,11 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -27,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("gate_mlp", "paged_decode", "vertical_slash", "gated_flash")
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -54,11 +57,22 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def sources(name: str) -> List[Path]:
+    """``name``.cu and the headers of ``csrc`` it includes with
+    ``#include "..."``, directly or through another header."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path not in found:
+            found.append(path)
+            todo += [CSRC / inc.decode()
+                     for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    # the shared headers count too: an edited header rebuilds its users
-    for hdr in sorted(CSRC.glob("*.cuh")):
-        src += hdr.read_bytes()
+    src = b"".join(path.read_bytes() for path in sources(name))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -191,20 +191,20 @@ class PrefillResult(NamedTuple):
 
 def attn_prefill_budgeted(p: Params, cfg: ModelConfig, x: torch.Tensor,
                           positions: torch.Tensor, *, budget: int,
-                          window: Optional[int] = None,
                           gate_override: Optional[torch.Tensor] = None
                           ) -> PrefillResult:
     """Vertical-slash attention (paper §4.2), budgeted for static shapes.
 
-    Every query attends to its local window of width W (the slash) and
-    to up to ``budget`` admitted tokens (g >= tau, sinks always) strictly
-    older than the window (the vertical), in one softmax. The admitted
-    keys/values are gathered here, outside the kernel; unused budget
-    slots get ``gpos = INT32_MAX`` and are never visible. The kernel
-    tiles the queries itself, so the reference's ``block_chunk`` (a
-    memory bound on its dense einsum) has no counterpart."""
+    Every query attends to its local window of width W =
+    ``cfg.wgkv.w_local`` (the slash) and to up to ``budget`` admitted
+    tokens (g >= tau, sinks always) strictly older than the window (the
+    vertical), in one softmax. The admitted keys/values are gathered
+    here, outside the kernel; unused budget slots get ``gpos = INT32_MAX``
+    and are never visible. The kernel tiles the queries itself, so the
+    reference's ``block_chunk`` (a memory bound on its dense einsum) has
+    no counterpart."""
     b, s, _ = x.shape
-    w = window if window is not None else cfg.wgkv.w_local
+    w = cfg.wgkv.w_local
     if s % w:
         raise ValueError(f"seq {s} must be a multiple of the window {w}")
     q, k_pre, k_rope, v = project_qkv(p, cfg, x, positions)

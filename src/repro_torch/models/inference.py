@@ -80,7 +80,7 @@ def _attn_block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
                             w_local=cfg.wgkv.w_local, budget=budget,
                             dtype=torch_dtype(cfg.dtype), device=x.device)
     cache = prefill_populate(cache, r.k_rope, r.v, r.g, tau=cfg.wgkv.tau,
-                             sink=cfg.wgkv.sink)
+                             sink=cfg.wgkv.sink, sel=r.sel)
     x = x + r.out
     x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
     return x, cache, (r.g >= cfg.wgkv.tau).float().mean()
@@ -88,14 +88,13 @@ def _attn_block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            use_wgkv: Optional[bool] = None, budget: Optional[int] = None,
-            max_len: Optional[int] = None
+            use_wgkv: Optional[bool] = None, budget: Optional[int] = None
             ) -> Tuple[PrefillOut, CacheTree]:
     """Budgeted vertical-slash prefill of tokens [B, S] (S a multiple of
     W). Every layer's dual cache is filled at once and stacked
     ``[n_repeats, B, ...]``, so :func:`decode_step` continues from the
     returned tree. ``budget`` defaults to the config's global budget at
-    ``max_len`` (or S). On CUDA each layer runs the ``gate_mlp`` and
+    S. On CUDA each layer runs the ``gate_mlp`` and
     ``vertical_slash`` kernels. The reference's decode-time ``opts``
     (static admission, eviction) are not ported, so there are none."""
     _check_supported(cfg)
@@ -113,7 +112,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     if budget is None:
-        budget = cfg.wgkv.global_budget(max_len or s)
+        budget = cfg.wgkv.global_budget(s)
     per_block: Dict[str, List[DualCache]] = {
         f"b{i}": [] for i in range(len(cfg.block_pattern))}
     adm_sum = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -7,21 +7,28 @@ machine that has only PyTorch (``tests/conftest.py`` imports JAX, hence
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Inputs are drawn with numpy from a seed. Tolerances: ``gate_mlp`` 1e-5;
-the attention kernels 5e-5 in float32 and 5e-2 in bfloat16 (the kernels
-and the plain versions both compute in f32, in different orders).
+Inputs are drawn with numpy from a seed. Tolerances, absolute:
+``gate_mlp`` 1e-5; the attention kernels 5e-5 in float32 and 1e-2 in
+bfloat16. The kernels and the plain versions both compute in f32, in
+different orders, and round the output to bfloat16, so in bfloat16 they
+may differ by an ulp of an output (2**-9 for outputs under 0.5). A
+mutation check holds the bfloat16 bound against a kernel whose bfloat16
+load is broken on purpose.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain
 from repro_torch.kernels.gated_flash import gated_flash, gated_flash_plain
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
 from repro_torch.kernels.vertical_slash import (vertical_slash,
                                                 vertical_slash_plain)
 
-TOL = {"float32": 5e-5, "bfloat16": 5e-2}
+TOL = {"float32": 5e-5, "bfloat16": 1e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 pytestmark = pytest.mark.cuda
@@ -96,8 +103,8 @@ def test_paged_decode_kernel_matches_plain_on_gpu(dtype):
     got = paged_decode(*args, *ti, second=second)
     want = paged_decode_plain(*args, *ti, second=second)
     torch.cuda.synchronize()
-    tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
 
 
 @pytest.mark.parametrize("s,hd", [(32, 128), (2048, 128), (200, 32),
@@ -116,8 +123,8 @@ def test_gated_flash_kernel_matches_plain_on_gpu(s, hd, dtype):
     got = gated_flash(*args, tg, w_local=64, eps=1e-6, group=2)
     want = gated_flash_plain(*args, tg, w_local=64, eps=1e-6, group=2)
     torch.cuda.synchronize()
-    tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
 
 
 def test_gated_flash_kernel_refuses_grad_on_gpu():
@@ -151,5 +158,59 @@ def test_vertical_slash_kernel_matches_plain_on_gpu(s, c, w, dtype):
     want = vertical_slash_plain(*args, tg, w_local=w, group=2)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
-    tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+# the bfloat16 4-element load of flash_tile.cuh, and two ways to break it
+_BF16_LOAD = "return make_float4(lo.x, lo.y, hi.x, hi.y);"
+FAULTS = {"swap_pairs": "return make_float4(hi.x, hi.y, lo.x, lo.y);",
+          "drop_pair": "return make_float4(lo.x, lo.y, 0.f, 0.f);"}
+
+
+def _attention_case(kernel):
+    """A bfloat16 case of each attention kernel (GQA group 2, hd 128) as
+    (run(fn), plain output)."""
+    rng = np.random.default_rng(16)
+    s, hd = (256, 128) if kernel == "gated_flash" else (1024, 128)
+    q = rng.standard_normal((16, s, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((8, s, hd)).astype(np.float32)
+            for _ in range(2))
+    if kernel == "gated_flash":
+        args = _cuda(q, k, v, dtype=torch.bfloat16)
+        args += _cuda(rng.uniform(0.0, 1.0, (8, s)).astype(np.float32))
+        kw = {"w_local": 64, "eps": 1e-6, "group": 2}
+        fns = (gated_flash, gated_flash_plain)
+    else:
+        kg, vg, gpos = _vs_globals(rng, 8, s, 256, 96, k, v)
+        args = _cuda(q, k, v, kg, vg, dtype=torch.bfloat16) + _cuda(gpos)
+        kw = {"w_local": 256, "group": 2}
+        fns = (vertical_slash, vertical_slash_plain)
+    return (lambda: fns[0](*args, **kw)), fns[1](*args, **kw).float()
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("kernel", ["gated_flash", "vertical_slash"])
+def test_bf16_tolerance_catches_a_planted_load_fault(kernel, fault, tmp_path,
+                                                     monkeypatch):
+    """Mutation check of the bfloat16 bound: the sound kernel is within
+    TOL, and a copy of its sources whose bfloat16 load swaps or drops a
+    pair of elements, built into a temporary directory, is not. Prints
+    both errors (run with ``-s`` to read them)."""
+    run, want = _attention_case(kernel)
+    sound = float((run().float() - want).abs().max())
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.sources(kernel):
+        text = src.read_text()
+        if src.name == "flash_tile.cuh":
+            assert text.count(_BF16_LOAD) == 1
+            text = text.replace(_BF16_LOAD, FAULTS[fault])
+        (csrc / src.name).write_text(text)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", Path(tmp_path) / "build")
+    monkeypatch.setattr(build, "_LIBS", {})
+    planted = float((run().float() - want).abs().max())
+    print(f"\n{kernel} bf16 max abs err: sound {sound:.3e}, planted "
+          f"{fault} {planted:.3e} (limit {TOL['bfloat16']:.0e})")
+    assert sound <= TOL["bfloat16"] < planted

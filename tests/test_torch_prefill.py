@@ -218,6 +218,15 @@ def test_prefill_populate_matches(s, w, c):
                               *map(torch.from_numpy, (k, v, g)), tau=0.1,
                               sink=3)
     _assert_cache_close(jc, tc, ftol=0)
+    # the selection the budgeted prefill already made gives the same cache
+    sel = TADM.select_global(torch.from_numpy(g), budget=c, tau=0.1, sink=3,
+                             exclude_from=s - min(w, s))
+    tc_sel = TDC.prefill_populate(TDC.init_dual_cache(b, h, hd, w_local=w,
+                                                      budget=c),
+                                  *map(torch.from_numpy, (k, v, g)), tau=0.1,
+                                  sink=3, sel=sel)
+    for name in TDC.DualCache._fields:
+        assert torch.equal(getattr(tc_sel, name), getattr(tc, name)), name
     np.testing.assert_array_equal(tc.memory_tokens().numpy(),
                                   np.asarray(jc.memory_tokens()))
     # the ring slots holding tokens are exactly the first min(t, W): the

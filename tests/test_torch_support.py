@@ -191,3 +191,27 @@ def test_cuda_tests_import_no_jax():
     imports neither JAX nor the reference package."""
     r = _import_all_and(REPO / "tests" / "test_torch_cuda.py")
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+# ==========================================================================
+# kernel builds
+# ==========================================================================
+def test_kernel_build_key_covers_only_included_headers(tmp_path, monkeypatch):
+    """A kernel's library is keyed by its source and the local headers it
+    includes: an edited flash_tile.cuh rebuilds the two attention kernels
+    that include it and leaves gate_mlp and paged_decode as they were."""
+    from repro_torch.kernels import build
+    assert [p.name for p in build.sources("gated_flash")] == [
+        "gated_flash.cu", "flash_tile.cuh"]
+    assert [p.name for p in build.sources("gate_mlp")] == ["gate_mlp.cu"]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build._lib_path(n) for n in build.KERNELS}
+    with open(csrc / "flash_tile.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: build._lib_path(n) for n in build.KERNELS}
+    changed = {n for n in build.KERNELS if before[n] != after[n]}
+    assert changed == {"vertical_slash", "gated_flash"}
