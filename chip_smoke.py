@@ -7,13 +7,16 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``; exits non-zero, and
 prints no result, without them. Phases, any failure fatal:
 
   1. device   — the card's name and power limit (nvidia-smi).
-  2. build    — the four kernels from ``src/repro_torch/csrc``, one nvcc
-                per source, all started together.
+  2. build    — the kernels from ``src/repro_torch/csrc`` (five entry
+                points in four sources), one nvcc per source, all started
+                together.
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 card, at the main paths' shapes (and a larger or smaller
                 one), f32 and bf16 for the attention kernels, with times
                 (CUDA events), the plain version's time, a library
-                yardstick where one exists, and the card's bound.
+                yardstick where one exists, and the card's bound;
+                ``paged_decode_selected`` also bitwise against
+                ``paged_decode`` at the identity ids.
   4. serve-cli  — ``repro_torch.launch.serve`` at full qwen3-0.6b width,
                 its startup tau probe (a gated forward) included.
   5. serve-long — ``ServeSession`` at full width with 384-token prompts,
@@ -22,13 +25,23 @@ prints no result, without them. Phases, any failure fatal:
   6. prefill-long  — ``inference.prefill`` (budgeted vertical-slash, paper
                 §4.2) of a 4096-token prompt at full width, budget 1024,
                 then 16 greedy ``decode_step``s from its dual caches.
-  7. forward-gated — ``transformer.forward(mode="gated")`` at full width
+  7. decode-select — from prefill-long's caches (C = 1024), 16 greedy
+                ``decode_step``s with Quest selection: ``quest:64`` (every
+                page) bitwise equal to selection off, ``quest:8`` through
+                ``paged_decode_selected`` only, and mask mode
+                (``quest_pages=8``) within 5e-5 of ``quest:8``.
+  8. forward-gated — ``transformer.forward(mode="gated")`` at full width
                 over 2048 tokens (the write-gated training forward).
-  8. substrate — the trained bench substrate
+  9. serve-compose — ``ServeSession`` at full width (depth cut to 14
+                layers) with ``quest:2`` decode selection and SnapKV
+                eviction (budget 96): both run, and the paged pool stays
+                within 2e-3 after an eviction.
+ 10. substrate — the trained bench substrate
                 (``checkpoints/bench_model_lam0.15.npz``): one numpy
                 prompt through prefill + 16 greedy decode steps on the card
-                (kernels) and on the CPU (plain path); tokens and integer
-                cache state must be identical, logits within 1e-4.
+                (kernels) and on the CPU (plain path), once plain and once
+                with ``quest:2`` and eviction; tokens and integer cache
+                state must be identical, logits within 1e-4.
 
 The full-width weights are random (seeded); the point is that the port
 runs end to end on the card through its kernels and agrees with itself:
@@ -191,6 +204,102 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int):
     return {"shape": f"N={slots * hkv * grp} hd={hd} C={c} W={w} {dtype}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
+    """The dual-cache read with Quest selection: a random dual cache with
+    ragged gcnt, its page metadata rebuilt, and the top-K page ids of a
+    random query (``selection.topk_page_ids``, the decode path's scorer);
+    the global segment read through the ids, the ring whole. Also checks
+    that the identity ids with K covering every page give exactly
+    ``paged_decode``'s output."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import selection as SEL
+    from repro_torch.core.dual_cache import init_dual_cache
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_selected,
+                                                  paged_decode_selected_plain)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hkv, grp, hd, page = 8, 2, 128, 16
+    p_all = c // page
+    cache = init_dual_cache(slots, hkv, hd, w_local=w, budget=c, dtype=dtype,
+                            device="cuda")
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    pattern = torch.tensor([c, 7, c // 2 + 3, 0, c - 1, 16, 33, 5 * page],
+                           dtype=torch.int32, device="cuda")
+    gcnt = torch.stack([pattern.roll(i)[:hkv] for i in range(slots)])
+    t = torch.tensor([w + 101 * i for i in range(slots)], dtype=torch.int32,
+                     device="cuda")
+    cache = cache._replace(gk=rn(slots, hkv, c, hd), gv=rn(slots, hkv, c, hd),
+                           lk=rn(slots, hkv, w, hd), lv=rn(slots, hkv, w, hd),
+                           gcnt=gcnt, t=t)
+    q = rn(slots, hkv * grp, hd)
+    valid = torch.arange(c, device="cuda")[None, None] < gcnt[..., None]
+    meta = SEL.build_page_meta(cache.gk, valid)
+    meta = SEL.PageMeta(meta.kmin, meta.kmax,
+                        SEL.page_valid_from_count(gcnt, p_all))
+    ids, n_sel = SEL.topk_page_ids(q, meta, k)
+    qf, first, second = ops.dual_cache_segments(q, cache)
+    sel = ids.reshape(slots * hkv, k).repeat_interleave(grp, 0).contiguous()
+    nsf = n_sel.reshape(-1).repeat_interleave(grp).contiguous()
+    got = paged_decode_selected(qf, *first, sel, nsf, second=second)
+    want = paged_decode_selected_plain(qf, *first, sel, nsf, second=second)
+    # the identity ids at K = every page, as topk_page_ids gives them
+    all_ids, n_all = SEL.topk_page_ids(q, meta, p_all)
+    sel_all = all_ids.reshape(slots * hkv, p_all).repeat_interleave(
+        grp, 0).contiguous()
+    n_allf = n_all.reshape(-1).repeat_interleave(grp).contiguous()
+    ident = paged_decode_selected(qf, *first, sel_all, n_allf, second=second)
+    full = paged_decode(qf, *first, second=second)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = TOL["float32" if dtype == torch.float32 else "bfloat16"]
+    tag = f"paged_decode_selected {dtype} slots={slots} C={c} W={w} K={k}"
+    check(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite")
+    check(err <= tol, f"{tag} err {err:.3e} > {tol}")
+    check(torch.equal(ident, full), f"{tag}: identity ids differ from "
+          f"paged_decode by {float((ident - full).abs().max()):.3e}")
+    ms = cuda_ms(lambda: paged_decode_selected(qf, *first, sel, nsf,
+                                               second=second), 200)
+    full_ms = cuda_ms(lambda: paged_decode(qf, *first, second=second), 200)
+    plain_ms = cuda_ms(lambda: paged_decode_selected_plain(
+        qf, *first, sel, nsf, second=second), 50)
+    # library yardstick: SDPA over the K gathered pages and the ring, with
+    # the validity mask (the gather is outside the timed call)
+    gk, gv, gvalid = SEL.gather_pages(cache.gk, cache.gv, gcnt, ids)
+    gvalid = gvalid & (
+        torch.arange(k, device="cuda").repeat_interleave(page)[None, None]
+        < n_sel[..., None])
+    kk = torch.cat([gk, cache.lk], dim=2)
+    vv = torch.cat([gv, cache.lv], dim=2)
+    lvalid = (torch.arange(w, device="cuda")[None, None]
+              < torch.clamp(t, max=w)[:, None, None]).expand(slots, hkv, w)
+    mask = torch.cat([gvalid, lvalid], dim=2)[:, :, None, :]
+    qg = q.reshape(slots, hkv, grp, hd)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qg, kk, vv, attn_mask=mask), 200)
+    # the bound: the valid tokens of the selected pages and of the ring,
+    # K and V once per kv stream; q, the output, the ids, their counts,
+    # the table entries they select and the lengths once
+    toks = int(gvalid.sum()) + int(lvalid.sum())
+    isz = q.element_size()
+    n = qf.shape[0]
+    nbytes = (2 * q.numel() * isz + 2 * toks * hd * isz
+              + 4 * (2 * sel.numel() + nsf.numel() + 2 * n
+                     + second[2].numel()))
+    flops = 4 * toks * grp * hd
+    b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS
+                       if dtype == torch.float32 else H100_BF16_FLOPS)
+    return {"shape": f"N={n} hd={hd} C={c} ({p_all} pages) K={k} W={w} "
+                     f"{dtype}",
+            "max_abs_err": err, "ms": ms, "full_read_ms": full_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "tokens_read": toks,
+            "identity_bitwise": True}
 
 
 def vertical_slash_case(dtype: str, seed: int):
@@ -360,8 +469,9 @@ def position_counter():
 def _counters():
     from repro_torch.kernels import (gate_mlp, gated_flash, paged_decode,
                                      vertical_slash)
-    return [m.launches for m in (gate_mlp, paged_decode, vertical_slash,
-                                 gated_flash)]
+    return [gate_mlp.launches, paged_decode.launches,
+            paged_decode.selected_launches, vertical_slash.launches,
+            gated_flash.launches]
 
 
 def reset_counts():
@@ -543,26 +653,32 @@ def full_model(seed: int):
     return cfg, init_model(cfg, gen, "cuda")
 
 
-def greedy_decode(params, cfg, logits, caches, steps: int):
+def greedy_decode(params, cfg, logits, caches, steps: int, opts=None):
     """``steps`` greedy decode steps from a prefill's caches; returns the
-    tokens fed, every step's logits and the final caches."""
+    tokens fed, every step's logits, the final caches and each step's
+    stats."""
     import torch
     from repro_torch.models import inference as I
     from repro_torch.models.transformer import layer_params
     layers = layer_params(params, cfg)
-    toks, all_logits = [], [logits]
+    opts = opts or I.DecodeOptions()
+    toks, all_logits, stats = [], [logits], []
     for _ in range(steps):
         tok = logits.argmax(-1)
         toks.append(tok)
-        logits, caches, _ = I.decode_step(params, cfg, tok, caches,
-                                          layers=layers)
+        logits, caches, st = I.decode_step(params, cfg, tok, caches,
+                                           opts=opts, layers=layers)
         all_logits.append(logits)
-    return torch.stack(toks, 1), torch.stack(all_logits, 1), caches
+        stats.append(st)
+    return torch.stack(toks, 1), torch.stack(all_logits, 1), caches, stats
 
 
 def prefill_long(cfg, params):
     """``inference.prefill`` of a 4096-token prompt (budget 1024), then 16
-    greedy decode steps from its caches."""
+    greedy decode steps from its caches. Returns the launch counts and
+    what decode-select starts from: the prefill's logits and caches (left
+    untouched by the functional decode), the decode's tokens, logits and
+    ms per step."""
     import numpy as np
     import torch
     from repro_torch.models import inference as I
@@ -577,12 +693,12 @@ def prefill_long(cfg, params):
         out, caches = I.prefill(params, cfg, toks, budget=budget)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        _, logits, caches = greedy_decode(params, cfg, out.logits, caches,
-                                          steps)
+        toks_off, logits, dec_caches, _ = greedy_decode(
+            params, cfg, out.logits, caches, steps)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     counts = read_counts()
-    node = caches["blocks"]["b0"]
+    node = dec_caches["blocks"]["b0"]
     gcnt = node.gcnt
     check(counts["vertical_slash"] == n_layers,
           f"prefill-long: vertical_slash launches "
@@ -593,9 +709,9 @@ def prefill_long(cfg, params):
     check(counts["paged_decode"] == n_layers * steps,
           f"prefill-long: paged_decode launches {counts['paged_decode']} "
           f"!= {n_layers} x {steps}")
-    check(int(caches["t"][0]) == s + steps and bool((node.t == s + steps)
-                                                   .all()),
-          f"prefill-long: t {caches['t'].tolist()} != {s + steps}")
+    check(int(dec_caches["t"][0]) == s + steps
+          and bool((node.t == s + steps).all()),
+          f"prefill-long: t {dec_caches['t'].tolist()} != {s + steps}")
     check(node.gk.shape[-2] == budget and int(gcnt.min()) > 0
           and int(gcnt.max()) <= budget,
           f"prefill-long: gcnt in [{int(gcnt.min())}, {int(gcnt.max())}], "
@@ -610,6 +726,172 @@ def prefill_long(cfg, params):
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "launches": counts}
     print("prefill-long: " + json.dumps(stats))
+    return {"counts": counts, "prefill_logits": out.logits, "caches": caches,
+            "tokens": toks_off, "logits": logits,
+            "decode_ms_per_step": stats["decode_ms_per_step"]}
+
+
+def decode_select(cfg, params, base):
+    """From prefill-long's caches (C = 1024, 64 pages), 16 greedy decode
+    steps with Quest selection: ``quest:64`` (every page) bitwise equal to
+    prefill-long's selection-off run; ``quest:8`` read by
+    ``paged_decode_selected`` alone, 8 pages per (kv head, layer);
+    mask mode ``quest_pages=8`` within 5e-5 of ``quest:8``."""
+    import torch
+    from repro_torch.models import inference as I
+    steps, n_layers = 16, cfg.n_layers
+
+    def run(opts):
+        torch.cuda.synchronize()
+        reset_counts()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            toks, logits, _, st = greedy_decode(
+                params, cfg, base["prefill_logits"], base["caches"], steps,
+                opts)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+        return toks, logits, st, read_counts(), ms
+
+    toks_all, logits_all, _, c_all, _ = run(
+        I.DecodeOptions(selection_policy="quest:64"))
+    check(torch.equal(toks_all, base["tokens"]),
+          "decode-select: quest:64 tokens differ from selection off")
+    check(torch.equal(logits_all, base["logits"]),
+          "decode-select: quest:64 logits differ from selection off by "
+          f"{float((logits_all - base['logits']).abs().max()):.3e}")
+    check(c_all["paged_decode_selected"] == n_layers * steps
+          and c_all["paged_decode"] == 0,
+          f"decode-select: quest:64 launches {c_all}")
+    toks8, logits8, st8, c8, ms8 = run(
+        I.DecodeOptions(selection_policy="quest:8"))
+    per_step = [float(st["selected_pages_rows"][0]) for st in st8]
+    check(all(v == 8.0 * n_layers for v in per_step),
+          f"decode-select: selected_pages_rows {per_step} != "
+          f"8 x {n_layers} per step")
+    check(c8["paged_decode_selected"] == n_layers * steps
+          and c8["paged_decode"] == 0,
+          f"decode-select: quest:8 launches {c8} (want "
+          f"paged_decode_selected {n_layers} x {steps}, paged_decode 0)")
+    check(bool(torch.isfinite(logits8).all()),
+          "decode-select: non-finite logits")
+    toks_m, logits_m, st_m, c_m, ms_m = run(I.DecodeOptions(quest_pages=8))
+    err = float((logits_m - logits8).abs().max())
+    check(err <= 5e-5, f"decode-select: mask mode logits differ from "
+          f"quest:8 by {err:.3e} > 5e-5")
+    check(torch.equal(toks_m, toks8), "decode-select: mask mode tokens "
+          "differ from quest:8")
+    check(c_m["paged_decode_selected"] == n_layers * steps
+          and c_m["paged_decode"] == 0,
+          f"decode-select: mask mode launches {c_m}")
+    stats = {"decode_steps": steps,
+             "decode_ms_per_step_off": base["decode_ms_per_step"],
+             "decode_ms_per_step_quest8": ms8,
+             "decode_ms_per_step_mask8": ms_m,
+             "quest8_vs_off_max_logit_diff": float(
+                 (logits8 - base["logits"]).abs().max()),
+             "quest8_tokens_equal_off": bool(torch.equal(toks8,
+                                                         base["tokens"])),
+             "mask_vs_quest8_max_logit_err": err,
+             "launches_quest64": c_all, "launches_quest8": c8,
+             "launches_mask8": c_m}
+    print("decode-select: " + json.dumps(stats))
+    return c8
+
+
+def serve_compose(card: str):
+    """``ServeSession`` at full width (14 layers) composing the three
+    primitives:
+    learned admission, ``quest:2`` decode selection and SnapKV eviction
+    (hard budget 96 global tokens per head). Prompts of 384 tokens leave
+    the 256-token ring, so promotion fills the global cache past the
+    budget and eviction fires; decode-only ticks run the selection
+    variant. The pool is verified after a decode step's eviction was
+    mirrored."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pool_pages_for
+    from repro_torch.models import inference as I
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.backend import make_backend
+    from repro_torch.serving.obs import Tracer
+    from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
+
+    slots, cap, prompt_len, max_new, budget = 2, 512, 384, 16, 96
+    # full width, depth cut to 14 of 28 layers: eviction adds about 100
+    # host-dispatched ops per layer and position, and the phase's time
+    # scales with depth (28 layers: 96 s on one H100)
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32", n_repeats=14)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = init_model(cfg, gen, "cuda")
+    eng = make_backend("wgkv", params, cfg, slots=slots, capacity=cap,
+                       pool_pages=pool_pages_for(cfg, slots, cap),
+                       opts=I.DecodeOptions(evict_hard_budget=budget),
+                       selection="quest:2", device="cuda")
+    tracer = Tracer(capacity=1 << 16)
+    sess = ServeSession(eng, sched=SchedulerConfig(chunk_tokens=64,
+                                                   dispatch_ahead=1),
+                        tracer=tracer)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size - 8, prompt_len).tolist()
+               for _ in range(2)]
+    resyncs = []
+    inner = eng._mirror_decode
+
+    def mirror(before, after, *, rows=None, evicted_rows=None):
+        if evicted_rows is not None and rows \
+                and any(bool(evicted_rows[r]) for r in rows):
+            resyncs.append(len(resyncs))
+        return inner(before, after, rows=rows, evicted_rows=evicted_rows)
+    eng._mirror_decode = mirror
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    dev = None
+    with position_counter() as pc:
+        handles = [sess.submit(p, max_new=max_new) for p in prompts]
+        for _ in range(100_000):
+            if not sess.tick():
+                break
+            if dev is None and resyncs and any(eng.live):
+                sess.orchestrator.drain()
+                dev = eng.verify_paged(layer_repeat=cfg.n_layers - 1)
+        sess.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    summ = sess.telemetry.summary()
+    sess.close()
+    spans = {sp.name for sp in tracer.spans}
+    check(all(h.state == "done" and len(h.tokens()) == max_new
+              for h in handles),
+          f"serve-compose: requests incomplete: "
+          f"{[(h.state, len(h.tokens())) for h in handles]}")
+    check(eng.stats["evict_triggers"] > 0, "serve-compose: eviction never "
+          "triggered")
+    check(eng.stats["selected_pages"] > 0, "serve-compose: no page selected")
+    check("selection" in spans, f"serve-compose: no selection span in "
+          f"{sorted(spans)}")
+    check(bool(resyncs), "serve-compose: no post-eviction mirror re-sync")
+    check(dev is not None and dev < 2e-3,
+          f"serve-compose: paged-vs-logical deviation {dev}")
+    check(counts["paged_decode_selected"] > 0 and counts["paged_decode"] > 0
+          and counts["gate_mlp"] == cfg.n_layers * pc.count,
+          f"serve-compose: launches {counts} over {pc.count} positions")
+    stats = {"card": card, "requests": len(handles),
+             "prompt_len": prompt_len, "max_new": max_new, "slots": slots,
+             "capacity": cap, "evict_hard_budget": budget,
+             "selection": "quest:2", "wall_s": wall, "positions": pc.count,
+             "ttft_mean_s": summ["ttft_mean_s"],
+             "tpot_mean_s": summ["tpot_mean_s"],
+             "tokens_per_s": summ["tokens_per_s"],
+             "evict_triggers": eng.stats["evict_triggers"],
+             "selected_pages": eng.stats["selected_pages"],
+             "selection_time_s": eng.stats["selection_time_s"],
+             "evict_resync_steps": len(resyncs), "paged_dev": dev,
+             "launches": counts}
+    print("serve-compose: " + json.dumps(stats))
     return counts
 
 
@@ -652,11 +934,15 @@ def forward_gated(cfg, params):
 def substrate():
     """The trained bench substrate through prefill + 16 greedy decode steps
     on the card (kernels) and on the CPU (plain path): identical tokens and
-    integer cache state, logits within 1e-4."""
+    integer cache state, logits within 1e-4. Run twice: as served by
+    default, then with ``quest:2`` decode selection and SnapKV eviction
+    (hard budget 64, below the 83-103 global tokens the prompt leaves in
+    the first layer's heads, so eviction fires)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import ModelConfig, WGKVConfig
     from repro_torch.convert import params_from_numpy
+    from repro_torch.core import selection as SEL
     from repro_torch.kernels import ops
     from repro_torch.models import inference as I
     path = ROOT / "checkpoints" / "bench_model_lam0.15.npz"
@@ -672,60 +958,108 @@ def substrate():
     # prompt seed 20: every gate score of this prompt, in prefill and in
     # the 16 decode steps, stays >= 1e-3 from tau (checked below)
     prompt = np.random.default_rng(20).integers(0, cfg.vocab_size, (1, 128))
-    steps, tau = 16, cfg.wgkv.tau
+    steps, tau, k_sel = 16, cfg.wgkv.tau, 2
+    composed = I.DecodeOptions(selection_policy=f"quest:{k_sel}",
+                               evict_hard_budget=64)
 
-    def run(device: str):
+    def run(device: str, opts):
         params = params_from_numpy(path, cfg, device)
         with torch.no_grad():
             out, caches = I.prefill(params, cfg,
-                                    torch.as_tensor(prompt, device=device))
-            toks, logits, caches = greedy_decode(params, cfg, out.logits,
-                                                 caches, steps)
-        return out, toks.cpu(), logits.cpu(), caches
+                                    torch.as_tensor(prompt, device=device),
+                                    opts=opts)
+            toks, logits, caches, st = greedy_decode(
+                params, cfg, out.logits, caches, steps, opts)
+        trig = sum(float(x["evict_trigger_rows"].sum()) for x in st)
+        return out, toks.cpu(), logits.cpu(), caches, trig
 
-    scores = []
-    inner = ops.write_gate
+    def compare(tag, opts, cpu, want_counts):
+        torch.cuda.synchronize()
+        reset_counts()
+        gpu = run("cuda", opts)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        cpu_out, cpu_toks, cpu_logits, cpu_caches, cpu_trig = cpu
+        gpu_out, gpu_toks, gpu_logits, gpu_caches, gpu_trig = gpu
+        check(all(counts[k] == v for k, v in want_counts.items()),
+              f"substrate{tag}: the card run missed its kernels: {counts}")
+        check(torch.equal(gpu_toks, cpu_toks),
+              f"substrate{tag}: greedy tokens differ: {gpu_toks.tolist()} "
+              f"vs {cpu_toks.tolist()}")
+        err = float((gpu_logits - cpu_logits).abs().max())
+        check(err <= 1e-4, f"substrate{tag}: logits differ by {err:.3e} > "
+              "1e-4")
+        check(torch.equal(gpu_caches["t"].cpu(), cpu_caches["t"]),
+              f"substrate{tag}: t differs")
+        gnode, cnode = gpu_caches["blocks"]["b0"], cpu_caches["blocks"]["b0"]
+        for name in ("t", "ptr", "lpos", "gpos", "gcnt", "overflow"):
+            check(torch.equal(getattr(gnode, name).cpu(),
+                              getattr(cnode, name)),
+                  f"substrate{tag}: cache {name} differs between card and "
+                  "CPU")
+        check(gpu_trig == cpu_trig, f"substrate{tag}: eviction triggers "
+              f"{gpu_trig} (CPU {cpu_trig})")
+        adm = float(gpu_out.mean_admission)
+        check(abs(adm - float(cpu_out.mean_admission)) <= 1e-6
+              and 0 < adm < 1,
+              f"substrate{tag}: mean_admission {adm} (CPU "
+              f"{float(cpu_out.mean_admission)})")
+        return {"mean_admission": adm, "max_logit_err": err,
+                "tokens": gpu_toks[0].tolist(),
+                "gcnt": gnode.gcnt[:, 0].tolist(), "evict_triggers": gpu_trig,
+                "launches": counts}
+
+    scores, gaps = [], []
+    inner_gate, inner_topk = ops.write_gate, SEL.topk_page_ids
 
     def recording(*a, **kw):
-        g = inner(*a, **kw)
+        g = inner_gate(*a, **kw)
         scores.append(g)
         return g
-    ops.write_gate = recording
+
+    def topk_gap(q, meta, k):
+        # gap between the K-th and (K+1)-th page upper bound (inf where
+        # fewer than K+1 pages hold tokens): a near-tie could flip the pick
+        srt = torch.sort(SEL.page_upper_bound(q, meta), dim=-1,
+                         descending=True).values
+        gap = srt[..., k - 1] - srt[..., k]
+        gaps.append(float(torch.where(torch.isfinite(srt[..., k]), gap,
+                                      torch.full_like(gap, float("inf")))
+                          .min()))
+        return inner_topk(q, meta, k)
+    ops.write_gate, SEL.topk_page_ids = recording, topk_gap
     try:
-        cpu_out, cpu_toks, cpu_logits, cpu_caches = run("cpu")
+        cpu_plain = run("cpu", I.DecodeOptions())
+        n_plain = len(scores)
+        cpu_comp = run("cpu", composed)
     finally:
-        ops.write_gate = inner
-    margin = min(float((g - tau).abs().min()) for g in scores)
+        ops.write_gate, SEL.topk_page_ids = inner_gate, inner_topk
+    margin = min(float((g - tau).abs().min()) for g in scores[:n_plain])
     check(margin >= 1e-3, f"substrate: gate margin {margin:.2e} < 1e-3 "
           "(pick another prompt seed)")
-    torch.cuda.synchronize()
-    reset_counts()
-    gpu_out, gpu_toks, gpu_logits, gpu_caches = run("cuda")
-    torch.cuda.synchronize()
-    counts = read_counts()
-    check(counts["vertical_slash"] == cfg.n_layers
-          and counts["paged_decode"] == cfg.n_layers * steps,
-          f"substrate: the card run missed its kernels: {counts}")
-    check(torch.equal(gpu_toks, cpu_toks),
-          f"substrate: greedy tokens differ: {gpu_toks.tolist()} vs "
-          f"{cpu_toks.tolist()}")
-    err = float((gpu_logits - cpu_logits).abs().max())
-    check(err <= 1e-4, f"substrate: logits differ by {err:.3e} > 1e-4")
-    check(torch.equal(gpu_caches["t"].cpu(), cpu_caches["t"]),
-          "substrate: t differs")
-    gnode, cnode = gpu_caches["blocks"]["b0"], cpu_caches["blocks"]["b0"]
-    for name in ("t", "ptr", "lpos", "gpos", "gcnt", "overflow"):
-        check(torch.equal(getattr(gnode, name).cpu(), getattr(cnode, name)),
-              f"substrate: cache {name} differs between card and CPU")
-    adm = float(gpu_out.mean_admission)
-    check(abs(adm - float(cpu_out.mean_admission)) <= 1e-6 and 0 < adm < 1,
-          f"substrate: mean_admission {adm} (CPU "
-          f"{float(cpu_out.mean_admission)})")
+    # the composed run decodes other tokens, so it sees other gate scores;
+    # card and CPU gates agree to about 1e-6 (logits to 1e-5), so a margin
+    # of 1e-4 still cannot flip an admission
+    margin_comp = min(float((g - tau).abs().min())
+                      for g in scores[n_plain:])
+    check(margin_comp >= 1e-4, f"substrate: composed-run gate margin "
+          f"{margin_comp:.2e} < 1e-4")
+    check(cpu_comp[4] > 0, "substrate: eviction never triggered")
+    n = cfg.n_layers
+    plain = compare("", I.DecodeOptions(), cpu_plain,
+                    {"vertical_slash": n, "paged_decode": n * steps,
+                     "paged_decode_selected": 0})
+    comp = compare(" (quest:2 + eviction)", composed, cpu_comp,
+                   {"vertical_slash": n, "paged_decode": 0,
+                    "paged_decode_selected": n * steps})
     stats = {"prompt_len": prompt.shape[1], "decode_steps": steps,
-             "tau_margin": margin, "mean_admission": adm,
-             "max_logit_err": err, "tokens": gpu_toks[0].tolist(),
-             "gcnt": gnode.gcnt[:, 0].tolist(), "launches": counts}
+             "tau_margin": margin, **plain,
+             "composed": {"selection": composed.selection_policy,
+                          "evict_hard_budget": composed.evict_hard_budget,
+                          "tau_margin": margin_comp,
+                          "min_topk_ub_gap": min(gaps), **comp}}
     print("substrate: " + json.dumps(stats))
+    return comp["launches"]
 
 
 def main() -> int:
@@ -738,6 +1072,7 @@ def main() -> int:
               "a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # 1. device
@@ -769,21 +1104,35 @@ def main() -> int:
     gf_bf16 = gated_flash_case(2048, "bfloat16", seed=8)
     gf_probe = gated_flash_case(32, "float32", seed=9)
     gf_probe_bf16 = gated_flash_case(32, "bfloat16", seed=10)
+    # the serving shape (C 128 = 8 pages, K 2) and the offline decode
+    # shape (C 1024 = 64 pages, K 8), each with the 256-token ring
+    sel_main = selected_case(2, 128, 256, 2, torch.float32, seed=11)
+    sel_bf16 = selected_case(2, 128, 256, 2, torch.bfloat16, seed=12)
+    sel_long = selected_case(1, 1024, 256, 8, torch.float32, seed=13)
+    sel_long_bf16 = selected_case(1, 1024, 256, 8, torch.bfloat16, seed=14)
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
                    ("paged_decode", pd_main), ("paged_decode", pd_bf16),
                    ("paged_decode", pd_big), ("vertical_slash", vs_main),
                    ("vertical_slash", vs_bf16), ("gated_flash", gf_main),
                    ("gated_flash", gf_bf16), ("gated_flash", gf_probe),
-                   ("gated_flash", gf_probe_bf16)):
+                   ("gated_flash", gf_probe_bf16),
+                   ("paged_decode_selected", sel_main),
+                   ("paged_decode_selected", sel_bf16),
+                   ("paged_decode_selected", sel_long),
+                   ("paged_decode_selected", sel_long_bf16)):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
-    # 4-8. the main paths, counts set to 0 just before each
+    # 4-10. the main paths, counts set to 0 just before each
     cli_counts = serve_cli(n_layers=28)
     long_counts = serve_long(card)
     cfg, params = full_model(seed=2)
-    prefill_counts = prefill_long(cfg, params)
+    base = prefill_long(cfg, params)
+    prefill_counts = base["counts"]
+    select_counts = decode_select(cfg, params, base)
+    del base
     forward_counts = forward_gated(cfg, params)
     del params
-    substrate()
+    compose_counts = serve_compose(card)
+    substrate_counts = substrate()
     attn = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "gate_mlp", "route": "cuda",
@@ -824,7 +1173,22 @@ def main() -> int:
                                  gf_probe_bf16["max_abs_err"]),
          "launches_serve_cli": cli_counts["gated_flash"],
          "bf16": gf_bf16, "probe": gf_probe, "probe_bf16": gf_probe_bf16},
+        {"name": "paged_decode_selected", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_decode.cu",
+         "replaces": "src/repro/kernels/paged_decode.py:133",
+         "launches": select_counts["paged_decode_selected"],
+         "max_abs_err": max(sel_main["max_abs_err"],
+                            sel_long["max_abs_err"]),
+         **{k: sel_main[k] for k in attn}, "shape": sel_main["shape"],
+         "full_read_ms": sel_main["full_read_ms"],
+         "max_abs_err_bf16": max(sel_bf16["max_abs_err"],
+                                 sel_long_bf16["max_abs_err"]),
+         "launches_serve_compose": compose_counts["paged_decode_selected"],
+         "launches_substrate": substrate_counts["paged_decode_selected"],
+         "bf16": sel_bf16, "offline": sel_long,
+         "offline_bf16": sel_long_bf16},
     ]
+    print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,18 @@
 // is copied into a pool. With no second segment this is exactly
 // paged_decode.
 //
+// The SELECTED variant replaces src/repro/kernels/paged_decode.py::
+// paged_decode_selected (Quest read-time selection, paper §5.4): the first
+// segment carries sel [N, K] logical page ids (ascending) and n_sel [N].
+// Page j of the walk is logical page sel[n, j], read through
+// table[n, logical], its tokens at positions logical * page + t masked to
+// lengths[n]; the walk stops at min(K, n_sel[n]). It shares the walk below
+// with paged_decode, so with the identity ids and K covering every page it
+// visits the same pages in the same order and its output is bitwise equal
+// to paged_decode's. A selected page at or past the stream's length (or
+// outside its table) is skipped: like a page past the length in the full
+// walk, it would add exactly 0 (m_safe, zero alpha).
+//
 // What bounds it on this card: bytes. Each stream reads its live K/V pages
 // once (hd * page * 2 values per page) for 4 * hd FLOPs per token, far
 // below the card's FLOP/byte ratio. At serving shapes there are only
@@ -48,6 +60,9 @@ struct Segment {
   const int* table;      // [N, max_pages]
   const int* lengths;    // [N]
   int max_pages;
+  const int* sel;        // [N, k_pages] logical page ids, or nullptr
+  const int* n_sel;      // [N] valid entries of sel
+  int k_pages;
 };
 
 template <typename T>
@@ -62,16 +77,25 @@ __device__ void attend(const Segment& seg, int n, int page, int hd,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int n_pages = len > 0 ? min(seg.max_pages, (len + page - 1) / page) : 0;
-  for (int j = 0; j < n_pages; ++j) {
-    const size_t base = (size_t)table[j] * page * hd;
+  const int* sel =
+      seg.sel != nullptr ? seg.sel + (size_t)n * seg.k_pages : nullptr;
+  const int n_walk = sel != nullptr
+      ? min(seg.k_pages, seg.n_sel[n])
+      : (len > 0 ? min(seg.max_pages, (len + page - 1) / page) : 0);
+  for (int j = 0; j < n_walk; ++j) {
+    const int logical = sel != nullptr ? sel[j] : j;
+    // uniform over the block, so no thread skips a barrier alone
+    if (logical < 0 || logical >= seg.max_pages || logical * page >= len)
+      continue;
+    const size_t base = (size_t)table[logical] * page * hd;
     const T* kp = kpool + base;
     const T* vp = vpool + base;
     for (int t = warp; t < page; t += nwarps) {
       float part = 0.f;
       for (int d = lane; d < hd; d += 32) part += q_s[d] * to_f(kp[t * hd + d]);
       for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-      if (lane == 0) s_sh[t] = (j * page + t < len) ? part * scale : NEG_INF;
+      if (lane == 0)
+        s_sh[t] = (logical * page + t < len) ? part * scale : NEG_INF;
     }
     __syncthreads();
     float m_tile = NEG_INF;
@@ -126,21 +150,11 @@ __global__ void paged_decode_kernel(const T* __restrict__ q, Segment s1,
   }
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. k2 == nullptr means one segment.
-extern "C" int paged_decode(const void* q,
-                            const void* k1, const void* v1, const int* table1,
-                            const int* lengths1, int max_pages1,
-                            const void* k2, const void* v2, const int* table2,
-                            const int* lengths2, int max_pages2,
-                            void* out, int N, int hd, int page, int dtype,
-                            void* stream) {
+int launch(const void* q, const Segment& s1, const Segment& s2, void* out,
+           int N, int hd, int page, int dtype, void* stream) {
   if (N <= 0) return 0;
   if (hd <= 0 || hd > MAX_HD || page <= 0) return (int)cudaErrorInvalidValue;
-  Segment s1{k1, v1, table1, lengths1, max_pages1};
-  Segment s2{k2, v2, table2, lengths2, max_pages2};
-  const int has_second = k2 != nullptr ? 1 : 0;
+  const int has_second = s2.k != nullptr ? 1 : 0;
   const size_t smem = (size_t)(hd + page) * sizeof(float);
   const float scale = 1.f / sqrtf((float)hd);
   cudaStream_t st = (cudaStream_t)stream;
@@ -156,4 +170,37 @@ extern "C" int paged_decode(const void* q,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. k2 == nullptr means one segment.
+extern "C" int paged_decode(const void* q,
+                            const void* k1, const void* v1, const int* table1,
+                            const int* lengths1, int max_pages1,
+                            const void* k2, const void* v2, const int* table2,
+                            const int* lengths2, int max_pages2,
+                            void* out, int N, int hd, int page, int dtype,
+                            void* stream) {
+  const Segment s1{k1, v1, table1, lengths1, max_pages1, nullptr, nullptr, 0};
+  const Segment s2{k2, v2, table2, lengths2, max_pages2, nullptr, nullptr, 0};
+  return launch(q, s1, s2, out, N, hd, page, dtype, stream);
+}
+
+// The first segment read through sel [N, k_pages] / n_sel [N]; the
+// optional second segment (the ring) is read whole, as in paged_decode.
+extern "C" int paged_decode_selected(const void* q,
+                                     const void* k1, const void* v1,
+                                     const int* table1, const int* lengths1,
+                                     int max_pages1, const int* sel,
+                                     const int* n_sel, int k_pages,
+                                     const void* k2, const void* v2,
+                                     const int* table2, const int* lengths2,
+                                     int max_pages2, void* out, int N, int hd,
+                                     int page, int dtype, void* stream) {
+  if (sel == nullptr || n_sel == nullptr || k_pages <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Segment s1{k1, v1, table1, lengths1, max_pages1, sel, n_sel, k_pages};
+  const Segment s2{k2, v2, table2, lengths2, max_pages2, nullptr, nullptr, 0};
+  return launch(q, s1, s2, out, N, hd, page, dtype, stream);
 }

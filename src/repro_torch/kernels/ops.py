@@ -1,6 +1,7 @@
 """Model-level folds around the kernels (port of ``repro/kernels/ops.py``
 minus the recurrence): GQA head folding, the write-gate batch fold, and
-the dual cache viewed as two paged segments.
+the dual cache viewed as two paged segments, read whole or through the
+Quest-selected pages of its global segment.
 
 The GQA fold keeps the reference's stream order ``(b, kv head, group)``
 (``q.reshape(b, hkv, g, s, hd)``) but does not repeat K, V, the gates or
@@ -16,7 +17,8 @@ import torch
 from repro_torch.core.selection import PAGE_SIZE
 from repro_torch.kernels.gate_mlp import gate_mlp
 from repro_torch.kernels.gated_flash import gated_flash
-from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.paged_decode import (paged_decode,
+                                              paged_decode_selected)
 from repro_torch.kernels.vertical_slash import vertical_slash
 
 
@@ -121,3 +123,20 @@ def dual_cache_attention(q, cache):
     q: [B, Hq, hd] -> [B, Hq, hd]."""
     qf, first, second = dual_cache_segments(q, cache)
     return paged_decode(qf, *first, second=second).reshape(q.shape)
+
+
+def dual_cache_selected_attention(q, cache, ids, n_sel):
+    """:func:`dual_cache_attention` with Quest read-time selection: the
+    global segment is read through only the pages ``ids`` [B, Hkv, K]
+    int32 (ascending logical page ids per kv head, the first ``n_sel``
+    [B, Hkv] valid), the local ring whole, in one softmax. The ids are
+    repeated per GQA group as the tables are. q: [B, Hq, hd] ->
+    [B, Hq, hd]."""
+    qf, first, second = dual_cache_segments(q, cache)
+    b, hkv, k = ids.shape
+    g = q.shape[1] // hkv
+    sel = ids.reshape(b * hkv, k).repeat_interleave(g, dim=0)
+    n = n_sel.reshape(b * hkv).repeat_interleave(g)
+    return paged_decode_selected(qf, *first, sel.contiguous(),
+                                 n.contiguous(),
+                                 second=second).reshape(q.shape)

@@ -29,6 +29,29 @@ def paged_decode_ref(q, k_pool, v_pool, page_table, lengths):
     return torch.einsum("nk,nkd->nd", w.to(v.dtype), v)
 
 
+def paged_decode_selected_ref(q, k_pool, v_pool, page_table, lengths,
+                              sel_ids, n_sel):
+    """Quest-selected paged decode: like :func:`paged_decode_ref` but only
+    the pages listed in ``sel_ids`` [N, K] (logical page indices, the
+    first ``n_sel[n]`` valid) contribute; token positions come from the
+    logical ids, masked to ``lengths``."""
+    n, hd = q.shape
+    _, page, _ = k_pool.shape
+    kp = sel_ids.shape[1]
+    phys = torch.gather(page_table, 1, sel_ids).long()           # [N, K]
+    k = k_pool[phys].reshape(n, kp * page, hd)
+    v = v_pool[phys].reshape(n, kp * page, hd)
+    pos = (sel_ids[:, :, None] * page
+           + torch.arange(page, device=q.device)[None, None]).reshape(n, -1)
+    page_ok = torch.arange(kp, device=q.device)[None] < n_sel[:, None]
+    valid = (pos < lengths[:, None]) & page_ok.repeat_interleave(page, dim=1)
+    logits = torch.einsum("nd,nkd->nk", q, k).float() * (hd ** -0.5)
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(valid, w, torch.zeros_like(w))
+    return torch.einsum("nk,nkd->nd", w.to(v.dtype), v)
+
+
 def gate_mlp_ref(x, w1, b1, w2, b2):
     """Write-Gate MLP. x: [H, S, F]; w1: [H, F, M]; w2: [H, M, 1].
     Returns g [H, S] in (0, 1), float32. GELU in its tanh form, as

@@ -7,6 +7,8 @@ admission-aware telemetry.
         --arch qwen3-0.6b --requests 4 --max-new 16 --quiet-stream
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-0.6b --reduced --device cpu --requests 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --selection quest:2 --evict-budget 96 --prompt-len 384
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator``;
 prompts are drawn with numpy from the same seed. Flags of the reference
@@ -73,11 +75,8 @@ def tau_probe(params, cfg, *, prompt_len: int, seed: int,
 
 
 _UNPORTED = {
-    "selection": "--selection (decode-time page selection)",
     "prefix_cache": "--prefix-cache (content-addressed prefix store)",
     "mesh": "--mesh (multi-device serving)",
-    "quest_pages": "--quest-pages (Quest mask selection)",
-    "evict_budget": "--evict-budget (SnapKV eviction)",
 }
 
 
@@ -98,7 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prefill chunk per scheduler tick")
     ap.add_argument("--max-prefill-batch", type=int, default=None,
                     help="cap on prefill tasks advanced per tick")
-    ap.add_argument("--selection", default=None, metavar="quest:K")
+    ap.add_argument("--selection", default=None, metavar="quest:K",
+                    help="decode-time page selection: on decode-only "
+                         "ticks read only the top-K global pages per "
+                         "(row, kv head)")
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--prefix-cache-mb", type=int, default=256)
     ap.add_argument("--dispatch-ahead", type=int, default=1,
@@ -107,8 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--deadline-s", type=float, default=None)
     ap.add_argument("--max-pending", type=int, default=None)
     ap.add_argument("--mesh", default=None, metavar="DxM")
-    ap.add_argument("--quest-pages", type=int, default=None)
-    ap.add_argument("--evict-budget", type=int, default=None)
+    ap.add_argument("--quest-pages", type=int, default=None,
+                    help="Quest selection as a page mask on every step")
+    ap.add_argument("--evict-budget", type=int, default=None,
+                    help="SnapKV eviction bound (global tokens per head)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quiet-stream", action="store_true",
@@ -157,8 +161,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     if cfg.wgkv.enabled:
         tau_probe(params, cfg, prompt_len=args.prompt_len, seed=args.seed,
                   device=device)
+    opts = I.DecodeOptions(quest_pages=args.quest_pages,
+                           evict_hard_budget=args.evict_budget)
     eng = make_backend(args.backend, params, cfg, slots=args.slots,
-                       capacity=args.capacity, opts=I.DecodeOptions(),
+                       capacity=args.capacity, opts=opts,
+                       selection=args.selection,
                        temperature=args.temperature, seed=args.seed,
                        pool_pages=pool_pages_for(cfg, args.slots,
                                                  args.capacity),

@@ -20,8 +20,9 @@ def build_decode_caches(cfg: ModelConfig, batch: int, capacity: int, *,
                         device=None) -> Dict[str, Any]:
     """Empty decode cache tree ``{"t", "blocks": {"b0": DualCache}}`` with
     block leaves stacked ``[n_repeats, batch, ...]``. Only the write-gated
-    dual cache of ``"attn"`` blocks is ported (the dense cache and the
-    eviction ``obs`` subtree are not)."""
+    dual cache of ``"attn"`` blocks is ported (the dense cache is not).
+    The eviction ``obs`` subtree is added by the caller that evicts
+    (``inference._init_obs_tree``), as in the reference."""
     if cfg.stem_pattern or any(bt != "attn" for bt in cfg.block_pattern):
         raise NotImplementedError(
             f"decode caches for pattern {cfg.block_pattern} (stem "
@@ -40,8 +41,11 @@ def build_decode_caches(cfg: ModelConfig, batch: int, capacity: int, *,
 
 def cache_batch_axis(path) -> int:
     """Batch axis of a decode-cache leaf given its tree path: stacked
-    per-superblock caches carry [n_repeats, B, ...]; ``t`` is
+    per-superblock caches carry [n_repeats, B, ...]; the eviction
+    observation tree is [n_repeats, n_attn, B, ...]; ``t`` is
     batch-leading."""
+    if "obs" in path:
+        return 2
     return 1 if "blocks" in path else 0
 
 

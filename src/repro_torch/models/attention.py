@@ -8,12 +8,14 @@ Modes:
   * prefill — budgeted vertical-slash attention (paper §4.2): each query
     sees its local window and up to ``budget`` admitted tokens older than
     the window; its K/V/gates populate the dual cache.
-  * decode — one token against the dual cache with lazy promotion.
+  * decode — one token against the dual cache with lazy promotion,
+    optionally reading only Quest-selected pages of the global cache.
 
 On CUDA the gate runs in the ``gate_mlp`` kernel, gated training
 attention in ``gated_flash``, the budgeted prefill in ``vertical_slash``
 and the decode read over [admitted global ‖ local ring] in the
-two-segment ``paged_decode`` kernel, straight from the cache buffers; on
+two-segment ``paged_decode`` kernel (``paged_decode_selected`` under
+Quest selection), straight from the cache buffers; on
 the CPU each wrapper runs its plain PyTorch version. The teacher and hard
 modes run :func:`sdpa` (an einsum and a softmax) on either device, as the
 reference computes them outside any Pallas kernel.
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import masks as M
+from repro_torch.core import selection as SEL
 from repro_torch.core.admission import GlobalSelection, select_global
 from repro_torch.core.dual_cache import DualCache, lazy_promote_and_write
 from repro_torch.core.gate import gate_scores, init_gate
@@ -239,8 +242,11 @@ def _rope_single(cfg: ModelConfig, x: torch.Tensor,
 
 def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
                      cache: DualCache, *,
-                     gate_override: Optional[torch.Tensor] = None
-                     ) -> Tuple[torch.Tensor, DualCache, torch.Tensor]:
+                     gate_override: Optional[torch.Tensor] = None,
+                     token_select_fn: Optional[Callable] = None,
+                     select_pages_k: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, DualCache, torch.Tensor,
+                                Optional[torch.Tensor]]:
     """One decode step against the dual cache. x_t: [B, D].
 
     The cache is updated FIRST (the victim at age W promoted iff
@@ -248,7 +254,24 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     over the updated cache, so the just-written token is visible — the
     reference's order (``attention.py:393-394``).
 
-    Returns (out [B, D], new cache, g_new [B, Hkv])."""
+    Read-time Selection (Quest, paper §5.4) restricts the global segment
+    of the read to some of its pages; the ring is always read whole:
+
+    * ``select_pages_k`` (gather): score the cache's incremental page
+      metadata against the live query and read only the top-K pages.
+      With K covering every page the ascending ids are the identity and
+      the output is bitwise equal to the full read.
+    * ``token_select_fn(cache, q) -> [B, Hkv, P] bool`` (mask): the
+      global pages to read. The reference's callable returns a token
+      mask and masks a full-width read; the port's returns the page mask
+      it is made of (``inference._quest_mask``) and reads the selected
+      pages through the same kernel as gather mode.
+
+    The two are exclusive, and both need a page-aligned global budget.
+
+    Returns (out [B, D], new cache, g_new [B, Hkv], sel_pages) where
+    sel_pages is [B, Hkv] int32 valid selected-page counts of the gather
+    mode (None otherwise)."""
     b, _ = x_t.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x_t[:, None, :]
@@ -266,6 +289,25 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
                             k_new[:, :, None])[..., 0]
     new_cache = lazy_promote_and_write(cache, k_new, v_new, g_new,
                                        tau=cfg.wgkv.tau)
-    o = ops.dual_cache_attention(q, new_cache)                   # [B,Hq,hd]
+    sel_pages = None
+    if select_pages_k is None and token_select_fn is None:
+        o = ops.dual_cache_attention(q, new_cache)               # [B,Hq,hd]
+    else:
+        if select_pages_k is not None and token_select_fn is not None:
+            raise ValueError("mask and gather selection are exclusive")
+        c = new_cache.budget
+        if c % SEL.PAGE_SIZE:
+            raise ValueError(f"Quest selection needs a page-aligned global "
+                             f"budget, got C={c}")
+        if select_pages_k is not None:
+            meta = SEL.PageMeta(
+                new_cache.pkmin, new_cache.pkmax,
+                SEL.page_valid_from_count(new_cache.gcnt,
+                                          c // SEL.PAGE_SIZE))
+            ids, sel_pages = SEL.topk_page_ids(q, meta, select_pages_k)
+            n_sel = sel_pages
+        else:
+            ids, n_sel = SEL.page_ids_from_mask(token_select_fn(new_cache, q))
+        o = ops.dual_cache_selected_attention(q, new_cache, ids, n_sel)
     y = o.reshape(b, hq * hd) @ p["w_o"].to(x_t.dtype)
-    return y, new_cache, g_new
+    return y, new_cache, g_new, sel_pages

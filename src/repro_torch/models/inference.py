@@ -7,9 +7,16 @@ continues from its caches. The serving engine instead ingests prompts
 position by position through :func:`prefill_extend_ragged`.
 
 Cache tree, as in the reference: ``{"t": [B] int32, "blocks": {"b0":
-DualCache}}`` with every DualCache leaf stacked ``[n_repeats, B, ...]``.
-Updates are functional — each step returns a new tree and leaves its
-input untouched.
+DualCache}, "obs": ObsWindow}`` with every DualCache leaf stacked
+``[n_repeats, B, ...]`` and the eviction observation window (only when
+eviction is on) stacked ``[n_repeats, n_attn, B, ...]``. Updates are
+functional — each step returns a new tree and leaves its input untouched.
+
+Composability (paper §5.4): ``DecodeOptions.quest_pages`` applies Quest
+read-time selection as a page MASK, ``selection_policy = "quest:K"`` as a
+GATHER of the top-K pages; on the port both read only the selected pages
+through the ``paged_decode_selected`` kernel. ``evict_hard_budget``
+applies SnapKV-style eviction when a head's global count hits the bound.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import eviction as EV
+from repro_torch.core import selection as SEL
 from repro_torch.core.dual_cache import (DualCache, init_dual_cache,
                                          prefill_populate)
 from repro_torch.device import host_to_device, torch_dtype
@@ -27,7 +36,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_check_supported, _norm,
                                             layer_params)
-from repro_torch.tree import tree_map_with_path
+from repro_torch.tree import tree_map, tree_map_with_path
 
 Params = Dict[str, Any]
 CacheTree = Dict[str, Any]
@@ -35,21 +44,33 @@ CacheTree = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class DecodeOptions:
-    """Decode-time options. The port serves the learned write gate with
-    full attention over the dual cache; the reference's composition
-    options (Quest mask/gather selection, SnapKV eviction, static
-    admission) are not ported yet and raise when set."""
-    quest_pages: Optional[int] = None
+    """Decode-time options, as in the reference. Static admission
+    (``admission_policy``) is not ported yet and raises when set."""
+    quest_pages: Optional[int] = None      # read-time Selection, MASK mode
+    # gathered read-time Selection: None | "quest:K" (top-K pages read;
+    # parse_selection_policy)
     selection_policy: Optional[str] = None
-    evict_hard_budget: Optional[int] = None
+    evict_hard_budget: Optional[int] = None  # Eviction bound (tokens/head)
+    evict_frac: float = 0.10
+    w_obs: int = 256
     admission_policy: Optional[str] = None
 
     def __post_init__(self):
-        for f in dataclasses.fields(self):
-            if getattr(self, f.name) is not None:
-                raise NotImplementedError(
-                    f"DecodeOptions.{f.name} is not ported to repro_torch "
-                    "yet (see ROADMAP.md)")
+        if self.admission_policy is not None:
+            raise NotImplementedError(
+                "DecodeOptions.admission_policy is not ported to repro_torch "
+                "yet (see ROADMAP.md)")
+
+
+def parse_selection_policy(policy: Optional[str]) -> Optional[int]:
+    """"quest:K" -> K (page budget); None -> None."""
+    if policy is None:
+        return None
+    kind, _, arg = policy.partition(":")
+    if kind != "quest" or not arg.isdigit() or int(arg) < 1:
+        raise ValueError(
+            f"unknown selection policy {policy!r} (expected 'quest:K')")
+    return int(arg)
 
 
 def _split_layers(node: DualCache) -> List[DualCache]:
@@ -88,15 +109,17 @@ def _attn_block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            use_wgkv: Optional[bool] = None, budget: Optional[int] = None
+            use_wgkv: Optional[bool] = None, budget: Optional[int] = None,
+            opts: DecodeOptions = DecodeOptions()
             ) -> Tuple[PrefillOut, CacheTree]:
     """Budgeted vertical-slash prefill of tokens [B, S] (S a multiple of
     W). Every layer's dual cache is filled at once and stacked
     ``[n_repeats, B, ...]``, so :func:`decode_step` continues from the
     returned tree. ``budget`` defaults to the config's global budget at
     S. On CUDA each layer runs the ``gate_mlp`` and
-    ``vertical_slash`` kernels. The reference's decode-time ``opts``
-    (static admission, eviction) are not ported, so there are none."""
+    ``vertical_slash`` kernels. With ``opts.evict_hard_budget`` the tree
+    carries an empty eviction observation window (``"obs"``) for the
+    decode steps that follow."""
     _check_supported(cfg)
     if use_wgkv is None:
         use_wgkv = cfg.wgkv.enabled
@@ -126,9 +149,36 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     caches: CacheTree = {
         "t": torch.full((b,), s, dtype=torch.int32, device=x.device),
         "blocks": {k: _stack_layers(v) for k, v in per_block.items()}}
+    if opts.evict_hard_budget is not None:
+        caches["obs"] = _init_obs_tree(cfg, b, opts, x.device)
     hidden = _norm(cfg, params["ln_f"], x)
     logits = L.unembed(params["embed"], hidden[:, -1])
     return PrefillOut(logits, hidden, adm_sum / adm_n), caches
+
+
+def _init_obs_tree(cfg: ModelConfig, b: int, opts: DecodeOptions,
+                   device=None) -> EV.ObsWindow:
+    """Empty observation windows stacked ``[n_repeats, n_attn, B, ...]``."""
+    one = EV.init_obs(b, cfg.n_heads, cfg.head_dim, opts.w_obs,
+                      torch_dtype(cfg.dtype), device=device)
+    lead = (cfg.n_repeats, cfg.attn_blocks_per_pattern)
+    return tree_map(lambda x: x[None, None].expand(lead + x.shape)
+                    .contiguous(), one)
+
+
+def _quest_mask(cfg: ModelConfig, cache: DualCache, q: torch.Tensor,
+                pages: int) -> torch.Tensor:
+    """Read-time Selection over the global cache as a page mask
+    [B, Hkv, P] (the ring is always read): the top ``pages`` pages by
+    their upper bound, ties at the threshold included, scored from the
+    incrementally maintained page metadata. The reference returns the
+    token mask ``token_mask_from_pages(mask) & gvalid`` joined with an
+    all-visible ring; the port reads the pages themselves. The budget is
+    page-aligned (``attn_decode_wgkv`` checks it)."""
+    meta = SEL.PageMeta(cache.pkmin, cache.pkmax,
+                        SEL.page_valid_from_count(
+                            cache.gcnt, cache.budget // SEL.PAGE_SIZE))
+    return SEL.select_pages(q, meta, pages)
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -137,8 +187,17 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, CacheTree, Dict[str, torch.Tensor]]:
     """token: [B] int -> (logits [B, V], new caches, stats). ``layers``
     may pass precomputed per-layer parameter views
-    (:func:`repro_torch.models.transformer.layer_params`)."""
-    del opts  # every supported option is the default
+    (:func:`repro_torch.models.transformer.layer_params`).
+
+    Per attention layer: the decode read (with Quest selection when
+    ``opts`` asks), then, when the tree carries ``"obs"`` and
+    ``opts.evict_hard_budget`` is set, the layer's observation window
+    takes the step's query (``x @ w_q`` split into heads, before qk-norm
+    and RoPE, as the reference) and ``maybe_evict`` runs. Stats are per
+    row: ``evict_trigger_rows`` (triggered fraction of kv heads, summed
+    over layers) and ``selected_pages_rows`` (valid gathered pages, mean
+    over kv heads, summed over layers; zeros without gather
+    selection)."""
     dt = torch_dtype(cfg.dtype)
     if layers is None:
         layers = layer_params(params, cfg)
@@ -148,31 +207,62 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     per_block = {f"b{i}": _split_layers(caches["blocks"][f"b{i}"])
                  for i in range(len(cfg.block_pattern))}
     new_block = {k: [] for k in per_block}
+    obs = caches.get("obs")
+    evict = obs is not None and opts.evict_hard_budget is not None
+    new_obs: List[List[EV.ObsWindow]] = []
+    sel_fn = None
+    if opts.quest_pages is not None:
+        def sel_fn(cache, q):
+            return _quest_mask(cfg, cache, q, opts.quest_pages)
+    sel_k = parse_selection_policy(opts.selection_policy)
     adm_sum = torch.zeros((b,), dtype=torch.float32, device=dev)
+    trig_sum = torch.zeros_like(adm_sum)
+    sel_sum = torch.zeros_like(adm_sum)
     adm_n = 0
     for r in range(cfg.n_repeats):
+        row_obs = []
         for i, _bt in enumerate(cfg.block_pattern):
             key = f"b{i}"
             p = layers[r][key]
             xin = _norm(cfg, p["ln1"], x)
-            h, nc, g_new = A.attn_decode_wgkv(p["attn"], cfg, xin,
-                                              per_block[key][r])
-            new_block[key].append(nc)
+            h, nc, g_new, sel_pages = A.attn_decode_wgkv(
+                p["attn"], cfg, xin, per_block[key][r],
+                token_select_fn=sel_fn, select_pages_k=sel_k)
             adm_sum = adm_sum + (g_new >= cfg.wgkv.tau).float().mean(dim=-1)
             adm_n += 1
+            if sel_pages is not None:
+                sel_sum = sel_sum + sel_pages.float().mean(dim=-1)
+            if evict:
+                ob = EV.ObsWindow(*(leaf[r, i] for leaf in obs))
+                q_obs = A._heads(xin[:, None] @ p["attn"]["w_q"].to(
+                    xin.dtype), cfg.n_heads, cfg.head_dim)[:, :, 0]
+                ob = EV.push_query(ob, q_obs)
+                nc, trg = EV.maybe_evict(
+                    nc, ob, hard_budget=opts.evict_hard_budget,
+                    evict_frac=opts.evict_frac)
+                trig_sum = trig_sum + trg.float().mean(dim=-1)
+                row_obs.append(ob)
+            new_block[key].append(nc)
             x = x + h
             x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+        new_obs.append(row_obs)
     hidden = _norm(cfg, params["ln_f"], x)
     logits = L.unembed(params["embed"], hidden)
     new_caches: CacheTree = {
         "t": caches["t"] + 1,
         "blocks": {k: _stack_layers(v) for k, v in new_block.items()}}
-    zeros = torch.zeros((b,), dtype=torch.float32, device=dev)
+    if evict:
+        new_caches["obs"] = EV.ObsWindow(*(
+            torch.stack([torch.stack([getattr(ob, f) for ob in row])
+                         for row in new_obs])
+            for f in EV.ObsWindow._fields))
+    elif obs is not None:
+        new_caches["obs"] = obs
     return logits, new_caches, {
-        "evict_triggers": zeros.mean(),
-        "evict_trigger_rows": zeros,
+        "evict_triggers": trig_sum.mean(),
+        "evict_trigger_rows": trig_sum,
         "mean_admission": adm_sum / max(adm_n, 1),
-        "selected_pages_rows": zeros}
+        "selected_pages_rows": sel_sum}
 
 
 def prefill_extend_ragged(params: Params, cfg: ModelConfig,

@@ -257,15 +257,22 @@ def make_backend(name: str, params, cfg, **kw) -> EngineBackend:
     """Construct a registered backend by name.
 
     Keyword args: ``slots``, ``capacity``, ``opts``, ``eos``,
-    ``temperature``, ``seed``, ``pool_pages``, ``mirror_paged`` and
-    ``device`` (default ``cuda``; ``"cpu"`` runs the plain PyTorch path).
-    Only ``"wgkv"`` is ported; the dense and static-admission baselines,
-    decode selection and meshes raise :class:`NotImplementedError`.
+    ``temperature``, ``seed``, ``pool_pages``, ``mirror_paged``,
+    ``device`` (default ``cuda``; ``"cpu"`` runs the plain PyTorch path)
+    and ``selection`` (a decode-time page-selection policy, ``"quest:K"``,
+    folded into ``opts.selection_policy``). Only ``"wgkv"`` is ported;
+    the dense and static-admission baselines and meshes raise
+    :class:`NotImplementedError`.
     """
-    for opt in ("selection", "mesh"):
-        if kw.pop(opt, None) is not None:
-            raise NotImplementedError(f"make_backend({opt}=...) is not "
-                                      "ported to repro_torch yet")
+    if kw.pop("mesh", None) is not None:
+        raise NotImplementedError("make_backend(mesh=...) is not ported to "
+                                  "repro_torch yet")
+    selection = kw.pop("selection", None)
+    if selection is not None:
+        from repro_torch.models import inference as I
+        I.parse_selection_policy(selection)  # fail fast on a bad spec
+        kw["opts"] = dataclasses.replace(kw.get("opts") or I.DecodeOptions(),
+                                         selection_policy=selection)
     if name == "wgkv":
         from repro_torch.serving.engine import Engine
         return Engine(params, cfg, **kw)

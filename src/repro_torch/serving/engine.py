@@ -16,8 +16,14 @@ protocol the orchestrator schedules:
     ``_tok_dev`` stays a device tensor, so a second step can be
     dispatched before the first is collected (PyTorch enqueues CUDA work
     asynchronously).
+    On a DECODE-ONLY tick an engine configured with
+    ``DecodeOptions.selection_policy = "quest:K"`` runs the Quest
+    selection variant of the same step, whose decode read walks only the
+    top-K global pages per (row, kv head) through the
+    ``paged_decode_selected`` kernel; mixed ticks run the full path.
   * ``collect(step)`` — the one host sync: pull sampled tokens and per-row
-    stats, apply the paged-mirror delta.
+    stats, apply the paged-mirror delta (a full re-sync of a row's global
+    streams after a SnapKV eviction compacted them).
   * ``start_prefill`` / ``finish_prefill`` / ``prefill`` / ``insert`` —
     the offline batch-1 prefix surface.
   * ``free_slot(slot)`` — release the slot and its pool pages.
@@ -27,11 +33,12 @@ protocol the orchestrator schedules:
 
 Cache trees are never updated in place (every step returns a new tree),
 so an in-flight step's ``before``/``after`` trees stay valid for the
-mirror. Not ported yet: decode selection, SnapKV eviction, the prefix
-store, meshes and the legacy ``add_request``/``step``/``run`` loop.
+mirror. Not ported yet: the prefix store, meshes and the legacy
+``add_request``/``step``/``run`` loop.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -75,6 +82,15 @@ class Engine:
         self.slots = slots
         self.capacity = capacity
         self.opts = opts or I.DecodeOptions()
+        # decode-time page selection: the base opts run the full path
+        # (prefill chunks and mixed ticks see every admitted token); the
+        # policy applies only on decode-only ticks (``_sel_opts``)
+        self.selection = self.opts.selection_policy
+        self._sel_k = I.parse_selection_policy(self.selection)
+        self._sel_opts = None
+        if self.selection is not None:
+            self._sel_opts = self.opts
+            self.opts = dataclasses.replace(self.opts, selection_policy=None)
         self.eos = eos
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device)
@@ -98,6 +114,10 @@ class Engine:
         self._empty_tree = None
         # host cache of per-row resident KV tokens, refreshed at collect
         self._kv_rows = np.zeros((slots,), np.float64)
+        # an eviction trigger fired since the row opened (eviction
+        # compacts the global cache; the prefix store, not ported yet,
+        # reads this to pick the full re-mirror at a prefix-hit finish)
+        self._slot_evicted: List[bool] = [False] * slots
         self.stats = {"steps": 0, "evict_triggers": 0.0, "decode_adm_sum": 0.0,
                       "extend_time_s": 0.0, "extend_tokens": 0.0,
                       "fused_steps": 0.0, "fused_time_s": 0.0,
@@ -114,7 +134,7 @@ class Engine:
         return BackendCapabilities(
             name="wgkv", gated=True, paged=self.mirror,
             description="write-gated dual cache (learned admission)",
-            sharded=False, selection=None)
+            sharded=False, selection=self.selection)
 
     def memory_snapshot(self) -> Dict[str, float]:
         """Resident logical KV tokens/bytes over live slots, plus physical
@@ -160,9 +180,16 @@ class Engine:
     def _fresh_task_caches(self):
         """Batch-1 EMPTY decode-cache tree (shared: never mutated)."""
         if self._empty_tree is None:
-            self._empty_tree = build_decode_caches(
-                self.cfg, 1, self.capacity, device=self.device)
+            self._empty_tree = self._build_empty_caches()
         return self._empty_tree
+
+    def _build_empty_caches(self):
+        caches = build_decode_caches(self.cfg, 1, self.capacity,
+                                     device=self.device)
+        if self.opts.evict_hard_budget is not None:
+            caches["obs"] = I._init_obs_tree(self.cfg, 1, self.opts,
+                                             self.device)
+        return caches
 
     def _stack_rows(self, trees):
         out = alloc_batched_caches(trees[0], len(trees))
@@ -269,7 +296,7 @@ class Engine:
     # fused megabatch tick
     # ------------------------------------------------------------------
     def _fused(self, toks: np.ndarray, lengths: np.ndarray,
-               use_dev: np.ndarray, caches):
+               use_dev: np.ndarray, caches, opts: I.DecodeOptions):
         """The fused step: ragged extend over the persistent batched tree
         with decode rows fed from the on-device sampled vector, sampling
         and per-row resident-token counts on the device too."""
@@ -277,7 +304,7 @@ class Engine:
         use = host_to_device(use_dev, self.device)
         tokens[:, 0] = torch.where(use, self._tok_dev, tokens[:, 0])
         last_logits, caches, st = I.prefill_extend_ragged(
-            self.params, self.cfg, tokens, lengths, caches, opts=self.opts)
+            self.params, self.cfg, tokens, lengths, caches, opts=opts)
         sampled = sample(self.generator, last_logits,
                          temperature=self.temperature)
         kv_rows = self._kv_tokens_device(caches)
@@ -341,10 +368,19 @@ class Engine:
             "stale last_token on a dead row"
         self.stats["fused_slot_rows"] += float(self.slots)
         self.stats["fused_active_rows"] += float(int((lengths > 0).sum()))
+        # decode-only ticks run the Quest selection variant when
+        # configured; any prompt chunk aboard forces the full path
+        use_sel = self._sel_opts is not None and not tasks
         before = self.caches
         with self.tracer.device_scope("fused_step"):
-            _logits, self.caches, st = self._fused(toks, lengths, use_dev,
-                                                   before)
+            if use_sel:
+                with self.tracer.span("selection", k=self._sel_k,
+                                      rows=len(decode_rows)):
+                    _logits, self.caches, st = self._fused(
+                        toks, lengths, use_dev, before, self._sel_opts)
+            else:
+                _logits, self.caches, st = self._fused(
+                    toks, lengths, use_dev, before, self.opts)
         sampled = st["sampled"]
         finishing = []
         for t, take in zip(tasks, takes):
@@ -369,7 +405,7 @@ class Engine:
             live=tuple(self.live), gen=tuple(self._slot_gen),
             tasks=tuple(tasks), takes=tuple(takes), fulls=tuple(fulls),
             finishing=tuple(finishing), decode_rows=decode_rows,
-            had_prefill=bool(tasks), t_dispatch=t0, selection=False)
+            had_prefill=bool(tasks), t_dispatch=t0, selection=use_sel)
 
     def collect(self, step: FusedStep) -> Dict[int, int]:
         """Synchronize one in-flight fused step: pull its sampled tokens
@@ -379,18 +415,26 @@ class Engine:
         still owned by the request the step was dispatched for."""
         assert not step.collected, "in-flight step collected twice"
         step.collected = True
-        nxt, trig, adm, kvr = (_host(x) for x in (
+        nxt, trig, adm, selp, kvr = (_host(x) for x in (
             step.tokens, step.stats["evict_trigger_rows"],
-            step.stats["adm_sum_rows"], step.stats["kv_tokens_rows"]))
+            step.stats["adm_sum_rows"], step.stats["selected_pages_rows"],
+            step.stats["kv_tokens_rows"]))
         for sl in range(self.slots):
             if self._slot_gen[sl] == step.gen[sl]:
                 self._kv_rows[sl] = float(kvr[sl])
+            if trig[sl] > 0:
+                self._slot_evicted[sl] = True
         wall = time.perf_counter() - step.t_dispatch
         self.stats["fused_steps"] += 1
         self.stats["fused_time_s"] += wall
         if step.had_prefill:
             self.stats["fused_prefill_time_s"] += wall
             self.stats["fused_prefill_tokens"] += float(sum(step.takes))
+        if step.selection:
+            self.stats["selection_time_s"] += wall
+            if step.decode_rows:
+                self.stats["selected_pages"] += float(
+                    selp[list(step.decode_rows)].sum())
         self.stats["evict_triggers"] += float(trig.sum())
         for t, take, full in zip(step.tasks, step.takes, step.fulls):
             t.adm_weighted += self._extend_admission(adm[t.slot], take,
@@ -409,7 +453,8 @@ class Engine:
                     self._mirror_prefill(
                         t.slot, extract_slot_caches(step.after, t.slot))
             if rows:
-                self._mirror_decode(step.before, step.after, rows=rows)
+                self._mirror_decode(step.before, step.after, rows=rows,
+                                    evicted_rows=trig > 0)
         out: Dict[int, int] = {}
         for t, fin in zip(step.tasks, step.finishing):
             if fin and self._slot_gen[t.slot] == step.gen[t.slot]:
@@ -432,6 +477,7 @@ class Engine:
         self.last_token[slot] = 0
         self._set_tok(slot, 0)
         self._kv_rows[slot] = 0.0
+        self._slot_evicted[slot] = False
         if self.mirror and self.caches is not None:
             for lkey in self._layer_keys():
                 for h in range(self.cfg.n_kv_heads):
@@ -468,18 +514,28 @@ class Engine:
                                           lv[r, 0, h, :n_local])
 
     def _mirror_decode(self, before, after, *,
-                       rows: Optional[List[int]] = None) -> None:
+                       rows: Optional[List[int]] = None,
+                       evicted_rows: Optional[np.ndarray] = None) -> None:
         """Apply one decode step's logical cache delta to the pool: the
         ring vector each row wrote at its pre-step pointer, and the
         newest global entry of each head whose ``gcnt`` grew. The needed
         vectors are gathered on the device for all layers at once, so the
-        host pulls a handful of [layers, rows, heads, hd] arrays."""
+        host pulls a handful of [layers, rows, heads, hd] arrays.
+
+        ``evicted_rows`` ([slots] bool) marks rows whose step reported a
+        SnapKV eviction trigger: eviction compacts and reorders the
+        logical global cache, so each of that row's global streams that
+        did not grow is re-synced whole (freeing the pages it no longer
+        needs). A stream that grew cannot have evicted this step: eviction
+        drops at least one entry and promotion adds at most one."""
         if rows is None:
             rows = [s for s in range(self.slots) if self.live[s]]
         if not rows:
             return
         dev = self.device
         ridx = torch.as_tensor(rows, device=dev)
+        ev_rows = [s for s in rows
+                   if evicted_rows is not None and bool(evicted_rows[s])]
         for i, (dcb, dca) in enumerate(zip(self._dual_nodes(before),
                                            self._dual_nodes(after))):
             n_rep, _, hkv = dca.gcnt.shape
@@ -496,14 +552,27 @@ class Engine:
                     dca.lk[li, r2, h2, p2], dca.lv[li, r2, h2, p2],
                     dca.gk[li, r2, h2, g2], dca.gv[li, r2, h2, g2],
                     gcb, ptrb, gca))
+            full_k = full_v = None
+            if ev_rows:
+                eidx = torch.as_tensor(ev_rows, device=dev)
+                full_k, full_v = _host(dca.gk[:, eidx]), _host(dca.gv[:, eidx])
+            ev_pos = {s: e for e, s in enumerate(ev_rows)}
             for r in range(n_rep):
                 for j, slot in enumerate(rows):
                     p = int(ptrb[r, j])
+                    e = ev_pos.get(slot)
                     for h in range(hkv):
-                        if int(gca[r, j, h]) > int(gcb[r, j, h]):
+                        cb, ca = int(gcb[r, j, h]), int(gca[r, j, h])
+                        gkey = (slot, (r, i), h, "global")
+                        if e is not None and ca <= cb:
+                            # post-eviction re-sync (reclaims freed pages)
+                            self.pool.free_stream(gkey)
+                            self.pool.bulk_append(gkey, full_k[r, e, h, :ca],
+                                                  full_v[r, e, h, :ca])
+                        elif ca > cb:
                             # promotion: gcnt grew -> append promoted token
-                            self.pool.append((slot, (r, i), h, "global"),
-                                             prom_k[r, j, h], prom_v[r, j, h])
+                            self.pool.append(gkey, prom_k[r, j, h],
+                                             prom_v[r, j, h])
                         # ring write at ptr_before: grows the stream until
                         # the ring wraps, overwrites after
                         lkey = (slot, (r, i), h, "local")

@@ -8,7 +8,9 @@ machine that has only PyTorch (``tests/conftest.py`` imports JAX, hence
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Inputs are drawn with numpy from a seed. Tolerances, absolute:
-``gate_mlp`` 1e-5; the attention kernels 5e-5 in float32 and 1e-2 in
+``gate_mlp`` 1e-5; the attention kernels (``paged_decode_selected``
+too; at the identity ids it must equal ``paged_decode`` exactly) 5e-5 in
+float32 and 1e-2 in
 bfloat16. The kernels and the plain versions both compute in f32, in
 different orders, and round the output to bfloat16, so in bfloat16 they
 may differ by an ulp of an output (2**-9 for outputs under 0.5). A
@@ -24,7 +26,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain
 from repro_torch.kernels.gated_flash import gated_flash, gated_flash_plain
-from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
+from repro_torch.kernels.paged_decode import (paged_decode, paged_decode_plain,
+                                              paged_decode_selected,
+                                              paged_decode_selected_plain)
 from repro_torch.kernels.vertical_slash import (vertical_slash,
                                                 vertical_slash_plain)
 
@@ -105,6 +109,65 @@ def test_paged_decode_kernel_matches_plain_on_gpu(dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+def _selected_ids(rng, n, mp, kp):
+    """Ascending K-subsets of each stream's logical pages and a ragged
+    n_sel (1..K)."""
+    sel = np.sort(np.argsort(rng.random((n, mp)), axis=-1)[:, :kp],
+                  axis=-1).astype(np.int32)
+    return sel, rng.integers(1, kp + 1, (n,)).astype(np.int32)
+
+
+@pytest.mark.parametrize("kp", [2, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_selected_kernel_matches_plain_on_gpu(kp, dtype):
+    """K-subsets of 24 pages (some past a stream's length), a length-0
+    stream, and the whole second segment (the ring) in the same softmax."""
+    rng = np.random.default_rng(4)
+    q, kp_, vp, tbl, lens = _paged_inputs(rng, 32, 128, 16, 64, 24)
+    lens[0] = 0
+    sel, nsel = _selected_ids(rng, 32, 24, kp)
+    args = _cuda(q, kp_, vp, dtype=TDT[dtype])
+    ti = _cuda(tbl, lens, sel, nsel)
+    second = (args[1], args[2], ti[0][:, :8].contiguous(), ti[1] // 3)
+    got = paged_decode_selected(*args, *ti, second=second)
+    want = paged_decode_selected_plain(*args, *ti, second=second)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_selected_identity_is_bitwise_on_gpu(dtype):
+    """The identity ids with K covering every page walk the same pages in
+    the same order as paged_decode: torch.equal outputs."""
+    rng = np.random.default_rng(5)
+    q, kp_, vp, tbl, lens = _paged_inputs(rng, 16, 128, 16, 64, 8)
+    lens[3] = 0
+    args = _cuda(q, kp_, vp, dtype=TDT[dtype])
+    tt, tl = _cuda(tbl, lens)
+    sel = torch.arange(8, dtype=torch.int32, device="cuda")[None].expand(
+        16, 8).contiguous()
+    nsel = torch.full((16,), 8, dtype=torch.int32, device="cuda")
+    second = (args[1], args[2], tt[:, :4].contiguous(), tl // 2)
+    for seg2 in (None, second):
+        full = paged_decode(*args, tt, tl, second=seg2)
+        got = paged_decode_selected(*args, tt, tl, sel, nsel, second=seg2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, full)
+
+
+def test_paged_decode_selected_refuses_bad_ids_on_gpu():
+    rng = np.random.default_rng(6)
+    q, kp_, vp, tbl, lens = _cuda(*_paged_inputs(rng, 4, 64, 16, 8, 4))
+    sel = torch.zeros((4, 2), dtype=torch.int64, device="cuda")
+    nsel = torch.ones((4,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_selected(q, kp_, vp, tbl, lens, sel, nsel)
+    with pytest.raises(ValueError, match="streams"):
+        paged_decode_selected(q, kp_, vp, tbl, lens,
+                              sel[:3].to(torch.int32).contiguous(), nsel)
 
 
 @pytest.mark.parametrize("s,hd", [(32, 128), (2048, 128), (200, 32),

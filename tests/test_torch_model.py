@@ -180,7 +180,9 @@ def test_attn_decode_wgkv_matches(setup):
     tp = {k: (v[0] if torch.is_tensor(v) else {kk: vv[0] for kk, vv in v.items()})
           for k, v in tparams["blocks"]["b0"]["attn"].items()}
     jy, jnew, jg, _ = JA.attn_decode_wgkv(jp, jcfg, jnp.asarray(x), jc)
-    ty, tnew, tg = TA.attn_decode_wgkv(tp, tcfg, torch.from_numpy(x), tc)
+    ty, tnew, tg, tsel = TA.attn_decode_wgkv(tp, tcfg, torch.from_numpy(x),
+                                             tc)
+    assert tsel is None
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-5)
     assert _tau_margin(jg, 0.1) >= TAU_MARGIN
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=5e-5,
@@ -240,10 +242,13 @@ def test_ragged_extend_then_decode_matches(setup):
 
 
 def test_decode_options_reject_unported():
-    with pytest.raises(NotImplementedError, match="selection_policy"):
-        TI.DecodeOptions(selection_policy="quest:2")
-    with pytest.raises(NotImplementedError, match="evict_hard_budget"):
-        TI.DecodeOptions(evict_hard_budget=32)
+    with pytest.raises(NotImplementedError, match="admission_policy"):
+        TI.DecodeOptions(admission_policy="duo")
+    opts = TI.DecodeOptions(quest_pages=2, selection_policy="quest:2",
+                            evict_hard_budget=32)
+    assert (opts.quest_pages, opts.selection_policy,
+            opts.evict_hard_budget) == (2, "quest:2", 32)
+    assert (opts.evict_frac, opts.w_obs) == (0.10, 256)
 
 
 def test_splice_and_extract_round_trip(setup):

@@ -134,8 +134,7 @@ def test_entry_points_need_cuda_without_explicit_cpu():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--backend", "dense"], ["--selection", "quest:2"], ["--quest-pages", "2"],
-    ["--evict-budget", "32"], ["--prefix-cache"], ["--mesh", "1x1"],
+    ["--backend", "dense"], ["--prefix-cache"], ["--mesh", "1x1"],
 ])
 def test_serve_rejects_unported_flags(flag, capsys):
     from repro_torch.launch import serve
@@ -144,6 +143,27 @@ def test_serve_rejects_unported_flags(flag, capsys):
                     *flag])
     assert ex.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--selection", "quest:2"], ["--quest-pages", "2"],
+    ["--evict-budget", "32"],
+])
+def test_serve_accepts_ported_flags(flag):
+    """Selection (gather and mask) and eviction serve a reduced CPU run to
+    the end with the pool within the reference's bound. Prompts of 288
+    tokens leave the 256-token ring, so pages are selected and the 32-token
+    eviction budget is reached."""
+    from repro_torch.launch import serve
+    res = serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+                      "--requests", "2", "--max-new", "3",
+                      "--prompt-len", "288", "--quiet-stream", *flag])
+    assert [len(o) for o in res["outputs"]] == [3, 3]
+    assert res["paged_dev"] < 2e-3
+    if flag[0] == "--selection":
+        assert "selection: pages=0 " not in res["report"]
+    if flag[0] == "--evict-budget":
+        assert "evict_triggers=0)" not in res["report"]
 
 
 # ==========================================================================
