@@ -7,12 +7,13 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``; exits non-zero, and
 prints no result, without them. Phases, any failure fatal:
 
   1. device   — the card's name and power limit (nvidia-smi).
-  2. build    — the kernels from ``src/repro_torch/csrc`` (five entry
-                points in four sources), one nvcc per source, all started
+  2. build    — the kernels from ``src/repro_torch/csrc`` (six entry
+                points in five sources), one nvcc per source, all started
                 together.
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
-                card, at the main paths' shapes (and a larger or smaller
-                one), f32 and bf16 for the attention kernels, with times
+                card, at the main paths' shapes (qwen3-0.6b's and
+                recurrentgemma-9b's, and a larger or smaller one), f32 and
+                bf16 for the attention kernels, with times
                 (CUDA events), the plain version's time, a library
                 yardstick where one exists, and the card's bound;
                 ``paged_decode_selected`` also bitwise against
@@ -42,10 +43,26 @@ prints no result, without them. Phases, any failure fatal:
                 (kernels) and on the CPU (plain path), once plain and once
                 with ``quest:2`` and eviction; tokens and integer cache
                 state must be identical, logits within 1e-4.
+ 11. rg-serve — ``repro_torch.launch.serve --arch recurrentgemma-9b`` at
+                full width (38 layers: a 2-block RG-LRU stem and 12 x
+                (RG-LRU, RG-LRU, local attention), d_model 4096, f32), 2
+                requests of 64 tokens, 8 new tokens, the tau probe.
+ 12. rg-prefill — ``inference.prefill`` of a 4096-token prompt through the
+                full-width hybrid (budget 1024, ring 2048): 26
+                ``rglru_scan`` and 12 ``vertical_slash`` launches; then 16
+                greedy decode steps.
+ 13. rg-forward — ``transformer.forward(mode="gated")`` of the hybrid over
+                4096 tokens: 26 ``rglru_scan`` and 12 ``gated_flash``.
+ 14. rg-substrate — the reduced hybrid with its 2-block stem (S 128,
+                window 32) through prefill + 8 greedy steps on the card and
+                on the CPU: identical tokens and integer cache state,
+                logits and recurrent states within 1e-4.
 
-The full-width weights are random (seeded); the point is that the port
-runs end to end on the card through its kernels and agrees with itself:
-the paged physical pool matches the logical cache (< 2e-3), every request
+Each full-width model (32 GiB for recurrentgemma-9b in f32) is freed
+before the next is built. The full-width weights are random (seeded);
+the point is that the port runs end to end on the card through its
+kernels and agrees with itself: the paged physical pool matches the
+logical cache (< 2e-3), every request
 completes, every logit is finite, and on trained weights the card and the
 CPU agree. The launch counts of each main path are set to 0 just before
 it and read just after. Any failed check raises, and the script exits
@@ -117,11 +134,14 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
-def gate_case(rows: int, s: int, seed: int):
+def gate_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256):
+    """The write gate over ``rows`` (batch x kv heads) of ``s`` tokens with
+    ``f`` = 2 x head_dim features: qwen3-0.6b's h 8, f 256 by default,
+    recurrentgemma-9b's h 1, f 512."""
     import torch
     from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain
     g = torch.Generator(device="cuda").manual_seed(seed)
-    h, f, m = 8, 256, 64
+    m = 64
 
     def rn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device="cuda") * scale
@@ -140,22 +160,24 @@ def gate_case(rows: int, s: int, seed: int):
     nbytes = 4 * (x.numel() + rows * s + sum(a.numel() for a in args[1:]))
     flops = rows * s * (2 * f * m + 2 * m)
     b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS)
-    return {"shape": f"x[{rows},{s},{f}] M={m}", "max_abs_err": err,
+    return {"shape": f"x[{rows},{s},{f}] H={h} M={m}", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
 
 
-def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int):
+def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
+                    hkv: int = 8, grp: int = 2, hd: int = 128):
     """Two segments (global C, ring W) of a random dual cache with ragged
     gcnt (0, partial page, full, ...) and rows before and after the ring
-    wraps, read by the kernel and by its plain version."""
+    wraps, read by the kernel and by its plain version. qwen3-0.6b's heads
+    by default (8 kv heads, group 2, hd 128); recurrentgemma-9b's are 1 kv
+    head, group 16, hd 256."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.dual_cache import init_dual_cache
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
     g = torch.Generator(device="cuda").manual_seed(seed)
-    hkv, grp, hd = 8, 2, 128
     cache = init_dual_cache(slots, hkv, hd, w_local=w, budget=c, dtype=dtype,
                             device="cuda")
 
@@ -302,17 +324,19 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
             "identity_bitwise": True}
 
 
-def vertical_slash_case(dtype: str, seed: int):
-    """The prefill path's shape: B = 1, 16 q / 8 kv heads, S = 4096,
-    hd 128, W 256, C 1024 globals chosen by ``select_global`` from random
-    gates (sinks, then the highest; unused slots at INT32_MAX)."""
+def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
+                        w: int = 256):
+    """The prefill path's shape: B = 1, 16 q heads, S = 4096, C 1024
+    globals chosen by ``select_global`` from random gates (sinks, then the
+    highest; unused slots at INT32_MAX). qwen3-0.6b's 8 kv heads, hd 128,
+    W 256 by default; recurrentgemma-9b's 1 kv head, hd 256, W 2048."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.admission import select_global
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.vertical_slash import (vertical_slash,
                                                     vertical_slash_plain)
-    hq, hkv, s, hd, w, c = 16, 8, 4096, 128, 256, 1024
+    hq, s, c = 16, 4096, 1024
     grp = hq // hkv
     dt = torch_dtype(dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -375,14 +399,17 @@ def vertical_slash_case(dtype: str, seed: int):
             "global_valid": int(sel.count.sum())}
 
 
-def gated_flash_case(s: int, dtype: str, seed: int):
-    """The gated forward's shape: 16 q / 8 kv heads, hd 128, W 256, at the
-    forward phase's S = 2048 or the tau probe's S = 32."""
+def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
+                     hd: int = 128, w: int = 256):
+    """The gated forward's shape: 16 q heads at the forward phase's
+    S = 2048 or the tau probe's S = 32, with qwen3-0.6b's 8 kv heads, hd
+    128, W 256 by default; recurrentgemma-9b's 1 kv head, hd 256, W 2048
+    at S = 4096."""
     import torch
     import torch.nn.functional as F
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.gated_flash import gated_flash, gated_flash_plain
-    hq, hkv, hd, w, eps = 16, 8, 128, 256, 1e-6
+    hq, eps = 16, 1e-6
     grp = hq // hkv
     dt = torch_dtype(dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -400,7 +427,7 @@ def gated_flash_case(s: int, dtype: str, seed: int):
           f"gated_flash S={s} {dtype}: non-finite output")
     check(err <= TOL[dtype], f"gated_flash S={s} {dtype} err {err:.3e} > "
           f"{TOL[dtype]}")
-    iters = 200 if s <= 64 else 10
+    iters = 200 if s <= 64 else (10 if s <= 2048 else 4)
     ms = cuda_ms(lambda: gated_flash(*args, w_local=w, eps=eps, group=grp),
                  iters)
     plain_ms = cuda_ms(lambda: gated_flash_plain(*args, w_local=w, eps=eps,
@@ -432,8 +459,44 @@ def gated_flash_case(s: int, dtype: str, seed: int):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
+def rglru_case(b: int, s: int, d: int, with_h0: bool, seed: int):
+    """The RG-LRU linear recurrence ``h_t = a_t h_{t-1} + b_t`` on
+    ``a = sigmoid(normal)``, ``b = normal``: recurrentgemma-9b's prefill
+    shape [1, 4096, 4096] (one prompt, dr = d_model), or a ragged one with
+    a carried-in state (folded into ``b[:, 0]`` by the model's
+    ``rglru_scan``, then the kernel)."""
+    import torch
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+    from repro_torch.models import rglru as RG
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device="cuda"))
+    bb = torch.randn((b, s, d), generator=gen, device="cuda")
+    h0 = torch.randn((b, d), generator=gen, device="cuda")
+    if with_h0:
+        got = RG.rglru_scan(a, bb, h0)
+        folded = bb.clone()
+        folded[:, 0] = folded[:, 0] + a[:, 0] * h0
+        want = rglru_scan_plain(a, folded)
+    else:
+        got = rglru_scan(a, bb)
+        want = rglru_scan_plain(a, bb)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tag = f"rglru_scan [{b},{s},{d}]" + (" h0" if with_h0 else "")
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    check(err <= 5e-5, f"{tag} err {err:.3e} > 5e-5")
+    ms = cuda_ms(lambda: rglru_scan(a, bb), 20)
+    plain_ms = cuda_ms(lambda: rglru_scan_plain(a, bb), 2, warmup=1)
+    # the bound: a and b read once, h written once; two operations each
+    n = b * s * d
+    b_ms, b_by = bound(12 * n, 2 * n, H100_F32_FLOPS)
+    return {"shape": f"a,b[{b},{s},{d}] f32" + (" h0" if with_h0 else ""),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 # --------------------------------------------------------------------------
-# phases 4-8: the main paths
+# phases 4-14: the main paths
 # --------------------------------------------------------------------------
 class Wrapped:
     """Counts and times calls of ``owner.name`` while the block runs (a
@@ -468,10 +531,10 @@ def position_counter():
 
 def _counters():
     from repro_torch.kernels import (gate_mlp, gated_flash, paged_decode,
-                                     vertical_slash)
+                                     rglru_scan, vertical_slash)
     return [gate_mlp.launches, paged_decode.launches,
             paged_decode.selected_launches, vertical_slash.launches,
-            gated_flash.launches]
+            gated_flash.launches, rglru_scan.launches]
 
 
 def reset_counts():
@@ -1062,6 +1125,295 @@ def substrate():
     return comp["launches"]
 
 
+def free_cuda():
+    """Release what the previous phase left cached on the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rg_serve(card: str):
+    """``repro_torch.launch.serve --arch recurrentgemma-9b`` at full width:
+    2 requests of 64 tokens, 8 new tokens, 2 slots, capacity 512, the
+    startup tau probe (a gated forward through the hybrid) included. The
+    CLI builds its own model and drops it when it returns."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = get_config("recurrentgemma-9b")
+    n_attn = cfg.n_repeats * cfg.attn_blocks_per_pattern
+    n_rec = cfg.n_layers - n_attn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with position_counter() as pc:
+        res = serve.main(["--arch", "recurrentgemma-9b", "--requests", "2",
+                          "--prompt-len", "64", "--max-new", "8",
+                          "--slots", "2", "--capacity", "512",
+                          "--quiet-stream"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    outs = res["outputs"]
+    summ = res["summary"]
+    check(len(outs) == 2 and all(len(o) == 8 for o in outs),
+          f"rg-serve: not every request returned 8 tokens: "
+          f"{[len(o) for o in outs]}")
+    check(res["paged_dev"] < 2e-3,
+          f"rg-serve: paged-vs-logical deviation {res['paged_dev']:.3e}")
+    # the probe: one gated forward (gate_mlp and gated_flash once per
+    # attention layer, rglru_scan once per recurrent layer); then one
+    # gate_mlp and one paged_decode per attention layer and position
+    check(counts["rglru_scan"] == n_rec,
+          f"rg-serve: rglru_scan launches {counts['rglru_scan']} != "
+          f"{n_rec} (the tau probe)")
+    check(counts["gated_flash"] == n_attn,
+          f"rg-serve: gated_flash launches {counts['gated_flash']} != "
+          f"{n_attn} (the tau probe)")
+    check(counts["gate_mlp"] == n_attn * (pc.count + 1),
+          f"rg-serve: gate_mlp launches {counts['gate_mlp']} != {n_attn} x "
+          f"({pc.count} positions + 1 probe)")
+    check(counts["paged_decode"] >= n_attn * pc.count,
+          f"rg-serve: paged_decode launches {counts['paged_decode']}")
+    stats = {"card": card, "requests": 2, "prompt_len": 64, "max_new": 8,
+             "slots": 2, "capacity": 512, "wall_s": wall,
+             "positions": pc.count, "ttft_mean_s": summ["ttft_mean_s"],
+             "ttft_p50_s": summ["ttft_p50_s"],
+             "tpot_mean_s": summ["tpot_mean_s"],
+             "tpot_p50_s": summ["tpot_p50_s"],
+             "tokens_per_s": summ["tokens_per_s"],
+             "mean_admission": summ["mean_admission"],
+             "paged_dev": res["paged_dev"],
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": counts}
+    print("rg-serve: " + json.dumps(stats), flush=True)
+    return counts
+
+
+def rg_model(seed: int):
+    """Full-width recurrentgemma-9b (38 layers, d_model 4096, f32) with
+    random weights drawn on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("recurrentgemma-9b").replace(dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, init_model(cfg, gen, "cuda")
+
+
+def rg_prefill(cfg, params):
+    """``inference.prefill`` of one 4096-token prompt through the hybrid
+    (budget 1024, the local-attention ring 2048), then 16 greedy
+    ``decode_step``s."""
+    import numpy as np
+    import torch
+    from repro_torch.models import inference as I
+    from repro_torch.models import rglru as RG
+    s, budget, steps = 4096, 1024, 16
+    n_attn = cfg.n_repeats * cfg.attn_blocks_per_pattern
+    n_rec = cfg.n_layers - n_attn
+    toks = torch.as_tensor(np.random.default_rng(15).integers(
+        0, cfg.vocab_size - 8, (1, s)), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out, caches = I.prefill(params, cfg, toks, budget=budget)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_counts = read_counts()
+        _, logits, dec_caches, _ = greedy_decode(params, cfg, out.logits,
+                                                 caches, steps)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counts = read_counts()
+    check(prefill_counts["rglru_scan"] == n_rec,
+          f"rg-prefill: rglru_scan launches {prefill_counts['rglru_scan']} "
+          f"!= {n_rec}")
+    check(prefill_counts["vertical_slash"] == n_attn,
+          f"rg-prefill: vertical_slash launches "
+          f"{prefill_counts['vertical_slash']} != {n_attn}")
+    check(counts["rglru_scan"] == n_rec,
+          f"rg-prefill: decode launched rglru_scan ({counts})")
+    check(counts["gate_mlp"] == n_attn * (1 + steps),
+          f"rg-prefill: gate_mlp launches {counts['gate_mlp']} != "
+          f"{n_attn} + {n_attn} x {steps}")
+    check(counts["paged_decode"] == n_attn * steps,
+          f"rg-prefill: paged_decode launches {counts['paged_decode']} != "
+          f"{n_attn} x {steps}")
+    node = dec_caches["blocks"]["b2"]
+    gcnt = node.gcnt
+    check(node.w_local == cfg.sliding_window and node.budget == budget,
+          f"rg-prefill: ring {node.w_local}, budget {node.budget}")
+    check(int(dec_caches["t"][0]) == s + steps
+          and bool((node.t == s + steps).all()),
+          f"rg-prefill: t {dec_caches['t'].tolist()} != {s + steps}")
+    check(0 < int(gcnt.min()) and int(gcnt.max()) <= budget,
+          f"rg-prefill: gcnt in [{int(gcnt.min())}, {int(gcnt.max())}]")
+    states = list(dec_caches.get("stem", ())) + [
+        dec_caches["blocks"][f"b{i}"]
+        for i, bt in enumerate(cfg.block_pattern) if bt == "rglru"]
+    check(all(isinstance(st, RG.RGLRUState) and bool(torch.isfinite(st.h)
+                                                     .all())
+              for st in states), "rg-prefill: a recurrent state is not "
+          "finite")
+    check(bool(torch.isfinite(logits).all()), "rg-prefill: non-finite "
+          "logits")
+    stats = {"prompt_len": s, "budget": budget, "ring": node.w_local,
+             "decode_steps": steps, "prefill_ms": (t1 - t0) * 1e3,
+             "decode_ms_per_step": (t2 - t1) * 1e3 / steps,
+             "mean_admission": float(out.mean_admission),
+             "gcnt_min": int(gcnt.min()), "gcnt_max": int(gcnt.max()),
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches_prefill": prefill_counts, "launches": counts}
+    print("rg-prefill: " + json.dumps(stats), flush=True)
+    return prefill_counts, counts
+
+
+def rg_forward(cfg, params):
+    """The write-gated forward of the hybrid over 4096 tokens: the window
+    is 2048, so half of the keys are gated."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    s = 4096
+    n_attn = cfg.n_repeats * cfg.attn_blocks_per_pattern
+    n_rec = cfg.n_layers - n_attn
+    toks = torch.as_tensor(np.random.default_rng(16).integers(
+        0, cfg.vocab_size - 8, (1, s)), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        res = T.forward(params, cfg, toks, mode="gated", with_logits=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    shape = tuple(res.gates.shape)
+    check(counts["rglru_scan"] == n_rec,
+          f"rg-forward: rglru_scan launches {counts['rglru_scan']} != {n_rec}")
+    check(counts["gated_flash"] == n_attn,
+          f"rg-forward: gated_flash launches {counts['gated_flash']} != "
+          f"{n_attn}")
+    check(counts["gate_mlp"] == n_attn,
+          f"rg-forward: gate_mlp launches {counts['gate_mlp']} != {n_attn}")
+    check(shape == (n_attn, 1, cfg.n_kv_heads, s), f"rg-forward: gates "
+          f"{shape}")
+    check(bool(torch.isfinite(res.hidden).all()
+               and ((res.gates > 0) & (res.gates < 1)).all()),
+          "rg-forward: non-finite hidden or gates outside (0, 1)")
+    stats = {"seq": s, "window": cfg.sliding_window,
+             "forward_ms": wall * 1e3, "gates": list(shape),
+             "admitted_frac": float((res.gates >= cfg.wgkv.tau).float()
+                                    .mean()),
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": counts}
+    print("rg-forward: " + json.dumps(stats), flush=True)
+    return counts
+
+
+def rg_substrate():
+    """The reduced hybrid (2-block RG-LRU stem, then RG-LRU, RG-LRU,
+    local attention with a 32-token window; seeded random weights, the
+    gate set to admit about half the tokens with scores far from tau)
+    through prefill of a 128-token prompt and 8 greedy decode steps on
+    the card (kernels) and on the CPU (plain path): identical tokens and
+    integer cache state, logits and recurrent states within 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import inference as I
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    cfg = get_reduced_config("recurrentgemma-9b").replace(
+        dtype="float32", stem_pattern=("rglru", "rglru"), sliding_window=32)
+    cpu_params = T.init_model(cfg, torch.Generator().manual_seed(4), "cpu")
+    # hidden unit 0 reads gate feature 0: g = sigmoid(200 gelu(x0) - 4)
+    for i, bt in enumerate(cfg.block_pattern):
+        if bt == "local_attn":
+            gate = cpu_params["blocks"][f"b{i}"]["attn"]["gate"]
+            for k in ("w1", "b1", "w2"):
+                gate[k].zero_()
+            gate["w1"][:, :, 0, 0] = 1.0
+            gate["w2"][:, :, 0, 0] = 200.0
+            gate["b2"].fill_(-4.0)
+    prompt = np.random.default_rng(21).integers(0, cfg.vocab_size, (1, 128))
+    steps, tau = 8, cfg.wgkv.tau
+
+    def run(device, params):
+        with torch.no_grad():
+            out, caches = I.prefill(params, cfg,
+                                    torch.as_tensor(prompt, device=device))
+            toks, logits, caches, _ = greedy_decode(params, cfg, out.logits,
+                                                    caches, steps)
+        return out, toks.cpu(), logits.cpu(), caches
+
+    scores = []
+    inner = ops.write_gate
+
+    def recording(*a, **kw):
+        g = inner(*a, **kw)
+        scores.append(g)
+        return g
+    ops.write_gate = recording
+    try:
+        cpu_out, cpu_toks, cpu_logits, cpu_caches = run("cpu", cpu_params)
+    finally:
+        ops.write_gate = inner
+    margin = min(float((g - tau).abs().min()) for g in scores)
+    check(margin >= 1e-3, f"rg-substrate: gate margin {margin:.2e} < 1e-3")
+    gpu_params = tree_map(lambda x: x.to("cuda"), cpu_params)
+    torch.cuda.synchronize()
+    reset_counts()
+    gpu_out, gpu_toks, gpu_logits, gpu_caches = run("cuda", gpu_params)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_attn = cfg.n_repeats * cfg.attn_blocks_per_pattern
+    n_rec = cfg.n_layers - n_attn
+    want = {"rglru_scan": n_rec, "vertical_slash": n_attn,
+            "gate_mlp": n_attn * (1 + steps),
+            "paged_decode": n_attn * steps}
+    check(all(counts[k] == v for k, v in want.items()),
+          f"rg-substrate: the card run missed its kernels: {counts}")
+    top2 = torch.topk(cpu_logits, 2, dim=-1).values
+    gap = float((top2[..., 0] - top2[..., 1]).min())
+    check(torch.equal(gpu_toks, cpu_toks),
+          f"rg-substrate: greedy tokens differ: {gpu_toks.tolist()} vs "
+          f"{cpu_toks.tolist()}")
+    err = float((gpu_logits - cpu_logits).abs().max())
+    check(err <= 1e-4, f"rg-substrate: logits differ by {err:.3e} > 1e-4")
+    ints = {"t", "ptr", "lpos", "gpos", "gcnt", "overflow"}
+    h_err = 0.0
+    gpu_leaves = dict(tree_leaves_with_path(gpu_caches))
+    for path, want_leaf in tree_leaves_with_path(cpu_caches):
+        got = gpu_leaves[path].cpu()
+        if path[-1] in ints:
+            check(torch.equal(got, want_leaf), f"rg-substrate: cache "
+                  f"{'/'.join(map(str, path))} differs between card and CPU")
+        elif path[-1] == "h":
+            h_err = max(h_err, float((got - want_leaf).abs().max()))
+    check(h_err <= 1e-4, f"rg-substrate: recurrent state h differs by "
+          f"{h_err:.3e} > 1e-4")
+    adm = float(gpu_out.mean_admission)
+    check(abs(adm - float(cpu_out.mean_admission)) <= 1e-6,
+          f"rg-substrate: mean_admission {adm} (CPU "
+          f"{float(cpu_out.mean_admission)})")
+    gcnt = gpu_caches["blocks"]["b2"].gcnt
+    stats = {"prompt_len": prompt.shape[1], "decode_steps": steps,
+             "window": cfg.sliding_window, "layers": cfg.n_layers,
+             "tau_margin": margin, "mean_admission": adm,
+             "max_logit_err": err, "max_h_err": h_err,
+             "min_top2_logit_gap": gap, "tokens": gpu_toks[0].tolist(),
+             "gcnt": gcnt[:, 0].tolist(), "launches": counts}
+    print("rg-substrate: " + json.dumps(stats), flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1110,6 +1462,27 @@ def main() -> int:
     sel_bf16 = selected_case(2, 128, 256, 2, torch.bfloat16, seed=12)
     sel_long = selected_case(1, 1024, 256, 8, torch.float32, seed=13)
     sel_long_bf16 = selected_case(1, 1024, 256, 8, torch.bfloat16, seed=14)
+    # recurrentgemma-9b's shapes: MQA (1 kv head, 16 q heads), hd 256, the
+    # 2048-token local window, the gate's F = 2 x hd = 512; the scan at
+    # [1, 4096, 4096] (one prompt, dr = d_model) and a ragged one with h0
+    rg_scan = rglru_case(1, 4096, 4096, False, seed=20)
+    rg_scan_h0 = rglru_case(3, 1000, 200, True, seed=21)
+    rg_gate = gate_case(rows=1, s=4096, seed=22, h=1, f=512)
+    rg_gate_dec = gate_case(rows=2, s=1, seed=23, h=1, f=512)
+    rg_pd = dual_cache_case(1, 1024, 2048, torch.float32, seed=24, hkv=1,
+                            grp=16, hd=256)
+    rg_pd_bf16 = dual_cache_case(1, 1024, 2048, torch.bfloat16, seed=25,
+                                 hkv=1, grp=16, hd=256)
+    rg_pd_serve = dual_cache_case(2, 128, 2048, torch.float32, seed=26,
+                                  hkv=1, grp=16, hd=256)
+    rg_vs = vertical_slash_case("float32", seed=27, hkv=1, hd=256, w=2048)
+    rg_vs_bf16 = vertical_slash_case("bfloat16", seed=28, hkv=1, hd=256,
+                                     w=2048)
+    rg_gf = gated_flash_case(4096, "float32", seed=29, hkv=1, hd=256, w=2048)
+    rg_gf_bf16 = gated_flash_case(4096, "bfloat16", seed=30, hkv=1, hd=256,
+                                  w=2048)
+    rg_gf_probe = gated_flash_case(32, "float32", seed=31, hkv=1, hd=256,
+                                   w=2048)
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
                    ("paged_decode", pd_main), ("paged_decode", pd_bf16),
                    ("paged_decode", pd_big), ("vertical_slash", vs_main),
@@ -1119,7 +1492,15 @@ def main() -> int:
                    ("paged_decode_selected", sel_main),
                    ("paged_decode_selected", sel_bf16),
                    ("paged_decode_selected", sel_long),
-                   ("paged_decode_selected", sel_long_bf16)):
+                   ("paged_decode_selected", sel_long_bf16),
+                   ("rglru_scan", rg_scan), ("rglru_scan", rg_scan_h0),
+                   ("gate_mlp rg", rg_gate), ("gate_mlp rg", rg_gate_dec),
+                   ("paged_decode rg", rg_pd), ("paged_decode rg", rg_pd_bf16),
+                   ("paged_decode rg", rg_pd_serve),
+                   ("vertical_slash rg", rg_vs),
+                   ("vertical_slash rg", rg_vs_bf16),
+                   ("gated_flash rg", rg_gf), ("gated_flash rg", rg_gf_bf16),
+                   ("gated_flash rg", rg_gf_probe)):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
     # 4-10. the main paths, counts set to 0 just before each
     cli_counts = serve_cli(n_layers=28)
@@ -1133,6 +1514,17 @@ def main() -> int:
     del params
     compose_counts = serve_compose(card)
     substrate_counts = substrate()
+    # 11-14. recurrentgemma-9b (one 32 GiB model at a time)
+    free_cuda()
+    rg_serve_counts = rg_serve(card)
+    free_cuda()
+    rg_cfg, rg_params = rg_model(seed=5)
+    rg_prefill_counts, rg_decode_counts = rg_prefill(rg_cfg, rg_params)
+    rg_forward_counts = rg_forward(rg_cfg, rg_params)
+    del rg_params
+    free_cuda()
+    rg_substrate_counts = rg_substrate()
+    rg = "recurrentgemma"
     attn = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "gate_mlp", "route": "cuda",
@@ -1143,7 +1535,10 @@ def main() -> int:
          **{k: gate_main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
          "shape": gate_main["shape"],
-         "launches_serve_cli": cli_counts["gate_mlp"], "large": gate_big},
+         "launches_serve_cli": cli_counts["gate_mlp"], "large": gate_big,
+         "launches_rg_prefill": rg_decode_counts["gate_mlp"],
+         "launches_rg_serve": rg_serve_counts["gate_mlp"],
+         rg: {"prefill": rg_gate, "decode": rg_gate_dec}},
         {"name": "paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_decode.py:59",
@@ -1154,14 +1549,21 @@ def main() -> int:
          "shape": pd_main["shape"],
          "max_abs_err_bf16": pd_bf16["max_abs_err"],
          "launches_serve_cli": cli_counts["paged_decode"],
-         "bf16": pd_bf16, "large": pd_big},
+         "bf16": pd_bf16, "large": pd_big,
+         "launches_rg_prefill": rg_decode_counts["paged_decode"],
+         "launches_rg_serve": rg_serve_counts["paged_decode"],
+         rg: {"offline": rg_pd, "offline_bf16": rg_pd_bf16,
+              "serve": rg_pd_serve}},
         {"name": "vertical_slash", "route": "cuda",
          "source": "src/repro_torch/csrc/vertical_slash.cu",
          "replaces": "src/repro/kernels/vertical_slash.py:88",
          "launches": prefill_counts["vertical_slash"],
          "max_abs_err": vs_main["max_abs_err"],
          **{k: vs_main[k] for k in attn}, "shape": vs_main["shape"],
-         "max_abs_err_bf16": vs_bf16["max_abs_err"], "bf16": vs_bf16},
+         "max_abs_err_bf16": vs_bf16["max_abs_err"], "bf16": vs_bf16,
+         "launches_rg_prefill": rg_prefill_counts["vertical_slash"],
+         "launches_rg_substrate": rg_substrate_counts["vertical_slash"],
+         rg: {"f32": rg_vs, "bf16": rg_vs_bf16}},
         {"name": "gated_flash", "route": "cuda",
          "source": "src/repro_torch/csrc/gated_flash.cu",
          "replaces": "src/repro/kernels/gated_flash.py:68",
@@ -1172,7 +1574,10 @@ def main() -> int:
          "max_abs_err_bf16": max(gf_bf16["max_abs_err"],
                                  gf_probe_bf16["max_abs_err"]),
          "launches_serve_cli": cli_counts["gated_flash"],
-         "bf16": gf_bf16, "probe": gf_probe, "probe_bf16": gf_probe_bf16},
+         "bf16": gf_bf16, "probe": gf_probe, "probe_bf16": gf_probe_bf16,
+         "launches_rg_forward": rg_forward_counts["gated_flash"],
+         "launches_rg_serve": rg_serve_counts["gated_flash"],
+         rg: {"f32": rg_gf, "bf16": rg_gf_bf16, "probe": rg_gf_probe}},
         {"name": "paged_decode_selected", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_decode.py:133",
@@ -1187,6 +1592,17 @@ def main() -> int:
          "launches_substrate": substrate_counts["paged_decode_selected"],
          "bf16": sel_bf16, "offline": sel_long,
          "offline_bf16": sel_long_bf16},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:39",
+         "launches": rg_prefill_counts["rglru_scan"],
+         "max_abs_err": max(rg_scan["max_abs_err"],
+                            rg_scan_h0["max_abs_err"]),
+         **{k: rg_scan[k] for k in attn}, "shape": rg_scan["shape"],
+         "launches_rg_forward": rg_forward_counts["rglru_scan"],
+         "launches_rg_serve": rg_serve_counts["rglru_scan"],
+         "launches_rg_substrate": rg_substrate_counts["rglru_scan"],
+         "ragged_h0": rg_scan_h0},
     ]
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)

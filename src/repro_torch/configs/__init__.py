@@ -12,6 +12,7 @@ from repro_torch.configs.base import InputShape, ModelConfig, MoEConfig, WGKVCon
 
 _ARCH_MODULES = {
     "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_ARCH_MODULES)

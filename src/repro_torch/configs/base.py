@@ -161,18 +161,17 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
-    # ---- parameter counting ------------------------------------------
-    # The analytic counter lives in the model registry, which is not
-    # ported yet; the reference package's ``ModelConfig.param_count`` is
-    # the source until it is.
+    # ---- parameter counting (exact, mirrors models/*.py) ---------------
     def param_count(self) -> int:
-        raise NotImplementedError("param_count needs the model registry, "
-                                  "which repro_torch does not port yet")
+        """Exact parameter count of the tree (gates included)."""
+        from repro_torch.models.registry import count_params_analytic
+
+        return count_params_analytic(self)
 
     def active_param_count(self) -> int:
-        raise NotImplementedError("active_param_count needs the model "
-                                  "registry, which repro_torch does not "
-                                  "port yet")
+        from repro_torch.models.registry import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
 
 
 @dataclass(frozen=True)

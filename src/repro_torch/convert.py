@@ -29,6 +29,9 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def _unflatten(flat: Mapping[str, Any]) -> dict:
+    """``/``-keyed leaves -> nested dicts. The stem, a tuple in the
+    reference's tree, is flattened as ``stem/0/...``, ``stem/1/...``; it
+    comes back as a tuple in block order."""
     tree: dict = {}
     for key, arr in flat.items():
         node = tree
@@ -36,6 +39,9 @@ def _unflatten(flat: Mapping[str, Any]) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = arr
+    if isinstance(tree.get("stem"), dict):
+        tree["stem"] = tuple(tree["stem"][k]
+                             for k in sorted(tree["stem"], key=int))
     return tree
 
 
@@ -70,3 +76,17 @@ def _check(params: dict, cfg: ModelConfig) -> None:
             raise ValueError(f"blocks/{'/'.join(map(str, path))} has leading "
                              f"axis {leaf.shape[0]}, config has "
                              f"{cfg.n_repeats} repeats")
+    stem = params.get("stem", ())
+    if len(stem) != len(cfg.stem_pattern):
+        raise ValueError(f"parameter tree has {len(stem)} stem blocks, "
+                         f"config has stem {cfg.stem_pattern}")
+    for i, (bt, block) in enumerate(zip(cfg.stem_pattern, stem)):
+        mixer = "rec" if bt == "rglru" else "attn"
+        if mixer not in block:
+            raise ValueError(f"stem/{i} has no {mixer!r} subtree, config "
+                             f"says a {bt!r} block")
+        scale = block["ln1"]["scale"]
+        if tuple(scale.shape) != (cfg.d_model,):
+            raise ValueError(f"stem/{i}/ln1/scale is {tuple(scale.shape)}, "
+                             f"config wants ({cfg.d_model},) (stem blocks "
+                             "are not stacked)")

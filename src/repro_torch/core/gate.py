@@ -54,3 +54,8 @@ def gate_scores(params: Params, k_pre: torch.Tensor,
     x = gate_features(k_pre, k_post).to(params["w1"].dtype)
     return ops.write_gate(x, params["w1"], params["b1"], params["w2"],
                           params["b2"])
+
+
+def gate_param_count(cfg: ModelConfig) -> int:
+    h, fin, hid = cfg.n_kv_heads, 2 * cfg.head_dim, cfg.wgkv.gate_hidden
+    return h * (fin * hid + hid + hid + 1)

@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("gate_mlp", "paged_decode", "vertical_slash", "gated_flash")
+KERNELS = ("gate_mlp", "paged_decode", "vertical_slash", "gated_flash",
+           "rglru_scan")
 _LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -130,6 +131,9 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     elif name == "gated_flash":
         lib.gated_flash.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, p]
         lib.gated_flash.restype = i
+    elif name == "rglru_scan":
+        lib.rglru_scan_f32.argtypes = [p, p, p, i, i, i, p]
+        lib.rglru_scan_f32.restype = i
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,7 +1,7 @@
-"""Model-level folds around the kernels (port of ``repro/kernels/ops.py``
-minus the recurrence): GQA head folding, the write-gate batch fold, and
-the dual cache viewed as two paged segments, read whole or through the
-Quest-selected pages of its global segment.
+"""Model-level folds around the kernels (port of ``repro/kernels/ops.py``):
+GQA head folding, the write-gate batch fold, the dual cache viewed as two
+paged segments, read whole or through the Quest-selected pages of its
+global segment, and the RG-LRU linear scan.
 
 The GQA fold keeps the reference's stream order ``(b, kv head, group)``
 (``q.reshape(b, hkv, g, s, hd)``) but does not repeat K, V, the gates or
@@ -19,6 +19,7 @@ from repro_torch.kernels.gate_mlp import gate_mlp
 from repro_torch.kernels.gated_flash import gated_flash
 from repro_torch.kernels.paged_decode import (paged_decode,
                                               paged_decode_selected)
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.vertical_slash import vertical_slash
 
 
@@ -140,3 +141,10 @@ def dual_cache_selected_attention(q, cache, ids, n_sel):
     return paged_decode_selected(qf, *first, sel.contiguous(),
                                  n.contiguous(),
                                  second=second).reshape(q.shape)
+
+
+def rglru_linear_scan(a, b):
+    """[B, S, D] linear recurrence ``h_t = a_t * h_{t-1} + b_t`` from zero.
+    The kernel tiles itself, so the reference's ``bt``/``bd`` have no
+    counterpart."""
+    return rglru_scan(a.contiguous(), b.contiguous())

@@ -103,3 +103,14 @@ def vertical_slash_ref(q, k, v, kg, vg, gpos, *, w_local: int):
     w = torch.softmax(torch.cat([l1, l2], dim=-1), dim=-1)
     o = torch.einsum("nqk,nkd->nqd", w[..., :s].to(v.dtype), v)
     return o + torch.einsum("nqc,ncd->nqd", w[..., s:].to(vg.dtype), vg)
+
+
+def rglru_scan_ref(a, b, h0=None):
+    """Linear recurrence h_t = a_t * h_{t-1} + b_t. a, b: [B, S, D];
+    h0: [B, D] or None (zeros)."""
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

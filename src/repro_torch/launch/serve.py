@@ -9,6 +9,8 @@ admission-aware telemetry.
         --arch qwen3-0.6b --reduced --device cpu --requests 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --selection quest:2 --evict-budget 96 --prompt-len 384
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --reduced --device cpu --requests 2
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator``;
 prompts are drawn with numpy from the same seed. Flags of the reference
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_reduced_config
+from repro_torch.configs.base import ATTN_BLOCKS
 from repro_torch.core.admission import check_tau_margin
 from repro_torch.device import resolve_device
 from repro_torch.models import inference as I
@@ -39,10 +42,16 @@ from repro_torch.serving.orchestrator import (QueueFull, SchedulerConfig,
 
 
 def pool_pages_for(cfg, slots: int, capacity: int) -> int:
-    """Pool pages that hold ``slots`` full dual caches: every layer's kv
-    heads with a full ring and a full global budget, plus the null page."""
-    per_stream = (cfg.wgkv.w_local + cfg.wgkv.global_budget(capacity)) // 16
-    return slots * cfg.n_layers * cfg.n_kv_heads * per_stream + 1
+    """Pool pages that hold ``slots`` full dual caches: every attention
+    layer's kv heads with a full ring (``cfg.sliding_window`` for
+    ``local_attn``, else ``cfg.wgkv.w_local``) and a full global budget,
+    plus the null page. Recurrent layers keep no pages."""
+    budget = cfg.wgkv.global_budget(capacity)
+    layers = cfg.stem_pattern + cfg.block_pattern * cfg.n_repeats
+    per_slot = sum(
+        ((cfg.sliding_window if bt == "local_attn" else cfg.wgkv.w_local)
+         + budget) // 16 for bt in layers if bt in ATTN_BLOCKS)
+    return slots * cfg.n_kv_heads * per_slot + 1
 
 
 def tau_probe(params, cfg, *, prompt_len: int, seed: int,
@@ -54,7 +63,8 @@ def tau_probe(params, cfg, *, prompt_len: int, seed: int,
     paths, so its RuntimeWarning becomes a one-line stderr notice.
     Returns the margin min |g - tau| (None without gates). On CUDA the
     forward runs the ``gate_mlp`` and ``gated_flash`` kernels once per
-    layer."""
+    attention layer (and ``rglru_scan`` once per recurrent layer of a
+    hybrid)."""
     rng = np.random.default_rng(seed + 99)
     ptoks = rng.integers(0, cfg.vocab_size - 8, size=(1, min(prompt_len, 32)))
     with torch.no_grad():
@@ -129,7 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Run the CLI; returns {"outputs": [tokens per request],
-    "paged_dev": float, "report": str} for callers that drive it."""
+    "paged_dev": float, "report": str, "summary": the telemetry summary
+    of the burst} for callers that drive it."""
     ap = build_parser()
     args = ap.parse_args(argv)
     for name, flag in _UNPORTED.items():
@@ -155,6 +166,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     device = resolve_device(args.device)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     cfg = cfg.replace(dtype="float32")
+    if not cfg.has_attention_cache:
+        raise SystemExit(f"{args.arch} has no KV cache; engine serves "
+                         "attention archs (SSM decode via examples/)")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = T.init_model(cfg, gen, device)
@@ -216,6 +230,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         print(f"req {h.rid}: state={h.state}{tag} -> out={h.tokens()}")
     print("\ntelemetry:")
     report = session.report()
+    summary = session.telemetry.summary()
     print(report)
     dev = 0.0
     if eng.capabilities().paged:
@@ -244,7 +259,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
               f"({len(obj['traceEvents'])} events, "
               f"{obj['otherData']['spans_dropped']} dropped)")
     return {"outputs": [h.tokens() for h in handles], "paged_dev": dev,
-            "report": report}
+            "report": report, "summary": summary}
 
 
 if __name__ == "__main__":

@@ -13,27 +13,45 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dual_cache import init_dual_cache
 from repro_torch.device import torch_dtype
+from repro_torch.models import rglru as RG
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+
+
+def _block_cache(cfg: ModelConfig, bt: str, batch: int, capacity: int,
+                 device):
+    """One block's empty decode cache: the write-gated dual cache of an
+    attention block (ring ``cfg.sliding_window`` for ``local_attn``, else
+    ``cfg.wgkv.w_local``) or an ``rglru`` block's zero state."""
+    dt = torch_dtype(cfg.dtype)
+    if bt in ("attn", "local_attn"):
+        w_ring = (cfg.sliding_window if bt == "local_attn"
+                  else cfg.wgkv.w_local)
+        return init_dual_cache(batch, cfg.n_kv_heads, cfg.head_dim,
+                               w_local=w_ring,
+                               budget=cfg.wgkv.global_budget(capacity),
+                               dtype=dt, device=device)
+    if bt == "rglru":
+        return RG.init_rglru_state(cfg, batch, dt, device=device)
+    raise NotImplementedError(f"decode caches for block type {bt!r} are "
+                              "not ported yet")
 
 
 def build_decode_caches(cfg: ModelConfig, batch: int, capacity: int, *,
                         device=None) -> Dict[str, Any]:
-    """Empty decode cache tree ``{"t", "blocks": {"b0": DualCache}}`` with
-    block leaves stacked ``[n_repeats, batch, ...]``. Only the write-gated
-    dual cache of ``"attn"`` blocks is ported (the dense cache is not).
-    The eviction ``obs`` subtree is added by the caller that evicts
-    (``inference._init_obs_tree``), as in the reference."""
-    if cfg.stem_pattern or any(bt != "attn" for bt in cfg.block_pattern):
-        raise NotImplementedError(
-            f"decode caches for pattern {cfg.block_pattern} (stem "
-            f"{cfg.stem_pattern}) are not ported yet; only 'attn' blocks")
-    dt = torch_dtype(cfg.dtype)
-    one = {f"b{i}": init_dual_cache(
-        batch, cfg.n_kv_heads, cfg.head_dim, w_local=cfg.wgkv.w_local,
-        budget=cfg.wgkv.global_budget(capacity), dtype=dt, device=device)
-        for i, _ in enumerate(cfg.block_pattern)}
+    """Empty decode cache tree ``{"t", "stem": (...), "blocks": {"b0":
+    ...}}`` with block leaves stacked ``[n_repeats, batch, ...]`` and the
+    stem (only when the config has one) a tuple of batch-leading caches.
+    Only the write-gated dual cache is ported for attention blocks (the
+    dense cache is not). The eviction ``obs`` subtree is added by the
+    caller that evicts (``inference._init_obs_tree``), as in the
+    reference."""
     caches: Dict[str, Any] = {
         "t": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.stem_pattern:
+        caches["stem"] = tuple(_block_cache(cfg, bt, batch, capacity, device)
+                               for bt in cfg.stem_pattern)
+    one = {f"b{i}": _block_cache(cfg, bt, batch, capacity, device)
+           for i, bt in enumerate(cfg.block_pattern)}
     caches["blocks"] = tree_map(
         lambda x: x[None].expand((cfg.n_repeats,) + x.shape).contiguous(), one)
     return caches
@@ -42,8 +60,8 @@ def build_decode_caches(cfg: ModelConfig, batch: int, capacity: int, *,
 def cache_batch_axis(path) -> int:
     """Batch axis of a decode-cache leaf given its tree path: stacked
     per-superblock caches carry [n_repeats, B, ...]; the eviction
-    observation tree is [n_repeats, n_attn, B, ...]; ``t`` is
-    batch-leading."""
+    observation tree is [n_repeats, n_attn, B, ...]; everything else
+    (``t``, stem caches) is batch-leading."""
     if "obs" in path:
         return 2
     return 1 if "blocks" in path else 0

@@ -6,11 +6,17 @@
 continues from its caches. The serving engine instead ingests prompts
 position by position through :func:`prefill_extend_ragged`.
 
-Cache tree, as in the reference: ``{"t": [B] int32, "blocks": {"b0":
-DualCache}, "obs": ObsWindow}`` with every DualCache leaf stacked
-``[n_repeats, B, ...]`` and the eviction observation window (only when
-eviction is on) stacked ``[n_repeats, n_attn, B, ...]``. Updates are
-functional — each step returns a new tree and leaves its input untouched.
+Cache tree, as in the reference: ``{"t": [B] int32, "stem": (cache,
+...), "blocks": {"b0": ..., "b1": ...}, "obs": ObsWindow}``. An
+attention block (``"attn"``, ``"local_attn"``) keeps a DualCache whose
+ring is ``cfg.wgkv.w_local`` or, for ``local_attn``, ``cfg.sliding_window``
+tokens; an ``"rglru"`` block keeps its RGLRUState. Every ``"blocks"`` leaf
+is stacked ``[n_repeats, B, ...]``; the stem (only when the config has
+one) is a tuple of batch-leading caches; the eviction observation window
+(only when eviction is on) is stacked ``[n_repeats, n_attn, B, ...]`` and
+indexed by a block's ordinal among the attention blocks of the pattern.
+Updates are functional — each step returns a new tree and leaves its
+input untouched.
 
 Composability (paper §5.4): ``DecodeOptions.quest_pages`` applies Quest
 read-time selection as a page MASK, ``selection_policy = "quest:K"`` as a
@@ -25,7 +31,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
 from repro_torch.core import eviction as EV
 from repro_torch.core import selection as SEL
 from repro_torch.core.dual_cache import (DualCache, init_dual_cache,
@@ -34,8 +40,9 @@ from repro_torch.device import host_to_device, torch_dtype
 from repro_torch.launch.specs import cache_batch_axis
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
 from repro_torch.models.transformer import (_check_supported, _norm,
-                                            layer_params)
+                                            layer_params, stem_params)
 from repro_torch.tree import tree_map, tree_map_with_path
 
 Params = Dict[str, Any]
@@ -73,13 +80,15 @@ def parse_selection_policy(policy: Optional[str]) -> Optional[int]:
     return int(arg)
 
 
-def _split_layers(node: DualCache) -> List[DualCache]:
+def _split_layers(node) -> list:
+    """A stacked per-block cache (DualCache or RGLRUState, leaves
+    ``[n_repeats, ...]``) -> one cache per repeat."""
     cols = [leaf.unbind(0) for leaf in node]
-    return [DualCache(*(c[r] for c in cols)) for r in range(len(cols[0]))]
+    return [type(node)(*(c[r] for c in cols)) for r in range(len(cols[0]))]
 
 
-def _stack_layers(layers: List[DualCache]) -> DualCache:
-    return DualCache(*(torch.stack(leaves) for leaves in zip(*layers)))
+def _stack_layers(layers: list):
+    return type(layers[0])(*(torch.stack(leaves) for leaves in zip(*layers)))
 
 
 class PrefillOut(NamedTuple):
@@ -88,17 +97,22 @@ class PrefillOut(NamedTuple):
     mean_admission: torch.Tensor   # scalar: fraction of tokens with g >= tau
 
 
-def _attn_block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                        positions: torch.Tensor, *, budget: int
+def _attn_block_prefill(p: Params, cfg: ModelConfig, bt: str,
+                        x: torch.Tensor, positions: torch.Tensor, *,
+                        budget: int
                         ) -> Tuple[torch.Tensor, DualCache, torch.Tensor]:
-    """One ``"attn"`` block of the budgeted prefill: vertical-slash
-    attention, then the dual cache populated from its K/V/gates.
+    """One attention block of the budgeted prefill: vertical-slash
+    attention over the block's window (``cfg.sliding_window`` for
+    ``local_attn``, else ``cfg.wgkv.w_local``), then a dual cache with a
+    ring of that window populated from its K/V/gates.
     Returns (x, cache, admitted fraction)."""
     b = x.shape[0]
+    window = cfg.sliding_window if bt == "local_attn" else None
+    w_ring = window if window is not None else cfg.wgkv.w_local
     r = A.attn_prefill_budgeted(p["attn"], cfg, _norm(cfg, p["ln1"], x),
-                                positions, budget=budget)
+                                positions, budget=budget, window=window)
     cache = init_dual_cache(b, cfg.n_kv_heads, cfg.head_dim,
-                            w_local=cfg.wgkv.w_local, budget=budget,
+                            w_local=w_ring, budget=budget,
                             dtype=torch_dtype(cfg.dtype), device=x.device)
     cache = prefill_populate(cache, r.k_rope, r.v, r.g, tau=cfg.wgkv.tau,
                              sink=cfg.wgkv.sink, sel=r.sel)
@@ -107,19 +121,39 @@ def _attn_block_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return x, cache, (r.g >= cfg.wgkv.tau).float().mean()
 
 
+def _block_prefill(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
+                   positions: torch.Tensor, *, budget: int):
+    """One block of the prefill -> (x, its cache, admitted fraction; 0
+    for a block without a gate)."""
+    if bt in ("attn", "local_attn"):
+        return _attn_block_prefill(p, cfg, bt, x, positions, budget=budget)
+    if bt == "rglru":
+        y, state = RG.rglru_block(p["rec"], cfg, _norm(cfg, p["ln1"], x))
+        x = x + y
+        x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+        return x, state, torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
+    raise NotImplementedError(f"block type {bt!r} is not ported")
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             use_wgkv: Optional[bool] = None, budget: Optional[int] = None,
             opts: DecodeOptions = DecodeOptions()
             ) -> Tuple[PrefillOut, CacheTree]:
     """Budgeted vertical-slash prefill of tokens [B, S] (S a multiple of
-    W). Every layer's dual cache is filled at once and stacked
-    ``[n_repeats, B, ...]``, so :func:`decode_step` continues from the
-    returned tree. ``budget`` defaults to the config's global budget at
-    S. On CUDA each layer runs the ``gate_mlp`` and
-    ``vertical_slash`` kernels. With ``opts.evict_hard_budget`` the tree
-    carries an empty eviction observation window (``"obs"``) for the
-    decode steps that follow."""
+    every attention block's window). Every layer's cache is filled at
+    once — the stem's as a tuple, the repeats' stacked ``[n_repeats, B,
+    ...]`` — so :func:`decode_step` continues from the returned tree.
+    ``budget`` defaults to the config's global budget at S. On CUDA each
+    attention layer runs the ``gate_mlp`` and ``vertical_slash`` kernels
+    and each ``rglru`` layer the ``rglru_scan`` kernel. With
+    ``opts.evict_hard_budget`` the tree carries an empty eviction
+    observation window (``"obs"``) for the decode steps that follow.
+
+    ``mean_admission`` is the reference's: the admitted fractions summed
+    over attention layers, divided by the stem's block count (of any
+    type) plus ``n_repeats`` times the pattern's attention blocks."""
     _check_supported(cfg)
     if use_wgkv is None:
         use_wgkv = cfg.wgkv.enabled
@@ -136,19 +170,28 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                                  device=x.device)[None].expand(b, s)
     if budget is None:
         budget = cfg.wgkv.global_budget(s)
-    per_block: Dict[str, List[DualCache]] = {
-        f"b{i}": [] for i in range(len(cfg.block_pattern))}
     adm_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    stem_caches = []
+    for bt, p in zip(cfg.stem_pattern, stem_params(params)):
+        x, cache, adm = _block_prefill(p, cfg, bt, x, positions,
+                                       budget=budget)
+        stem_caches.append(cache)
+        adm_sum = adm_sum + adm
+    per_block: Dict[str, list] = {
+        f"b{i}": [] for i in range(len(cfg.block_pattern))}
     for lp in layer_params(params, cfg):
-        for i, _bt in enumerate(cfg.block_pattern):
-            x, cache, adm = _attn_block_prefill(lp[f"b{i}"], cfg, x,
-                                                positions, budget=budget)
+        for i, bt in enumerate(cfg.block_pattern):
+            x, cache, adm = _block_prefill(lp[f"b{i}"], cfg, bt, x,
+                                           positions, budget=budget)
             per_block[f"b{i}"].append(cache)
             adm_sum = adm_sum + adm
-    adm_n = cfg.n_repeats * max(cfg.attn_blocks_per_pattern, 1)
+    adm_n = (len(cfg.stem_pattern)
+             + cfg.n_repeats * max(cfg.attn_blocks_per_pattern, 1))
     caches: CacheTree = {
-        "t": torch.full((b,), s, dtype=torch.int32, device=x.device),
-        "blocks": {k: _stack_layers(v) for k, v in per_block.items()}}
+        "t": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+    if stem_caches:
+        caches["stem"] = tuple(stem_caches)
+    caches["blocks"] = {k: _stack_layers(v) for k, v in per_block.items()}
     if opts.evict_hard_budget is not None:
         caches["obs"] = _init_obs_tree(cfg, b, opts, x.device)
     hidden = _norm(cfg, params["ln_f"], x)
@@ -181,6 +224,43 @@ def _quest_mask(cfg: ModelConfig, cache: DualCache, q: torch.Tensor,
     return SEL.select_pages(q, meta, pages)
 
 
+def _attn_block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                       cache: DualCache, *, opts: DecodeOptions, sel_fn,
+                       sel_k: Optional[int], obs: Optional[EV.ObsWindow]):
+    """One attention block of a decode step: the dual-cache read (with
+    Quest selection when asked), then, given an observation window and
+    ``opts.evict_hard_budget``, the window takes the step's query
+    (``x @ w_q`` split into heads, before qk-norm and RoPE, as the
+    reference) and ``maybe_evict`` runs. Returns (x, cache, obs, per-row
+    admission, per-row selected pages or None, per-row triggers or
+    None)."""
+    xin = _norm(cfg, p["ln1"], x)
+    h, nc, g_new, sel_pages = A.attn_decode_wgkv(
+        p["attn"], cfg, xin, cache, token_select_fn=sel_fn,
+        select_pages_k=sel_k)
+    adm = (g_new >= cfg.wgkv.tau).float().mean(dim=-1)
+    selp = None if sel_pages is None else sel_pages.float().mean(dim=-1)
+    trig = None
+    if obs is not None and opts.evict_hard_budget is not None:
+        q_obs = A._heads(xin[:, None] @ p["attn"]["w_q"].to(xin.dtype),
+                         cfg.n_heads, cfg.head_dim)[:, :, 0]
+        obs = EV.push_query(obs, q_obs)
+        nc, trg = EV.maybe_evict(nc, obs, hard_budget=opts.evict_hard_budget,
+                                 evict_frac=opts.evict_frac)
+        trig = trg.float().mean(dim=-1)
+    x = x + h
+    x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+    return x, nc, obs, adm, selp, trig
+
+
+def _rglru_block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                        state: RG.RGLRUState):
+    y, state = RG.rglru_step(p["rec"], cfg, _norm(cfg, p["ln1"], x), state)
+    x = x + y
+    x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+    return x, state
+
+
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 caches: CacheTree, *, opts: DecodeOptions = DecodeOptions(),
                 layers: Optional[List[Params]] = None
@@ -189,14 +269,16 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     may pass precomputed per-layer parameter views
     (:func:`repro_torch.models.transformer.layer_params`).
 
-    Per attention layer: the decode read (with Quest selection when
-    ``opts`` asks), then, when the tree carries ``"obs"`` and
-    ``opts.evict_hard_budget`` is set, the layer's observation window
-    takes the step's query (``x @ w_q`` split into heads, before qk-norm
-    and RoPE, as the reference) and ``maybe_evict`` runs. Stats are per
-    row: ``evict_trigger_rows`` (triggered fraction of kv heads, summed
-    over layers) and ``selected_pages_rows`` (valid gathered pages, mean
-    over kv heads, summed over layers; zeros without gather
+    The stem blocks run first, then the repeats. Per attention layer: the
+    decode read (with Quest selection when ``opts`` asks), then, when the
+    tree carries ``"obs"`` and ``opts.evict_hard_budget`` is set, the
+    layer's observation window (``obs[r, ai]``, ``ai`` its ordinal among
+    the pattern's attention blocks; the stem has none) takes the step's
+    query and ``maybe_evict`` runs. An ``rglru`` layer advances its state
+    by one position. Stats are per row: ``evict_trigger_rows`` (triggered
+    fraction of kv heads, summed over layers), ``mean_admission`` (mean
+    over attention layers) and ``selected_pages_rows`` (valid gathered
+    pages, mean over kv heads, summed over layers; zeros without gather
     selection)."""
     dt = torch_dtype(cfg.dtype)
     if layers is None:
@@ -204,12 +286,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     x = L.embed(params["embed"], token, dt)                     # [B, D]
     b = x.shape[0]
     dev = x.device
-    per_block = {f"b{i}": _split_layers(caches["blocks"][f"b{i}"])
-                 for i in range(len(cfg.block_pattern))}
-    new_block = {k: [] for k in per_block}
     obs = caches.get("obs")
     evict = obs is not None and opts.evict_hard_budget is not None
-    new_obs: List[List[EV.ObsWindow]] = []
     sel_fn = None
     if opts.quest_pages is not None:
         def sel_fn(cache, q):
@@ -219,38 +297,53 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     trig_sum = torch.zeros_like(adm_sum)
     sel_sum = torch.zeros_like(adm_sum)
     adm_n = 0
+
+    def run(bt, p, x, cache, ob):
+        nonlocal adm_sum, trig_sum, sel_sum, adm_n
+        if bt == "rglru":
+            xo, nc = _rglru_block_decode(p, cfg, x, cache)
+            return xo, nc, ob
+        if bt not in ("attn", "local_attn"):
+            raise NotImplementedError(f"block type {bt!r} is not ported")
+        xo, nc, ob, adm, selp, trig = _attn_block_decode(
+            p, cfg, x, cache, opts=opts, sel_fn=sel_fn, sel_k=sel_k, obs=ob)
+        adm_sum = adm_sum + adm
+        adm_n += 1
+        if selp is not None:
+            sel_sum = sel_sum + selp
+        if trig is not None:
+            trig_sum = trig_sum + trig
+        return xo, nc, ob
+
+    new_caches: CacheTree = {"t": caches["t"] + 1}
+    if cfg.stem_pattern:
+        stem_new = []
+        for bt, p, cache in zip(cfg.stem_pattern, stem_params(params),
+                                caches["stem"]):
+            x, nc, _ = run(bt, p, x, cache, None)
+            stem_new.append(nc)
+        new_caches["stem"] = tuple(stem_new)
+    per_block = {f"b{i}": _split_layers(caches["blocks"][f"b{i}"])
+                 for i in range(len(cfg.block_pattern))}
+    new_block: Dict[str, list] = {k: [] for k in per_block}
+    new_obs: List[List[EV.ObsWindow]] = []
     for r in range(cfg.n_repeats):
         row_obs = []
-        for i, _bt in enumerate(cfg.block_pattern):
+        ai = 0
+        for i, bt in enumerate(cfg.block_pattern):
             key = f"b{i}"
-            p = layers[r][key]
-            xin = _norm(cfg, p["ln1"], x)
-            h, nc, g_new, sel_pages = A.attn_decode_wgkv(
-                p["attn"], cfg, xin, per_block[key][r],
-                token_select_fn=sel_fn, select_pages_k=sel_k)
-            adm_sum = adm_sum + (g_new >= cfg.wgkv.tau).float().mean(dim=-1)
-            adm_n += 1
-            if sel_pages is not None:
-                sel_sum = sel_sum + sel_pages.float().mean(dim=-1)
-            if evict:
-                ob = EV.ObsWindow(*(leaf[r, i] for leaf in obs))
-                q_obs = A._heads(xin[:, None] @ p["attn"]["w_q"].to(
-                    xin.dtype), cfg.n_heads, cfg.head_dim)[:, :, 0]
-                ob = EV.push_query(ob, q_obs)
-                nc, trg = EV.maybe_evict(
-                    nc, ob, hard_budget=opts.evict_hard_budget,
-                    evict_frac=opts.evict_frac)
-                trig_sum = trig_sum + trg.float().mean(dim=-1)
+            ob = None
+            if evict and bt in ATTN_BLOCKS:
+                ob = EV.ObsWindow(*(leaf[r, ai] for leaf in obs))
+                ai += 1
+            x, nc, ob = run(bt, layers[r][key], x, per_block[key][r], ob)
+            if ob is not None:
                 row_obs.append(ob)
             new_block[key].append(nc)
-            x = x + h
-            x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
         new_obs.append(row_obs)
     hidden = _norm(cfg, params["ln_f"], x)
     logits = L.unembed(params["embed"], hidden)
-    new_caches: CacheTree = {
-        "t": caches["t"] + 1,
-        "blocks": {k: _stack_layers(v) for k, v in new_block.items()}}
+    new_caches["blocks"] = {k: _stack_layers(v) for k, v in new_block.items()}
     if evict:
         new_caches["obs"] = EV.ObsWindow(*(
             torch.stack([torch.stack([getattr(ob, f) for ob in row])

@@ -1,14 +1,17 @@
 """The decoder's parameter tree, init and full-sequence forward (port of
-the ``"attn"``-block half of ``repro/models/transformer.py``).
+``repro/models/transformer.py`` for RMSNorm decoders whose blocks are
+``"attn"``, ``"local_attn"`` or ``"rglru"``).
 
 The tree mirrors the reference's, so weights carry across by path
-(:mod:`repro_torch.convert`): ``{"embed": {"tok"}, "blocks": {"b0": ...},
-"ln_f": {"scale"}}`` with every block leaf stacked on a leading
-``n_repeats`` axis.
+(:mod:`repro_torch.convert`): ``{"embed": {"tok"}, "stem": (block, ...),
+"blocks": {"b0": ...}, "ln_f": {"scale"}}`` with every block leaf stacked
+on a leading ``n_repeats`` axis and the stem (only when the config has
+one) a tuple of unstacked blocks run before the repeats.
 
 :func:`forward` is the training / teacher / hard-eval forward
 (``mode="teacher" | "gated" | "hard"``); on CUDA its gated mode runs the
-``gated_flash`` kernel in every layer.
+``gated_flash`` kernel in every attention layer and every ``"rglru"``
+block runs its recurrence through the ``rglru_scan`` kernel.
 """
 from __future__ import annotations
 
@@ -16,13 +19,17 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
+
+# block types the port runs; the attention ones carry a dual cache
+PORTED_BLOCKS = ("attn", "local_attn", "rglru")
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -31,21 +38,30 @@ def _norm(cfg: ModelConfig, p, x):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.stem_pattern or cfg.is_encdec or cfg.mrope
-            or cfg.arch_type == "audio"
-            or any(bt != "attn" for bt in cfg.block_pattern)):
+    unported = [bt for bt in cfg.stem_pattern + cfg.block_pattern
+                if bt not in PORTED_BLOCKS]
+    if cfg.is_encdec or cfg.mrope or cfg.arch_type == "audio" or unported:
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch ports RMSNorm 'attn' blocks only "
-            f"(pattern {cfg.block_pattern}, stem {cfg.stem_pattern})")
+            f"{cfg.name}: repro_torch ports RMSNorm decoders of "
+            f"{PORTED_BLOCKS} blocks only (pattern {cfg.block_pattern}, "
+            f"stem {cfg.stem_pattern})")
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    """One ``"attn"`` block: GQA self-attention (with the write gate) and
-    a SwiGLU FFN, each behind an RMSNorm."""
+def init_block(gen: torch.Generator, cfg: ModelConfig, bt: str,
+               device) -> Params:
+    """One block: ``"attn"`` / ``"local_attn"`` is GQA self-attention (with
+    the write gate) and a SwiGLU FFN, ``"rglru"`` the temporal conv +
+    RG-LRU recurrence and a SwiGLU FFN, each behind an RMSNorm."""
     dt = torch_dtype(cfg.param_dtype)
+    if bt in ("attn", "local_attn"):
+        mixer = {"attn": A.init_attention(gen, cfg, device)}
+    elif bt == "rglru":
+        mixer = {"rec": RG.init_rglru(gen, cfg, device)}
+    else:
+        raise NotImplementedError(f"block type {bt!r} is not ported")
     return {
         "ln1": L.init_rmsnorm(cfg.d_model, dt, device),
-        "attn": A.init_attention(gen, cfg, device),
+        **mixer,
         "ln2": L.init_rmsnorm(cfg.d_model, dt, device),
         "mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, device),
     }
@@ -62,12 +78,20 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     dev = resolve_device(device)
     dt = torch_dtype(cfg.param_dtype)
     params: Params = {"embed": L.init_embedding(generator, cfg, dev)}
-    layers = [{f"b{i}": init_block(generator, cfg, dev)
-               for i, _ in enumerate(cfg.block_pattern)}
+    if cfg.stem_pattern:
+        params["stem"] = tuple(init_block(generator, cfg, bt, dev)
+                               for bt in cfg.stem_pattern)
+    layers = [{f"b{i}": init_block(generator, cfg, bt, dev)
+               for i, bt in enumerate(cfg.block_pattern)}
               for _ in range(cfg.n_repeats)]
     params["blocks"] = tree_map(lambda *xs: torch.stack(xs), *layers)
     params["ln_f"] = L.init_rmsnorm(cfg.d_model, dt, dev)
     return params
+
+
+def stem_params(params: Params) -> Tuple[Params, ...]:
+    """The stem blocks, in order (empty without a stem)."""
+    return tuple(params.get("stem", ()))
 
 
 def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
@@ -94,25 +118,32 @@ def block_forward(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
                   q_chunk: Optional[int] = None,
                   gate_override: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, BlockAux]:
-    """One ``"attn"`` block. mode: "teacher" | "gated" | "hard".
-    ``gate_override``: [B, Hkv, S] static admission scores replacing the
-    learned gate."""
-    if bt != "attn":
-        raise NotImplementedError(f"block type {bt!r} is not ported")
-    gate_mode = {"teacher": "off", "gated": "gated", "hard": "hard"}[mode]
-    h, g = A.attn_train(p["attn"], cfg, _norm(cfg, p["ln1"], x), positions,
-                        gate_mode=gate_mode, q_chunk=q_chunk,
-                        gate_override=gate_override)
-    x = x + h
-    x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+    """One block. mode: "teacher" | "gated" | "hard". ``gate_override``:
+    [B, Hkv, S] static admission scores replacing the learned gate.
+    ``local_attn`` blocks attend within ``cfg.sliding_window`` (which is
+    also their W in the gate bias)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, BlockAux(None if g is None else g[None], zero)
+    if bt in ("attn", "local_attn"):
+        gate_mode = {"teacher": "off", "gated": "gated", "hard": "hard"}[mode]
+        window = cfg.sliding_window if bt == "local_attn" else None
+        h, g = A.attn_train(p["attn"], cfg, _norm(cfg, p["ln1"], x),
+                            positions, gate_mode=gate_mode, window=window,
+                            q_chunk=q_chunk, gate_override=gate_override)
+        x = x + h
+        x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+        return x, BlockAux(None if g is None else g[None], zero)
+    if bt == "rglru":
+        y, _ = RG.rglru_block(p["rec"], cfg, _norm(cfg, p["ln1"], x))
+        x = x + y
+        x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+        return x, BlockAux(None, zero)
+    raise NotImplementedError(f"block type {bt!r} is not ported")
 
 
 class ForwardResult(NamedTuple):
     logits: torch.Tensor              # [B, S, V] (a 0-d zero without logits)
     hidden: torch.Tensor              # final-layer hidden states [B, S, D]
-    gates: Optional[torch.Tensor]     # [L, B, Hkv, S]
+    gates: Optional[torch.Tensor]     # [L_attn, B, Hkv, S]
     lb_loss: torch.Tensor
 
 
@@ -120,9 +151,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None, mode: str = "teacher",
             q_chunk: Optional[int] = None, with_logits: bool = True,
             gate_override: Optional[torch.Tensor] = None) -> ForwardResult:
-    """Full-sequence forward. tokens: [B, S] int; positions: [B, S]
-    (default 0..S-1). gate_override: [L, B, Hkv, S] (per layer) or
-    [B, Hkv, S] (one policy for every layer)."""
+    """Full-sequence forward: the stem blocks, then the repeats. tokens:
+    [B, S] int; positions: [B, S] (default 0..S-1). gate_override:
+    [L_attn, B, Hkv, S] (one per attention layer, stem layers first) or
+    [B, Hkv, S] (one policy for every attention layer). Gates come back
+    [L_attn, B, Hkv, S] in the same order."""
     _check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     x = L.embed(params["embed"], tokens, dt)
@@ -130,22 +163,28 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-    overrides: List[Optional[torch.Tensor]] = [None] * cfg.n_layers
+    layers = ([(bt, p) for bt, p in zip(cfg.stem_pattern,
+                                        stem_params(params))]
+              + [(bt, lp[f"b{i}"]) for lp in layer_params(params, cfg)
+                 for i, bt in enumerate(cfg.block_pattern)])
+    n_attn = sum(1 for bt, _ in layers if bt in ATTN_BLOCKS)
+    overrides: List[Optional[torch.Tensor]] = [None] * n_attn
     if gate_override is not None:
         overrides = (list(gate_override.unbind(0)) if gate_override.ndim == 4
-                     else [gate_override] * cfg.n_layers)
+                     else [gate_override] * n_attn)
     gates = []
     lb_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    li = 0
-    for lp in layer_params(params, cfg):
-        for i, bt in enumerate(cfg.block_pattern):
-            x, aux = block_forward(lp[f"b{i}"], cfg, bt, x, positions,
-                                   mode=mode, q_chunk=q_chunk,
-                                   gate_override=overrides[li])
-            li += 1
-            if aux.gates is not None:
-                gates.append(aux.gates)
-            lb_total = lb_total + aux.lb_loss
+    ai = 0
+    for bt, p in layers:
+        ov = None
+        if bt in ATTN_BLOCKS:
+            ov = overrides[ai]
+            ai += 1
+        x, aux = block_forward(p, cfg, bt, x, positions, mode=mode,
+                               q_chunk=q_chunk, gate_override=ov)
+        if aux.gates is not None:
+            gates.append(aux.gates)
+        lb_total = lb_total + aux.lb_loss
     out_gates = None
     if mode != "teacher" and cfg.wgkv.enabled and gates:
         out_gates = torch.cat(gates, dim=0)

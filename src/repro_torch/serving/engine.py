@@ -40,12 +40,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
 from repro_torch.core.dual_cache import DualCache
 from repro_torch.device import (DeviceLike, host_to_device,
                                 resolve_device, torch_dtype)
@@ -150,20 +150,26 @@ class Engine:
                                  * torch_dtype(self.cfg.dtype).itemsize)
         return snap
 
-    def _dual_nodes(self, caches) -> List[DualCache]:
-        return [caches["blocks"][f"b{i}"]
-                for i in range(len(self.cfg.block_pattern))]
+    def _attn_blocks(self) -> List[int]:
+        """Indices ``i`` of the pattern's attention blocks (``"b{i}"``):
+        the blocks that keep a dual cache; ``rglru`` blocks keep a
+        recurrent state and have nothing to mirror."""
+        return [i for i, bt in enumerate(self.cfg.block_pattern)
+                if bt in ATTN_BLOCKS]
+
+    def _dual_nodes(self, caches) -> List[Tuple[int, DualCache]]:
+        """(block index, stacked DualCache) of every attention block."""
+        return [(i, caches["blocks"][f"b{i}"]) for i in self._attn_blocks()]
 
     def _kv_tokens_device(self, caches) -> torch.Tensor:
         """[B] resident KV tokens per row on the device, without a sync:
-        per layer, admitted global entries summed over kv heads plus the
-        filled ring window per head."""
-        total = None
-        for dc in self._dual_nodes(caches):
-            per = (dc.gcnt.sum(dim=(0, 2))
-                   + (torch.clamp(dc.t, max=dc.w_local)
-                      * dc.gcnt.shape[2]).sum(dim=0))
-            total = per if total is None else total + per
+        per attention layer, admitted global entries summed over kv heads
+        plus the filled ring window per head."""
+        total = torch.zeros_like(caches["t"])
+        for _, dc in self._dual_nodes(caches):
+            total = total + (dc.gcnt.sum(dim=(0, 2))
+                             + (torch.clamp(dc.t, max=dc.w_local)
+                                * dc.gcnt.shape[2]).sum(dim=0))
         return total.to(torch.int32)
 
     # ------------------------------------------------------------------
@@ -171,8 +177,12 @@ class Engine:
     # ------------------------------------------------------------------
     @property
     def _w_align(self) -> int:
-        """Prefill chunk alignment: the ring window."""
-        return self.cfg.wgkv.w_local
+        """Prefill chunk alignment: the largest ring window in the model."""
+        w = self.cfg.wgkv.w_local
+        if any(bt == "local_attn"
+               for bt in self.cfg.block_pattern + self.cfg.stem_pattern):
+            w = max(w, self.cfg.sliding_window)
+        return w
 
     def start_prefill(self, prompt: List[int]) -> PrefillTask:
         return PrefillTask(prompt=list(prompt))
@@ -488,7 +498,9 @@ class Engine:
     # paged-pool mirroring
     # ------------------------------------------------------------------
     def _layer_keys(self):
-        return [(r, i) for i in range(len(self.cfg.block_pattern))
+        """Pool layer keys ``(repeat, block index)`` of every attention
+        layer."""
+        return [(r, i) for i in self._attn_blocks()
                 for r in range(self.cfg.n_repeats)]
 
     def _mirror_prefill(self, slot: int, caches) -> None:
@@ -496,7 +508,7 @@ class Engine:
         pool: each head's ``gcnt`` global entries and its ``min(t, W)``
         filled ring slots (ring pages are allocated lazily until the
         wrap). One host transfer per leaf for all layers."""
-        for i, node in enumerate(self._dual_nodes(caches)):
+        for i, node in self._dual_nodes(caches):
             gk, gv, lk, lv, gcnt, t = (_host(x) for x in (
                 node.gk, node.gv, node.lk, node.lv, node.gcnt, node.t))
             w = node.w_local
@@ -536,8 +548,8 @@ class Engine:
         ridx = torch.as_tensor(rows, device=dev)
         ev_rows = [s for s in rows
                    if evicted_rows is not None and bool(evicted_rows[s])]
-        for i, (dcb, dca) in enumerate(zip(self._dual_nodes(before),
-                                           self._dual_nodes(after))):
+        for (i, dcb), (_, dca) in zip(self._dual_nodes(before),
+                                      self._dual_nodes(after)):
             n_rep, _, hkv = dca.gcnt.shape
             gcb = dcb.gcnt[:, ridx]                             # [R, n, H]
             ptrb = dcb.ptr[:, ridx].long()                      # [R, n]
@@ -584,12 +596,21 @@ class Engine:
                                                 ring_v[r, j, h])
 
     # ------------------------------------------------------------------
-    def verify_paged(self, layer_repeat: int = 0, block: int = 0,
+    def verify_paged(self, layer_repeat: int = 0,
+                     block: Optional[int] = None,
                      atol: float = 2e-3) -> float:
         """Recompute one layer's decode attention for all live slots from
         the PHYSICAL pool via the paged_decode kernel and compare with the
-        logical dual-cache contents. Returns max abs deviation."""
+        logical dual-cache contents. ``block`` (default: the pattern's
+        first attention block) must be an attention block. Returns max
+        abs deviation."""
         assert self.mirror and self.caches is not None
+        if block is None:
+            block = self._attn_blocks()[0]
+        if block not in self._attn_blocks():
+            raise ValueError(f"block b{block} "
+                             f"({self.cfg.block_pattern[block]!r}) keeps no "
+                             "dual cache to verify")
         live = [s for s in range(self.slots) if self.live[s]]
         if not live:
             return 0.0

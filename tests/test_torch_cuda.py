@@ -8,7 +8,8 @@ machine that has only PyTorch (``tests/conftest.py`` imports JAX, hence
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Inputs are drawn with numpy from a seed. Tolerances, absolute:
-``gate_mlp`` 1e-5; the attention kernels (``paged_decode_selected``
+``gate_mlp`` 1e-5; ``rglru_scan`` 5e-5 (it rounds each step as its plain
+loop does, so it should match exactly); the attention kernels (``paged_decode_selected``
 too; at the identity ids it must equal ``paged_decode`` exactly) 5e-5 in
 float32 and 1e-2 in
 bfloat16. The kernels and the plain versions both compute in f32, in
@@ -29,8 +30,10 @@ from repro_torch.kernels.gated_flash import gated_flash, gated_flash_plain
 from repro_torch.kernels.paged_decode import (paged_decode, paged_decode_plain,
                                               paged_decode_selected,
                                               paged_decode_selected_plain)
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
 from repro_torch.kernels.vertical_slash import (vertical_slash,
                                                 vertical_slash_plain)
+from repro_torch.models import rglru as RG
 
 TOL = {"float32": 5e-5, "bfloat16": 1e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -277,3 +280,103 @@ def test_bf16_tolerance_catches_a_planted_load_fault(kernel, fault, tmp_path,
     print(f"\n{kernel} bf16 max abs err: sound {sound:.3e}, planted "
           f"{fault} {planted:.3e} (limit {TOL['bfloat16']:.0e})")
     assert sound <= TOL["bfloat16"] < planted
+
+
+# ==========================================================================
+# rglru_scan
+# ==========================================================================
+@pytest.mark.parametrize("b,s,d,with_h0", [
+    (1, 4096, 4096, False),    # recurrentgemma-9b: one 4096-token prompt
+    (3, 1000, 200, True),      # ragged: no multiple of any tile, an h0
+    (2, 1, 300, True),         # S = 1
+    (4, 257, 1, False),        # D = 1
+])
+def test_rglru_scan_kernel_matches_plain_on_gpu(b, s, d, with_h0):
+    rng = np.random.default_rng(17)
+    a = (1.0 / (1.0 + np.exp(-rng.standard_normal((b, s, d))))
+         ).astype(np.float32)
+    bb = rng.standard_normal((b, s, d)).astype(np.float32)
+    h0 = rng.standard_normal((b, d)).astype(np.float32)
+    ta, tb, th0 = _cuda(a, bb, h0)
+    if with_h0:
+        # the model's scan: h0 folded into b[:, 0], then the kernel
+        got = RG.rglru_scan(ta, tb, th0)
+        folded = tb.clone()
+        folded[:, 0] = folded[:, 0] + ta[:, 0] * th0
+        want = rglru_scan_plain(ta, folded)
+    else:
+        got = rglru_scan(ta, tb)
+        want = rglru_scan_plain(ta, tb)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s, d) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+
+
+def test_rglru_scan_refuses_what_the_kernel_does_not_take_on_gpu():
+    rng = np.random.default_rng(18)
+    a, bb = _cuda(*(rng.uniform(0, 1, (2, 16, 64)).astype(np.float32)
+                    for _ in range(2)))
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan(a.to(torch.bfloat16), bb.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(1, 2), bb.transpose(1, 2))
+    with pytest.raises(ValueError, match=r"\[B, S, D\]"):
+        rglru_scan(a, bb[:, :8])
+
+
+# ==========================================================================
+# the attention kernels at recurrentgemma-9b's shapes: hd 256, MQA with
+# G = 16 query heads per kv head, the 2048-token local window
+# ==========================================================================
+RG_HQ, RG_HD, RG_W = 16, 256, 2048
+
+
+def test_vertical_slash_at_recurrentgemma_shape_on_gpu():
+    rng = np.random.default_rng(19)
+    s, c = 4096, 1024
+    q = rng.standard_normal((RG_HQ, s, RG_HD)).astype(np.float32)
+    k, v = (rng.standard_normal((1, s, RG_HD)).astype(np.float32)
+            for _ in range(2))
+    kg, vg, gpos = _vs_globals(rng, 1, s, RG_W, c, k, v)
+    args = _cuda(q, k, v, kg, vg) + _cuda(gpos)
+    got = vertical_slash(*args, w_local=RG_W, group=RG_HQ)
+    want = vertical_slash_plain(*args, w_local=RG_W, group=RG_HQ)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=TOL["float32"], rtol=0)
+
+
+def test_gated_flash_at_recurrentgemma_shape_on_gpu():
+    rng = np.random.default_rng(20)
+    s = 4096
+    q = rng.standard_normal((RG_HQ, s, RG_HD)).astype(np.float32)
+    k, v = (rng.standard_normal((1, s, RG_HD)).astype(np.float32)
+            for _ in range(2))
+    g = rng.uniform(0.0, 1.0, (1, s)).astype(np.float32)
+    args = _cuda(q, k, v, g)
+    got = gated_flash(*args, w_local=RG_W, eps=1e-6, group=RG_HQ)
+    want = gated_flash_plain(*args, w_local=RG_W, eps=1e-6, group=RG_HQ)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=TOL["float32"], rtol=0)
+
+
+def test_paged_decode_at_recurrentgemma_shape_on_gpu():
+    """One decode query per head over [global 1024 ‖ ring 2048] (64 + 128
+    pages) of one kv head, repeated for its 16 query heads."""
+    rng = np.random.default_rng(21)
+    gp, rp, page = 64, RG_W // 16, 16
+    q = rng.standard_normal((RG_HQ, RG_HD)).astype(np.float32)
+    kp, vp = (rng.standard_normal((gp + rp, page, RG_HD)).astype(np.float32)
+              for _ in range(2))
+    tq, tk, tv = _cuda(q, kp, vp)
+    gtbl = torch.arange(gp, dtype=torch.int32, device="cuda")[None].expand(
+        RG_HQ, gp).contiguous()
+    rtbl = (gp + torch.arange(rp, dtype=torch.int32, device="cuda"))[
+        None].expand(RG_HQ, rp).contiguous()
+    glen = torch.full((RG_HQ,), 700, dtype=torch.int32, device="cuda")
+    rlen = torch.full((RG_HQ,), RG_W, dtype=torch.int32, device="cuda")
+    second = (tk, tv, rtbl, rlen)
+    got = paged_decode(tq, tk, tv, gtbl, glen, second=second)
+    want = paged_decode_plain(tq, tk, tv, gtbl, glen, second=second)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=TOL["float32"], rtol=0)

@@ -50,7 +50,9 @@ def _layer0(tree):
 def _jax_leaves(tree):
     out = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        key = tuple(getattr(k, "key", getattr(k, "name", None)) for k in path)
+        key = tuple(getattr(k, "key", getattr(k, "name",
+                                              getattr(k, "idx", None)))
+                    for k in path)
         out[key] = np.asarray(leaf)
     return out
 
