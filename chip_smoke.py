@@ -14,10 +14,14 @@ prints no result, without them. Phases, any failure fatal:
                 card, at the main paths' shapes (qwen3-0.6b's and
                 recurrentgemma-9b's, and a larger or smaller one), f32 and
                 bf16 for the attention kernels, with times
-                (CUDA events), the plain version's time, a library
+                (CUDA events; for the decode reads and the probe also the
+                device time of the same calls replayed from a CUDA graph,
+                and for ``paged_decode`` each of its two kernels' time
+                under torch.profiler), the plain version's time, a library
                 yardstick where one exists, and the card's bound;
                 ``paged_decode_selected`` also bitwise against
-                ``paged_decode`` at the identity ids.
+                ``paged_decode`` at the identity ids, and two
+                ``paged_decode`` calls bitwise equal.
   4. serve-cli  — ``repro_torch.launch.serve`` at full qwen3-0.6b width,
                 its startup tau probe (a gated forward) included.
   5. serve-long — ``ServeSession`` at full width with 384-token prompts,
@@ -82,6 +86,9 @@ SRC = ROOT / "src"
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
+H100_TF32_FLOPS = 495e12        # dense TF32 tensor cores
+# gated_flash's f32 arithmetic: 3xTF32, three TF32 products per product
+H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 INT32_MAX = 2 ** 31 - 1
 PEAK = {"float32": H100_F32_FLOPS, "bfloat16": H100_BF16_FLOPS}
 # max abs error of an attention kernel against its plain version: both
@@ -123,6 +130,60 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, iters: int) -> float | None:
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed, so the host's dispatch of each call (Python, checks, the
+    launch itself) is not in the time that ``cuda_ms`` reads. None, with
+    the reason printed, if the calls cannot be captured."""
+    import torch
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        del graph
+        return start.elapsed_time(stop) / (5 * iters)
+    except RuntimeError as exc:  # capture refused: report, do not fail
+        print(f"graph_ms: capture failed: {str(exc)[:200]}")
+        return None
+
+
+def kernel_us(fn, iters: int = 20) -> dict:
+    """Device microseconds per call of each CUDA kernel ``fn`` launches
+    (torch.profiler over ``iters`` calls), by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0].split()[-1]
+            name = name.split("::")[-1]
+            out[name] = out.get(name, 0.0) + e.device_time_total / iters
+    return out
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -192,16 +253,21 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
                            lk=rn(slots, hkv, w, hd), lv=rn(slots, hkv, w, hd),
                            gcnt=gcnt, t=t)
     q = rn(slots, hkv * grp, hd)
-    qf, first, second = ops.dual_cache_segments(q, cache)
-    got = paged_decode(qf, *first, second=second)
-    want = paged_decode_plain(qf, *first, second=second)
+    qf, first, second, grp = ops.dual_cache_segments(q, cache)
+    got = paged_decode(qf, *first, second=second, group=grp)
+    want = paged_decode_plain(qf, *first, second=second, group=grp)
+    again = paged_decode(qf, *first, second=second, group=grp)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = TOL["float32" if dtype == torch.float32 else "bfloat16"]
     check(err <= tol, f"paged_decode {dtype} slots={slots} C={c} W={w} "
           f"err {err:.3e} > {tol}")
-    ms = cuda_ms(lambda: paged_decode(qf, *first, second=second), 200)
-    plain_ms = cuda_ms(lambda: paged_decode_plain(qf, *first, second=second), 50)
+    check(torch.equal(got, again), f"paged_decode {dtype} slots={slots} "
+          f"C={c} W={w}: two calls differ")
+    ms = cuda_ms(lambda: paged_decode(qf, *first, second=second, group=grp),
+                 200)
+    plain_ms = cuda_ms(lambda: paged_decode_plain(qf, *first, second=second,
+                                                  group=grp), 50)
     # library yardstick: SDPA over the pre-concatenated [global | ring]
     # K/V with a validity mask (times the attention call only)
     k = torch.cat([cache.gk, cache.lk], dim=2)
@@ -213,6 +279,12 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
     mask = valid[:, :, None, :]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qg, k, v, attn_mask=mask), 200)
+    device_ms = graph_ms(lambda: paged_decode(qf, *first, second=second,
+                                              group=grp), 50)
+    split_us = kernel_us(lambda: paged_decode(qf, *first, second=second,
+                                              group=grp))
+    library_device_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qg, k, v, attn_mask=mask), 50)
     # the bound: each valid K/V token read once per kv stream, q and the
     # output once, page tables and lengths once
     toks = int(gcnt.sum()) + int(torch.clamp(t, max=w).sum()) * hkv
@@ -223,9 +295,12 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
     flops = 4 * toks * grp * hd
     b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS if dtype == torch.float32
                        else H100_BF16_FLOPS)
+    plan = split_plan_of(qf, first, second, grp)
     return {"shape": f"N={slots * hkv * grp} hd={hd} C={c} W={w} {dtype}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "split_plan": plan, "kernel_us": split_us}
 
 
 def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
@@ -265,18 +340,20 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
     meta = SEL.PageMeta(meta.kmin, meta.kmax,
                         SEL.page_valid_from_count(gcnt, p_all))
     ids, n_sel = SEL.topk_page_ids(q, meta, k)
-    qf, first, second = ops.dual_cache_segments(q, cache)
-    sel = ids.reshape(slots * hkv, k).repeat_interleave(grp, 0).contiguous()
-    nsf = n_sel.reshape(-1).repeat_interleave(grp).contiguous()
-    got = paged_decode_selected(qf, *first, sel, nsf, second=second)
-    want = paged_decode_selected_plain(qf, *first, sel, nsf, second=second)
+    qf, first, second, grp = ops.dual_cache_segments(q, cache)
+    sel = ids.reshape(slots * hkv, k).contiguous()
+    nsf = n_sel.reshape(-1).contiguous()
+    got = paged_decode_selected(qf, *first, sel, nsf, second=second,
+                                group=grp)
+    want = paged_decode_selected_plain(qf, *first, sel, nsf, second=second,
+                                       group=grp)
     # the identity ids at K = every page, as topk_page_ids gives them
     all_ids, n_all = SEL.topk_page_ids(q, meta, p_all)
-    sel_all = all_ids.reshape(slots * hkv, p_all).repeat_interleave(
-        grp, 0).contiguous()
-    n_allf = n_all.reshape(-1).repeat_interleave(grp).contiguous()
-    ident = paged_decode_selected(qf, *first, sel_all, n_allf, second=second)
-    full = paged_decode(qf, *first, second=second)
+    sel_all = all_ids.reshape(slots * hkv, p_all).contiguous()
+    n_allf = n_all.reshape(-1).contiguous()
+    ident = paged_decode_selected(qf, *first, sel_all, n_allf, second=second,
+                                  group=grp)
+    full = paged_decode(qf, *first, second=second, group=grp)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = TOL["float32" if dtype == torch.float32 else "bfloat16"]
@@ -286,10 +363,11 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
     check(torch.equal(ident, full), f"{tag}: identity ids differ from "
           f"paged_decode by {float((ident - full).abs().max()):.3e}")
     ms = cuda_ms(lambda: paged_decode_selected(qf, *first, sel, nsf,
-                                               second=second), 200)
-    full_ms = cuda_ms(lambda: paged_decode(qf, *first, second=second), 200)
+                                               second=second, group=grp), 200)
+    full_ms = cuda_ms(lambda: paged_decode(qf, *first, second=second,
+                                           group=grp), 200)
     plain_ms = cuda_ms(lambda: paged_decode_selected_plain(
-        qf, *first, sel, nsf, second=second), 50)
+        qf, *first, sel, nsf, second=second, group=grp), 50)
     # library yardstick: SDPA over the K gathered pages and the ring, with
     # the validity mask (the gather is outside the timed call)
     gk, gv, gvalid = SEL.gather_pages(cache.gk, cache.gv, gcnt, ids)
@@ -304,6 +382,10 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
     qg = q.reshape(slots, hkv, grp, hd)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qg, kk, vv, attn_mask=mask), 200)
+    device_ms = graph_ms(lambda: paged_decode_selected(
+        qf, *first, sel, nsf, second=second, group=grp), 50)
+    library_device_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qg, kk, vv, attn_mask=mask), 50)
     # the bound: the valid tokens of the selected pages and of the ring,
     # K and V once per kv stream; q, the output, the ids, their counts,
     # the table entries they select and the lengths once
@@ -311,7 +393,7 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
     isz = q.element_size()
     n = qf.shape[0]
     nbytes = (2 * q.numel() * isz + 2 * toks * hd * isz
-              + 4 * (2 * sel.numel() + nsf.numel() + 2 * n
+              + 4 * (2 * sel.numel() + nsf.numel() + 2 * (n // grp)
                      + second[2].numel()))
     flops = 4 * toks * grp * hd
     b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS
@@ -320,7 +402,8 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
                      f"{dtype}",
             "max_abs_err": err, "ms": ms, "full_read_ms": full_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "tokens_read": toks,
+            "library_ms": library_ms, "device_ms": device_ms,
+            "library_device_ms": library_device_ms, "tokens_read": toks,
             "identity_bitwise": True}
 
 
@@ -448,15 +531,42 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
     q4 = q[None]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, kk, vv, attn_mask=bias), iters, warmup=1)
+    device_ms = library_device_ms = None
+    if s <= 64:  # the probe: launch-bound, so also its device time
+        device_ms = graph_ms(lambda: gated_flash(*args, w_local=w, eps=eps,
+                                                 group=grp), 50)
+        library_device_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q4, kk, vv, attn_mask=bias), 50)
     del bias, kk, vv
     isz = q.element_size()
     nbytes = isz * (2 * q.numel() + k.numel() + v.numel()) + 4 * g.numel()
     flops = 4 * hd * hq * s * (s + 1) // 2
-    b_ms, b_by = bound(nbytes, flops, PEAK[dtype])
+    # the bound at the rate of the kernel's arithmetic (f32: 3xTF32 on the
+    # tensor cores; bf16: bf16 tensor cores), and for f32 also at the CUDA
+    # cores' rate, the bound earlier versions of this kernel were held to
+    rate = H100_3XTF32_FLOPS if dtype == "float32" else H100_BF16_FLOPS
+    b_ms, b_by = bound(nbytes, flops, rate)
+    cc_ms, _ = bound(nbytes, flops, PEAK[dtype])
     return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] W={w} "
                      f"group={grp} {dtype}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_rate": ("3xTF32 tensor cores, 495/3 TFLOP/s"
+                           if dtype == "float32"
+                           else "bf16 tensor cores, 989 TFLOP/s"),
+            "bound_ms_cuda_cores": cc_ms if dtype == "float32" else None,
+            "library_ms": library_ms, "device_ms": device_ms,
+            "library_device_ms": library_device_ms}
+
+
+def split_plan_of(qf, first, second, group: int) -> dict:
+    """The split plan ``paged_decode`` launched with, for the record."""
+    from repro_torch.kernels.paged_decode import walk_plan
+    plan = walk_plan(qf, first[2], second, group=group)
+    return {"pages_per_split": plan.pages_per_split,
+            "splits": plan.n_splits, "heads_per_cta": plan.heads,
+            "ctas": qf.shape[0] // group * plan.n_splits
+            * -(-group // plan.heads)}
 
 
 def rglru_case(b: int, s: int, d: int, with_h0: bool, seed: int):
@@ -1443,7 +1553,7 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if ("registers" in line or "spill" in line
                         or "Compiling entry" in line):
-                    print(f"  ptxas {name}: {line.strip()[:110]}")
+                    print(f"  ptxas {name}: {line.strip()[:160]}")
     # 3. kernels vs plain (serving shapes first, then a larger size)
     gate_main = gate_case(rows=2 * 8, s=1, seed=0)
     gate_big = gate_case(rows=2 * 8, s=4096, seed=1)
@@ -1571,6 +1681,8 @@ def main() -> int:
          "max_abs_err": max(gf_main["max_abs_err"],
                             gf_probe["max_abs_err"]),
          **{k: gf_main[k] for k in attn}, "shape": gf_main["shape"],
+         "bound_rate": gf_main["bound_rate"],
+         "bound_ms_cuda_cores": gf_main["bound_ms_cuda_cores"],
          "max_abs_err_bf16": max(gf_bf16["max_abs_err"],
                                  gf_probe_bf16["max_abs_err"]),
          "launches_serve_cli": cli_counts["gated_flash"],

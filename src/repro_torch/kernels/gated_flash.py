@@ -63,8 +63,9 @@ def _check_cuda(q, k, v, g, group: int) -> None:
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"gated_flash kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
-    if not 0 < hd <= 256:
-        raise ValueError(f"gated_flash kernel takes hd <= 256, got {hd}")
+    if not 0 < hd <= 256 or hd % 8:
+        raise ValueError(f"gated_flash kernel takes hd <= 256, a multiple "
+                         f"of 8, got {hd}")
     if group < 1 or nq % group:
         raise ValueError(f"gated_flash: {nq} query streams are not a "
                          f"multiple of group {group}")
@@ -80,6 +81,8 @@ def _check_cuda(q, k, v, g, group: int) -> None:
                              f"{tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"gated_flash: {name} must be contiguous")
+        if name != "g" and t.data_ptr() % 16:
+            raise ValueError(f"gated_flash: {name} must be 16-byte aligned")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"gated_flash: k and v must be {q.dtype}")
     if g.dtype != torch.float32:

@@ -4,9 +4,9 @@ paged segments, read whole or through the Quest-selected pages of its
 global segment, and the RG-LRU linear scan.
 
 The GQA fold keeps the reference's stream order ``(b, kv head, group)``
-(``q.reshape(b, hkv, g, s, hd)``) but does not repeat K, V, the gates or
-the globals G times: the kernels take the group size and read kv stream
-``n // G`` for query stream n.
+(``q.reshape(b, hkv, g, s, hd)``) but does not repeat K, V, the gates, the
+globals, page tables, lengths or selected ids G times: the kernels take
+the group size and read kv stream ``n // G`` for query stream n.
 """
 from __future__ import annotations
 
@@ -69,30 +69,28 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
     -> [B, Hq, hd]."""
     b, hq, hd = q.shape
     hkv, mp = page_table.shape[1], page_table.shape[2]
-    g = hq // hkv
-    tf = page_table.reshape(b * hkv, mp).repeat_interleave(g, dim=0)
-    lf = lengths.reshape(b * hkv).repeat_interleave(g, dim=0)
     of = paged_decode(q.reshape(b * hq, hd).contiguous(), k_pool, v_pool,
-                      tf.contiguous(), lf.contiguous())
+                      page_table.reshape(b * hkv, mp).contiguous(),
+                      lengths.reshape(b * hkv).contiguous(), group=hq // hkv)
     return of.reshape(b, hq, hd)
 
 
 @functools.lru_cache(maxsize=64)
-def _identity_tables(streams: int, pages: int, group: int,
+def _identity_tables(streams: int, pages: int,
                      device: torch.device) -> torch.Tensor:
     """Page table of a contiguous [streams, pages * 16, hd] buffer viewed
-    as a pool: stream s owns pages s * pages ... s * pages + pages - 1.
-    Each stream's row is repeated ``group`` times (GQA fold)."""
+    as a pool: stream s owns pages s * pages ... s * pages + pages - 1."""
     base = torch.arange(streams, dtype=torch.int32, device=device)[:, None]
     tbl = base * pages + torch.arange(pages, dtype=torch.int32,
                                       device=device)[None]
-    return tbl.repeat_interleave(group, dim=0).contiguous()
+    return tbl.contiguous()
 
 
 def dual_cache_segments(q, cache):
     """The paged-decode arguments of a DualCache read, viewed in place:
-    (q [B*Hq, hd], global segment, local-ring segment), each segment a
-    (k_pool, v_pool, page_table, lengths) tuple. The global segment holds
+    (q [B*Hq, hd], global segment, local-ring segment, group), each
+    segment a (k_pool, v_pool, page_table, lengths) tuple per kv stream
+    (B*Hkv rows) and ``group`` = Hq / Hkv. The global segment holds
     ``gcnt`` tokens per head; the valid ring slots are exactly the first
     ``min(t, W)`` (the ring is written at ``ptr``, which starts at 0 and
     advances with ``t``)."""
@@ -102,45 +100,41 @@ def dual_cache_segments(q, cache):
     if c % PAGE_SIZE or w % PAGE_SIZE:
         raise ValueError(f"dual-cache read needs page-aligned C={c} and "
                          f"W={w} (multiples of {PAGE_SIZE})")
-    g = hq // hkv
     s = b * hkv
-    glen = cache.gcnt.reshape(s).repeat_interleave(g)
+    glen = cache.gcnt.reshape(s)
     llen = torch.clamp(cache.t, max=w).to(torch.int32)[:, None] \
-        .expand(b, hkv).reshape(s).repeat_interleave(g)
+        .expand(b, hkv).reshape(s)
     first = (cache.gk.reshape(s * c // PAGE_SIZE, PAGE_SIZE, hd),
              cache.gv.reshape(s * c // PAGE_SIZE, PAGE_SIZE, hd),
-             _identity_tables(s, c // PAGE_SIZE, g, q.device),
+             _identity_tables(s, c // PAGE_SIZE, q.device),
              glen.contiguous())
     second = (cache.lk.reshape(s * w // PAGE_SIZE, PAGE_SIZE, hd),
               cache.lv.reshape(s * w // PAGE_SIZE, PAGE_SIZE, hd),
-              _identity_tables(s, w // PAGE_SIZE, g, q.device),
+              _identity_tables(s, w // PAGE_SIZE, q.device),
               llen.contiguous())
-    return q.reshape(b * hq, hd).contiguous(), first, second
+    return q.reshape(b * hq, hd).contiguous(), first, second, hq // hkv
 
 
 def dual_cache_attention(q, cache):
     """One query per head over a DualCache's [admitted global ‖ local
     ring], read in place by the paged-decode kernel as two segments.
     q: [B, Hq, hd] -> [B, Hq, hd]."""
-    qf, first, second = dual_cache_segments(q, cache)
-    return paged_decode(qf, *first, second=second).reshape(q.shape)
+    qf, first, second, g = dual_cache_segments(q, cache)
+    return paged_decode(qf, *first, second=second, group=g).reshape(q.shape)
 
 
 def dual_cache_selected_attention(q, cache, ids, n_sel):
     """:func:`dual_cache_attention` with Quest read-time selection: the
     global segment is read through only the pages ``ids`` [B, Hkv, K]
     int32 (ascending logical page ids per kv head, the first ``n_sel``
-    [B, Hkv] valid), the local ring whole, in one softmax. The ids are
-    repeated per GQA group as the tables are. q: [B, Hq, hd] ->
-    [B, Hq, hd]."""
-    qf, first, second = dual_cache_segments(q, cache)
+    [B, Hkv] valid), the local ring whole, in one softmax. q: [B, Hq, hd]
+    -> [B, Hq, hd]."""
+    qf, first, second, g = dual_cache_segments(q, cache)
     b, hkv, k = ids.shape
-    g = q.shape[1] // hkv
-    sel = ids.reshape(b * hkv, k).repeat_interleave(g, dim=0)
-    n = n_sel.reshape(b * hkv).repeat_interleave(g)
-    return paged_decode_selected(qf, *first, sel.contiguous(),
-                                 n.contiguous(),
-                                 second=second).reshape(q.shape)
+    return paged_decode_selected(
+        qf, *first, ids.reshape(b * hkv, k).contiguous(),
+        n_sel.reshape(b * hkv).contiguous(), second=second,
+        group=g).reshape(q.shape)
 
 
 def rglru_linear_scan(a, b):

@@ -11,14 +11,25 @@ decides: a CUDA tensor the kernel does not take raises.
 All take an optional ``second`` segment ``(k_pool, v_pool, page_table,
 lengths)`` folded into the same softmax — the dual cache's [global ‖
 local ring] read. The selected read walks only the pages ``sel_ids``
-[N, K] (logical ids, ascending, the first ``n_sel[n]`` valid) of the
+[Nkv, K] (logical ids, ascending, the first ``n_sel`` valid) of the
 first segment; the second is read whole. Fully masked streams keep the
 Pallas kernel's handling: the output is ``acc / max(l, 1e-30)``, so a
 length-0 stream returns 0.
+
+``group`` query rows share one kv stream (GQA, rows ordered (kv stream,
+head)): tables, lengths, ids and counts are given per kv stream, [N /
+group, ...], and the kernel stages each page once for the whole group.
+``group=1`` is the reference's layout, one table row per query row.
+
+The kernel cuts each kv stream's walk [segment 1 pages ‖ segment 2
+pages] into splits (:func:`split_plan`, a function of shapes only) that
+run in parallel and are combined in a fixed order.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +43,63 @@ selected_launches = build.LaunchCounter("paged_decode_selected")
 Segment = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+PAGE = 16            # tokens per page (the kernel's fixed page)
+SMS = 132            # streaming multiprocessors of an H100 SXM
+TARGET_CTAS = 2 * SMS
+MAX_PAGES_PER_SPLIT = 4  # a longer walk per CTA waits on its loads
+_THREADS = 128       # threads of a split CTA (csrc/paged_decode.cu)
+_MAX_ACC = 8         # float4 accumulators per thread
+
+
+class SplitPlan(NamedTuple):
+    pages_per_split: int   # walk positions each split CTA covers
+    n_splits: int
+    heads: int             # query heads per CTA (of the group)
+
+
+def max_heads(hd: int) -> int:
+    """Query heads one CTA holds at head dim ``hd``: each of its threads
+    owns a float4 column of the output for up to 8 heads."""
+    return (_THREADS // (hd // 4)) * _MAX_ACC
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(walk_pages: int, kv_streams: int, group: int,
+               hd: int) -> SplitPlan:
+    """The kernel's split of a walk of ``walk_pages`` positions (segment
+    1's pages, or its K selected ids, then segment 2's) for
+    ``kv_streams`` kv streams of ``group`` heads at head dim ``hd``.
+    Shapes only, never lengths or ids (reading them would sync the host):
+    splits of equal size, enough for about two CTAs per SM, and at most
+    ``MAX_PAGES_PER_SPLIT`` pages each."""
+    chunks = -(-group // max_heads(hd))
+    heads = -(-group // chunks)
+    walk = max(walk_pages, 1)
+    pps = min(MAX_PAGES_PER_SPLIT,
+              max(1, math.ceil(walk * kv_streams * chunks / TARGET_CTAS)))
+    return SplitPlan(pps, -(-walk // pps), heads)
+
+
+def walk_plan(q, page_table, second: Optional[Segment] = None, *,
+              group: int = 1, sel_ids=None) -> SplitPlan:
+    """The split plan a wrapper launches with: the walk is segment 1's
+    table width (or the K of ``sel_ids``) plus segment 2's, so the
+    selected read at K = every page gets paged_decode's plan."""
+    first = page_table.shape[1] if sel_ids is None else sel_ids.shape[1]
+    walk = first + (second[2].shape[1] if second is not None else 0)
+    return split_plan(walk, q.shape[0] // group, group, q.shape[1])
+
+
+def _per_query(t: torch.Tensor, group: int) -> torch.Tensor:
+    return t if group == 1 else t.repeat_interleave(group, dim=0)
+
+
+def _per_query_segment(seg: Optional[Segment], group: int):
+    if seg is None or group == 1:
+        return seg
+    k, v, tbl, lens = seg
+    return k, v, _per_query(tbl, group), _per_query(lens, group)
 
 
 def _segment(q, k_pool, v_pool, page_table, lengths):
@@ -80,28 +148,32 @@ def _combine(q, logits, v, second: Optional[Segment]):
 
 
 def paged_decode_plain(q, k_pool, v_pool, page_table, lengths,
-                       second: Optional[Segment] = None):
-    """q: [N, hd]; pools [P, page, hd]; page_table [N, max_pages] int32;
-    lengths [N] -> [N, hd] in q's dtype."""
-    logits, v = _segment(q, k_pool, v_pool, page_table, lengths)
-    return _combine(q, logits, v, second)
+                       second: Optional[Segment] = None, *, group: int = 1):
+    """q: [N, hd]; pools [P, page, hd]; page_table [N / group, max_pages]
+    int32; lengths [N / group] -> [N, hd] in q's dtype."""
+    logits, v = _segment(q, k_pool, v_pool, _per_query(page_table, group),
+                         _per_query(lengths, group))
+    return _combine(q, logits, v, _per_query_segment(second, group))
 
 
 def paged_decode_selected_plain(q, k_pool, v_pool, page_table, lengths,
                                 sel_ids, n_sel,
-                                second: Optional[Segment] = None):
+                                second: Optional[Segment] = None, *,
+                                group: int = 1):
     """As :func:`paged_decode_plain` with the first segment read through
-    ``sel_ids`` [N, K] int32 / ``n_sel`` [N] int32. At the identity ids
-    (K covering every page) it is bitwise equal to
+    ``sel_ids`` [N / group, K] int32 / ``n_sel`` [N / group] int32. At the
+    identity ids (K covering every page) it is bitwise equal to
     :func:`paged_decode_plain`."""
-    logits, v = _selected_segment(q, k_pool, v_pool, page_table, lengths,
-                                  sel_ids, n_sel)
-    return _combine(q, logits, v, second)
+    logits, v = _selected_segment(
+        q, k_pool, v_pool, _per_query(page_table, group),
+        _per_query(lengths, group), _per_query(sel_ids, group),
+        _per_query(n_sel, group))
+    return _combine(q, logits, v, _per_query_segment(second, group))
 
 
-def _check_cuda(q, seg: Segment, tag: str) -> None:
+def _check_cuda(q, seg: Segment, tag: str, n: int) -> None:
     k_pool, v_pool, table, lengths = seg
-    n, hd = q.shape
+    hd = q.shape[1]
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("page_table", table), ("lengths", lengths)):
         if t.device != q.device:
@@ -121,10 +193,16 @@ def _check_cuda(q, seg: Segment, tag: str) -> None:
     if table.ndim != 2 or table.shape[0] != n or tuple(lengths.shape) != (n,):
         raise ValueError(f"paged_decode: {tag}page_table {tuple(table.shape)}"
                          f" / lengths {tuple(lengths.shape)} do not match "
-                         f"{n} streams")
+                         f"{n} kv streams")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_decode: {tag}{name} must be 16-byte "
+                             "aligned")
 
 
-def _check_launch(q, first: Segment, second: Optional[Segment]) -> None:
+def _check_launch(q, first: Segment, second: Optional[Segment],
+                  group: int) -> int:
+    """Checks what the kernel takes; returns the number of kv streams."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode: unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODE:
@@ -132,11 +210,21 @@ def _check_launch(q, first: Segment, second: Optional[Segment]) -> None:
                         f"got {q.dtype}")
     if q.ndim != 2 or not q.is_contiguous():
         raise ValueError("paged_decode: q must be a contiguous [N, hd]")
-    _check_cuda(q, first, "")
+    n, hd = q.shape
+    if not 0 < hd <= 256 or hd * q.element_size() % 16:
+        raise ValueError(f"paged_decode kernel takes hd <= 256 with 16-byte "
+                         f"rows, got hd {hd} in {q.dtype}")
+    if group < 1 or n % group:
+        raise ValueError(f"paged_decode: {n} query rows are not a multiple "
+                         f"of group {group}")
+    if first[0].ndim != 3 or first[0].shape[1] != PAGE:
+        raise ValueError(f"paged_decode kernel takes pages of {PAGE} tokens")
+    _check_cuda(q, first, "", n // group)
     if second is not None:
-        _check_cuda(q, second, "second ")
+        _check_cuda(q, second, "second ", n // group)
         if second[0].shape[1] != first[0].shape[1]:
             raise ValueError("paged_decode: both segments need one page size")
+    return n // group
 
 
 def _second_args(second: Optional[Segment]):
@@ -147,64 +235,75 @@ def _second_args(second: Optional[Segment]):
             t2.shape[1])
 
 
+def _launch(fn, q, plan: SplitPlan, group: int, args, tail):
+    """Runs a kernel entry with its split plan and scratch; returns out."""
+    n, hd = q.shape
+    nkv = n // group
+    out = torch.empty_like(q)
+    part = None
+    if plan.n_splits > 1:
+        part = torch.empty(nkv * plan.n_splits * group * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), *args, *tail, out.data_ptr(),
+                part.data_ptr() if part is not None else None, n, group, hd,
+                PAGE, plan.pages_per_split, plan.heads, _DTYPE_CODE[q.dtype],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
+                           f"{rc}")
+    return out
+
+
 def paged_decode(q, k_pool, v_pool, page_table, lengths,
-                 second: Optional[Segment] = None):
+                 second: Optional[Segment] = None, *, group: int = 1):
     """Single-query paged decode over one or two segments -> [N, hd]."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, page_table, lengths,
-                                  second)
-    _check_launch(q, (k_pool, v_pool, page_table, lengths), second)
-    n, hd = q.shape
-    out = torch.empty_like(q)
+                                  second, group=group)
+    _check_launch(q, (k_pool, v_pool, page_table, lengths), second, group)
     lib = build.load("paged_decode")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_decode(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), page_table.shape[1],
-            *_second_args(second),
-            out.data_ptr(), n, hd, k_pool.shape[1], _DTYPE_CODE[q.dtype],
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {rc}")
+    out = _launch(lib.paged_decode, q,
+                  walk_plan(q, page_table, second, group=group), group,
+                  (k_pool.data_ptr(), v_pool.data_ptr(),
+                   page_table.data_ptr(), lengths.data_ptr(),
+                   page_table.shape[1]), _second_args(second))
     launches.count += 1
     return out
 
 
 def paged_decode_selected(q, k_pool, v_pool, page_table, lengths, sel_ids,
-                          n_sel, second: Optional[Segment] = None):
+                          n_sel, second: Optional[Segment] = None, *,
+                          group: int = 1):
     """Quest-selected single-query paged decode -> [N, hd]: the first
-    segment read through only the pages ``sel_ids`` [N, K] int32
-    (ascending logical ids) of which the first ``n_sel`` [N] int32 are
-    valid; ``second`` read whole."""
+    segment read through only the pages ``sel_ids`` [N / group, K] int32
+    (ascending logical ids) of which the first ``n_sel`` [N / group]
+    int32 are valid; ``second`` read whole."""
     if q.device.type == "cpu":
         return paged_decode_selected_plain(q, k_pool, v_pool, page_table,
-                                           lengths, sel_ids, n_sel, second)
-    _check_launch(q, (k_pool, v_pool, page_table, lengths), second)
-    n, hd = q.shape
+                                           lengths, sel_ids, n_sel, second,
+                                           group=group)
+    nkv = _check_launch(q, (k_pool, v_pool, page_table, lengths), second,
+                        group)
     for name, t in (("sel_ids", sel_ids), ("n_sel", n_sel)):
         if t.device != q.device or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise ValueError(f"paged_decode_selected: {name} must be a "
                              f"contiguous int32 tensor on {q.device}")
-    if sel_ids.ndim != 2 or sel_ids.shape[0] != n or sel_ids.shape[1] < 1 \
-            or tuple(n_sel.shape) != (n,):
+    if sel_ids.ndim != 2 or sel_ids.shape[0] != nkv or sel_ids.shape[1] < 1 \
+            or tuple(n_sel.shape) != (nkv,):
         raise ValueError(f"paged_decode_selected: sel_ids "
                          f"{tuple(sel_ids.shape)} / n_sel "
-                         f"{tuple(n_sel.shape)} do not match {n} streams")
-    out = torch.empty_like(q)
+                         f"{tuple(n_sel.shape)} do not match {nkv} kv "
+                         f"streams")
     lib = build.load("paged_decode")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_decode_selected(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), page_table.shape[1],
-            sel_ids.data_ptr(), n_sel.data_ptr(), sel_ids.shape[1],
-            *_second_args(second),
-            out.data_ptr(), n, hd, k_pool.shape[1], _DTYPE_CODE[q.dtype],
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_selected kernel launch failed: "
-                           f"CUDA error {rc}")
+    out = _launch(lib.paged_decode_selected, q,
+                  walk_plan(q, page_table, second, group=group,
+                            sel_ids=sel_ids), group,
+                  (k_pool.data_ptr(), v_pool.data_ptr(),
+                   page_table.data_ptr(), lengths.data_ptr(),
+                   page_table.shape[1], sel_ids.data_ptr(), n_sel.data_ptr(),
+                   sel_ids.shape[1]), _second_args(second))
     selected_launches.count += 1
     return out

@@ -13,10 +13,11 @@ loop does, so it should match exactly); the attention kernels (``paged_decode_se
 too; at the identity ids it must equal ``paged_decode`` exactly) 5e-5 in
 float32 and 1e-2 in
 bfloat16. The kernels and the plain versions both compute in f32, in
-different orders, and round the output to bfloat16, so in bfloat16 they
-may differ by an ulp of an output (2**-9 for outputs under 0.5). A
-mutation check holds the bfloat16 bound against a kernel whose bfloat16
-load is broken on purpose.
+different orders (``gated_flash`` on tensor cores: 3xTF32 for float32,
+bfloat16 products with P as three bfloat16 terms), and round the output to
+bfloat16, so in bfloat16 they may differ by an ulp of an output (2**-9
+for outputs under 0.5). A mutation check holds the bfloat16 bound against
+a kernel whose bfloat16 load is broken on purpose.
 """
 from pathlib import Path
 
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import paged_decode as PD
 from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain
 from repro_torch.kernels.gated_flash import gated_flash, gated_flash_plain
 from repro_torch.kernels.paged_decode import (paged_decode, paged_decode_plain,
@@ -144,21 +146,93 @@ def test_paged_decode_selected_kernel_matches_plain_on_gpu(kp, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_decode_selected_identity_is_bitwise_on_gpu(dtype):
     """The identity ids with K covering every page walk the same pages in
-    the same order as paged_decode: torch.equal outputs."""
+    the same order as paged_decode: torch.equal outputs, per query stream
+    (group 1) and with tables per kv stream of a group of 2."""
     rng = np.random.default_rng(5)
     q, kp_, vp, tbl, lens = _paged_inputs(rng, 16, 128, 16, 64, 8)
     lens[3] = 0
     args = _cuda(q, kp_, vp, dtype=TDT[dtype])
-    tt, tl = _cuda(tbl, lens)
-    sel = torch.arange(8, dtype=torch.int32, device="cuda")[None].expand(
-        16, 8).contiguous()
-    nsel = torch.full((16,), 8, dtype=torch.int32, device="cuda")
-    second = (args[1], args[2], tt[:, :4].contiguous(), tl // 2)
-    for seg2 in (None, second):
-        full = paged_decode(*args, tt, tl, second=seg2)
-        got = paged_decode_selected(*args, tt, tl, sel, nsel, second=seg2)
-        torch.cuda.synchronize()
-        assert torch.equal(got, full)
+    for group in (1, 2):
+        tt, tl = _cuda(tbl[::group], lens[::group])
+        nkv = tt.shape[0]
+        sel = torch.arange(8, dtype=torch.int32, device="cuda")[None].expand(
+            nkv, 8).contiguous()
+        nsel = torch.full((nkv,), 8, dtype=torch.int32, device="cuda")
+        second = (args[1], args[2], tt[:, :4].contiguous(), tl // 2)
+        for seg2 in (None, second):
+            full = paged_decode(*args, tt, tl, second=seg2, group=group)
+            got = paged_decode_selected(*args, tt, tl, sel, nsel,
+                                        second=seg2, group=group)
+            torch.cuda.synchronize()
+            assert torch.equal(got, full)
+
+
+def _split_walk_case(rng, group, hd, dtype):
+    """Four kv streams over [global C 1024 ‖ ring W 2048] (64 + 128 pages
+    of 16), where the split plan cuts the walk into splits of a few pages:
+    a length-0 stream, one whose live pages all fall in the first split,
+    one that reaches one token past the first split boundary, and a full
+    one whose ring reaches past the last boundary."""
+    nkv, p1, p2 = 4, 64, 128
+    pps = PD.split_plan(p1 + p2, nkv, group, hd).pages_per_split
+    assert pps > 1
+    ptotal = 600
+    q = rng.standard_normal((nkv * group, hd)).astype(np.float32)
+    kp, vp = (rng.standard_normal((ptotal, 16, hd)).astype(np.float32)
+              for _ in range(2))
+    t1 = rng.integers(0, ptotal, (nkv, p1)).astype(np.int32)
+    t2 = rng.integers(0, ptotal, (nkv, p2)).astype(np.int32)
+    l1 = np.array([0, pps * 16 - 5, pps * 16 + 1, p1 * 16], np.int32)
+    l2 = np.array([0, 0, 7, p2 * 16], np.int32)
+    args = _cuda(q, kp, vp, dtype=TDT[dtype])
+    tt1, tl1, tt2, tl2 = _cuda(t1, l1, t2, l2)
+    return args, (tt1, tl1), (args[1], args[2], tt2, tl2)
+
+
+@pytest.mark.parametrize("group,hd", [(1, 64), (2, 128), (16, 256),
+                                      (16, 64), (2, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_split_walk_matches_plain_on_gpu(group, hd, dtype):
+    """The split-K walk with GQA-shared pages against the plain read, and
+    two calls bitwise equal (the combine runs in a fixed split order)."""
+    rng = np.random.default_rng(7)
+    args, first, second = _split_walk_case(rng, group, hd, dtype)
+    got = paged_decode(*args, *first, second=second, group=group)
+    again = paged_decode(*args, *first, second=second, group=group)
+    want = paged_decode_plain(*args, *first, second=second, group=group)
+    torch.cuda.synchronize()
+    assert torch.all(got[:group] == 0)  # the length-0 kv stream
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    assert torch.equal(got, again)
+    # one segment: the walk is the global pages alone
+    got1 = paged_decode(*args, *first, group=group)
+    want1 = paged_decode_plain(*args, *first, group=group)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got1.float(), want1.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("group,hd", [(1, 64), (2, 128), (16, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_selected_split_walk_matches_plain_on_gpu(group, hd,
+                                                               dtype):
+    """K = 8 of 64 global pages per kv stream with n_sel below K on some
+    streams (0 on one), the ring whole, per kv stream; bitwise repeatable."""
+    rng = np.random.default_rng(8)
+    args, first, second = _split_walk_case(rng, group, hd, dtype)
+    sel, _ = _selected_ids(rng, 4, 64, 8)
+    ts, tn = _cuda(sel, np.array([8, 3, 0, 5], np.int32))
+    got = paged_decode_selected(*args, *first, ts, tn, second=second,
+                                group=group)
+    again = paged_decode_selected(*args, *first, ts, tn, second=second,
+                                  group=group)
+    want = paged_decode_selected_plain(*args, *first, ts, tn, second=second,
+                                       group=group)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    assert torch.equal(got, again)
 
 
 def test_paged_decode_selected_refuses_bad_ids_on_gpu():
@@ -188,6 +262,27 @@ def test_gated_flash_kernel_matches_plain_on_gpu(s, hd, dtype):
     (tg,) = _cuda(g)
     got = gated_flash(*args, tg, w_local=64, eps=1e-6, group=2)
     want = gated_flash_plain(*args, tg, w_local=64, eps=1e-6, group=2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("group,s,hd", [(16, 200, 256), (16, 96, 64),
+                                        (1, 130, 128), (4, 77, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_flash_grouped_rows_match_plain_on_gpu(group, s, hd, dtype):
+    """The CTA folds (position, head) rows over a group that divides its
+    64 rows (G 16 with hd 256, as the hybrid runs it; G 4), or takes 64
+    positions of one head (G 1); ragged S throughout."""
+    rng = np.random.default_rng(22)
+    q = rng.standard_normal((2 * group, s, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((2, s, hd)).astype(np.float32)
+            for _ in range(2))
+    g = rng.uniform(0.0, 1.0, (2, s)).astype(np.float32)
+    args = _cuda(q, k, v, dtype=TDT[dtype])
+    (tg,) = _cuda(g)
+    got = gated_flash(*args, tg, w_local=48, eps=1e-6, group=group)
+    want = gated_flash_plain(*args, tg, w_local=48, eps=1e-6, group=group)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
@@ -228,10 +323,21 @@ def test_vertical_slash_kernel_matches_plain_on_gpu(s, c, w, dtype):
                                rtol=0)
 
 
-# the bfloat16 4-element load of flash_tile.cuh, and two ways to break it
-_BF16_LOAD = "return make_float4(lo.x, lo.y, hi.x, hi.y);"
-FAULTS = {"swap_pairs": "return make_float4(hi.x, hi.y, lo.x, lo.y);",
-          "drop_pair": "return make_float4(lo.x, lo.y, 0.f, 0.f);"}
+# the bfloat16 load each attention kernel's mutation check breaks: the
+# 4-element staging load of flash_tile.cuh (vertical_slash), and the K
+# fragment load of flash_mma.cuh (gated_flash: two registers of two bf16
+# each); each broken two ways, a swap and a drop of a pair of elements
+_BF16_LOAD = {
+    "vertical_slash": ("flash_tile.cuh",
+                       "return make_float4(lo.x, lo.y, hi.x, hi.y);",
+                       {"swap_pairs": "return make_float4(hi.x, hi.y, lo.x, lo.y);",
+                        "drop_pair": "return make_float4(lo.x, lo.y, 0.f, 0.f);"}),
+    "gated_flash": ("flash_mma.cuh",
+                    "b[0] = lds32(kr); b[1] = lds32(kr + 8);",
+                    {"swap_pairs": "b[0] = lds32(kr + 8); b[1] = lds32(kr);",
+                     "drop_pair": "b[0] = lds32(kr); b[1] = 0u;"}),
+}
+FAULTS = ("swap_pairs", "drop_pair")
 
 
 def _attention_case(kernel):
@@ -265,13 +371,16 @@ def test_bf16_tolerance_catches_a_planted_load_fault(kernel, fault, tmp_path,
     both errors (run with ``-s`` to read them)."""
     run, want = _attention_case(kernel)
     sound = float((run().float() - want).abs().max())
+    header, line, faults = _BF16_LOAD[kernel]
     csrc = tmp_path / "csrc"
     csrc.mkdir()
+    names = [src.name for src in build.sources(kernel)]
+    assert header in names
     for src in build.sources(kernel):
         text = src.read_text()
-        if src.name == "flash_tile.cuh":
-            assert text.count(_BF16_LOAD) == 1
-            text = text.replace(_BF16_LOAD, FAULTS[fault])
+        if src.name == header:
+            assert text.count(line) == 1
+            text = text.replace(line, faults[fault])
         (csrc / src.name).write_text(text)
     monkeypatch.setattr(build, "CSRC", csrc)
     monkeypatch.setattr(build, "BUILD_DIR", Path(tmp_path) / "build")
@@ -362,21 +471,26 @@ def test_gated_flash_at_recurrentgemma_shape_on_gpu():
 
 def test_paged_decode_at_recurrentgemma_shape_on_gpu():
     """One decode query per head over [global 1024 ‖ ring 2048] (64 + 128
-    pages) of one kv head, repeated for its 16 query heads."""
+    pages) of one kv head: tables repeated for its 16 query heads (group
+    1), or one row shared by the group of 16."""
     rng = np.random.default_rng(21)
     gp, rp, page = 64, RG_W // 16, 16
     q = rng.standard_normal((RG_HQ, RG_HD)).astype(np.float32)
     kp, vp = (rng.standard_normal((gp + rp, page, RG_HD)).astype(np.float32)
               for _ in range(2))
     tq, tk, tv = _cuda(q, kp, vp)
-    gtbl = torch.arange(gp, dtype=torch.int32, device="cuda")[None].expand(
-        RG_HQ, gp).contiguous()
-    rtbl = (gp + torch.arange(rp, dtype=torch.int32, device="cuda"))[
-        None].expand(RG_HQ, rp).contiguous()
-    glen = torch.full((RG_HQ,), 700, dtype=torch.int32, device="cuda")
-    rlen = torch.full((RG_HQ,), RG_W, dtype=torch.int32, device="cuda")
-    second = (tk, tv, rtbl, rlen)
-    got = paged_decode(tq, tk, tv, gtbl, glen, second=second)
-    want = paged_decode_plain(tq, tk, tv, gtbl, glen, second=second)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=TOL["float32"], rtol=0)
+    for group in (1, RG_HQ):
+        rows = RG_HQ // group
+        gtbl = torch.arange(gp, dtype=torch.int32, device="cuda")[
+            None].expand(rows, gp).contiguous()
+        rtbl = (gp + torch.arange(rp, dtype=torch.int32, device="cuda"))[
+            None].expand(rows, rp).contiguous()
+        glen = torch.full((rows,), 700, dtype=torch.int32, device="cuda")
+        rlen = torch.full((rows,), RG_W, dtype=torch.int32, device="cuda")
+        second = (tk, tv, rtbl, rlen)
+        got = paged_decode(tq, tk, tv, gtbl, glen, second=second,
+                           group=group)
+        want = paged_decode_plain(tq, tk, tv, gtbl, glen, second=second,
+                                  group=group)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=TOL["float32"], rtol=0)
