@@ -14,14 +14,15 @@ prints no result, without them. Phases, any failure fatal:
                 card, at the main paths' shapes (qwen3-0.6b's and
                 recurrentgemma-9b's, and a larger or smaller one), f32 and
                 bf16 for the attention kernels, with times
-                (CUDA events; for the decode reads and the probe also the
-                device time of the same calls replayed from a CUDA graph,
-                and for ``paged_decode`` each of its two kernels' time
-                under torch.profiler), the plain version's time, a library
-                yardstick where one exists, and the card's bound;
-                ``paged_decode_selected`` also bitwise against
-                ``paged_decode`` at the identity ids, and two
-                ``paged_decode`` calls bitwise equal.
+                (CUDA events; for the decode reads and the prefill
+                attention kernels also the device time of the same calls
+                replayed from a CUDA graph, and for ``paged_decode`` each
+                of its two kernels' time under torch.profiler), the plain
+                version's time, a library yardstick where one exists, and
+                the card's bound; ``paged_decode_selected`` also bitwise
+                against ``paged_decode`` at the identity ids, and two
+                ``paged_decode`` calls and two ``vertical_slash`` calls
+                bitwise equal.
   4. serve-cli  — ``repro_torch.launch.serve`` at full qwen3-0.6b width,
                 its startup tau probe (a gated forward) included.
   5. serve-long — ``ServeSession`` at full width with 384-token prompts,
@@ -91,6 +92,11 @@ H100_TF32_FLOPS = 495e12        # dense TF32 tensor cores
 H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 INT32_MAX = 2 ** 31 - 1
 PEAK = {"float32": H100_F32_FLOPS, "bfloat16": H100_BF16_FLOPS}
+# the prefill attention kernels' arithmetic: f32 in 3xTF32 (three TF32
+# products per product), bf16 on the bf16 tensor cores
+ATTN_RATE = {"float32": (H100_3XTF32_FLOPS,
+                         "3xTF32 tensor cores, 495/3 TFLOP/s"),
+             "bfloat16": (H100_BF16_FLOPS, "bf16 tensor cores, 989 TFLOP/s")}
 # max abs error of an attention kernel against its plain version: both
 # compute in f32 in different orders; in bf16 both round the output, so
 # they may differ by an ulp of an output (2**-9 under 0.5). A pair of
@@ -437,6 +443,7 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
                        torch.full_like(sel.idx[0], INT32_MAX)).contiguous()
     args = (q, k, v, kg, vg, gpos)
     got = vertical_slash(*args, w_local=w, group=grp)
+    again = vertical_slash(*args, w_local=w, group=grp)
     want = vertical_slash_plain(*args, w_local=w, group=grp)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
@@ -444,7 +451,11 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
           f"vertical_slash {dtype}: non-finite output")
     check(err <= TOL[dtype], f"vertical_slash {dtype} err {err:.3e} > "
           f"{TOL[dtype]}")
+    check(torch.equal(got, again),
+          f"vertical_slash {dtype}: two calls differ")
     ms = cuda_ms(lambda: vertical_slash(*args, w_local=w, group=grp), 10)
+    device_ms = graph_ms(lambda: vertical_slash(*args, w_local=w,
+                                                group=grp), 10)
     plain_ms = cuda_ms(lambda: vertical_slash_plain(*args, w_local=w,
                                                     group=grp), 3, warmup=1)
     # library yardstick: one SDPA call over [K ‖ Kg] with the same boolean
@@ -473,12 +484,18 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
     isz = q.element_size()
     nbytes = (isz * (2 * q.numel() + k.numel() + v.numel() + kg.numel()
                      + vg.numel()) + 4 * gpos.numel())
-    b_ms, b_by = bound(nbytes, 4 * hd * visible, PEAK[dtype])
+    # the bound at the rate of the kernel's arithmetic (as gated_flash's),
+    # and for f32 also at the CUDA cores' rate
+    b_ms, b_by = bound(nbytes, 4 * hd * visible, ATTN_RATE[dtype][0])
+    cc_ms, _ = bound(nbytes, 4 * hd * visible, PEAK[dtype])
     return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] C={c} W={w} "
                      f"group={grp} {dtype}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "visible_pairs": visible,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_rate": ATTN_RATE[dtype][1],
+            "bound_ms_cuda_cores": cc_ms if dtype == "float32" else None,
+            "library_ms": library_ms, "device_ms": device_ms,
+            "two_calls_bitwise": True, "visible_pairs": visible,
             "global_valid": int(sel.count.sum())}
 
 
@@ -531,29 +548,26 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
     q4 = q[None]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, kk, vv, attn_mask=bias), iters, warmup=1)
-    device_ms = library_device_ms = None
-    if s <= 64:  # the probe: launch-bound, so also its device time
-        device_ms = graph_ms(lambda: gated_flash(*args, w_local=w, eps=eps,
-                                                 group=grp), 50)
+    device_ms = graph_ms(lambda: gated_flash(*args, w_local=w, eps=eps,
+                                             group=grp),
+                         50 if s <= 64 else iters)
+    library_device_ms = None
+    if s <= 64:  # the probe: launch-bound, so also the library's
         library_device_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             q4, kk, vv, attn_mask=bias), 50)
     del bias, kk, vv
     isz = q.element_size()
     nbytes = isz * (2 * q.numel() + k.numel() + v.numel()) + 4 * g.numel()
     flops = 4 * hd * hq * s * (s + 1) // 2
-    # the bound at the rate of the kernel's arithmetic (f32: 3xTF32 on the
-    # tensor cores; bf16: bf16 tensor cores), and for f32 also at the CUDA
-    # cores' rate, the bound earlier versions of this kernel were held to
-    rate = H100_3XTF32_FLOPS if dtype == "float32" else H100_BF16_FLOPS
-    b_ms, b_by = bound(nbytes, flops, rate)
+    # the bound at the rate of the kernel's arithmetic, and for f32 also at
+    # the CUDA cores' rate, the bound earlier versions were held to
+    b_ms, b_by = bound(nbytes, flops, ATTN_RATE[dtype][0])
     cc_ms, _ = bound(nbytes, flops, PEAK[dtype])
     return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] W={w} "
                      f"group={grp} {dtype}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "bound_rate": ("3xTF32 tensor cores, 495/3 TFLOP/s"
-                           if dtype == "float32"
-                           else "bf16 tensor cores, 989 TFLOP/s"),
+            "bound_rate": ATTN_RATE[dtype][1],
             "bound_ms_cuda_cores": cc_ms if dtype == "float32" else None,
             "library_ms": library_ms, "device_ms": device_ms,
             "library_device_ms": library_device_ms}
@@ -1670,6 +1684,9 @@ def main() -> int:
          "launches": prefill_counts["vertical_slash"],
          "max_abs_err": vs_main["max_abs_err"],
          **{k: vs_main[k] for k in attn}, "shape": vs_main["shape"],
+         "bound_rate": vs_main["bound_rate"],
+         "bound_ms_cuda_cores": vs_main["bound_ms_cuda_cores"],
+         "device_ms": vs_main["device_ms"],
          "max_abs_err_bf16": vs_bf16["max_abs_err"], "bf16": vs_bf16,
          "launches_rg_prefill": rg_prefill_counts["vertical_slash"],
          "launches_rg_substrate": rg_substrate_counts["vertical_slash"],
@@ -1683,6 +1700,7 @@ def main() -> int:
          **{k: gf_main[k] for k in attn}, "shape": gf_main["shape"],
          "bound_rate": gf_main["bound_rate"],
          "bound_ms_cuda_cores": gf_main["bound_ms_cuda_cores"],
+         "device_ms": gf_main["device_ms"],
          "max_abs_err_bf16": max(gf_bf16["max_abs_err"],
                                  gf_probe_bf16["max_abs_err"]),
          "launches_serve_cli": cli_counts["gated_flash"],

@@ -59,8 +59,9 @@ def _check_cuda(q, k, v, kg, vg, gpos, group: int) -> None:
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"vertical_slash kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
-    if not 0 < hd <= 256:
-        raise ValueError(f"vertical_slash kernel takes hd <= 256, got {hd}")
+    if not 0 < hd <= 256 or hd % 8:
+        raise ValueError(f"vertical_slash kernel takes hd <= 256, a "
+                         f"multiple of 8, got {hd}")
     if group < 1 or nq % group:
         raise ValueError(f"vertical_slash: {nq} query streams are not a "
                          f"multiple of group {group}")
@@ -81,10 +82,15 @@ def _check_cuda(q, k, v, kg, vg, gpos, group: int) -> None:
         if name != "gpos" and t.dtype != q.dtype:
             raise TypeError(f"vertical_slash: {name} is {t.dtype}, q is "
                             f"{q.dtype}")
+        if name != "gpos" and t.numel() and t.data_ptr() % 16:
+            raise ValueError(f"vertical_slash: {name} must be 16-byte "
+                             f"aligned")
     if gpos.dtype != torch.int32:
         raise TypeError("vertical_slash: gpos must be int32")
     if not q.is_contiguous():
         raise ValueError("vertical_slash: q must be contiguous")
+    if q.data_ptr() % 16:
+        raise ValueError("vertical_slash: q must be 16-byte aligned")
 
 
 def vertical_slash(q, k, v, kg, vg, gpos, *, w_local: int, group: int = 1):

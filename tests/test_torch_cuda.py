@@ -13,8 +13,9 @@ loop does, so it should match exactly); the attention kernels (``paged_decode_se
 too; at the identity ids it must equal ``paged_decode`` exactly) 5e-5 in
 float32 and 1e-2 in
 bfloat16. The kernels and the plain versions both compute in f32, in
-different orders (``gated_flash`` on tensor cores: 3xTF32 for float32,
-bfloat16 products with P as three bfloat16 terms), and round the output to
+different orders (``gated_flash`` and ``vertical_slash`` on tensor cores:
+3xTF32 for float32, bfloat16 products with P as two bfloat16 terms), and
+round the output to
 bfloat16, so in bfloat16 they may differ by an ulp of an output (2**-9
 for outputs under 0.5). A mutation check holds the bfloat16 bound against
 a kernel whose bfloat16 load is broken on purpose.
@@ -74,12 +75,12 @@ def _paged_inputs(rng, n, hd, page, ptotal, mp):
     return q, kp, vp, tbl, lens
 
 
-def _vs_globals(rng, n, s, w, c, k, v):
+def _vs_globals(rng, n, s, w, c, k, v, *, none_valid=False):
     """Unsorted global positions older than the last window, a random
-    number valid per stream and the rest INT32_MAX (never visible), with
-    their K/V gathered."""
+    number valid per stream (none with ``none_valid``) and the rest
+    INT32_MAX (never visible), with their K/V gathered."""
     gpos = rng.integers(0, s - w, (n, c))
-    nvalid = rng.integers(1, c, (n, 1))
+    nvalid = 0 if none_valid else rng.integers(1, c, (n, 1))
     gpos = np.where(np.arange(c)[None] < nvalid, gpos,
                     np.iinfo(np.int32).max).astype(np.int32)
     safe = np.minimum(gpos, s - 1)
@@ -297,45 +298,78 @@ def test_gated_flash_kernel_refuses_grad_on_gpu():
         gated_flash(q.requires_grad_(), k, v, g, w_local=8)
 
 
-@pytest.mark.parametrize("s,c,w", [(1024, 96, 256), (1024, 1024, 256),
-                                   (384, 0, 128)])
+@pytest.mark.parametrize("s,c,w,group,hd,none_valid", [
+    (1024, 96, 256, 2, 128, False), (1024, 1024, 256, 2, 128, False),
+    (384, 0, 128, 2, 128, False),
+    (1000, 100, 200, 3, 64, False),   # smollm's G 3: rows are positions
+    (1000, 77, 128, 2, 128, True),    # every gpos INT32_MAX
+    (600, 40, 64, 16, 256, False),    # rg's layout, 8 positions x 16 heads
+    (257, 300, 64, 1, 72, False),     # hd 72: zero columns 72..79
+])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_vertical_slash_kernel_matches_plain_on_gpu(s, c, w, dtype):
-    """GQA group 2, unsorted global positions with INT32_MAX padding,
-    a ragged C (96, not a multiple of the 32-key tile) and no globals."""
+def test_vertical_slash_kernel_matches_plain_on_gpu(s, c, w, group, hd,
+                                                    none_valid, dtype):
+    """Unsorted global positions with INT32_MAX padding; C ragged against
+    every key tile (96, 100, 77, 40, 300 against 16, 32 and 64 keys) and
+    no globals; ragged S; a group that divides the CTA's rows (2, 16) and
+    one that does not (3). Two calls are bitwise equal."""
     rng = np.random.default_rng(15)
-    hd = 128
-    q = rng.standard_normal((16, s, hd)).astype(np.float32)
-    k, v = (rng.standard_normal((8, s, hd)).astype(np.float32)
+    nkv = 16 // group if 16 % group == 0 else 4
+    q = rng.standard_normal((nkv * group, s, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((nkv, s, hd)).astype(np.float32)
             for _ in range(2))
     if c:
-        kg, vg, gpos = _vs_globals(rng, 8, s, w, c, k, v)
+        kg, vg, gpos = _vs_globals(rng, nkv, s, w, c, k, v,
+                                   none_valid=none_valid)
     else:
-        kg = vg = np.zeros((8, 0, hd), np.float32)
-        gpos = np.zeros((8, 0), np.int32)
+        kg = vg = np.zeros((nkv, 0, hd), np.float32)
+        gpos = np.zeros((nkv, 0), np.int32)
     args = _cuda(q, k, v, kg, vg, dtype=TDT[dtype])
     (tg,) = _cuda(gpos)
-    got = vertical_slash(*args, tg, w_local=w, group=2)
-    want = vertical_slash_plain(*args, tg, w_local=w, group=2)
+    got = vertical_slash(*args, tg, w_local=w, group=group)
+    again = vertical_slash(*args, tg, w_local=w, group=group)
+    want = vertical_slash_plain(*args, tg, w_local=w, group=group)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+    assert torch.equal(got, again)
 
 
-# the bfloat16 load each attention kernel's mutation check breaks: the
-# 4-element staging load of flash_tile.cuh (vertical_slash), and the K
-# fragment load of flash_mma.cuh (gated_flash: two registers of two bf16
-# each); each broken two ways, a swap and a drop of a pair of elements
+def test_vertical_slash_refuses_what_the_kernel_does_not_take_on_gpu():
+    """The tensor-core kernel takes 16-byte rows: hd a multiple of 8 (the
+    plain version takes any hd, and the CPU path still does)."""
+    rng = np.random.default_rng(23)
+    q, k, v, kg, vg = _cuda(*(rng.standard_normal(shape).astype(np.float32)
+                              for shape in [(2, 64, 60)] * 3
+                              + [(2, 8, 60)] * 2))
+    (gpos,) = _cuda(np.zeros((2, 8), np.int32))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        vertical_slash(q, k, v, kg, vg, gpos, w_local=16)
+    with pytest.raises(TypeError, match="int32"):
+        vertical_slash(q[..., :56].contiguous(), k[..., :56].contiguous(),
+                       v[..., :56].contiguous(), kg[..., :56].contiguous(),
+                       vg[..., :56].contiguous(), gpos.long(), w_local=16)
+    cpu = vertical_slash(*(t.cpu() for t in (q, k, v, kg, vg, gpos)),
+                         w_local=16)
+    assert cpu.shape == (2, 64, 60)
+
+
+# the bfloat16 load each attention kernel's mutation check breaks, both in
+# the key-tile step of flash_mma.cuh that the two kernels share: the Q
+# fragment load (vertical_slash: the second half of a k-step, rows g and
+# g + 8) and the K fragments that ldmatrix loads (gated_flash: the two
+# registers of two bf16 each of n-tiles nt and nt + 1); each broken two
+# ways, a swap and a drop of a pair of elements
 _BF16_LOAD = {
-    "vertical_slash": ("flash_tile.cuh",
-                       "return make_float4(lo.x, lo.y, hi.x, hi.y);",
-                       {"swap_pairs": "return make_float4(hi.x, hi.y, lo.x, lo.y);",
-                        "drop_pair": "return make_float4(lo.x, lo.y, 0.f, 0.f);"}),
+    "vertical_slash": ("flash_mma.cuh",
+                       "a[2] = lds32(row + 8); a[3] = lds32(row + 8 * LD + 8);",
+                       {"swap_pairs": "a[2] = lds32(row + 8 * LD + 8); a[3] = lds32(row + 8);",
+                        "drop_pair": "a[2] = lds32(row + 8); a[3] = 0u;"}),
     "gated_flash": ("flash_mma.cuh",
-                    "b[0] = lds32(kr); b[1] = lds32(kr + 8);",
-                    {"swap_pairs": "b[0] = lds32(kr + 8); b[1] = lds32(kr);",
-                     "drop_pair": "b[0] = lds32(kr); b[1] = 0u;"}),
+                    "const uint32_t k0[2] = {r[0], r[1]}, k1[2] = {r[2], r[3]};",
+                    {"swap_pairs": "const uint32_t k0[2] = {r[1], r[0]}, k1[2] = {r[3], r[2]};",
+                     "drop_pair": "const uint32_t k0[2] = {r[0], 0u}, k1[2] = {r[2], r[3]};"}),
 }
 FAULTS = ("swap_pairs", "drop_pair")
 

@@ -353,3 +353,23 @@ def test_vertical_slash_attention_gqa_fold_matches_reference():
     got = tops.vertical_slash_attention(
         *map(torch.from_numpy, (q, k, v, kg, vg, gpos)), w_local=w)
     np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=5e-5)
+
+
+def test_vertical_slash_attention_rg_head_layout_matches_reference():
+    """recurrentgemma-9b's head layout, reduced: 16 q heads on 1 kv head
+    (G 16), hd 256, S 512, W 128, C 64 unsorted globals with INT32_MAX
+    padding, against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(24)
+    b, hq, hkv, s, hd, w, c = 1, 16, 1, 512, 256, 128, 64
+    q = rng.standard_normal((b, hq, s, hd)).astype(np.float32)
+    _, k, v, kg, vg, gpos = _vs_inputs(rng, b * hkv, s, hd, w, c, sort=False)
+    assert (gpos == np.iinfo(np.int32).max).any()
+    k, v = k.reshape(b, hkv, s, hd), v.reshape(b, hkv, s, hd)
+    kg, vg = kg.reshape(b, hkv, c, hd), vg.reshape(b, hkv, c, hd)
+    gpos = gpos.reshape(b, hkv, c)
+    want = np.asarray(jops.vertical_slash_attention(
+        *map(jnp.asarray, (q, k, v, kg, vg, gpos)), w_local=w))
+    got = tops.vertical_slash_attention(
+        *map(torch.from_numpy, (q, k, v, kg, vg, gpos)), w_local=w)
+    assert got.shape == (b, hq, s, hd)
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=5e-5)

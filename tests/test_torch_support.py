@@ -219,23 +219,24 @@ def test_cuda_tests_import_no_jax():
 def test_kernel_build_key_covers_only_included_headers(tmp_path, monkeypatch):
     """A kernel's library is keyed by its source and the local headers it
     includes, directly or through another header: an edited header
-    rebuilds exactly the kernels that include it (flash_tile.cuh:
-    vertical_slash; flash_mma.cuh: gated_flash; cp_async.cuh, which
-    flash_mma.cuh also includes: paged_decode and gated_flash)."""
+    rebuilds exactly the kernels that include it (flash_mma.cuh:
+    gated_flash and vertical_slash; cp_async.cuh, which flash_mma.cuh
+    also includes: paged_decode, gated_flash and vertical_slash)."""
     from repro_torch.kernels import build
     assert [p.name for p in build.sources("gated_flash")] == [
         "gated_flash.cu", "cp_async.cuh", "flash_mma.cuh"]
     assert [p.name for p in build.sources("vertical_slash")] == [
-        "vertical_slash.cu", "flash_tile.cuh"]
+        "vertical_slash.cu", "cp_async.cuh", "flash_mma.cuh"]
     assert [p.name for p in build.sources("gate_mlp")] == ["gate_mlp.cu"]
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for src in build.CSRC.iterdir():
         (csrc / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", csrc)
-    for header, users in (("flash_tile.cuh", {"vertical_slash"}),
-                          ("flash_mma.cuh", {"gated_flash"}),
-                          ("cp_async.cuh", {"paged_decode", "gated_flash"})):
+    for header, users in (("flash_mma.cuh", {"gated_flash",
+                                             "vertical_slash"}),
+                          ("cp_async.cuh", {"paged_decode", "gated_flash",
+                                            "vertical_slash"})):
         before = {n: build._lib_path(n) for n in build.KERNELS}
         with open(csrc / header, "a") as f:
             f.write("\n// edited\n")
