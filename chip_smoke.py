@@ -14,15 +14,15 @@ prints no result, without them. Phases, any failure fatal:
                 card, at the main paths' shapes (qwen3-0.6b's and
                 recurrentgemma-9b's, and a larger or smaller one), f32 and
                 bf16 for the attention kernels, with times
-                (CUDA events; for the decode reads and the prefill
-                attention kernels also the device time of the same calls
-                replayed from a CUDA graph, and for ``paged_decode`` each
+                (CUDA events, and the device time of the same calls
+                replayed from a CUDA graph; for ``paged_decode`` also each
                 of its two kernels' time under torch.profiler), the plain
                 version's time, a library yardstick where one exists, and
-                the card's bound; ``paged_decode_selected`` also bitwise
-                against ``paged_decode`` at the identity ids, and two
-                ``paged_decode`` calls and two ``vertical_slash`` calls
-                bitwise equal.
+                the card's bound at the rate of the kernel's arithmetic;
+                ``paged_decode_selected`` also bitwise against
+                ``paged_decode`` at the identity ids, and two calls of
+                ``paged_decode``, ``vertical_slash``, ``gate_mlp`` and
+                ``rglru_scan`` bitwise equal.
   4. serve-cli  — ``repro_torch.launch.serve`` at full qwen3-0.6b width,
                 its startup tau probe (a gated forward) included.
   5. serve-long — ``ServeSession`` at full width with 384-token prompts,
@@ -88,7 +88,8 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
 H100_TF32_FLOPS = 495e12        # dense TF32 tensor cores
-# gated_flash's f32 arithmetic: 3xTF32, three TF32 products per product
+# the f32 arithmetic of the tensor-core kernels: 3xTF32, three TF32
+# products per product
 H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 INT32_MAX = 2 ** 31 - 1
 PEAK = {"float32": H100_F32_FLOPS, "bfloat16": H100_BF16_FLOPS}
@@ -206,7 +207,7 @@ def gate_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256):
     ``f`` = 2 x head_dim features: qwen3-0.6b's h 8, f 256 by default,
     recurrentgemma-9b's h 1, f 512."""
     import torch
-    from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain
+    from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain, plan
     g = torch.Generator(device="cuda").manual_seed(seed)
     m = 64
 
@@ -217,19 +218,36 @@ def gate_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256):
     w2, b2 = rn(h, m, 1, scale=m ** -0.5), rn(h, 1)
     args = (x, w1, b1, w2, b2)
     got = gate_mlp(*args)
+    again = gate_mlp(*args)
     want = gate_mlp_plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()),
+          f"gate_mlp [{rows},{s},{f}]: non-finite output")
     check(err <= 1e-5, f"gate_mlp [{rows},{s},{f}] err {err:.3e} > 1e-5")
+    check(torch.equal(got, again), f"gate_mlp [{rows},{s},{f}]: two calls "
+          "differ")
     iters = 200 if s == 1 else 20
     ms = cuda_ms(lambda: gate_mlp(*args), iters)
+    # at S 1 the events time is the host's dispatch; the device time is
+    # the same calls replayed from a CUDA graph
+    device_ms = graph_ms(lambda: gate_mlp(*args), 50 if s == 1 else iters)
     plain_ms = cuda_ms(lambda: gate_mlp_plain(*args), iters)
     nbytes = 4 * (x.numel() + rows * s + sum(a.numel() for a in args[1:]))
     flops = rows * s * (2 * f * m + 2 * m)
-    b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS)
+    # the bound at the rate of the kernel's arithmetic: the decode path
+    # (tile 0) multiplies in f32 on the CUDA cores, the tensor-core path
+    # in 3xTF32; and at the CUDA cores' rate, the bound of the first kernel
+    tile = plan(rows, s, h)
+    rate = ((H100_F32_FLOPS, "f32 CUDA cores, 67 TFLOP/s") if tile == 0
+            else ATTN_RATE["float32"])
+    b_ms, b_by = bound(nbytes, flops, rate[0])
+    cc_ms, _ = bound(nbytes, flops, H100_F32_FLOPS)
     return {"shape": f"x[{rows},{s},{f}] H={h} M={m}", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "bound_rate": rate[1],
+            "bound_ms_cuda_cores": cc_ms, "library_ms": None,
+            "device_ms": device_ms, "tile": tile, "two_calls_bitwise": True}
 
 
 def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
@@ -604,19 +622,23 @@ def rglru_case(b: int, s: int, d: int, with_h0: bool, seed: int):
     else:
         got = rglru_scan(a, bb)
         want = rglru_scan_plain(a, bb)
+    again = RG.rglru_scan(a, bb, h0) if with_h0 else rglru_scan(a, bb)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     tag = f"rglru_scan [{b},{s},{d}]" + (" h0" if with_h0 else "")
     check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
     check(err <= 5e-5, f"{tag} err {err:.3e} > 5e-5")
+    check(torch.equal(got, again), f"{tag}: two calls differ")
     ms = cuda_ms(lambda: rglru_scan(a, bb), 20)
+    device_ms = graph_ms(lambda: rglru_scan(a, bb), 20)
     plain_ms = cuda_ms(lambda: rglru_scan_plain(a, bb), 2, warmup=1)
     # the bound: a and b read once, h written once; two operations each
     n = b * s * d
     b_ms, b_by = bound(12 * n, 2 * n, H100_F32_FLOPS)
     return {"shape": f"a,b[{b},{s},{d}] f32" + (" h0" if with_h0 else ""),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_ms": device_ms, "two_calls_bitwise": True}
 
 
 # --------------------------------------------------------------------------
@@ -1571,6 +1593,7 @@ def main() -> int:
     # 3. kernels vs plain (serving shapes first, then a larger size)
     gate_main = gate_case(rows=2 * 8, s=1, seed=0)
     gate_big = gate_case(rows=2 * 8, s=4096, seed=1)
+    gate_prefill = gate_case(rows=8, s=4096, seed=32)  # prefill-long's
     pd_main = dual_cache_case(2, 128, 256, torch.float32, seed=2)
     pd_bf16 = dual_cache_case(2, 128, 256, torch.bfloat16, seed=3)
     pd_big = dual_cache_case(8, 1024, 256, torch.float32, seed=4)
@@ -1608,6 +1631,7 @@ def main() -> int:
     rg_gf_probe = gated_flash_case(32, "float32", seed=31, hkv=1, hd=256,
                                    w=2048)
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
+                   ("gate_mlp", gate_prefill),
                    ("paged_decode", pd_main), ("paged_decode", pd_bf16),
                    ("paged_decode", pd_big), ("vertical_slash", vs_main),
                    ("vertical_slash", vs_bf16), ("gated_flash", gf_main),
@@ -1655,11 +1679,16 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gate_mlp.cu",
          "replaces": "src/repro/kernels/gate_mlp.py:28",
          "launches": long_counts["gate_mlp"],
-         "max_abs_err": max(gate_main["max_abs_err"], gate_big["max_abs_err"]),
+         "max_abs_err": max(r["max_abs_err"] for r in (
+             gate_main, gate_big, gate_prefill, rg_gate, rg_gate_dec)),
          **{k: gate_main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
-         "shape": gate_main["shape"],
+         "shape": gate_main["shape"], "device_ms": gate_main["device_ms"],
+         "bound_rate": gate_main["bound_rate"],
+         "bound_ms_cuda_cores": gate_main["bound_ms_cuda_cores"],
          "launches_serve_cli": cli_counts["gate_mlp"], "large": gate_big,
+         "prefill": gate_prefill,
+         "launches_prefill_long": prefill_counts["gate_mlp"],
          "launches_rg_prefill": rg_decode_counts["gate_mlp"],
          "launches_rg_serve": rg_serve_counts["gate_mlp"],
          rg: {"prefill": rg_gate, "decode": rg_gate_dec}},
@@ -1729,6 +1758,7 @@ def main() -> int:
          "max_abs_err": max(rg_scan["max_abs_err"],
                             rg_scan_h0["max_abs_err"]),
          **{k: rg_scan[k] for k in attn}, "shape": rg_scan["shape"],
+         "device_ms": rg_scan["device_ms"],
          "launches_rg_forward": rg_forward_counts["rglru_scan"],
          "launches_rg_serve": rg_serve_counts["rglru_scan"],
          "launches_rg_substrate": rg_substrate_counts["rglru_scan"],

@@ -1,6 +1,8 @@
 // Tensor-core building blocks (mma.sync, sm_80 and later) for the port's
-// prefill attention kernels on Hopper (sm_90a), and the flash-attention
-// key-tile step that gated_flash.cu and vertical_slash.cu share.
+// kernels on Hopper (sm_90a): the 3xTF32 split and products, which the
+// prefill attention kernels and gate_mlp.cu's [tokens, F] . [F, M] use,
+// and the flash-attention key-tile step that gated_flash.cu and
+// vertical_slash.cu share.
 //
 // Fragments are those of the PTX ISA for one warp, lane = 4 * g + t
 // (g = lane >> 2 the group, t = lane & 3 its place in the group):
@@ -18,8 +20,10 @@
 // value of x (its low 13 mantissa bits cleared) and lo = x - hi exactly,
 // of which the tensor cores read the top 10 mantissa bits; a * b is
 // accumulated as lo_a hi_b + hi_a lo_b + hi_a hi_b (small terms first;
-// lo_a lo_b, under 2^-20 of the product, is dropped). One TF32 pass keeps about three decimal digits; the
-// split keeps the f32 tolerance of the attention kernels (5e-5).
+// lo_a lo_b, under 2^-20 of the product, is dropped). One TF32 pass keeps
+// about three decimal digits; the split keeps the f32 tolerance of the
+// attention kernels (5e-5) and of gate_mlp (1e-5; tests/
+// test_torch_gate_split.py emulates both on the CPU).
 //
 // bf16 inputs run m16n8k16 with f32 accumulation. P, an f32 value in the
 // accumulators, enters P V as PV_TERMS bf16 terms whose sum is P to

@@ -114,7 +114,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 def _declare(lib: ctypes.CDLL, name: str) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "gate_mlp":
-        lib.gate_mlp_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.gate_mlp_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.gate_mlp_f32.restype = i
     elif name == "paged_decode":
         lib.paged_decode.argtypes = [p, p, p, p, p, i, p, p, p, p, i,
@@ -132,8 +132,10 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.gated_flash.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, p]
         lib.gated_flash.restype = i
     elif name == "rglru_scan":
-        lib.rglru_scan_f32.argtypes = [p, p, p, i, i, i, p]
+        lib.rglru_scan_f32.argtypes = [p, p, p, i, i, i, p, p]
         lib.rglru_scan_f32.restype = i
+        lib.rglru_scan_scratch_words.argtypes = [i, i, i]
+        lib.rglru_scan_scratch_words.restype = ctypes.c_longlong
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,6 +12,13 @@ The recurrence ``h_t = a_t * h_{t-1} + b_t`` over the time axis of
 ``b[:, 0]`` by the caller (``models/rglru.py::rglru_scan``). The kernel
 tiles itself, so the Pallas kernel's ``bt``/``bd`` block sizes have no
 counterpart and any S >= 1, D >= 1 is taken.
+
+The kernel scans in chunks of 128 steps and hands each chunk's carry to
+the next in a fixed order, so two calls on the same inputs give the same
+bits. It regroups the products at sub-chunk boundaries, as the
+reference's associative scan does, so it is within a few ulps of |h| of
+the plain loop, not bitwise equal to it (the limit on the card is 5e-5;
+``tests/test_torch_scan_chunks.py`` emulates its arithmetic on the CPU).
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ launches = build.LaunchCounter("rglru_scan")
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: [B, S, D] -> h [B, S, D]: a loop over t of [B, D] products
-    and sums (each rounded, as the kernel's ``a*h + b``)."""
+    and sums, each rounded."""
     h = torch.zeros_like(b[:, 0])
     out = torch.empty_like(b)
     for t in range(a.shape[1]):
@@ -60,10 +67,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bsz, s, d = a.shape
     h = torch.empty_like(a)
     lib = build.load("rglru_scan")
+    # the ticket counter and the chunks' carry words, zeroed on every call
+    scratch = torch.zeros(lib.rglru_scan_scratch_words(bsz, s, d),
+                          dtype=torch.int64, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.rglru_scan_f32(a.data_ptr(), b.data_ptr(), h.data_ptr(),
-                                bsz, s, d, stream)
+                                bsz, s, d, scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {rc}")
     launches.count += 1

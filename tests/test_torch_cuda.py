@@ -8,8 +8,12 @@ machine that has only PyTorch (``tests/conftest.py`` imports JAX, hence
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Inputs are drawn with numpy from a seed. Tolerances, absolute:
-``gate_mlp`` 1e-5; ``rglru_scan`` 5e-5 (it rounds each step as its plain
-loop does, so it should match exactly); the attention kernels (``paged_decode_selected``
+``gate_mlp`` 1e-5 (its tensor-core path multiplies in 3xTF32, which keeps
+f32 accuracy to about 2**-20 of each product, its decode path in f32 on
+the CUDA cores); ``rglru_scan`` 5e-5 (it scans in chunks and regroups the
+products at their boundaries, so it is within a few ulps of |h| of its
+plain loop, not bitwise equal; two calls are bitwise equal, as for
+``gate_mlp``); the attention kernels (``paged_decode_selected``
 too; at the identity ids it must equal ``paged_decode`` exactly) 5e-5 in
 float32 and 1e-2 in
 bfloat16. The kernels and the plain versions both compute in f32, in
@@ -90,16 +94,65 @@ def _vs_globals(rng, n, s, w, c, k, v, *, none_valid=False):
             np.where(ok, v[bi, safe], 0).astype(np.float32), gpos)
 
 
-@pytest.mark.parametrize("rows,s", [(16, 1), (16, 4096)])
-def test_gate_mlp_kernel_matches_plain_on_gpu(rows, s):
-    _, w1, b1, w2, b2 = _gate_inputs(np.random.default_rng(0), 8, 1, 256, 64)
-    x = np.random.default_rng(1).standard_normal((rows, s, 256)).astype(
+@pytest.mark.parametrize("rows,s,h,f", [
+    (16, 1, 8, 256),      # qwen3-0.6b decode: 2 slots x 8 kv heads
+    (2, 1, 1, 512),       # recurrentgemma-9b decode: 2 slots, 1 kv head
+    (128, 1, 8, 256),     # 16 slots: two CTAs of 8 tokens per head
+    (16, 4096, 8, 256),   # long S on the tensor cores, tile 64
+    (8, 4096, 8, 256),    # prefill-long's shape
+    (1, 4096, 1, 512),    # recurrentgemma-9b prefill: one row, tile 16
+    (8, 1, 8, 256),       # ragged S: 1, 37 and 1000 tokens
+    (8, 37, 8, 256),
+    (8, 1000, 8, 256),
+    (24, 1000, 8, 256),   # rows a multiple of H > 1 at long S
+    (16, 300, 8, 128),    # F 128 (hd 64), tile 16
+    (8, 2, 8, 160),       # F 160 (hd 80), decode
+    (8, 100, 8, 160),
+])
+def test_gate_mlp_kernel_matches_plain_on_gpu(rows, s, h, f):
+    _, w1, b1, w2, b2 = _gate_inputs(np.random.default_rng(0), h, 1, f, 64)
+    x = np.random.default_rng(1).standard_normal((rows, s, f)).astype(
         np.float32)
     args = _cuda(x, w1, b1, w2, b2)
     got = gate_mlp(*args)
+    again = gate_mlp(*args)
     want = gate_mlp_plain(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(got, again)  # two calls bitwise equal
+
+
+@pytest.mark.parametrize("m", [8, 32, 96, 128])
+def test_gate_mlp_kernel_hidden_widths_on_gpu(m):
+    """Hidden widths other than 64, on both paths."""
+    for rows, s in ((8, 1), (8, 200)):
+        _, w1, b1, w2, b2 = _gate_inputs(np.random.default_rng(2), 8, 1,
+                                         256, m)
+        x = np.random.default_rng(3).standard_normal((rows, s, 256)).astype(
+            np.float32)
+        args = _cuda(x, w1, b1, w2, b2)
+        got = gate_mlp(*args)
+        want = gate_mlp_plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_gate_mlp_refuses_what_the_kernel_does_not_take_on_gpu():
+    """F and M multiples of 8, F <= 2048, M <= 128; the plain version
+    takes any of them."""
+    for f, m in ((12, 64), (256, 12), (256, 136), (2056, 64)):
+        x, w1, b1, w2, b2 = _gate_inputs(np.random.default_rng(4), 8, 4, f,
+                                         m)
+        args = _cuda(x, w1, b1, w2, b2)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            gate_mlp(*args)
+        assert gate_mlp_plain(*args).shape == (8, 4)
+    x, w1, b1, w2, b2 = _cuda(*_gate_inputs(np.random.default_rng(5), 8, 4,
+                                            256, 64))
+    shifted = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        gate_mlp(shifted, w1, b1, w2, b2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -433,6 +486,8 @@ def test_bf16_tolerance_catches_a_planted_load_fault(kernel, fault, tmp_path,
     (3, 1000, 200, True),      # ragged: no multiple of any tile, an h0
     (2, 1, 300, True),         # S = 1
     (4, 257, 1, False),        # D = 1
+    (2, 100, 70, False),       # S < L (one chunk of 128 steps)
+    (2, 129, 70, True),        # S = L + 1: one step in the last chunk
 ])
 def test_rglru_scan_kernel_matches_plain_on_gpu(b, s, d, with_h0):
     rng = np.random.default_rng(17)
@@ -450,9 +505,11 @@ def test_rglru_scan_kernel_matches_plain_on_gpu(b, s, d, with_h0):
     else:
         got = rglru_scan(ta, tb)
         want = rglru_scan_plain(ta, tb)
+    again = RG.rglru_scan(ta, tb, th0) if with_h0 else rglru_scan(ta, tb)
     torch.cuda.synchronize()
     assert got.shape == (b, s, d) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+    assert torch.equal(got, again)  # two calls bitwise equal
 
 
 def test_rglru_scan_refuses_what_the_kernel_does_not_take_on_gpu():

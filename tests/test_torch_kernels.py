@@ -26,6 +26,7 @@ from repro_torch.core import dual_cache as TDC
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.gate_mlp import gate_mlp
+from repro_torch.kernels.gate_mlp import plan as gate_plan
 from repro_torch.kernels.gated_flash import gated_flash
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.kernels.vertical_slash import vertical_slash
@@ -69,6 +70,25 @@ def test_gate_mlp_matches_pallas_and_oracles(h, s, f, m, bs):
     np.testing.assert_allclose(got, tref.gate_mlp_ref(*targs).numpy(),
                                atol=1e-5)
     assert ((got > 0) & (got < 1)).all()
+
+
+@pytest.mark.parametrize("r,s,h,tile", [
+    (16, 1, 8, 0),        # qwen3-0.6b decode, 2 slots: the decode path
+    (2, 1, 1, 0),         # recurrentgemma-9b decode
+    (128, 1, 8, 0),       # 16 slots: 16 tokens per head
+    (136, 1, 8, 64),      # 17 tokens per head: tensor cores
+    (16, 4096, 8, 64),    # 1,024 CTAs of 64
+    (8, 4096, 8, 64),     # prefill-long: 512 CTAs of 64
+    (1, 4096, 1, 16),     # recurrentgemma-9b prefill: 256 CTAs of 16
+    (2, 4096, 1, 16),     # 128 CTAs of 64 would leave SMs idle
+    (3, 4096, 1, 64),     # 192 CTAs of 64
+    (8, 32, 8, 16),       # the tau probe
+])
+def test_gate_mlp_plan_reads_only_shapes(r, s, h, tile):
+    """The CUDA kernel's path and tile come from the shapes alone: the
+    decode path up to 16 tokens per head, else a tile of 64 tokens if
+    that grid gives every SM a CTA, else of 16."""
+    assert gate_plan(r, s, h) == tile
 
 
 def test_write_gate_folds_batch_by_row_mod_heads():

@@ -220,22 +220,25 @@ def test_kernel_build_key_covers_only_included_headers(tmp_path, monkeypatch):
     """A kernel's library is keyed by its source and the local headers it
     includes, directly or through another header: an edited header
     rebuilds exactly the kernels that include it (flash_mma.cuh:
-    gated_flash and vertical_slash; cp_async.cuh, which flash_mma.cuh
-    also includes: paged_decode, gated_flash and vertical_slash)."""
+    gate_mlp, gated_flash and vertical_slash; cp_async.cuh, which
+    flash_mma.cuh also includes: those three and paged_decode)."""
     from repro_torch.kernels import build
     assert [p.name for p in build.sources("gated_flash")] == [
         "gated_flash.cu", "cp_async.cuh", "flash_mma.cuh"]
     assert [p.name for p in build.sources("vertical_slash")] == [
         "vertical_slash.cu", "cp_async.cuh", "flash_mma.cuh"]
-    assert [p.name for p in build.sources("gate_mlp")] == ["gate_mlp.cu"]
+    assert [p.name for p in build.sources("gate_mlp")] == [
+        "gate_mlp.cu", "flash_mma.cuh", "cp_async.cuh"]
+    assert [p.name for p in build.sources("rglru_scan")] == ["rglru_scan.cu"]
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for src in build.CSRC.iterdir():
         (csrc / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", csrc)
-    for header, users in (("flash_mma.cuh", {"gated_flash",
+    for header, users in (("flash_mma.cuh", {"gate_mlp", "gated_flash",
                                              "vertical_slash"}),
-                          ("cp_async.cuh", {"paged_decode", "gated_flash",
+                          ("cp_async.cuh", {"gate_mlp", "paged_decode",
+                                            "gated_flash",
                                             "vertical_slash"})):
         before = {n: build._lib_path(n) for n in build.KERNELS}
         with open(csrc / header, "a") as f:
