@@ -63,6 +63,35 @@ prints no result, without them. Phases, any failure fatal:
                 on the CPU: identical tokens and integer cache state,
                 logits and recurrent states within 1e-4.
 
+The baselines and the prefix store (run after phase 10, before the
+recurrentgemma phases):
+
+  prefill-dense — ``inference.prefill(use_wgkv=False)`` of prefill-long's
+                4,096-token prompt at full width and depth (28
+                ``gated_flash`` launches at W = S, g = 1) and 16 greedy
+                dense decode steps (28 one-segment ``paged_decode`` each),
+                beside prefill-long's WG-KV numbers.
+  serve-ab    — ``ServeSession`` at full width, depth cut to 14 of 28
+                layers: 2 x 384-token prompts, 16 new tokens, through
+                ``wgkv`` and ``dense``, and one of them through
+                ``streaming_llm`` and ``duo``; TTFT, TPOT, tokens/s, the
+                KV-token peak and KV bytes per backend. ``dense`` runs
+                ``paged_decode`` only, the static backends never the gate;
+                the paged backends' pools verify.
+  prefix      — a multi-turn replay (depth cut to 4 layers): 2
+                conversations x 2 turns through the prefix store for
+                ``wgkv`` and ``dense``; hit streams equal cold streams, hits
+                happen, a hit row's pool verifies, and every page is
+                reclaimed once the store is cleared.
+  substrate-ab — the trained substrate served by ``dense``,
+                ``streaming_llm`` and ``duo`` on the card and on the CPU:
+                identical streams, KV tokens per tick and integer cache
+                state.
+
+Phase 3 also holds the dense read (one ``paged_decode`` segment over a
+contiguous buffer) and the causal ``gated_flash`` at those paths'
+shapes against their plain versions.
+
 Each full-width model (32 GiB for recurrentgemma-9b in f32) is freed
 before the next is built. The full-width weights are random (seeded);
 the point is that the port runs end to end on the card through its
@@ -327,6 +356,62 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
             "split_plan": plan, "kernel_us": split_us}
 
 
+def dense_case(slots: int, max_len: int, t: list, dtype, seed: int,
+               hkv: int = 8, grp: int = 2, hd: int = 128):
+    """The dense baseline's decode read (``ops.dense_cache_attention``):
+    ONE ``paged_decode`` segment over a contiguous dense buffer of
+    ``max_len`` (rounded up to a page), each row ``t`` long; qwen3-0.6b's
+    heads. The library's: SDPA over the same buffer with a length
+    mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    from repro_torch.models.attention import init_dense_cache
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cache = init_dense_cache(slots, hkv, hd, max_len, dtype, "cuda")
+    s_max = cache.k.shape[2]
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    tt = torch.tensor(t, dtype=torch.int32, device="cuda")
+    cache = cache._replace(k=rn(slots, hkv, s_max, hd),
+                           v=rn(slots, hkv, s_max, hd), t=tt)
+    q = rn(slots, hkv * grp, hd)
+    qf, seg, grp = ops.dense_cache_segment(q, cache)
+    got = paged_decode(qf, *seg, group=grp)
+    want = paged_decode_plain(qf, *seg, group=grp)
+    again = paged_decode(qf, *seg, group=grp)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = TOL["float32" if dtype == torch.float32 else "bfloat16"]
+    check(err <= tol, f"dense read {dtype} S_max={s_max} t={t} err "
+          f"{err:.3e} > {tol}")
+    check(torch.equal(got, again), f"dense read {dtype}: two calls differ")
+    ms = cuda_ms(lambda: paged_decode(qf, *seg, group=grp), 200)
+    plain_ms = cuda_ms(lambda: paged_decode_plain(qf, *seg, group=grp), 20)
+    device_ms = graph_ms(lambda: paged_decode(qf, *seg, group=grp), 50)
+    qg = q.reshape(slots, hkv, grp, hd)
+    mask = (torch.arange(s_max, device="cuda")[None, None, None]
+            < tt[:, None, None, None])
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qg, cache.k, cache.v, attn_mask=mask), 200)
+    toks = sum(t) * hkv
+    isz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * q.numel() * isz + 2 * toks * hd * isz
+              + 4 * (seg[2].numel() + seg[3].numel()))
+    b_ms, b_by = bound(nbytes, 4 * toks * grp * hd,
+                       H100_F32_FLOPS if dtype == torch.float32
+                       else H100_BF16_FLOPS)
+    return {"shape": f"N={slots * hkv * grp} hd={hd} S_max={s_max} t={t} "
+                     f"{dtype}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "device_ms": device_ms,
+            "split_plan": split_plan_of(qf, seg, None, grp)}
+
+
 def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
     """The dual-cache read with Quest selection: a random dual cache with
     ragged gcnt, its page metadata rebuilt, and the top-K page ids of a
@@ -518,11 +603,13 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
 
 
 def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
-                     hd: int = 128, w: int = 256):
+                     hd: int = 128, w: int = 256, causal: bool = False):
     """The gated forward's shape: 16 q heads at the forward phase's
     S = 2048 or the tau probe's S = 32, with qwen3-0.6b's 8 kv heads, hd
     128, W 256 by default; recurrentgemma-9b's 1 kv head, hd 256, W 2048
-    at S = 4096."""
+    at S = 4096. ``causal``: the dense baseline's prefill form
+    (``ops.causal_attention``): g = 1 and W = S, held against the same
+    plain version, with one causal SDPA call as the library's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.device import torch_dtype
@@ -536,6 +623,8 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
     q, k, v = rn(hq, s, hd), rn(hkv, s, hd), rn(hkv, s, hd)
     g = torch.rand((hkv, s), generator=gen, device="cuda")
+    if causal:
+        g, w = torch.ones_like(g), s
     args = (q, k, v, g)
     got = gated_flash(*args, w_local=w, eps=eps, group=grp)
     want = gated_flash_plain(*args, w_local=w, eps=eps, group=grp)
@@ -553,19 +642,22 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
                        max(iters // 4, 3), warmup=1)
     # library yardstick: one SDPA call with the additive float bias
     # (0 in the window, log(g + eps) outside, -1e30 above the diagonal)
-    qi = torch.arange(s, device="cuda")[:, None]
-    kj = torch.arange(s, device="cuda")[None, :]
-    causal, in_win = qi >= kj, (qi >= kj) & (qi - kj < w)
-    logg = torch.log(g + eps)[:, None, :]                      # [hkv, 1, S]
-    bias = torch.where(causal, torch.where(in_win, torch.zeros_like(logg),
-                                           logg),
-                       torch.full_like(logg, -1e30))
-    bias = bias.repeat_interleave(grp, dim=0)[None].to(dt)
+    # (the causal form: SDPA's own is_causal, no bias tensor)
+    bias = None
+    if not causal:
+        qi = torch.arange(s, device="cuda")[:, None]
+        kj = torch.arange(s, device="cuda")[None, :]
+        below, in_win = qi >= kj, (qi >= kj) & (qi - kj < w)
+        logg = torch.log(g + eps)[:, None, :]                  # [hkv, 1, S]
+        bias = torch.where(below, torch.where(in_win, torch.zeros_like(logg),
+                                              logg),
+                           torch.full_like(logg, -1e30))
+        bias = bias.repeat_interleave(grp, dim=0)[None].to(dt)
     kk = k.repeat_interleave(grp, dim=0)[None]
     vv = v.repeat_interleave(grp, dim=0)[None]
     q4 = q[None]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, kk, vv, attn_mask=bias), iters, warmup=1)
+        q4, kk, vv, attn_mask=bias, is_causal=causal), iters, warmup=1)
     device_ms = graph_ms(lambda: gated_flash(*args, w_local=w, eps=eps,
                                              group=grp),
                          50 if s <= 64 else iters)
@@ -582,7 +674,7 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
     b_ms, b_by = bound(nbytes, flops, ATTN_RATE[dtype][0])
     cc_ms, _ = bound(nbytes, flops, PEAK[dtype])
     return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] W={w} "
-                     f"group={grp} {dtype}",
+                     f"group={grp} {dtype}" + (" g=1" if causal else ""),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "bound_rate": ATTN_RATE[dtype][1],
@@ -937,6 +1029,7 @@ def prefill_long(cfg, params):
     print("prefill-long: " + json.dumps(stats))
     return {"counts": counts, "prefill_logits": out.logits, "caches": caches,
             "tokens": toks_off, "logits": logits,
+            "prefill_ms": stats["prefill_ms"],
             "decode_ms_per_step": stats["decode_ms_per_step"]}
 
 
@@ -1269,6 +1362,335 @@ def substrate():
                           "min_topk_ub_gap": min(gaps), **comp}}
     print("substrate: " + json.dumps(stats))
     return comp["launches"]
+
+
+def _serve_until_decoding(sess, eng, handles, verify: bool):
+    """Tick ``sess`` to the end; once every handle decodes, settle the
+    mirror and, on a paged backend with ``verify``, check the physical
+    pool (``verify_paged``, one ``paged_decode`` launch). Returns the
+    deviation (None when not checked)."""
+    dev = None
+    for _ in range(100_000):
+        if not sess.tick():
+            break
+        if verify and dev is None and all(h.state == "decode"
+                                          for h in handles):
+            sess.orchestrator.drain()
+            dev = eng.verify_paged()
+    sess.run()
+    return dev
+
+
+def serve_ab(card: str):
+    """The serving A/B at full width (depth cut to 14 of 28 layers, as in
+    serve-compose): the same 2 x 384-token prompts and 16 new tokens
+    through ``ServeSession`` over ``wgkv`` then ``dense``, then one of
+    them through ``streaming_llm`` and ``duo``. Per backend: TTFT, TPOT,
+    tokens/s, the KV-token peak and resident KV bytes (logical, and the
+    device buffers of the batched tree plus the pool's pages). ``dense``
+    must run only ``paged_decode`` (never the gate), the static
+    backends never the gate; the paged backends' pools verify."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pool_pages_for
+    from repro_torch.launch.specs import cache_tree_bytes
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.backend import make_backend
+    from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
+
+    slots, cap, prompt_len, max_new = 2, 512, 384, 16
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32", n_repeats=14)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    params = init_model(cfg, gen, "cuda")
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, cfg.vocab_size - 8, prompt_len).tolist()
+               for _ in range(2)]
+    n = cfg.n_layers
+    out, counts_by = {}, {}
+    for name, n_req in (("wgkv", 2), ("dense", 2), ("streaming_llm", 1),
+                        ("duo", 1)):
+        eng = make_backend(name, params, cfg, slots=slots, capacity=cap,
+                           pool_pages=pool_pages_for(cfg, slots, cap),
+                           device="cuda")
+        paged = eng.capabilities().paged
+        sess = ServeSession(eng, sched=SchedulerConfig(chunk_tokens=64,
+                                                       dispatch_ahead=1))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with position_counter() as pc:
+            handles = [sess.submit(p, max_new=max_new)
+                       for p in prompts[:n_req]]
+            dev = _serve_until_decoding(sess, eng, handles, paged)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        summ = sess.telemetry.summary()
+        buf_bytes = cache_tree_bytes(eng.caches)
+        pool_bytes = (summ["pool_pages_peak"] or 0) * 16 * cfg.head_dim * 2 * 4
+        sess.close()
+        check(all(h.state == "done" and len(h.tokens()) == max_new
+                  for h in handles),
+              f"serve-ab {name}: requests incomplete: "
+              f"{[(h.state, len(h.tokens())) for h in handles]}")
+        verified = 1 if dev is not None else 0
+        check(counts["paged_decode"] == n * pc.count + verified,
+              f"serve-ab {name}: paged_decode launches "
+              f"{counts['paged_decode']} != {n} x {pc.count} positions + "
+              f"{verified} verify")
+        gate_want = n * pc.count if name == "wgkv" else 0
+        check(counts["gate_mlp"] == gate_want,
+              f"serve-ab {name}: gate_mlp launches {counts['gate_mlp']} != "
+              f"{gate_want}")
+        check(counts["gated_flash"] == 0 and counts["vertical_slash"] == 0,
+              f"serve-ab {name}: unexpected prefill kernels {counts}")
+        if paged:
+            check(dev is not None and dev < 2e-3,
+                  f"serve-ab {name}: paged-vs-logical deviation {dev}")
+        out[name] = {
+            "requests": n_req, "wall_s": wall, "positions": pc.count,
+            "ttft_mean_s": summ["ttft_mean_s"],
+            "tpot_mean_s": summ["tpot_mean_s"],
+            "tokens_per_s": summ["tokens_per_s"],
+            "mean_admission": summ["mean_admission"],
+            "kv_tokens_peak": summ["kv_tokens_peak"],
+            "kv_bytes_peak": summ["kv_bytes_peak"],
+            "cache_buffer_bytes": buf_bytes, "pool_bytes_peak": pool_bytes,
+            "pool_pages_peak": summ["pool_pages_peak"], "paged_dev": dev,
+            "launches": counts}
+        counts_by[name] = counts
+        del eng, sess
+        free_cuda()
+    ratio = out["wgkv"]["kv_tokens_peak"] / out["dense"]["kv_tokens_peak"]
+    check(out["dense"]["mean_admission"] == 1.0,
+          f"serve-ab: dense admission {out['dense']['mean_admission']}")
+    stats = {"card": card, "layers": n, "slots": slots, "capacity": cap,
+             "prompt_len": prompt_len, "max_new": max_new,
+             "backends": out, "kv_tokens_peak_wgkv_over_dense": ratio,
+             "note": "random gates admit nearly every token, so this "
+                     "memory ratio says nothing about the paper's claim"}
+    print("serve-ab: " + json.dumps(stats), flush=True)
+    return counts_by
+
+
+def prefill_dense(cfg, params, long_stats):
+    """``inference.prefill(use_wgkv=False)`` of prefill-long's 4096-token
+    prompt at full width and depth (causal attention through
+    ``gated_flash`` at W = S, a dense cache of 4160 slots per layer), then
+    16 greedy dense ``decode_step``s (one-segment ``paged_decode``)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.specs import cache_tree_bytes
+    from repro_torch.models import inference as I
+    s, steps, n = 4096, 16, cfg.n_layers
+    toks = torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab_size - 8, (1, s)), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out, caches = I.prefill(params, cfg, toks, use_wgkv=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, logits, dec, _ = greedy_decode(params, cfg, out.logits, caches,
+                                          steps)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counts = read_counts()
+    node = dec["blocks"]["b0"]
+    check(counts["gated_flash"] == n,
+          f"prefill-dense: gated_flash launches {counts['gated_flash']} != "
+          f"{n}")
+    check(counts["paged_decode"] == n * steps,
+          f"prefill-dense: paged_decode launches {counts['paged_decode']} "
+          f"!= {n} x {steps}")
+    check(counts["gate_mlp"] == 0 and counts["vertical_slash"] == 0,
+          f"prefill-dense: WG-KV kernels ran: {counts}")
+    check(tuple(node.k.shape) == (n, 1, cfg.n_kv_heads, 4160, cfg.head_dim)
+          and bool((node.t == s + steps).all()),
+          f"prefill-dense: cache {tuple(node.k.shape)} t "
+          f"{node.t.unique().tolist()}")
+    check(bool(torch.isfinite(logits).all()), "prefill-dense: non-finite "
+          "logits")
+    stats = {"prompt_len": s, "decode_steps": steps,
+             "prefill_ms": (t1 - t0) * 1e3,
+             "decode_ms_per_step": (t2 - t1) * 1e3 / steps,
+             "wgkv_prefill_ms": long_stats["prefill_ms"],
+             "wgkv_decode_ms_per_step": long_stats["decode_ms_per_step"],
+             "dense_cache_gib": cache_tree_bytes(caches["blocks"]) / 2 ** 30,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches": counts}
+    print("prefill-dense: " + json.dumps(stats), flush=True)
+    return counts
+
+
+def prefix_phase(card: str):
+    """A multi-turn replay at full width (depth cut to 4 of 28 layers):
+    2 conversations x 2 turns, chunk 64, a first prompt of 264 tokens
+    (past the 256-token ring, so the global segment holds tokens), each
+    turn adding the 16-token reply and 48 user tokens (one chunk), so
+    turn 2 resumes from the stored 256-token prefix. For ``wgkv`` and
+    ``dense``: cold (no store) and through the store; hit streams equal
+    cold streams, the hit rate is above 0, a hit row's pool verifies
+    mid-decode (wgkv), and every page is reclaimed after the store is
+    cleared."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pool_pages_for
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.backend import make_backend
+    from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
+    from repro_torch.serving.prefix_cache import PrefixCache
+
+    slots, cap, chunk, plen, mnew, user = 2, 512, 64, 264, 16, 48
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32", n_repeats=4)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    params = init_model(cfg, gen, "cuda")
+    n = cfg.n_layers
+
+    def turns(eng, pc, verify):
+        rng = np.random.default_rng(16)
+        prompts = [rng.integers(0, cfg.vocab_size - 8, plen).tolist()
+                   for _ in range(2)]
+        streams, devs = [], []
+        for turn in range(2):
+            sess = ServeSession(eng, sched=SchedulerConfig(
+                chunk_tokens=chunk, dispatch_ahead=1), prefix_cache=pc)
+            hs = [sess.submit(p, max_new=mnew) for p in prompts]
+            # turn 2's rows resume from stored prefixes: verify them
+            dev = _serve_until_decoding(sess, eng, hs, verify and turn == 1)
+            if dev is not None:
+                check(all(r.prefix_hit for r in sess.telemetry.records),
+                      "prefix: a turn-2 request missed the store")
+                devs.append(dev)
+            sess.close()
+            outs = [h.tokens() for h in hs]
+            streams.append(outs)
+            prompts = [p + o + rng.integers(0, cfg.vocab_size - 8,
+                                            user).tolist()
+                       for p, o in zip(prompts, outs)]
+        return streams, devs
+
+    out, counts_by = {}, {}
+    for name in ("wgkv", "dense"):
+        # the pool holds the slots and the store's entries (up to 4)
+        eng = make_backend(name, params, cfg, slots=slots, capacity=cap,
+                           pool_pages=pool_pages_for(cfg, slots + 4, cap),
+                           device="cuda")
+        paged = eng.capabilities().paged
+        cold, _ = turns(eng, None, False)
+        pc = PrefixCache(quantum=chunk, free_fn=eng.release_prefix)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with position_counter() as pcnt:
+            warm, devs = turns(eng, pc, paged)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        hit_rate = pc.hits / max(pc.hits + pc.misses, 1)
+        check(warm == cold, f"prefix {name}: hit streams differ from cold")
+        check(pc.hits > 0 and hit_rate > 0, f"prefix {name}: no hit "
+              f"({pc.hits} hits, {pc.misses} misses)")
+        verified = len(devs)
+        if paged:
+            check(verified > 0 and max(devs) < 2e-3,
+                  f"prefix {name}: hit-row pool deviation {devs}")
+        check(counts["paged_decode"] == n * pcnt.count + verified,
+              f"prefix {name}: paged_decode launches "
+              f"{counts['paged_decode']} != {n} x {pcnt.count} + {verified}")
+        check(counts["gate_mlp"] == (n * pcnt.count if name == "wgkv"
+                                     else 0),
+              f"prefix {name}: gate_mlp launches {counts['gate_mlp']}")
+        stats = {"hits": pc.hits, "misses": pc.misses, "hit_rate": hit_rate,
+                 "inserts": pc.inserts, "store_bytes": pc.bytes_used,
+                 "positions_warm": pcnt.count, "wall_warm_s": wall,
+                 "paged_dev_hit_rows": devs, "launches": counts}
+        pc.clear()
+        check(len(pc) == 0 and pc.bytes_used == 0,
+              f"prefix {name}: the store kept entries after clear")
+        if paged:
+            check(eng.pool.pages_in_use == 0,
+                  f"prefix {name}: {eng.pool.pages_in_use} pool pages left "
+                  "after the store was cleared")
+        out[name] = stats
+        counts_by[name] = counts
+    print("prefix: " + json.dumps({"card": card, "layers": n,
+                                   "chunk": chunk, "backends": out}),
+          flush=True)
+    return counts_by
+
+
+def substrate_ab():
+    """The trained substrate served by ``dense``, ``streaming_llm`` and
+    ``duo`` on the card (kernels) and on the CPU (plain path): two numpy
+    prompts (128 and 60 tokens, past the 16-token ring), 8 new tokens,
+    chunk 32. Greedy streams, resident KV tokens tick by tick and every
+    integer cache leaf must be identical."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ModelConfig, WGKVConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.serving.backend import make_backend
+    from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
+    from repro_torch.tree import tree_leaves_with_path
+    path = ROOT / "checkpoints" / "bench_model_lam0.15.npz"
+    cfg = ModelConfig(
+        name="bench-tiny", arch_type="dense", d_model=128, n_heads=4,
+        n_kv_heads=2, head_dim=32, d_ff=256, vocab_size=256,
+        block_pattern=("attn",), n_repeats=2, rope_theta=10000.0,
+        dtype="float32", wgkv=WGKVConfig(
+            enabled=True, w_local=16, tau=0.1, gate_hidden=32,
+            global_budget_frac=1.0, sink=2, lam=0.15))
+    prompts = [np.random.default_rng(20).integers(0, 256, 128).tolist(),
+               np.random.default_rng(21).integers(0, 256, 60).tolist()]
+
+    def run(name, device):
+        params = params_from_numpy(path, cfg, device)
+        eng = make_backend(name, params, cfg, slots=2, capacity=192,
+                           pool_pages=512, device=device)
+        sess = ServeSession(eng, sched=SchedulerConfig(chunk_tokens=32))
+        hs = [sess.submit(p, max_new=8) for p in prompts]
+        kv = []
+        with position_counter() as pc:
+            while sess.tick():
+                sess.orchestrator.drain()
+                kv.append(eng.memory_snapshot()["kv_tokens"])
+            sess.run()
+        sess.close()
+        ints = {p: x.cpu() for p, x in tree_leaves_with_path(eng.caches)
+                if not x.is_floating_point()}
+        return [h.tokens() for h in hs], kv, ints, pc.count
+
+    out, counts_by = {}, {}
+    for name in ("dense", "streaming_llm", "duo"):
+        cpu = run(name, "cpu")
+        torch.cuda.synchronize()
+        reset_counts()
+        gpu = run(name, "cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        n = cfg.n_layers
+        check(gpu[0] == cpu[0], f"substrate-ab {name}: streams differ: "
+              f"{gpu[0]} vs {cpu[0]}")
+        check(gpu[1] == cpu[1], f"substrate-ab {name}: KV tokens per tick "
+              "differ")
+        check(gpu[2].keys() == cpu[2].keys() and all(
+            torch.equal(gpu[2][k], cpu[2][k]) for k in cpu[2]),
+            f"substrate-ab {name}: integer cache state differs")
+        check(counts["paged_decode"] == n * gpu[3]
+              and counts["gate_mlp"] == 0 and counts["gated_flash"] == 0,
+              f"substrate-ab {name}: launches {counts} over {gpu[3]} "
+              "positions")
+        out[name] = {"tokens": gpu[0], "kv_tokens_peak": max(gpu[1]),
+                     "int_leaves": len(cpu[2]), "positions": gpu[3],
+                     "launches": counts}
+        counts_by[name] = counts
+    print("substrate-ab: " + json.dumps(out), flush=True)
+    return counts_by
 
 
 def free_cuda():
@@ -1630,6 +2052,15 @@ def main() -> int:
                                   w=2048)
     rg_gf_probe = gated_flash_case(32, "float32", seed=31, hkv=1, hd=256,
                                    w=2048)
+    # the dense baseline's shapes: serve-ab's decode read (2 slots,
+    # capacity 512) and prefill-dense's (one row, 4160 slots), one
+    # paged_decode segment; prefill-dense's causal prefill at S 4096
+    dense_serve = dense_case(2, 512, [398, 383], torch.float32, seed=33)
+    dense_long = dense_case(1, 4160, [4104], torch.float32, seed=34)
+    dense_long_bf16 = dense_case(1, 4160, [4104], torch.bfloat16, seed=35)
+    gf_causal = gated_flash_case(4096, "float32", seed=36, causal=True)
+    gf_causal_bf16 = gated_flash_case(4096, "bfloat16", seed=37,
+                                      causal=True)
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
                    ("gate_mlp", gate_prefill),
                    ("paged_decode", pd_main), ("paged_decode", pd_bf16),
@@ -1648,7 +2079,12 @@ def main() -> int:
                    ("vertical_slash rg", rg_vs),
                    ("vertical_slash rg", rg_vs_bf16),
                    ("gated_flash rg", rg_gf), ("gated_flash rg", rg_gf_bf16),
-                   ("gated_flash rg", rg_gf_probe)):
+                   ("gated_flash rg", rg_gf_probe),
+                   ("paged_decode dense", dense_serve),
+                   ("paged_decode dense", dense_long),
+                   ("paged_decode dense", dense_long_bf16),
+                   ("gated_flash causal", gf_causal),
+                   ("gated_flash causal", gf_causal_bf16)):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
     # 4-10. the main paths, counts set to 0 just before each
     cli_counts = serve_cli(n_layers=28)
@@ -1657,11 +2093,19 @@ def main() -> int:
     base = prefill_long(cfg, params)
     prefill_counts = base["counts"]
     select_counts = decode_select(cfg, params, base)
+    long_stats = {k: base[k] for k in ("prefill_ms", "decode_ms_per_step")}
     del base
+    free_cuda()
+    dense_counts = prefill_dense(cfg, params, long_stats)
     forward_counts = forward_gated(cfg, params)
     del params
+    free_cuda()
     compose_counts = serve_compose(card)
     substrate_counts = substrate()
+    # the baselines and the prefix store (this slice's paths)
+    ab_counts = serve_ab(card)
+    prefix_counts = prefix_phase(card)
+    sub_ab_counts = substrate_ab()
     # 11-14. recurrentgemma-9b (one 32 GiB model at a time)
     free_cuda()
     rg_serve_counts = rg_serve(card)
@@ -1706,7 +2150,16 @@ def main() -> int:
          "launches_rg_prefill": rg_decode_counts["paged_decode"],
          "launches_rg_serve": rg_serve_counts["paged_decode"],
          rg: {"offline": rg_pd, "offline_bf16": rg_pd_bf16,
-              "serve": rg_pd_serve}},
+              "serve": rg_pd_serve},
+         "launches_serve_ab": {k: v["paged_decode"]
+                               for k, v in ab_counts.items()},
+         "launches_prefill_dense": dense_counts["paged_decode"],
+         "launches_prefix": {k: v["paged_decode"]
+                             for k, v in prefix_counts.items()},
+         "launches_substrate_ab": {k: v["paged_decode"]
+                                   for k, v in sub_ab_counts.items()},
+         "dense": {"serve": dense_serve, "offline": dense_long,
+                   "offline_bf16": dense_long_bf16}},
         {"name": "vertical_slash", "route": "cuda",
          "source": "src/repro_torch/csrc/vertical_slash.cu",
          "replaces": "src/repro/kernels/vertical_slash.py:88",
@@ -1736,7 +2189,9 @@ def main() -> int:
          "bf16": gf_bf16, "probe": gf_probe, "probe_bf16": gf_probe_bf16,
          "launches_rg_forward": rg_forward_counts["gated_flash"],
          "launches_rg_serve": rg_serve_counts["gated_flash"],
-         rg: {"f32": rg_gf, "bf16": rg_gf_bf16, "probe": rg_gf_probe}},
+         rg: {"f32": rg_gf, "bf16": rg_gf_bf16, "probe": rg_gf_probe},
+         "launches_prefill_dense": dense_counts["gated_flash"],
+         "causal": {"f32": gf_causal, "bf16": gf_causal_bf16}},
         {"name": "paged_decode_selected", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_decode.py:133",

@@ -1,7 +1,9 @@
 """Model-level folds around the kernels (port of ``repro/kernels/ops.py``):
 GQA head folding, the write-gate batch fold, the dual cache viewed as two
 paged segments, read whole or through the Quest-selected pages of its
-global segment, and the RG-LRU linear scan.
+global segment, the dense baseline's cache read as one paged segment and
+its causal prefill through the write-gated kernel, and the RG-LRU linear
+scan.
 
 The GQA fold keeps the reference's stream order ``(b, kv head, group)``
 (``q.reshape(b, hkv, g, s, hd)``) but does not repeat K, V, the gates, the
@@ -121,6 +123,44 @@ def dual_cache_attention(q, cache):
     q: [B, Hq, hd] -> [B, Hq, hd]."""
     qf, first, second, g = dual_cache_segments(q, cache)
     return paged_decode(qf, *first, second=second, group=g).reshape(q.shape)
+
+
+def dense_cache_segment(q, cache):
+    """The paged-decode arguments of a DenseCache read, viewed in place:
+    (q [B*Hq, hd], one segment (k_pool, v_pool, page_table, lengths) per
+    kv stream, group). The contiguous [B, Hkv, S_max, hd] buffer is
+    S_max / 16 pages per kv stream (S_max a multiple of 16;
+    ``init_dense_cache`` rounds it up), each stream ``t`` long."""
+    b, hq, hd = q.shape
+    _, hkv, s_max, _ = cache.k.shape
+    if s_max % PAGE_SIZE:
+        raise ValueError(f"dense-cache read needs a page-aligned buffer, "
+                         f"got S_max={s_max} (a multiple of {PAGE_SIZE})")
+    s = b * hkv
+    pages = s_max // PAGE_SIZE
+    lens = cache.t.to(torch.int32)[:, None].expand(b, hkv).reshape(s)
+    seg = (cache.k.reshape(s * pages, PAGE_SIZE, hd),
+           cache.v.reshape(s * pages, PAGE_SIZE, hd),
+           _identity_tables(s, pages, q.device), lens.contiguous())
+    return q.reshape(b * hq, hd).contiguous(), seg, hq // hkv
+
+
+def dense_cache_attention(q, cache):
+    """One query per head over a DenseCache's first ``t`` tokens, read in
+    place by the paged-decode kernel as ONE segment. q: [B, Hq, hd] ->
+    [B, Hq, hd]."""
+    qf, seg, g = dense_cache_segment(q, cache)
+    return paged_decode(qf, *seg, group=g).reshape(q.shape)
+
+
+def causal_attention(q, k, v):
+    """Plain causal attention through the write-gated kernel: g all ones
+    and ``w_local = S`` put every causal key inside the window, where the
+    bias is exactly 0, and the kernel skips the key tiles above the
+    diagonal. q: [B, Hq, S, hd]; k, v: [B, Hkv, S, hd] -> [B, Hq, S, hd]."""
+    b, hkv, s, _ = k.shape
+    g = torch.ones((b, hkv, s), dtype=torch.float32, device=q.device)
+    return gated_flash_attention(q, k, v, g, w_local=s, eps=1e-6)
 
 
 def dual_cache_selected_attention(q, cache, ids, n_sel):

@@ -1,7 +1,9 @@
-"""Serving driver of the port: the ServeSession client API over the
-``wgkv`` engine (port of ``repro/launch/serve.py``), with chunked prefill,
-dispatch-ahead decode, per-request token streaming, deadlines and
-admission-aware telemetry.
+"""Serving driver of the port: the ServeSession client API over any
+registered backend — the WG-KV dual cache (default), dense full-KV, or a
+static admission baseline (port of ``repro/launch/serve.py``) — with
+chunked prefill, dispatch-ahead decode, per-request token streaming,
+deadlines, an optional content-addressed prefix store and admission-aware
+telemetry.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-0.6b --requests 4 --max-new 16 --quiet-stream
@@ -11,13 +13,17 @@ admission-aware telemetry.
         --selection quest:2 --evict-budget 96 --prompt-len 384
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --reduced --device cpu --requests 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --reduced --device cpu --backend dense --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --reduced --device cpu --backend duo --retrieval-ratio 0.5
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator``;
 prompts are drawn with numpy from the same seed. Flags of the reference
 CLI that this port does not support yet exit with a message instead of
-being ignored. At startup a short gated forward probes the gate scores
-(:func:`tau_probe`) and warns on stderr when tau sits inside their
-cluster.
+being ignored (``--mesh``). At startup of the ``wgkv`` backend a short
+gated forward probes the gate scores (:func:`tau_probe`) and warns on
+stderr when tau sits inside their cluster.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from repro_torch.serving.backend import BACKEND_NAMES, make_backend
 from repro_torch.serving.obs import Tracer, write_chrome_trace
 from repro_torch.serving.orchestrator import (QueueFull, SchedulerConfig,
                                               ServeSession)
+from repro_torch.serving.prefix_cache import PrefixCache
 
 
 def pool_pages_for(cfg, slots: int, capacity: int) -> int:
@@ -85,7 +92,6 @@ def tau_probe(params, cfg, *, prompt_len: int, seed: int,
 
 
 _UNPORTED = {
-    "prefix_cache": "--prefix-cache (content-addressed prefix store)",
     "mesh": "--mesh (multi-device serving)",
 }
 
@@ -97,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda or cpu)")
     ap.add_argument("--backend", default="wgkv", choices=BACKEND_NAMES,
-                    help="serving engine backend (only wgkv is ported)")
+                    help="serving engine backend (protocol implementation)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=16)
@@ -111,8 +117,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="decode-time page selection: on decode-only "
                          "ticks read only the top-K global pages per "
                          "(row, kv head)")
-    ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--prefix-cache-mb", type=int, default=256)
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="content-addressed prefix store: requests sharing "
+                         "a chunk-aligned prompt prefix splice its cached "
+                         "post-admission KV instead of re-prefilling it")
+    ap.add_argument("--prefix-cache-mb", type=int, default=256,
+                    help="prefix store LRU byte budget in MiB")
+    ap.add_argument("--sink", type=int, default=None,
+                    help="static backends: sink tokens every head admits "
+                         "(default: the config's wgkv.sink)")
+    ap.add_argument("--retrieval-ratio", type=float, default=0.25,
+                    help="duo: fraction of kv heads that admit every token")
     ap.add_argument("--dispatch-ahead", type=int, default=1,
                     help="decode steps kept in flight on the device "
                          "(0 = synchronous one-step-per-tick baseline)")
@@ -148,9 +163,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         if val not in (None, False):
             ap.exit(2, f"{ap.prog}: {flag} is not ported to repro_torch "
                        "yet (see ROADMAP.md)\n")
-    if args.backend != "wgkv":
-        ap.exit(2, f"{ap.prog}: --backend {args.backend} is not ported to "
-                   "repro_torch yet; only wgkv is\n")
+    if args.prefix_cache_mb < 1:
+        ap.error("--prefix-cache-mb must be >= 1")
     if args.max_pending is not None and args.max_pending < 1:
         ap.error("--max-pending must be >= 1")
     if args.chunk_tokens < 1:
@@ -172,19 +186,27 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = T.init_model(cfg, gen, device)
-    if cfg.wgkv.enabled:
+    if args.backend == "wgkv" and cfg.wgkv.enabled:
         tau_probe(params, cfg, prompt_len=args.prompt_len, seed=args.seed,
                   device=device)
     opts = I.DecodeOptions(quest_pages=args.quest_pages,
                            evict_hard_budget=args.evict_budget)
+    static_kw = {}
+    if args.backend in ("streaming_llm", "duo"):
+        static_kw = dict(sink=args.sink, retrieval_ratio=args.retrieval_ratio)
     eng = make_backend(args.backend, params, cfg, slots=args.slots,
                        capacity=args.capacity, opts=opts,
                        selection=args.selection,
                        temperature=args.temperature, seed=args.seed,
                        pool_pages=pool_pages_for(cfg, args.slots,
                                                  args.capacity),
-                       device=device)
+                       device=device, **static_kw)
     print(f"backend: {eng.capabilities()}")
+    prefix_cache = None
+    if args.prefix_cache:
+        prefix_cache = PrefixCache(quantum=args.chunk_tokens,
+                                   budget_bytes=args.prefix_cache_mb << 20,
+                                   free_fn=eng.release_prefix)
     tracer = None
     if args.trace_out or args.device_annotations:
         tracer = Tracer(capacity=args.trace_capacity,
@@ -195,7 +217,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                               dispatch_ahead=args.dispatch_ahead,
                               max_prefill_batch=args.max_prefill_batch),
         max_pending=args.max_pending, tracer=tracer,
-        metrics_interval_s=args.metrics_interval)
+        metrics_interval_s=args.metrics_interval, prefix_cache=prefix_cache)
 
     def on_token(rid: int, tok: int, is_last: bool) -> None:
         if not args.quiet_stream:

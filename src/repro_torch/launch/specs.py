@@ -13,23 +13,36 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dual_cache import init_dual_cache
 from repro_torch.device import torch_dtype
+from repro_torch.models import attention as A
 from repro_torch.models import rglru as RG
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 
 def _block_cache(cfg: ModelConfig, bt: str, batch: int, capacity: int,
-                 device):
-    """One block's empty decode cache: the write-gated dual cache of an
-    attention block (ring ``cfg.sliding_window`` for ``local_attn``, else
-    ``cfg.wgkv.w_local``) or an ``rglru`` block's zero state."""
+                 use_wgkv: bool, device):
+    """One block's empty decode cache. An attention block with WG-KV: the
+    write-gated dual cache (ring ``cfg.sliding_window`` for
+    ``local_attn``, else ``cfg.wgkv.w_local``). Without (the dense
+    baseline): a ring-only dual cache for ``local_attn`` (a budget of
+    ``max(sink, 16)`` that only sinks reach), else a dense cache of
+    ``capacity`` (rounded up to a 16-token page). An ``rglru`` block's
+    zero state."""
     dt = torch_dtype(cfg.dtype)
     if bt in ("attn", "local_attn"):
-        w_ring = (cfg.sliding_window if bt == "local_attn"
-                  else cfg.wgkv.w_local)
-        return init_dual_cache(batch, cfg.n_kv_heads, cfg.head_dim,
-                               w_local=w_ring,
-                               budget=cfg.wgkv.global_budget(capacity),
-                               dtype=dt, device=device)
+        if use_wgkv:
+            w_ring = (cfg.sliding_window if bt == "local_attn"
+                      else cfg.wgkv.w_local)
+            return init_dual_cache(batch, cfg.n_kv_heads, cfg.head_dim,
+                                   w_local=w_ring,
+                                   budget=cfg.wgkv.global_budget(capacity),
+                                   dtype=dt, device=device)
+        if bt == "local_attn":
+            return init_dual_cache(batch, cfg.n_kv_heads, cfg.head_dim,
+                                   w_local=cfg.sliding_window,
+                                   budget=max(cfg.wgkv.sink, 16), dtype=dt,
+                                   device=device)
+        return A.init_dense_cache(batch, cfg.n_kv_heads, cfg.head_dim,
+                                  capacity, dt, device=device)
     if bt == "rglru":
         return RG.init_rglru_state(cfg, batch, dt, device=device)
     raise NotImplementedError(f"decode caches for block type {bt!r} are "
@@ -37,21 +50,22 @@ def _block_cache(cfg: ModelConfig, bt: str, batch: int, capacity: int,
 
 
 def build_decode_caches(cfg: ModelConfig, batch: int, capacity: int, *,
+                        use_wgkv: bool = True,
                         device=None) -> Dict[str, Any]:
     """Empty decode cache tree ``{"t", "stem": (...), "blocks": {"b0":
     ...}}`` with block leaves stacked ``[n_repeats, batch, ...]`` and the
     stem (only when the config has one) a tuple of batch-leading caches.
-    Only the write-gated dual cache is ported for attention blocks (the
-    dense cache is not). The eviction ``obs`` subtree is added by the
-    caller that evicts (``inference._init_obs_tree``), as in the
-    reference."""
+    ``use_wgkv=False`` builds the dense baseline's caches. The eviction
+    ``obs`` subtree is added by the caller that evicts
+    (``inference._init_obs_tree``), as in the reference."""
+    def mk(bt):
+        return _block_cache(cfg, bt, batch, capacity, use_wgkv, device)
+
     caches: Dict[str, Any] = {
         "t": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.stem_pattern:
-        caches["stem"] = tuple(_block_cache(cfg, bt, batch, capacity, device)
-                               for bt in cfg.stem_pattern)
-    one = {f"b{i}": _block_cache(cfg, bt, batch, capacity, device)
-           for i, bt in enumerate(cfg.block_pattern)}
+        caches["stem"] = tuple(mk(bt) for bt in cfg.stem_pattern)
+    one = {f"b{i}": mk(bt) for i, bt in enumerate(cfg.block_pattern)}
     caches["blocks"] = tree_map(
         lambda x: x[None].expand((cfg.n_repeats,) + x.shape).contiguous(), one)
     return caches

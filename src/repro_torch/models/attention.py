@@ -10,15 +10,23 @@ Modes:
     the window; its K/V/gates populate the dual cache.
   * decode — one token against the dual cache with lazy promotion,
     optionally reading only Quest-selected pages of the global cache.
+  * the dense full-attention baseline — causal prefill
+    (:func:`attn_prefill_full`) into a contiguous :class:`DenseCache`, and
+    one token against its first ``t`` entries (:func:`attn_decode_dense`).
 
 On CUDA the gate runs in the ``gate_mlp`` kernel, gated training
 attention in ``gated_flash``, the budgeted prefill in ``vertical_slash``
 and the decode read over [admitted global ‖ local ring] in the
 two-segment ``paged_decode`` kernel (``paged_decode_selected`` under
-Quest selection), straight from the cache buffers; on
-the CPU each wrapper runs its plain PyTorch version. The teacher and hard
-modes run :func:`sdpa` (an einsum and a softmax) on either device, as the
-reference computes them outside any Pallas kernel.
+Quest selection), straight from the cache buffers. The dense baseline
+reuses two of them: its causal prefill runs ``gated_flash`` with every
+key inside the window (bias 0), its decode read is one ``paged_decode``
+segment over the dense buffer. On the CPU each wrapper runs its plain
+PyTorch version. The windowed dense baseline (``local_attn`` blocks with
+WG-KV off) has no kernel yet: it runs plain on the CPU and raises on
+CUDA. The teacher and hard modes run :func:`sdpa` (an einsum and a
+softmax) on either device, as the reference computes them outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -37,6 +45,52 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 Params = Dict[str, torch.Tensor]
+
+WINDOWED_DENSE_TODO = (
+    "windowed dense attention (local_attn with WG-KV off) has no CUDA "
+    "kernel yet: gated_flash adds log(eps) outside its window instead of "
+    "masking, and paged_decode has no start offset (ROADMAP.md Queue 1 "
+    "item 10)")
+
+
+# ==========================================================================
+# dense-cache baseline (full attention)
+# ==========================================================================
+class DenseCache(NamedTuple):
+    k: torch.Tensor   # [B, Hkv, S_max, hd] post-RoPE keys
+    v: torch.Tensor
+    t: torch.Tensor   # [B] int32 current length
+
+
+def dense_len(max_len: int) -> int:
+    """The dense buffer's length: ``max_len`` rounded up to a whole
+    16-token page, the page the decode kernel reads (the tokens past
+    ``t`` stay masked by the lengths)."""
+    return -(-max_len // SEL.PAGE_SIZE) * SEL.PAGE_SIZE
+
+
+def init_dense_cache(batch: int, n_kv: int, head_dim: int, max_len: int,
+                     dtype=torch.float32, device=None) -> DenseCache:
+    """Empty dense cache of ``dense_len(max_len)`` slots per kv stream."""
+    shape = (batch, n_kv, dense_len(max_len), head_dim)
+    return DenseCache(torch.zeros(shape, dtype=dtype, device=device),
+                      torch.zeros(shape, dtype=dtype, device=device),
+                      torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def dense_cache_append(cache: DenseCache, k_new: torch.Tensor,
+                       v_new: torch.Tensor) -> DenseCache:
+    """k_new, v_new: [B, H, hd] appended at each row's position ``t``:
+    one slot per row written into a copy of the buffers (the dual cache's
+    functional style). A write past the buffer fails (an index error on
+    the CPU, a device-side assert on CUDA), never drops: the serving
+    engine guards capacity on the host before it dispatches."""
+    bar = torch.arange(cache.k.shape[0], device=cache.k.device)
+    t = cache.t.long()
+    k, v = cache.k.clone(), cache.v.clone()
+    k[bar, :, t] = k_new.to(k.dtype)
+    v[bar, :, t] = v_new.to(v.dtype)
+    return DenseCache(k, v, cache.t + 1)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -229,6 +283,35 @@ def attn_prefill_budgeted(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return PrefillResult(y, k_rope, v, g, sel)
 
 
+def attn_prefill_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, *,
+                      window: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-attention baseline prefill: causal attention, windowed when
+    ``window`` is given. Returns (out [B, S, D], k_rope [B, Hkv, S, hd],
+    v). The causal form runs ``ops.causal_attention`` (on CUDA the
+    ``gated_flash`` kernel with every key in its window); the windowed
+    form is plain PyTorch on the CPU and raises on CUDA. The reference's
+    ``q_chunk`` (a memory bound on its dense einsum) has no counterpart:
+    the kernel tiles the queries itself."""
+    q, _, k_rope, v = project_qkv(p, cfg, x, positions)
+    if window is None:
+        out = ops.causal_attention(q, k_rope, v)
+    else:
+        if x.device.type != "cpu":
+            raise NotImplementedError(WINDOWED_DENSE_TODO)
+        s = x.shape[1]
+
+        def bias_fn(q_start: int, q_len: int) -> torch.Tensor:
+            vis = M.local_window_mask(q_len, s, window, q_start, x.device)
+            zero = torch.zeros((), dtype=torch.float32, device=x.device)
+            return torch.where(vis, zero, torch.full_like(zero, M.NEG_INF))
+
+        out = sdpa(q, k_rope, v, bias_fn)
+    y = _merge_heads(out) @ p["w_o"].to(x.dtype)
+    return y, k_rope, v
+
+
 # ==========================================================================
 # decode
 # ==========================================================================
@@ -312,3 +395,50 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
         o = ops.dual_cache_selected_attention(q, new_cache, ids, n_sel)
     y = o.reshape(b, hq * hd) @ p["w_o"].to(x_t.dtype)
     return y, new_cache, g_new, sel_pages
+
+
+def _dense_window_read(q: torch.Tensor, cache: DenseCache,
+                       window: int) -> torch.Tensor:
+    """Plain read of the last ``window`` of a dense cache's ``t`` tokens
+    (the windowed baseline; CPU only). q: [B, Hq, hd] -> [B, Hq, hd]."""
+    b, hq, hd = q.shape
+    hkv, s = cache.k.shape[1], cache.k.shape[2]
+    pos = torch.arange(s, device=q.device)[None]
+    t = cache.t[:, None]
+    valid = (pos < t) & (pos >= t - window)                     # [B, S]
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg, cache.k).float()
+    logits = logits * (hd ** -0.5)
+    logits = torch.where(valid[:, None, None], logits,
+                         torch.full_like(logits, M.NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", w.to(cache.v.dtype), cache.v)
+    return o.reshape(b, hq, hd)
+
+
+def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
+                      cache: DenseCache, *, window: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, DenseCache]:
+    """Full-attention baseline decode step. x_t: [B, D]. The new token is
+    appended first, then one query per head reads the cache's first
+    ``t`` tokens (the last ``window`` of them when given) — the
+    reference's order. Returns (out [B, D], new cache)."""
+    b, _ = x_t.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = x_t[:, None, :]
+    q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)[:, :, 0]
+    k_pre = _heads(x @ p["w_k"].to(x.dtype), hkv, hd)[:, :, 0]
+    v_new = _heads(x @ p["w_v"].to(x.dtype), hkv, hd)[:, :, 0]
+    q, k_pre = _qk_norm(p, q[:, :, None], k_pre[:, :, None])
+    q, k_pre = q[:, :, 0], k_pre[:, :, 0]
+    q = _rope_single(cfg, q, cache.t)
+    k_new = _rope_single(cfg, k_pre, cache.t)
+    cache = dense_cache_append(cache, k_new, v_new)
+    if window is None:
+        o = ops.dense_cache_attention(q, cache)
+    elif x_t.device.type != "cpu":
+        raise NotImplementedError(WINDOWED_DENSE_TODO)
+    else:
+        o = _dense_window_read(q, cache, window)
+    y = o.reshape(b, hq * hd) @ p["w_o"].to(x_t.dtype)
+    return y, cache

@@ -2,19 +2,23 @@
 ``prefill_extend_ragged`` of ``repro/models/inference.py``).
 
 :func:`prefill` is the offline budgeted vertical-slash prefill (paper
-§4.2) that fills every layer's dual cache at once; :func:`decode_step`
-continues from its caches. The serving engine instead ingests prompts
-position by position through :func:`prefill_extend_ragged`.
+§4.2) that fills every layer's dual cache at once, or with
+``use_wgkv=False`` the dense full-attention baseline's causal prefill
+into a contiguous :class:`~repro_torch.models.attention.DenseCache`;
+:func:`decode_step` continues from either (it dispatches on the cache
+type). The serving engine instead ingests prompts position by position
+through :func:`prefill_extend_ragged`.
 
 Cache tree, as in the reference: ``{"t": [B] int32, "stem": (cache,
 ...), "blocks": {"b0": ..., "b1": ...}, "obs": ObsWindow}``. An
 attention block (``"attn"``, ``"local_attn"``) keeps a DualCache whose
 ring is ``cfg.wgkv.w_local`` or, for ``local_attn``, ``cfg.sliding_window``
-tokens; an ``"rglru"`` block keeps its RGLRUState. Every ``"blocks"`` leaf
-is stacked ``[n_repeats, B, ...]``; the stem (only when the config has
-one) is a tuple of batch-leading caches; the eviction observation window
-(only when eviction is on) is stacked ``[n_repeats, n_attn, B, ...]`` and
-indexed by a block's ordinal among the attention blocks of the pattern.
+tokens (the dense baseline: a DenseCache); an ``"rglru"`` block keeps its
+RGLRUState. Every ``"blocks"`` leaf is stacked ``[n_repeats, B, ...]``;
+the stem (only when the config has one) is a tuple of batch-leading
+caches; the eviction observation window (only when eviction is on) is
+stacked ``[n_repeats, n_attn, B, ...]`` and indexed by a block's ordinal
+among the attention blocks of the pattern.
 Updates are functional — each step returns a new tree and leaves its
 input untouched.
 
@@ -23,6 +27,9 @@ read-time selection as a page MASK, ``selection_policy = "quest:K"`` as a
 GATHER of the top-K pages; on the port both read only the selected pages
 through the ``paged_decode_selected`` kernel. ``evict_hard_budget``
 applies SnapKV-style eviction when a head's global count hits the bound.
+``admission_policy`` replaces the learned write gate with a static
+position/head policy (StreamingLLM or DuoAttention, paper §5.2): the
+``gate_mlp`` kernel then does not run, the reads do.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
+from repro_torch.core import baselines as BL
 from repro_torch.core import eviction as EV
 from repro_torch.core import selection as SEL
 from repro_torch.core.dual_cache import (DualCache, init_dual_cache,
@@ -49,10 +57,15 @@ Params = Dict[str, Any]
 CacheTree = Dict[str, Any]
 
 
+STATIC_POLICIES = ("streaming_llm", "duo")
+
+
 @dataclasses.dataclass(frozen=True)
 class DecodeOptions:
-    """Decode-time options, as in the reference. Static admission
-    (``admission_policy``) is not ported yet and raises when set."""
+    """Decode-time options, as in the reference. ``admission_policy``
+    ("streaming_llm": sinks only; "duo": ``duo_retrieval_heads`` admit
+    all, the other heads sinks only; None: the learned gate) is checked
+    here, where the reference checks it when the gate is first drawn."""
     quest_pages: Optional[int] = None      # read-time Selection, MASK mode
     # gathered read-time Selection: None | "quest:K" (top-K pages read;
     # parse_selection_policy)
@@ -61,12 +74,14 @@ class DecodeOptions:
     evict_frac: float = 0.10
     w_obs: int = 256
     admission_policy: Optional[str] = None
+    admission_sink: int = 16
+    duo_retrieval_heads: Tuple[int, ...] = ()
 
     def __post_init__(self):
-        if self.admission_policy is not None:
-            raise NotImplementedError(
-                "DecodeOptions.admission_policy is not ported to repro_torch "
-                "yet (see ROADMAP.md)")
+        if self.admission_policy not in (None, *STATIC_POLICIES):
+            raise ValueError(
+                f"unknown admission_policy {self.admission_policy!r}; "
+                f"known: {STATIC_POLICIES} or None (the learned gate)")
 
 
 def parse_selection_policy(policy: Optional[str]) -> Optional[int]:
@@ -80,9 +95,20 @@ def parse_selection_policy(policy: Optional[str]) -> Optional[int]:
     return int(arg)
 
 
+def _static_gates(cfg: ModelConfig, opts: Optional[DecodeOptions],
+                  positions: torch.Tensor) -> Optional[torch.Tensor]:
+    """Static admission gates at ``positions`` ([B] decode / [B, S]
+    prefill); None when the learned gate is in effect."""
+    if opts is None or opts.admission_policy is None:
+        return None
+    return BL.gates_from_positions(
+        opts.admission_policy, positions, cfg.n_kv_heads,
+        sink=opts.admission_sink, retrieval_heads=opts.duo_retrieval_heads)
+
+
 def _split_layers(node) -> list:
-    """A stacked per-block cache (DualCache or RGLRUState, leaves
-    ``[n_repeats, ...]``) -> one cache per repeat."""
+    """A stacked per-block cache (DualCache, DenseCache or RGLRUState,
+    leaves ``[n_repeats, ...]``) -> one cache per repeat."""
     cols = [leaf.unbind(0) for leaf in node]
     return [type(node)(*(c[r] for c in cols)) for r in range(len(cols[0]))]
 
@@ -99,34 +125,52 @@ class PrefillOut(NamedTuple):
 
 def _attn_block_prefill(p: Params, cfg: ModelConfig, bt: str,
                         x: torch.Tensor, positions: torch.Tensor, *,
-                        budget: int
-                        ) -> Tuple[torch.Tensor, DualCache, torch.Tensor]:
-    """One attention block of the budgeted prefill: vertical-slash
+                        use_wgkv: bool, budget: int, max_len: int,
+                        opts: Optional[DecodeOptions] = None):
+    """One attention block of the prefill. With WG-KV: vertical-slash
     attention over the block's window (``cfg.sliding_window`` for
-    ``local_attn``, else ``cfg.wgkv.w_local``), then a dual cache with a
-    ring of that window populated from its K/V/gates.
-    Returns (x, cache, admitted fraction)."""
-    b = x.shape[0]
+    ``local_attn``, else ``cfg.wgkv.w_local``) under the learned gate or
+    ``opts``' static policy, then a dual cache with a ring of that window
+    populated from its K/V/gates. Without: causal attention (windowed
+    for ``local_attn``) and a dense cache of ``max_len`` holding all S
+    tokens. Returns (x, cache, admitted fraction; 0 without WG-KV)."""
+    b, s, _ = x.shape
+    dt = torch_dtype(cfg.dtype)
     window = cfg.sliding_window if bt == "local_attn" else None
-    w_ring = window if window is not None else cfg.wgkv.w_local
-    r = A.attn_prefill_budgeted(p["attn"], cfg, _norm(cfg, p["ln1"], x),
-                                positions, budget=budget, window=window)
-    cache = init_dual_cache(b, cfg.n_kv_heads, cfg.head_dim,
-                            w_local=w_ring, budget=budget,
-                            dtype=torch_dtype(cfg.dtype), device=x.device)
-    cache = prefill_populate(cache, r.k_rope, r.v, r.g, tau=cfg.wgkv.tau,
-                             sink=cfg.wgkv.sink, sel=r.sel)
-    x = x + r.out
+    xin = _norm(cfg, p["ln1"], x)
+    adm = torch.zeros((), dtype=torch.float32, device=x.device)
+    if use_wgkv:
+        w_ring = window if window is not None else cfg.wgkv.w_local
+        r = A.attn_prefill_budgeted(
+            p["attn"], cfg, xin, positions, budget=budget, window=window,
+            gate_override=_static_gates(cfg, opts, positions))
+        cache = init_dual_cache(b, cfg.n_kv_heads, cfg.head_dim,
+                                w_local=w_ring, budget=budget, dtype=dt,
+                                device=x.device)
+        cache = prefill_populate(cache, r.k_rope, r.v, r.g,
+                                 tau=cfg.wgkv.tau, sink=cfg.wgkv.sink,
+                                 sel=r.sel)
+        h = r.out
+        adm = (r.g >= cfg.wgkv.tau).float().mean()
+    else:
+        h, k_rope, v = A.attn_prefill_full(p["attn"], cfg, xin, positions,
+                                           window=window)
+        cache = A.init_dense_cache(b, cfg.n_kv_heads, cfg.head_dim, max_len,
+                                   dt, device=x.device)
+        cache.k[:, :, :s] = k_rope.to(dt)
+        cache.v[:, :, :s] = v.to(dt)
+        cache.t.fill_(s)
+    x = x + h
     x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
-    return x, cache, (r.g >= cfg.wgkv.tau).float().mean()
+    return x, cache, adm
 
 
 def _block_prefill(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
-                   positions: torch.Tensor, *, budget: int):
+                   positions: torch.Tensor, **kw):
     """One block of the prefill -> (x, its cache, admitted fraction; 0
     for a block without a gate)."""
     if bt in ("attn", "local_attn"):
-        return _attn_block_prefill(p, cfg, bt, x, positions, budget=budget)
+        return _attn_block_prefill(p, cfg, bt, x, positions, **kw)
     if bt == "rglru":
         y, state = RG.rglru_block(p["rec"], cfg, _norm(cfg, p["ln1"], x))
         x = x + y
@@ -139,15 +183,22 @@ def _block_prefill(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             use_wgkv: Optional[bool] = None, budget: Optional[int] = None,
+            max_len: Optional[int] = None,
             opts: DecodeOptions = DecodeOptions()
             ) -> Tuple[PrefillOut, CacheTree]:
-    """Budgeted vertical-slash prefill of tokens [B, S] (S a multiple of
-    every attention block's window). Every layer's cache is filled at
-    once — the stem's as a tuple, the repeats' stacked ``[n_repeats, B,
-    ...]`` — so :func:`decode_step` continues from the returned tree.
-    ``budget`` defaults to the config's global budget at S. On CUDA each
-    attention layer runs the ``gate_mlp`` and ``vertical_slash`` kernels
-    and each ``rglru`` layer the ``rglru_scan`` kernel. With
+    """Prefill of tokens [B, S]. Every layer's cache is filled at once —
+    the stem's as a tuple, the repeats' stacked ``[n_repeats, B, ...]``
+    — so :func:`decode_step` continues from the returned tree.
+
+    With WG-KV (``use_wgkv``, default ``cfg.wgkv.enabled``): the budgeted
+    vertical-slash prefill (S a multiple of every attention block's
+    window); ``budget`` defaults to the config's global budget at
+    ``max_len`` or S, as in the reference. On CUDA each attention layer
+    runs the ``gate_mlp`` (not under a static ``opts.admission_policy``)
+    and ``vertical_slash`` kernels. Without: the dense baseline, causal
+    attention through the ``gated_flash`` kernel and a dense cache of
+    ``max_len`` (default S + 64, rounded up to a 16-token page) per
+    layer. Each ``rglru`` layer runs the ``rglru_scan`` kernel. With
     ``opts.evict_hard_budget`` the tree carries an empty eviction
     observation window (``"obs"``) for the decode steps that follow.
 
@@ -157,11 +208,6 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     _check_supported(cfg)
     if use_wgkv is None:
         use_wgkv = cfg.wgkv.enabled
-    if not use_wgkv:
-        raise NotImplementedError(
-            "prefill(use_wgkv=False): the dense full-attention baseline "
-            "(attn_prefill_full, DenseCache) is not ported yet; see "
-            "ROADMAP.md Queue 1 item 5")
     dt = torch_dtype(cfg.dtype)
     x = L.embed(params["embed"], tokens, dt)
     b, s, _ = x.shape
@@ -169,12 +215,16 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     if budget is None:
-        budget = cfg.wgkv.global_budget(s)
+        budget = cfg.wgkv.global_budget(max_len or s)
+    if max_len is None:
+        max_len = s + 64
+    if not use_wgkv and max_len < s:
+        raise ValueError(f"max_len {max_len} < prompt length {s}")
+    kw = dict(use_wgkv=use_wgkv, budget=budget, max_len=max_len, opts=opts)
     adm_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     stem_caches = []
     for bt, p in zip(cfg.stem_pattern, stem_params(params)):
-        x, cache, adm = _block_prefill(p, cfg, bt, x, positions,
-                                       budget=budget)
+        x, cache, adm = _block_prefill(p, cfg, bt, x, positions, **kw)
         stem_caches.append(cache)
         adm_sum = adm_sum + adm
     per_block: Dict[str, list] = {
@@ -182,7 +232,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for lp in layer_params(params, cfg):
         for i, bt in enumerate(cfg.block_pattern):
             x, cache, adm = _block_prefill(lp[f"b{i}"], cfg, bt, x,
-                                           positions, budget=budget)
+                                           positions, **kw)
             per_block[f"b{i}"].append(cache)
             adm_sum = adm_sum + adm
     adm_n = (len(cfg.stem_pattern)
@@ -224,20 +274,31 @@ def _quest_mask(cfg: ModelConfig, cache: DualCache, q: torch.Tensor,
     return SEL.select_pages(q, meta, pages)
 
 
-def _attn_block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                       cache: DualCache, *, opts: DecodeOptions, sel_fn,
-                       sel_k: Optional[int], obs: Optional[EV.ObsWindow]):
-    """One attention block of a decode step: the dual-cache read (with
-    Quest selection when asked), then, given an observation window and
-    ``opts.evict_hard_budget``, the window takes the step's query
-    (``x @ w_q`` split into heads, before qk-norm and RoPE, as the
-    reference) and ``maybe_evict`` runs. Returns (x, cache, obs, per-row
-    admission, per-row selected pages or None, per-row triggers or
-    None)."""
+def _attn_block_decode(p: Params, cfg: ModelConfig, bt: str,
+                       x: torch.Tensor, cache, *, opts: DecodeOptions,
+                       sel_fn, sel_k: Optional[int],
+                       obs: Optional[EV.ObsWindow]):
+    """One attention block of a decode step. A DenseCache (the dense
+    baseline) appends the token and reads its first ``t`` entries (the
+    last ``cfg.sliding_window`` for ``local_attn``). A DualCache: the
+    dual-cache read (with Quest selection when asked; the write gate
+    replaced by ``opts``' static policy when set), then, given an
+    observation window and ``opts.evict_hard_budget``, the window takes
+    the step's query (``x @ w_q`` split into heads, before qk-norm and
+    RoPE, as the reference) and ``maybe_evict`` runs. Returns (x, cache,
+    obs, per-row admission or None (dense), per-row selected pages or
+    None, per-row triggers or None)."""
     xin = _norm(cfg, p["ln1"], x)
+    if isinstance(cache, A.DenseCache):
+        window = cfg.sliding_window if bt == "local_attn" else None
+        h, nc = A.attn_decode_dense(p["attn"], cfg, xin, cache,
+                                    window=window)
+        x = x + h
+        x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
+        return x, nc, obs, None, None, None
     h, nc, g_new, sel_pages = A.attn_decode_wgkv(
         p["attn"], cfg, xin, cache, token_select_fn=sel_fn,
-        select_pages_k=sel_k)
+        select_pages_k=sel_k, gate_override=_static_gates(cfg, opts, cache.t))
     adm = (g_new >= cfg.wgkv.tau).float().mean(dim=-1)
     selp = None if sel_pages is None else sel_pages.float().mean(dim=-1)
     trig = None
@@ -306,9 +367,11 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         if bt not in ("attn", "local_attn"):
             raise NotImplementedError(f"block type {bt!r} is not ported")
         xo, nc, ob, adm, selp, trig = _attn_block_decode(
-            p, cfg, x, cache, opts=opts, sel_fn=sel_fn, sel_k=sel_k, obs=ob)
-        adm_sum = adm_sum + adm
-        adm_n += 1
+            p, cfg, bt, x, cache, opts=opts, sel_fn=sel_fn, sel_k=sel_k,
+            obs=ob)
+        if adm is not None:
+            adm_sum = adm_sum + adm
+            adm_n += 1
         if selp is not None:
             sel_sum = sel_sum + selp
         if trig is not None:

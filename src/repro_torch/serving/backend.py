@@ -1,6 +1,6 @@
 """EngineBackend: the backend-agnostic serving protocol (port of
-``repro/serving/backend.py``; the port implements the ``wgkv`` backend
-only, without decode selection or the prefix store).
+``repro/serving/backend.py``; every backend of the reference, without
+its mesh-sharded path).
 
 The orchestrator (serving/orchestrator/) schedules *any* accelerator
 backend that exposes the JetStream-style prefill/insert/generate
@@ -95,9 +95,9 @@ splice it into a decode row.)
 
 Concrete implementations in the port:
   serving/engine.py           Engine                (wgkv — paper system)
-The reference's dense and static-admission baselines, its mesh-sharded
-path and its prefix-store hooks (``capture_prefix`` / ``release_prefix``)
-are not ported yet.
+  serving/dense.py            DenseEngine           (full-KV baseline)
+  serving/static_admission.py StaticAdmissionEngine (StreamingLLM / Duo)
+The reference's mesh-sharded path is not ported yet.
 """
 from __future__ import annotations
 
@@ -245,6 +245,19 @@ class EngineBackend(Protocol):
 
     def memory_snapshot(self) -> Dict[str, float]: ...
 
+    # content-addressed prefix store hooks (serving/prefix_cache.py). The
+    # store lives above this protocol, in the orchestrator; the backend
+    # provides the two primitives it cannot: freezing one row of a
+    # collected step into a shareable batch-1 entry (a host sync, once
+    # per unique prefix), and freeing an evicted entry's pool streams.
+    # Adopting a hit needs no protocol surface: step_batch splices
+    # ``task.prefix_entry`` in place of the empty tree on the task's
+    # first dispatch.
+    def capture_prefix(self, step: FusedStep, slot: int, key: str, *,
+                       adm_weighted: float = 0.0) -> Any: ...
+
+    def release_prefix(self, entry: Any) -> None: ...
+
 
 # ==========================================================================
 # registry: name -> backend factory (lazy imports; no concrete backend is
@@ -256,13 +269,14 @@ BACKEND_NAMES: Tuple[str, ...] = ("wgkv", "dense", "streaming_llm", "duo")
 def make_backend(name: str, params, cfg, **kw) -> EngineBackend:
     """Construct a registered backend by name.
 
-    Keyword args: ``slots``, ``capacity``, ``opts``, ``eos``,
-    ``temperature``, ``seed``, ``pool_pages``, ``mirror_paged``,
-    ``device`` (default ``cuda``; ``"cpu"`` runs the plain PyTorch path)
-    and ``selection`` (a decode-time page-selection policy, ``"quest:K"``,
-    folded into ``opts.selection_policy``). Only ``"wgkv"`` is ported;
-    the dense and static-admission baselines and meshes raise
-    :class:`NotImplementedError`.
+    Common keyword args: ``slots``, ``capacity``, ``opts``, ``eos``,
+    ``temperature``, ``seed``, ``device`` (default ``cuda``; ``"cpu"``
+    runs the plain PyTorch path) and ``selection`` (a decode-time
+    page-selection policy, ``"quest:K"``, folded into
+    ``opts.selection_policy``; dual-cache backends only). WG-KV family:
+    ``pool_pages``, ``mirror_paged``. Static admission: ``sink``,
+    ``retrieval_heads`` / ``retrieval_ratio`` (duo). ``mesh`` raises
+    :class:`NotImplementedError`: multi-device serving is not ported.
     """
     if kw.pop("mesh", None) is not None:
         raise NotImplementedError("make_backend(mesh=...) is not ported to "
@@ -276,7 +290,11 @@ def make_backend(name: str, params, cfg, **kw) -> EngineBackend:
     if name == "wgkv":
         from repro_torch.serving.engine import Engine
         return Engine(params, cfg, **kw)
-    if name in BACKEND_NAMES:
-        raise NotImplementedError(f"backend {name!r} is not ported to "
-                                  "repro_torch yet; only 'wgkv' is")
+    if name == "dense":
+        from repro_torch.serving.dense import DenseEngine
+        return DenseEngine(params, cfg, **kw)
+    if name in ("streaming_llm", "duo"):
+        from repro_torch.serving.static_admission import \
+            StaticAdmissionEngine
+        return StaticAdmissionEngine(params, cfg, policy=name, **kw)
     raise ValueError(f"unknown backend {name!r}; known: {BACKEND_NAMES}")

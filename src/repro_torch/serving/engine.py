@@ -27,14 +27,26 @@ protocol the orchestrator schedules:
   * ``start_prefill`` / ``finish_prefill`` / ``prefill`` / ``insert`` —
     the offline batch-1 prefix surface.
   * ``free_slot(slot)`` — release the slot and its pool pages.
+  * ``capture_prefix`` / ``release_prefix`` — the prefix store's hooks
+    (serving/prefix_cache.py): freeze a collected row into a shareable
+    batch-1 entry whose pool streams a hitting slot aliases by refcount
+    (copy-on-write keeps sharers apart); a task carrying
+    ``prefix_entry`` is spliced from the entry instead of an empty tree
+    and resumes at the suffix.
   * ``verify_paged()`` — recompute one layer's attention from the
     PHYSICAL pool through the ``paged_decode`` kernel and compare with
     the logical cache.
 
+The dense and static-admission baselines (serving/dense.py,
+serving/static_admission.py) subclass this engine through its seams:
+``_build_empty_caches``, ``_kv_tokens_device``, ``_extend_admission``,
+``_decode_admission``, ``_pre_fused_dispatch``, ``_adopt_prefix`` and
+``mirror_paged=False``.
+
 Cache trees are never updated in place (every step returns a new tree),
 so an in-flight step's ``before``/``after`` trees stay valid for the
-mirror. Not ported yet: the prefix store, meshes and the legacy
-``add_request``/``step``/``run`` loop.
+mirror and a stored prefix tree stays valid for later hits. Not ported
+yet: meshes and the legacy ``add_request``/``step``/``run`` loop.
 """
 from __future__ import annotations
 
@@ -51,7 +63,8 @@ from repro_torch.device import (DeviceLike, host_to_device,
                                 resolve_device, torch_dtype)
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.launch.specs import (alloc_batched_caches, build_decode_caches,
-                                      extract_slot_caches, splice_caches)
+                                      cache_tree_bytes, extract_slot_caches,
+                                      splice_caches)
 from repro_torch.models import inference as I
 from repro_torch.serving import paged
 from repro_torch.serving.backend import (BackendCapabilities, FusedStep,
@@ -114,9 +127,11 @@ class Engine:
         self._empty_tree = None
         # host cache of per-row resident KV tokens, refreshed at collect
         self._kv_rows = np.zeros((slots,), np.float64)
-        # an eviction trigger fired since the row opened (eviction
-        # compacts the global cache; the prefix store, not ported yet,
-        # reads this to pick the full re-mirror at a prefix-hit finish)
+        # prefix-store adoption: the CachedPrefix a row was seeded from
+        # (drives the suffix-only pool mirror at finish) and whether an
+        # eviction trigger fired since the row opened (eviction compacts
+        # the global cache, forcing the full re-mirror)
+        self._slot_prefix: List[Optional[object]] = [None] * slots
         self._slot_evicted: List[bool] = [False] * slots
         self.stats = {"steps": 0, "evict_triggers": 0.0, "decode_adm_sum": 0.0,
                       "extend_time_s": 0.0, "extend_tokens": 0.0,
@@ -158,8 +173,11 @@ class Engine:
                 if bt in ATTN_BLOCKS]
 
     def _dual_nodes(self, caches) -> List[Tuple[int, DualCache]]:
-        """(block index, stacked DualCache) of every attention block."""
-        return [(i, caches["blocks"][f"b{i}"]) for i in self._attn_blocks()]
+        """(block index, stacked DualCache) of every attention block that
+        keeps one (the dense baseline's full-attention blocks keep a
+        DenseCache instead)."""
+        return [(i, caches["blocks"][f"b{i}"]) for i in self._attn_blocks()
+                if isinstance(caches["blocks"][f"b{i}"], DualCache)]
 
     def _kv_tokens_device(self, caches) -> torch.Tensor:
         """[B] resident KV tokens per row on the device, without a sync:
@@ -195,7 +213,7 @@ class Engine:
 
     def _build_empty_caches(self):
         caches = build_decode_caches(self.cfg, 1, self.capacity,
-                                     device=self.device)
+                                     use_wgkv=True, device=self.device)
         if self.opts.evict_hard_budget is not None:
             caches["obs"] = I._init_obs_tree(self.cfg, 1, self.opts,
                                              self.device)
@@ -342,13 +360,21 @@ class Engine:
         for t in tasks:
             assert t.slot is not None, "fused step_batch needs slot-bound tasks"
             assert not self.live[t.slot], "prefill task in a live decode row"
-            if t.prefix_entry is not None:
-                raise NotImplementedError("the prefix store is not ported "
-                                          "to repro_torch yet")
             if not self._resident[t.slot]:
-                with self.tracer.span("fused_open", slot=t.slot):
-                    self.caches = splice_caches(
-                        self.caches, self._fresh_task_caches(), t.slot)
+                if t.prefix_entry is not None:
+                    # prefix hit: splice the stored (already gate-filtered)
+                    # tree; the row's per-layer ``t`` makes the ragged scan
+                    # resume at the suffix
+                    with self.tracer.span("prefix_splice", slot=t.slot,
+                                          tokens=t.prefix_entry.n_tokens):
+                        self.caches = splice_caches(
+                            self.caches, t.prefix_entry.caches, t.slot)
+                    self._adopt_prefix(t.slot, t.prefix_entry)
+                else:
+                    with self.tracer.span("fused_open", slot=t.slot):
+                        self.caches = splice_caches(
+                            self.caches, self._fresh_task_caches(), t.slot)
+                    self._slot_prefix[t.slot] = None
                 self._resident[t.slot] = True
                 self._slot_gen[t.slot] += 1
         takes = [len(t.prompt) - t.pos if max_tokens is None
@@ -376,6 +402,8 @@ class Engine:
         assert all(self.last_token[sl] == 0 for sl in range(self.slots)
                    if not self.live[sl] and lengths[sl] == 0), \
             "stale last_token on a dead row"
+        self._pre_fused_dispatch(
+            [(t.slot, take) for t, take in zip(tasks, takes)], decode_rows)
         self.stats["fused_slot_rows"] += float(self.slots)
         self.stats["fused_active_rows"] += float(int((lengths > 0).sum()))
         # decode-only ticks run the Quest selection variant when
@@ -417,6 +445,17 @@ class Engine:
             finishing=tuple(finishing), decode_rows=decode_rows,
             had_prefill=bool(tasks), t_dispatch=t0, selection=use_sel)
 
+    def _pre_fused_dispatch(self, prefill: List[Tuple[int, int]],
+                            decode_rows: Tuple[int, ...]) -> None:
+        """Hook before a fused dispatch (``prefill``: [(slot, take)]):
+        the dense baseline guards its capacity here; the dual cache never
+        overflows (the ring wraps, the global cache is budgeted)."""
+
+    def _decode_admission(self, adm_rows: np.ndarray,
+                          rows: List[int]) -> float:
+        """Mean write-gate admission over the decode rows of one step."""
+        return float(adm_rows[rows].mean())
+
     def collect(self, step: FusedStep) -> Dict[int, int]:
         """Synchronize one in-flight fused step: pull its sampled tokens
         and per-row stats to the host (the one sync), fold admission
@@ -453,15 +492,22 @@ class Engine:
             self.stats["steps"] += 1
             # a decode row has exactly one real position, so its ragged
             # adm SUM is that step's per-row mean admission
-            self.stats["decode_adm_sum"] += float(
-                adm[list(step.decode_rows)].mean())
+            self.stats["decode_adm_sum"] += self._decode_admission(
+                adm, list(step.decode_rows))
         rows = [s for s in step.decode_rows
                 if self.live[s] and self._slot_gen[s] == step.gen[s]]
         if self.mirror and step.before is not None:
             for t, fin in zip(step.tasks, step.finishing):
                 if fin and self._slot_gen[t.slot] == step.gen[t.slot]:
-                    self._mirror_prefill(
-                        t.slot, extract_slot_caches(step.after, t.slot))
+                    # a prefix-hit row already aliases the entry's pages:
+                    # only its suffix is mirrored, unless an eviction
+                    # compacted the global cache (then the full re-sync)
+                    entry = self._slot_prefix[t.slot]
+                    sc = extract_slot_caches(step.after, t.slot)
+                    if entry is not None and not self._slot_evicted[t.slot]:
+                        self._mirror_prefill_suffix(t.slot, sc, entry)
+                    else:
+                        self._mirror_prefill(t.slot, sc)
             if rows:
                 self._mirror_decode(step.before, step.after, rows=rows,
                                     evicted_rows=trig > 0)
@@ -487,12 +533,124 @@ class Engine:
         self.last_token[slot] = 0
         self._set_tok(slot, 0)
         self._kv_rows[slot] = 0.0
+        self._slot_prefix[slot] = None
         self._slot_evicted[slot] = False
         if self.mirror and self.caches is not None:
             for lkey in self._layer_keys():
                 for h in range(self.cfg.n_kv_heads):
+                    # pages shared with a prefix-store entry are only
+                    # dereferenced here; the entry's own refs keep them
                     self.pool.free_stream((slot, lkey, h, "global"))
                     self.pool.free_stream((slot, lkey, h, "local"))
+
+    # ------------------------------------------------------------------
+    # content-addressed prefix store hooks (serving/prefix_cache.py)
+    # ------------------------------------------------------------------
+    def _adopt_prefix(self, slot: int, entry) -> None:
+        """Host-side adoption of a stored prefix into a freshly spliced
+        row: alias the entry's pool pages into the slot's streams (incref
+        only; copy-on-write unshares any page either side writes later)
+        and seed the host kv accounting. No device sync."""
+        self._slot_prefix[slot] = entry
+        self._slot_evicted[slot] = False
+        self._kv_rows[slot] = float(entry.kv_tokens)
+        if self.mirror:
+            for skey in entry.stream_keys:
+                # ("pfx", key, lkey, h, region) -> (slot, lkey, h, region)
+                dst = (slot,) + skey[2:]
+                self.pool.free_stream(dst)
+                self.pool.share_stream(skey, dst)
+
+    def capture_prefix(self, step: FusedStep, slot: int, key: str, *,
+                       adm_weighted: float = 0.0):
+        """Freeze row ``slot`` of a collected step into a
+        :class:`~repro_torch.serving.prefix_cache.CachedPrefix`: the
+        batch-1 tree (a copy; later steps build new trees and cannot
+        disturb it), the per-layer counts the suffix mirror needs and,
+        when mirroring, entry-owned pool streams holding the admitted
+        bytes, ready to be aliased into a hitting slot. A host sync, run
+        once per unique prefix after the collect that produced it."""
+        from repro_torch.serving.prefix_cache import CachedPrefix
+        caches = extract_slot_caches(step.after, slot)
+        meta: Dict[Tuple, Dict] = {}
+        stream_keys: List[Tuple] = []
+        kv_tokens = n_tokens = pool_pages = 0
+        for i, node in self._dual_nodes(caches):
+            gcnt, t = _host(node.gcnt), _host(node.t)
+            if self.mirror:
+                gk, gv, lk, lv = (_host(x) for x in (node.gk, node.gv,
+                                                     node.lk, node.lv))
+            for r in range(self.cfg.n_repeats):
+                lkey = (r, i)
+                n_tokens = int(t[r, 0])
+                n_local = min(n_tokens, node.w_local)
+                g = gcnt[r, 0].astype(np.int64)                  # [H]
+                meta[lkey] = {"gcnt": g, "n_local": n_local}
+                kv_tokens += int(g.sum()) + n_local * g.shape[0]
+                if not self.mirror:
+                    continue
+                for h in range(self.cfg.n_kv_heads):
+                    gkey = ("pfx", key, lkey, h, "global")
+                    self.pool.free_stream(gkey)
+                    self.pool.bulk_append(gkey, gk[r, 0, h, :g[h]],
+                                          gv[r, 0, h, :g[h]])
+                    lkey_ = ("pfx", key, lkey, h, "local")
+                    self.pool.free_stream(lkey_)
+                    self.pool.bulk_append(lkey_, lk[r, 0, h, :n_local],
+                                          lv[r, 0, h, :n_local])
+                    stream_keys += [gkey, lkey_]
+                    pool_pages += len(self.pool.table(gkey).pages)
+                    pool_pages += len(self.pool.table(lkey_).pages)
+        n_bytes = cache_tree_bytes(caches) + \
+            pool_pages * paged.PAGE_SIZE * self.cfg.head_dim * 2 * 4
+        return CachedPrefix(key=key, n_tokens=n_tokens, caches=caches,
+                            adm_weighted=adm_weighted, meta=meta,
+                            kv_tokens=kv_tokens, n_bytes=n_bytes,
+                            stream_keys=tuple(stream_keys))
+
+    def release_prefix(self, entry) -> None:
+        """Free an evicted store entry's pool streams. Pages a live slot
+        still shares survive by their refcounts."""
+        if self.mirror:
+            for skey in entry.stream_keys:
+                self.pool.free_stream(skey)
+
+    def _mirror_prefill_suffix(self, slot: int, caches, entry) -> None:
+        """Mirror only what a prefix-hit row added past the stored
+        boundary: global entries beyond the entry's per-head counts are
+        appended, and only the ring slots that positions ``[n_tokens, t)``
+        wrote are written (copy-on-write unshares any page the entry
+        still holds)."""
+        t0 = entry.n_tokens
+        for i, node in self._dual_nodes(caches):
+            gk, gv, lk, lv, gcnt, t = (_host(x) for x in (
+                node.gk, node.gv, node.lk, node.lv, node.gcnt, node.t))
+            w = node.w_local
+            for r in range(self.cfg.n_repeats):
+                lkey = (r, i)
+                t1 = int(t[r, 0])
+                len0, len1 = min(t0, w), min(t1, w)
+                touched = (set(range(len1)) if t1 - t0 >= w
+                           else {p % w for p in range(t0, t1)})
+                grow = list(range(len0, len1))
+                over = sorted(touched.difference(grow))
+                gcnt0 = entry.meta[lkey]["gcnt"]
+                for h in range(self.cfg.n_kv_heads):
+                    c0, c1 = int(gcnt0[h]), int(gcnt[r, 0, h])
+                    if c1 < c0:
+                        raise RuntimeError("global cache shrank without an "
+                                           "eviction trigger")
+                    if c1 > c0:
+                        self.pool.bulk_append(
+                            (slot, lkey, h, "global"), gk[r, 0, h, c0:c1],
+                            gv[r, 0, h, c0:c1])
+                    ring = (slot, lkey, h, "local")
+                    for j in grow:
+                        self.pool.append(ring, lk[r, 0, h, j],
+                                         lv[r, 0, h, j])
+                    for j in over:
+                        self.pool.overwrite(ring, j, lk[r, 0, h, j],
+                                            lv[r, 0, h, j])
 
     # ------------------------------------------------------------------
     # paged-pool mirroring

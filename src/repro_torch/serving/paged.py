@@ -6,6 +6,12 @@ layer x kv-head x region) stream, with per-stream page tables. The
 allocator and the pool live on the host (numpy); :meth:`PagedKVPool.kernel_args`
 hands the pool and the page tables to the ``paged_decode`` kernel as
 tensors on the engine's device.
+
+Pages are refcounted: :meth:`PagedKVPool.share_stream` aliases one
+stream's pages into another (the prefix store's zero-copy hit), and a
+write through either copies a shared page first (copy-on-write), so
+neither sharer sees the other's writes. Copy-on-write is host-only: the
+device sees the pool as it stands at the next ``kernel_args``.
 """
 from __future__ import annotations
 
@@ -31,9 +37,8 @@ class StreamTable:
 
 
 class PagedKVPool:
-    """Unified physical pool + free-list allocator (host numpy). Pages are
-    owned by one stream each; the reference's refcounted sharing and
-    copy-on-write serve its prefix store, which is not ported yet."""
+    """Unified physical pool + free-list allocator (host numpy) with
+    refcounted pages and copy-on-write."""
 
     def __init__(self, num_pages: int, head_dim: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -44,6 +49,8 @@ class PagedKVPool:
         # page 0 is reserved as the null page (masked in kernels)
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self.tables: Dict[Tuple, StreamTable] = {}
+        # physical-page refcounts; pages absent from the dict are free
+        self._refs: Dict[int, int] = {}
         self.dtype = dtype
         self.device = torch.device("cpu") if device is None \
             else torch.device(device)
@@ -52,12 +59,48 @@ class PagedKVPool:
     def alloc_page(self) -> int:
         if not self._free:
             raise PoolExhausted("KV pool exhausted")
-        return self._free.pop()
+        page = self._free.pop()
+        self._refs[page] = 1
+        return page
+
+    def _decref(self, page: int) -> None:
+        n = self._refs.get(page, 0)
+        if n <= 1:
+            self._refs.pop(page, None)
+            self._free.append(page)
+        else:
+            self._refs[page] = n - 1
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
 
     def free_stream(self, key: Tuple) -> None:
         t = self.tables.pop(key, None)
         if t:
-            self._free.extend(t.pages)
+            for p in t.pages:
+                self._decref(p)
+
+    def share_stream(self, src: Tuple, dst: Tuple) -> None:
+        """Alias ``dst`` to ``src``'s pages (incref, no copy). Later
+        writes through either key copy any shared page first."""
+        s = self.tables[src]
+        if dst in self.tables:
+            raise ValueError(f"share_stream: {dst} already exists")
+        for p in s.pages:
+            self._refs[p] = self._refs.get(p, 0) + 1
+        self.tables[dst] = StreamTable(pages=list(s.pages), length=s.length)
+
+    def _writable_page(self, t: StreamTable, idx: int) -> int:
+        """``t.pages[idx]``, copied to a fresh page first if shared."""
+        page = t.pages[idx]
+        if self._refs.get(page, 0) > 1:
+            fresh = self.alloc_page()
+            self.k[fresh] = self.k[page]
+            self.v[fresh] = self.v[page]
+            self._decref(page)
+            t.pages[idx] = fresh
+            page = fresh
+        return page
 
     def table(self, key: Tuple) -> StreamTable:
         if key not in self.tables:
@@ -79,7 +122,7 @@ class PagedKVPool:
         t = self.table(key)
         if t.length % PAGE_SIZE == 0:
             t.pages.append(self.alloc_page())
-        page = t.pages[t.length // PAGE_SIZE]
+        page = self._writable_page(t, t.length // PAGE_SIZE)
         off = t.length % PAGE_SIZE
         self.k[page, off] = np.asarray(k_vec, np.float32)
         self.v[page, off] = np.asarray(v_vec, np.float32)
@@ -90,7 +133,7 @@ class PagedKVPool:
             self.append(key, ks[i], vs[i])
 
     def overwrite(self, key: Tuple, pos: int, k_vec, v_vec) -> None:
-        page = self.table(key).pages[pos // PAGE_SIZE]
+        page = self._writable_page(self.table(key), pos // PAGE_SIZE)
         off = pos % PAGE_SIZE
         self.k[page, off] = np.asarray(k_vec, np.float32)
         self.v[page, off] = np.asarray(v_vec, np.float32)

@@ -585,3 +585,127 @@ def test_paged_decode_at_recurrentgemma_shape_on_gpu():
                                   group=group)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=TOL["float32"], rtol=0)
+
+
+# ==========================================================================
+# the dense baseline's reads: one paged_decode segment over the dense
+# buffer, and causal prefill through gated_flash at w_local = S
+# ==========================================================================
+def _attend(q, k, v, valid):
+    """Independent f32 oracle: q [N, hd] over k, v [N, L, hd] where
+    ``valid`` [N, L]; a row with nothing valid reads 0."""
+    logits = torch.einsum("nd,nld->nl", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    logits = logits.masked_fill(~valid, float("-inf"))
+    w = torch.nan_to_num(torch.softmax(logits, dim=-1))
+    return torch.einsum("nl,nld->nd", w, v.float())
+
+
+@pytest.mark.parametrize("max_len", [37, 4160])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_cache_attention_matches_plain_on_gpu(max_len, dtype):
+    """qwen3-0.6b's heads (16 q on 8 kv, hd 128) over a dense buffer of
+    ``max_len`` (37 rounds up to 48 slots) at t 0, 1 and max_len."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import DenseCache, init_dense_cache
+    rng = np.random.default_rng(40)
+    b, hq, hkv, hd = 3, 16, 8, 128
+    cache = init_dense_cache(b, hkv, hd, max_len, TDT[dtype], "cuda")
+    s_max = cache.k.shape[2]
+    assert s_max % 16 == 0 and s_max - 16 < max_len <= s_max
+    k, v = (rng.standard_normal((b, hkv, s_max, hd)).astype(np.float32)
+            for _ in range(2))
+    cache.k.copy_(torch.from_numpy(k))
+    cache.v.copy_(torch.from_numpy(v))
+    cache.t.copy_(torch.tensor([0, 1, max_len], dtype=torch.int32))
+    q = _cuda(rng.standard_normal((b, hq, hd)).astype(np.float32),
+              dtype=TDT[dtype])[0]
+    before = PD.launches.count
+    out = ops.dense_cache_attention(q, cache)
+    torch.cuda.synchronize()
+    assert PD.launches.count == before + 1
+    cpu = DenseCache(*(x.cpu() for x in cache))
+    plain = ops.dense_cache_attention(q.cpu(), cpu)
+    err = float((out.cpu().float() - plain.float()).abs().max())
+    assert err <= TOL[dtype], err
+    kk = cpu.k.repeat_interleave(hq // hkv, dim=1).reshape(b * hq, s_max, hd)
+    vv = cpu.v.repeat_interleave(hq // hkv, dim=1).reshape(b * hq, s_max, hd)
+    valid = (torch.arange(s_max)[None] < cpu.t.repeat_interleave(hq)[:, None])
+    want = _attend(q.cpu().reshape(b * hq, hd), kk, vv, valid)
+    err = float((out.cpu().float().reshape(b * hq, hd) - want).abs().max())
+    assert err <= TOL[dtype], err
+    assert float(out[0].abs().max()) == 0.0            # t = 0 reads 0
+    odd = DenseCache(cache.k[:, :, :37], cache.v[:, :, :37], cache.t)
+    with pytest.raises(ValueError, match="page-aligned"):
+        ops.dense_cache_attention(q, odd)
+
+
+@pytest.mark.parametrize("s", [200, 2048])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_attention_matches_plain_causal_on_gpu(s, dtype):
+    """``ops.causal_attention`` (``gated_flash`` with g = 1, w_local = S)
+    against plain causal softmax attention."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import gated_flash as GF
+    rng = np.random.default_rng(41)
+    b, hq, hkv, hd = 1, 16, 8, 128
+    q, k, v = _cuda(rng.standard_normal((b, hq, s, hd)).astype(np.float32),
+                    rng.standard_normal((b, hkv, s, hd)).astype(np.float32),
+                    rng.standard_normal((b, hkv, s, hd)).astype(np.float32),
+                    dtype=TDT[dtype])
+    before = GF.launches.count
+    out = ops.causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert GF.launches.count == before + 1
+    g = hq // hkv
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * hd ** -0.5
+    causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    want = torch.einsum("bhqk,bhkd->bhqd",
+                        torch.softmax(logits.masked_fill(~causal,
+                                                         float("-inf")), -1),
+                        vv)
+    err = float((out.float() - want).abs().max())
+    assert err <= TOL[dtype], err
+
+
+def test_cow_pages_read_by_paged_decode_on_gpu():
+    """A prefix entry's stream shared into a slot, then written through
+    the slot (an append onto the shared tail page, an overwrite in the
+    first page): the kernel reads each stream's own bytes from the
+    uploaded pool, and the entry's read is unchanged."""
+    from repro_torch.serving.paged import PagedKVPool
+    rng = np.random.default_rng(42)
+    hd = 128
+    pool = PagedKVPool(64, hd, device="cuda")
+    src, dst = ("pfx", "k", (0, 0), 0, "global"), (0, (0, 0), 0, "global")
+    for _ in range(40):
+        kv = rng.standard_normal((2, hd)).astype(np.float32)
+        pool.append(src, kv[0], kv[1])
+    q = _cuda(rng.standard_normal((2, hd)).astype(np.float32))[0]
+
+    def read(keys):
+        out = paged_decode(q[:len(keys)].contiguous(),
+                           *pool.kernel_args(keys))
+        torch.cuda.synchronize()
+        return out.cpu()
+
+    entry_before = read([src])
+    pool.share_stream(src, dst)
+    for _ in range(3):
+        kv = rng.standard_normal((2, hd)).astype(np.float32)
+        pool.append(dst, kv[0], kv[1])
+    kv = rng.standard_normal((2, hd)).astype(np.float32)
+    pool.overwrite(dst, 5, kv[0], kv[1])
+    assert pool.table(src).pages[0] != pool.table(dst).pages[0]
+    assert pool.table(src).pages[1] == pool.table(dst).pages[1]
+    assert pool.table(src).pages[2] != pool.table(dst).pages[2]
+    out = read([src, dst])
+    assert torch.equal(out[:1], entry_before)
+    for i, key in enumerate((src, dst)):
+        k, v = (torch.from_numpy(a) for a in pool.gather(key))
+        want = _attend(q[i:i + 1].cpu(), k[None], v[None],
+                       torch.ones(1, k.shape[0], dtype=torch.bool))
+        err = float((out[i:i + 1] - want).abs().max())
+        assert err <= TOL["float32"], (key, err)

@@ -244,8 +244,10 @@ def test_ragged_extend_then_decode_matches(setup):
 
 
 def test_decode_options_reject_unported():
-    with pytest.raises(NotImplementedError, match="admission_policy"):
-        TI.DecodeOptions(admission_policy="duo")
+    with pytest.raises(ValueError, match="admission_policy"):
+        TI.DecodeOptions(admission_policy="h2o")
+    duo = TI.DecodeOptions(admission_policy="duo", duo_retrieval_heads=(1,))
+    assert (duo.admission_sink, duo.duo_retrieval_heads) == (16, (1,))
     opts = TI.DecodeOptions(quest_pages=2, selection_policy="quest:2",
                             evict_hard_budget=32)
     assert (opts.quest_pages, opts.selection_policy,

@@ -391,8 +391,21 @@ def test_prefill_then_decode_matches(setup, monkeypatch):
     assert gcnt.max() == 64 and gcnt.min() > 0   # full and partial heads
     assert 0 < float(tout.mean_admission) < 1
     assert int(tc["t"][0]) == 256 + 8
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TI.prefill(tparams, tcfg, torch.from_numpy(toks), use_wgkv=False)
+    # the dense baseline on the same tokens: causal attention into a
+    # dense cache of S + 64 slots (the port's rounded up to a page)
+    jout, jc = JI.prefill(jparams, jcfg, jnp.asarray(toks, jnp.int32),
+                          use_wgkv=False)
+    dout, dc = TI.prefill(tparams, tcfg, torch.from_numpy(toks),
+                          use_wgkv=False)
+    np.testing.assert_allclose(dout.logits.numpy(), np.asarray(jout.logits),
+                               atol=1e-4, rtol=1e-4)
+    jd, td = jc["blocks"]["b0"], dc["blocks"]["b0"]
+    assert td.k.shape[-2] == 320 and jd.k.shape[-2] == 256 + 64
+    np.testing.assert_array_equal(td.t.numpy(), np.asarray(jd.t))
+    for name in ("k", "v"):
+        np.testing.assert_allclose(getattr(td, name)[..., :256, :].numpy(),
+                                   np.asarray(getattr(jd, name))[..., :256, :],
+                                   atol=1e-4, rtol=0)
 
 
 def _substrate_cfg(mod):

@@ -134,9 +134,12 @@ def test_entry_points_need_cuda_without_explicit_cpu():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--backend", "dense"], ["--prefix-cache"], ["--mesh", "1x1"],
+    ["--backend", "dense", "--mesh", "1x1"],
+    ["--prefix-cache", "--mesh", "2x4"], ["--mesh", "1x1"],
 ])
 def test_serve_rejects_unported_flags(flag, capsys):
+    """Multi-device serving is not ported: ``--mesh`` exits 2 with any
+    backend and with the prefix store (both of which serve)."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit) as ex:
         serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
