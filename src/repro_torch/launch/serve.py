@@ -192,7 +192,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     opts = I.DecodeOptions(quest_pages=args.quest_pages,
                            evict_hard_budget=args.evict_budget)
     static_kw = {}
-    if args.backend in ("streaming_llm", "duo"):
+    if args.backend in I.STATIC_POLICIES:
         static_kw = dict(sink=args.sink, retrieval_ratio=args.retrieval_ratio)
     eng = make_backend(args.backend, params, cfg, slots=args.slots,
                        capacity=args.capacity, opts=opts,

@@ -84,7 +84,8 @@ def dense_cache_append(cache: DenseCache, k_new: torch.Tensor,
     one slot per row written into a copy of the buffers (the dual cache's
     functional style). A write past the buffer fails (an index error on
     the CPU, a device-side assert on CUDA), never drops: the serving
-    engine guards capacity on the host before it dispatches."""
+    engine guards capacity on the host before it dispatches, and the
+    ragged scan parks the rows it masks inside the buffer."""
     bar = torch.arange(cache.k.shape[0], device=cache.k.device)
     t = cache.t.long()
     k, v = cache.k.clone(), cache.v.clone()

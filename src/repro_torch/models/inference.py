@@ -421,6 +421,27 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         "selected_pages_rows": sel_sum}
 
 
+def _park_masked_dense(caches: CacheTree, active: torch.Tensor
+                       ) -> CacheTree:
+    """The tree a ragged position step runs on: every DenseCache row that
+    is masked at this position (``active`` [B] false) has its length
+    clamped to ``S_max - 1``. A masked row's append and read still run and
+    are discarded by the scan's select, but a row already at ``S_max``
+    (full, or retired full and still stepped) would write past its
+    buffer. Active rows keep their length, so a real write past capacity
+    still fails."""
+    def park(c):
+        if not isinstance(c, A.DenseCache):
+            return c
+        t = torch.where(active, c.t, c.t.clamp(max=c.k.shape[-2] - 1))
+        return c._replace(t=t)
+    out = dict(caches)
+    out["blocks"] = {k: park(c) for k, c in caches["blocks"].items()}
+    if "stem" in caches:
+        out["stem"] = tuple(park(c) for c in caches["stem"])
+    return out
+
+
 def prefill_extend_ragged(params: Params, cfg: ModelConfig,
                           tokens: torch.Tensor, lengths,
                           caches: CacheTree, *,
@@ -458,7 +479,8 @@ def prefill_extend_ragged(params: Params, cfg: ModelConfig,
             shape[cache_batch_axis(path)] = b
             return torch.where(active.reshape(shape), new_leaf, old_leaf)
 
-        logits, new, st = decode_step(params, cfg, tokens[:, j], caches,
+        logits, new, st = decode_step(params, cfg, tokens[:, j],
+                                      _park_masked_dense(caches, active),
                                       opts=opts, layers=layers)
         caches = tree_map_with_path(keep, new, caches)
         last_logits = torch.where(active[:, None], logits, last_logits)

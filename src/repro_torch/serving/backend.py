@@ -281,9 +281,9 @@ def make_backend(name: str, params, cfg, **kw) -> EngineBackend:
     if kw.pop("mesh", None) is not None:
         raise NotImplementedError("make_backend(mesh=...) is not ported to "
                                   "repro_torch yet")
+    from repro_torch.models import inference as I
     selection = kw.pop("selection", None)
     if selection is not None:
-        from repro_torch.models import inference as I
         I.parse_selection_policy(selection)  # fail fast on a bad spec
         kw["opts"] = dataclasses.replace(kw.get("opts") or I.DecodeOptions(),
                                          selection_policy=selection)
@@ -293,7 +293,7 @@ def make_backend(name: str, params, cfg, **kw) -> EngineBackend:
     if name == "dense":
         from repro_torch.serving.dense import DenseEngine
         return DenseEngine(params, cfg, **kw)
-    if name in ("streaming_llm", "duo"):
+    if name in I.STATIC_POLICIES:
         from repro_torch.serving.static_admission import \
             StaticAdmissionEngine
         return StaticAdmissionEngine(params, cfg, policy=name, **kw)

@@ -42,9 +42,13 @@ class DenseEngine(Engine):
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
                  capacity: int = 4096, opts: Optional[I.DecodeOptions] = None,
                  eos: Optional[int] = None, temperature: float = 0.0,
-                 seed: int = 0, device=None, **_paged_kw):
-        # dense caches are contiguous buffers: the paged mirror (and the
-        # pool_pages / mirror_paged keywords) do not apply
+                 seed: int = 0, device=None,
+                 pool_pages: Optional[int] = None,
+                 mirror_paged: bool = False):
+        # dense caches are contiguous buffers: the paged mirror does not
+        # apply, so pool_pages and mirror_paged (the WG-KV family's
+        # keywords, taken so one call builds any backend) are ignored
+        del pool_pages, mirror_paged
         if opts is not None and opts.selection_policy is not None:
             raise ValueError(
                 "selection_policy requires the paged dual cache; the dense "

@@ -28,8 +28,6 @@ from repro_torch.models import inference as I
 from repro_torch.serving.backend import BackendCapabilities
 from repro_torch.serving.engine import Engine
 
-POLICIES = I.STATIC_POLICIES
-
 
 class StaticAdmissionEngine(Engine):
     """Dual-cache engine whose write gate is a static position/head
@@ -41,9 +39,9 @@ class StaticAdmissionEngine(Engine):
                  retrieval_heads: Optional[Sequence[int]] = None,
                  retrieval_ratio: float = 0.25,
                  opts: Optional[I.DecodeOptions] = None, **kw):
-        if policy not in POLICIES:
-            raise ValueError(f"policy must be one of {POLICIES}, got "
-                             f"{policy!r}")
+        if policy not in I.STATIC_POLICIES:
+            raise ValueError(f"policy must be one of {I.STATIC_POLICIES}, "
+                             f"got {policy!r}")
         sink = cfg.wgkv.sink if sink is None else int(sink)
         if policy == "duo":
             if retrieval_heads is None:

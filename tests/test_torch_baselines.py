@@ -4,10 +4,9 @@ weights: the static admission gates, the dense full-attention baseline
 StreamingLLM and DuoAttention policies, and the three baseline serving
 backends on the trained bench substrate.
 
-Tolerances: one attention 5e-5 (float32 rounding); logits after several
-layers and steps 1e-4 (the frameworks sum float32 matmuls in different
-orders). Gates, integer cache state, greedy tokens and memory counts are
-EXACT. The port's dense buffer is rounded up to a whole 16-token page, so
+Tolerances: floats (one attention, and logits and K/V after several
+layers and steps) 5e-5 absolute in float32. Gates, integer cache state,
+greedy tokens and memory counts are EXACT. The port's dense buffer is rounded up to a whole 16-token page, so
 dense K/V are compared on their first ``t`` tokens.
 """
 import dataclasses
@@ -193,9 +192,9 @@ def test_prefill_dense_then_decode_matches(setup):
                           use_wgkv=False)
     assert tc["blocks"]["b0"].k.shape[-2] == 112
     np.testing.assert_allclose(tout.logits.numpy(), np.asarray(jout.logits),
-                               atol=1e-4, rtol=1e-4)
+                               atol=5e-5, rtol=0)
     assert float(tout.mean_admission) == float(jout.mean_admission) == 0.0
-    _assert_dense_close(jc["blocks"]["b0"], tc["blocks"]["b0"], ftol=1e-4)
+    _assert_dense_close(jc["blocks"]["b0"], tc["blocks"]["b0"], ftol=5e-5)
     jdecode = jax.jit(lambda p, t, c: JI.decode_step(p, jcfg, t, c))
     jl, tl = jout.logits, tout.logits
     for _ in range(6):
@@ -203,10 +202,10 @@ def test_prefill_dense_then_decode_matches(setup):
         np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
         jl, jc, _ = jdecode(jparams, jn, jc)
         tl, tc, _ = TI.decode_step(tparams, tcfg, tn, tc)
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
-                                   rtol=1e-4)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=5e-5,
+                                   rtol=0)
         _assert_dense_close(jc["blocks"]["b0"], tc["blocks"]["b0"],
-                            ftol=1e-4)
+                            ftol=5e-5)
     assert tc["t"].tolist() == [46, 46]
     with pytest.raises(ValueError, match="max_len"):
         TI.prefill(tparams, tcfg, torch.from_numpy(toks), use_wgkv=False,
@@ -231,10 +230,10 @@ def test_static_prefill_then_decode_matches(setup, policy, monkeypatch):
                           opts=jopts)
     tout, tc = TI.prefill(tparams, tcfg, torch.from_numpy(toks), opts=topts)
     np.testing.assert_allclose(tout.logits.numpy(), np.asarray(jout.logits),
-                               atol=1e-4, rtol=1e-4)
+                               atol=5e-5, rtol=0)
     assert float(tout.mean_admission) == pytest.approx(
         float(jout.mean_admission), abs=1e-7)
-    _assert_cache_close(jc["blocks"]["b0"], tc["blocks"]["b0"], ftol=1e-4)
+    _assert_cache_close(jc["blocks"]["b0"], tc["blocks"]["b0"], ftol=5e-5)
     gcnt = tc["blocks"]["b0"].gcnt
     if policy == "duo":        # head 1 admits all 48 pre-window tokens
         assert gcnt[:, :, 1].tolist() == [[48, 48]] * tcfg.n_repeats
@@ -249,12 +248,12 @@ def test_static_prefill_then_decode_matches(setup, policy, monkeypatch):
         np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
         jl, jc, jst = jdecode(jparams, jn, jc)
         tl, tc, tst = TI.decode_step(tparams, tcfg, tn, tc, opts=topts)
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
-                                   rtol=1e-4)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=5e-5,
+                                   rtol=0)
         np.testing.assert_array_equal(tst["mean_admission"].numpy(),
                                       np.asarray(jst["mean_admission"]))
         _assert_cache_close(jc["blocks"]["b0"], tc["blocks"]["b0"],
-                            ftol=1e-4)
+                            ftol=5e-5)
 
 
 def test_decode_options_check_the_policy():
@@ -323,6 +322,39 @@ def test_baseline_engines_match_reference(substrate, name):
         assert teng.pool.pages_in_use == 0
 
 
+def test_dense_row_at_capacity_beside_live_rows(substrate):
+    """Capacity 64 (a whole number of pages, so the port's buffer is the
+    reference's size): request 0 ends at exactly ``t == 64`` while other
+    rows prefill and decode beside it, before and after its slot is
+    freed. Its masked positions and its retired row keep being stepped;
+    both packages serve identical streams and KV counts."""
+    jcfg, jparams, tcfg, tparams = substrate
+    rng = np.random.default_rng(12)
+    reqs = [(49, 16), (8, 3), (40, 12), (30, 10)]
+    prompts = [rng.integers(0, 256, n).tolist() for n, _ in reqs]
+
+    def serve(session, eng):
+        hs = [session.submit(p, max_new=m) for p, (_, m) in zip(prompts,
+                                                                 reqs)]
+        rec = []
+        for _ in range(500):
+            if not session.tick():
+                break
+            session.orchestrator.drain()
+            rec.append(eng.memory_snapshot()["kv_tokens"])
+        session.run()
+        session.close()
+        return [h.tokens() for h in hs], rec
+
+    kw = dict(slots=2, capacity=64)
+    jeng = jax_make_backend("dense", jparams, jcfg, **kw)
+    teng = torch_make_backend("dense", tparams, tcfg, device="cpu", **kw)
+    jres = serve(JSession(jeng, sched=JSched(chunk_tokens=16)), jeng)
+    tres = serve(TSession(teng, sched=TSched(chunk_tokens=16)), teng)
+    assert [len(s) for s in tres[0]] == [m for _, m in reqs]
+    assert tres == jres
+
+
 def test_dense_capacity_and_selection_guards(substrate):
     _, _, tcfg, tparams = substrate
     eng = torch_make_backend("dense", tparams, tcfg, slots=1, capacity=48,
@@ -338,6 +370,9 @@ def test_dense_capacity_and_selection_guards(substrate):
                            device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         torch_make_backend("dense", tparams, tcfg, mesh=object(),
+                           device="cpu")
+    with pytest.raises(TypeError, match="pool_page"):    # a misspelt option
+        torch_make_backend("dense", tparams, tcfg, pool_page=64,
                            device="cpu")
 
 
