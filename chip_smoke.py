@@ -7,9 +7,10 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``; exits non-zero, and
 prints no result, without them. Phases, any failure fatal:
 
   1. device   — the card's name and power limit (nvidia-smi).
-  2. build    — the kernels from ``src/repro_torch/csrc`` (six entry
-                points in five sources), one nvcc per source, all started
-                together.
+  2. build    — the kernels from ``src/repro_torch/csrc`` (eight entry
+                points in seven sources: the six forward kernels and the
+                backward kernels of ``gate_mlp`` and ``gated_flash``), one
+                nvcc per source, all started together.
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 card, at the main paths' shapes (qwen3-0.6b's and
                 recurrentgemma-9b's, and a larger or smaller one), f32 and
@@ -88,9 +89,27 @@ recurrentgemma phases):
                 identical streams, KV tokens per tick and integer cache
                 state.
 
-Phase 3 also holds the dense read (one ``paged_decode`` segment over a
-contiguous buffer) and the causal ``gated_flash`` at those paths'
-shapes against their plain versions.
+Gate-distillation training (run after substrate-ab):
+
+  train       — ``repro_torch.launch.train --arch qwen3-0.6b --steps 4
+                --batch 2 --seq 2048`` at full width and depth (28
+                layers, f32, a seeded random backbone): per step wall
+                time, loss, distill, admission and peak memory; 28
+                launches per step of each of ``gated_flash``,
+                ``gated_flash_bwd``, ``gate_mlp`` and ``gate_mlp_bwd``;
+                the backbone bitwise unchanged, the gates moved.
+  train-substrate — three ``train_step``s of the trained substrate on the
+                card and on the CPU from the same numpy tokens: losses and
+                aux within 1e-4 relative, the first step's gate gradients
+                within 1e-4 of each tensor's largest magnitude.
+
+Phase 3 also holds the two backward kernels against their plain versions
+and against autograd of the forward's plain version (1e-4 of each
+gradient's largest magnitude), at the train phase's shapes and the
+substrate's, two calls bitwise equal, and each rebuilt with a planted
+fault that must read above that limit. It also holds the dense read
+(one ``paged_decode`` segment over a contiguous buffer) and the causal
+``gated_flash`` at those paths' shapes against their plain versions.
 
 Each full-width model (32 GiB for recurrentgemma-9b in f32) is freed
 before the next is built. The full-width weights are random (seeded);
@@ -733,6 +752,232 @@ def rglru_case(b: int, s: int, d: int, with_h0: bool, seed: int):
             "device_ms": device_ms, "two_calls_bitwise": True}
 
 
+# the backward kernels' limit: max |kernel - reference| <= 1e-4 x max |ref|
+# of each gradient tensor, against the plain backward on the same inputs
+# and against torch.autograd of the forward's plain version (elementwise
+# limits would trip on dg's 1 / (g + eps) near g = 0)
+BWD_REL = 1e-4
+
+# a fault planted in a copy of each backward source: dg summed inside the
+# window too, and dy without its (1 - g) factor; each must read above
+# BWD_REL
+BWD_FAULTS = {
+    "gated_flash_bwd": ("if (pr.outside) colpart[b] += pr.ds;",
+                        "colpart[b] += pr.ds;"),
+    "gate_mlp_bwd": ("d = dg[i] * gv * (1.f - gv);", "d = dg[i] * gv;"),
+}
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+class Planted:
+    """The kernels ``names`` (default: all of ``BWD_FAULTS``) built from a
+    copy of the sources with their faults planted, in a temporary
+    directory, while the block runs (one nvcc each, all at once).
+    ``tests/test_torch_cuda.py`` plants its faults through this too."""
+
+    def __init__(self, names=tuple(BWD_FAULTS)):
+        self.names = list(names)
+
+    def __enter__(self):
+        import shutil
+        import tempfile
+        from repro_torch.kernels import build
+        self.build, self.saved = build, (build.CSRC, build.BUILD_DIR,
+                                         build._LIBS)
+        self.tmp = Path(tempfile.mkdtemp(prefix="planted-"))
+        csrc = self.tmp / "csrc"
+        shutil.copytree(build.CSRC, csrc)
+        for name in self.names:
+            old, new = BWD_FAULTS[name]
+            path = csrc / f"{name}.cu"
+            text = path.read_text()
+            check(text.count(old) == 1, f"planted fault: {old!r} not found "
+                  f"once in {name}.cu")
+            path.write_text(text.replace(old, new))
+        build.CSRC, build.BUILD_DIR, build._LIBS = (csrc, self.tmp / "build",
+                                                    {})
+        build.build_all(self.names)
+        return self
+
+    def __exit__(self, *exc):
+        import shutil
+        self.build.CSRC, self.build.BUILD_DIR, self.build._LIBS = self.saved
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        return False
+
+
+def gate_bwd_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256,
+                  m: int = 64):
+    """The write gate's backward at a training shape: qwen3-0.6b's x [B x
+    8, 2048, 256] (M 64) by default, the substrate's x [B x 2, 128, 64]
+    (M 32). Returns the record and a function that runs the kernel on the
+    same inputs (for the planted fault)."""
+    import torch
+    from repro_torch.kernels.gate_mlp import (gate_mlp_bwd,
+                                              gate_mlp_bwd_plain,
+                                              gate_mlp_plain)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    x = rn(rows, s, f)
+    w1, b1 = rn(h, f, m, scale=f ** -0.5), rn(h, m, scale=0.1)
+    w2, b2 = rn(h, m, 1, scale=m ** -0.5), rn(h, 1)
+    dg = rn(rows, s)
+    args = (x, w1, b1, w2, b2)
+    ins = [t.clone().requires_grad_() for t in args]
+    g_auto = gate_mlp_plain(*ins)
+    auto = torch.autograd.grad(g_auto, ins, dg)
+    g = g_auto.detach()
+    run = lambda: gate_mlp_bwd(*args, g, dg)  # noqa: E731
+    got, again = run(), run()
+    want = gate_mlp_bwd_plain(*args, g, dg)
+    torch.cuda.synchronize()
+    tag = f"gate_mlp_bwd x[{rows},{s},{f}] M={m}"
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+    errs_auto = {n: rel_err(a, b) for n, a, b in zip(names, got, auto)}
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"{tag}: non-finite gradient")
+    check(max(errs.values()) <= BWD_REL and max(errs_auto.values()) <= BWD_REL,
+          f"{tag}: errors {errs} / autograd {errs_auto} > {BWD_REL} x max")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{tag}: two calls differ")
+    ms = cuda_ms(run, 20)
+    device_ms = graph_ms(run, 20)
+    plain_ms = cuda_ms(lambda: gate_mlp_bwd_plain(*args, g, dg), 5, warmup=1)
+    # the bound: x, the weights, g and dg read once, dx and the weight
+    # gradients written once; per token the recomputed pre-activation, dx
+    # and dw1 (2 F M FLOPs each) and about 12 M of elementwise work, at the
+    # card's f32 product rate (3xTF32); beside it the bound at the CUDA
+    # cores' rate, where the kernel multiplies
+    nbytes = 4 * (2 * x.numel() + 2 * sum(a.numel() for a in args[1:])
+                  + 2 * rows * s)
+    flops = rows * s * (6 * f * m + 12 * m)
+    b_ms, b_by = bound(nbytes, flops, ATTN_RATE["float32"][0])
+    cc_ms, _ = bound(nbytes, flops, H100_F32_FLOPS)
+    rec = {"shape": f"x[{rows},{s},{f}] H={h} M={m}",
+           "max_abs_err": max(float((a - b).abs().max())
+                              for a, b in zip(got, want)),
+           "max_rel_err": errs, "max_rel_err_autograd": errs_auto,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_rate": ATTN_RATE["float32"][1],
+           "bound_ms_cuda_cores": cc_ms,
+           "library_ms": None, "device_ms": device_ms,
+           "two_calls_bitwise": True}
+    return rec, (run, want)
+
+
+def flash_bwd_case(nq: int, s: int, seed: int, nk: int, hd: int = 128,
+                   w: int = 256):
+    """The write-gated attention's backward at a training shape: qwen3's
+    B = 2 (Nq 32 on Nk 16), S 2048, hd 128, W 256 by default, the
+    substrate's (S 128, hd 32, group 2, W 16). The forward kernel gives o
+    and lse (lse also held to the plain version's); the backward kernel
+    is held to the plain backward on those and to autograd of the plain
+    forward. Library yardstick: SDPA forward + backward with the additive
+    bias as a constant (dq, dk, dv only, so a lower yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import gated_flash as GF
+    grp, eps = nq // nk, 1e-6
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q, k, v, do = rn(nq, s, hd), rn(nk, s, hd), rn(nk, s, hd), rn(nq, s, hd)
+    g = torch.rand((nk, s), generator=gen, device="cuda")
+    g[0, :8] = 1e-7   # gates near 0: large dg
+    kw = {"w_local": w, "eps": eps, "group": grp}
+    o, lse = GF._forward_cuda(q, k, v, g, w, eps, grp, True)
+    o_plain, lse_plain = GF.gated_flash_plain(q, k, v, g, with_lse=True, **kw)
+    ins = [t.clone().requires_grad_() for t in (q, k, v, g)]
+    auto = torch.autograd.grad(GF.gated_flash_plain(*ins, **kw), ins, do)
+    run = lambda: GF.gated_flash_bwd(q, k, v, g, o, lse, do, **kw)  # noqa
+    got, again = run(), run()
+    want = GF.gated_flash_bwd_plain(q, k, v, g, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    tag = f"gated_flash_bwd q[{nq},{s},{hd}] W={w}"
+    lse_err = float((lse - lse_plain).abs().max())
+    check(float((o - o_plain).abs().max()) <= TOL["float32"]
+          and lse_err <= TOL["float32"],
+          f"{tag}: forward with lse off by {lse_err:.3e}")
+    names = ("dq", "dk", "dv", "dg")
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+    errs_auto = {n: rel_err(a, b) for n, a, b in zip(names, got, auto)}
+    check(all(bool(torch.isfinite(t).all()) for t in got),
+          f"{tag}: non-finite gradient")
+    check(max(errs.values()) <= BWD_REL and max(errs_auto.values()) <= BWD_REL,
+          f"{tag}: errors {errs} / autograd {errs_auto} > {BWD_REL} x max")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{tag}: two calls differ")
+    iters = 10 if s >= 2048 else 50
+    ms = cuda_ms(run, iters)
+    device_ms = graph_ms(run, iters)
+    plain_ms = cuda_ms(lambda: GF.gated_flash_bwd_plain(q, k, v, g, o, lse,
+                                                        do, **kw),
+                       3, warmup=1)
+    qi = torch.arange(s, device="cuda")[:, None]
+    kj = torch.arange(s, device="cuda")[None, :]
+    logg = torch.log(g + eps)[:, None, :]
+    bias = torch.where(qi >= kj, torch.where(qi - kj < w,
+                                             torch.zeros_like(logg), logg),
+                       torch.full_like(logg, -1e30))
+    bias = bias.repeat_interleave(grp, dim=0)[None]
+    q4 = q[None].clone().requires_grad_()
+    k4 = k.repeat_interleave(grp, dim=0)[None].requires_grad_()
+    v4 = v.repeat_interleave(grp, dim=0)[None].requires_grad_()
+
+    def library():
+        out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias)
+        torch.autograd.grad(out, (q4, k4, v4), do[None])
+    library_ms = cuda_ms(library, max(iters // 2, 3), warmup=1)
+    del bias, q4, k4, v4
+    # the bound: q, k, v, g, o, lse and do read once, dq, dk, dv and dg
+    # written once; per causal pair the scores again (2 hd FLOPs), dO V^T,
+    # dV, dK and dQ (2 hd each), at the card's f32 product rate (3xTF32);
+    # beside it the bound at the CUDA cores' rate, where the kernel
+    # multiplies
+    pairs = nq * s * (s + 1) // 2
+    nbytes = 4 * (2 * (q.numel() + k.numel() + v.numel() + g.numel())
+                  + o.numel() + lse.numel() + do.numel())
+    b_ms, b_by = bound(nbytes, 10 * hd * pairs, ATTN_RATE["float32"][0])
+    cc_ms, _ = bound(nbytes, 10 * hd * pairs, H100_F32_FLOPS)
+    rec = {"shape": f"q[{nq},{s},{hd}] kv[{nk},{s},{hd}] W={w} group={grp} "
+                    "f32",
+           "max_abs_err": max(float((a - b).abs().max())
+                              for a, b in zip(got, want)),
+           "max_rel_err": errs, "max_rel_err_autograd": errs_auto,
+           "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_rate": ATTN_RATE["float32"][1],
+           "bound_ms_cuda_cores": cc_ms, "library_ms": library_ms,
+           "library": "SDPA forward + backward, additive bias (no dg)",
+           "device_ms": device_ms, "two_calls_bitwise": True}
+    return rec, (run, want)
+
+
+def planted_faults(cases) -> dict:
+    """Each backward kernel rebuilt with its fault planted and run on the
+    inputs of its cases: its error against the plain backward must read
+    above BWD_REL (the sound kernels read below it above)."""
+    import torch
+    out = {}
+    with Planted():
+        for name, (run, want) in cases:
+            got = run()
+            torch.cuda.synchronize()
+            err = max(rel_err(a, b) for a, b in zip(got, want))
+            check(err > BWD_REL, f"planted fault in {name}: error {err:.3e} "
+                  f"<= {BWD_REL}: the limit would not see it")
+            out.setdefault(name, []).append(err)
+    return out
+
+
 # --------------------------------------------------------------------------
 # phases 4-14: the main paths
 # --------------------------------------------------------------------------
@@ -772,7 +1017,8 @@ def _counters():
                                      rglru_scan, vertical_slash)
     return [gate_mlp.launches, paged_decode.launches,
             paged_decode.selected_launches, vertical_slash.launches,
-            gated_flash.launches, rglru_scan.launches]
+            gated_flash.launches, rglru_scan.launches,
+            gate_mlp.bwd_launches, gated_flash.bwd_launches]
 
 
 def reset_counts():
@@ -1233,6 +1479,22 @@ def forward_gated(cfg, params):
     return counts
 
 
+SUBSTRATE = ROOT / "checkpoints" / "bench_model_lam0.15.npz"
+
+
+def substrate_cfg():
+    """The trained substrate's config:
+    ``benchmarks/common.py::bench_cfg(lam=0.15)``, field for field."""
+    from repro_torch.configs.base import ModelConfig, WGKVConfig
+    return ModelConfig(
+        name="bench-tiny", arch_type="dense", d_model=128, n_heads=4,
+        n_kv_heads=2, head_dim=32, d_ff=256, vocab_size=256,
+        block_pattern=("attn",), n_repeats=2, rope_theta=10000.0,
+        dtype="float32", wgkv=WGKVConfig(
+            enabled=True, w_local=16, tau=0.1, gate_hidden=32,
+            global_budget_frac=1.0, sink=2, lam=0.15))
+
+
 def substrate():
     """The trained bench substrate through prefill + 16 greedy decode steps
     on the card (kernels) and on the CPU (plain path): identical tokens and
@@ -1242,21 +1504,13 @@ def substrate():
     the first layer's heads, so eviction fires)."""
     import numpy as np
     import torch
-    from repro_torch.configs.base import ModelConfig, WGKVConfig
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import selection as SEL
     from repro_torch.kernels import ops
     from repro_torch.models import inference as I
-    path = ROOT / "checkpoints" / "bench_model_lam0.15.npz"
+    path = SUBSTRATE
     check(path.exists(), f"substrate: {path} missing")
-    # benchmarks/common.py::bench_cfg(lam=0.15), field for field
-    cfg = ModelConfig(
-        name="bench-tiny", arch_type="dense", d_model=128, n_heads=4,
-        n_kv_heads=2, head_dim=32, d_ff=256, vocab_size=256,
-        block_pattern=("attn",), n_repeats=2, rope_theta=10000.0,
-        dtype="float32", wgkv=WGKVConfig(
-            enabled=True, w_local=16, tau=0.1, gate_hidden=32,
-            global_budget_frac=1.0, sink=2, lam=0.15))
+    cfg = substrate_cfg()
     # prompt seed 20: every gate score of this prompt, in prefill and in
     # the 16 decode steps, stays >= 1e-3 from tau (checked below)
     prompt = np.random.default_rng(20).integers(0, cfg.vocab_size, (1, 128))
@@ -1632,19 +1886,12 @@ def substrate_ab():
     integer cache leaf must be identical."""
     import numpy as np
     import torch
-    from repro_torch.configs.base import ModelConfig, WGKVConfig
     from repro_torch.convert import params_from_numpy
     from repro_torch.serving.backend import make_backend
     from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
     from repro_torch.tree import tree_leaves_with_path
-    path = ROOT / "checkpoints" / "bench_model_lam0.15.npz"
-    cfg = ModelConfig(
-        name="bench-tiny", arch_type="dense", d_model=128, n_heads=4,
-        n_kv_heads=2, head_dim=32, d_ff=256, vocab_size=256,
-        block_pattern=("attn",), n_repeats=2, rope_theta=10000.0,
-        dtype="float32", wgkv=WGKVConfig(
-            enabled=True, w_local=16, tau=0.1, gate_hidden=32,
-            global_budget_frac=1.0, sink=2, lam=0.15))
+    path = SUBSTRATE
+    cfg = substrate_cfg()
     prompts = [np.random.default_rng(20).integers(0, 256, 128).tolist(),
                np.random.default_rng(21).integers(0, 256, 60).tolist()]
 
@@ -1691,6 +1938,166 @@ def substrate_ab():
         counts_by[name] = counts
     print("substrate-ab: " + json.dumps(out), flush=True)
     return counts_by
+
+
+def train_phase(card: str, steps: int = 4):
+    """``repro_torch.launch.train`` at full qwen3-0.6b width and depth (28
+    layers, f32, a seeded random backbone): 4 steps of batch 2 x 2048
+    tokens. Every step launches each of ``gated_flash``,
+    ``gated_flash_bwd``, ``gate_mlp`` and ``gate_mlp_bwd`` once per layer
+    and nothing else of the port's; the backbone comes back bitwise as
+    initialised, the gates moved, every loss is finite."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.convert import flat_paths
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import trainer as TR
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train.main(["--arch", "qwen3-0.6b", "--steps", str(steps),
+                      "--batch", "2", "--seq", "2048", "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    cfg, hist = res["cfg"], res["history"]
+    n = cfg.n_layers
+    for name in ("gated_flash", "gated_flash_bwd", "gate_mlp",
+                 "gate_mlp_bwd"):
+        check(counts[name] == n * steps, f"train: {name} launches "
+              f"{counts[name]} != {n} x {steps} steps")
+    check(all(v == 0 for k, v in counts.items() if k in (
+        "paged_decode", "paged_decode_selected", "vertical_slash",
+        "rglru_scan")), f"train: launches of serving kernels {counts}")
+    check(len(hist) == steps and all(
+        math.isfinite(h[k]) for h in hist for k in ("loss", "distill")),
+        f"train: history {hist}")
+    fresh = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       "cuda")
+    trained = dict(flat_paths(res["params"]))
+    moved = 0
+    for key, leaf in flat_paths(fresh):
+        if "gate" in key.split("/"):
+            moved += int(not torch.equal(trained[key], leaf))
+        else:
+            check(torch.equal(trained[key], leaf),
+                  f"train: backbone leaf {key} changed")
+    check(moved == len(TR.get_gates(fresh)), f"train: only {moved} of "
+          f"{len(TR.get_gates(fresh))} gate leaves moved")
+    del fresh, trained
+    # where a step's device time goes: one more step (outside the counted
+    # run) under torch.profiler, device time by kernel name
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size - 8, (2, 2048)), device="cuda")
+    step = TR.make_train_step(cfg, lr=1e-3, lam=0.08)
+    t1 = time.perf_counter()
+    by_kernel = kernel_us(lambda: step(res["state"], res["params"],
+                                       batch={"tokens": toks}), iters=1)
+    prof_wall = time.perf_counter() - t1
+    del res
+    stats = {"arch": cfg.name, "layers": n, "batch": 2, "seq": 2048,
+             "steps": [{k: h.get(k) for k in ("step", "step_s", "loss",
+                                          "distill", "admission_rate@0.1",
+                                          "mean_gate", "peak_mem_gib")}
+                       for h in hist],
+             "wall_s": wall, "launches": counts,
+             "launches_per_step": {k: v / steps for k, v in counts.items()},
+             "profiled_step": {
+                 "device_ms": sum(by_kernel.values()) / 1e3,
+                 "wall_s_two_steps": prof_wall,
+                 "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
+                     by_kernel.items(), key=lambda kv: -kv[1])[:12]}},
+             "card": card}
+    print("train: " + json.dumps(stats), flush=True)
+    return counts, stats
+
+
+def train_substrate():
+    """Three ``train_step``s of the trained bench substrate from the same
+    numpy tokens on the card (kernels) and on the CPU (plain path): every
+    step's loss and aux within 1e-4 relative, and the gate gradients of
+    the first within 1e-4 of the largest magnitude of each CPU gradient;
+    on the card, ``remat=True`` gives those gradients bit for bit.
+    The tokens (seed 72) keep every gate score >= 1e-4 from tau (checked
+    below), so the admission rate cannot flip between the devices."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.training import trainer as TR
+    path = SUBSTRATE
+    cfg = substrate_cfg()
+    rng = np.random.default_rng(72)
+    toks = [rng.integers(0, cfg.vocab_size - 8, (2, 128)).astype(np.int32)
+            for _ in range(3)]
+
+    def run(device):
+        params = params_from_numpy(path, cfg, device)
+        batches = [{"tokens": torch.as_tensor(t, device=device)}
+                   for t in toks]
+        state = TR.init_train_state(params)
+        _, _, grads = TR.loss_and_grads(state.gates, params, cfg, batches[0],
+                                        lam=cfg.wgkv.lam)
+        metrics = []
+        for b in batches:
+            state, m = TR.train_step(state, params, cfg, b, lr=1e-3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        return {k: v.cpu() for k, v in grads.items()}, metrics, params, \
+            batches[0]
+
+    scores = []
+    inner = ops.write_gate
+
+    def recording(*a, **kw):
+        g = inner(*a, **kw)
+        scores.append(g.detach())
+        return g
+    ops.write_gate = recording
+    try:
+        cpu_grads, cpu_metrics, _, _ = run("cpu")
+    finally:
+        ops.write_gate = inner
+    margin = min(float((g - cfg.wgkv.tau).abs().min()) for g in scores)
+    check(margin >= 1e-4, f"train-substrate: gate margin {margin:.2e} < 1e-4")
+    torch.cuda.synchronize()
+    reset_counts()
+    gpu_grads, gpu_metrics, params, batch = run("cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # remat: each block's forward, lse included, runs again inside the
+    # backward; the kernels are deterministic, so the gradients must be
+    # the same bits (outside the counted run)
+    _, _, remat_grads = TR.loss_and_grads(TR.get_gates(params), params, cfg,
+                                          batch, lam=cfg.wgkv.lam, remat=True)
+    check(all(torch.equal(remat_grads[k].cpu(), gpu_grads[k])
+              for k in gpu_grads),
+          "train-substrate: remat=True changed the gate gradients")
+    n = cfg.n_layers
+    for name in ("gated_flash", "gated_flash_bwd", "gate_mlp",
+                 "gate_mlp_bwd"):
+        check(counts[name] == n * 4, f"train-substrate: {name} launches "
+              f"{counts[name]} != {n} x 4 gradient evaluations")
+    loss_err = 0.0
+    for i, (gm, cm) in enumerate(zip(gpu_metrics, cpu_metrics)):
+        check(set(gm) == set(cm), f"train-substrate: metric keys {set(gm)}")
+        for k in cm:
+            err = abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30)
+            loss_err = max(loss_err, err)
+            check(err <= 1e-4, f"train-substrate: step {i} {k} {gm[k]} vs "
+                  f"CPU {cm[k]} (relative {err:.2e} > 1e-4)")
+    grad_err = {k: rel_err(gpu_grads[k], cpu_grads[k]) for k in cpu_grads}
+    check(max(grad_err.values()) <= 1e-4,
+          f"train-substrate: gate gradients differ {grad_err}")
+    stats = {"tau_margin": margin, "max_rel_metric_err": loss_err,
+             "grad_rel_err": grad_err, "remat_grads_bitwise": True,
+             "losses": [m["loss"] for m in gpu_metrics],
+             "cpu_losses": [m["loss"] for m in cpu_metrics],
+             "launches": counts}
+    print("train-substrate: " + json.dumps(stats), flush=True)
+    return counts
 
 
 def free_cuda():
@@ -2061,6 +2468,20 @@ def main() -> int:
     gf_causal = gated_flash_case(4096, "float32", seed=36, causal=True)
     gf_causal_bf16 = gated_flash_case(4096, "bfloat16", seed=37,
                                       causal=True)
+    # the backward kernels at the train phase's shapes (qwen3-0.6b, batch
+    # 2 x 2048 tokens) and at the substrate's (batch 2 x 128 tokens), then
+    # each rebuilt with a planted fault on the same inputs
+    gb_train, gb_train_run = gate_bwd_case(rows=2 * 8, s=2048, seed=40)
+    gb_sub, gb_sub_run = gate_bwd_case(rows=2 * 2, s=128, seed=41, h=2,
+                                       f=64, m=32)
+    fb_train, fb_train_run = flash_bwd_case(32, 2048, seed=42, nk=16)
+    fb_sub, fb_sub_run = flash_bwd_case(8, 128, seed=43, nk=4, hd=32, w=16)
+    planted = planted_faults([("gate_mlp_bwd", gb_train_run),
+                              ("gate_mlp_bwd", gb_sub_run),
+                              ("gated_flash_bwd", fb_train_run),
+                              ("gated_flash_bwd", fb_sub_run)])
+    del gb_train_run, gb_sub_run, fb_train_run, fb_sub_run
+    free_cuda()
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
                    ("gate_mlp", gate_prefill),
                    ("paged_decode", pd_main), ("paged_decode", pd_bf16),
@@ -2084,8 +2505,13 @@ def main() -> int:
                    ("paged_decode dense", dense_long),
                    ("paged_decode dense", dense_long_bf16),
                    ("gated_flash causal", gf_causal),
-                   ("gated_flash causal", gf_causal_bf16)):
+                   ("gated_flash causal", gf_causal_bf16),
+                   ("gate_mlp_bwd", gb_train), ("gate_mlp_bwd", gb_sub),
+                   ("gated_flash_bwd", fb_train),
+                   ("gated_flash_bwd", fb_sub)):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
+    print("planted faults (relative error, limit "
+          f"{BWD_REL}): " + json.dumps(planted), flush=True)
     # 4-10. the main paths, counts set to 0 just before each
     cli_counts = serve_cli(n_layers=28)
     long_counts = serve_long(card)
@@ -2106,6 +2532,11 @@ def main() -> int:
     ab_counts = serve_ab(card)
     prefix_counts = prefix_phase(card)
     sub_ab_counts = substrate_ab()
+    # gate-distillation training (this slice's paths)
+    free_cuda()
+    train_counts, train_stats = train_phase(card)
+    free_cuda()
+    train_sub_counts = train_substrate()
     # 11-14. recurrentgemma-9b (one 32 GiB model at a time)
     free_cuda()
     rg_serve_counts = rg_serve(card)
@@ -2135,6 +2566,7 @@ def main() -> int:
          "launches_prefill_long": prefill_counts["gate_mlp"],
          "launches_rg_prefill": rg_decode_counts["gate_mlp"],
          "launches_rg_serve": rg_serve_counts["gate_mlp"],
+         "launches_train": train_counts["gate_mlp"],
          rg: {"prefill": rg_gate, "decode": rg_gate_dec}},
         {"name": "paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -2191,6 +2623,8 @@ def main() -> int:
          "launches_rg_serve": rg_serve_counts["gated_flash"],
          rg: {"f32": rg_gf, "bf16": rg_gf_bf16, "probe": rg_gf_probe},
          "launches_prefill_dense": dense_counts["gated_flash"],
+         "launches_train": train_counts["gated_flash"],
+         "launches_train_substrate": train_sub_counts["gated_flash"],
          "causal": {"f32": gf_causal, "bf16": gf_causal_bf16}},
         {"name": "paged_decode_selected", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
@@ -2218,6 +2652,37 @@ def main() -> int:
          "launches_rg_serve": rg_serve_counts["rglru_scan"],
          "launches_rg_substrate": rg_substrate_counts["rglru_scan"],
          "ragged_h0": rg_scan_h0},
+        {"name": "gate_mlp_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/gate_mlp_bwd.cu",
+         "replaces": "src/repro/kernels/gate_mlp.py:28",
+         "launches": train_counts["gate_mlp_bwd"],
+         "max_abs_err": max(gb_train["max_abs_err"], gb_sub["max_abs_err"]),
+         **{k: gb_train[k] for k in attn}, "shape": gb_train["shape"],
+         "device_ms": gb_train["device_ms"],
+         "bound_rate": gb_train["bound_rate"],
+         "bound_ms_cuda_cores": gb_train["bound_ms_cuda_cores"],
+         "max_rel_err": gb_train["max_rel_err"],
+         "launches_per_train_step":
+             train_stats["launches_per_step"]["gate_mlp_bwd"],
+         "launches_train_substrate": train_sub_counts["gate_mlp_bwd"],
+         "planted_fault_rel_err": planted["gate_mlp_bwd"],
+         "substrate": gb_sub},
+        {"name": "gated_flash_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/gated_flash_bwd.cu",
+         "replaces": "src/repro/kernels/gated_flash.py:68",
+         "launches": train_counts["gated_flash_bwd"],
+         "max_abs_err": max(fb_train["max_abs_err"], fb_sub["max_abs_err"]),
+         **{k: fb_train[k] for k in attn}, "shape": fb_train["shape"],
+         "device_ms": fb_train["device_ms"],
+         "bound_rate": fb_train["bound_rate"],
+         "bound_ms_cuda_cores": fb_train["bound_ms_cuda_cores"],
+         "library": fb_train["library"],
+         "max_rel_err": fb_train["max_rel_err"],
+         "launches_per_train_step":
+             train_stats["launches_per_step"]["gated_flash_bwd"],
+         "launches_train_substrate": train_sub_counts["gated_flash_bwd"],
+         "planted_fault_rel_err": planted["gated_flash_bwd"],
+         "substrate": fb_sub},
     ]
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)

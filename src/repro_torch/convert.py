@@ -1,15 +1,17 @@
-"""Carry the reference package's weights into the port.
+"""Carry weights between the reference package and the port.
 
 :func:`params_from_numpy` takes the JAX parameter tree as numpy arrays —
 either the nested tree (``jax.tree.map(np.asarray, params)``) or the flat
 ``/``-keyed npz that ``repro/training/checkpoint.py`` writes (a path or
 the loaded mapping) — and returns the port's tree of tensors on
 ``device``. The layouts match path for path, so no leaf is transposed.
+:func:`flat_numpy` goes the other way: any tree of the port to the flat
+``/``-keyed numpy mapping that file format holds.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -26,6 +28,19 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr).copy())
     return t.to(device)
+
+
+def flat_paths(tree: Any):
+    """(``/``-joined path, leaf) of every leaf, NamedTuples keyed by index:
+    the reference checkpoint's flattening."""
+    for path, leaf in tree_leaves_with_path(tree, fields=False):
+        yield "/".join(map(str, path)), leaf
+
+
+def flat_numpy(tree: Any) -> Dict[str, np.ndarray]:
+    """A tree of tensors -> ``{"a/b/0/c": array}`` (:func:`flat_paths`)."""
+    return {key: leaf.detach().cpu().numpy()
+            for key, leaf in flat_paths(tree)}
 
 
 def _unflatten(flat: Mapping[str, Any]) -> dict:

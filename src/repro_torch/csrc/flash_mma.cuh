@@ -417,6 +417,15 @@ struct FlashRows {
     }
   }
 
+  // The natural log of each row's softmax sum, max + log(sum): l0 (row r0)
+  // if w0, l1 (row r0 + 8) if w1, from the quad's first lane. m and l are
+  // in base 2, so lse = (m + log2 l) ln 2. Every row has seen a key.
+  __device__ __forceinline__ void store_lse(float* l0, bool w0, float* l1, bool w1) const {
+    if ((lane & 3) != 0) return;
+    if (w0) *l0 = (m[0] + log2f(l[0])) * 0.6931471805599453f;
+    if (w1) *l1 = (m[1] + log2f(l[1])) * 0.6931471805599453f;
+  }
+
   // The output rows: o0 (row r0) if w0, o1 (row r0 + 8) if w1.
   __device__ __forceinline__ void store(T* o0, bool w0, T* o1, bool w1, int hd) const {
     const float d0 = 1.f / fmaxf(l[0], 1e-30f);

@@ -11,7 +11,10 @@
 // Layout: q [Nq, S, hd]; k, v [Nq / G, S, hd]; g [Nq / G, S] float32;
 // out [Nq, S, hd]; float32 or bfloat16, hd <= 256 with 16-byte rows (a
 // multiple of 8). Query stream n reads kv stream n / G (GQA: streams
-// ordered (b, kv head, group)). Forward only, as the Pallas kernel is.
+// ordered (b, kv head, group)). With a non-null lse [Nq, S] float32 it
+// also writes each row's log-sum-exp, max + log(sum) of its logits in
+// natural log, which the backward (gated_flash_bwd.cu) reads; inference
+// passes null. The backward is a kernel of its own, in f32.
 //
 // What bounds it on this card: operations. Causal attention does
 // 4 * hd * S (S + 1) / 2 FLOPs per stream against one read of q, k, v, g
@@ -62,8 +65,8 @@ template <typename T, int HDMAX>
 __global__ void __launch_bounds__(Cfg<T, HDMAX>::THREADS, HDMAX > 128 ? 1 : 2)
 gated_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ g,
-                   T* __restrict__ out, int S, int hd, int W, int G, int F,
-                   float eps) {
+                   T* __restrict__ out, float* __restrict__ lse, int S, int hd,
+                   int W, int G, int F, float eps) {
   using C = Cfg<T, HDMAX>;
   constexpr int LD = C::LD, BK = C::BK, TQ = C::TQ, THREADS = C::THREADS;
   constexpr int EPC = C::EPC;
@@ -148,11 +151,14 @@ gated_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   rows.store(out + ((size_t)(n0 + r0 % F) * S + i0) * hd, i0 < S,
              out + ((size_t)(n0 + (r0 + 8) % F) * S + i1) * hd, i1 < S, hd);
+  if (lse)
+    rows.store_lse(lse + (size_t)(n0 + r0 % F) * S + i0, i0 < S,
+                   lse + (size_t)(n0 + (r0 + 8) % F) * S + i1, i1 < S);
 }
 
 template <typename T, int HDMAX>
 int launch(const void* q, const void* k, const void* v, const float* g,
-           void* out, int Nq, int S, int hd, int W, int G, float eps,
+           void* out, float* lse, int Nq, int S, int hd, int W, int G, float eps,
            cudaStream_t st) {
   using C = Cfg<T, HDMAX>;
   // rows fold (position, head) over the group when it divides the tile
@@ -168,32 +174,32 @@ int launch(const void* q, const void* k, const void* v, const float* g,
   }
   gated_flash_kernel<T, HDMAX><<<dim3(Nq / F, (S + P - 1) / P), C::THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      g, static_cast<T*>(out), S, hd, W, G, F, eps);
+      g, static_cast<T*>(out), lse, S, hd, W, G, F, eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, const float* g,
-              void* out, int Nq, int S, int hd, int W, int G, float eps,
+              void* out, float* lse, int Nq, int S, int hd, int W, int G, float eps,
               cudaStream_t st) {
-  if (hd <= 64) return launch<T, 64>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
-  if (hd <= 128) return launch<T, 128>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
-  return launch<T, 256>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
+  if (hd <= 64) return launch<T, 64>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
+  if (hd <= 128) return launch<T, 128>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
+  return launch<T, 256>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; lse may be null. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int gated_flash(const void* q, const void* k, const void* v,
-                           const float* g, void* out, int Nq, int S, int hd,
-                           int W, int G, float eps, int dtype, void* stream) {
+                           const float* g, void* out, float* lse, int Nq, int S,
+                           int hd, int W, int G, float eps, int dtype, void* stream) {
   if (Nq <= 0 || S <= 0) return 0;
   if (hd <= 0 || hd > 256 || hd % 8 != 0 || G <= 0 || Nq % G != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_hd<float>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
+  if (dtype == 0) return launch_hd<float>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, g, out, Nq, S, hd, W, G, eps, st);
+    return launch_hd<__nv_bfloat16>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("gate_mlp", "paged_decode", "vertical_slash", "gated_flash",
-           "rglru_scan")
+           "rglru_scan", "gate_mlp_bwd", "gated_flash_bwd")
 _LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -46,6 +46,19 @@ class LaunchCounter:
 
     def reset(self) -> None:
         self.count = 0
+
+
+def refuse_grad(kernel: str, tensors: Iterable, note: str = "") -> None:
+    """Raises if autograd would want a gradient through a forward-only
+    kernel: its output, a fresh tensor the kernel filled, would carry no
+    graph, and the gradient would silently be missing. ``note`` names
+    what is missing."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel is forward-only and an input "
+            f"requires grad; run under torch.no_grad(){note}")
 
 
 def nvcc_path() -> str:
@@ -116,6 +129,11 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     if name == "gate_mlp":
         lib.gate_mlp_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.gate_mlp_f32.restype = i
+    elif name == "gate_mlp_bwd":
+        lib.gate_mlp_bwd_f32.argtypes = [p] * 12 + [i] * 6 + [p]
+        lib.gate_mlp_bwd_f32.restype = i
+        lib.gate_mlp_bwd_scratch_floats.argtypes = [i, i, i, i]
+        lib.gate_mlp_bwd_scratch_floats.restype = ctypes.c_longlong
     elif name == "paged_decode":
         lib.paged_decode.argtypes = [p, p, p, p, p, i, p, p, p, p, i,
                                      p, p, i, i, i, i, i, i, i, p]
@@ -129,8 +147,11 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
                                        i, i, p]
         lib.vertical_slash.restype = i
     elif name == "gated_flash":
-        lib.gated_flash.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, p]
+        lib.gated_flash.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
         lib.gated_flash.restype = i
+    elif name == "gated_flash_bwd":
+        lib.gated_flash_bwd.argtypes = [p] * 12 + [i] * 5 + [f, p]
+        lib.gated_flash_bwd.restype = i
     elif name == "rglru_scan":
         lib.rglru_scan_f32.argtypes = [p, p, p, i, i, i, p, p]
         lib.rglru_scan_f32.restype = i

@@ -10,6 +10,13 @@ tensor-core tiles and 16-byte copies; every config has M 64 and F = 2 hd
 in 128..512), with x and w1 16-byte aligned. :func:`plan` picks its path
 from the shapes alone: the decode path for few tokens per head, the
 tensor-core path with a tile of 64 or 16 tokens otherwise.
+
+Gradients. On the CPU autograd differentiates :func:`gate_mlp_plain`. On
+CUDA, when grad is enabled and an input requires it, :func:`gate_mlp`
+runs through :class:`GateMLPFunction`: the forward kernel, then
+:func:`gate_mlp_bwd` (``csrc/gate_mlp_bwd.cu``, f32, F M <= 32768, its
+plain version :func:`gate_mlp_bwd_plain`) for the backward. A shape the
+backward does not take raises in the forward, before any graph is built.
 """
 from __future__ import annotations
 
@@ -19,10 +26,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 launches = build.LaunchCounter("gate_mlp")
+bwd_launches = build.LaunchCounter("gate_mlp_bwd")
 
 DECODE_TOKENS = 16   # tokens per head up to which the decode path runs
 SMS = 132            # streaming multiprocessors of the H100 SXM
 MAX_F, MAX_M = 2048, 128
+MAX_BWD_FM = 32768   # the backward stages w1[h] [F, M] whole in shared memory
+BWD_TILE = 16        # the backward's tokens per tile
 
 
 def plan(r: int, s: int, h: int) -> int:
@@ -45,6 +55,45 @@ def gate_mlp_plain(x, w1, b1, w2, b2):
     h = F.gelu(h, approximate="tanh")
     y = torch.einsum("bhsm,hmo->bhso", h, w2) + b2[None, :, None]
     return torch.sigmoid(y[..., 0].float()).reshape(r, s)
+
+
+def bwd_chunks(r: int, s: int) -> int:
+    """The backward's chunks of tokens per row, one CTA each: about two
+    CTAs per SM over the r rows, chunks a multiple of 16 tokens, none
+    empty."""
+    n = max(1, min(-(-2 * SMS // r), -(-s // BWD_TILE)))
+    tch = -(-(-(-s // n)) // BWD_TILE) * BWD_TILE
+    return -(-s // tch)
+
+
+def _gelu_tanh_and_grad(pre):
+    c = 0.7978845608028654  # sqrt(2 / pi)
+    t = torch.tanh(c * (pre + 0.044715 * pre ** 3))
+    y = 0.5 * pre * (1.0 + t)
+    dy = 0.5 * (1.0 + t) + 0.5 * pre * (1.0 - t * t) * c * (
+        1.0 + 3.0 * 0.044715 * pre * pre)
+    return y, dy
+
+
+def gate_mlp_bwd_plain(x, w1, b1, w2, b2, g, dg):
+    """The gradients of :func:`gate_mlp_plain` written out: from x [R, S,
+    F], the weights, the forward's g [R, S] and dg [R, S] -> (dx [R, S, F],
+    dw1 [H, F, M], db1 [H, M], dw2 [H, M, 1], db2 [H, 1]), summing each
+    head's weight gradients over the rows ``r % H`` that use them."""
+    r, s, f = x.shape
+    hh, _, m = w1.shape
+    xb = x.reshape(r // hh, hh, s, f).float()
+    pre = torch.einsum("bhsf,hfm->bhsm", xb, w1) + b1[None, :, None]
+    gel, dgel = _gelu_tanh_and_grad(pre)
+    gb = g.reshape(r // hh, hh, s)
+    dy = dg.reshape(r // hh, hh, s) * gb * (1.0 - gb)             # [b,h,s]
+    dpre = dy[..., None] * w2[None, :, None, :, 0] * dgel           # [b,h,s,m]
+    dx = torch.einsum("bhsm,hfm->bhsf", dpre, w1).reshape(r, s, f)
+    dw1 = torch.einsum("bhsf,bhsm->hfm", xb, dpre)
+    db1 = dpre.sum(dim=(0, 2))
+    dw2 = torch.einsum("bhs,bhsm->hm", dy, gel)[..., None]
+    db2 = dy.sum(dim=(0, 2))[:, None]
+    return dx, dw1, db1, dw2, db2
 
 
 def _check_cuda(x, w1, b1, w2, b2) -> None:
@@ -72,14 +121,7 @@ def _check_cuda(x, w1, b1, w2, b2) -> None:
             raise ValueError(f"gate_mlp: {name} must be 16-byte aligned")
 
 
-def gate_mlp(x, w1, b1, w2, b2):
-    """The ``gate_mlp`` contract: x [R, S, F] -> g [R, S] float32 with
-    per-head weights indexed by ``row % H``."""
-    if x.device.type == "cpu":
-        return gate_mlp_plain(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"gate_mlp: unsupported device {x.device}")
-    _check_cuda(x, w1, b1, w2, b2)
+def _forward_cuda(x, w1, b1, w2, b2):
     r, s, f = x.shape
     m = w1.shape[-1]
     g = torch.empty((r, s), dtype=torch.float32, device=x.device)
@@ -94,3 +136,78 @@ def gate_mlp(x, w1, b1, w2, b2):
         raise RuntimeError(f"gate_mlp kernel launch failed: CUDA error {rc}")
     launches.count += 1
     return g
+
+
+def _check_bwd(w1) -> None:
+    f, m = w1.shape[1], w1.shape[2]
+    if f * m > MAX_BWD_FM:
+        raise ValueError(f"gate_mlp backward kernel takes F M <= "
+                         f"{MAX_BWD_FM}, got F {f}, M {m}")
+
+
+def gate_mlp_bwd(x, w1, b1, w2, b2, g, dg):
+    """Gradients of ``gate_mlp`` -> (dx, dw1, db1, dw2, db2) by the
+    hand-written kernel, on CUDA tensors only (on the CPU autograd
+    differentiates :func:`gate_mlp_plain`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"gate_mlp_bwd: unsupported device {x.device}")
+    _check_cuda(x, w1, b1, w2, b2)
+    _check_bwd(w1)
+    r, s, f = x.shape
+    hh, _, m = w1.shape
+    for name, t in (("g", g), ("dg", dg)):
+        if t.device != x.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != (r, s) or not t.is_contiguous():
+            raise ValueError(f"gate_mlp_bwd: {name} must be a contiguous "
+                             f"float32 [{r}, {s}] on {x.device}")
+    nch = bwd_chunks(r, s)
+    lib = build.load("gate_mlp_bwd")
+    part = torch.empty(lib.gate_mlp_bwd_scratch_floats(r, f, m, nch),
+                       dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
+    dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.gate_mlp_bwd_f32(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            g.data_ptr(), dg.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
+            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), part.data_ptr(),
+            r, s, f, m, hh, nch, stream)
+    if rc != 0:
+        raise RuntimeError(f"gate_mlp_bwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    bwd_launches.count += 1
+    return dx, dw1, db1, dw2, db2
+
+
+class GateMLPFunction(torch.autograd.Function):
+    """``gate_mlp`` on CUDA with its gradient: the forward kernel, and
+    :func:`gate_mlp_bwd`'s kernel for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        g = _forward_cuda(x, w1, b1, w2, b2)
+        ctx.save_for_backward(x, w1, b1, w2, b2, g)
+        return g
+
+    @staticmethod
+    def backward(ctx, dg):
+        x, w1, b1, w2, b2, g = ctx.saved_tensors
+        return gate_mlp_bwd(x, w1, b1, w2, b2, g, dg.contiguous())
+
+
+def gate_mlp(x, w1, b1, w2, b2):
+    """The ``gate_mlp`` contract: x [R, S, F] -> g [R, S] float32 with
+    per-head weights indexed by ``row % H``. Differentiable on both
+    devices (see the module's note)."""
+    if x.device.type == "cpu":
+        return gate_mlp_plain(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"gate_mlp: unsupported device {x.device}")
+    _check_cuda(x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        _check_bwd(w1)
+        return GateMLPFunction.apply(x, w1, b1, w2, b2)
+    return _forward_cuda(x, w1, b1, w2, b2)

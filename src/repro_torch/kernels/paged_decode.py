@@ -23,7 +23,9 @@ group, ...], and the kernel stages each page once for the whole group.
 
 The kernel cuts each kv stream's walk [segment 1 pages ‖ segment 2
 pages] into splits (:func:`split_plan`, a function of shapes only) that
-run in parallel and are combined in a fixed order.
+run in parallel and are combined in a fixed order. Both kernels are
+forward-only: on CUDA a query or pool that requires grad (with grad
+enabled) raises rather than yield an output without a graph.
 """
 from __future__ import annotations
 
@@ -219,6 +221,8 @@ def _check_launch(q, first: Segment, second: Optional[Segment],
                          f"of group {group}")
     if first[0].ndim != 3 or first[0].shape[1] != PAGE:
         raise ValueError(f"paged_decode kernel takes pages of {PAGE} tokens")
+    build.refuse_grad("paged_decode", (q, first[0], first[1])
+                      + ((second[0], second[1]) if second is not None else ()))
     _check_cuda(q, first, "", n // group)
     if second is not None:
         _check_cuda(q, second, "second ", n // group)

@@ -19,6 +19,9 @@ bits. It regroups the products at sub-chunk boundaries, as the
 reference's associative scan does, so it is within a few ulps of |h| of
 the plain loop, not bitwise equal to it (the limit on the card is 5e-5;
 ``tests/test_torch_scan_chunks.py`` emulates its arithmetic on the CPU).
+The kernel has no backward yet: on CUDA an input that requires grad
+(with grad enabled) raises, so the hybrid's training path runs on the
+CPU only.
 """
 from __future__ import annotations
 
@@ -41,6 +44,9 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _check_cuda(a: torch.Tensor, b: torch.Tensor) -> None:
+    build.refuse_grad("rglru_scan", (a, b),
+                      " (the hybrid's training path waits for an rglru_scan "
+                      "backward kernel)")
     if a.dim() != 3 or tuple(a.shape) != tuple(b.shape):
         raise ValueError(f"rglru_scan: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} must both be [B, S, D]")

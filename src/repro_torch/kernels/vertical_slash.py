@@ -12,7 +12,9 @@ the pre-gathered global tokens with ``gpos <= i - W``, in one softmax.
 ``group`` query streams share one kv stream (GQA): query stream n reads
 kv stream ``n // group``, so K, V and the globals are never repeated.
 Rows that see no key keep the Pallas kernel's handling (``m_safe``, zero
-``alpha``, ``acc / max(l, 1e-30)``): they return 0.
+``alpha``, ``acc / max(l, 1e-30)``): they return 0. The kernel is
+forward-only: on CUDA an input that requires grad (with grad enabled)
+raises rather than yield an output without a graph.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ def vertical_slash_plain(q, k, v, kg, vg, gpos, *, w_local: int,
 
 def _check_cuda(q, k, v, kg, vg, gpos, group: int) -> None:
     nq, s, hd = q.shape
+    build.refuse_grad("vertical_slash", (q, k, v, kg, vg))
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"vertical_slash kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
@@ -150,12 +151,17 @@ class ForwardResult(NamedTuple):
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None, mode: str = "teacher",
             q_chunk: Optional[int] = None, with_logits: bool = True,
+            remat: bool = False,
             gate_override: Optional[torch.Tensor] = None) -> ForwardResult:
     """Full-sequence forward: the stem blocks, then the repeats. tokens:
     [B, S] int; positions: [B, S] (default 0..S-1). gate_override:
     [L_attn, B, Hkv, S] (one per attention layer, stem layers first) or
     [B, Hkv, S] (one policy for every attention layer). Gates come back
-    [L_attn, B, Hkv, S] in the same order."""
+    [L_attn, B, Hkv, S] in the same order. ``remat``: each repeated block
+    runs under ``torch.utils.checkpoint`` (non-reentrant), so its
+    activations are recomputed in the backward instead of kept, as the
+    reference's ``jax.checkpoint`` of its scan body; the stem is not
+    rematerialized there either."""
     _check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     x = L.embed(params["embed"], tokens, dt)
@@ -163,11 +169,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-    layers = ([(bt, p) for bt, p in zip(cfg.stem_pattern,
-                                        stem_params(params))]
-              + [(bt, lp[f"b{i}"]) for lp in layer_params(params, cfg)
+    layers = ([(bt, p, False) for bt, p in zip(cfg.stem_pattern,
+                                               stem_params(params))]
+              + [(bt, lp[f"b{i}"], remat)
+                 for lp in layer_params(params, cfg)
                  for i, bt in enumerate(cfg.block_pattern)])
-    n_attn = sum(1 for bt, _ in layers if bt in ATTN_BLOCKS)
+    n_attn = sum(1 for bt, _, _ in layers if bt in ATTN_BLOCKS)
     overrides: List[Optional[torch.Tensor]] = [None] * n_attn
     if gate_override is not None:
         overrides = (list(gate_override.unbind(0)) if gate_override.ndim == 4
@@ -175,13 +182,18 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     gates = []
     lb_total = torch.zeros((), dtype=torch.float32, device=x.device)
     ai = 0
-    for bt, p in layers:
+    for bt, p, ckpt in layers:
         ov = None
         if bt in ATTN_BLOCKS:
             ov = overrides[ai]
             ai += 1
-        x, aux = block_forward(p, cfg, bt, x, positions, mode=mode,
-                               q_chunk=q_chunk, gate_override=ov)
+        if ckpt:
+            x, aux = checkpoint(block_forward, p, cfg, bt, x, positions,
+                                mode=mode, q_chunk=q_chunk, gate_override=ov,
+                                use_reentrant=False)
+        else:
+            x, aux = block_forward(p, cfg, bt, x, positions, mode=mode,
+                                   q_chunk=q_chunk, gate_override=ov)
         if aux.gates is not None:
             gates.append(aux.gates)
         lb_total = lb_total + aux.lb_loss

@@ -1,0 +1,158 @@
+"""Gate-only distillation trainer (port of ``repro/training/trainer.py``;
+paper §3.3, Appendix C).
+
+The backbone is FROZEN: only the Write-Gate MLP parameters are optimized.
+They are pulled out of the parameter tree into a flat dict keyed by the
+reference's ``/``-joined paths (``blocks/b0/attn/gate/w1``, ...), and only
+those leaves require grad, so autograd builds no weight gradient for the
+backbone. A gate leaf is stacked over the repeats (``[n_repeats, H, ...]``);
+each layer's slice is a view of it, so the gradient reaches the stacked
+leaf.
+
+    L_total = || h_gated - h_teacher ||^2  +  lambda * L_sparsity(g)
+
+On CUDA the student's attention and gate run through the ``gated_flash``
+and ``gate_mlp`` kernels and their backward kernels; the teacher runs
+under ``torch.no_grad()`` (the reference's ``stop_gradient``). There is no
+``jit``: :func:`make_train_step` returns a plain callable. The reference's
+``moe_groups`` (no MoE block is ported) and ``scan_unroll`` (an XLA
+compile hint with no eager counterpart) are not taken.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import flat_paths
+from repro_torch.core.losses import total_loss
+from repro_torch.data.synthetic import lm_loss
+from repro_torch.models import transformer as T
+from repro_torch.training.optimizer import (AdamWState, adamw_init,
+                                            adamw_update)
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+
+GateDict = Dict[str, torch.Tensor]
+
+
+# ==========================================================================
+# gate-parameter extraction / injection
+# ==========================================================================
+def get_gates(params) -> GateDict:
+    """The gate leaves of ``params`` by ``/``-joined path."""
+    return {key: leaf for key, leaf in flat_paths(params)
+            if "gate" in key.split("/")}
+
+
+def set_gates(params, gates: GateDict):
+    """``params`` with the gate leaves replaced by ``gates`` (the same
+    tensor objects; every other leaf is shared, not copied)."""
+    return tree_map_with_path(
+        lambda path, leaf: gates.get("/".join(map(str, path)), leaf), params)
+
+
+# ==========================================================================
+# loss / step
+# ==========================================================================
+def _forward_kw(batch) -> Dict[str, Any]:
+    return {"positions": batch["positions"]} if "positions" in batch else {}
+
+
+def distill_loss_fn(gates: GateDict, params, cfg: ModelConfig, batch, *,
+                    lam: float, q_chunk: Optional[int] = None,
+                    remat: bool = False
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: {"tokens": [B, S], "loss_mask": [B, S] or None, ...}."""
+    p = set_gates(params, gates)
+    kw = _forward_kw(batch)
+    with torch.no_grad():
+        teacher = T.forward(p, cfg, batch["tokens"], mode="teacher",
+                            with_logits=False, q_chunk=q_chunk, **kw)
+    student = T.forward(p, cfg, batch["tokens"], mode="gated",
+                        with_logits=False, q_chunk=q_chunk, remat=remat, **kw)
+    return total_loss(student.hidden, teacher.hidden, student.gates, lam,
+                      batch.get("loss_mask"))
+
+
+def loss_and_grads(gates: GateDict, params, cfg: ModelConfig, batch, *,
+                   lam: float, q_chunk: Optional[int] = None,
+                   remat: bool = False):
+    """(loss, aux, grads): the distillation loss and its gradient with
+    respect to every gate leaf, the reference's ``jax.value_and_grad`` of
+    :func:`distill_loss_fn`. Nothing is accumulated into ``.grad``."""
+    leaves = {k: v.detach().requires_grad_() for k, v in gates.items()}
+    with torch.enable_grad():
+        loss, aux = distill_loss_fn(leaves, params, cfg, batch, lam=lam,
+                                    q_chunk=q_chunk, remat=remat)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    aux = {k: v.detach() for k, v in aux.items()}
+    return loss.detach(), aux, dict(zip(leaves, grads))
+
+
+class TrainState(NamedTuple):
+    gates: GateDict
+    opt: AdamWState
+
+
+def init_train_state(params) -> TrainState:
+    # copies: a step returns new gate tensors and never writes into the
+    # ones ``params`` holds
+    gates = {k: v.detach().clone() for k, v in get_gates(params).items()}
+    return TrainState(gates, adamw_init(gates))
+
+
+def train_step(state: TrainState, params, cfg: ModelConfig, batch, *, lr,
+               lam: Optional[float] = None, q_chunk: Optional[int] = None,
+               remat: bool = False
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    lam = cfg.wgkv.lam if lam is None else lam
+    loss, aux, grads = loss_and_grads(state.gates, params, cfg, batch,
+                                      lam=lam, q_chunk=q_chunk, remat=remat)
+    new_gates, new_opt = adamw_update(grads, state.opt, state.gates, lr=lr)
+    return TrainState(new_gates, new_opt), dict(aux, loss=loss)
+
+
+def make_train_step(cfg: ModelConfig, *, lr, lam=None, q_chunk=None,
+                    remat=False):
+    """``step(state, params, batch=...)``: :func:`train_step` with the
+    config and options bound (a plain callable; nothing is compiled)."""
+    return functools.partial(train_step, cfg=cfg, lr=lr, lam=lam,
+                             q_chunk=q_chunk, remat=remat)
+
+
+# ==========================================================================
+# standard LM training (every parameter; the reference uses it for archs
+# WG-KV does not apply to)
+# ==========================================================================
+class LMTrainState(NamedTuple):
+    params: Any
+    opt: AdamWState
+
+
+def init_lm_train_state(params) -> LMTrainState:
+    return LMTrainState(params, adamw_init(params))
+
+
+def lm_loss_fn(params, cfg: ModelConfig, batch, *, q_chunk=None,
+               remat=False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    out = T.forward(params, cfg, batch["tokens"], mode="teacher",
+                    q_chunk=q_chunk, remat=remat, **_forward_kw(batch))
+    ll = lm_loss(out.logits, batch["tokens"], batch.get("loss_mask"))
+    return ll + 0.01 * out.lb_loss, {"lm_loss": ll, "lb_loss": out.lb_loss}
+
+
+def lm_train_step(state: LMTrainState, cfg: ModelConfig, batch, *, lr,
+                  q_chunk=None, remat=False
+                  ) -> Tuple[LMTrainState, Dict[str, torch.Tensor]]:
+    params = tree_map(lambda v: v.detach().requires_grad_(), state.params)
+    with torch.enable_grad():
+        loss, aux = lm_loss_fn(params, cfg, batch, q_chunk=q_chunk,
+                               remat=remat)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(params),
+                                         materialize_grads=True))
+    grads = tree_map(lambda _: next(grads), state.params)
+    new_params, new_opt = adamw_update(grads, state.opt, state.params, lr=lr)
+    return LMTrainState(new_params, new_opt), dict(
+        {k: v.detach() for k, v in aux.items()}, loss=loss.detach())

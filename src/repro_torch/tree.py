@@ -42,17 +42,19 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return tree_map_with_path(lambda _p, *xs: fn(*xs), tree, *rest)
 
 
-def tree_leaves_with_path(tree: Any, _path: Path = ()
+def tree_leaves_with_path(tree: Any, _path: Path = (), *, fields: bool = True
                           ) -> Iterator[Tuple[Path, Any]]:
+    """(path, leaf) of every leaf; with ``fields=False`` a NamedTuple is
+    keyed by index like any tuple (the reference checkpoint's keys)."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from tree_leaves_with_path(v, _path + (k,))
-    elif _is_namedtuple(tree):
+            yield from tree_leaves_with_path(v, _path + (k,), fields=fields)
+    elif fields and _is_namedtuple(tree):
         for f, v in zip(tree._fields, tree):
-            yield from tree_leaves_with_path(v, _path + (f,))
+            yield from tree_leaves_with_path(v, _path + (f,), fields=fields)
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
-            yield from tree_leaves_with_path(v, _path + (i,))
+            yield from tree_leaves_with_path(v, _path + (i,), fields=fields)
     else:
         yield _path, tree
 

@@ -24,6 +24,7 @@ bfloat16, so in bfloat16 they may differ by an ulp of an output (2**-9
 for outputs under 0.5). A mutation check holds the bfloat16 bound against
 a kernel whose bfloat16 load is broken on purpose.
 """
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -32,8 +33,12 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import paged_decode as PD
-from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain
-from repro_torch.kernels.gated_flash import gated_flash, gated_flash_plain
+from repro_torch.kernels import gated_flash as GF
+from repro_torch.kernels.gate_mlp import (gate_mlp, gate_mlp_bwd,
+                                          gate_mlp_bwd_plain, gate_mlp_plain)
+from repro_torch.kernels.gated_flash import (gated_flash, gated_flash_bwd,
+                                             gated_flash_bwd_plain,
+                                             gated_flash_plain)
 from repro_torch.kernels.paged_decode import (paged_decode, paged_decode_plain,
                                               paged_decode_selected,
                                               paged_decode_selected_plain)
@@ -343,12 +348,19 @@ def test_gated_flash_grouped_rows_match_plain_on_gpu(group, s, hd, dtype):
 
 
 def test_gated_flash_kernel_refuses_grad_on_gpu():
+    """The backward kernel takes float32 with hd <= 128: inputs that
+    require grad in bfloat16 or at hd 256 raise in the forward (no graph
+    that would miss its gradient is built); under torch.no_grad() both
+    run the forward kernel."""
     rng = np.random.default_rng(14)
-    q, k, v = _cuda(*(rng.standard_normal((2, 32, 64)).astype(np.float32)
-                      for _ in range(3)))
-    (g,) = _cuda(rng.uniform(0, 1, (2, 32)).astype(np.float32))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        gated_flash(q.requires_grad_(), k, v, g, w_local=8)
+    for hd, dtype in ((64, torch.bfloat16), (256, torch.float32)):
+        q, k, v = _cuda(*(rng.standard_normal((2, 32, hd)).astype(np.float32)
+                          for _ in range(3)), dtype=dtype)
+        (g,) = _cuda(rng.uniform(0, 1, (2, 32)).astype(np.float32))
+        with pytest.raises(RuntimeError, match="backward kernel takes"):
+            gated_flash(q.requires_grad_(), k, v, g, w_local=8)
+        with torch.no_grad():
+            assert gated_flash(q, k, v, g, w_local=8).shape == (2, 32, hd)
 
 
 @pytest.mark.parametrize("s,c,w,group,hd,none_valid", [
@@ -709,3 +721,200 @@ def test_cow_pages_read_by_paged_decode_on_gpu():
                        torch.ones(1, k.shape[0], dtype=torch.bool))
         err = float((out[i:i + 1] - want).abs().max())
         assert err <= TOL["float32"], (key, err)
+
+
+# ==========================================================================
+# the backward kernels (training): gate_mlp_bwd and gated_flash_bwd
+# against their plain versions and autograd, 1e-4 of each gradient's
+# largest magnitude (dg's 1 / (g + eps) near g = 0 makes an elementwise
+# limit meaningless); two calls bitwise equal
+# ==========================================================================
+BWD_REL = 1e-4
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("rows,s,h,f,m", [
+    (4, 128, 2, 64, 32),      # the bench substrate, batch 2
+    (16, 2048, 8, 256, 64),   # qwen3-0.6b, batch 2 x 2048 tokens
+    (3, 100, 1, 512, 64),     # F 512 (hd 256), ragged S
+    (8, 37, 8, 160, 24),      # F 160 (hd 80), M not a power of two
+])
+def test_gate_mlp_bwd_kernel_matches_plain_on_gpu(rows, s, h, f, m):
+    rng = np.random.default_rng(30)
+    _, w1, b1, w2, b2 = _gate_inputs(rng, h, 1, f, m)
+    x = rng.standard_normal((rows, s, f)).astype(np.float32)
+    dg = rng.standard_normal((rows, s)).astype(np.float32)
+    args = _cuda(x, w1, b1, w2, b2)
+    (tdg,) = _cuda(dg)
+    ins = [t.clone().requires_grad_() for t in args]
+    g = gate_mlp(*ins)           # the kernel, through its autograd Function
+    auto = torch.autograd.grad(g, ins, tdg)
+    got = gate_mlp_bwd(*args, g.detach(), tdg)
+    again = gate_mlp_bwd(*args, g.detach(), tdg)
+    want = gate_mlp_bwd_plain(*args, g.detach(), tdg)
+    torch.cuda.synchronize()
+    for a, b, c, d in zip(got, want, auto, again):
+        assert a.shape == b.shape
+        assert _rel(a, b) <= BWD_REL
+        assert torch.equal(a, c)   # autograd ran the same kernel
+        assert torch.equal(a, d)   # two calls bitwise equal
+
+
+@pytest.mark.parametrize("nq,nk,s,hd,w", [
+    (8, 4, 128, 32, 16),      # the bench substrate, batch 2, group 2
+    (32, 16, 2048, 128, 256), # qwen3-0.6b, batch 2 x 2048 tokens
+    (4, 2, 200, 80, 16),      # hd 80, S not a multiple of the tile
+    (2, 2, 64, 64, 1),        # group 1, W 1
+    (4, 1, 96, 128, 96),      # MQA, W = S: dg exactly 0
+])
+def test_gated_flash_bwd_kernel_matches_plain_on_gpu(nq, nk, s, hd, w):
+    rng = np.random.default_rng(31)
+    q, do = (rng.standard_normal((nq, s, hd)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((nk, s, hd)).astype(np.float32)
+            for _ in range(2))
+    g = rng.uniform(0, 1, (nk, s)).astype(np.float32)
+    g[0, :5] = 1e-7
+    tq, tk, tv, tg, tdo = _cuda(q, k, v, g, do)
+    kw = {"w_local": w, "group": nq // nk}
+    ins = [t.clone().requires_grad_() for t in (tq, tk, tv, tg)]
+    out = gated_flash(*ins, **kw)   # the kernels, through autograd
+    auto = torch.autograd.grad(out, ins, tdo)
+    o, lse = GF._forward_cuda(tq, tk, tv, tg, w, 1e-6, nq // nk, True)
+    o_plain, lse_plain = gated_flash_plain(tq, tk, tv, tg, with_lse=True,
+                                           **kw)
+    got = gated_flash_bwd(tq, tk, tv, tg, o, lse, tdo, **kw)
+    again = gated_flash_bwd(tq, tk, tv, tg, o, lse, tdo, **kw)
+    want = gated_flash_bwd_plain(tq, tk, tv, tg, o, lse, tdo, **kw)
+    plain_auto = torch.autograd.grad(
+        gated_flash_plain(*ins, **kw), ins, tdo)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, o_plain, atol=TOL["float32"], rtol=0)
+    torch.testing.assert_close(lse, lse_plain, atol=TOL["float32"], rtol=0)
+    for a, b, c, d, e in zip(got, want, auto, again, plain_auto):
+        if w >= s and a.shape == tg.shape:
+            assert not torch.any(a) and not torch.any(b)
+            continue
+        assert _rel(a, b) <= BWD_REL
+        assert _rel(a, e) <= BWD_REL
+        assert torch.equal(a, c)
+        assert torch.equal(a, d)
+
+
+def _smoke():
+    """``chip_smoke.py`` as a module: it holds the planted backward faults
+    (``BWD_FAULTS``) and ``Planted``, which builds the kernels with them,
+    so this test and the card's smoke run plant the same faults."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _smoke()
+
+
+@pytest.mark.parametrize("kernel", sorted(_SMOKE.BWD_FAULTS))
+def test_bwd_limit_catches_a_planted_fault(kernel):
+    """Mutation check of BWD_REL: the sound kernel reads below it, the
+    kernel built from a copy with the fault planted reads above it.
+    Prints both errors (``-s``)."""
+    rng = np.random.default_rng(32)
+    if kernel == "gate_mlp_bwd":
+        _, w1, b1, w2, b2 = _gate_inputs(rng, 2, 1, 64, 32)
+        x = rng.standard_normal((4, 128, 64)).astype(np.float32)
+        args = _cuda(x, w1, b1, w2, b2)
+        g = gate_mlp_plain(*args)
+        (dg,) = _cuda(rng.standard_normal((4, 128)).astype(np.float32))
+        run = lambda: gate_mlp_bwd(*args, g, dg)  # noqa: E731
+        want = gate_mlp_bwd_plain(*args, g, dg)
+    else:
+        q, do = (rng.standard_normal((8, 128, 32)).astype(np.float32)
+                 for _ in range(2))
+        k, v = (rng.standard_normal((4, 128, 32)).astype(np.float32)
+                for _ in range(2))
+        g = rng.uniform(0, 1, (4, 128)).astype(np.float32)
+        tq, tk, tv, tg, tdo = _cuda(q, k, v, g, do)
+        o, lse = gated_flash_plain(tq, tk, tv, tg, w_local=16, group=2,
+                                   with_lse=True)
+        run = lambda: gated_flash_bwd(tq, tk, tv, tg, o, lse, tdo,  # noqa
+                                      w_local=16, group=2)
+        want = gated_flash_bwd_plain(tq, tk, tv, tg, o, lse, tdo,
+                                     w_local=16, group=2)
+    sound = max(_rel(a, b) for a, b in zip(run(), want))
+    with _SMOKE.Planted([kernel]):
+        planted = max(_rel(a, b) for a, b in zip(run(), want))
+    print(f"\n{kernel} max |d| / max |ref|: sound {sound:.3e}, planted "
+          f"{planted:.3e} (limit {BWD_REL:.0e})")
+    assert sound <= BWD_REL < planted
+
+
+def test_forward_only_kernels_refuse_grad_on_gpu():
+    """``vertical_slash``, ``paged_decode``, ``paged_decode_selected`` and
+    ``rglru_scan`` have no backward: with grad enabled and an input that
+    requires it they raise (their fresh outputs would carry no graph);
+    under torch.no_grad() they run."""
+    rng = np.random.default_rng(33)
+    q, k, v = _cuda(*(rng.standard_normal((2, 64, 32)).astype(np.float32)
+                      for _ in range(3)))
+    kg, vg, gpos = _vs_globals(rng, 2, 64, 16, 8, k.cpu().numpy(),
+                               v.cpu().numpy())
+    kg, vg, gpos = _cuda(kg, vg, gpos)
+    qd, kp, vp, tbl, lens = _cuda(*_paged_inputs(rng, 4, 64, 16, 12, 3))
+    ids = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    nsel = torch.ones(4, dtype=torch.int32, device="cuda")
+    a, b = _cuda(*(rng.uniform(0, 1, (2, 16, 64)).astype(np.float32)
+                   for _ in range(2)))
+    calls = {
+        "vertical_slash": lambda x: vertical_slash(x, k, v, kg, vg, gpos,
+                                                   w_local=16),
+        "paged_decode": lambda x: paged_decode(qd, x, vp, tbl, lens),
+        "paged_decode_selected": lambda x: paged_decode_selected(
+            qd, x, vp, tbl, lens, ids, nsel),
+        "rglru_scan": lambda x: rglru_scan(x, b),
+    }
+    leaves = {"vertical_slash": q, "paged_decode": kp,
+              "paged_decode_selected": kp, "rglru_scan": a}
+    for name, call in calls.items():
+        x = leaves[name].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="forward-only") as ex:
+            call(x)
+        if name == "rglru_scan":
+            assert "rglru_scan backward" in str(ex.value)
+        with torch.no_grad():
+            call(x)
+    torch.cuda.synchronize()
+
+
+def test_gate_gradients_on_gpu_match_cpu_and_remat():
+    """The trainer's gate gradients on reduced qwen3-0.6b (2 layers, hd 64,
+    W 16 < S) through the backward kernels equal the CPU's plain autograd
+    within BWD_REL of each tensor's max, and ``remat=True`` (each block's
+    forward, lse included, run again in the backward) gives the same bits."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import trainer as TR
+    from repro_torch.tree import tree_map
+    cfg = get_reduced_config("qwen3-0.6b").replace(dtype="float32")
+    cfg = cfg.replace(wgkv=dataclasses.replace(cfg.wgkv, w_local=16))
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(34).integers(
+        0, cfg.vocab_size - 8, (2, 64)))
+    want = TR.loss_and_grads(TR.get_gates(params), params, cfg,
+                             {"tokens": toks}, lam=0.3)
+    gparams = tree_map(lambda t: t.cuda(), params)
+    got, got_remat = (TR.loss_and_grads(TR.get_gates(gparams), gparams, cfg,
+                                        {"tokens": toks.cuda()}, lam=0.3,
+                                        remat=remat)
+                      for remat in (False, True))
+    torch.cuda.synchronize()
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5 * abs(float(want[0]))
+    for k, w in want[2].items():
+        assert _rel(got[2][k].cpu(), w) <= BWD_REL, k
+        assert torch.equal(got[2][k], got_remat[2][k]), k
