@@ -759,13 +759,41 @@ def rglru_case(b: int, s: int, d: int, with_h0: bool, seed: int):
 BWD_REL = 1e-4
 
 # a fault planted in a copy of each backward source: dg summed inside the
-# window too, and dy without its (1 - g) factor; each must read above
-# BWD_REL
+# window too (in every block that runs the per-pair mask, where the
+# diagonal's in-window pairs are), and dy without its (1 - g) factor; each
+# must read above BWD_REL
 BWD_FAULTS = {
-    "gated_flash_bwd": ("if (pr.outside) colpart[b] += pr.ds;",
-                        "colpart[b] += pr.ds;"),
-    "gate_mlp_bwd": ("d = dg[i] * gv * (1.f - gv);", "d = dg[i] * gv;"),
+    "gated_flash_bwd": ("if (pr.outside) dgp[h] += pr.ds;",
+                        "dgp[h] += pr.ds;"),
+    "gate_mlp_bwd": ("dy[h2] = dgv * gv * (1.f - gv);", "dy[h2] = dgv * gv;"),
 }
+
+
+def ptxas_info(name: str) -> dict:
+    """Registers, spills and static shared memory of each kernel entry of
+    source ``name``, from the build log (nvcc -Xptxas -v) of the library
+    that ``build.load`` loads, by entry (``name<template arguments>``)."""
+    import re
+    from repro_torch.kernels import build
+    out, cur = {}, None
+    for line in build.log_path(name).read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+            cur = k.group(1) + (f"<{','.join(args)}>" if args else "")
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem_static", r"(\d+) bytes smem"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                out[cur][key] = int(m.group(1))
+    return out
 
 
 def rel_err(got, want) -> float:
@@ -879,8 +907,9 @@ def flash_bwd_case(nq: int, s: int, seed: int, nk: int, hd: int = 128,
     substrate's (S 128, hd 32, group 2, W 16). The forward kernel gives o
     and lse (lse also held to the plain version's); the backward kernel
     is held to the plain backward on those and to autograd of the plain
-    forward. Library yardstick: SDPA forward + backward with the additive
-    bias as a constant (dq, dk, dv only, so a lower yardstick)."""
+    forward. Library yardstick: SDPA's backward alone with the additive
+    bias as a constant (dq, dk, dv only, so a lower yardstick), and SDPA
+    forward + backward beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import gated_flash as GF
@@ -935,8 +964,14 @@ def flash_bwd_case(nq: int, s: int, seed: int, nk: int, hd: int = 128,
     def library():
         out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias)
         torch.autograd.grad(out, (q4, k4, v4), do[None])
-    library_ms = cuda_ms(library, max(iters // 2, 3), warmup=1)
-    del bias, q4, k4, v4
+    library_fwd_bwd_ms = cuda_ms(library, max(iters // 2, 3), warmup=1)
+    # the same function as the kernel: SDPA's backward alone, its forward
+    # run once outside the timed calls
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do[None], retain_graph=True),
+        max(iters // 2, 3), warmup=1)
+    del bias, q4, k4, v4, out4
     # the bound: q, k, v, g, o, lse and do read once, dq, dk, dv and dg
     # written once; per causal pair the scores again (2 hd FLOPs), dO V^T,
     # dV, dK and dQ (2 hd each), at the card's f32 product rate (3xTF32);
@@ -956,7 +991,9 @@ def flash_bwd_case(nq: int, s: int, seed: int, nk: int, hd: int = 128,
            "bound_ms": b_ms, "bound_by": b_by,
            "bound_rate": ATTN_RATE["float32"][1],
            "bound_ms_cuda_cores": cc_ms, "library_ms": library_ms,
-           "library": "SDPA forward + backward, additive bias (no dg)",
+           "library": "SDPA backward alone (forward once, outside the "
+                      "timed calls), additive bias, dq/dk/dv (no dg)",
+           "library_fwd_bwd_ms": library_fwd_bwd_ms,
            "device_ms": device_ms, "two_calls_bitwise": True}
     return rec, (run, want)
 
@@ -2413,7 +2450,7 @@ def main() -> int:
     build_s = build.timed_build_all()
     print(f"build: {build_s:.2f}s")
     for name in build.KERNELS:
-        log = build.BUILD_DIR / f"{name}.log"
+        log = build.log_path(name)
         if log.exists():
             for line in log.read_text().splitlines():
                 if ("registers" in line or "spill" in line
@@ -2666,6 +2703,9 @@ def main() -> int:
              train_stats["launches_per_step"]["gate_mlp_bwd"],
          "launches_train_substrate": train_sub_counts["gate_mlp_bwd"],
          "planted_fault_rel_err": planted["gate_mlp_bwd"],
+         "ptxas": ptxas_info("gate_mlp_bwd"),
+         "smem_dynamic_bytes": build.load(
+             "gate_mlp_bwd").gate_mlp_bwd_smem_bytes(256, 64),
          "substrate": gb_sub},
         {"name": "gated_flash_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/gated_flash_bwd.cu",
@@ -2682,6 +2722,12 @@ def main() -> int:
              train_stats["launches_per_step"]["gated_flash_bwd"],
          "launches_train_substrate": train_sub_counts["gated_flash_bwd"],
          "planted_fault_rel_err": planted["gated_flash_bwd"],
+         "library_fwd_bwd_ms": fb_train["library_fwd_bwd_ms"],
+         "ptxas": ptxas_info("gated_flash_bwd"),
+         "smem_dynamic_bytes": {
+             f"{k}<{hd}>": build.load("gated_flash_bwd").gated_flash_bwd_smem_bytes(
+                 hd, which) for hd in (64, 128)
+             for which, k in ((0, "bwd_kv_kernel"), (1, "bwd_q_kernel"))},
          "substrate": fb_sub},
     ]
     print(f"total: {time.perf_counter() - t_start:.1f}s")

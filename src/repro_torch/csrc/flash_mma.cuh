@@ -75,6 +75,19 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh);
 }
 
+// The same product into two accumulators: d += hi_a hi_b and ds += lo_a
+// hi_b + hi_a lo_b, so two chains of products are in flight instead of
+// one; the caller adds ds to d (small terms first) when the sum is done.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], float (&ds)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(ds, al, bh);
+  mma_tf32(ds, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "

@@ -5,7 +5,8 @@ library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds. Libraries go to ``build/kernels/`` at
 the repository root (git-ignored), named by a hash of the source, the
 local headers it includes and the flags, so an edited source or header
-rebuilds the kernels that include it and an unchanged one is reused.
+rebuilds the kernels that include it and an unchanged one is reused; each
+library's nvcc output lies beside it under the same name (:func:`log_path`).
 :func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -91,6 +92,13 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The nvcc output (``-Xptxas -v``: registers, shared memory, spills)
+    of the build of ``name`` that matches its present sources and flags,
+    kept beside the library under the same digest."""
+    return _lib_path(name).with_suffix(".log")
+
+
 def _start(name: str) -> Optional[subprocess.Popen]:
     out = _lib_path(name)
     if out.exists():
@@ -111,8 +119,8 @@ def _finish(name: str, proc: Optional[subprocess.Popen]) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    log_path(name).write_text(log)
     os.replace(tmp, out)
-    (BUILD_DIR / f"{name}.log").write_text(log)
     return log
 
 
@@ -132,8 +140,12 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     elif name == "gate_mlp_bwd":
         lib.gate_mlp_bwd_f32.argtypes = [p] * 12 + [i] * 6 + [p]
         lib.gate_mlp_bwd_f32.restype = i
+        lib.gate_mlp_bwd_chunks.argtypes = [i] * 5
+        lib.gate_mlp_bwd_chunks.restype = i
         lib.gate_mlp_bwd_scratch_floats.argtypes = [i, i, i, i]
         lib.gate_mlp_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.gate_mlp_bwd_smem_bytes.argtypes = [i, i]
+        lib.gate_mlp_bwd_smem_bytes.restype = ctypes.c_longlong
     elif name == "paged_decode":
         lib.paged_decode.argtypes = [p, p, p, p, p, i, p, p, p, p, i,
                                      p, p, i, i, i, i, i, i, i, p]
@@ -152,6 +164,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     elif name == "gated_flash_bwd":
         lib.gated_flash_bwd.argtypes = [p] * 12 + [i] * 5 + [f, p]
         lib.gated_flash_bwd.restype = i
+        lib.gated_flash_bwd_smem_bytes.argtypes = [i, i]
+        lib.gated_flash_bwd_smem_bytes.restype = ctypes.c_longlong
     elif name == "rglru_scan":
         lib.rglru_scan_f32.argtypes = [p, p, p, i, i, i, p, p]
         lib.rglru_scan_f32.restype = i

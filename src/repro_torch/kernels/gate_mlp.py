@@ -14,9 +14,12 @@ tensor-core path with a tile of 64 or 16 tokens otherwise.
 Gradients. On the CPU autograd differentiates :func:`gate_mlp_plain`. On
 CUDA, when grad is enabled and an input requires it, :func:`gate_mlp`
 runs through :class:`GateMLPFunction`: the forward kernel, then
-:func:`gate_mlp_bwd` (``csrc/gate_mlp_bwd.cu``, f32, F M <= 32768, its
-plain version :func:`gate_mlp_bwd_plain`) for the backward. A shape the
-backward does not take raises in the forward, before any graph is built.
+:func:`gate_mlp_bwd` (``csrc/gate_mlp_bwd.cu``: the three F x M products
+in 3xTF32 on the tensor cores, one CTA per head and chunk of its tokens,
+the chunks chosen by the kernel's C side, :func:`bwd_scratch`; f32,
+F M <= 32768; its plain version
+:func:`gate_mlp_bwd_plain`) for the backward. A shape the backward does
+not take raises in the forward, before any graph is built.
 """
 from __future__ import annotations
 
@@ -32,7 +35,6 @@ DECODE_TOKENS = 16   # tokens per head up to which the decode path runs
 SMS = 132            # streaming multiprocessors of the H100 SXM
 MAX_F, MAX_M = 2048, 128
 MAX_BWD_FM = 32768   # the backward stages w1[h] [F, M] whole in shared memory
-BWD_TILE = 16        # the backward's tokens per tile
 
 
 def plan(r: int, s: int, h: int) -> int:
@@ -55,15 +57,6 @@ def gate_mlp_plain(x, w1, b1, w2, b2):
     h = F.gelu(h, approximate="tanh")
     y = torch.einsum("bhsm,hmo->bhso", h, w2) + b2[None, :, None]
     return torch.sigmoid(y[..., 0].float()).reshape(r, s)
-
-
-def bwd_chunks(r: int, s: int) -> int:
-    """The backward's chunks of tokens per row, one CTA each: about two
-    CTAs per SM over the r rows, chunks a multiple of 16 tokens, none
-    empty."""
-    n = max(1, min(-(-2 * SMS // r), -(-s // BWD_TILE)))
-    tch = -(-(-(-s // n)) // BWD_TILE) * BWD_TILE
-    return -(-s // tch)
 
 
 def _gelu_tanh_and_grad(pre):
@@ -145,6 +138,18 @@ def _check_bwd(w1) -> None:
                          f"{MAX_BWD_FM}, got F {f}, M {m}")
 
 
+def bwd_scratch(r: int, s: int, f: int, m: int, h: int):
+    """The backward's chunks of each head's tokens (one CTA each) and the
+    float32 scratch they need, for x [r, s, f], M m and h heads on the
+    current CUDA device, both from the kernel's C side."""
+    lib = build.load("gate_mlp_bwd")
+    nch = lib.gate_mlp_bwd_chunks(r, s, f, m, h)
+    if nch <= 0:
+        raise ValueError(f"gate_mlp_bwd: no plan for x [{r}, {s}, {f}], "
+                         f"M {m}, {h} heads on this device")
+    return nch, lib.gate_mlp_bwd_scratch_floats(h, f, m, nch)
+
+
 def gate_mlp_bwd(x, w1, b1, w2, b2, g, dg):
     """Gradients of ``gate_mlp`` -> (dx, dw1, db1, dw2, db2) by the
     hand-written kernel, on CUDA tensors only (on the CPU autograd
@@ -160,14 +165,13 @@ def gate_mlp_bwd(x, w1, b1, w2, b2, g, dg):
                 or tuple(t.shape) != (r, s) or not t.is_contiguous():
             raise ValueError(f"gate_mlp_bwd: {name} must be a contiguous "
                              f"float32 [{r}, {s}] on {x.device}")
-    nch = bwd_chunks(r, s)
     lib = build.load("gate_mlp_bwd")
-    part = torch.empty(lib.gate_mlp_bwd_scratch_floats(r, f, m, nch),
-                       dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
-    dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
     with torch.cuda.device(x.device):
+        nch, floats = bwd_scratch(r, s, f, m, hh)
+        part = torch.empty(floats, dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(x)
+        dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
+        dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.gate_mlp_bwd_f32(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),

@@ -16,8 +16,10 @@ its own. On the CPU autograd differentiates :func:`gated_flash_plain`. On
 CUDA, when grad is enabled and an input requires it, :func:`gated_flash`
 runs through :class:`GatedFlashFunction`: the forward kernel also writes
 each row's log-sum-exp, and :func:`gated_flash_bwd`
-(``csrc/gated_flash_bwd.cu``, f32, hd a multiple of 8 up to 128; its
-plain version :func:`gated_flash_bwd_plain`) computes dq, dk, dv and dg.
+(``csrc/gated_flash_bwd.cu``: its five products in 3xTF32 on the tensor
+cores, tiles through a ``cp.async`` ring; f32, hd a multiple of 8 up to
+128; its plain version :func:`gated_flash_bwd_plain`) computes dq, dk,
+dv and dg.
 Anything else that requires grad on CUDA (bf16, hd 256) raises.
 """
 from __future__ import annotations

@@ -34,7 +34,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import paged_decode as PD
 from repro_torch.kernels import gated_flash as GF
-from repro_torch.kernels.gate_mlp import (gate_mlp, gate_mlp_bwd,
+from repro_torch.kernels.gate_mlp import (bwd_scratch, gate_mlp, gate_mlp_bwd,
                                           gate_mlp_bwd_plain, gate_mlp_plain)
 from repro_torch.kernels.gated_flash import (gated_flash, gated_flash_bwd,
                                              gated_flash_bwd_plain,
@@ -741,6 +741,9 @@ def _rel(got, want):
     (16, 2048, 8, 256, 64),   # qwen3-0.6b, batch 2 x 2048 tokens
     (3, 100, 1, 512, 64),     # F 512 (hd 256), ragged S
     (8, 37, 8, 160, 24),      # F 160 (hd 80), M not a power of two
+    (24, 1000, 8, 256, 64),   # three rows per head, a ragged last tile
+    (2, 64, 1, 1024, 16),     # shared memory for one x tile, padded rows
+    (2, 64, 2, 1024, 32),     # one x tile, w1[h] rows unpadded
 ])
 def test_gate_mlp_bwd_kernel_matches_plain_on_gpu(rows, s, h, f, m):
     rng = np.random.default_rng(30)
@@ -763,12 +766,48 @@ def test_gate_mlp_bwd_kernel_matches_plain_on_gpu(rows, s, h, f, m):
         assert torch.equal(a, d)   # two calls bitwise equal
 
 
+@pytest.mark.parametrize("rows,s,h,f,m", [
+    (4, 128, 2, 64, 32),      # the bench substrate, batch 2
+    (16, 2048, 8, 256, 64),   # qwen3-0.6b, batch 2 x 2048 tokens
+    (3, 100, 1, 512, 64),     # F 512: a tile of 16 tokens
+    (8, 37, 8, 160, 24),      # partial rows whose length is no multiple of 4
+])
+def test_gate_mlp_bwd_reads_no_stale_scratch_on_gpu(rows, s, h, f, m):
+    """The kernel's scratch of partial sums is ``torch.empty``: filled with
+    NaN before the call (the caching allocator hands the freed block to the
+    next allocation of its size, the scratch), it must leave no gradient
+    non-finite or off its plain version."""
+    rng = np.random.default_rng(33)
+    _, w1, b1, w2, b2 = _gate_inputs(rng, h, 1, f, m)
+    x = rng.standard_normal((rows, s, f)).astype(np.float32)
+    dg = rng.standard_normal((rows, s)).astype(np.float32)
+    args = _cuda(x, w1, b1, w2, b2)
+    (tdg,) = _cuda(dg)
+    g = gate_mlp_plain(*args)
+    want = gate_mlp_bwd_plain(*args, g, tdg)
+    _, floats = bwd_scratch(rows, s, f, m, h)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stale = torch.full((floats,), float("nan"), device="cuda")
+    ptr = stale.data_ptr()
+    del stale
+    probe = torch.empty(floats, device="cuda")
+    assert probe.data_ptr() == ptr and bool(probe.isnan().all())
+    del probe
+    got = gate_mlp_bwd(*args, g, tdg)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= BWD_REL
+
+
 @pytest.mark.parametrize("nq,nk,s,hd,w", [
     (8, 4, 128, 32, 16),      # the bench substrate, batch 2, group 2
     (32, 16, 2048, 128, 256), # qwen3-0.6b, batch 2 x 2048 tokens
     (4, 2, 200, 80, 16),      # hd 80, S not a multiple of the tile
     (2, 2, 64, 64, 1),        # group 1, W 1
     (4, 1, 96, 128, 96),      # MQA, W = S: dg exactly 0
+    (8, 2, 320, 64, 100),     # group 4, the window edge across tiles
 ])
 def test_gated_flash_bwd_kernel_matches_plain_on_gpu(nq, nk, s, hd, w):
     rng = np.random.default_rng(31)

@@ -223,8 +223,9 @@ def test_kernel_build_key_covers_only_included_headers(tmp_path, monkeypatch):
     """A kernel's library is keyed by its source and the local headers it
     includes, directly or through another header: an edited header
     rebuilds exactly the kernels that include it (flash_mma.cuh:
-    gate_mlp, gated_flash and vertical_slash; cp_async.cuh, which
-    flash_mma.cuh also includes: those three and paged_decode)."""
+    gate_mlp, gated_flash, vertical_slash and the two backward kernels;
+    cp_async.cuh, which flash_mma.cuh also includes: those five and
+    paged_decode)."""
     from repro_torch.kernels import build
     assert [p.name for p in build.sources("gated_flash")] == [
         "gated_flash.cu", "cp_async.cuh", "flash_mma.cuh"]
@@ -233,16 +234,20 @@ def test_kernel_build_key_covers_only_included_headers(tmp_path, monkeypatch):
     assert [p.name for p in build.sources("gate_mlp")] == [
         "gate_mlp.cu", "flash_mma.cuh", "cp_async.cuh"]
     assert [p.name for p in build.sources("rglru_scan")] == ["rglru_scan.cu"]
+    for name in ("gate_mlp_bwd", "gated_flash_bwd"):
+        assert [p.name for p in build.sources(name)] == [
+            f"{name}.cu", "flash_mma.cuh", "cp_async.cuh"]
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for src in build.CSRC.iterdir():
         (csrc / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", csrc)
+    bwd = {"gate_mlp_bwd", "gated_flash_bwd"}
     for header, users in (("flash_mma.cuh", {"gate_mlp", "gated_flash",
-                                             "vertical_slash"}),
+                                             "vertical_slash"} | bwd),
                           ("cp_async.cuh", {"gate_mlp", "paged_decode",
                                             "gated_flash",
-                                            "vertical_slash"})):
+                                            "vertical_slash"} | bwd)):
         before = {n: build._lib_path(n) for n in build.KERNELS}
         with open(csrc / header, "a") as f:
             f.write("\n// edited\n")
