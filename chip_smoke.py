@@ -7,14 +7,17 @@ Needs one NVIDIA GPU (Hopper, sm_90a) and ``nvcc``; exits non-zero, and
 prints no result, without them. Phases, any failure fatal:
 
   1. device   — the card's name and power limit (nvidia-smi).
-  2. build    — the kernels from ``src/repro_torch/csrc`` (eight entry
-                points in seven sources: the six forward kernels and the
-                backward kernels of ``gate_mlp`` and ``gated_flash``), one
-                nvcc per source, all started together.
+  2. build    — the kernels from ``src/repro_torch/csrc`` (nine entry
+                points in eight sources: the six forward kernels and the
+                backward kernels of ``gate_mlp``, ``gated_flash`` and
+                ``rglru_scan``), one nvcc per source, all started together.
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 card, at the main paths' shapes (qwen3-0.6b's and
                 recurrentgemma-9b's, and a larger or smaller one), f32 and
-                bf16 for the attention kernels, with times
+                bf16 for the attention kernels; the forward kernels also at
+                the odd GQA groups of the dense archs (15 / 5 at hd 64, 24 /
+                8 and 40 / 10 at hd 128: their serve and offline decode,
+                gate, S 4096 prefill and tau probe shapes), with times
                 (CUDA events, and the device time of the same calls
                 replayed from a CUDA graph; for ``paged_decode`` also each
                 of its two kernels' time under torch.profiler), the plain
@@ -22,8 +25,8 @@ prints no result, without them. Phases, any failure fatal:
                 the card's bound at the rate of the kernel's arithmetic;
                 ``paged_decode_selected`` also bitwise against
                 ``paged_decode`` at the identity ids, and two calls of
-                ``paged_decode``, ``vertical_slash``, ``gate_mlp`` and
-                ``rglru_scan`` bitwise equal.
+                ``paged_decode``, ``vertical_slash``, ``gated_flash``,
+                ``gate_mlp`` and ``rglru_scan`` bitwise equal.
   4. serve-cli  — ``repro_torch.launch.serve`` at full qwen3-0.6b width,
                 its startup tau probe (a gated forward) included.
   5. serve-long — ``ServeSession`` at full width with 384-token prompts,
@@ -103,16 +106,52 @@ Gate-distillation training (run after substrate-ab):
                 aux within 1e-4 relative, the first step's gate gradients
                 within 1e-4 of each tensor's largest magnitude.
 
-Phase 3 also holds the two backward kernels against their plain versions
-and against autograd of the forward's plain version (1e-4 of each
-gradient's largest magnitude), at the train phase's shapes and the
-substrate's, two calls bitwise equal, and each rebuilt with a planted
-fault that must read above that limit. It also holds the dense read
-(one ``paged_decode`` segment over a contiguous buffer) and the causal
-``gated_flash`` at those paths' shapes against their plain versions.
+Training the hybrid, and the dense archs smollm-360m, phi4-mini-3.8b and
+phi3-medium-14b (run after rg-substrate):
 
-Each full-width model (32 GiB for recurrentgemma-9b in f32) is freed
-before the next is built. The full-width weights are random (seeded);
+  rg-train    — ``repro_torch.launch.train --arch recurrentgemma-9b
+                --steps 3 --batch 1 --seq 4096`` at full width and depth
+                (38 layers, f32; S past the 2,048 window, so distill is
+                not 0): per step wall time, loss and peak memory (under 80
+                GB); per step 12 launches each of ``gated_flash`` (hd 256),
+                ``gated_flash_bwd``, ``gate_mlp`` (F 512) and
+                ``gate_mlp_bwd``, 52 of ``rglru_scan`` (student and
+                teacher) and 22 of ``rglru_scan_bwd`` (the RG-LRU layers
+                after the first gate; the four before it get no gradient);
+                one more step under torch.profiler.
+  rg-train-substrate — three ``train_step``s of the reduced hybrid (a
+                2-block stem and two repeats, so RG-LRU blocks follow a
+                gate) on the card and on the CPU from the same numpy
+                tokens: losses and aux within 1e-4 relative, the first
+                step's gate gradients within 1e-4 of each tensor's max,
+                ``remat=True`` bitwise on the card.
+  dense-arch  — for each of the three dense archs at full width (f32,
+                seeded random weights; G 3 at hd 64 and 128, G 4, the
+                untied head of phi3-medium-14b, 54.6 GiB): ``launch.serve``
+                (2 x 64-token prompts, 8 new, 2 slots, capacity 512, the
+                tau probe; the pool within 2e-3), ``inference.prefill`` of
+                4,096 tokens at budget 1,024 and 16 greedy steps, then the
+                reduced config (smollm-360m's G 3 at hd 80) on card and
+                CPU: the gated forward and the greedy streams, integer
+                cache state exact, logits within 1e-4.
+  smollm-train — ``repro_torch.launch.train --arch smollm-360m --steps 2
+                --batch 2 --seq 2048``: ``gated_flash_bwd`` at G 3.
+
+Phase 3 also holds the three backward kernels against their plain
+versions and against autograd of the forward's plain version (1e-4 of
+each gradient's largest magnitude), at the train phases' shapes
+(recurrentgemma-9b's hd 256 and F 512 and the scan at [1, 4096, 4096]
+included) and the substrate's, two calls bitwise equal, and each fault of
+``BWD_FAULTS`` planted alone in a rebuild that must read above that
+limit. It also holds the dense read (one ``paged_decode`` segment over a
+contiguous buffer) and the causal ``gated_flash`` at those paths' shapes
+against their plain versions, and ``paged_decode``, ``gate_mlp``,
+``vertical_slash`` and ``gated_flash`` at the dense archs' groups of 3
+and 4.
+
+Each full-width model (32 GiB for recurrentgemma-9b in f32, 54.6 GiB for
+phi3-medium-14b) is freed before the next is built. The full-width
+weights are random (seeded);
 the point is that the port runs end to end on the card through its
 kernels and agrees with itself: the paged physical pool matches the
 logical cache (< 2e-3), every request
@@ -152,6 +191,9 @@ ATTN_RATE = {"float32": (H100_3XTF32_FLOPS,
 # elements swapped or dropped in the bf16 load reads far above 1e-2
 # (tests/test_torch_cuda.py plants both).
 TOL = {"float32": 5e-5, "bfloat16": 1e-2}
+# the dense archs' heads: (q heads, kv heads, head_dim)
+DENSE_HEADS = {"smollm-360m": (15, 5, 64), "phi4-mini-3.8b": (24, 8, 128),
+               "phi3-medium-14b": (40, 10, 128)}
 
 
 class SmokeFailure(RuntimeError):
@@ -304,7 +346,8 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
     gcnt (0, partial page, full, ...) and rows before and after the ring
     wraps, read by the kernel and by its plain version. qwen3-0.6b's heads
     by default (8 kv heads, group 2, hd 128); recurrentgemma-9b's are 1 kv
-    head, group 16, hd 256."""
+    head, group 16, hd 256; the dense archs' 5 / 3 at hd 64, 8 / 3 and
+    10 / 4 at hd 128."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.dual_cache import init_dual_cache
@@ -318,6 +361,7 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
     pattern = torch.tensor([0, 7, c, c // 2 + 3, 1, c - 1, 16, 33],
                            dtype=torch.int32, device="cuda")
+    pattern = pattern.repeat(-(-hkv // 8))  # phi3-medium-14b's 10 kv heads
     gcnt = torch.stack([pattern.roll(i)[:hkv] for i in range(slots)])
     t = torch.tensor([(w // 2 + 37 * i) if i % 2 == 0 else (w + 101 * i)
                       for i in range(slots)], dtype=torch.int32, device="cuda")
@@ -536,18 +580,20 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
 
 
 def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
-                        w: int = 256):
-    """The prefill path's shape: B = 1, 16 q heads, S = 4096, C 1024
-    globals chosen by ``select_global`` from random gates (sinks, then the
-    highest; unused slots at INT32_MAX). qwen3-0.6b's 8 kv heads, hd 128,
-    W 256 by default; recurrentgemma-9b's 1 kv head, hd 256, W 2048."""
+                        w: int = 256, hq: int = 16):
+    """The prefill path's shape: B = 1, S = 4096, C 1024 globals chosen by
+    ``select_global`` from random gates (sinks, then the highest; unused
+    slots at INT32_MAX). qwen3-0.6b's 16 q on 8 kv heads, hd 128, W 256 by
+    default; recurrentgemma-9b's 16 on 1 kv head, hd 256, W 2048; the
+    dense archs' odd groups (smollm-360m 15 / 5 at hd 64, phi4-mini-3.8b 24
+    / 8 and phi3-medium-14b 40 / 10 at hd 128)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.admission import select_global
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.vertical_slash import (vertical_slash,
                                                     vertical_slash_plain)
-    hq, s, c = 16, 4096, 1024
+    s, c = 4096, 1024
     grp = hq // hkv
     dt = torch_dtype(dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -569,12 +615,11 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
     want = vertical_slash_plain(*args, w_local=w, group=grp)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    check(bool(torch.isfinite(got.float()).all()),
-          f"vertical_slash {dtype}: non-finite output")
-    check(err <= TOL[dtype], f"vertical_slash {dtype} err {err:.3e} > "
-          f"{TOL[dtype]}")
-    check(torch.equal(got, again),
-          f"vertical_slash {dtype}: two calls differ")
+    tag = f"vertical_slash {hq}/{hkv} hd={hd} {dtype}"
+    check(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite "
+          "output")
+    check(err <= TOL[dtype], f"{tag} err {err:.3e} > {TOL[dtype]}")
+    check(torch.equal(got, again), f"{tag}: two calls differ")
     ms = cuda_ms(lambda: vertical_slash(*args, w_local=w, group=grp), 10)
     device_ms = graph_ms(lambda: vertical_slash(*args, w_local=w,
                                                 group=grp), 10)
@@ -622,18 +667,20 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
 
 
 def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
-                     hd: int = 128, w: int = 256, causal: bool = False):
-    """The gated forward's shape: 16 q heads at the forward phase's
-    S = 2048 or the tau probe's S = 32, with qwen3-0.6b's 8 kv heads, hd
-    128, W 256 by default; recurrentgemma-9b's 1 kv head, hd 256, W 2048
-    at S = 4096. ``causal``: the dense baseline's prefill form
+                     hd: int = 128, w: int = 256, causal: bool = False,
+                     hq: int = 16):
+    """The gated forward's shape: the forward phase's S = 2048 or the tau
+    probe's S = 32, with qwen3-0.6b's 16 q on 8 kv heads, hd 128, W 256 by
+    default; recurrentgemma-9b's 16 on 1 kv head, hd 256, W 2048 at S =
+    4096; the dense archs' odd groups (15 / 5 at hd 64, 24 / 8 and 40 / 10
+    at hd 128). ``causal``: the dense baseline's prefill form
     (``ops.causal_attention``): g = 1 and W = S, held against the same
     plain version, with one causal SDPA call as the library's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.gated_flash import gated_flash, gated_flash_plain
-    hq, eps = 16, 1e-6
+    eps = 1e-6
     grp = hq // hkv
     dt = torch_dtype(dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -646,13 +693,15 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
         g, w = torch.ones_like(g), s
     args = (q, k, v, g)
     got = gated_flash(*args, w_local=w, eps=eps, group=grp)
+    again = gated_flash(*args, w_local=w, eps=eps, group=grp)
     want = gated_flash_plain(*args, w_local=w, eps=eps, group=grp)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    check(bool(torch.isfinite(got.float()).all()),
-          f"gated_flash S={s} {dtype}: non-finite output")
-    check(err <= TOL[dtype], f"gated_flash S={s} {dtype} err {err:.3e} > "
-          f"{TOL[dtype]}")
+    tag = f"gated_flash {hq}/{hkv} hd={hd} S={s} {dtype}"
+    check(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite "
+          "output")
+    check(err <= TOL[dtype], f"{tag} err {err:.3e} > {TOL[dtype]}")
+    check(torch.equal(got, again), f"{tag}: two calls differ")
     iters = 200 if s <= 64 else (10 if s <= 2048 else 4)
     ms = cuda_ms(lambda: gated_flash(*args, w_local=w, eps=eps, group=grp),
                  iters)
@@ -699,7 +748,8 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
             "bound_rate": ATTN_RATE[dtype][1],
             "bound_ms_cuda_cores": cc_ms if dtype == "float32" else None,
             "library_ms": library_ms, "device_ms": device_ms,
-            "library_device_ms": library_device_ms}
+            "library_device_ms": library_device_ms,
+            "two_calls_bitwise": True}
 
 
 def split_plan_of(qf, first, second, group: int) -> dict:
@@ -758,15 +808,39 @@ def rglru_case(b: int, s: int, d: int, with_h0: bool, seed: int):
 # limits would trip on dg's 1 / (g + eps) near g = 0)
 BWD_REL = 1e-4
 
-# a fault planted in a copy of each backward source: dg summed inside the
-# window too (in every block that runs the per-pair mask, where the
-# diagonal's in-window pairs are), and dy without its (1 - g) factor; each
-# must read above BWD_REL
+# faults planted in copies of the backward sources, each alone in its own
+# copy: dg summed inside the window too (in every block that runs the
+# per-pair mask, where the diagonal's in-window pairs are; every hd); the
+# hd-256 kernels' dP without the other half of hd (the pair exchange);
+# dy without its (1 - g) factor; and the RG-LRU scan's hand-off between
+# chunks lost. Each must read above BWD_REL
 BWD_FAULTS = {
     "gated_flash_bwd": ("if (pr.outside) dgp[h] += pr.ds;",
                         "dgp[h] += pr.ds;"),
+    "gated_flash_bwd_hd256": (
+        "p[nt][e] += other[((NT + nt) * 4 + e) * 32 + lane];",
+        "p[nt][e] *= 2.f;"),
     "gate_mlp_bwd": ("dy[h2] = dgv * gv * (1.f - gv);", "dy[h2] = dgv * gv;"),
+    "rglru_scan_bwd": ("carry = __uint_as_float((unsigned)v);",
+                       "carry = 0.f * __uint_as_float((unsigned)v);"),
 }
+# the source of a fault whose name is not its source's
+FAULT_SOURCES = {"gated_flash_bwd_hd256": "gated_flash_bwd"}
+
+
+def _entry_name(mangled: str) -> str:
+    """``name<template arguments>`` of a mangled kernel entry: the first
+    length-prefixed identifier that ends in ``_kernel`` (digits allowed,
+    as in ``bwd_kv256_kernel``), then its integer or bool arguments."""
+    import re
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
+        start = m.start() + len(m.group(1))
+        ident = mangled[start:start + int(m.group(1))]
+        if ident.endswith("_kernel") and re.fullmatch(r"\w+", ident):
+            t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start + len(ident):])
+            args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
+            return ident + (f"<{','.join(args)}>" if args else "")
+    return mangled
 
 
 def ptxas_info(name: str) -> dict:
@@ -779,9 +853,7 @@ def ptxas_info(name: str) -> dict:
     for line in build.log_path(name).read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
-            args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
-            cur = k.group(1) + (f"<{','.join(args)}>" if args else "")
+            cur = _entry_name(m.group(1))
             out[cur] = {}
             continue
         if cur is None:
@@ -802,13 +874,19 @@ def rel_err(got, want) -> float:
 
 
 class Planted:
-    """The kernels ``names`` (default: all of ``BWD_FAULTS``) built from a
-    copy of the sources with their faults planted, in a temporary
-    directory, while the block runs (one nvcc each, all at once).
-    ``tests/test_torch_cuda.py`` plants its faults through this too."""
+    """The faults ``names`` (default: all of ``BWD_FAULTS``), each planted
+    alone in its own copy of the sources in a temporary directory and
+    built there while the block runs (one nvcc per fault, all at once).
+    The build module points at the first fault's copy; ``use(name)``
+    points it at another's. ``tests/test_torch_cuda.py`` plants its faults
+    through this too."""
 
     def __init__(self, names=tuple(BWD_FAULTS)):
         self.names = list(names)
+
+    def _point(self, name):
+        self.build.CSRC, self.build.BUILD_DIR, self.build._LIBS = \
+            self.dirs[name]
 
     def __enter__(self):
         import shutil
@@ -817,19 +895,29 @@ class Planted:
         self.build, self.saved = build, (build.CSRC, build.BUILD_DIR,
                                          build._LIBS)
         self.tmp = Path(tempfile.mkdtemp(prefix="planted-"))
-        csrc = self.tmp / "csrc"
-        shutil.copytree(build.CSRC, csrc)
+        self.dirs, procs = {}, {}
         for name in self.names:
+            src = FAULT_SOURCES.get(name, name)
             old, new = BWD_FAULTS[name]
-            path = csrc / f"{name}.cu"
+            csrc = self.tmp / name / "csrc"
+            shutil.copytree(self.saved[0], csrc)
+            path = csrc / f"{src}.cu"
             text = path.read_text()
             check(text.count(old) == 1, f"planted fault: {old!r} not found "
-                  f"once in {name}.cu")
+                  f"once in {src}.cu")
             path.write_text(text.replace(old, new))
-        build.CSRC, build.BUILD_DIR, build._LIBS = (csrc, self.tmp / "build",
-                                                    {})
-        build.build_all(self.names)
+            self.dirs[name] = (csrc, self.tmp / name / "build", {})
+            self._point(name)
+            procs[name] = build._start(src)
+        for name, proc in procs.items():
+            self._point(name)
+            build._finish(FAULT_SOURCES.get(name, name), proc)
+        self._point(self.names[0])
         return self
+
+    def use(self, name):
+        """Point the build module at fault ``name``'s copy."""
+        self._point(name)
 
     def __exit__(self, *exc):
         import shutil
@@ -998,18 +1086,82 @@ def flash_bwd_case(nq: int, s: int, seed: int, nk: int, hd: int = 128,
     return rec, (run, want)
 
 
+def rglru_bwd_case(b: int, s: int, d: int, with_h0: bool, seed: int):
+    """The RG-LRU scan's backward at recurrentgemma-9b's training shape [1,
+    4096, 4096] (one sequence, dr = d_model), or a ragged one with a
+    carried-in state, on a in (0.9, 0.999) (the model's range, so that what
+    a chunk hands the next is not negligible) and normal b and dy. The
+    kernel is held to the plain backward on the forward kernel's h and,
+    through the model's scan (its autograd Function; the state folded into
+    b[:, 0]), to autograd of the plain loop; two calls bitwise equal.
+    Returns the record and a function that runs the kernel on the same
+    inputs (for the planted fault)."""
+    import torch
+    from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.models import rglru as RG
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = 0.9 + 0.099 * torch.rand((b, s, d), generator=gen, device="cuda")
+    x = torch.randn((b, s, d), generator=gen, device="cuda")
+    h0 = torch.randn((b, d), generator=gen, device="cuda")
+    dy = torch.randn((b, s, d), generator=gen, device="cuda")
+    xf = x.clone()
+    if with_h0:
+        xf[:, 0] = xf[:, 0] + a[:, 0] * h0
+    h = RS.rglru_scan(a, xf)
+    run = lambda: RS.rglru_scan_bwd(a, h, dy)  # noqa: E731
+    got, again = run(), run()
+    want = RS.rglru_scan_bwd_plain(a, h, dy)
+    names = ("da", "db") + (("dh0",) if with_h0 else ())
+    ins = [t.clone().requires_grad_() for t in (a, x, h0)[:len(names)]]
+    model = torch.autograd.grad(RG.rglru_scan(*ins[:2], ins[2] if with_h0
+                                              else None), ins, dy)
+    pins = [t.clone().requires_grad_() for t in (a, x, h0)[:len(names)]]
+    pb = pins[1]
+    if with_h0:
+        pb = pb.clone()
+        pb[:, 0] = pb[:, 0] + pins[0][:, 0] * pins[2]
+    auto = torch.autograd.grad(RS.rglru_scan_plain(pins[0], pb), pins, dy)
+    torch.cuda.synchronize()
+    tag = f"rglru_scan_bwd [{b},{s},{d}]" + (" h0" if with_h0 else "")
+    errs = {n: rel_err(g, w) for n, g, w in zip(names, got, want)}
+    errs_auto = {n: rel_err(g, w) for n, g, w in zip(names, model, auto)}
+    check(all(bool(torch.isfinite(t).all()) for t in got + model),
+          f"{tag}: non-finite gradient")
+    check(max(errs.values()) <= BWD_REL and max(errs_auto.values()) <= BWD_REL,
+          f"{tag}: errors {errs} / autograd {errs_auto} > {BWD_REL} x max")
+    check(all(torch.equal(g, w) for g, w in zip(got, again)),
+          f"{tag}: two calls differ")
+    ms = cuda_ms(run, 20)
+    device_ms = graph_ms(run, 20)
+    plain_ms = cuda_ms(lambda: RS.rglru_scan_bwd_plain(a, h, dy), 2, warmup=1)
+    # the bound: a, h and dy read once, da and db written once; four
+    # operations per element
+    n = b * s * d
+    b_ms, b_by = bound(20 * n, 4 * n, H100_F32_FLOPS)
+    rec = {"shape": f"a,h,dy[{b},{s},{d}] f32" + (" h0" if with_h0 else ""),
+           "max_abs_err": max(float((g - w).abs().max())
+                              for g, w in zip(got, want)),
+           "max_rel_err": errs, "max_rel_err_autograd": errs_auto,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "device_ms": device_ms,
+           "two_calls_bitwise": True}
+    return rec, (run, want)
+
+
 def planted_faults(cases) -> dict:
-    """Each backward kernel rebuilt with its fault planted and run on the
-    inputs of its cases: its error against the plain backward must read
-    above BWD_REL (the sound kernels read below it above)."""
+    """Each fault of ``BWD_FAULTS`` planted alone in a rebuild of its
+    backward kernel, run on the inputs of its cases (fault name, (run,
+    want)): its error against the plain backward must read above BWD_REL
+    (the sound kernels read below it above)."""
     import torch
     out = {}
-    with Planted():
+    with Planted(sorted({name for name, _ in cases})) as planted:
         for name, (run, want) in cases:
+            planted.use(name)
             got = run()
             torch.cuda.synchronize()
             err = max(rel_err(a, b) for a, b in zip(got, want))
-            check(err > BWD_REL, f"planted fault in {name}: error {err:.3e} "
+            check(err > BWD_REL, f"planted fault {name}: error {err:.3e} "
                   f"<= {BWD_REL}: the limit would not see it")
             out.setdefault(name, []).append(err)
     return out
@@ -1055,7 +1207,8 @@ def _counters():
     return [gate_mlp.launches, paged_decode.launches,
             paged_decode.selected_launches, vertical_slash.launches,
             gated_flash.launches, rglru_scan.launches,
-            gate_mlp.bwd_launches, gated_flash.bwd_launches]
+            gate_mlp.bwd_launches, gated_flash.bwd_launches,
+            rglru_scan.bwd_launches]
 
 
 def reset_counts():
@@ -1257,17 +1410,19 @@ def greedy_decode(params, cfg, logits, caches, steps: int, opts=None):
     return torch.stack(toks, 1), torch.stack(all_logits, 1), caches, stats
 
 
-def prefill_long(cfg, params):
-    """``inference.prefill`` of a 4096-token prompt (budget 1024), then 16
-    greedy decode steps from its caches. Returns the launch counts and
-    what decode-select starts from: the prefill's logits and caches (left
-    untouched by the functional decode), the decode's tokens, logits and
-    ms per step."""
+def prefill_decode(cfg, params, seed: int, tag: str):
+    """``inference.prefill`` of a 4096-token prompt (budget 1024, tokens
+    from ``seed``) through a dense ``("attn",)`` model, then 16 greedy
+    decode steps from its caches: one ``vertical_slash`` per layer, one
+    ``gate_mlp`` per layer and position, one ``paged_decode`` per layer
+    and decode step. Returns the stats and what decode-select starts
+    from: the prefill's logits and caches (left untouched by the
+    functional decode), the decode's tokens and logits."""
     import numpy as np
     import torch
     from repro_torch.models import inference as I
     s, budget, steps, n_layers = 4096, 1024, 16, cfg.n_layers
-    toks = torch.as_tensor(np.random.default_rng(12).integers(
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size - 8, (1, s)), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1285,23 +1440,22 @@ def prefill_long(cfg, params):
     node = dec_caches["blocks"]["b0"]
     gcnt = node.gcnt
     check(counts["vertical_slash"] == n_layers,
-          f"prefill-long: vertical_slash launches "
+          f"{tag}: vertical_slash launches "
           f"{counts['vertical_slash']} != {n_layers}")
     check(counts["gate_mlp"] == n_layers * (1 + steps),
-          f"prefill-long: gate_mlp launches {counts['gate_mlp']} != "
+          f"{tag}: gate_mlp launches {counts['gate_mlp']} != "
           f"{n_layers} + {n_layers} x {steps}")
     check(counts["paged_decode"] == n_layers * steps,
-          f"prefill-long: paged_decode launches {counts['paged_decode']} "
+          f"{tag}: paged_decode launches {counts['paged_decode']} "
           f"!= {n_layers} x {steps}")
     check(int(dec_caches["t"][0]) == s + steps
           and bool((node.t == s + steps).all()),
-          f"prefill-long: t {dec_caches['t'].tolist()} != {s + steps}")
+          f"{tag}: t {dec_caches['t'].tolist()} != {s + steps}")
     check(node.gk.shape[-2] == budget and int(gcnt.min()) > 0
           and int(gcnt.max()) <= budget,
-          f"prefill-long: gcnt in [{int(gcnt.min())}, {int(gcnt.max())}], "
+          f"{tag}: gcnt in [{int(gcnt.min())}, {int(gcnt.max())}], "
           f"want (0, {budget}]")
-    check(bool(torch.isfinite(logits).all()), "prefill-long: non-finite "
-          "logits")
+    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
     stats = {"prompt_len": s, "budget": budget, "decode_steps": steps,
              "prefill_ms": (t1 - t0) * 1e3,
              "decode_ms_per_step": (t2 - t1) * 1e3 / steps,
@@ -1309,11 +1463,26 @@ def prefill_long(cfg, params):
              "gcnt_min": int(gcnt.min()), "gcnt_max": int(gcnt.max()),
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "launches": counts}
+    # the same prefill again, after the counts were read: the phase times
+    # one cold call, so a one-off stall there shows as a gap to this one
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        again = I.prefill(params, cfg, toks, budget=budget)
+        torch.cuda.synchronize()
+        stats["prefill_ms_repeat"] = (time.perf_counter() - t0) * 1e3
+    del again
+    return stats, {"prefill_logits": out.logits, "caches": caches,
+                   "tokens": toks_off, "logits": logits}
+
+
+def prefill_long(cfg, params):
+    """``prefill_decode`` of qwen3-0.6b. Returns the launch counts, ms and
+    what decode-select starts from."""
+    stats, base = prefill_decode(cfg, params, 12, "prefill-long")
     print("prefill-long: " + json.dumps(stats))
-    return {"counts": counts, "prefill_logits": out.logits, "caches": caches,
-            "tokens": toks_off, "logits": logits,
-            "prefill_ms": stats["prefill_ms"],
-            "decode_ms_per_step": stats["decode_ms_per_step"]}
+    return dict(base, counts=stats["launches"],
+                prefill_ms=stats["prefill_ms"],
+                decode_ms_per_step=stats["decode_ms_per_step"])
 
 
 def decode_select(cfg, params, base):
@@ -1977,102 +2146,28 @@ def substrate_ab():
     return counts_by
 
 
-def train_phase(card: str, steps: int = 4):
-    """``repro_torch.launch.train`` at full qwen3-0.6b width and depth (28
-    layers, f32, a seeded random backbone): 4 steps of batch 2 x 2048
-    tokens. Every step launches each of ``gated_flash``,
-    ``gated_flash_bwd``, ``gate_mlp`` and ``gate_mlp_bwd`` once per layer
-    and nothing else of the port's; the backbone comes back bitwise as
-    initialised, the gates moved, every loss is finite."""
-    import math
-
+def train_card_vs_cpu(tag: str, cfg, cpu_params, token_seed: int,
+                      min_margin: float):
+    """Three ``train_step``s of ``cpu_params`` (a CPU tree, copied to the
+    card) from the same numpy tokens (3 batches of 2 x 128) on the card
+    (kernels) and on the CPU (plain path): every step's loss and aux
+    within 1e-4 relative, distill not 0, and the gate gradients of the
+    first within 1e-4 of the largest magnitude of each CPU gradient; on
+    the card, ``remat=True`` gives those gradients bit for bit, and the
+    kernels launch as ``train_launches`` says for four gradient
+    evaluations. Every gate score must sit ``min_margin`` from tau, so
+    the admission rate cannot flip between the devices."""
     import numpy as np
     import torch
-    from repro_torch.convert import flat_paths
-    from repro_torch.launch import train
-    from repro_torch.models.transformer import init_model
-    from repro_torch.training import trainer as TR
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    res = train.main(["--arch", "qwen3-0.6b", "--steps", str(steps),
-                      "--batch", "2", "--seq", "2048", "--log-every", "1"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    cfg, hist = res["cfg"], res["history"]
-    n = cfg.n_layers
-    for name in ("gated_flash", "gated_flash_bwd", "gate_mlp",
-                 "gate_mlp_bwd"):
-        check(counts[name] == n * steps, f"train: {name} launches "
-              f"{counts[name]} != {n} x {steps} steps")
-    check(all(v == 0 for k, v in counts.items() if k in (
-        "paged_decode", "paged_decode_selected", "vertical_slash",
-        "rglru_scan")), f"train: launches of serving kernels {counts}")
-    check(len(hist) == steps and all(
-        math.isfinite(h[k]) for h in hist for k in ("loss", "distill")),
-        f"train: history {hist}")
-    fresh = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
-                       "cuda")
-    trained = dict(flat_paths(res["params"]))
-    moved = 0
-    for key, leaf in flat_paths(fresh):
-        if "gate" in key.split("/"):
-            moved += int(not torch.equal(trained[key], leaf))
-        else:
-            check(torch.equal(trained[key], leaf),
-                  f"train: backbone leaf {key} changed")
-    check(moved == len(TR.get_gates(fresh)), f"train: only {moved} of "
-          f"{len(TR.get_gates(fresh))} gate leaves moved")
-    del fresh, trained
-    # where a step's device time goes: one more step (outside the counted
-    # run) under torch.profiler, device time by kernel name
-    toks = torch.as_tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab_size - 8, (2, 2048)), device="cuda")
-    step = TR.make_train_step(cfg, lr=1e-3, lam=0.08)
-    t1 = time.perf_counter()
-    by_kernel = kernel_us(lambda: step(res["state"], res["params"],
-                                       batch={"tokens": toks}), iters=1)
-    prof_wall = time.perf_counter() - t1
-    del res
-    stats = {"arch": cfg.name, "layers": n, "batch": 2, "seq": 2048,
-             "steps": [{k: h.get(k) for k in ("step", "step_s", "loss",
-                                          "distill", "admission_rate@0.1",
-                                          "mean_gate", "peak_mem_gib")}
-                       for h in hist],
-             "wall_s": wall, "launches": counts,
-             "launches_per_step": {k: v / steps for k, v in counts.items()},
-             "profiled_step": {
-                 "device_ms": sum(by_kernel.values()) / 1e3,
-                 "wall_s_two_steps": prof_wall,
-                 "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
-                     by_kernel.items(), key=lambda kv: -kv[1])[:12]}},
-             "card": card}
-    print("train: " + json.dumps(stats), flush=True)
-    return counts, stats
-
-
-def train_substrate():
-    """Three ``train_step``s of the trained bench substrate from the same
-    numpy tokens on the card (kernels) and on the CPU (plain path): every
-    step's loss and aux within 1e-4 relative, and the gate gradients of
-    the first within 1e-4 of the largest magnitude of each CPU gradient;
-    on the card, ``remat=True`` gives those gradients bit for bit.
-    The tokens (seed 72) keep every gate score >= 1e-4 from tau (checked
-    below), so the admission rate cannot flip between the devices."""
-    import numpy as np
-    import torch
-    from repro_torch.convert import params_from_numpy
     from repro_torch.kernels import ops
     from repro_torch.training import trainer as TR
-    path = SUBSTRATE
-    cfg = substrate_cfg()
-    rng = np.random.default_rng(72)
+    from repro_torch.tree import tree_map
+    rng = np.random.default_rng(token_seed)
     toks = [rng.integers(0, cfg.vocab_size - 8, (2, 128)).astype(np.int32)
             for _ in range(3)]
 
     def run(device):
-        params = params_from_numpy(path, cfg, device)
+        params = tree_map(lambda x: x.to(device), cpu_params)
         batches = [{"tokens": torch.as_tensor(t, device=device)}
                    for t in toks]
         state = TR.init_train_state(params)
@@ -2098,7 +2193,8 @@ def train_substrate():
     finally:
         ops.write_gate = inner
     margin = min(float((g - cfg.wgkv.tau).abs().min()) for g in scores)
-    check(margin >= 1e-4, f"train-substrate: gate margin {margin:.2e} < 1e-4")
+    check(margin >= min_margin, f"{tag}: gate margin {margin:.2e} < "
+          f"{min_margin}")
     torch.cuda.synchronize()
     reset_counts()
     gpu_grads, gpu_metrics, params, batch = run("cuda")
@@ -2110,31 +2206,42 @@ def train_substrate():
     _, _, remat_grads = TR.loss_and_grads(TR.get_gates(params), params, cfg,
                                           batch, lam=cfg.wgkv.lam, remat=True)
     check(all(torch.equal(remat_grads[k].cpu(), gpu_grads[k])
-              for k in gpu_grads),
-          "train-substrate: remat=True changed the gate gradients")
-    n = cfg.n_layers
-    for name in ("gated_flash", "gated_flash_bwd", "gate_mlp",
-                 "gate_mlp_bwd"):
-        check(counts[name] == n * 4, f"train-substrate: {name} launches "
-              f"{counts[name]} != {n} x 4 gradient evaluations")
+              for k in gpu_grads), f"{tag}: remat=True changed the gate "
+          "gradients")
+    want = {k: 4 * v for k, v in train_launches(cfg).items()}
+    check(counts == want, f"{tag}: launches {counts} != {want} (four "
+          "gradient evaluations)")
     loss_err = 0.0
     for i, (gm, cm) in enumerate(zip(gpu_metrics, cpu_metrics)):
-        check(set(gm) == set(cm), f"train-substrate: metric keys {set(gm)}")
+        check(set(gm) == set(cm), f"{tag}: metric keys {set(gm)}")
         for k in cm:
             err = abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30)
             loss_err = max(loss_err, err)
-            check(err <= 1e-4, f"train-substrate: step {i} {k} {gm[k]} vs "
-                  f"CPU {cm[k]} (relative {err:.2e} > 1e-4)")
+            check(err <= 1e-4, f"{tag}: step {i} {k} {gm[k]} vs CPU {cm[k]} "
+                  f"(relative {err:.2e} > 1e-4)")
+    check(all(m["distill"] > 0 for m in cpu_metrics),
+          f"{tag}: distill 0 {cpu_metrics}")
     grad_err = {k: rel_err(gpu_grads[k], cpu_grads[k]) for k in cpu_grads}
     check(max(grad_err.values()) <= 1e-4,
-          f"train-substrate: gate gradients differ {grad_err}")
-    stats = {"tau_margin": margin, "max_rel_metric_err": loss_err,
-             "grad_rel_err": grad_err, "remat_grads_bitwise": True,
+          f"{tag}: gate gradients differ {grad_err}")
+    stats = {"layers": cfg.n_layers, "tau_margin": margin,
+             "max_rel_metric_err": loss_err, "grad_rel_err": grad_err,
+             "remat_grads_bitwise": True,
              "losses": [m["loss"] for m in gpu_metrics],
              "cpu_losses": [m["loss"] for m in cpu_metrics],
              "launches": counts}
-    print("train-substrate: " + json.dumps(stats), flush=True)
+    print(f"{tag}: " + json.dumps(stats), flush=True)
     return counts
+
+
+def train_substrate():
+    """``train_card_vs_cpu`` on the trained bench substrate. The tokens
+    (seed 72) keep every gate score >= 1e-4 from tau."""
+    from repro_torch.convert import params_from_numpy
+    cfg = substrate_cfg()
+    return train_card_vs_cpu("train-substrate", cfg,
+                             params_from_numpy(SUBSTRATE, cfg, "cpu"), 72,
+                             1e-4)
 
 
 def free_cuda():
@@ -2426,6 +2533,311 @@ def rg_substrate():
     return counts
 
 
+def grad_rglru_blocks(cfg) -> int:
+    """RG-LRU layers at or after the first attention layer: the only ones
+    a gate's gradient runs back through (the blocks before it see no input
+    that requires grad), so each launches ``rglru_scan_bwd`` once per
+    gradient evaluation."""
+    order = list(cfg.stem_pattern) + list(cfg.block_pattern) * cfg.n_repeats
+    first = next(i for i, bt in enumerate(order)
+                 if bt in ("attn", "local_attn"))
+    return sum(bt == "rglru" for bt in order[first:])
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches of one gradient evaluation of gate distillation:
+    every attention layer's ``gated_flash``, ``gated_flash_bwd``,
+    ``gate_mlp`` and ``gate_mlp_bwd`` once, every RG-LRU layer's
+    ``rglru_scan`` twice (student and teacher) and, from the first
+    attention layer on, its ``rglru_scan_bwd`` once; nothing else."""
+    n_attn = cfg.n_repeats * cfg.attn_blocks_per_pattern
+    n_rec = cfg.n_layers - n_attn
+    return {"gated_flash": n_attn, "gated_flash_bwd": n_attn,
+            "gate_mlp": n_attn, "gate_mlp_bwd": n_attn,
+            "rglru_scan": 2 * n_rec,
+            "rglru_scan_bwd": grad_rglru_blocks(cfg),
+            "paged_decode": 0, "paged_decode_selected": 0,
+            "vertical_slash": 0}
+
+
+def cluster_gates(cfg, params, seed: int) -> None:
+    """Every attention block's gate weights drawn with numpy so that the
+    scores cluster per (repeat, head) clear of tau: head h of repeat r
+    admits (scores near sigmoid(0.5)) when r + h is even and rejects (near
+    sigmoid(-5)) otherwise. In place, on the CPU tensors of ``params``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    for i, bt in enumerate(cfg.block_pattern):
+        if bt not in ("attn", "local_attn"):
+            continue
+        gate = params["blocks"][f"b{i}"]["attn"]["gate"]
+        r, h, f, m = gate["w1"].shape
+        admit = (np.arange(r)[:, None] + np.arange(h)[None]) % 2 == 0
+        new = {"w1": rng.standard_normal((r, h, f, m)) / np.sqrt(f),
+               "b1": 0.1 * rng.standard_normal((r, h, m)),
+               "w2": 0.5 * rng.standard_normal((r, h, m, 1)) / np.sqrt(m),
+               "b2": np.where(admit, 0.5, -5.0)[..., None]}
+        for k, v in new.items():
+            gate[k].copy_(torch.from_numpy(v.astype(np.float32)))
+
+
+def train_arch(card: str, arch: str, steps: int, batch: int, seq: int,
+               tag: str, check_backbone: bool = False):
+    """``repro_torch.launch.train --arch <arch>`` at full width and depth
+    (f32, a seeded random backbone): per step wall time, loss, distill and
+    peak memory (under 80 GB). Per step every attention layer launches
+    ``gated_flash``, ``gated_flash_bwd``, ``gate_mlp`` and
+    ``gate_mlp_bwd`` once, every RG-LRU layer ``rglru_scan`` twice (student
+    and teacher) and, from the first attention layer on,
+    ``rglru_scan_bwd`` once; nothing else of the port's. With
+    ``check_backbone`` every gate leaf moved and every other leaf comes
+    back bitwise as initialised (a second model is drawn to compare).
+    Then one more step under torch.profiler (device time by kernel
+    name)."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.convert import flat_paths
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import trainer as TR
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train.main(["--arch", arch, "--steps", str(steps), "--batch",
+                      str(batch), "--seq", str(seq), "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    cfg, hist = res["cfg"], res["history"]
+    want = {k: v * steps for k, v in train_launches(cfg).items()}
+    check(counts == want, f"{tag}: launches {counts} != {want}")
+    check(len(hist) == steps and all(
+        math.isfinite(h[k]) for h in hist for k in ("loss", "distill"))
+        and all(h["distill"] > 0 for h in hist), f"{tag}: history {hist}")
+    peak = max(h["peak_mem_gib"] for h in hist)
+    check(peak * 2 ** 30 < 80e9, f"{tag}: peak memory {peak} GiB")
+    if check_backbone:
+        fresh = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+        trained = dict(flat_paths(res["params"]))
+        moved = 0
+        for key, leaf in flat_paths(fresh):
+            if "gate" in key.split("/"):
+                moved += int(not torch.equal(trained[key], leaf))
+            else:
+                check(torch.equal(trained[key], leaf),
+                      f"{tag}: backbone leaf {key} changed")
+        check(moved == len(TR.get_gates(fresh)), f"{tag}: only {moved} of "
+              f"{len(TR.get_gates(fresh))} gate leaves moved")
+        del fresh, trained
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size - 8, (batch, seq)), device="cuda")
+    step = TR.make_train_step(cfg, lr=1e-3, lam=0.08)
+    t1 = time.perf_counter()
+    by_kernel = kernel_us(lambda: step(res["state"], res["params"],
+                                       batch={"tokens": toks}), iters=1)
+    prof_wall = time.perf_counter() - t1
+    del res
+    free_cuda()
+    stats = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
+             "seq": seq, "window": cfg.sliding_window
+             if "local_attn" in cfg.block_pattern else cfg.wgkv.w_local,
+             "steps": [{k: h.get(k) for k in ("step", "step_s", "loss",
+                                              "distill", "admission_rate@0.1",
+                                              "mean_gate", "peak_mem_gib")}
+                       for h in hist],
+             "wall_s": wall, "peak_mem_gib": peak, "launches": counts,
+             "launches_per_step": {k: v / steps for k, v in counts.items()},
+             "profiled_step": {
+                 "device_ms": sum(by_kernel.values()) / 1e3,
+                 "wall_s_two_steps": prof_wall,
+                 "top_kernels_ms": {k: v / 1e3 for k, v in sorted(
+                     by_kernel.items(), key=lambda kv: -kv[1])[:14]}},
+             "card": card}
+    print(f"{tag}: " + json.dumps(stats), flush=True)
+    return counts, stats
+
+
+def rg_train_substrate():
+    """``train_card_vs_cpu`` on the reduced hybrid (64-token window) with a
+    2-block RG-LRU stem and two repeats, so that RG-LRU blocks follow a
+    gate and the scan's backward runs: seeded random weights, the gates
+    clustered clear of tau (>= 1e-3), 2 x 128 tokens past the window."""
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import transformer as T
+    cfg = get_reduced_config("recurrentgemma-9b").replace(
+        dtype="float32", stem_pattern=("rglru", "rglru"), n_repeats=2)
+    params = T.init_model(cfg, torch.Generator().manual_seed(6), "cpu")
+    cluster_gates(cfg, params, 106)
+    return train_card_vs_cpu("rg-train-substrate", cfg, params, 73, 1e-3)
+
+
+def dense_serve(arch: str, card: str):
+    """``repro_torch.launch.serve --arch <arch>`` at full width: 2 requests
+    of 64 tokens, 8 new tokens, 2 slots, capacity 512, the startup tau
+    probe included (one ``gated_flash`` and ``gate_mlp`` per layer), then
+    one ``gate_mlp`` and one ``paged_decode`` per layer and position."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    n = get_config(arch).n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with position_counter() as pc:
+        res = serve.main(["--arch", arch, "--requests", "2", "--prompt-len",
+                          "64", "--max-new", "8", "--slots", "2",
+                          "--capacity", "512", "--quiet-stream"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    outs, summ = res["outputs"], res["summary"]
+    check(len(outs) == 2 and all(len(o) == 8 for o in outs),
+          f"{arch} serve: not every request returned 8 tokens: "
+          f"{[len(o) for o in outs]}")
+    check(res["paged_dev"] < 2e-3,
+          f"{arch} serve: paged-vs-logical deviation {res['paged_dev']:.3e}")
+    check(counts["gated_flash"] == n and counts["gate_mlp"] == n * (
+        pc.count + 1) and counts["paged_decode"] >= n * pc.count,
+        f"{arch} serve: launches {counts} over {pc.count} positions, "
+        f"{n} layers")
+    return {"wall_s": wall, "positions": pc.count,
+            "ttft_mean_s": summ["ttft_mean_s"],
+            "tpot_mean_s": summ["tpot_mean_s"],
+            "tokens_per_s": summ["tokens_per_s"],
+            "mean_admission": summ["mean_admission"],
+            "paged_dev": res["paged_dev"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": counts}
+
+
+def dense_prefill(arch: str, seed: int):
+    """``prefill_decode`` through the full-width model (f32, random weights
+    drawn on the card), which is freed after it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch).replace(dtype="float32")
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+    stats, _ = prefill_decode(cfg, params, seed, f"{arch} prefill")
+    stats["weights_gib"] = sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params)) / 2 ** 30
+    del params
+    free_cuda()
+    return stats
+
+
+def dense_reduced(arch: str):
+    """The reduced config (f32, a 32-token ring, seeded random weights, the
+    gates clustered clear of tau) on the card (kernels) and on the CPU
+    (plain path): the gated forward of a 96-token numpy prompt (hidden and
+    gates within 1e-4), then prefill of a 128-token prompt and 8 greedy
+    decode steps: identical tokens and integer cache state, logits within
+    1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import inference as I
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    cfg = get_reduced_config(arch).replace(dtype="float32")
+    cfg = cfg.replace(wgkv=dataclasses.replace(cfg.wgkv, w_local=32))
+    cpu_params = T.init_model(cfg, torch.Generator().manual_seed(7), "cpu")
+    cluster_gates(cfg, cpu_params, 107)
+    rng = np.random.default_rng(22)
+    fwd_toks = rng.integers(0, cfg.vocab_size, (2, 96))
+    prompt = rng.integers(0, cfg.vocab_size, (1, 128))
+    steps = 8
+
+    def run(device, params):
+        with torch.no_grad():
+            fwd = T.forward(params, cfg, torch.as_tensor(fwd_toks,
+                                                         device=device),
+                            mode="gated", with_logits=False)
+            out, caches = I.prefill(params, cfg,
+                                    torch.as_tensor(prompt, device=device))
+            toks, logits, caches, _ = greedy_decode(params, cfg, out.logits,
+                                                    caches, steps)
+        return fwd, out, toks.cpu(), logits.cpu(), caches
+
+    scores = []
+    inner = ops.write_gate
+
+    def recording(*a, **kw):
+        g = inner(*a, **kw)
+        scores.append(g)
+        return g
+    ops.write_gate = recording
+    try:
+        cpu = run("cpu", cpu_params)
+    finally:
+        ops.write_gate = inner
+    margin = min(float((g - cfg.wgkv.tau).abs().min()) for g in scores)
+    check(margin >= 1e-3, f"{arch} reduced: gate margin {margin:.2e}")
+    gpu_params = tree_map(lambda x: x.to("cuda"), cpu_params)
+    torch.cuda.synchronize()
+    reset_counts()
+    gpu = run("cuda", gpu_params)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = cfg.n_layers
+    want = {"gated_flash": n, "vertical_slash": n,
+            "gate_mlp": n * (2 + steps), "paged_decode": n * steps}
+    check(all(counts[k] == v for k, v in want.items()),
+          f"{arch} reduced: the card run missed its kernels: {counts}")
+    fwd_err = max(float((gpu[0].hidden.cpu() - cpu[0].hidden).abs().max()),
+                  float((gpu[0].gates.cpu() - cpu[0].gates).abs().max()))
+    check(fwd_err <= 1e-4, f"{arch} reduced: gated forward differs by "
+          f"{fwd_err:.3e} > 1e-4")
+    check(torch.equal(gpu[2], cpu[2]), f"{arch} reduced: greedy tokens "
+          f"differ: {gpu[2].tolist()} vs {cpu[2].tolist()}")
+    err = float((gpu[3] - cpu[3]).abs().max())
+    check(err <= 1e-4, f"{arch} reduced: logits differ by {err:.3e} > 1e-4")
+    ints = {"t", "ptr", "lpos", "gpos", "gcnt", "overflow"}
+    gpu_leaves = dict(tree_leaves_with_path(gpu[4]))
+    for path, want_leaf in tree_leaves_with_path(cpu[4]):
+        if path[-1] in ints:
+            check(torch.equal(gpu_leaves[path].cpu(), want_leaf),
+                  f"{arch} reduced: cache {'/'.join(map(str, path))} "
+                  "differs between card and CPU")
+    adm = float(gpu[1].mean_admission)
+    check(abs(adm - float(cpu[1].mean_admission)) <= 1e-6,
+          f"{arch} reduced: mean_admission {adm} (CPU "
+          f"{float(cpu[1].mean_admission)})")
+    return {"heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "tau_margin": margin, "forward_max_err": fwd_err,
+            "max_logit_err": err, "mean_admission": adm,
+            "tokens": gpu[2][0].tolist(),
+            "gcnt": gpu[4]["blocks"]["b0"].gcnt[:, 0].tolist(),
+            "launches": counts}
+
+
+def dense_arch(arch: str, card: str, seed: int):
+    """One plain ``("attn",)`` decoder at full width: serve, prefill 4096
+    tokens and decode 16, then its reduced config on card and CPU."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    stats = {"arch": arch, "layers": cfg.n_layers,
+             "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+             "tie_embeddings": cfg.tie_embeddings, "card": card}
+    stats["serve"] = dense_serve(arch, card)
+    free_cuda()
+    stats["prefill"] = dense_prefill(arch, seed)
+    stats["reduced"] = dense_reduced(arch)
+    print(f"dense-arch {arch}: " + json.dumps(stats), flush=True)
+    return {k: stats[k]["launches"] for k in ("serve", "prefill", "reduced")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2513,11 +2925,56 @@ def main() -> int:
                                        f=64, m=32)
     fb_train, fb_train_run = flash_bwd_case(32, 2048, seed=42, nk=16)
     fb_sub, fb_sub_run = flash_bwd_case(8, 128, seed=43, nk=4, hd=32, w=16)
+    # this slice's: recurrentgemma-9b's training shapes (the scan at [1,
+    # 4096, 4096], 16 q heads of hd 256 on 1 kv head with W 2048, the gate
+    # at F 512), a ragged scan with h0, and G 3 (smollm-360m's 30 q / 10
+    # kv heads of hd 64 at batch 2, its reduced config's hd 80)
+    rb_train, rb_train_run = rglru_bwd_case(1, 4096, 4096, False, seed=44)
+    rb_h0, rb_h0_run = rglru_bwd_case(3, 1000, 200, True, seed=45)
+    fb_rg, fb_rg_run = flash_bwd_case(16, 4096, seed=46, nk=1, hd=256,
+                                      w=2048)
+    fb_g3, fb_g3_run = flash_bwd_case(30, 2048, seed=47, nk=10, hd=64)
+    fb_g3_80, _ = flash_bwd_case(6, 256, seed=48, nk=2, hd=80, w=16)
+    gb_rg, gb_rg_run = gate_bwd_case(rows=1, s=4096, seed=49, h=1, f=512)
     planted = planted_faults([("gate_mlp_bwd", gb_train_run),
                               ("gate_mlp_bwd", gb_sub_run),
+                              ("gate_mlp_bwd", gb_rg_run),
                               ("gated_flash_bwd", fb_train_run),
-                              ("gated_flash_bwd", fb_sub_run)])
-    del gb_train_run, gb_sub_run, fb_train_run, fb_sub_run
+                              ("gated_flash_bwd", fb_sub_run),
+                              ("gated_flash_bwd", fb_g3_run),
+                              ("gated_flash_bwd", fb_rg_run),
+                              ("gated_flash_bwd_hd256", fb_rg_run),
+                              ("rglru_scan_bwd", rb_train_run),
+                              ("rglru_scan_bwd", rb_h0_run)])
+    del gb_train_run, gb_sub_run, fb_train_run, fb_sub_run, rb_train_run
+    del rb_h0_run, fb_rg_run, fb_g3_run, gb_rg_run
+    # the dense archs' odd groups at the shapes their full-width phases
+    # give each forward kernel (f32): serve's dual cache (2 slots, C 128
+    # of capacity 512, W 256), the gate at serve and over a 4,096-token
+    # prefill, the offline decode's dual cache (C 1024), prefill's
+    # vertical_slash (S 4096, C 1024, W 256) and the tau probe's
+    # gated_flash (S 32); smollm-360m's gated_flash also at S 2048, its
+    # train forward's
+    dense_kernels = []
+    for i, (arch, (hq, hkv, hd)) in enumerate(DENSE_HEADS.items()):
+        sd, grp = 50 + 10 * i, hq // hkv
+        dense_kernels += [
+            (f"paged_decode {arch}", dual_cache_case(
+                2, 128, 256, torch.float32, seed=sd, hkv=hkv, grp=grp,
+                hd=hd)),
+            (f"gate_mlp {arch}", gate_case(rows=2 * hkv, s=1, seed=sd + 1,
+                                           h=hkv, f=2 * hd)),
+            (f"gate_mlp {arch}", gate_case(rows=hkv, s=4096, seed=sd + 2,
+                                           h=hkv, f=2 * hd)),
+            (f"paged_decode {arch}", dual_cache_case(
+                1, 1024, 256, torch.float32, seed=sd + 3, hkv=hkv, grp=grp,
+                hd=hd)),
+            (f"vertical_slash {arch}", vertical_slash_case(
+                "float32", seed=sd + 4, hkv=hkv, hd=hd, hq=hq)),
+            (f"gated_flash {arch}", gated_flash_case(
+                32, "float32", seed=sd + 5, hkv=hkv, hd=hd, hq=hq))]
+    dense_kernels.append(("gated_flash smollm-360m", gated_flash_case(
+        2048, "float32", seed=80, hkv=5, hd=64, hq=15)))
     free_cuda()
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
                    ("gate_mlp", gate_prefill),
@@ -2545,7 +3002,12 @@ def main() -> int:
                    ("gated_flash causal", gf_causal_bf16),
                    ("gate_mlp_bwd", gb_train), ("gate_mlp_bwd", gb_sub),
                    ("gated_flash_bwd", fb_train),
-                   ("gated_flash_bwd", fb_sub)):
+                   ("gated_flash_bwd", fb_sub),
+                   ("rglru_scan_bwd", rb_train), ("rglru_scan_bwd", rb_h0),
+                   ("gated_flash_bwd rg", fb_rg),
+                   ("gated_flash_bwd G3", fb_g3),
+                   ("gated_flash_bwd G3", fb_g3_80),
+                   ("gate_mlp_bwd rg", gb_rg), *dense_kernels):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
     print("planted faults (relative error, limit "
           f"{BWD_REL}): " + json.dumps(planted), flush=True)
@@ -2571,7 +3033,9 @@ def main() -> int:
     sub_ab_counts = substrate_ab()
     # gate-distillation training (this slice's paths)
     free_cuda()
-    train_counts, train_stats = train_phase(card)
+    train_counts, train_stats = train_arch(card, "qwen3-0.6b", steps=4,
+                                           batch=2, seq=2048, tag="train",
+                                           check_backbone=True)
     free_cuda()
     train_sub_counts = train_substrate()
     # 11-14. recurrentgemma-9b (one 32 GiB model at a time)
@@ -2584,15 +3048,41 @@ def main() -> int:
     del rg_params
     free_cuda()
     rg_substrate_counts = rg_substrate()
+    # this slice's: the hybrid's training at full width, its reduced
+    # config's training on card and CPU, the three dense archs, and
+    # smollm-360m's training (gated_flash_bwd at G 3)
+    free_cuda()
+    rg_train_counts, rg_train_stats = train_arch(
+        card, "recurrentgemma-9b", steps=3, batch=1, seq=4096,
+        tag="rg-train")
+    free_cuda()
+    rg_train_sub_counts = rg_train_substrate()
+    dense_counts_by = {}
+    for seed, arch in enumerate(DENSE_HEADS):
+        free_cuda()
+        dense_counts_by[arch] = dense_arch(arch, card, seed=60 + seed)
+    free_cuda()
+    smollm_train_counts, _ = train_arch(card, "smollm-360m", steps=2,
+                                        batch=2, seq=2048,
+                                        tag="smollm-train")
     rg = "recurrentgemma"
     attn = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    dense_by = {}  # kernel -> arch -> its cases at the dense archs' shapes
+    for tag, r in dense_kernels:
+        name, arch = tag.split()
+        dense_by.setdefault(name, {}).setdefault(arch, []).append(r)
+
+    def dense_err(name):
+        return max(r["max_abs_err"] for rs in dense_by[name].values()
+                   for r in rs)
     kernels = [
         {"name": "gate_mlp", "route": "cuda",
          "source": "src/repro_torch/csrc/gate_mlp.cu",
          "replaces": "src/repro/kernels/gate_mlp.py:28",
          "launches": long_counts["gate_mlp"],
-         "max_abs_err": max(r["max_abs_err"] for r in (
-             gate_main, gate_big, gate_prefill, rg_gate, rg_gate_dec)),
+         "max_abs_err": max(dense_err("gate_mlp"), *(
+             r["max_abs_err"] for r in (gate_main, gate_big, gate_prefill,
+                                        rg_gate, rg_gate_dec))),
          **{k: gate_main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
          "shape": gate_main["shape"], "device_ms": gate_main["device_ms"],
@@ -2604,12 +3094,18 @@ def main() -> int:
          "launches_rg_prefill": rg_decode_counts["gate_mlp"],
          "launches_rg_serve": rg_serve_counts["gate_mlp"],
          "launches_train": train_counts["gate_mlp"],
-         rg: {"prefill": rg_gate, "decode": rg_gate_dec}},
+         rg: {"prefill": rg_gate, "decode": rg_gate_dec},
+         "dense_archs": dense_by["gate_mlp"],
+         "launches_rg_train": rg_train_counts["gate_mlp"],
+         "launches_smollm_train": smollm_train_counts["gate_mlp"],
+         "launches_dense_archs": {a: {k: v["gate_mlp"] for k, v in c.items()}
+                                  for a, c in dense_counts_by.items()}},
         {"name": "paged_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_decode.py:59",
          "launches": long_counts["paged_decode"],
-         "max_abs_err": max(pd_main["max_abs_err"], pd_big["max_abs_err"]),
+         "max_abs_err": max(pd_main["max_abs_err"], pd_big["max_abs_err"],
+                            dense_err("paged_decode")),
          **{k: pd_main[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
          "shape": pd_main["shape"],
@@ -2628,12 +3124,17 @@ def main() -> int:
          "launches_substrate_ab": {k: v["paged_decode"]
                                    for k, v in sub_ab_counts.items()},
          "dense": {"serve": dense_serve, "offline": dense_long,
-                   "offline_bf16": dense_long_bf16}},
+                   "offline_bf16": dense_long_bf16},
+         "dense_archs": dense_by["paged_decode"],
+         "launches_dense_archs": {
+             a: {k: v["paged_decode"] for k, v in c.items()}
+             for a, c in dense_counts_by.items()}},
         {"name": "vertical_slash", "route": "cuda",
          "source": "src/repro_torch/csrc/vertical_slash.cu",
          "replaces": "src/repro/kernels/vertical_slash.py:88",
          "launches": prefill_counts["vertical_slash"],
-         "max_abs_err": vs_main["max_abs_err"],
+         "max_abs_err": max(vs_main["max_abs_err"],
+                            dense_err("vertical_slash")),
          **{k: vs_main[k] for k in attn}, "shape": vs_main["shape"],
          "bound_rate": vs_main["bound_rate"],
          "bound_ms_cuda_cores": vs_main["bound_ms_cuda_cores"],
@@ -2641,13 +3142,18 @@ def main() -> int:
          "max_abs_err_bf16": vs_bf16["max_abs_err"], "bf16": vs_bf16,
          "launches_rg_prefill": rg_prefill_counts["vertical_slash"],
          "launches_rg_substrate": rg_substrate_counts["vertical_slash"],
-         rg: {"f32": rg_vs, "bf16": rg_vs_bf16}},
+         rg: {"f32": rg_vs, "bf16": rg_vs_bf16},
+         "dense_archs": dense_by["vertical_slash"],
+         "launches_dense_archs": {
+             a: {k: v["vertical_slash"] for k, v in c.items()}
+             for a, c in dense_counts_by.items()}},
         {"name": "gated_flash", "route": "cuda",
          "source": "src/repro_torch/csrc/gated_flash.cu",
          "replaces": "src/repro/kernels/gated_flash.py:68",
          "launches": forward_counts["gated_flash"],
          "max_abs_err": max(gf_main["max_abs_err"],
-                            gf_probe["max_abs_err"]),
+                            gf_probe["max_abs_err"],
+                            dense_err("gated_flash")),
          **{k: gf_main[k] for k in attn}, "shape": gf_main["shape"],
          "bound_rate": gf_main["bound_rate"],
          "bound_ms_cuda_cores": gf_main["bound_ms_cuda_cores"],
@@ -2662,7 +3168,13 @@ def main() -> int:
          "launches_prefill_dense": dense_counts["gated_flash"],
          "launches_train": train_counts["gated_flash"],
          "launches_train_substrate": train_sub_counts["gated_flash"],
-         "causal": {"f32": gf_causal, "bf16": gf_causal_bf16}},
+         "causal": {"f32": gf_causal, "bf16": gf_causal_bf16},
+         "dense_archs": dense_by["gated_flash"],
+         "launches_rg_train": rg_train_counts["gated_flash"],
+         "launches_smollm_train": smollm_train_counts["gated_flash"],
+         "launches_dense_archs": {
+             a: {k: v["gated_flash"] for k, v in c.items()}
+             for a, c in dense_counts_by.items()}},
         {"name": "paged_decode_selected", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode.cu",
          "replaces": "src/repro/kernels/paged_decode.py:133",
@@ -2688,6 +3200,8 @@ def main() -> int:
          "launches_rg_forward": rg_forward_counts["rglru_scan"],
          "launches_rg_serve": rg_serve_counts["rglru_scan"],
          "launches_rg_substrate": rg_substrate_counts["rglru_scan"],
+         "launches_rg_train": rg_train_counts["rglru_scan"],
+         "launches_rg_train_substrate": rg_train_sub_counts["rglru_scan"],
          "ragged_h0": rg_scan_h0},
         {"name": "gate_mlp_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/gate_mlp_bwd.cu",
@@ -2706,7 +3220,14 @@ def main() -> int:
          "ptxas": ptxas_info("gate_mlp_bwd"),
          "smem_dynamic_bytes": build.load(
              "gate_mlp_bwd").gate_mlp_bwd_smem_bytes(256, 64),
-         "substrate": gb_sub},
+         "substrate": gb_sub, rg: gb_rg,
+         "smem_dynamic_bytes_rg": build.load(
+             "gate_mlp_bwd").gate_mlp_bwd_smem_bytes(512, 64),
+         "launches_rg_train": rg_train_counts["gate_mlp_bwd"],
+         "launches_per_rg_train_step":
+             rg_train_stats["launches_per_step"]["gate_mlp_bwd"],
+         "launches_rg_train_substrate": rg_train_sub_counts["gate_mlp_bwd"],
+         "launches_smollm_train": smollm_train_counts["gate_mlp_bwd"]},
         {"name": "gated_flash_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/gated_flash_bwd.cu",
          "replaces": "src/repro/kernels/gated_flash.py:68",
@@ -2726,9 +3247,33 @@ def main() -> int:
          "ptxas": ptxas_info("gated_flash_bwd"),
          "smem_dynamic_bytes": {
              f"{k}<{hd}>": build.load("gated_flash_bwd").gated_flash_bwd_smem_bytes(
-                 hd, which) for hd in (64, 128)
+                 hd, which) for hd in (64, 128, 256)
              for which, k in ((0, "bwd_kv_kernel"), (1, "bwd_q_kernel"))},
-         "substrate": fb_sub},
+         "substrate": fb_sub, rg: fb_rg, "g3": [fb_g3, fb_g3_80],
+         "head_splits_rg": build.load(
+             "gated_flash_bwd").gated_flash_bwd_splits(256, 16),
+         "planted_fault_rel_err_hd256": planted["gated_flash_bwd_hd256"],
+         "launches_rg_train": rg_train_counts["gated_flash_bwd"],
+         "launches_per_rg_train_step":
+             rg_train_stats["launches_per_step"]["gated_flash_bwd"],
+         "launches_rg_train_substrate":
+             rg_train_sub_counts["gated_flash_bwd"],
+         "launches_smollm_train": smollm_train_counts["gated_flash_bwd"]},
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:39",
+         "launches": rg_train_counts["rglru_scan_bwd"],
+         "max_abs_err": max(rb_train["max_abs_err"], rb_h0["max_abs_err"]),
+         **{k: rb_train[k] for k in attn}, "shape": rb_train["shape"],
+         "device_ms": rb_train["device_ms"],
+         "max_rel_err": rb_train["max_rel_err"],
+         "launches_per_rg_train_step":
+             rg_train_stats["launches_per_step"]["rglru_scan_bwd"],
+         "launches_rg_train_substrate":
+             rg_train_sub_counts["rglru_scan_bwd"],
+         "planted_fault_rel_err": planted["rglru_scan_bwd"],
+         "ptxas": ptxas_info("rglru_scan_bwd"),
+         "ragged_h0": rb_h0},
     ]
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -18,7 +18,8 @@
 //
 // Layout: q, dO, O, dQ [Nq, S, hd]; k, v, dK, dV [Nq / G, S, hd]; g, dg
 // [Nq / G, S]; lse [Nq, S]; all float32, contiguous, 16-byte aligned, hd a
-// multiple of 8 and at most 128. Query stream n reads kv stream n / G
+// multiple of 8 up to 128, or 256 (recurrentgemma-9b's; its kernels split
+// hd over warps, see "hd 256" below). Query stream n reads kv stream n / G
 // (GQA), so dK, dV and dg sum over the G query streams of their kv stream.
 //
 // What bounds it on this card: operations. Per causal (query, key) pair
@@ -72,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "flash_mma.cuh"
 
@@ -586,6 +589,412 @@ bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- hd 256 ---------------------------------------------------------------
+// At hd 256 a warp cannot hold dK and dV (kernel A) or dQ (kernel B) for 16
+// rows across the whole head (256 or 128 registers a thread), and the
+// hd-128 plan's tiles (128 rows of K and V, or of Q and dO, beside a ring
+// of 32-row tiles) would take about 400 KB of shared memory at rows of 260
+// floats. So both kernels split hd in halves over warps: warp w owns the 16
+// rows of row group w % 4 (keys in A, queries in B) and the 128 columns of
+// half w / 4. The two warps of a row group multiply S (S^T in A) and dP over
+// their half of hd, hand the partial sums to each other through shared
+// memory (a named barrier per pair) and add them, own + other, which is the
+// same float in both warps (addition commutes). Both then form P and dS,
+// and accumulate their half of dV and dK, or of dQ: 128 or 64 registers a
+// thread. Kernel A stages 64 keys and rings 16-query tiles, kernel B 64
+// query rows and 16-key tiles (about 212 KB of shared memory each).
+//
+// Occupancy. At recurrentgemma-9b's shape (16 query heads on one kv head, S
+// 4096) one kernel-A CTA per (kv stream, 64 keys) would make 64 CTAs on 132
+// SMs, and the first, which walks every query row of 16 heads, would hold a
+// quarter of the kernel's work. So kernel A splits each kv stream's G query
+// heads over G / hps CTAs (hps the largest divisor of G up to G / 8; rg: 8
+// splits of 2 heads, 512 CTAs, the costliest first), each writing partial
+// dK, dV and dS sums to scratch, and a third kernel adds the partials in
+// split order: no atomics, and two calls give the same bits.
+struct Cfg256 {
+  static constexpr int HD = 256;
+  static constexpr int HALF = HD / 2;
+  static constexpr int LD = HD + 4;     // smem row (floats), 4 mod 32
+  static constexpr int KSH = HALF / 8;  // k-steps over a half; its n-tiles of dK, dV, dQ
+  static constexpr int RG = WARPS / 2;  // row groups of 16 rows
+  static constexpr int NT = 2;          // n-tiles of a 16-wide block of S
+  // kernel A: keys per CTA, queries per ring stage (Q and dO rows, lse, D)
+  static constexpr int A_BK = 16 * RG;
+  static constexpr int A_BQ = 8 * NT;
+  static constexpr int A_STAGE = 2 * A_BQ * LD + 2 * A_BQ;
+  // kernel B: query rows per CTA, keys per ring stage (K and V rows, log2 g)
+  static constexpr int B_BQ = 16 * RG;
+  static constexpr int B_BK = 8 * NT;
+  static constexpr int B_STAGE = 2 * B_BK * LD + B_BK;
+  static constexpr int XCH = 2 * NT * 4 * 32;  // a warp's exchange slot (floats)
+  static constexpr size_t smem_a() {
+    return (size_t)(2 * A_BK * LD + A_BK + STAGES * A_STAGE + WARPS * XCH) * sizeof(float);
+  }
+  static constexpr size_t smem_b() {
+    return (size_t)(2 * B_BQ * LD + STAGES * B_STAGE + WARPS * XCH) * sizeof(float);
+  }
+};
+
+// Heads of a kv stream's group per kernel-A CTA at hd 256: the largest
+// divisor of G that is at most G / 8, and at least 1.
+__host__ __device__ inline int heads_per_split(int G) {
+  for (int h = G / 8; h > 1; --h)
+    if (G % h == 0) return h;
+  return 1;
+}
+
+// The two warps of a row group add their partial S and dP accumulators:
+// each writes its own to its slot, the pair meets at named barrier `bar`
+// (64 threads), and each adds the other's to its own.
+template <int NT>
+__device__ __forceinline__ void pair_sum(float (&s)[NT][4], float (&p)[NT][4], float* mine,
+                                         const float* other, int lane, int bar) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mine[(nt * 4 + e) * 32 + lane] = s[nt][e];
+      mine[((NT + nt) * 4 + e) * 32 + lane] = p[nt][e];
+    }
+  asm volatile("bar.sync %0, 64;\n" ::"r"(bar) : "memory");
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] += other[(nt * 4 + e) * 32 + lane];
+      p[nt][e] += other[((NT + nt) * 4 + e) * 32 + lane];
+    }
+}
+
+// Kernel A at hd 256: one CTA per (kv stream, split of its query heads,
+// A_BK keys); the partial dK, dV (unscaled) and dS sums outside the window
+// of its keys over its hps heads, into part: dK [nsplit][Nk][S][256], dV
+// the same, then dg's [nsplit][Nk][S]. logg: log2(g + eps) from the prep
+// pass.
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_kv256_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ logg,
+                 const float* __restrict__ lse, const float* __restrict__ dout,
+                 const float* __restrict__ dvec, float* __restrict__ part, int S, int W,
+                 int G, int hps) {
+  using C = Cfg256;
+  constexpr int LD = C::LD;
+  constexpr int BK = C::A_BK;
+  constexpr int BQ = C::A_BQ;
+  constexpr int NT = C::NT;
+  constexpr int HALF = C::HALF;
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                       // [BK][LD]
+  float* v_s = k_s + BK * LD;              // [BK][LD]
+  float* lg_s = v_s + BK * LD;             // [BK] log2(g + eps)
+  float* ring = lg_s + BK;                 // STAGES x {Q, dO [BQ][LD]; lse, D [BQ]}
+  float* xs = ring + STAGES * C::A_STAGE;  // [WARPS][XCH]
+
+  const int nsplit = G / hps;
+  const int nk = blockIdx.x / nsplit;
+  const int sp = blockIdx.x - nk * nsplit;
+  const int nkv = gridDim.x / nsplit;
+  const int kb = blockIdx.y * BK;  // key tile 0, the costliest, first
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int rg = warp % C::RG;
+  const int half = warp / C::RG;
+  const int kw = kb + 16 * rg;           // the warp's first key
+  const int nqt = (S - kb + BQ - 1) / BQ;  // query tiles from the diagonal on
+  const int tiles = hps * nqt;
+
+  // query tile t of the walk (head gi of the split, rows qb ..) into stage st
+  auto load = [&](int t, int st) {
+    const int gi = t / nqt;
+    const int qb = kb + (t - gi * nqt) * BQ;
+    const size_t n = (size_t)nk * G + sp * hps + gi;
+    float* qs = ring + st * C::A_STAGE;
+    copy_rows<LD>(qs, q, n, qb, BQ, S, C::HD);
+    copy_rows<LD>(qs + BQ * LD, dout, n, qb, BQ, S, C::HD);
+    copy_vec(qs + 2 * BQ * LD, lse, n, qb, BQ, S);
+    copy_vec(qs + 2 * BQ * LD + BQ, dvec, n, qb, BQ, S);
+  };
+
+  copy_rows<LD>(k_s, k, nk, kb, BK, S, C::HD);
+  copy_rows<LD>(v_s, v, nk, kb, BK, S, C::HD);
+  copy_vec(lg_s, logg, nk, kb, BK, S);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < tiles) load(st, st);
+    async_copy::commit();
+  }
+
+  float dka[C::KSH][4], dva[C::KSH][4];
+#pragma unroll
+  for (int nt = 0; nt < C::KSH; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+  float dgp[2] = {0.f, 0.f};
+  const float scale2 = LOG2E / sqrtf((float)C::HD);
+  const float* krow = k_s + (16 * rg + gq) * LD + HALF * half + tq;
+  const float* vrow = v_s + (16 * rg + gq) * LD + HALF * half + tq;
+  float* xmine = xs + warp * C::XCH;
+  const float* xother = xs + (warp ^ C::RG) * C::XCH;
+
+  for (int t = 0; t < tiles; ++t) {
+    async_copy::wait<STAGES - 2>();
+    __syncthreads();  // tile t landed; the stage of tile t - 1 is free
+    if (t + STAGES - 1 < tiles) load(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    async_copy::commit();
+    const int gi = t / nqt;
+    const int qb = kb + (t - gi * nqt) * BQ;
+    const int mode = block_mode(qb, BQ, kw, 16, S, W);  // the same for the pair
+    if (mode < 0) continue;
+    const float* qs = ring + (t % STAGES) * C::A_STAGE;
+    const float* dos = qs + BQ * LD;
+    const float* lse_s = dos + BQ * LD;
+    const float* d_s = lse_s + BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T over the warp's half of hd
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < C::KSH; ++ks) {
+      float a[4];
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      load_a<LD>(a, krow + ks * 8);
+      split(a, kh, kl);
+      load_a<LD>(a, vrow + ks * 8);
+      split(a, vh, vl);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float b[2];
+        uint32_t bh[2], bl[2];
+        load_kfrag(b, qs + (nt * 8 + gq) * LD + HALF * half + ks * 8 + tq);
+        split(b, bh, bl);
+        mma_3xtf32(st[nt], kh, kl, bh, bl);
+        load_kfrag(b, dos + (nt * 8 + gq) * LD + HALF * half + ks * 8 + tq);
+        split(b, bh, bl);
+        mma_3xtf32(dpt[nt], vh, vl, bh, bl);
+      }
+    }
+    // the two halves' sums, then P^T and dS^T (and dg) under the block's mask
+    pair_sum<NT>(st, dpt, xmine, xother, lane, 1 + rg);
+    const float lg[2] = {lg_s[16 * rg + gq], lg_s[16 * rg + gq + 8]};
+    if (mode == OUTSIDE)
+      kv_block<OUTSIDE>(st, dpt, dgp, qb, kw, lane, S, W, scale2, lse_s, d_s, lg);
+    else if (mode == INSIDE)
+      kv_block<INSIDE>(st, dpt, dgp, qb, kw, lane, S, W, scale2, lse_s, d_s, lg);
+    else
+      kv_block<EDGE>(st, dpt, dgp, qb, kw, lane, S, W, scale2, lse_s, d_s, lg);
+
+    // dV += P^T dO, then dK += dS^T Q, over the warp's half
+    {
+      uint32_t ah[NT][4], al[NT][4];
+      acc_frags(st, ah, al);
+      add_product<NT, C::KSH, LD>(dva, ah, al, dos + HALF * half, HALF, lane);
+    }
+    {
+      uint32_t ah[NT][4], al[NT][4];
+      acc_frags(dpt, ah, al);
+      add_product<NT, C::KSH, LD>(dka, ah, al, qs + HALF * half, HALF, lane);
+    }
+  }
+  async_copy::wait<0>();
+
+  const size_t kvn = (size_t)nkv * S;
+  float* pk = part + (size_t)sp * kvn * C::HD;
+  float* pv = part + ((size_t)nsplit + sp) * kvn * C::HD;
+  float* pg = part + (size_t)2 * nsplit * kvn * C::HD + (size_t)sp * kvn;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = kw + gq + 8 * h;
+    if (j < S) {
+      const size_t off = ((size_t)nk * S + j) * C::HD + HALF * half + 2 * tq;
+#pragma unroll
+      for (int nt = 0; nt < C::KSH; ++nt) {
+        mma::store2<float>(pk + off + nt * 8, dka[nt][2 * h], dka[nt][2 * h + 1]);
+        mma::store2<float>(pv + off + nt * 8, dva[nt][2 * h], dva[nt][2 * h + 1]);
+      }
+    }
+    float x = dgp[h];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    if (half == 0 && tq == 0 && j < S) pg[(size_t)nk * S + j] = x;
+  }
+}
+
+// Kernel B at hd 256: one CTA per (query stream, B_BQ rows); dQ of its rows.
+// logg: log2(g + eps) [Nq / G, S] from the prep pass.
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_q256_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ logg,
+                const float* __restrict__ lse, const float* __restrict__ dout,
+                const float* __restrict__ dvec, float* __restrict__ dq, int S, int W,
+                int G) {
+  using C = Cfg256;
+  constexpr int LD = C::LD;
+  constexpr int BQ = C::B_BQ;
+  constexpr int BK = C::B_BK;
+  constexpr int NT = C::NT;
+  constexpr int HALF = C::HALF;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                       // [BQ][LD]
+  float* do_s = q_s + BQ * LD;             // [BQ][LD]
+  float* ring = do_s + BQ * LD;            // STAGES x {K, V [BK][LD]; log2(g + eps) [BK]}
+  float* xs = ring + STAGES * C::B_STAGE;  // [WARPS][XCH]
+
+  const int n = blockIdx.x;
+  const int nk = n / G;
+  const int qb = (gridDim.y - 1 - blockIdx.y) * BQ;  // costliest first
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int rg = warp % C::RG;
+  const int half = warp / C::RG;
+  const int qw = qb + 16 * rg;  // the warp's first row
+  const int tiles = (min(qb + BQ, S) - 1) / BK + 1;  // key tiles to the diagonal
+
+  auto load = [&](int t, int st) {
+    float* ks = ring + st * C::B_STAGE;
+    copy_rows<LD>(ks, k, nk, t * BK, BK, S, C::HD);
+    copy_rows<LD>(ks + BK * LD, v, nk, t * BK, BK, S, C::HD);
+    copy_vec(ks + 2 * BK * LD, logg, nk, t * BK, BK, S);
+  };
+
+  copy_rows<LD>(q_s, q, n, qb, BQ, S, C::HD);
+  copy_rows<LD>(do_s, dout, n, qb, BQ, S, C::HD);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < tiles) load(st, st);
+    async_copy::commit();
+  }
+
+  // the lane's rows i0 and i0 + 8: lse in base 2 and D
+  const int i0 = qw + gq;
+  float l2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + 8 * h;
+    l2[h] = i < S ? lse[(size_t)n * S + i] * LOG2E : 0.f;
+    dd[h] = i < S ? dvec[(size_t)n * S + i] : 0.f;
+  }
+  float dqa[C::KSH][4];
+#pragma unroll
+  for (int nt = 0; nt < C::KSH; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[nt][e] = 0.f;
+  const float scale2 = LOG2E / sqrtf((float)C::HD);
+  const float* qrow = q_s + (16 * rg + gq) * LD + HALF * half + tq;
+  const float* dorow = do_s + (16 * rg + gq) * LD + HALF * half + tq;
+  float* xmine = xs + warp * C::XCH;
+  const float* xother = xs + (warp ^ C::RG) * C::XCH;
+
+  for (int t = 0; t < tiles; ++t) {
+    async_copy::wait<STAGES - 2>();
+    __syncthreads();  // tile t landed; the stage of tile t - 1 is free
+    if (t + STAGES - 1 < tiles) load(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    async_copy::commit();
+    const int kb = t * BK;
+    const int mode = block_mode(qw, 16, kb, BK, S, W);  // the same for the pair
+    if (mode < 0) continue;
+    const float* ks = ring + (t % STAGES) * C::B_STAGE;
+    const float* vs = ks + BK * LD;
+    const float* lg_s = vs + BK * LD;
+
+    // S = Q K^T and dP = dO V^T over the warp's half of hd
+    float sc[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < C::KSH; ++kd) {
+      float a[4];
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      load_a<LD>(a, qrow + kd * 8);
+      split(a, qh, ql);
+      load_a<LD>(a, dorow + kd * 8);
+      split(a, oh, ol);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float b[2];
+        uint32_t bh[2], bl[2];
+        load_kfrag(b, ks + (nt * 8 + gq) * LD + HALF * half + kd * 8 + tq);
+        split(b, bh, bl);
+        mma_3xtf32(sc[nt], qh, ql, bh, bl);
+        load_kfrag(b, vs + (nt * 8 + gq) * LD + HALF * half + kd * 8 + tq);
+        split(b, bh, bl);
+        mma_3xtf32(dp[nt], oh, ol, bh, bl);
+      }
+    }
+    // the two halves' sums, then dS under the block's mask
+    pair_sum<NT>(sc, dp, xmine, xother, lane, 1 + rg);
+    if (mode == OUTSIDE)
+      q_block<OUTSIDE>(sc, dp, i0, kb, lane, S, W, scale2, lg_s, l2, dd);
+    else if (mode == INSIDE)
+      q_block<INSIDE>(sc, dp, i0, kb, lane, S, W, scale2, lg_s, l2, dd);
+    else
+      q_block<EDGE>(sc, dp, i0, kb, lane, S, W, scale2, lg_s, l2, dd);
+
+    // dQ += dS K over the warp's half
+    uint32_t ah[NT][4], al[NT][4];
+    acc_frags(sc, ah, al);
+    add_product<NT, C::KSH, LD>(dqa, ah, al, ks + HALF * half, HALF, lane);
+  }
+  async_copy::wait<0>();
+
+  const float dscale = 1.f / sqrtf((float)C::HD);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + 8 * h;
+    if (i >= S) continue;
+    float* dqr = dq + ((size_t)n * S + i) * C::HD + HALF * half + 2 * tq;
+#pragma unroll
+    for (int nt = 0; nt < C::KSH; ++nt)
+      mma::store2<float>(dqr + nt * 8, dqa[nt][2 * h] * dscale, dqa[nt][2 * h + 1] * dscale);
+  }
+}
+
+// dK (times 1 / sqrt(hd)), dV and dg (over g + eps) from kernel A's
+// partials at hd 256, added in split order. kvn: kv rows, Nk S.
+__global__ void __launch_bounds__(THREADS)
+bwd_reduce256_kernel(const float* __restrict__ part, const float* __restrict__ g,
+                     float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dg,
+                     long long kvn, int nsplit, float dscale, float eps) {
+  const long long n4 = kvn * (Cfg256::HD / 4);  // float4s of dK, and of dV
+  const float4* p4 = reinterpret_cast<const float4*>(part);
+  const float* pg = part + 2 * (size_t)nsplit * n4 * 4;
+  for (long long e = (long long)blockIdx.x * THREADS + threadIdx.x; e < 2 * n4 + kvn;
+       e += (long long)gridDim.x * THREADS) {
+    if (e < 2 * n4) {
+      const bool is_v = e >= n4;
+      const long long i = is_v ? e - n4 : e;
+      const float4* src = p4 + (is_v ? (size_t)nsplit * n4 : 0) + i;
+      float4 acc = src[0];
+      for (int s = 1; s < nsplit; ++s) {
+        const float4 x = src[(size_t)s * n4];
+        acc.x += x.x;
+        acc.y += x.y;
+        acc.z += x.z;
+        acc.w += x.w;
+      }
+      if (is_v)
+        reinterpret_cast<float4*>(dv)[i] = acc;
+      else
+        reinterpret_cast<float4*>(dk)[i] =
+            make_float4(acc.x * dscale, acc.y * dscale, acc.z * dscale, acc.w * dscale);
+    } else {
+      const long long j = e - 2 * n4;
+      float x = pg[j];
+      for (int s = 1; s < nsplit; ++s) x += pg[(size_t)s * kvn + j];
+      dg[j] = x / (g[j] + eps);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   if (smem > 48 * 1024)
@@ -617,26 +1026,80 @@ int launch(const float* q, const float* k, const float* v, const float* g,
   return (int)cudaGetLastError();
 }
 
+// hd 256: kernel B (dQ), kernel A (partial dK, dV, dg over nsplit CTAs of
+// each kv stream's heads), then their sum; part holds the partials.
+int launch256(const float* q, const float* k, const float* v, const float* g,
+              const float* lse, const float* dout, const float* dvec, float* dq, float* dk,
+              float* dv, float* dg, float* part, int Nq, int S, int W, int G, float eps,
+              cudaStream_t st) {
+  using C = Cfg256;
+  const int hps = heads_per_split(G);
+  const long long ctas_a = (long long)(Nq / G) * (G / hps);
+  const int tiles_a = (S + C::A_BK - 1) / C::A_BK;
+  const int tiles_b = (S + C::B_BQ - 1) / C::B_BQ;
+  if (tiles_a > 65535 || tiles_b > 65535 || ctas_a > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(bwd_q256_kernel, C::smem_b());
+  if (err != cudaSuccess) return (int)err;
+  err = set_smem(bwd_kv256_kernel, C::smem_a());
+  if (err != cudaSuccess) return (int)err;
+  // A and B read log2(g + eps) from dg (the prep pass); the sum writes dg
+  bwd_q256_kernel<<<dim3(Nq, tiles_b), THREADS, C::smem_b(), st>>>(
+      q, k, v, dg, lse, dout, dvec, dq, S, W, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_kv256_kernel<<<dim3((unsigned)ctas_a, tiles_a), THREADS, C::smem_a(), st>>>(
+      q, k, v, dg, lse, dout, dvec, part, S, W, G, hps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long kvn = (long long)(Nq / G) * S;
+  const long long work = 2 * kvn * (C::HD / 4) + kvn;
+  const long long blocks = std::min<long long>((work + THREADS - 1) / THREADS, 8192);
+  bwd_reduce256_kernel<<<(unsigned)blocks, THREADS, 0, st>>>(
+      part, g, dk, dv, dg, kvn, G / hps, 1.f / sqrtf((float)C::HD), eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Dynamic shared memory (bytes) of kernel A (which 0) or B (which 1) at
 // head dim hd.
 extern "C" long long gated_flash_bwd_smem_bytes(int hd, int which) {
   if (hd <= 64) return (long long)(which ? Cfg<64>::smem_b() : Cfg<64>::smem_a());
-  return (long long)(which ? Cfg<128>::smem_b() : Cfg<128>::smem_a());
+  if (hd <= 128) return (long long)(which ? Cfg<128>::smem_b() : Cfg<128>::smem_a());
+  return (long long)(which ? Cfg256::smem_b() : Cfg256::smem_a());
+}
+
+// CTAs kernel A splits each kv stream's G query heads over (1 below hd
+// 256). The scratch size below reads it; the export, like the shared
+// memory size above, is a diagnostic for chip_smoke.py's report.
+extern "C" int gated_flash_bwd_splits(int hd, int G) {
+  if (hd != 256 || G <= 0) return 1;
+  return G / heads_per_split(G);
+}
+
+// Floats of scratch (part) the backward needs: kernel A's partial dK, dV
+// and dg sums at hd 256, none below.
+extern "C" long long gated_flash_bwd_scratch_floats(int Nq, int S, int hd, int G) {
+  if (hd != 256 || G <= 0 || Nq % G != 0) return 0;
+  return (long long)gated_flash_bwd_splits(hd, G) * (Nq / G) * S *
+         (2 * Cfg256::HD + 1);
 }
 
 // Gradients of gated_flash (float32): dq [Nq, S, hd], dk and dv [Nq / G,
 // S, hd], dg [Nq / G, S] from q, k, v, g, the forward's output o and lse,
-// and do; dvec [Nq, S] is scratch for D. Returns cudaGetLastError() after
-// the launches (0 = launched).
+// and do; dvec [Nq, S] is scratch for D, part scratch of
+// gated_flash_bwd_scratch_floats floats (null where that is 0). hd a
+// multiple of 8 up to 128, or 256. Returns cudaGetLastError() after the
+// launches (0 = launched).
 extern "C" int gated_flash_bwd(const float* q, const float* k, const float* v,
                                const float* g, const float* o, const float* lse,
                                const float* dout, float* dq, float* dk, float* dv,
-                               float* dg, float* dvec, int Nq, int S, int hd, int W,
-                               int G, float eps, void* stream) {
+                               float* dg, float* dvec, float* part, int Nq, int S,
+                               int hd, int W, int G, float eps, void* stream) {
   if (Nq <= 0 || S <= 0) return 0;
-  if (hd <= 0 || hd > 128 || hd % 8 != 0 || G <= 0 || Nq % G != 0)
+  if (hd <= 0 || (hd > 128 && hd != 256) || hd % 8 != 0 || G <= 0 || Nq % G != 0 ||
+      (hd == 256 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = (long long)Nq * S;
@@ -646,7 +1109,10 @@ extern "C" int gated_flash_bwd(const float* q, const float* k, const float* v,
                                                         (long long)(Nq / G) * S, eps);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // hd 64 and 128 (qwen3-0.6b's) take kernels with hd fixed at compile time
+  // hd 64, 128 (qwen3-0.6b's) and 256 (recurrentgemma-9b's) take kernels
+  // with hd fixed at compile time
+  if (hd == 256)
+    return launch256(q, k, v, g, lse, dout, dvec, dq, dk, dv, dg, part, Nq, S, W, G, eps, st);
   if (hd == 64)
     return launch<64, true>(q, k, v, g, lse, dout, dvec, dq, dk, dv, dg, Nq, S, hd, W, G, eps, st);
   if (hd < 64)

@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("gate_mlp", "paged_decode", "vertical_slash", "gated_flash",
-           "rglru_scan", "gate_mlp_bwd", "gated_flash_bwd")
+           "rglru_scan", "gate_mlp_bwd", "gated_flash_bwd",
+           "rglru_scan_bwd")
 _LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -162,15 +163,24 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.gated_flash.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
         lib.gated_flash.restype = i
     elif name == "gated_flash_bwd":
-        lib.gated_flash_bwd.argtypes = [p] * 12 + [i] * 5 + [f, p]
+        lib.gated_flash_bwd.argtypes = [p] * 13 + [i] * 5 + [f, p]
         lib.gated_flash_bwd.restype = i
         lib.gated_flash_bwd_smem_bytes.argtypes = [i, i]
         lib.gated_flash_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.gated_flash_bwd_splits.argtypes = [i, i]
+        lib.gated_flash_bwd_splits.restype = i
+        lib.gated_flash_bwd_scratch_floats.argtypes = [i, i, i, i]
+        lib.gated_flash_bwd_scratch_floats.restype = ctypes.c_longlong
     elif name == "rglru_scan":
         lib.rglru_scan_f32.argtypes = [p, p, p, i, i, i, p, p]
         lib.rglru_scan_f32.restype = i
         lib.rglru_scan_scratch_words.argtypes = [i, i, i]
         lib.rglru_scan_scratch_words.restype = ctypes.c_longlong
+    elif name == "rglru_scan_bwd":
+        lib.rglru_scan_bwd_f32.argtypes = [p, p, p, p, p, i, i, i, p, p]
+        lib.rglru_scan_bwd_f32.restype = i
+        lib.rglru_scan_bwd_scratch_words.argtypes = [i, i, i]
+        lib.rglru_scan_bwd_scratch_words.restype = ctypes.c_longlong
 
 
 def load(name: str) -> ctypes.CDLL:

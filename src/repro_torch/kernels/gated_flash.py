@@ -18,9 +18,10 @@ runs through :class:`GatedFlashFunction`: the forward kernel also writes
 each row's log-sum-exp, and :func:`gated_flash_bwd`
 (``csrc/gated_flash_bwd.cu``: its five products in 3xTF32 on the tensor
 cores, tiles through a ``cp.async`` ring; f32, hd a multiple of 8 up to
-128; its plain version :func:`gated_flash_bwd_plain`) computes dq, dk,
-dv and dg.
-Anything else that requires grad on CUDA (bf16, hd 256) raises.
+128, or 256 with hd split over warps and each kv stream's query heads
+split over CTAs; its plain version :func:`gated_flash_bwd_plain`)
+computes dq, dk, dv and dg.
+Anything else that requires grad on CUDA (bf16, hd in 136..248) raises.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ NEG_INF = -1e30
 launches = build.LaunchCounter("gated_flash")
 bwd_launches = build.LaunchCounter("gated_flash_bwd")
 
-MAX_BWD_HD = 128
+# head dims of the backward kernel: multiples of 8 up to 128, and 256
+BWD_HD = tuple(range(8, 129, 8)) + (256,)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -161,11 +163,11 @@ def _forward_cuda(q, k, v, g, w_local: int, eps: float, group: int,
 
 def _check_bwd(q) -> None:
     hd = q.shape[-1]
-    if q.dtype != torch.float32 or hd > MAX_BWD_HD:
+    if q.dtype != torch.float32 or hd not in BWD_HD:
         raise RuntimeError(
-            f"gated_flash: the backward kernel takes float32 with hd <= "
-            f"{MAX_BWD_HD} (got {q.dtype}, hd {hd}); run the forward under "
-            f"torch.no_grad() or in float32")
+            f"gated_flash: the backward kernel takes float32 with hd a "
+            f"multiple of 8 up to 128, or 256 (got {q.dtype}, hd {hd}); run "
+            f"the forward under torch.no_grad() or in float32")
 
 
 def gated_flash_bwd(q, k, v, g, o, lse, do, *, w_local: int,
@@ -190,12 +192,17 @@ def gated_flash_bwd(q, k, v, g, o, lse, do, *, w_local: int,
     dg = torch.empty_like(g)
     dvec = torch.empty((nq, s), dtype=torch.float32, device=q.device)
     lib = build.load("gated_flash_bwd")
+    # hd 256: the partial dk, dv and dg sums of each kv stream's head splits
+    floats = lib.gated_flash_bwd_scratch_floats(nq, s, hd, group)
+    part = (torch.empty(floats, dtype=torch.float32, device=q.device)
+            if floats else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.gated_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dg.data_ptr(), dvec.data_ptr(),
+            part.data_ptr() if part is not None else None,
             nq, s, hd, w_local, group, eps, stream)
     if rc != 0:
         raise RuntimeError(f"gated_flash_bwd kernel launch failed: CUDA "

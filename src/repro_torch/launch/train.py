@@ -6,16 +6,21 @@
         --seq 96 --lam 0.3 --out /tmp/gates.npz
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen3-0.6b --steps 4 --batch 2 --seq 2048 --log-every 1
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-9b --steps 3 --batch 1 --seq 4096 --log-every 1
 
 The flags are the reference's, plus ``--device`` (default ``cuda``; the
 CPU only when asked) and ``--log-every``. The backbone is random, drawn
 from ``--seed`` with a ``torch.Generator`` (the repository holds no
 pretrained base), and the run is float32, as the reference forces. On
 CUDA the student's write-gated attention and gate run through the
-``gated_flash`` and ``gate_mlp`` kernels and their backward kernels; an
-arch whose training path reaches a kernel without a backward (the
-hybrid's ``rglru_scan``) raises on CUDA. The gates file is the
-reference's format (``training/checkpoint.py``).
+``gated_flash`` and ``gate_mlp`` kernels and their backward kernels, and
+the hybrid's RG-LRU blocks through ``rglru_scan`` and its backward kernel
+``rglru_scan_bwd`` (recurrentgemma-9b: hd 256, gate F 512); on the CPU
+autograd differentiates their plain versions. The sequence must pass the
+attention window (``wgkv.w_local``, or a ``local_attn`` block's
+``sliding_window``) for the distillation loss to be nonzero. The gates
+file is the reference's format (``training/checkpoint.py``).
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@ parameter counting.
 The counting mirrors the reference's arithmetic block type by block type,
 including types whose modules the port has not brought over yet (MoE,
 cross/encoder attention, xLSTM), so ``ModelConfig.param_count`` answers
-for every config. The VLM patch and whisper frame embedding helpers wait
-for their slices (ROADMAP.md Queue 1 item 7).
+for every config of the reference, the five the port registers
+(``configs/__init__.py``) among them. The VLM patch and whisper frame
+embedding helpers wait for their slice (ROADMAP.md Queue 1 item 7c).
 """
 from __future__ import annotations
 

@@ -42,7 +42,9 @@ from repro_torch.kernels.gated_flash import (gated_flash, gated_flash_bwd,
 from repro_torch.kernels.paged_decode import (paged_decode, paged_decode_plain,
                                               paged_decode_selected,
                                               paged_decode_selected_plain)
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
+                                            rglru_scan_bwd_plain,
+                                            rglru_scan_plain)
 from repro_torch.kernels.vertical_slash import (vertical_slash,
                                                 vertical_slash_plain)
 from repro_torch.models import rglru as RG
@@ -249,7 +251,9 @@ def _split_walk_case(rng, group, hd, dtype):
 
 
 @pytest.mark.parametrize("group,hd", [(1, 64), (2, 128), (16, 256),
-                                      (16, 64), (2, 256)])
+                                      (16, 64), (2, 256),
+                                      # the dense archs' G 3 and G 4
+                                      (3, 64), (3, 128), (4, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_decode_split_walk_matches_plain_on_gpu(group, hd, dtype):
     """The split-K walk with GQA-shared pages against the plain read, and
@@ -327,12 +331,16 @@ def test_gated_flash_kernel_matches_plain_on_gpu(s, hd, dtype):
 
 
 @pytest.mark.parametrize("group,s,hd", [(16, 200, 256), (16, 96, 64),
-                                        (1, 130, 128), (4, 77, 96)])
+                                        (1, 130, 128), (4, 77, 96),
+                                        # the dense archs' G 3 and G 4
+                                        (3, 130, 64), (3, 77, 128),
+                                        (4, 200, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gated_flash_grouped_rows_match_plain_on_gpu(group, s, hd, dtype):
     """The CTA folds (position, head) rows over a group that divides its
-    64 rows (G 16 with hd 256, as the hybrid runs it; G 4), or takes 64
-    positions of one head (G 1); ragged S throughout."""
+    64 rows (G 16 with hd 256, as the hybrid runs it; G 4), or one that
+    does not (G 3), or takes 64 positions of one head (G 1); ragged S
+    throughout. Two calls are bitwise equal."""
     rng = np.random.default_rng(22)
     q = rng.standard_normal((2 * group, s, hd)).astype(np.float32)
     k, v = (rng.standard_normal((2, s, hd)).astype(np.float32)
@@ -341,19 +349,22 @@ def test_gated_flash_grouped_rows_match_plain_on_gpu(group, s, hd, dtype):
     args = _cuda(q, k, v, dtype=TDT[dtype])
     (tg,) = _cuda(g)
     got = gated_flash(*args, tg, w_local=48, eps=1e-6, group=group)
+    again = gated_flash(*args, tg, w_local=48, eps=1e-6, group=group)
     want = gated_flash_plain(*args, tg, w_local=48, eps=1e-6, group=group)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+    assert torch.equal(got, again)
 
 
 def test_gated_flash_kernel_refuses_grad_on_gpu():
-    """The backward kernel takes float32 with hd <= 128: inputs that
-    require grad in bfloat16 or at hd 256 raise in the forward (no graph
-    that would miss its gradient is built); under torch.no_grad() both
-    run the forward kernel."""
+    """The backward kernel takes float32 with hd a multiple of 8 up to
+    128, or 256: inputs that require grad in bfloat16, or at hd 136 (the
+    forward kernel's range, not the backward's), raise in the forward (no
+    graph that would miss its gradient is built); under torch.no_grad()
+    both run the forward kernel."""
     rng = np.random.default_rng(14)
-    for hd, dtype in ((64, torch.bfloat16), (256, torch.float32)):
+    for hd, dtype in ((64, torch.bfloat16), (136, torch.float32)):
         q, k, v = _cuda(*(rng.standard_normal((2, 32, hd)).astype(np.float32)
                           for _ in range(3)), dtype=dtype)
         (g,) = _cuda(rng.uniform(0, 1, (2, 32)).astype(np.float32))
@@ -367,6 +378,8 @@ def test_gated_flash_kernel_refuses_grad_on_gpu():
     (1024, 96, 256, 2, 128, False), (1024, 1024, 256, 2, 128, False),
     (384, 0, 128, 2, 128, False),
     (1000, 100, 200, 3, 64, False),   # smollm's G 3: rows are positions
+    (1000, 100, 256, 3, 128, False),  # phi4-mini's G 3 at hd 128
+    (1000, 100, 256, 4, 128, False),  # phi3-medium's G 4
     (1000, 77, 128, 2, 128, True),    # every gpos INT32_MAX
     (600, 40, 64, 16, 256, False),    # rg's layout, 8 positions x 16 heads
     (257, 300, 64, 1, 72, False),     # hd 72: zero columns 72..79
@@ -744,6 +757,8 @@ def _rel(got, want):
     (24, 1000, 8, 256, 64),   # three rows per head, a ragged last tile
     (2, 64, 1, 1024, 16),     # shared memory for one x tile, padded rows
     (2, 64, 2, 1024, 32),     # one x tile, w1[h] rows unpadded
+    (1, 4096, 1, 512, 64),    # recurrentgemma-9b's training shape
+    (10, 2048, 5, 128, 64),   # smollm-360m's, batch 2 (F 128, 5 heads)
 ])
 def test_gate_mlp_bwd_kernel_matches_plain_on_gpu(rows, s, h, f, m):
     rng = np.random.default_rng(30)
@@ -808,6 +823,12 @@ def test_gate_mlp_bwd_reads_no_stale_scratch_on_gpu(rows, s, h, f, m):
     (2, 2, 64, 64, 1),        # group 1, W 1
     (4, 1, 96, 128, 96),      # MQA, W = S: dg exactly 0
     (8, 2, 320, 64, 100),     # group 4, the window edge across tiles
+    (16, 1, 1000, 256, 300),  # hd 256, recurrentgemma-9b's MQA group 16
+    (4, 1, 200, 256, 64),     # hd 256, group 4, S not a multiple of 64
+    (6, 2, 130, 256, 16),     # hd 256, two kv streams of group 3
+    (3, 1, 100, 256, 200),    # hd 256, W > S: dg exactly 0
+    (15, 5, 700, 64, 256),    # group 3 (smollm-360m's 15 / 5), hd 64
+    (6, 2, 200, 80, 16),      # group 3 at hd 80 (its reduced config)
 ])
 def test_gated_flash_bwd_kernel_matches_plain_on_gpu(nq, nk, s, hd, w):
     rng = np.random.default_rng(31)
@@ -863,7 +884,28 @@ def test_bwd_limit_catches_a_planted_fault(kernel):
     kernel built from a copy with the fault planted reads above it.
     Prints both errors (``-s``)."""
     rng = np.random.default_rng(32)
-    if kernel == "gate_mlp_bwd":
+    if kernel == "rglru_scan_bwd":
+        a = rng.uniform(0.9, 0.999, (2, 700, 40)).astype(np.float32)
+        x, dy = (rng.standard_normal((2, 700, 40)).astype(np.float32)
+                 for _ in range(2))
+        ta, tx, tdy = _cuda(a, x, dy)
+        h = rglru_scan_plain(ta, tx)
+        run = lambda: rglru_scan_bwd(ta, h, tdy)  # noqa: E731
+        want = rglru_scan_bwd_plain(ta, h, tdy)
+    elif kernel == "gated_flash_bwd_hd256":
+        q, do = (rng.standard_normal((4, 150, 256)).astype(np.float32)
+                 for _ in range(2))
+        k, v = (rng.standard_normal((1, 150, 256)).astype(np.float32)
+                for _ in range(2))
+        g = rng.uniform(0, 1, (1, 150)).astype(np.float32)
+        tq, tk, tv, tg, tdo = _cuda(q, k, v, g, do)
+        o, lse = gated_flash_plain(tq, tk, tv, tg, w_local=32, group=4,
+                                   with_lse=True)
+        run = lambda: gated_flash_bwd(tq, tk, tv, tg, o, lse, tdo,  # noqa
+                                      w_local=32, group=4)
+        want = gated_flash_bwd_plain(tq, tk, tv, tg, o, lse, tdo,
+                                     w_local=32, group=4)
+    elif kernel == "gate_mlp_bwd":
         _, w1, b1, w2, b2 = _gate_inputs(rng, 2, 1, 64, 32)
         x = rng.standard_normal((4, 128, 64)).astype(np.float32)
         args = _cuda(x, w1, b1, w2, b2)
@@ -893,10 +935,11 @@ def test_bwd_limit_catches_a_planted_fault(kernel):
 
 
 def test_forward_only_kernels_refuse_grad_on_gpu():
-    """``vertical_slash``, ``paged_decode``, ``paged_decode_selected`` and
-    ``rglru_scan`` have no backward: with grad enabled and an input that
-    requires it they raise (their fresh outputs would carry no graph);
-    under torch.no_grad() they run."""
+    """``vertical_slash``, ``paged_decode`` and ``paged_decode_selected``
+    have no backward: with grad enabled and an input that requires it they
+    raise (their fresh outputs would carry no graph); under
+    torch.no_grad() they run. (``rglru_scan`` has had a backward kernel
+    since ``csrc/rglru_scan_bwd.cu``; its tests are below.)"""
     rng = np.random.default_rng(33)
     q, k, v = _cuda(*(rng.standard_normal((2, 64, 32)).astype(np.float32)
                       for _ in range(3)))
@@ -906,24 +949,19 @@ def test_forward_only_kernels_refuse_grad_on_gpu():
     qd, kp, vp, tbl, lens = _cuda(*_paged_inputs(rng, 4, 64, 16, 12, 3))
     ids = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
     nsel = torch.ones(4, dtype=torch.int32, device="cuda")
-    a, b = _cuda(*(rng.uniform(0, 1, (2, 16, 64)).astype(np.float32)
-                   for _ in range(2)))
     calls = {
         "vertical_slash": lambda x: vertical_slash(x, k, v, kg, vg, gpos,
                                                    w_local=16),
         "paged_decode": lambda x: paged_decode(qd, x, vp, tbl, lens),
         "paged_decode_selected": lambda x: paged_decode_selected(
             qd, x, vp, tbl, lens, ids, nsel),
-        "rglru_scan": lambda x: rglru_scan(x, b),
     }
     leaves = {"vertical_slash": q, "paged_decode": kp,
-              "paged_decode_selected": kp, "rglru_scan": a}
+              "paged_decode_selected": kp}
     for name, call in calls.items():
         x = leaves[name].clone().requires_grad_()
-        with pytest.raises(RuntimeError, match="forward-only") as ex:
+        with pytest.raises(RuntimeError, match="forward-only"):
             call(x)
-        if name == "rglru_scan":
-            assert "rglru_scan backward" in str(ex.value)
         with torch.no_grad():
             call(x)
     torch.cuda.synchronize()
@@ -953,6 +991,91 @@ def test_gate_gradients_on_gpu_match_cpu_and_remat():
                                         remat=remat)
                       for remat in (False, True))
     torch.cuda.synchronize()
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5 * abs(float(want[0]))
+    for k, w in want[2].items():
+        assert _rel(got[2][k].cpu(), w) <= BWD_REL, k
+        assert torch.equal(got[2][k], got_remat[2][k]), k
+
+
+# ==========================================================================
+# the RG-LRU scan's backward (the hybrid's training path)
+# ==========================================================================
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,d", [
+    (1, 4096, 512),   # recurrentgemma-9b's 4096 steps (32 chunks)
+    (3, 1000, 200),   # ragged chunks and channel blocks
+    (2, 128, 33),     # one whole chunk
+    (1, 1, 5),        # one step
+])
+def test_rglru_scan_bwd_kernel_matches_plain_on_gpu(b, s, d, with_h0):
+    """The kernel against the plain reverse loop on the forward kernel's h,
+    and through the model's scan (the autograd Function; a carried-in
+    state folded into b[:, 0]) against autograd of the plain loop, a in
+    (0.9, 0.999) so that what a chunk hands down matters; two calls
+    bitwise equal, and the Function's backward is the same kernel."""
+    rng = np.random.default_rng(35)
+    a = rng.uniform(0.9, 0.999, (b, s, d)).astype(np.float32)
+    x, dy = (rng.standard_normal((b, s, d)).astype(np.float32)
+             for _ in range(2))
+    h0 = rng.standard_normal((b, d)).astype(np.float32)
+    ta, tx, tdy, th0 = _cuda(a, x, dy, h0)
+    xf = tx.clone()
+    if with_h0:
+        xf[:, 0] = xf[:, 0] + ta[:, 0] * th0
+    h = rglru_scan(ta, xf)
+    got = rglru_scan_bwd(ta, h, tdy)
+    again = rglru_scan_bwd(ta, h, tdy)
+    want = rglru_scan_bwd_plain(ta, h, tdy)
+    n = 3 if with_h0 else 2
+    ins = [t.clone().requires_grad_() for t in (ta, tx, th0)[:n]]
+    auto = torch.autograd.grad(
+        RG.rglru_scan(ins[0], ins[1], ins[2] if with_h0 else None), ins, tdy)
+    pins = [t.clone().requires_grad_() for t in (ta, tx, th0)[:n]]
+    px = pins[1]
+    if with_h0:
+        px = px.clone()
+        px[:, 0] = px[:, 0] + pins[0][:, 0] * pins[2]
+    plain_auto = torch.autograd.grad(rglru_scan_plain(pins[0], px), pins,
+                                     tdy)
+    torch.cuda.synchronize()
+    for g, w, r in zip(got, want, again):
+        assert _rel(g, w) <= BWD_REL
+        assert torch.equal(g, r)
+    for g, w in zip(auto, plain_auto):
+        assert _rel(g, w) <= BWD_REL
+    if not with_h0:
+        for g, w in zip(auto, got):
+            assert torch.equal(g, w)
+
+
+def test_hybrid_gate_gradients_on_gpu_match_cpu_and_remat():
+    """The trainer's gate gradients on the reduced hybrid (a 2-block RG-LRU
+    stem and two repeats, so the gradient runs back through RG-LRU blocks:
+    rglru_scan_bwd, gated_flash_bwd at hd 64 group 4, gate_mlp_bwd; S 96
+    past the 64-token window) through the kernels equal the CPU's plain
+    autograd within BWD_REL of each tensor's max, and ``remat=True``
+    gives the same bits."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import trainer as TR
+    from repro_torch.tree import tree_map
+    cfg = get_reduced_config("recurrentgemma-9b").replace(
+        dtype="float32", stem_pattern=("rglru", "rglru"), n_repeats=2)
+    params = init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(37).integers(
+        0, cfg.vocab_size - 8, (2, 96)))
+    want = TR.loss_and_grads(TR.get_gates(params), params, cfg,
+                             {"tokens": toks}, lam=0.3)
+    gparams = tree_map(lambda t: t.cuda(), params)
+    RS.bwd_launches.reset()
+    got, got_remat = (TR.loss_and_grads(TR.get_gates(gparams), gparams, cfg,
+                                        {"tokens": toks.cuda()}, lam=0.3,
+                                        remat=remat)
+                      for remat in (False, True))
+    torch.cuda.synchronize()
+    assert RS.bwd_launches.count == 2 * 2   # repeat 1's two RG-LRU blocks
+    assert float(want[1]["distill"]) > 0
     assert abs(float(got[0]) - float(want[0])) <= 1e-5 * abs(float(want[0]))
     for k, w in want[2].items():
         assert _rel(got[2][k].cpu(), w) <= BWD_REL, k
