@@ -137,6 +137,44 @@ phi3-medium-14b (run after rg-substrate):
   smollm-train — ``repro_torch.launch.train --arch smollm-360m --steps 2
                 --batch 2 --seq 2048``: ``gated_flash_bwd`` at G 3.
 
+The MoE archs (``attn_moe`` blocks: the write-gated attention and a
+Mixture-of-Experts FFN; run after smollm-train, one model at a time):
+
+  moe-reduced — granite-moe-3b-a800m's and qwen3-moe-235b-a22b's reduced
+                configs (4 experts, top 2) through ``dense_reduced`` on
+                card and CPU: tokens and integer cache state equal, logits
+                and the forward within 1e-4; every routing's top-k
+                boundary clears 1e-6 and twice the card's largest
+                probability difference from the CPU; a second card run
+                bitwise the first.
+  moe-serve   — ``launch.serve --arch granite-moe-3b-a800m`` at full
+                width (32 layers, d_model 1536, 24 / 8 heads of hd 64, 40
+                experts of d_ff 512, top 8; 12.3 GiB in f32): 4 x 64
+                tokens, 8 new, 2 slots, the tau probe and
+                ``verify_paged``; TTFT, TPOT and launches.
+  moe-prefill — its prefill of 4,096 tokens at budget 1,024 + 16 greedy
+                steps, and a warm repeat of the prefill.
+  moe-forward — its gated forward over 2,048 tokens; then one layer's MoE
+                FFN over 4,096 tokens twice, bitwise equal.
+  moe-train   — ``launch.train --arch granite-moe-3b-a800m --steps 2
+                --batch 2 --seq 2048``: step time, peak memory, 32
+                launches per step of each of ``gated_flash``,
+                ``gated_flash_bwd``, ``gate_mlp`` and ``gate_mlp_bwd``.
+  qwen3moe-d4 — qwen3-moe-235b-a22b at full width with its depth cut from
+                94 repeats to 4 (``cfg.replace(n_repeats=4)``; d_model
+                4096, 64 / 4 heads of hd 128: a GQA group of 16, 128
+                experts of d_ff 1536, untied vocab 151,936; 41.7 GiB in
+                f32): ``launch.serve`` of 2 x 64 tokens, prefill of 4,096
+                tokens at budget 1,024 + 16 steps, one layer's MoE FFN
+                twice, bitwise; peak memory of each.
+
+Phase 3 holds ``paged_decode`` (C 128 and C 1024, W 256), the gate
+(decode and a 4,096-token prefill), ``vertical_slash`` (S 4096) and
+``gated_flash`` (S 32 and 2048) at both MoE archs' heads (24 / 8 at hd
+64, 64 / 4 at hd 128), and rebuilds each with a fault of ``FWD_FAULTS``
+planted (a query row reading the wrong head, a CTA the wrong kv stream,
+the gate the wrong head's weights) that must read above 5e-5.
+
 Phase 3 also holds the three backward kernels against their plain
 versions and against autograd of the forward's plain version (1e-4 of
 each gradient's largest magnitude), at the train phases' shapes
@@ -150,7 +188,8 @@ against their plain versions, and ``paged_decode``, ``gate_mlp``,
 and 4.
 
 Each full-width model (32 GiB for recurrentgemma-9b in f32, 54.6 GiB for
-phi3-medium-14b) is freed before the next is built. The full-width
+phi3-medium-14b, 41.7 GiB for qwen3-moe-235b-a22b at 4 repeats) is
+freed before the next is built. The full-width
 weights are random (seeded);
 the point is that the port runs end to end on the card through its
 kernels and agrees with itself: the paged physical pool matches the
@@ -194,6 +233,9 @@ TOL = {"float32": 5e-5, "bfloat16": 1e-2}
 # the dense archs' heads: (q heads, kv heads, head_dim)
 DENSE_HEADS = {"smollm-360m": (15, 5, 64), "phi4-mini-3.8b": (24, 8, 128),
                "phi3-medium-14b": (40, 10, 128)}
+# the MoE archs' heads: granite's G 3 at hd 64, qwen3-moe's G 16 at hd 128
+MOE_HEADS = {"granite-moe-3b-a800m": (24, 8, 64),
+             "qwen3-moe-235b-a22b": (64, 4, 128)}
 
 
 class SmokeFailure(RuntimeError):
@@ -292,10 +334,12 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
-def gate_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256):
+def gate_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256,
+              runs: list | None = None):
     """The write gate over ``rows`` (batch x kv heads) of ``s`` tokens with
     ``f`` = 2 x head_dim features: qwen3-0.6b's h 8, f 256 by default,
-    recurrentgemma-9b's h 1, f 512."""
+    recurrentgemma-9b's h 1, f 512. ``runs``: gets (the kernel's call on
+    these inputs, the plain version's output), for a planted fault."""
     import torch
     from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain, plan
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -317,6 +361,8 @@ def gate_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256):
     check(err <= 1e-5, f"gate_mlp [{rows},{s},{f}] err {err:.3e} > 1e-5")
     check(torch.equal(got, again), f"gate_mlp [{rows},{s},{f}]: two calls "
           "differ")
+    if runs is not None:
+        runs.append((lambda: gate_mlp(*args), want))
     iters = 200 if s == 1 else 20
     ms = cuda_ms(lambda: gate_mlp(*args), iters)
     # at S 1 the events time is the host's dispatch; the device time is
@@ -341,7 +387,8 @@ def gate_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256):
 
 
 def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
-                    hkv: int = 8, grp: int = 2, hd: int = 128):
+                    hkv: int = 8, grp: int = 2, hd: int = 128,
+                    runs: list | None = None):
     """Two segments (global C, ring W) of a random dual cache with ragged
     gcnt (0, partial page, full, ...) and rows before and after the ring
     wraps, read by the kernel and by its plain version. qwen3-0.6b's heads
@@ -380,6 +427,9 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
           f"err {err:.3e} > {tol}")
     check(torch.equal(got, again), f"paged_decode {dtype} slots={slots} "
           f"C={c} W={w}: two calls differ")
+    if runs is not None:
+        runs.append((lambda: paged_decode(qf, *first, second=second,
+                                          group=grp), want))
     ms = cuda_ms(lambda: paged_decode(qf, *first, second=second, group=grp),
                  200)
     plain_ms = cuda_ms(lambda: paged_decode_plain(qf, *first, second=second,
@@ -580,7 +630,8 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
 
 
 def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
-                        w: int = 256, hq: int = 16):
+                        w: int = 256, hq: int = 16,
+                        runs: list | None = None):
     """The prefill path's shape: B = 1, S = 4096, C 1024 globals chosen by
     ``select_global`` from random gates (sinks, then the highest; unused
     slots at INT32_MAX). qwen3-0.6b's 16 q on 8 kv heads, hd 128, W 256 by
@@ -620,6 +671,9 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
           "output")
     check(err <= TOL[dtype], f"{tag} err {err:.3e} > {TOL[dtype]}")
     check(torch.equal(got, again), f"{tag}: two calls differ")
+    if runs is not None:
+        runs.append((lambda: vertical_slash(*args, w_local=w, group=grp),
+                     want))
     ms = cuda_ms(lambda: vertical_slash(*args, w_local=w, group=grp), 10)
     device_ms = graph_ms(lambda: vertical_slash(*args, w_local=w,
                                                 group=grp), 10)
@@ -668,7 +722,7 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
 
 def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
                      hd: int = 128, w: int = 256, causal: bool = False,
-                     hq: int = 16):
+                     hq: int = 16, runs: list | None = None):
     """The gated forward's shape: the forward phase's S = 2048 or the tau
     probe's S = 32, with qwen3-0.6b's 16 q on 8 kv heads, hd 128, W 256 by
     default; recurrentgemma-9b's 16 on 1 kv head, hd 256, W 2048 at S =
@@ -702,6 +756,9 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
           "output")
     check(err <= TOL[dtype], f"{tag} err {err:.3e} > {TOL[dtype]}")
     check(torch.equal(got, again), f"{tag}: two calls differ")
+    if runs is not None:
+        runs.append((lambda: gated_flash(*args, w_local=w, eps=eps,
+                                         group=grp), want))
     iters = 200 if s <= 64 else (10 if s <= 2048 else 4)
     ms = cuda_ms(lambda: gated_flash(*args, w_local=w, eps=eps, group=grp),
                  iters)
@@ -824,8 +881,27 @@ BWD_FAULTS = {
     "rglru_scan_bwd": ("carry = __uint_as_float((unsigned)v);",
                        "carry = 0.f * __uint_as_float((unsigned)v);"),
 }
+# faults planted in copies of the forward sources, each alone, at the MoE
+# archs' GQA shapes: each query row of a paged_decode CTA reading its
+# first head's query; the prefill attention kernels reading the next kv
+# stream's K/V; the gate taking the next head's weights (decode path and
+# tensor-core path). Each must read above the f32 limit TOL["float32"]
+FWD_FAULTS = {
+    "paged_decode": ("q_s[e] = to_f(q[row0 * hd + e]);",
+                     "q_s[e] = to_f(q[row0 * hd + e % hd]);"),
+    "vertical_slash": ("const int nk = n0 / G;",
+                       "const int nk = (n0 / G + 1) % (gridDim.x * F / G);"),
+    "gated_flash": ("const int nk = n0 / G;",
+                    "const int nk = (n0 / G + 1) % (gridDim.x * F / G);"),
+    "gate_mlp_decode": ("W1 = w1 + (size_t)h * F * M;\n  const int f0",
+                        "W1 = w1 + (size_t)((h + 1) % H) * F * M;\n"
+                        "  const int f0"),
+    "gate_mlp_mma": ("const int h = r % H;", "const int h = (r + 1) % H;"),
+}
+FAULTS = {**BWD_FAULTS, **FWD_FAULTS}
 # the source of a fault whose name is not its source's
-FAULT_SOURCES = {"gated_flash_bwd_hd256": "gated_flash_bwd"}
+FAULT_SOURCES = {"gated_flash_bwd_hd256": "gated_flash_bwd",
+                 "gate_mlp_decode": "gate_mlp", "gate_mlp_mma": "gate_mlp"}
 
 
 def _entry_name(mangled: str) -> str:
@@ -874,7 +950,8 @@ def rel_err(got, want) -> float:
 
 
 class Planted:
-    """The faults ``names`` (default: all of ``BWD_FAULTS``), each planted
+    """The faults ``names`` (default: all of ``BWD_FAULTS``; any of
+    ``FAULTS``), each planted
     alone in its own copy of the sources in a temporary directory and
     built there while the block runs (one nvcc per fault, all at once).
     The build module points at the first fault's copy; ``use(name)``
@@ -898,7 +975,7 @@ class Planted:
         self.dirs, procs = {}, {}
         for name in self.names:
             src = FAULT_SOURCES.get(name, name)
-            old, new = BWD_FAULTS[name]
+            old, new = FAULTS[name]
             csrc = self.tmp / name / "csrc"
             shutil.copytree(self.saved[0], csrc)
             path = csrc / f"{src}.cu"
@@ -1149,10 +1226,12 @@ def rglru_bwd_case(b: int, s: int, d: int, with_h0: bool, seed: int):
 
 
 def planted_faults(cases) -> dict:
-    """Each fault of ``BWD_FAULTS`` planted alone in a rebuild of its
-    backward kernel, run on the inputs of its cases (fault name, (run,
-    want)): its error against the plain backward must read above BWD_REL
-    (the sound kernels read below it above)."""
+    """Each fault of ``FAULTS`` planted alone in a rebuild of its kernel
+    (all built at once), run on the inputs of its cases (fault name, (run,
+    want)): a backward fault's error against the plain backward must read
+    above BWD_REL, relative to each gradient's max; a forward fault's max
+    abs error against the plain forward above TOL["float32"] (the sound
+    kernels read below those limits above)."""
     import torch
     out = {}
     with Planted(sorted({name for name, _ in cases})) as planted:
@@ -1160,9 +1239,15 @@ def planted_faults(cases) -> dict:
             planted.use(name)
             got = run()
             torch.cuda.synchronize()
-            err = max(rel_err(a, b) for a, b in zip(got, want))
-            check(err > BWD_REL, f"planted fault {name}: error {err:.3e} "
-                  f"<= {BWD_REL}: the limit would not see it")
+            if name in BWD_FAULTS:
+                err = max(rel_err(a, b) for a, b in zip(got, want))
+                limit = BWD_REL
+            else:
+                err = float((got.float() - want.float()).abs().max())
+                err = err if err == err else float("inf")  # NaN: far off
+                limit = TOL["float32"]
+            check(err > limit, f"planted fault {name}: error {err:.3e} "
+                  f"<= {limit}: the limit would not see it")
             out.setdefault(name, []).append(err)
     return out
 
@@ -1649,8 +1734,9 @@ def serve_compose(card: str):
     return counts
 
 
-def forward_gated(cfg, params):
-    """The write-gated full-sequence forward over 2048 tokens."""
+def forward_gated(cfg, params, tag: str = "forward-gated"):
+    """The write-gated full-sequence forward over 2048 tokens. Returns its
+    stats (``launches``: the counts)."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as T
@@ -1658,6 +1744,7 @@ def forward_gated(cfg, params):
     toks = torch.as_tensor(np.random.default_rng(13).integers(
         0, cfg.vocab_size - 8, (1, s)), device="cuda")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -1667,22 +1754,22 @@ def forward_gated(cfg, params):
     counts = read_counts()
     shape = tuple(res.gates.shape)
     check(counts["gated_flash"] == n_layers,
-          f"forward-gated: gated_flash launches {counts['gated_flash']} != "
+          f"{tag}: gated_flash launches {counts['gated_flash']} != "
           f"{n_layers}")
     check(counts["gate_mlp"] == n_layers,
-          f"forward-gated: gate_mlp launches {counts['gate_mlp']} != "
-          f"{n_layers}")
-    check(shape == (n_layers, 1, cfg.n_kv_heads, s),
-          f"forward-gated: gates {shape}")
+          f"{tag}: gate_mlp launches {counts['gate_mlp']} != {n_layers}")
+    check(shape == (n_layers, 1, cfg.n_kv_heads, s), f"{tag}: gates {shape}")
     check(bool(torch.isfinite(res.hidden).all()
                and ((res.gates > 0) & (res.gates < 1)).all()),
-          "forward-gated: non-finite hidden or gates outside (0, 1)")
+          f"{tag}: non-finite hidden or gates outside (0, 1)")
     stats = {"seq": s, "forward_ms": wall * 1e3, "gates": list(shape),
              "admitted_frac": float((res.gates >= cfg.wgkv.tau).float()
                                     .mean()),
+             "lb_loss": float(res.lb_loss),
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "launches": counts}
-    print("forward-gated: " + json.dumps(stats))
-    return counts
+    print(f"{tag}: " + json.dumps(stats))
+    return stats
 
 
 SUBSTRATE = ROOT / "checkpoints" / "bench_model_lam0.15.npz"
@@ -2540,7 +2627,7 @@ def grad_rglru_blocks(cfg) -> int:
     gradient evaluation."""
     order = list(cfg.stem_pattern) + list(cfg.block_pattern) * cfg.n_repeats
     first = next(i for i, bt in enumerate(order)
-                 if bt in ("attn", "local_attn"))
+                 if bt in ("attn", "attn_moe", "local_attn"))
     return sum(bt == "rglru" for bt in order[first:])
 
 
@@ -2569,7 +2656,7 @@ def cluster_gates(cfg, params, seed: int) -> None:
     import torch
     rng = np.random.default_rng(seed)
     for i, bt in enumerate(cfg.block_pattern):
-        if bt not in ("attn", "local_attn"):
+        if bt not in ("attn", "attn_moe", "local_attn"):
             continue
         gate = params["blocks"][f"b{i}"]["attn"]["gate"]
         r, h, f, m = gate["w1"].shape
@@ -2676,28 +2763,41 @@ def rg_train_substrate():
     return train_card_vs_cpu("rg-train-substrate", cfg, params, 73, 1e-3)
 
 
-def dense_serve(arch: str, card: str):
-    """``repro_torch.launch.serve --arch <arch>`` at full width: 2 requests
-    of 64 tokens, 8 new tokens, 2 slots, capacity 512, the startup tau
-    probe included (one ``gated_flash`` and ``gate_mlp`` per layer), then
-    one ``gate_mlp`` and one ``paged_decode`` per layer and position."""
+def dense_serve(arch: str, card: str, requests: int = 2,
+                repeats: int | None = None):
+    """``repro_torch.launch.serve --arch <arch>`` at full width:
+    ``requests`` requests of 64 tokens, 8 new tokens, 2 slots, capacity
+    512, the startup tau probe included (one ``gated_flash`` and
+    ``gate_mlp`` per layer), then one ``gate_mlp`` and one
+    ``paged_decode`` per layer and position. ``repeats``: the depth cut
+    to that many repeats (the CLI's config lookup answers the cut
+    config)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    n = get_config(arch).n_layers
+    cfg = get_config(arch)
+    if repeats is not None:
+        cfg = cfg.replace(n_repeats=repeats)
+    n = cfg.n_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    with position_counter() as pc:
-        res = serve.main(["--arch", arch, "--requests", "2", "--prompt-len",
-                          "64", "--max-new", "8", "--slots", "2",
-                          "--capacity", "512", "--quiet-stream"])
+    lookup = serve.get_config
+    serve.get_config = lambda name: cfg if name == arch else lookup(name)
+    try:
+        with position_counter() as pc:
+            res = serve.main(["--arch", arch, "--requests", str(requests),
+                              "--prompt-len", "64", "--max-new", "8",
+                              "--slots", "2", "--capacity", "512",
+                              "--quiet-stream"])
+    finally:
+        serve.get_config = lookup
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     outs, summ = res["outputs"], res["summary"]
-    check(len(outs) == 2 and all(len(o) == 8 for o in outs),
+    check(len(outs) == requests and all(len(o) == 8 for o in outs),
           f"{arch} serve: not every request returned 8 tokens: "
           f"{[len(o) for o in outs]}")
     check(res["paged_dev"] < 2e-3,
@@ -2740,7 +2840,10 @@ def dense_reduced(arch: str):
     (plain path): the gated forward of a 96-token numpy prompt (hidden and
     gates within 1e-4), then prefill of a 128-token prompt and 8 greedy
     decode steps: identical tokens and integer cache state, logits within
-    1e-4."""
+    1e-4. An MoE config's routing is recorded on both: every top-k
+    boundary clears 1e-6 and twice the card's largest probability
+    difference from the CPU, so no expert can flip between them; and a
+    second card run is bitwise the first."""
     import dataclasses
 
     import numpy as np
@@ -2748,6 +2851,7 @@ def dense_reduced(arch: str):
     from repro_torch.configs import get_reduced_config
     from repro_torch.kernels import ops
     from repro_torch.models import inference as I
+    from repro_torch.models import moe as MoE
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves_with_path, tree_map
     cfg = get_reduced_config(arch).replace(dtype="float32")
@@ -2772,24 +2876,56 @@ def dense_reduced(arch: str):
 
     scores = []
     inner = ops.write_gate
+    probs = {"cpu": [], "cuda": []}
+    inner_route = MoE.route
 
     def recording(*a, **kw):
         g = inner(*a, **kw)
         scores.append(g)
         return g
-    ops.write_gate = recording
+
+    def recording_route(*a, **kw):
+        r = inner_route(*a, **kw)
+        probs[r.probs.device.type].append(r.probs.detach().cpu())
+        return r
+    ops.write_gate, MoE.route = recording, recording_route
     try:
         cpu = run("cpu", cpu_params)
-    finally:
         ops.write_gate = inner
+        gpu_params = tree_map(lambda x: x.to("cuda"), cpu_params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reset_counts()
+        gpu = run("cuda", gpu_params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        ops.write_gate, MoE.route = inner, inner_route
     margin = min(float((g - cfg.wgkv.tau).abs().min()) for g in scores)
     check(margin >= 1e-3, f"{arch} reduced: gate margin {margin:.2e}")
-    gpu_params = tree_map(lambda x: x.to("cuda"), cpu_params)
-    torch.cuda.synchronize()
-    reset_counts()
-    gpu = run("cuda", gpu_params)
-    torch.cuda.synchronize()
-    counts = read_counts()
+    route = None
+    if cfg.moe is not None:
+        check(len(probs["cpu"]) == len(probs["cuda"]) > 0
+              and all(a.shape == b.shape
+                      for a, b in zip(probs["cpu"], probs["cuda"])),
+              f"{arch} reduced: the card and the CPU routed differently")
+        r_margin = min(MoE.routing_margin(p, cfg.moe.top_k)
+                       for p in probs["cpu"])
+        delta = max(float((a - b).abs().max())
+                    for a, b in zip(probs["cpu"], probs["cuda"]))
+        check(r_margin >= 1e-6 and r_margin > 2 * delta,
+              f"{arch} reduced: routing margin {r_margin:.2e} against a "
+              f"card-CPU probability difference of {delta:.2e}")
+        again = run("cuda", gpu_params)
+        torch.cuda.synchronize()
+        check(torch.equal(again[0].hidden, gpu[0].hidden)
+              and torch.equal(again[3], gpu[3])
+              and torch.equal(again[2], gpu[2]),
+              f"{arch} reduced: two card runs differ")
+        route = {"routings": len(probs["cpu"]), "margin": r_margin,
+                 "card_cpu_prob_max_diff": delta, "two_runs_bitwise": True}
     n = cfg.n_layers
     want = {"gated_flash": n, "vertical_slash": n,
             "gate_mlp": n * (2 + steps), "paged_decode": n * steps}
@@ -2819,7 +2955,9 @@ def dense_reduced(arch: str):
             "max_logit_err": err, "mean_admission": adm,
             "tokens": gpu[2][0].tolist(),
             "gcnt": gpu[4]["blocks"]["b0"].gcnt[:, 0].tolist(),
-            "launches": counts}
+            "wall_s": wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "routing": route, "launches": counts}
 
 
 def dense_arch(arch: str, card: str, seed: int):
@@ -2836,6 +2974,116 @@ def dense_arch(arch: str, card: str, seed: int):
     stats["reduced"] = dense_reduced(arch)
     print(f"dense-arch {arch}: " + json.dumps(stats), flush=True)
     return {k: stats[k]["launches"] for k in ("serve", "prefill", "reduced")}
+
+
+def moe_ffn_twice(cfg, params, seed: int, tag: str):
+    """Layer 0's MoE FFN over a [1, 4096, D] normal input drawn on the
+    card, called twice: the outputs are finite and bitwise equal (the
+    combine adds each token's entries in a fixed order, no atomics).
+    Returns the drop fraction, the load-balance loss and the call's time
+    (CUDA events)."""
+    import torch
+    from repro_torch.models import moe as MoE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 4096, cfg.d_model), generator=gen, device="cuda")
+    p = {k: v[0] for k, v in params["blocks"]["b0"]["moe"].items()}
+    with torch.no_grad():
+        y, aux = MoE.moe_ffn(p, cfg, x)
+        again, _ = MoE.moe_ffn(p, cfg, x)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()), f"{tag}: non-finite MoE output")
+        check(torch.equal(y, again), f"{tag}: two MoE calls differ")
+        ms = cuda_ms(lambda: MoE.moe_ffn(p, cfg, x), 5, warmup=1)
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    return {"tokens": 4096, "experts": e, "top_k": k,
+            "capacity": MoE.capacity(4096, e, k, cfg.moe.capacity_factor),
+            "drop_frac": float(aux["router_drop_frac"]),
+            "lb_loss": float(aux["lb_loss"]), "ms": ms,
+            "two_calls_bitwise": True}
+
+
+def moe_model(arch: str, seed: int, repeats: int | None = None):
+    """The full-width MoE config (f32; ``repeats``: its depth cut) and
+    random weights drawn on the card, with the peak memory of the draw."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch).replace(dtype="float32")
+    if repeats is not None:
+        cfg = cfg.replace(n_repeats=repeats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        "cuda")
+    torch.cuda.synchronize()
+    init = {"init_s": time.perf_counter() - t0,
+            "weights_gib": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params)) / 2 ** 30,
+            "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return cfg, params, init
+
+
+def moe_granite(card: str, seed: int):
+    """granite-moe-3b-a800m at full width (32 ``attn_moe`` layers,
+    d_model 1536, 24 / 8 heads of hd 64, 40 experts of d_ff 512, top 8;
+    f32, random weights): moe-serve (``launch.serve``, 4 x 64 tokens, 8
+    new, 2 slots, the tau probe and ``verify_paged``), moe-prefill (4,096
+    tokens at budget 1,024 + 16 greedy steps, and a warm repeat),
+    moe-forward (the gated forward over 2,048 tokens) and one layer's MoE
+    FFN twice, bitwise. Returns each path's launch counts."""
+    arch = "granite-moe-3b-a800m"
+    stats = {"arch": arch, "card": card}
+    stats["serve"] = dense_serve(arch, card, requests=4)
+    print("moe-serve: " + json.dumps(stats["serve"]), flush=True)
+    free_cuda()
+    cfg, params, stats["init"] = moe_model(arch, seed)
+    stats["prefill"], _ = prefill_decode(cfg, params, seed, "moe-prefill")
+    print("moe-prefill: " + json.dumps(stats["prefill"]), flush=True)
+    free_cuda()
+    stats["forward"] = forward_gated(cfg, params, tag="moe-forward")
+    free_cuda()
+    stats["moe_ffn"] = moe_ffn_twice(cfg, params, seed, "moe-ffn")
+    del params
+    free_cuda()
+    print(f"moe {arch}: " + json.dumps({k: stats[k] for k in (
+        "init", "moe_ffn")}), flush=True)
+    return {k: stats[k]["launches"] for k in ("serve", "prefill", "forward")}
+
+
+def qwen3moe_d4(card: str, seed: int):
+    """qwen3-moe-235b-a22b at full width with its depth cut from 94
+    repeats to 4 (d_model 4096, 64 / 4 heads of hd 128 with qk-norm, 128
+    experts of d_ff 1536, top 8, untied vocab 151,936; 41.7 GiB of f32
+    weights): ``launch.serve`` of 2 x 64 tokens, prefill of 4,096 tokens
+    at budget 1,024 + 16 greedy steps, and one layer's MoE FFN twice,
+    bitwise. Peak memory of each."""
+    arch = "qwen3-moe-235b-a22b"
+    stats = {"arch": arch, "repeats": 4, "card": card}
+    stats["serve"] = dense_serve(arch, card, requests=2, repeats=4)
+    free_cuda()
+    cfg, params, stats["init"] = moe_model(arch, seed, repeats=4)
+    stats["prefill"], _ = prefill_decode(cfg, params, seed,
+                                         "qwen3moe-d4 prefill")
+    free_cuda()
+    stats["moe_ffn"] = moe_ffn_twice(cfg, params, seed, "qwen3moe-d4 ffn")
+    del params
+    free_cuda()
+    print("qwen3moe-d4: " + json.dumps(stats), flush=True)
+    return {k: stats[k]["launches"] for k in ("serve", "prefill")}
+
+
+def moe_reduced():
+    """Both MoE archs' reduced configs (4 experts, top 2) on card and CPU
+    (``dense_reduced``): tokens and integer state equal, logits within
+    1e-4, the routing margin, two card runs bitwise."""
+    out = {}
+    for arch in MOE_HEADS:
+        stats = dense_reduced(arch)
+        print(f"moe-reduced {arch}: " + json.dumps(stats), flush=True)
+        out[arch] = stats["launches"]
+    return out
 
 
 def main() -> int:
@@ -2936,18 +3184,6 @@ def main() -> int:
     fb_g3, fb_g3_run = flash_bwd_case(30, 2048, seed=47, nk=10, hd=64)
     fb_g3_80, _ = flash_bwd_case(6, 256, seed=48, nk=2, hd=80, w=16)
     gb_rg, gb_rg_run = gate_bwd_case(rows=1, s=4096, seed=49, h=1, f=512)
-    planted = planted_faults([("gate_mlp_bwd", gb_train_run),
-                              ("gate_mlp_bwd", gb_sub_run),
-                              ("gate_mlp_bwd", gb_rg_run),
-                              ("gated_flash_bwd", fb_train_run),
-                              ("gated_flash_bwd", fb_sub_run),
-                              ("gated_flash_bwd", fb_g3_run),
-                              ("gated_flash_bwd", fb_rg_run),
-                              ("gated_flash_bwd_hd256", fb_rg_run),
-                              ("rglru_scan_bwd", rb_train_run),
-                              ("rglru_scan_bwd", rb_h0_run)])
-    del gb_train_run, gb_sub_run, fb_train_run, fb_sub_run, rb_train_run
-    del rb_h0_run, fb_rg_run, fb_g3_run, gb_rg_run
     # the dense archs' odd groups at the shapes their full-width phases
     # give each forward kernel (f32): serve's dual cache (2 slots, C 128
     # of capacity 512, W 256), the gate at serve and over a 4,096-token
@@ -2975,6 +3211,52 @@ def main() -> int:
                 32, "float32", seed=sd + 5, hkv=hkv, hd=hd, hq=hq))]
     dense_kernels.append(("gated_flash smollm-360m", gated_flash_case(
         2048, "float32", seed=80, hkv=5, hd=64, hq=15)))
+    # the MoE archs' groups (granite's 24 / 8 at hd 64,
+    # qwen3-moe's 64 / 4 at hd 128: G 16 at hd 128) at the shapes their
+    # phases give each forward kernel (f32): serve's dual cache (C 128,
+    # W 256) and the offline decode's (C 1024), the gate at serve (2
+    # slots) and over a 4,096-token prefill, prefill's vertical_slash,
+    # and gated_flash at the tau probe's S 32 and the forward's S 2048;
+    # each kernel's first sound case also runs its planted fault
+    moe_kernels, fwd_runs = [], []
+    for i, (arch, (hq, hkv, hd)) in enumerate(MOE_HEADS.items()):
+        sd, grp = 90 + 10 * i, hq // hkv
+        runs = {k: [] for k in FWD_FAULTS}
+        moe_kernels += [
+            (f"paged_decode {arch}", dual_cache_case(
+                2, 128, 256, torch.float32, seed=sd, hkv=hkv, grp=grp,
+                hd=hd, runs=runs["paged_decode"])),
+            (f"paged_decode {arch}", dual_cache_case(
+                1, 1024, 256, torch.float32, seed=sd + 1, hkv=hkv, grp=grp,
+                hd=hd)),
+            (f"gate_mlp {arch}", gate_case(
+                rows=2 * hkv, s=1, seed=sd + 2, h=hkv, f=2 * hd,
+                runs=runs["gate_mlp_decode"])),
+            (f"gate_mlp {arch}", gate_case(
+                rows=hkv, s=4096, seed=sd + 3, h=hkv, f=2 * hd,
+                runs=runs["gate_mlp_mma"])),
+            (f"vertical_slash {arch}", vertical_slash_case(
+                "float32", seed=sd + 4, hkv=hkv, hd=hd, hq=hq,
+                runs=runs["vertical_slash"])),
+            (f"gated_flash {arch}", gated_flash_case(
+                32, "float32", seed=sd + 5, hkv=hkv, hd=hd, hq=hq,
+                runs=runs["gated_flash"])),
+            (f"gated_flash {arch}", gated_flash_case(
+                2048, "float32", seed=sd + 6, hkv=hkv, hd=hd, hq=hq))]
+        fwd_runs += [(name, r) for name, rs in runs.items() for r in rs]
+    free_cuda()
+    planted = planted_faults([("gate_mlp_bwd", gb_train_run),
+                              ("gate_mlp_bwd", gb_sub_run),
+                              ("gate_mlp_bwd", gb_rg_run),
+                              ("gated_flash_bwd", fb_train_run),
+                              ("gated_flash_bwd", fb_sub_run),
+                              ("gated_flash_bwd", fb_g3_run),
+                              ("gated_flash_bwd", fb_rg_run),
+                              ("gated_flash_bwd_hd256", fb_rg_run),
+                              ("rglru_scan_bwd", rb_train_run),
+                              ("rglru_scan_bwd", rb_h0_run), *fwd_runs])
+    del gb_train_run, gb_sub_run, fb_train_run, fb_sub_run, rb_train_run
+    del rb_h0_run, fb_rg_run, fb_g3_run, gb_rg_run, fwd_runs
     free_cuda()
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
                    ("gate_mlp", gate_prefill),
@@ -3007,10 +3289,12 @@ def main() -> int:
                    ("gated_flash_bwd rg", fb_rg),
                    ("gated_flash_bwd G3", fb_g3),
                    ("gated_flash_bwd G3", fb_g3_80),
-                   ("gate_mlp_bwd rg", gb_rg), *dense_kernels):
+                   ("gate_mlp_bwd rg", gb_rg), *dense_kernels,
+                   *moe_kernels):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
-    print("planted faults (relative error, limit "
-          f"{BWD_REL}): " + json.dumps(planted), flush=True)
+    print("planted faults (backward: relative error, limit "
+          f"{BWD_REL}; forward: max abs error, limit {TOL['float32']}): "
+          + json.dumps(planted), flush=True)
     # 4-10. the main paths, counts set to 0 just before each
     cli_counts = serve_cli(n_layers=28)
     long_counts = serve_long(card)
@@ -3022,7 +3306,7 @@ def main() -> int:
     del base
     free_cuda()
     dense_counts = prefill_dense(cfg, params, long_stats)
-    forward_counts = forward_gated(cfg, params)
+    forward_counts = forward_gated(cfg, params)["launches"]
     del params
     free_cuda()
     compose_counts = serve_compose(card)
@@ -3065,6 +3349,36 @@ def main() -> int:
     smollm_train_counts, _ = train_arch(card, "smollm-360m", steps=2,
                                         batch=2, seq=2048,
                                         tag="smollm-train")
+    # the MoE archs: their reduced configs on card and CPU,
+    # granite-moe-3b-a800m at full width (serve, prefill, gated forward,
+    # training) and qwen3-moe-235b-a22b at full width, 4 repeats
+    free_cuda()
+    moe_reduced_counts = moe_reduced()
+    free_cuda()
+    moe_counts = moe_granite(card, seed=70)
+    free_cuda()
+    moe_train_counts, moe_train_stats = train_arch(
+        card, "granite-moe-3b-a800m", steps=2, batch=2, seq=2048,
+        tag="moe-train")
+    free_cuda()
+    q3m_counts = qwen3moe_d4(card, seed=71)
+    moe_launches = {"moe_serve": moe_counts["serve"],
+                    "moe_prefill": moe_counts["prefill"],
+                    "moe_forward": moe_counts["forward"],
+                    "moe_train": moe_train_counts,
+                    "qwen3moe_d4_serve": q3m_counts["serve"],
+                    "qwen3moe_d4_prefill": q3m_counts["prefill"],
+                    **{f"moe_reduced {a}": c
+                       for a, c in moe_reduced_counts.items()}}
+
+    def moe_entry(name):
+        """A kernel's launches on each MoE path and its cases at the MoE
+        archs' heads."""
+        out = {"launches_moe": {k: c[name] for k, c in moe_launches.items()
+                                if c.get(name)}}
+        if name in moe_by:
+            out["moe_archs"] = moe_by[name]
+        return out
     rg = "recurrentgemma"
     attn = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     dense_by = {}  # kernel -> arch -> its cases at the dense archs' shapes
@@ -3072,9 +3386,14 @@ def main() -> int:
         name, arch = tag.split()
         dense_by.setdefault(name, {}).setdefault(arch, []).append(r)
 
+    moe_by = {}  # kernel -> arch -> its cases at the MoE archs' shapes
+    for tag, r in moe_kernels:
+        name, arch = tag.split()
+        moe_by.setdefault(name, {}).setdefault(arch, []).append(r)
+
     def dense_err(name):
-        return max(r["max_abs_err"] for rs in dense_by[name].values()
-                   for r in rs)
+        return max(r["max_abs_err"] for by in (dense_by, moe_by)
+                   for rs in by[name].values() for r in rs)
     kernels = [
         {"name": "gate_mlp", "route": "cuda",
          "source": "src/repro_torch/csrc/gate_mlp.cu",
@@ -3275,6 +3594,8 @@ def main() -> int:
          "ptxas": ptxas_info("rglru_scan_bwd"),
          "ragged_h0": rb_h0},
     ]
+    for entry in kernels:
+        entry.update(moe_entry(entry["name"]))
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,10 @@
 
 The archs the port runs are registered: the dense qwen3-0.6b,
 smollm-360m, phi4-mini-3.8b and phi3-medium-14b (plain ``("attn",)``
-decoders) and the hybrid recurrentgemma-9b. The reference package
-(``src/repro/configs``) lists the rest (MoE, xLSTM, the VLM and the
-encoder-decoder), which later slices bring over. ``SHAPES``,
+decoders), the hybrid recurrentgemma-9b, and the MoE archs
+granite-moe-3b-a800m and qwen3-moe-235b-a22b (``("attn_moe",)``
+decoders). The reference package (``src/repro/configs``) lists the rest
+(xLSTM, the VLM and the encoder-decoder), which later slices bring over. ``SHAPES``,
 ``all_configs`` and ``shape_applicable`` mirror the reference's registry
 (held to it by ``tests/test_torch_archs.py``); no launcher of the port
 reads them yet, a benchmark of the port will.
@@ -23,6 +24,8 @@ _ARCH_MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
 }
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -20,15 +20,15 @@ from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 def _block_cache(cfg: ModelConfig, bt: str, batch: int, capacity: int,
                  use_wgkv: bool, device):
-    """One block's empty decode cache. An attention block with WG-KV: the
-    write-gated dual cache (ring ``cfg.sliding_window`` for
+    """One block's empty decode cache. An attention block (``attn``,
+    ``attn_moe``, ``local_attn``) with WG-KV: the write-gated dual cache (ring ``cfg.sliding_window`` for
     ``local_attn``, else ``cfg.wgkv.w_local``). Without (the dense
     baseline): a ring-only dual cache for ``local_attn`` (a budget of
     ``max(sink, 16)`` that only sinks reach), else a dense cache of
     ``capacity`` (rounded up to a 16-token page). An ``rglru`` block's
     zero state."""
     dt = torch_dtype(cfg.dtype)
-    if bt in ("attn", "local_attn"):
+    if bt in ("attn", "attn_moe", "local_attn"):
         if use_wgkv:
             w_ring = (cfg.sliding_window if bt == "local_attn"
                       else cfg.wgkv.w_local)

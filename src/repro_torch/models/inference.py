@@ -11,7 +11,8 @@ through :func:`prefill_extend_ragged`.
 
 Cache tree, as in the reference: ``{"t": [B] int32, "stem": (cache,
 ...), "blocks": {"b0": ..., "b1": ...}, "obs": ObsWindow}``. An
-attention block (``"attn"``, ``"local_attn"``) keeps a DualCache whose
+attention block (``"attn"``, ``"attn_moe"``, ``"local_attn"``) keeps a
+DualCache whose
 ring is ``cfg.wgkv.w_local`` or, for ``local_attn``, ``cfg.sliding_window``
 tokens (the dense baseline: a DenseCache); an ``"rglru"`` block keeps its
 RGLRUState. Every ``"blocks"`` leaf is stacked ``[n_repeats, B, ...]``;
@@ -21,6 +22,12 @@ stacked ``[n_repeats, n_attn, B, ...]`` and indexed by a block's ordinal
 among the attention blocks of the pattern.
 Updates are functional — each step returns a new tree and leaves its
 input untouched.
+
+An ``"attn_moe"`` block routes its FFN's tokens in ``moe_groups`` groups
+(:func:`repro_torch.models.moe.moe_ffn`): the whole ``[B, S]`` prefill,
+or the ``[B, 1]`` decode step with every row in it, the inactive slots of
+a ragged serving tick included. Expert capacity is shared by a group, so
+one row's output can depend on the others', as in the reference.
 
 Composability (paper §5.4): ``DecodeOptions.quest_pages`` applies Quest
 read-time selection as a page MASK, ``selection_policy = "quest:K"`` as a
@@ -49,7 +56,7 @@ from repro_torch.launch.specs import cache_batch_axis
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
-from repro_torch.models.transformer import (_check_supported, _norm,
+from repro_torch.models.transformer import (_check_supported, _norm, ffn,
                                             layer_params, stem_params)
 from repro_torch.tree import tree_map, tree_map_with_path
 
@@ -126,6 +133,7 @@ class PrefillOut(NamedTuple):
 def _attn_block_prefill(p: Params, cfg: ModelConfig, bt: str,
                         x: torch.Tensor, positions: torch.Tensor, *,
                         use_wgkv: bool, budget: int, max_len: int,
+                        moe_groups: int = 1,
                         opts: Optional[DecodeOptions] = None):
     """One attention block of the prefill. With WG-KV: vertical-slash
     attention over the block's window (``cfg.sliding_window`` for
@@ -133,7 +141,9 @@ def _attn_block_prefill(p: Params, cfg: ModelConfig, bt: str,
     ``opts``' static policy, then a dual cache with a ring of that window
     populated from its K/V/gates. Without: causal attention (windowed
     for ``local_attn``) and a dense cache of ``max_len`` holding all S
-    tokens. Returns (x, cache, admitted fraction; 0 without WG-KV)."""
+    tokens. An ``attn_moe`` block's FFN routes the whole ``[B, S]`` chunk
+    in ``moe_groups`` groups. Returns (x, cache, admitted fraction; 0
+    without WG-KV)."""
     b, s, _ = x.shape
     dt = torch_dtype(cfg.dtype)
     window = cfg.sliding_window if bt == "local_attn" else None
@@ -161,15 +171,15 @@ def _attn_block_prefill(p: Params, cfg: ModelConfig, bt: str,
         cache.v[:, :, :s] = v.to(dt)
         cache.t.fill_(s)
     x = x + h
-    x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
-    return x, cache, adm
+    y, _ = ffn(p, cfg, bt, x, moe_groups=moe_groups)
+    return x + y, cache, adm
 
 
 def _block_prefill(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
                    positions: torch.Tensor, **kw):
     """One block of the prefill -> (x, its cache, admitted fraction; 0
     for a block without a gate)."""
-    if bt in ("attn", "local_attn"):
+    if bt in ("attn", "attn_moe", "local_attn"):
         return _attn_block_prefill(p, cfg, bt, x, positions, **kw)
     if bt == "rglru":
         y, state = RG.rglru_block(p["rec"], cfg, _norm(cfg, p["ln1"], x))
@@ -183,7 +193,7 @@ def _block_prefill(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             use_wgkv: Optional[bool] = None, budget: Optional[int] = None,
-            max_len: Optional[int] = None,
+            max_len: Optional[int] = None, moe_groups: int = 1,
             opts: DecodeOptions = DecodeOptions()
             ) -> Tuple[PrefillOut, CacheTree]:
     """Prefill of tokens [B, S]. Every layer's cache is filled at once —
@@ -201,6 +211,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     layer. Each ``rglru`` layer runs the ``rglru_scan`` kernel. With
     ``opts.evict_hard_budget`` the tree carries an empty eviction
     observation window (``"obs"``) for the decode steps that follow.
+    ``moe_groups``: the routing groups of each ``attn_moe`` block's FFN
+    over the ``B * S`` tokens.
 
     ``mean_admission`` is the reference's: the admitted fractions summed
     over attention layers, divided by the stem's block count (of any
@@ -220,7 +232,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         max_len = s + 64
     if not use_wgkv and max_len < s:
         raise ValueError(f"max_len {max_len} < prompt length {s}")
-    kw = dict(use_wgkv=use_wgkv, budget=budget, max_len=max_len, opts=opts)
+    kw = dict(use_wgkv=use_wgkv, budget=budget, max_len=max_len,
+              moe_groups=moe_groups, opts=opts)
     adm_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     stem_caches = []
     for bt, p in zip(cfg.stem_pattern, stem_params(params)):
@@ -277,7 +290,7 @@ def _quest_mask(cfg: ModelConfig, cache: DualCache, q: torch.Tensor,
 def _attn_block_decode(p: Params, cfg: ModelConfig, bt: str,
                        x: torch.Tensor, cache, *, opts: DecodeOptions,
                        sel_fn, sel_k: Optional[int],
-                       obs: Optional[EV.ObsWindow]):
+                       obs: Optional[EV.ObsWindow], moe_groups: int = 1):
     """One attention block of a decode step. A DenseCache (the dense
     baseline) appends the token and reads its first ``t`` entries (the
     last ``cfg.sliding_window`` for ``local_attn``). A DualCache: the
@@ -287,15 +300,18 @@ def _attn_block_decode(p: Params, cfg: ModelConfig, bt: str,
     the step's query (``x @ w_q`` split into heads, before qk-norm and
     RoPE, as the reference) and ``maybe_evict`` runs. Returns (x, cache,
     obs, per-row admission or None (dense), per-row selected pages or
-    None, per-row triggers or None)."""
+    None, per-row triggers or None). An ``attn_moe`` block routes the
+    step's ``[B, 1]`` tokens, every row, in ``moe_groups`` groups."""
+    def ffn_step(x):
+        y, _ = ffn(p, cfg, bt, x[:, None], moe_groups=moe_groups)
+        return x + y[:, 0]
+
     xin = _norm(cfg, p["ln1"], x)
     if isinstance(cache, A.DenseCache):
         window = cfg.sliding_window if bt == "local_attn" else None
         h, nc = A.attn_decode_dense(p["attn"], cfg, xin, cache,
                                     window=window)
-        x = x + h
-        x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
-        return x, nc, obs, None, None, None
+        return ffn_step(x + h), nc, obs, None, None, None
     h, nc, g_new, sel_pages = A.attn_decode_wgkv(
         p["attn"], cfg, xin, cache, token_select_fn=sel_fn,
         select_pages_k=sel_k, gate_override=_static_gates(cfg, opts, cache.t))
@@ -309,9 +325,7 @@ def _attn_block_decode(p: Params, cfg: ModelConfig, bt: str,
         nc, trg = EV.maybe_evict(nc, obs, hard_budget=opts.evict_hard_budget,
                                  evict_frac=opts.evict_frac)
         trig = trg.float().mean(dim=-1)
-    x = x + h
-    x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
-    return x, nc, obs, adm, selp, trig
+    return ffn_step(x + h), nc, obs, adm, selp, trig
 
 
 def _rglru_block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -323,7 +337,8 @@ def _rglru_block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                caches: CacheTree, *, opts: DecodeOptions = DecodeOptions(),
+                caches: CacheTree, *, moe_groups: int = 1,
+                opts: DecodeOptions = DecodeOptions(),
                 layers: Optional[List[Params]] = None
                 ) -> Tuple[torch.Tensor, CacheTree, Dict[str, torch.Tensor]]:
     """token: [B] int -> (logits [B, V], new caches, stats). ``layers``
@@ -336,7 +351,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     layer's observation window (``obs[r, ai]``, ``ai`` its ordinal among
     the pattern's attention blocks; the stem has none) takes the step's
     query and ``maybe_evict`` runs. An ``rglru`` layer advances its state
-    by one position. Stats are per row: ``evict_trigger_rows`` (triggered
+    by one position. An ``attn_moe`` layer routes all B rows' tokens in
+    ``moe_groups`` groups. Stats are per row: ``evict_trigger_rows`` (triggered
     fraction of kv heads, summed over layers), ``mean_admission`` (mean
     over attention layers) and ``selected_pages_rows`` (valid gathered
     pages, mean over kv heads, summed over layers; zeros without gather
@@ -364,11 +380,11 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         if bt == "rglru":
             xo, nc = _rglru_block_decode(p, cfg, x, cache)
             return xo, nc, ob
-        if bt not in ("attn", "local_attn"):
+        if bt not in ("attn", "attn_moe", "local_attn"):
             raise NotImplementedError(f"block type {bt!r} is not ported")
         xo, nc, ob, adm, selp, trig = _attn_block_decode(
             p, cfg, bt, x, cache, opts=opts, sel_fn=sel_fn, sel_k=sel_k,
-            obs=ob)
+            obs=ob, moe_groups=moe_groups)
         if adm is not None:
             adm_sum = adm_sum + adm
             adm_n += 1
@@ -444,7 +460,7 @@ def _park_masked_dense(caches: CacheTree, active: torch.Tensor
 
 def prefill_extend_ragged(params: Params, cfg: ModelConfig,
                           tokens: torch.Tensor, lengths,
-                          caches: CacheTree, *,
+                          caches: CacheTree, *, moe_groups: int = 1,
                           opts: DecodeOptions = DecodeOptions()
                           ) -> Tuple[torch.Tensor, CacheTree,
                                      Dict[str, torch.Tensor]]:
@@ -455,8 +471,11 @@ def prefill_extend_ragged(params: Params, cfg: ModelConfig,
     ``lengths`` [B] (host: a list, numpy array or CPU tensor) says how
     many are real. Every cache write at a position >= ``lengths[i]`` is
     masked out by a per-leaf select against the pre-step tree, so a
-    length-0 row comes back bit-identical. Positions where no row is
-    active are not run at all: they would change nothing. Returns
+    length-0 row comes back bit-identical. Every row still runs each
+    position, so an ``attn_moe`` layer routes the inactive rows' tokens
+    beside the active ones (``moe_groups`` groups over all B rows), as the
+    reference does. Positions where no row is active are not run at all:
+    they would change nothing. Returns
     (each row's logits at its LAST real position, zeros for length-0 rows;
     the advanced caches; per-row stats ``evict_trigger_rows``,
     ``adm_sum_rows``, ``selected_pages_rows``)."""
@@ -481,7 +500,8 @@ def prefill_extend_ragged(params: Params, cfg: ModelConfig,
 
         logits, new, st = decode_step(params, cfg, tokens[:, j],
                                       _park_masked_dense(caches, active),
-                                      opts=opts, layers=layers)
+                                      moe_groups=moe_groups, opts=opts,
+                                      layers=layers)
         caches = tree_map_with_path(keep, new, caches)
         last_logits = torch.where(active[:, None], logits, last_logits)
         zero = torch.zeros_like(trig)

@@ -1,6 +1,6 @@
 """The decoder's parameter tree, init and full-sequence forward (port of
 ``repro/models/transformer.py`` for RMSNorm decoders whose blocks are
-``"attn"``, ``"local_attn"`` or ``"rglru"``).
+``"attn"``, ``"local_attn"``, ``"attn_moe"`` or ``"rglru"``).
 
 The tree mirrors the reference's, so weights carry across by path
 (:mod:`repro_torch.convert`): ``{"embed": {"tok"}, "stem": (block, ...),
@@ -11,7 +11,11 @@ one) a tuple of unstacked blocks run before the repeats.
 :func:`forward` is the training / teacher / hard-eval forward
 (``mode="teacher" | "gated" | "hard"``); on CUDA its gated mode runs the
 ``gated_flash`` kernel in every attention layer and every ``"rglru"``
-block runs its recurrence through the ``rglru_scan`` kernel.
+block runs its recurrence through the ``rglru_scan`` kernel. An
+``"attn_moe"`` block is an ``"attn"`` block whose FFN is the
+Mixture-of-Experts of :mod:`repro_torch.models.moe` (its tree holds
+``"moe"`` in place of ``"mlp"``); its load-balance loss is summed over the
+layers into ``ForwardResult.lb_loss``.
 """
 from __future__ import annotations
 
@@ -24,13 +28,14 @@ from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MoE
 from repro_torch.models import rglru as RG
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
 # block types the port runs; the attention ones carry a dual cache
-PORTED_BLOCKS = ("attn", "local_attn", "rglru")
+PORTED_BLOCKS = ("attn", "local_attn", "attn_moe", "rglru")
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -51,21 +56,37 @@ def _check_supported(cfg: ModelConfig) -> None:
 def init_block(gen: torch.Generator, cfg: ModelConfig, bt: str,
                device) -> Params:
     """One block: ``"attn"`` / ``"local_attn"`` is GQA self-attention (with
-    the write gate) and a SwiGLU FFN, ``"rglru"`` the temporal conv +
-    RG-LRU recurrence and a SwiGLU FFN, each behind an RMSNorm."""
+    the write gate) and a SwiGLU FFN, ``"attn_moe"`` the same attention and
+    a Mixture-of-Experts FFN, ``"rglru"`` the temporal conv + RG-LRU
+    recurrence and a SwiGLU FFN, each behind an RMSNorm."""
     dt = torch_dtype(cfg.param_dtype)
-    if bt in ("attn", "local_attn"):
+    if bt in ("attn", "local_attn", "attn_moe"):
         mixer = {"attn": A.init_attention(gen, cfg, device)}
     elif bt == "rglru":
         mixer = {"rec": RG.init_rglru(gen, cfg, device)}
     else:
         raise NotImplementedError(f"block type {bt!r} is not ported")
+    if bt == "attn_moe":
+        mlp = {"moe": MoE.init_moe(gen, cfg, device)}
+    else:
+        mlp = {"mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, device)}
     return {
         "ln1": L.init_rmsnorm(cfg.d_model, dt, device),
         **mixer,
         "ln2": L.init_rmsnorm(cfg.d_model, dt, device),
-        "mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, device),
+        **mlp,
     }
+
+
+def ffn(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor, *,
+        moe_groups: int = 1) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A block's FFN behind its second norm -> (the residual's increment,
+    an ``"attn_moe"`` block's load-balance loss, else None)."""
+    xin = _norm(cfg, p["ln2"], x)
+    if bt == "attn_moe":
+        y, aux = MoE.moe_ffn(p["moe"], cfg, xin, groups=moe_groups)
+        return y, aux["lb_loss"]
+    return L.swiglu(p["mlp"], xin), None
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
@@ -125,23 +146,26 @@ class BlockAux(NamedTuple):
 
 def block_forward(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
                   positions: torch.Tensor, *, mode: str,
-                  q_chunk: Optional[int] = None,
+                  q_chunk: Optional[int] = None, moe_groups: int = 1,
                   gate_override: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, BlockAux]:
     """One block. mode: "teacher" | "gated" | "hard". ``gate_override``:
     [B, Hkv, S] static admission scores replacing the learned gate.
     ``local_attn`` blocks attend within ``cfg.sliding_window`` (which is
-    also their W in the gate bias)."""
+    also their W in the gate bias). An ``attn_moe`` block routes its
+    ``B * S`` tokens in ``moe_groups`` groups and returns its
+    load-balance loss."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    if bt in ("attn", "local_attn"):
+    if bt in ("attn", "local_attn", "attn_moe"):
         gate_mode = {"teacher": "off", "gated": "gated", "hard": "hard"}[mode]
         window = cfg.sliding_window if bt == "local_attn" else None
         h, g = A.attn_train(p["attn"], cfg, _norm(cfg, p["ln1"], x),
                             positions, gate_mode=gate_mode, window=window,
                             q_chunk=q_chunk, gate_override=gate_override)
         x = x + h
-        x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
-        return x, BlockAux(None if g is None else g[None], zero)
+        y, lb = ffn(p, cfg, bt, x, moe_groups=moe_groups)
+        return x + y, BlockAux(None if g is None else g[None],
+                               zero if lb is None else lb)
     if bt == "rglru":
         y, _ = RG.rglru_block(p["rec"], cfg, _norm(cfg, p["ln1"], x))
         x = x + y
@@ -160,7 +184,7 @@ class ForwardResult(NamedTuple):
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None, mode: str = "teacher",
             q_chunk: Optional[int] = None, with_logits: bool = True,
-            remat: bool = False,
+            remat: bool = False, moe_groups: int = 1,
             gate_override: Optional[torch.Tensor] = None) -> ForwardResult:
     """Full-sequence forward: the stem blocks, then the repeats. tokens:
     [B, S] int; positions: [B, S] (default 0..S-1). gate_override:
@@ -170,7 +194,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     runs under ``torch.utils.checkpoint`` (non-reentrant), so its
     activations are recomputed in the backward instead of kept, as the
     reference's ``jax.checkpoint`` of its scan body; the stem is not
-    rematerialized there either."""
+    rematerialized there either. ``moe_groups``: the routing groups of
+    every ``attn_moe`` block; ``lb_loss`` is the sum of their load-balance
+    losses over the stem and the repeats (0 without MoE blocks)."""
     _check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     x = L.embed(params["embed"], tokens, dt)
@@ -198,11 +224,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             ai += 1
         if ckpt:
             x, aux = checkpoint(block_forward, p, cfg, bt, x, positions,
-                                mode=mode, q_chunk=q_chunk, gate_override=ov,
+                                mode=mode, q_chunk=q_chunk,
+                                moe_groups=moe_groups, gate_override=ov,
                                 use_reentrant=False)
         else:
             x, aux = block_forward(p, cfg, bt, x, positions, mode=mode,
-                                   q_chunk=q_chunk, gate_override=ov)
+                                   q_chunk=q_chunk, moe_groups=moe_groups,
+                                   gate_override=ov)
         if aux.gates is not None:
             gates.append(aux.gates)
         lb_total = lb_total + aux.lb_loss

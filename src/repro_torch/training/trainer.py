@@ -14,9 +14,10 @@ leaf.
 On CUDA the student's attention and gate run through the ``gated_flash``
 and ``gate_mlp`` kernels and their backward kernels; the teacher runs
 under ``torch.no_grad()`` (the reference's ``stop_gradient``). There is no
-``jit``: :func:`make_train_step` returns a plain callable. The reference's
-``moe_groups`` (no MoE block is ported) and ``scan_unroll`` (an XLA
-compile hint with no eager counterpart) are not taken.
+``jit``: :func:`make_train_step` returns a plain callable. ``moe_groups``
+(the routing groups of every ``attn_moe`` block) is passed through to
+both forwards, as in the reference; its ``scan_unroll`` (an XLA compile
+hint with no eager counterpart) is not taken.
 """
 from __future__ import annotations
 
@@ -61,31 +62,32 @@ def _forward_kw(batch) -> Dict[str, Any]:
 
 
 def distill_loss_fn(gates: GateDict, params, cfg: ModelConfig, batch, *,
-                    lam: float, q_chunk: Optional[int] = None,
-                    remat: bool = False
+                    lam: float, moe_groups: int = 1,
+                    q_chunk: Optional[int] = None, remat: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: {"tokens": [B, S], "loss_mask": [B, S] or None, ...}."""
     p = set_gates(params, gates)
-    kw = _forward_kw(batch)
+    kw = dict(_forward_kw(batch), moe_groups=moe_groups, q_chunk=q_chunk)
     with torch.no_grad():
         teacher = T.forward(p, cfg, batch["tokens"], mode="teacher",
-                            with_logits=False, q_chunk=q_chunk, **kw)
+                            with_logits=False, **kw)
     student = T.forward(p, cfg, batch["tokens"], mode="gated",
-                        with_logits=False, q_chunk=q_chunk, remat=remat, **kw)
+                        with_logits=False, remat=remat, **kw)
     return total_loss(student.hidden, teacher.hidden, student.gates, lam,
                       batch.get("loss_mask"))
 
 
 def loss_and_grads(gates: GateDict, params, cfg: ModelConfig, batch, *,
-                   lam: float, q_chunk: Optional[int] = None,
-                   remat: bool = False):
+                   lam: float, moe_groups: int = 1,
+                   q_chunk: Optional[int] = None, remat: bool = False):
     """(loss, aux, grads): the distillation loss and its gradient with
     respect to every gate leaf, the reference's ``jax.value_and_grad`` of
     :func:`distill_loss_fn`. Nothing is accumulated into ``.grad``."""
     leaves = {k: v.detach().requires_grad_() for k, v in gates.items()}
     with torch.enable_grad():
         loss, aux = distill_loss_fn(leaves, params, cfg, batch, lam=lam,
-                                    q_chunk=q_chunk, remat=remat)
+                                    moe_groups=moe_groups, q_chunk=q_chunk,
+                                    remat=remat)
         grads = torch.autograd.grad(loss, list(leaves.values()))
     aux = {k: v.detach() for k, v in aux.items()}
     return loss.detach(), aux, dict(zip(leaves, grads))
@@ -104,22 +106,24 @@ def init_train_state(params) -> TrainState:
 
 
 def train_step(state: TrainState, params, cfg: ModelConfig, batch, *, lr,
-               lam: Optional[float] = None, q_chunk: Optional[int] = None,
-               remat: bool = False
+               lam: Optional[float] = None, moe_groups: int = 1,
+               q_chunk: Optional[int] = None, remat: bool = False
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     lam = cfg.wgkv.lam if lam is None else lam
     loss, aux, grads = loss_and_grads(state.gates, params, cfg, batch,
-                                      lam=lam, q_chunk=q_chunk, remat=remat)
+                                      lam=lam, moe_groups=moe_groups,
+                                      q_chunk=q_chunk, remat=remat)
     new_gates, new_opt = adamw_update(grads, state.opt, state.gates, lr=lr)
     return TrainState(new_gates, new_opt), dict(aux, loss=loss)
 
 
-def make_train_step(cfg: ModelConfig, *, lr, lam=None, q_chunk=None,
-                    remat=False):
+def make_train_step(cfg: ModelConfig, *, lr, lam=None, moe_groups=1,
+                    q_chunk=None, remat=False):
     """``step(state, params, batch=...)``: :func:`train_step` with the
     config and options bound (a plain callable; nothing is compiled)."""
     return functools.partial(train_step, cfg=cfg, lr=lr, lam=lam,
-                             q_chunk=q_chunk, remat=remat)
+                             moe_groups=moe_groups, q_chunk=q_chunk,
+                             remat=remat)
 
 
 # ==========================================================================
@@ -135,21 +139,25 @@ def init_lm_train_state(params) -> LMTrainState:
     return LMTrainState(params, adamw_init(params))
 
 
-def lm_loss_fn(params, cfg: ModelConfig, batch, *, q_chunk=None,
-               remat=False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def lm_loss_fn(params, cfg: ModelConfig, batch, *, moe_groups=1,
+               q_chunk=None, remat=False
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The next-token loss plus 0.01 times the summed MoE load-balance
+    loss (0 without ``attn_moe`` blocks), as in the reference."""
     out = T.forward(params, cfg, batch["tokens"], mode="teacher",
-                    q_chunk=q_chunk, remat=remat, **_forward_kw(batch))
+                    moe_groups=moe_groups, q_chunk=q_chunk, remat=remat,
+                    **_forward_kw(batch))
     ll = lm_loss(out.logits, batch["tokens"], batch.get("loss_mask"))
     return ll + 0.01 * out.lb_loss, {"lm_loss": ll, "lb_loss": out.lb_loss}
 
 
 def lm_train_step(state: LMTrainState, cfg: ModelConfig, batch, *, lr,
-                  q_chunk=None, remat=False
+                  moe_groups=1, q_chunk=None, remat=False
                   ) -> Tuple[LMTrainState, Dict[str, torch.Tensor]]:
     params = tree_map(lambda v: v.detach().requires_grad_(), state.params)
     with torch.enable_grad():
-        loss, aux = lm_loss_fn(params, cfg, batch, q_chunk=q_chunk,
-                               remat=remat)
+        loss, aux = lm_loss_fn(params, cfg, batch, moe_groups=moe_groups,
+                               q_chunk=q_chunk, remat=remat)
         grads = iter(torch.autograd.grad(loss, tree_leaves(params),
                                          materialize_grads=True))
     grads = tree_map(lambda _: next(grads), state.params)

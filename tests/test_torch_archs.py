@@ -8,8 +8,10 @@ and phi3-medium's 4 on 2 at hd 64; phi3-medium keeps its untied output
 head (``unembed``). Full configs: smollm-360m G 3 at hd 64, phi4-mini G 3
 at hd 128, phi3-medium G 4 at hd 128.
 
-Covered: the configs field by field and their parameter counts, the
-registry's ``all_configs`` / ``shape_applicable`` / ``SHAPES``, and on the
+Covered: the configs field by field and their parameter counts (the
+MoE archs granite-moe-3b-a800m and qwen3-moe-235b-a22b too, whose
+parity tests are ``tests/test_torch_moe.py``; the trees built on the meta
+device, full size included), the registry's ``all_configs`` / ``shape_applicable`` / ``SHAPES``, and on the
 reduced configs (``conftest.make_cfg``: f32, W 16) with one set of weights
 (the reference's init, the gate weights clustered per head clear of tau,
 carried over by ``params_from_numpy``): the gated and teacher forward,
@@ -39,6 +41,7 @@ from repro.training import trainer as JTR
 from repro_torch import configs as TC
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import inference as TI
+from repro_torch.models import registry as TREG
 from repro_torch.models import transformer as TT
 from repro_torch.training import trainer as TTR
 from test_torch_prefill import (INT_FIELDS, GateRecorder, _margin,
@@ -50,6 +53,7 @@ from test_torch_training import (_batches, _max_close, _rel_close,
 torch.set_num_threads(2)
 
 ARCHS = ("smollm-360m", "phi4-mini-3.8b", "phi3-medium-14b")
+MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
 TOL = 5e-5
 TAU_MARGIN = 1e-3
 
@@ -57,20 +61,31 @@ TAU_MARGIN = 1e-3
 # ==========================================================================
 # configs and the registry
 # ==========================================================================
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_matches_reference(arch, reduced):
+    """Field by field; the analytic counts (total and active) equal the
+    reference's and the count of the port's tree (on the meta device)."""
     jget = JC.get_reduced_config if reduced else JC.get_config
     tget = TC.get_reduced_config if reduced else TC.get_config
     j, t = jget(arch), tget(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
-    assert t.block_pattern == ("attn",) and not t.qk_norm
+    if arch in MOE_ARCHS:
+        assert t.block_pattern == ("attn_moe",) and t.moe is not None
+        assert t.active_param_count() < t.param_count()
+    else:
+        assert t.block_pattern == ("attn",) and not t.qk_norm
     assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count()
     assert t.n_layers == j.n_layers and t.wgkv_applicable()
+    tree = TT.init_model(t, torch.Generator(), "meta")
+    assert TREG.count_params_tree(tree) == t.param_count()
 
 
 def test_the_port_registers_five_archs():
-    assert TC.ARCH_NAMES == ("qwen3-0.6b", "recurrentgemma-9b", *ARCHS)
+    """Five archs until the MoE slice added two."""
+    assert TC.ARCH_NAMES == ("qwen3-0.6b", "recurrentgemma-9b", *ARCHS,
+                             *MOE_ARCHS)
     assert set(TC.ARCH_NAMES) <= set(JC.ARCH_NAMES)
     with pytest.raises(KeyError):
         TC.get_config("xlstm-350m")
@@ -78,7 +93,8 @@ def test_the_port_registers_five_archs():
         TC.get_reduced_config("whisper-medium")
 
 
-@pytest.mark.parametrize("arch", ("qwen3-0.6b", "recurrentgemma-9b") + ARCHS)
+@pytest.mark.parametrize("arch", ("qwen3-0.6b", "recurrentgemma-9b") + ARCHS
+                         + MOE_ARCHS)
 def test_registry_answers_as_the_reference(arch):
     tall, jall = TC.all_configs(), JC.all_configs()
     assert list(tall) == list(TC.ARCH_NAMES)

@@ -934,6 +934,50 @@ def test_bwd_limit_catches_a_planted_fault(kernel):
     assert sound <= BWD_REL < planted
 
 
+def _moe_cases(kernel, arch, runs):
+    """chip_smoke.py's phase-3 cases of ``kernel`` at an MoE arch's heads
+    (each raises unless its error is within the limit and two calls are
+    bitwise equal); ``runs`` gets the inputs of the first case."""
+    hq, hkv, hd = _SMOKE.MOE_HEADS[arch]
+    grp = hq // hkv
+    if kernel == "paged_decode":
+        return [_SMOKE.dual_cache_case(2, 128, 256, torch.float32, seed=1,
+                                       hkv=hkv, grp=grp, hd=hd, runs=runs),
+                _SMOKE.dual_cache_case(1, 1024, 256, torch.float32, seed=2,
+                                       hkv=hkv, grp=grp, hd=hd)]
+    if kernel == "gate_mlp_decode":
+        return [_SMOKE.gate_case(rows=2 * hkv, s=1, seed=3, h=hkv, f=2 * hd,
+                                 runs=runs)]
+    if kernel == "gate_mlp_mma":
+        return [_SMOKE.gate_case(rows=hkv, s=4096, seed=4, h=hkv, f=2 * hd,
+                                 runs=runs)]
+    if kernel == "vertical_slash":
+        return [_SMOKE.vertical_slash_case("float32", seed=5, hkv=hkv, hd=hd,
+                                           hq=hq, runs=runs)]
+    return [_SMOKE.gated_flash_case(32, "float32", seed=6, hkv=hkv, hd=hd,
+                                    hq=hq, runs=runs),
+            _SMOKE.gated_flash_case(2048, "float32", seed=7, hkv=hkv, hd=hd,
+                                    hq=hq)]
+
+
+@pytest.mark.parametrize("arch", sorted(_SMOKE.MOE_HEADS))
+@pytest.mark.parametrize("kernel", sorted(_SMOKE.FWD_FAULTS))
+def test_forward_kernels_at_the_moe_heads_on_gpu(kernel, arch):
+    """The forward kernels at granite-moe-3b-a800m's 24 / 8 heads of hd 64
+    and qwen3-moe-235b-a22b's 64 / 4 of hd 128 (G 16): within 5e-5 of
+    their plain versions (the gate 1e-5), two calls bitwise; then rebuilt
+    with ``FWD_FAULTS[kernel]`` planted, above 5e-5 on the same inputs.
+    Prints both errors (``-s``)."""
+    runs = []
+    sound = max(r["max_abs_err"] for r in _moe_cases(kernel, arch, runs))
+    assert sound <= TOL["float32"]
+    with _SMOKE.Planted([kernel]):
+        planted = [float((run().float() - want.float()).abs().max())
+                   for run, want in runs]
+    print(f"\n{kernel} {arch}: sound {sound:.3e}, planted {planted}")
+    assert runs and all(not err <= TOL["float32"] for err in planted)
+
+
 def test_forward_only_kernels_refuse_grad_on_gpu():
     """``vertical_slash``, ``paged_decode`` and ``paged_decode_selected``
     have no backward: with grad enabled and an input that requires it they

@@ -22,6 +22,7 @@ import torch
 from conftest import make_cfg
 from repro.models import transformer as T
 from repro_torch.configs.base import ModelConfig as TModelConfig
+from repro_torch.configs.base import MoEConfig as TMoEConfig
 from repro_torch.configs.base import WGKVConfig as TWGKVConfig
 from repro_torch.convert import params_from_numpy
 
@@ -35,7 +36,7 @@ def port_cfg(jcfg):
     fields = dataclasses.asdict(jcfg)
     fields["wgkv"] = TWGKVConfig(**fields["wgkv"])
     if fields.get("moe") is not None:
-        raise ValueError("MoE configs are not ported")
+        fields["moe"] = TMoEConfig(**fields["moe"])
     return TModelConfig(**fields)
 
 
