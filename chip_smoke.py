@@ -168,6 +168,40 @@ Mixture-of-Experts FFN; run after smollm-train, one model at a time):
                 tokens at budget 1,024 + 16 steps, one layer's MoE FFN
                 twice, bitwise; peak memory of each.
 
+The xLSTM, encoder-decoder and VLM archs (run after qwen3moe-d4, one
+model at a time):
+
+  new-archs-reduced — xlstm-350m's, whisper-medium's and qwen2-vl-7b's
+                reduced configs (f32, gates clustered clear of tau) on
+                card and CPU: prefill (xlstm 128 tokens; whisper a
+                32-token prompt over 64 frames, its cross memory budgeted
+                to 16 of 32; qwen2-vl a 4 x 4 grid's patches and text
+                through ``build_vlm_embeds``, M-RoPE) + 8 greedy steps:
+                tokens, integer cache leaves and every selection's indices
+                equal, logits within 1e-4.
+  xlstm       — xlstm-350m at full width and depth (24 blocks, d_model
+                1,024, 1.5 GiB): prefill of 2,048 tokens (chunkwise
+                mLSTM) + 16 steps, a teacher forward over 2,048 tokens,
+                one layer of each block type timed alone, 2
+                ``lm_train_step``s at 1 x 1,024; no kernel launches.
+  whisper     — whisper-medium at full width and depth (24 + 24 layers,
+                2.8 GiB): ``whisper_frame_embeds`` of 3,000 frames (1,500
+                encoder positions), a 384-token prompt at budget 96 (each
+                cross memory keeps 96 of 1,500 keys) + 16 steps, the gated
+                forward, 2 ``train_step``s at 2 x 384 with ``enc_embeds``.
+  qwen2vl     — qwen2-vl-7b at full width and depth (28 layers, 28 / 4
+                heads of hd 128, 28.4 GiB): ``launch.serve`` (text, 2 x 64
+                tokens, 8 new), prefill of 4,096 tokens at budget 1,024 +
+                16 steps, and the gated forward of a 2,048-slot stream
+                whose first 1,024 slots are a 32 x 32 grid's patches,
+                roped by M-RoPE.
+
+Phase 3 also holds the four forward kernels at qwen2-vl-7b's G 7 (28 / 4
+at hd 128) and whisper-medium's 16 / 16 at hd 64 (W 64, S 384, C 96), the
+gate over whisper's 1,500 cross keys, and the two backward kernels at its
+train shape (2 x 384, F 128), each with a planted fault
+(``new_arch_cases``).
+
 Phase 3 holds ``paged_decode`` (C 128 and C 1024, W 256), the gate
 (decode and a 4,096-token prefill), ``vertical_slash`` (S 4096) and
 ``gated_flash`` (S 32 and 2048) at both MoE archs' heads (24 / 8 at hd
@@ -188,8 +222,8 @@ against their plain versions, and ``paged_decode``, ``gate_mlp``,
 and 4.
 
 Each full-width model (32 GiB for recurrentgemma-9b in f32, 54.6 GiB for
-phi3-medium-14b, 41.7 GiB for qwen3-moe-235b-a22b at 4 repeats) is
-freed before the next is built. The full-width
+phi3-medium-14b, 41.7 GiB for qwen3-moe-235b-a22b at 4 repeats, 28.4 GiB
+for qwen2-vl-7b) is freed before the next is built. The full-width
 weights are random (seeded);
 the point is that the port runs end to end on the card through its
 kernels and agrees with itself: the paged physical pool matches the
@@ -236,6 +270,11 @@ DENSE_HEADS = {"smollm-360m": (15, 5, 64), "phi4-mini-3.8b": (24, 8, 128),
 # the MoE archs' heads: granite's G 3 at hd 64, qwen3-moe's G 16 at hd 128
 MOE_HEADS = {"granite-moe-3b-a800m": (24, 8, 64),
              "qwen3-moe-235b-a22b": (64, 4, 128)}
+# qwen2-vl-7b's G 7 at hd 128 (128 % 7 != 0: vertical_slash's unfolded
+# path) and whisper-medium's decoder, 16 / 16 heads of hd 64 with a 64-token
+# ring, its 384-token prompt at budget 96 and 1,500 encoder keys
+NEW_HEADS = {"qwen2-vl-7b": (28, 4, 128), "whisper-medium": (16, 16, 64)}
+WHISPER_S, WHISPER_W, WHISPER_C, WHISPER_ENC = 384, 64, 96, 1500
 
 
 class SmokeFailure(RuntimeError):
@@ -631,20 +670,21 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
 
 def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
                         w: int = 256, hq: int = 16,
-                        runs: list | None = None):
+                        runs: list | None = None, s: int = 4096,
+                        c: int = 1024):
     """The prefill path's shape: B = 1, S = 4096, C 1024 globals chosen by
     ``select_global`` from random gates (sinks, then the highest; unused
     slots at INT32_MAX). qwen3-0.6b's 16 q on 8 kv heads, hd 128, W 256 by
     default; recurrentgemma-9b's 16 on 1 kv head, hd 256, W 2048; the
     dense archs' odd groups (smollm-360m 15 / 5 at hd 64, phi4-mini-3.8b 24
-    / 8 and phi3-medium-14b 40 / 10 at hd 128)."""
+    / 8 and phi3-medium-14b 40 / 10 at hd 128); ``s`` and ``c``: another
+    prompt length and budget (whisper-medium's S 384, C 96)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.admission import select_global
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.vertical_slash import (vertical_slash,
                                                     vertical_slash_plain)
-    s, c = 4096, 1024
     grp = hq // hkv
     dt = torch_dtype(dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -897,11 +937,19 @@ FWD_FAULTS = {
                         "W1 = w1 + (size_t)((h + 1) % H) * F * M;\n"
                         "  const int f0"),
     "gate_mlp_mma": ("const int h = r % H;", "const int h = (r + 1) % H;"),
+    # at G 1 (whisper-medium's 16 / 16) a row is its CTA's first head, so
+    # the first fault reads right there: the CTA reads the next kv
+    # stream's query instead
+    "paged_decode_stream": (
+        "q_s[e] = to_f(q[row0 * hd + e]);",
+        "q_s[e] = to_f(q[((row0 + pl.group) % ((size_t)gridDim.x * "
+        "pl.group)) * hd + e]);"),
 }
 FAULTS = {**BWD_FAULTS, **FWD_FAULTS}
 # the source of a fault whose name is not its source's
 FAULT_SOURCES = {"gated_flash_bwd_hd256": "gated_flash_bwd",
-                 "gate_mlp_decode": "gate_mlp", "gate_mlp_mma": "gate_mlp"}
+                 "gate_mlp_decode": "gate_mlp", "gate_mlp_mma": "gate_mlp",
+                 "paged_decode_stream": "paged_decode"}
 
 
 def _entry_name(mangled: str) -> str:
@@ -1223,6 +1271,69 @@ def rglru_bwd_case(b: int, s: int, d: int, with_h0: bool, seed: int):
            "bound_by": b_by, "library_ms": None, "device_ms": device_ms,
            "two_calls_bitwise": True}
     return rec, (run, want)
+
+
+def new_arch_cases():
+    """Phase 3's cases at this slice's heads (``NEW_HEADS``), f32, at the
+    shapes the new archs' phases give each kernel. qwen2-vl-7b: serve's
+    dual cache (2 slots, C 128, W 256) and the offline decode's (C 1024),
+    the gate at serve and over a 4,096-token prefill, prefill's
+    vertical_slash (S 4096, C 1024, W 256), gated_flash at the tau
+    probe's S 32 and the VLM forward's S 2048. whisper-medium: the decode's
+    dual cache (C 96, W 64), the gate at decode, over the 384 self keys and
+    over the 1,500 cross keys (a ragged last tile), vertical_slash (S 384,
+    C 96, W 64), gated_flash over the forward's 16 heads and the train
+    batch's 2 x 16, and the backward kernels at the train shape (2 x 384,
+    F 128, M 64). Returns ((tag, record) pairs, (fault, run) pairs: each
+    forward fault at the first case it shows on, the backward faults on
+    the train shape)."""
+    import torch
+    cases, runs = [], []
+
+    def add(tag, fault, fn, **kw):
+        sink = [] if fault else None
+        cases.append((tag, fn(**kw, runs=sink) if fault else fn(**kw)))
+        runs.extend((fault, r) for r in sink or ())
+    hq, hkv, hd = NEW_HEADS["qwen2-vl-7b"]
+    grp, t = hq // hkv, "qwen2-vl-7b"
+    add(f"paged_decode {t}", "paged_decode", dual_cache_case, slots=2,
+        c=128, w=256, dtype=torch.float32, seed=120, hkv=hkv, grp=grp, hd=hd)
+    add(f"paged_decode {t}", None, dual_cache_case, slots=1, c=1024, w=256,
+        dtype=torch.float32, seed=121, hkv=hkv, grp=grp, hd=hd)
+    add(f"gate_mlp {t}", "gate_mlp_decode", gate_case, rows=2 * hkv, s=1,
+        seed=122, h=hkv, f=2 * hd)
+    add(f"gate_mlp {t}", "gate_mlp_mma", gate_case, rows=hkv, s=4096,
+        seed=123, h=hkv, f=2 * hd)
+    add(f"vertical_slash {t}", "vertical_slash", vertical_slash_case,
+        dtype="float32", seed=124, hkv=hkv, hd=hd, hq=hq)
+    add(f"gated_flash {t}", "gated_flash", gated_flash_case, s=32,
+        dtype="float32", seed=125, hkv=hkv, hd=hd, hq=hq)
+    add(f"gated_flash {t}", None, gated_flash_case, s=2048,
+        dtype="float32", seed=126, hkv=hkv, hd=hd, hq=hq)
+    hq, hkv, hd = NEW_HEADS["whisper-medium"]
+    t, w, s, c = "whisper-medium", WHISPER_W, WHISPER_S, WHISPER_C
+    add(f"paged_decode {t}", "paged_decode_stream", dual_cache_case,
+        slots=1, c=c, w=w, dtype=torch.float32, seed=130, hkv=hkv, grp=1,
+        hd=hd)
+    add(f"gate_mlp {t}", "gate_mlp_decode", gate_case, rows=hkv, s=1,
+        seed=131, h=hkv, f=2 * hd)
+    add(f"gate_mlp {t}", None, gate_case, rows=hkv, s=s, seed=132, h=hkv,
+        f=2 * hd)
+    add(f"gate_mlp {t}", "gate_mlp_mma", gate_case, rows=hkv,
+        s=WHISPER_ENC, seed=133, h=hkv, f=2 * hd)
+    add(f"vertical_slash {t}", "vertical_slash", vertical_slash_case,
+        dtype="float32", seed=134, hkv=hkv, hd=hd, hq=hq, w=w, s=s, c=c)
+    add(f"gated_flash {t}", "gated_flash", gated_flash_case, s=s,
+        dtype="float32", seed=135, hkv=hkv, hd=hd, hq=hq, w=w)
+    add(f"gated_flash {t}", None, gated_flash_case, s=s, dtype="float32",
+        seed=136, hkv=2 * hkv, hd=hd, hq=2 * hq, w=w)
+    rec, run = gate_bwd_case(rows=2 * hkv, s=s, seed=137, h=hkv, f=2 * hd)
+    cases.append((f"gate_mlp_bwd {t}", rec))
+    runs.append(("gate_mlp_bwd", run))
+    rec, run = flash_bwd_case(2 * hq, s, seed=138, nk=2 * hkv, hd=hd, w=w)
+    cases.append((f"gated_flash_bwd {t}", rec))
+    runs.append(("gated_flash_bwd", run))
+    return cases, runs
 
 
 def planted_faults(cases) -> dict:
@@ -2648,7 +2759,8 @@ def train_launches(cfg) -> dict:
 
 
 def cluster_gates(cfg, params, seed: int) -> None:
-    """Every attention block's gate weights drawn with numpy so that the
+    """Every gate's weights (an attention block's, and an ``attn_cross``
+    block's cross-memory gate too) drawn with numpy so that the
     scores cluster per (repeat, head) clear of tau: head h of repeat r
     admits (scores near sigmoid(0.5)) when r + h is even and rejects (near
     sigmoid(-5)) otherwise. In place, on the CPU tensors of ``params``."""
@@ -2656,17 +2768,20 @@ def cluster_gates(cfg, params, seed: int) -> None:
     import torch
     rng = np.random.default_rng(seed)
     for i, bt in enumerate(cfg.block_pattern):
-        if bt not in ("attn", "attn_moe", "local_attn"):
-            continue
-        gate = params["blocks"][f"b{i}"]["attn"]["gate"]
-        r, h, f, m = gate["w1"].shape
-        admit = (np.arange(r)[:, None] + np.arange(h)[None]) % 2 == 0
-        new = {"w1": rng.standard_normal((r, h, f, m)) / np.sqrt(f),
-               "b1": 0.1 * rng.standard_normal((r, h, m)),
-               "w2": 0.5 * rng.standard_normal((r, h, m, 1)) / np.sqrt(m),
-               "b2": np.where(admit, 0.5, -5.0)[..., None]}
-        for k, v in new.items():
-            gate[k].copy_(torch.from_numpy(v.astype(np.float32)))
+        block = params["blocks"][f"b{i}"]
+        for mixer in ("attn", "xattn"):
+            if "gate" not in block.get(mixer, {}):
+                continue
+            gate = block[mixer]["gate"]
+            r, h, f, m = gate["w1"].shape
+            admit = (np.arange(r)[:, None] + np.arange(h)[None]) % 2 == 0
+            new = {"w1": rng.standard_normal((r, h, f, m)) / np.sqrt(f),
+                   "b1": 0.1 * rng.standard_normal((r, h, m)),
+                   "w2": 0.5 * rng.standard_normal((r, h, m, 1))
+                   / np.sqrt(m),
+                   "b2": np.where(admit, 0.5, -5.0)[..., None]}
+            for k, v in new.items():
+                gate[k].copy_(torch.from_numpy(v.astype(np.float32)))
 
 
 def train_arch(card: str, arch: str, steps: int, batch: int, seq: int,
@@ -3003,8 +3118,9 @@ def moe_ffn_twice(cfg, params, seed: int, tag: str):
 
 
 def moe_model(arch: str, seed: int, repeats: int | None = None):
-    """The full-width MoE config (f32; ``repeats``: its depth cut) and
-    random weights drawn on the card, with the peak memory of the draw."""
+    """A full-width config (f32; ``repeats``: its depth cut) and random
+    weights drawn on the card, with the peak memory of the draw (the MoE
+    archs', and this slice's xLSTM, whisper and VLM)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_model
@@ -3084,6 +3200,392 @@ def moe_reduced():
         print(f"moe-reduced {arch}: " + json.dumps(stats), flush=True)
         out[arch] = stats["launches"]
     return out
+
+
+# --------------------------------------------------------------------------
+# xlstm-350m, whisper-medium and qwen2-vl-7b
+# --------------------------------------------------------------------------
+def _new_reduced_cfg(arch: str):
+    """A reduced config of this slice's archs in f32 with a 32-token ring
+    (whisper's and qwen2-vl's prefills must be multiples of the ring)."""
+    import dataclasses
+    from repro_torch.configs import get_reduced_config
+    cfg = get_reduced_config(arch).replace(dtype="float32")
+    if cfg.wgkv.enabled:
+        cfg = cfg.replace(wgkv=dataclasses.replace(cfg.wgkv, w_local=32))
+    return cfg
+
+
+def _reduced_inputs(arch: str, cfg, params, device):
+    """The prefill's inputs, built on ``device`` from numpy: xlstm 128
+    tokens; whisper a 32-token prompt over 64 frames (32 encoder
+    positions: its budget of 16 keeps half of them); qwen2-vl a 128-slot
+    stream whose first 16 are the patches of a 4 x 4 grid, with its
+    M-RoPE ids (``build_vlm_embeds``)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as REG
+    rng = np.random.default_rng(24)
+    s = 32 if arch == "whisper-medium" else 128
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, s)),
+                           device=device)
+    if arch == "whisper-medium":
+        frames = 0.1 * rng.standard_normal((1, 32, cfg.d_model))
+        return {"tokens": toks, "enc_embeds": torch.as_tensor(
+            frames, dtype=torch.float32, device=device)}
+    if arch == "qwen2-vl-7b":
+        patches = torch.as_tensor(0.02 * rng.standard_normal(
+            (1, 16, cfg.d_model)), dtype=torch.float32, device=device)
+        emb, pos = REG.build_vlm_embeds(params, cfg, toks, patches, (4, 4))
+        return {"embeds": emb, "positions": pos}
+    return {"tokens": toks}
+
+
+def new_archs_reduced():
+    """The three reduced configs (f32, seeded random weights, every gate
+    clustered clear of tau) on the card (kernels) and on the CPU (plain
+    path): prefill (xlstm 128 tokens; whisper a 32-token prompt over 64
+    frames with its cross memory budgeted to 16 of 32; qwen2-vl a
+    128-slot stream of a 4 x 4 grid's patches and text, M-RoPE) and 8
+    greedy decode steps. Tokens, every integer cache leaf and every
+    selection's indices (the budgeted prefill's and the cross memory's)
+    identical, logits within 1e-4; and the launch counts of each: none for
+    xlstm (no kernel on its path)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import inference as I
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    out = {}
+    for k, arch in enumerate(("xlstm-350m", "whisper-medium",
+                              "qwen2-vl-7b")):
+        cfg = _new_reduced_cfg(arch)
+        cpu_params = T.init_model(cfg, torch.Generator().manual_seed(40 + k),
+                                  "cpu")
+        cluster_gates(cfg, cpu_params, 140 + k)
+        scores, sels = [], {"cpu": [], "cuda": []}
+        inner_gate, inner_sel = ops.write_gate, A.select_global
+
+        def rec_gate(*a, **kw):
+            g = inner_gate(*a, **kw)
+            scores.append(g.detach().cpu())
+            return g
+
+        def rec_sel(*a, **kw):
+            sel = inner_sel(*a, **kw)
+            sels[sel.idx.device.type].append(sel.idx.cpu())
+            return sel
+
+        def run(device, params):
+            with torch.no_grad():
+                po, caches = I.prefill(params, cfg, **_reduced_inputs(
+                    arch, cfg, params, device))
+                toks, logits, caches, _ = greedy_decode(
+                    params, cfg, po.logits, caches, 8)
+            return toks.cpu(), logits.cpu(), caches
+
+        ops.write_gate, A.select_global = rec_gate, rec_sel
+        try:
+            cpu = run("cpu", cpu_params)
+            gpu_params = tree_map(lambda x: x.to("cuda"), cpu_params)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            gpu = run("cuda", gpu_params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            ops.write_gate, A.select_global = inner_gate, inner_sel
+        tag = f"new-archs-reduced {arch}"
+        n_attn = cfg.n_repeats * cfg.attn_blocks_per_pattern
+        n_gate = n_attn * (2 if arch == "whisper-medium" else 1)
+        want = {"vertical_slash": n_attn, "gate_mlp": n_gate + 8 * n_attn,
+                "paged_decode": 8 * n_attn}
+        check(all(counts[key] == v for key, v in want.items())
+              and sum(counts.values()) == sum(want.values())
+              if cfg.wgkv.enabled else not any(counts.values()),
+              f"{tag}: launches {counts}")
+        margin = min((float((g - cfg.wgkv.tau).abs().min()) for g in scores),
+                     default=None)
+        check(margin is None or margin >= 1e-3,
+              f"{tag}: gate margin {margin}")
+        check(len(sels["cpu"]) == len(sels["cuda"]) and all(
+            torch.equal(a, b) for a, b in zip(sels["cpu"], sels["cuda"])),
+            f"{tag}: the card and the CPU selected different indices")
+        check(torch.equal(gpu[0], cpu[0]), f"{tag}: tokens {gpu[0].tolist()}"
+              f" vs {cpu[0].tolist()}")
+        err = float((gpu[1] - cpu[1]).abs().max())
+        check(err <= 1e-4, f"{tag}: logits differ by {err:.3e} > 1e-4")
+        gpu_leaves = dict(tree_leaves_with_path(gpu[2]))
+        n_int = 0
+        for path, leaf in tree_leaves_with_path(cpu[2]):
+            if not leaf.is_floating_point():
+                n_int += 1
+                check(torch.equal(gpu_leaves[path].cpu(), leaf),
+                      f"{tag}: cache {'/'.join(map(str, path))} differs")
+        stats = {"tokens": gpu[0][0].tolist(), "max_logit_err": err,
+                 "tau_margin": margin, "selections": len(sels["cuda"]),
+                 "int_leaves": n_int, "wall_s": wall, "launches": counts}
+        print(f"{tag}: " + json.dumps(stats), flush=True)
+        out[arch] = counts
+        del gpu_params
+        free_cuda()
+    return out
+
+
+def xlstm_phase(card: str):
+    """xlstm-350m at full width and depth (24 blocks: 12 x (mLSTM,
+    sLSTM), d_model 1,024, f32, 1.5 GiB): prefill of 2,048 tokens (the
+    chunkwise mLSTM, four chunks of 512; the sLSTM one Python step per
+    token) + 16 greedy decode steps, a teacher forward over 2,048 tokens,
+    and 2 ``lm_train_step``s at 1 x 1,024 (every leaf trains, AdamW).
+    No kernel of the port is on its path: every count stays 0."""
+    import numpy as np
+    import torch
+    from repro_torch.models import inference as I
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.training import trainer as TR
+    cfg, params, init = moe_model("xlstm-350m", 80)
+    stats = {"arch": cfg.name, "layers": cfg.n_layers, "card": card,
+             "init": init}
+    rng = np.random.default_rng(81)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size - 8, (1, 2048)),
+                           device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out, caches = I.prefill(params, cfg, toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, logits, caches, _ = greedy_decode(params, cfg, out.logits,
+                                             caches, 16)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fwd = T.forward(params, cfg, toks, with_logits=False)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    counts = read_counts()
+    check(not any(counts.values()), f"xlstm: launches {counts}")
+    check(bool(torch.isfinite(logits).all()
+               and torch.isfinite(fwd.hidden).all()),
+          "xlstm: non-finite logits or hidden")
+    check(int(caches["t"][0]) == 2048 + 16, f"xlstm: t {caches['t']}")
+    stats.update(prefill_ms=(t1 - t0) * 1e3,
+                 decode_ms_per_step=(t2 - t1) * 1e3 / 16,
+                 forward_ms=(t3 - t2) * 1e3,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del out, caches, fwd
+    free_cuda()
+    # each block type's share: one layer alone over the 2,048 tokens
+    x = torch.randn((1, 2048, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(82))
+    layer = layer_params(params, cfg)[0]
+    with torch.no_grad():
+        stats["slstm_block_ms_s2048"] = cuda_ms(
+            lambda: XL.slstm_block(layer["b1"]["cell"], cfg, x), 1,
+            warmup=1)
+        stats["mlstm_block_ms_s2048"] = cuda_ms(
+            lambda: XL.mlstm_auto(layer["b0"]["cell"], cfg, x), 3, warmup=1)
+    del x, layer
+    state = TR.init_lm_train_state(params)
+    batch = {"tokens": toks[:, :1024]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, m = TR.lm_train_step(state, cfg, batch, lr=1e-4)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"xlstm train: losses {losses}")
+    check(not any(read_counts().values()), "xlstm train: a kernel launched")
+    stats["train"] = {"batch": 1, "seq": 1024, "step_s": step_s,
+                      "losses": losses, "peak_mem_gib":
+                          torch.cuda.max_memory_allocated() / 2 ** 30}
+    stats["launches"] = counts
+    del state, params
+    free_cuda()
+    print("xlstm: " + json.dumps(stats), flush=True)
+    return counts
+
+
+def whisper_phase(card: str):
+    """whisper-medium at full width and depth (24 encoder + 24 decoder
+    layers, d_model 1,024, 16 / 16 heads of hd 64, f32, 2.8 GiB):
+    ``whisper_frame_embeds`` for 3,000 frames (1,500 encoder positions),
+    prefill of a 384-token decoder prompt (past the 64-token ring, under
+    ``dec_max_len`` 448) at budget 96, so each cross memory keeps 96 of
+    the 1,500 encoder keys its gate scores, then 16 greedy decode steps;
+    the gated forward over the prompt; and 2 gate-distillation
+    ``train_step``s at 2 x 384 with ``enc_embeds`` in the batch. Launch
+    counts of each path."""
+    import numpy as np
+    import torch
+    from repro_torch.models import inference as I
+    from repro_torch.models import registry as REG
+    from repro_torch.models import transformer as T
+    from repro_torch.training import trainer as TR
+    cfg, params, init = moe_model("whisper-medium", 90)
+    n = cfg.n_layers
+    stats = {"arch": cfg.name, "layers": [cfg.n_enc_layers, n],
+             "card": card, "init": init}
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    frames = REG.whisper_frame_embeds(gen, cfg, 1, 2 * WHISPER_ENC)
+    check(tuple(frames.shape) == (1, WHISPER_ENC, cfg.d_model),
+          f"whisper: frames {tuple(frames.shape)}")
+    rng = np.random.default_rng(92)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size - 8,
+                                        (1, WHISPER_S)), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out, caches = I.prefill(params, cfg, toks, enc_embeds=frames)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pf_counts = read_counts()
+        reset_counts()
+        _, logits, caches, _ = greedy_decode(params, cfg, out.logits,
+                                             caches, 16)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    dec_counts = read_counts()
+    node = caches["blocks"]["b0"]
+    check(pf_counts["vertical_slash"] == n and pf_counts["gate_mlp"] == 2 * n,
+          f"whisper prefill: launches {pf_counts}")
+    check(dec_counts["gate_mlp"] == 16 * n
+          and dec_counts["paged_decode"] == 16 * n,
+          f"whisper decode: launches {dec_counts}")
+    check(tuple(node["cross"].k.shape[-2:]) == (WHISPER_C, 64)
+          and node["self"].gk.shape[-2] == WHISPER_C,
+          f"whisper: cross memory {tuple(node['cross'].k.shape)}")
+    check(bool(torch.isfinite(logits).all()), "whisper: non-finite logits")
+    cross_kept = node["cross"].valid.float().sum(-1)
+    stats["serve_path"] = {
+        "prompt": WHISPER_S, "budget": WHISPER_C, "decode_steps": 16,
+        "prefill_ms": (t1 - t0) * 1e3,
+        "decode_ms_per_step": (t2 - t1) * 1e3 / 16,
+        "mean_admission": float(out.mean_admission),
+        "cross_kept_min": float(cross_kept.min()),
+        "cross_kept_max": float(cross_kept.max()),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches_prefill": pf_counts, "launches_decode": dec_counts}
+    del out, caches
+    free_cuda()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        fwd = T.forward(params, cfg, toks, mode="gated", enc_embeds=frames,
+                        with_logits=False)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_counts = read_counts()
+    check(fwd_counts["gated_flash"] == n and fwd_counts["gate_mlp"] == n,
+          f"whisper forward: launches {fwd_counts}")
+    check(tuple(fwd.gates.shape) == (n, 1, cfg.n_kv_heads, WHISPER_S)
+          and bool(torch.isfinite(fwd.hidden).all()),
+          "whisper forward: gates or hidden")
+    stats["forward"] = {"forward_ms": fwd_ms, "launches": fwd_counts}
+    del fwd
+    cluster_gates(cfg, params, 93)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size - 8, (2, WHISPER_S)), device="cuda"),
+        "enc_embeds": REG.whisper_frame_embeds(gen, cfg, 2, 2 * WHISPER_ENC)}
+    state = TR.init_train_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, m = TR.train_step(state, params, cfg, batch, lr=1e-3)
+        torch.cuda.synchronize()
+        hist.append({"step_s": time.perf_counter() - t0,
+                     **{k: float(v) for k, v in m.items()}})
+    tr_counts = read_counts()
+    want = {"gated_flash": 2 * n, "gated_flash_bwd": 2 * n,
+            "gate_mlp": 2 * n, "gate_mlp_bwd": 2 * n}
+    check(all(tr_counts[k] == v for k, v in want.items())
+          and sum(tr_counts.values()) == sum(want.values()),
+          f"whisper train: launches {tr_counts} != {want}")
+    check(all(np.isfinite(h["loss"]) and h["distill"] > 0 for h in hist),
+          f"whisper train: {hist}")
+    stats["train"] = {"batch": 2, "seq": WHISPER_S, "steps": hist,
+                      "peak_mem_gib":
+                          torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "launches": tr_counts}
+    del state, params
+    free_cuda()
+    print("whisper: " + json.dumps(stats), flush=True)
+    return {"prefill": pf_counts, "decode": dec_counts,
+            "forward": fwd_counts, "train": tr_counts}
+
+
+def qwen2vl_phase(card: str):
+    """qwen2-vl-7b at full width and depth (28 layers, d_model 3,584, 28 /
+    4 heads of hd 128: G 7; untied vocab 152,064; f32, 28.4 GiB):
+    ``launch.serve`` (text only, as the reference serves it: 2 x 64
+    tokens, 8 new, the tau probe, the pool verified), prefill of 4,096
+    tokens at budget 1,024 + 16 greedy steps, and the gated forward of a
+    2,048-slot stream whose first 1,024 slots are the patch embeddings of
+    a 32 x 32 grid (``build_vlm_embeds``), roped by its M-RoPE ids."""
+    import torch
+    from repro_torch.models import registry as REG
+    from repro_torch.models import transformer as T
+    arch = "qwen2-vl-7b"
+    stats = {"arch": arch, "card": card}
+    stats["serve"] = dense_serve(arch, card)
+    print("qwen2vl-serve: " + json.dumps(stats["serve"]), flush=True)
+    free_cuda()
+    cfg, params, stats["init"] = moe_model(arch, 100)
+    n = cfg.n_layers
+    stats["prefill"], _ = prefill_decode(cfg, params, 101, "qwen2vl-prefill")
+    print("qwen2vl-prefill: " + json.dumps(stats["prefill"]), flush=True)
+    free_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(102)
+    toks = torch.randint(0, cfg.vocab_size - 8, (1, 2048), generator=gen,
+                         device="cuda")
+    patches = 0.02 * torch.randn((1, 1024, cfg.d_model), generator=gen,
+                                 device="cuda")
+    emb, pos = REG.build_vlm_embeds(params, cfg, toks, patches, (32, 32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        res = T.forward(params, cfg, embeds=emb, positions=pos, mode="gated",
+                        with_logits=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["gated_flash"] == n and counts["gate_mlp"] == n
+          and sum(counts.values()) == 2 * n,
+          f"qwen2vl-forward: launches {counts}")
+    check(tuple(res.gates.shape) == (n, 1, cfg.n_kv_heads, 2048)
+          and bool(torch.isfinite(res.hidden).all()),
+          "qwen2vl-forward: gates or hidden")
+    stats["forward"] = {
+        "seq": 2048, "patches": 1024, "grid": [32, 32],
+        "forward_ms": wall * 1e3,
+        "admitted_frac_image": float((res.gates[..., :1024]
+                                      >= cfg.wgkv.tau).float().mean()),
+        "admitted_frac_text": float((res.gates[..., 1024:]
+                                     >= cfg.wgkv.tau).float().mean()),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": counts}
+    del res, emb, params
+    free_cuda()
+    print("qwen2vl: " + json.dumps({k: stats[k] for k in (
+        "init", "forward")}), flush=True)
+    return {k: stats[k]["launches"] for k in ("serve", "prefill", "forward")}
 
 
 def main() -> int:
@@ -3245,6 +3747,11 @@ def main() -> int:
                 2048, "float32", seed=sd + 6, hkv=hkv, hd=hd, hq=hq))]
         fwd_runs += [(name, r) for name, rs in runs.items() for r in rs]
     free_cuda()
+    # this slice's: qwen2-vl-7b's G 7 and whisper-medium's 16 / 16 at hd
+    # 64 (W 64), the gate over whisper's 1,500 cross keys, and the
+    # backward kernels at whisper's train shape
+    new_kernels, new_runs = new_arch_cases()
+    free_cuda()
     planted = planted_faults([("gate_mlp_bwd", gb_train_run),
                               ("gate_mlp_bwd", gb_sub_run),
                               ("gate_mlp_bwd", gb_rg_run),
@@ -3254,9 +3761,10 @@ def main() -> int:
                               ("gated_flash_bwd", fb_rg_run),
                               ("gated_flash_bwd_hd256", fb_rg_run),
                               ("rglru_scan_bwd", rb_train_run),
-                              ("rglru_scan_bwd", rb_h0_run), *fwd_runs])
+                              ("rglru_scan_bwd", rb_h0_run), *fwd_runs,
+                              *new_runs])
     del gb_train_run, gb_sub_run, fb_train_run, fb_sub_run, rb_train_run
-    del rb_h0_run, fb_rg_run, fb_g3_run, gb_rg_run, fwd_runs
+    del rb_h0_run, fb_rg_run, fb_g3_run, gb_rg_run, fwd_runs, new_runs
     free_cuda()
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
                    ("gate_mlp", gate_prefill),
@@ -3290,7 +3798,7 @@ def main() -> int:
                    ("gated_flash_bwd G3", fb_g3),
                    ("gated_flash_bwd G3", fb_g3_80),
                    ("gate_mlp_bwd rg", gb_rg), *dense_kernels,
-                   *moe_kernels):
+                   *moe_kernels, *new_kernels):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
     print("planted faults (backward: relative error, limit "
           f"{BWD_REL}; forward: max abs error, limit {TOL['float32']}): "
@@ -3362,6 +3870,22 @@ def main() -> int:
         tag="moe-train")
     free_cuda()
     q3m_counts = qwen3moe_d4(card, seed=71)
+    # this slice's: the three reduced configs on card and CPU, then
+    # xlstm-350m, whisper-medium and qwen2-vl-7b at full width, one model
+    # at a time
+    free_cuda()
+    new_reduced_counts = new_archs_reduced()
+    free_cuda()
+    xlstm_counts = xlstm_phase(card)
+    free_cuda()
+    whisper_counts = whisper_phase(card)
+    free_cuda()
+    q2vl_counts = qwen2vl_phase(card)
+    new_launches = {"xlstm": xlstm_counts,
+                    **{f"whisper_{k}": c for k, c in whisper_counts.items()},
+                    **{f"qwen2vl_{k}": c for k, c in q2vl_counts.items()},
+                    **{f"new_reduced {a}": c
+                       for a, c in new_reduced_counts.items()}}
     moe_launches = {"moe_serve": moe_counts["serve"],
                     "moe_prefill": moe_counts["prefill"],
                     "moe_forward": moe_counts["forward"],
@@ -3372,12 +3896,18 @@ def main() -> int:
                        for a, c in moe_reduced_counts.items()}}
 
     def moe_entry(name):
-        """A kernel's launches on each MoE path and its cases at the MoE
-        archs' heads."""
+        """A kernel's launches on each MoE path and on each of this
+        slice's, and its cases at the MoE archs' heads and at this slice's
+        (qwen2-vl-7b, whisper-medium)."""
         out = {"launches_moe": {k: c[name] for k, c in moe_launches.items()
-                                if c.get(name)}}
+                                if c.get(name)},
+               "launches_new_archs": {k: c[name]
+                                      for k, c in new_launches.items()
+                                      if c.get(name)}}
         if name in moe_by:
             out["moe_archs"] = moe_by[name]
+        if name in new_by:
+            out["new_archs"] = new_by[name]
         return out
     rg = "recurrentgemma"
     attn = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3390,10 +3920,18 @@ def main() -> int:
     for tag, r in moe_kernels:
         name, arch = tag.split()
         moe_by.setdefault(name, {}).setdefault(arch, []).append(r)
+    new_by = {}  # kernel -> arch -> its cases at this slice's shapes
+    for tag, r in new_kernels:
+        name, arch = tag.split()
+        new_by.setdefault(name, {}).setdefault(arch, []).append(r)
 
     def dense_err(name):
-        return max(r["max_abs_err"] for by in (dense_by, moe_by)
+        return max(r["max_abs_err"] for by in (dense_by, moe_by, new_by)
                    for rs in by[name].values() for r in rs)
+
+    def new_err(name):
+        return max(r["max_abs_err"] for rs in new_by[name].values()
+                   for r in rs)
     kernels = [
         {"name": "gate_mlp", "route": "cuda",
          "source": "src/repro_torch/csrc/gate_mlp.cu",
@@ -3526,7 +4064,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gate_mlp_bwd.cu",
          "replaces": "src/repro/kernels/gate_mlp.py:28",
          "launches": train_counts["gate_mlp_bwd"],
-         "max_abs_err": max(gb_train["max_abs_err"], gb_sub["max_abs_err"]),
+         "max_abs_err": max(gb_train["max_abs_err"], gb_sub["max_abs_err"],
+                            new_err("gate_mlp_bwd")),
          **{k: gb_train[k] for k in attn}, "shape": gb_train["shape"],
          "device_ms": gb_train["device_ms"],
          "bound_rate": gb_train["bound_rate"],
@@ -3551,7 +4090,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gated_flash_bwd.cu",
          "replaces": "src/repro/kernels/gated_flash.py:68",
          "launches": train_counts["gated_flash_bwd"],
-         "max_abs_err": max(fb_train["max_abs_err"], fb_sub["max_abs_err"]),
+         "max_abs_err": max(fb_train["max_abs_err"], fb_sub["max_abs_err"],
+                            new_err("gated_flash_bwd")),
          **{k: fb_train[k] for k in attn}, "shape": fb_train["shape"],
          "device_ms": fb_train["device_ms"],
          "bound_rate": fb_train["bound_rate"],

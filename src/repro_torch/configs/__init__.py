@@ -1,14 +1,16 @@
 """Architecture registry of the port: ``--arch <id>`` selects one of these.
 
-The archs the port runs are registered: the dense qwen3-0.6b,
+All ten of the reference's archs are registered: the dense qwen3-0.6b,
 smollm-360m, phi4-mini-3.8b and phi3-medium-14b (plain ``("attn",)``
-decoders), the hybrid recurrentgemma-9b, and the MoE archs
+decoders), the hybrid recurrentgemma-9b, the MoE archs
 granite-moe-3b-a800m and qwen3-moe-235b-a22b (``("attn_moe",)``
-decoders). The reference package (``src/repro/configs``) lists the rest
-(xLSTM, the VLM and the encoder-decoder), which later slices bring over. ``SHAPES``,
-``all_configs`` and ``shape_applicable`` mirror the reference's registry
-(held to it by ``tests/test_torch_archs.py``); no launcher of the port
-reads them yet, a benchmark of the port will.
+decoders), xlstm-350m (``("mlstm", "slstm")`` blocks, no KV cache),
+whisper-medium (an encoder of ``("enc_attn",)`` blocks and a decoder of
+``("attn_cross",)`` blocks) and qwen2-vl-7b (an ``("attn",)`` decoder
+with M-RoPE). ``SHAPES``, ``all_configs`` and ``shape_applicable``
+mirror the reference's registry (held to it by
+``tests/test_torch_archs.py``); no launcher of the port reads them yet,
+a benchmark of the port will.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ _ARCH_MODULES = {
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
 }
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -4,7 +4,10 @@
 either the nested tree (``jax.tree.map(np.asarray, params)``) or the flat
 ``/``-keyed npz that ``repro/training/checkpoint.py`` writes (a path or
 the loaded mapping) — and returns the port's tree of tensors on
-``device``. The layouts match path for path, so no leaf is transposed.
+``device``. The layouts match path for path, so no leaf is transposed:
+the encoder (``enc/blocks``, ``enc/ln_f``), the cross attention
+(``xattn``, ``ln_x``), LayerNorm biases and the xLSTM cells (``cell``)
+included.
 :func:`flat_numpy` goes the other way: any tree of the port to the flat
 ``/``-keyed numpy mapping that file format holds.
 """
@@ -91,6 +94,17 @@ def _check(params: dict, cfg: ModelConfig) -> None:
             raise ValueError(f"blocks/{'/'.join(map(str, path))} has leading "
                              f"axis {leaf.shape[0]}, config has "
                              f"{cfg.n_repeats} repeats")
+    if cfg.is_encdec:
+        enc = params.get("enc", {})
+        if "blocks" not in enc or "ln_f" not in enc:
+            raise ValueError("an encoder-decoder's tree needs enc/blocks and "
+                             "enc/ln_f")
+        for path, leaf in tree_leaves_with_path(enc["blocks"]):
+            if leaf.shape[0] != cfg.n_enc_repeats:
+                raise ValueError(
+                    f"enc/blocks/{'/'.join(map(str, path))} has leading "
+                    f"axis {leaf.shape[0]}, config has {cfg.n_enc_repeats} "
+                    "encoder repeats")
     stem = params.get("stem", ())
     if len(stem) != len(cfg.stem_pattern):
         raise ValueError(f"parameter tree has {len(stem)} stem blocks, "

@@ -21,7 +21,9 @@ telemetry.
 Weights are random, drawn from ``--seed`` with a ``torch.Generator``;
 prompts are drawn with numpy from the same seed. Flags of the reference
 CLI that this port does not support yet exit with a message instead of
-being ignored (``--mesh``). At startup of the ``wgkv`` backend a short
+being ignored (``--mesh``). As in the reference, an arch without a KV
+cache (xlstm-350m) and the encoder-decoder (whisper-medium) are refused;
+qwen2-vl-7b serves text only. At startup of the ``wgkv`` backend a short
 gated forward probes the gate scores (:func:`tau_probe`) and warns on
 stderr when tau sits inside their cluster.
 """
@@ -183,6 +185,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     if not cfg.has_attention_cache:
         raise SystemExit(f"{args.arch} has no KV cache; engine serves "
                          "attention archs (SSM decode via examples/)")
+    if cfg.is_encdec:
+        raise SystemExit("enc-dec serving requires audio frontends; see "
+                         "examples/ for whisper decode")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = T.init_model(cfg, gen, device)

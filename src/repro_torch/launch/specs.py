@@ -6,60 +6,81 @@ inputs untouched, so an in-flight step's before/after trees stay valid.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
 from repro_torch.core.dual_cache import init_dual_cache
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as A
 from repro_torch.models import rglru as RG
+from repro_torch.models import xlstm as XL
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 
 def _block_cache(cfg: ModelConfig, bt: str, batch: int, capacity: int,
-                 use_wgkv: bool, device):
+                 use_wgkv: bool, device, s_enc: Optional[int] = None):
     """One block's empty decode cache. An attention block (``attn``,
-    ``attn_moe``, ``local_attn``) with WG-KV: the write-gated dual cache (ring ``cfg.sliding_window`` for
+    ``attn_moe``, ``local_attn``, ``attn_cross``) with WG-KV: the
+    write-gated dual cache (ring ``cfg.sliding_window`` for
     ``local_attn``, else ``cfg.wgkv.w_local``). Without (the dense
     baseline): a ring-only dual cache for ``local_attn`` (a budget of
     ``max(sink, 16)`` that only sinks reach), else a dense cache of
-    ``capacity`` (rounded up to a 16-token page). An ``rglru`` block's
-    zero state."""
+    ``capacity`` (rounded up to a 16-token page). An ``attn_cross``
+    block's is ``{"self": that cache, "cross": CrossCache}`` over
+    ``global_budget(s_enc)`` encoder slots under WG-KV, else ``s_enc``.
+    A recurrent block's (``rglru``, ``mlstm``, ``slstm``) zero state."""
     dt = torch_dtype(cfg.dtype)
-    if bt in ("attn", "attn_moe", "local_attn"):
+    if bt in ATTN_BLOCKS:
         if use_wgkv:
             w_ring = (cfg.sliding_window if bt == "local_attn"
                       else cfg.wgkv.w_local)
-            return init_dual_cache(batch, cfg.n_kv_heads, cfg.head_dim,
-                                   w_local=w_ring,
-                                   budget=cfg.wgkv.global_budget(capacity),
-                                   dtype=dt, device=device)
-        if bt == "local_attn":
-            return init_dual_cache(batch, cfg.n_kv_heads, cfg.head_dim,
-                                   w_local=cfg.sliding_window,
-                                   budget=max(cfg.wgkv.sink, 16), dtype=dt,
-                                   device=device)
-        return A.init_dense_cache(batch, cfg.n_kv_heads, cfg.head_dim,
-                                  capacity, dt, device=device)
+            cache = init_dual_cache(batch, cfg.n_kv_heads, cfg.head_dim,
+                                    w_local=w_ring,
+                                    budget=cfg.wgkv.global_budget(capacity),
+                                    dtype=dt, device=device)
+        elif bt == "local_attn":
+            cache = init_dual_cache(batch, cfg.n_kv_heads, cfg.head_dim,
+                                    w_local=cfg.sliding_window,
+                                    budget=max(cfg.wgkv.sink, 16), dtype=dt,
+                                    device=device)
+        else:
+            cache = A.init_dense_cache(batch, cfg.n_kv_heads, cfg.head_dim,
+                                       capacity, dt, device=device)
+        if bt != "attn_cross":
+            return cache
+        if s_enc is None:
+            raise ValueError("an attn_cross block's cache needs s_enc")
+        n = cfg.wgkv.global_budget(s_enc) if use_wgkv else s_enc
+        shape = (batch, cfg.n_kv_heads, n, cfg.head_dim)
+        cross = A.CrossCache(
+            k=torch.zeros(shape, dtype=dt, device=device),
+            v=torch.zeros(shape, dtype=dt, device=device),
+            valid=torch.ones(shape[:3], dtype=torch.bool, device=device))
+        return {"self": cache, "cross": cross}
     if bt == "rglru":
         return RG.init_rglru_state(cfg, batch, dt, device=device)
-    raise NotImplementedError(f"decode caches for block type {bt!r} are "
-                              "not ported yet")
+    if bt == "mlstm":
+        return XL.init_mlstm_state(cfg, batch, dt, device=device)
+    if bt == "slstm":
+        return XL.init_slstm_state(cfg, batch, device=device)
+    raise ValueError(f"unknown block type {bt!r}")
 
 
 def build_decode_caches(cfg: ModelConfig, batch: int, capacity: int, *,
-                        use_wgkv: bool = True,
-                        device=None) -> Dict[str, Any]:
+                        use_wgkv: bool = True, device=None,
+                        s_enc: Optional[int] = None) -> Dict[str, Any]:
     """Empty decode cache tree ``{"t", "stem": (...), "blocks": {"b0":
     ...}}`` with block leaves stacked ``[n_repeats, batch, ...]`` and the
     stem (only when the config has one) a tuple of batch-leading caches.
-    ``use_wgkv=False`` builds the dense baseline's caches. The eviction
-    ``obs`` subtree is added by the caller that evicts
+    ``use_wgkv=False`` builds the dense baseline's caches; ``s_enc``: the
+    encoder length an ``attn_cross`` block's cross cache holds. The
+    eviction ``obs`` subtree is added by the caller that evicts
     (``inference._init_obs_tree``), as in the reference."""
     def mk(bt):
-        return _block_cache(cfg, bt, batch, capacity, use_wgkv, device)
+        return _block_cache(cfg, bt, batch, capacity, use_wgkv, device,
+                            s_enc)
 
     caches: Dict[str, Any] = {
         "t": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -73,9 +94,10 @@ def build_decode_caches(cfg: ModelConfig, batch: int, capacity: int, *,
 
 def cache_batch_axis(path) -> int:
     """Batch axis of a decode-cache leaf given its tree path: stacked
-    per-superblock caches carry [n_repeats, B, ...]; the eviction
-    observation tree is [n_repeats, n_attn, B, ...]; everything else
-    (``t``, stem caches) is batch-leading."""
+    per-superblock caches carry [n_repeats, B, ...] (the recurrent states
+    and an ``attn_cross`` block's self and cross caches too); the
+    eviction observation tree is [n_repeats, n_attn, B, ...]; everything
+    else (``t``, stem caches) is batch-leading."""
     if "obs" in path:
         return 2
     return 1 if "blocks" in path else 0

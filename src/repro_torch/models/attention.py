@@ -1,5 +1,5 @@
-"""GQA self-attention with first-class WG-KV (port of the causal
-self-attention half of ``repro/models/attention.py``).
+"""GQA attention with first-class WG-KV (port of
+``repro/models/attention.py``).
 
 Modes:
   * train — full-sequence attention: the causal teacher (``off``), the
@@ -13,6 +13,14 @@ Modes:
   * the dense full-attention baseline — causal prefill
     (:func:`attn_prefill_full`) into a contiguous :class:`DenseCache`, and
     one token against its first ``t`` entries (:func:`attn_decode_dense`).
+  * encoder-decoder (whisper) — the decoder's cross attention over the
+    encoder memory (:func:`attn_cross`), budgeted by the write gate when
+    WG-KV is on (:func:`build_cross_cache`), and the encoder's
+    bidirectional attention (:func:`attn_encoder`).
+
+A config with M-RoPE (qwen2-vl) ropes by the (t, h, w) ids when a
+prefill or forward is given positions [3, B, S]; decode ropes at the
+row's ``t``, as in the reference.
 
 On CUDA the gate runs in the ``gate_mlp`` kernel, gated training
 attention in ``gated_flash``, the budgeted prefill in ``vertical_slash``
@@ -24,9 +32,10 @@ key inside the window (bias 0), its decode read is one ``paged_decode``
 segment over the dense buffer. On the CPU each wrapper runs its plain
 PyTorch version. The windowed dense baseline (``local_attn`` blocks with
 WG-KV off) has no kernel yet: it runs plain on the CPU and raises on
-CUDA. The teacher and hard modes run :func:`sdpa` (an einsum and a
-softmax) on either device, as the reference computes them outside any
-Pallas kernel.
+CUDA. The teacher and hard modes, the cross attention and the encoder
+run plain PyTorch (:func:`sdpa`: an einsum and a softmax) on either
+device, as the reference computes them outside any Pallas kernel; the
+cross memory's gate runs in ``gate_mlp``.
 """
 from __future__ import annotations
 
@@ -79,24 +88,37 @@ def init_dense_cache(batch: int, n_kv: int, head_dim: int, max_len: int,
 
 
 def dense_cache_append(cache: DenseCache, k_new: torch.Tensor,
-                       v_new: torch.Tensor) -> DenseCache:
+                       v_new: torch.Tensor,
+                       write: Optional[torch.Tensor] = None) -> DenseCache:
     """k_new, v_new: [B, H, hd] appended at each row's position ``t``:
     one slot per row written into a copy of the buffers (the dual cache's
-    functional style). A write past the buffer fails (an index error on
-    the CPU, a device-side assert on CUDA), never drops: the serving
-    engine guards capacity on the host before it dispatches, and the
-    ragged scan parks the rows it masks inside the buffer."""
+    functional style). ``write`` [B] bool: the rows whose token is
+    written; the others keep their buffers (the ragged scan's masked rows
+    at capacity, whose write the reference drops). Every row's ``t``
+    advances. A write past the buffer fails (an index error on the CPU, a
+    device-side assert on CUDA), never drops: the serving engine guards
+    capacity on the host before it dispatches."""
     bar = torch.arange(cache.k.shape[0], device=cache.k.device)
     t = cache.t.long()
     k, v = cache.k.clone(), cache.v.clone()
-    k[bar, :, t] = k_new.to(k.dtype)
-    v[bar, :, t] = v_new.to(v.dtype)
+    k_new, v_new = k_new.to(k.dtype), v_new.to(v.dtype)
+    if write is not None:
+        t = torch.where(write, t, torch.zeros_like(t))
+        keep = ~write[:, None, None]
+        k_new = torch.where(keep, k[bar, :, t], k_new)
+        v_new = torch.where(keep, v[bar, :, t], v_new)
+    k[bar, :, t] = k_new
+    v[bar, :, t] = v_new
     return DenseCache(k, v, cache.t + 1)
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    """Causal self-attention parameters (the reference's ``kind="self"``),
-    with the write gate when WG-KV is enabled."""
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device, *,
+                   kind: str = "self",
+                   with_gate: Optional[bool] = None) -> Params:
+    """Attention parameters. kind: "self" (causal), "cross" (the
+    encoder-decoder's) or "enc" (bidirectional encoder). The write gate
+    comes with ``with_gate``, by default when WG-KV is enabled and the
+    kind is not "enc"."""
     dt = torch_dtype(cfg.param_dtype)
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p: Params = {
@@ -108,7 +130,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((hd,), dtype=dt, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=dt, device=device)
-    if cfg.wgkv.enabled:
+    if with_gate is None:
+        with_gate = cfg.wgkv.enabled and kind != "enc"
+    if with_gate:
         p["gate"] = init_gate(gen, cfg, device)
     return p
 
@@ -130,13 +154,18 @@ def project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
-    """x: [B, S, D]; positions: [B, S] int. Returns (q_rope [B,Hq,S,hd],
+    """x: [B, S, D]; positions: [B, S] int, or [3, B, S] for an M-RoPE
+    config (the (t, h, w) ids). Returns (q_rope [B,Hq,S,hd],
     k_pre [B,Hkv,S,hd], k_rope, v)."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)
     k_pre = _heads(x @ p["w_k"].to(x.dtype), hkv, hd)
     v = _heads(x @ p["w_v"].to(x.dtype), hkv, hd)
     q, k_pre = _qk_norm(p, q, k_pre)
+    if cfg.mrope and positions.ndim == 3:
+        pos3 = positions[:, :, None, :]      # [3, B, 1, S] over the heads
+        return (L.apply_mrope(q, pos3, cfg.rope_theta), k_pre,
+                L.apply_mrope(k_pre, pos3, cfg.rope_theta), v)
     if cfg.rope_theta > 0:
         posq = positions[:, None, :]
         return (L.apply_rope(q, posq, cfg.rope_theta), k_pre,
@@ -398,15 +427,18 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     return y, new_cache, g_new, sel_pages
 
 
-def _dense_window_read(q: torch.Tensor, cache: DenseCache,
-                       window: int) -> torch.Tensor:
-    """Plain read of the last ``window`` of a dense cache's ``t`` tokens
-    (the windowed baseline; CPU only). q: [B, Hq, hd] -> [B, Hq, hd]."""
+def _dense_window_read(q: torch.Tensor, cache: DenseCache, window: int,
+                       limit: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Plain read of the last ``window`` of a dense cache's ``t`` tokens,
+    none at or past ``limit`` [B] when given (the windowed baseline; CPU
+    only). q: [B, Hq, hd] -> [B, Hq, hd]."""
     b, hq, hd = q.shape
     hkv, s = cache.k.shape[1], cache.k.shape[2]
     pos = torch.arange(s, device=q.device)[None]
     t = cache.t[:, None]
-    valid = (pos < t) & (pos >= t - window)                     # [B, S]
+    end = t if limit is None else torch.minimum(t, limit[:, None])
+    valid = (pos < end) & (pos >= t - window)                   # [B, S]
     qg = q.reshape(b, hkv, hq // hkv, hd)
     logits = torch.einsum("bhgd,bhkd->bhgk", qg, cache.k).float()
     logits = logits * (hd ** -0.5)
@@ -418,12 +450,18 @@ def _dense_window_read(q: torch.Tensor, cache: DenseCache,
 
 
 def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
-                      cache: DenseCache, *, window: Optional[int] = None
+                      cache: DenseCache, *, window: Optional[int] = None,
+                      limit: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, DenseCache]:
     """Full-attention baseline decode step. x_t: [B, D]. The new token is
     appended first, then one query per head reads the cache's first
     ``t`` tokens (the last ``window`` of them when given) — the
-    reference's order. Returns (out [B, D], new cache)."""
+    reference's order. ``limit`` [B] int: per row, the capacity of the
+    reference's buffer: a row at ``t >= limit`` writes nothing, and every
+    row reads at most ``limit`` entries, as the reference's ``where``
+    append and read over a buffer of that size do (the ragged scan's
+    masked rows; its active rows pass ``INT32_MAX``). Returns (out [B, D],
+    new cache)."""
     b, _ = x_t.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x_t[:, None, :]
@@ -434,12 +472,81 @@ def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     q, k_pre = q[:, :, 0], k_pre[:, :, 0]
     q = _rope_single(cfg, q, cache.t)
     k_new = _rope_single(cfg, k_pre, cache.t)
-    cache = dense_cache_append(cache, k_new, v_new)
+    write = None if limit is None else cache.t < limit
+    cache = dense_cache_append(cache, k_new, v_new, write=write)
     if window is None:
-        o = ops.dense_cache_attention(q, cache)
+        read = cache if limit is None else cache._replace(
+            t=torch.minimum(cache.t, limit))
+        o = ops.dense_cache_attention(q, read)
     elif x_t.device.type != "cpu":
         raise NotImplementedError(WINDOWED_DENSE_TODO)
     else:
-        o = _dense_window_read(q, cache, window)
+        o = _dense_window_read(q, cache, window, limit)
     y = o.reshape(b, hq * hd) @ p["w_o"].to(x_t.dtype)
     return y, cache
+
+
+# ==========================================================================
+# cross-attention (the whisper decoder), with admission on the encoder
+# memory; the bidirectional encoder
+# ==========================================================================
+class CrossCache(NamedTuple):
+    k: torch.Tensor       # [B, Hkv, S_enc or budget, hd]
+    v: torch.Tensor
+    valid: torch.Tensor   # [B, Hkv, S] bool
+
+
+def build_cross_cache(p: Params, cfg: ModelConfig, enc_out: torch.Tensor,
+                      *, budget: Optional[int] = None) -> CrossCache:
+    """The cross-attention K/V of the encoder output [B, S_enc, D]. Given
+    ``budget`` (below S_enc) and a gate, the write gate scores the encoder
+    keys (no RoPE: the pre- and post-RoPE features are the same keys) and
+    only the top-``budget`` admitted tokens are kept, sinks first
+    (``select_global``): WG-KV on the cross stream. On CUDA the gate runs
+    in the ``gate_mlp`` kernel."""
+    b, s, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = _heads(enc_out @ p["w_k"].to(enc_out.dtype), hkv, hd)
+    v = _heads(enc_out @ p["w_v"].to(enc_out.dtype), hkv, hd)
+    if budget is not None and "gate" in p and budget < s:
+        g = gate_scores(p["gate"], k, k)
+        sel = select_global(g, budget=budget, tau=cfg.wgkv.tau,
+                            sink=cfg.wgkv.sink)
+        bi = torch.arange(b, device=k.device)[:, None, None]
+        hi = torch.arange(hkv, device=k.device)[None, :, None]
+        idx = sel.idx.long()
+        return CrossCache(k[bi, hi, idx], v[bi, hi, idx], sel.valid)
+    return CrossCache(k, v, torch.ones((b, hkv, s), dtype=torch.bool,
+                                       device=k.device))
+
+
+def attn_cross(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               cc: CrossCache) -> torch.Tensor:
+    """x: [B, Sq, D], the decoder stream, attending to the (possibly
+    budgeted) encoder memory: plain PyTorch on either device, as the
+    reference computes it outside any Pallas kernel."""
+    b, sq, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)
+    qg = q.reshape(b, hkv, hq // hkv, sq, hd)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, cc.k).float()
+    logits = logits * (hd ** -0.5)
+    logits = torch.where(cc.valid[:, :, None, None], logits,
+                         torch.full_like(logits, M.NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", w.to(cc.v.dtype), cc.v)
+    return _merge_heads(o.reshape(b, hq, sq, hd)) @ p["w_o"].to(x.dtype)
+
+
+def attn_encoder(p: Params, cfg: ModelConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """Bidirectional encoder self-attention (whisper) through the plain
+    :func:`sdpa`, no mask and no RoPE."""
+    s = x.shape[1]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)
+    k = _heads(x @ p["w_k"].to(x.dtype), hkv, hd)
+    v = _heads(x @ p["w_v"].to(x.dtype), hkv, hd)
+    zero = torch.zeros((1, 1, 1, 1, s), dtype=torch.float32, device=x.device)
+    out = sdpa(q, k, v, lambda qs, ql: zero)
+    return _merge_heads(out) @ p["w_o"].to(x.dtype)

@@ -7,15 +7,20 @@
 into a contiguous :class:`~repro_torch.models.attention.DenseCache`;
 :func:`decode_step` continues from either (it dispatches on the cache
 type). The serving engine instead ingests prompts position by position
-through :func:`prefill_extend_ragged`.
+through :func:`prefill_extend_ragged`. A VLM stream enters the prefill
+as ``embeds`` with M-RoPE ``positions`` [3, B, S]; decode ropes at the
+row's ``t`` (text). An encoder-decoder's prefill takes ``enc_embeds``.
 
 Cache tree, as in the reference: ``{"t": [B] int32, "stem": (cache,
 ...), "blocks": {"b0": ..., "b1": ...}, "obs": ObsWindow}``. An
 attention block (``"attn"``, ``"attn_moe"``, ``"local_attn"``) keeps a
 DualCache whose
 ring is ``cfg.wgkv.w_local`` or, for ``local_attn``, ``cfg.sliding_window``
-tokens (the dense baseline: a DenseCache); an ``"rglru"`` block keeps its
-RGLRUState. Every ``"blocks"`` leaf is stacked ``[n_repeats, B, ...]``;
+tokens (the dense baseline: a DenseCache); an ``"attn_cross"`` block
+``{"self": that cache, "cross": CrossCache}``, its encoder memory fixed
+at prefill (budgeted by the gate under WG-KV); an ``"rglru"`` block its
+RGLRUState, ``"mlstm"`` / ``"slstm"`` their MLSTMState / SLSTMState.
+Every ``"blocks"`` leaf is stacked ``[n_repeats, B, ...]``;
 the stem (only when the config has one) is a tuple of batch-leading
 caches; the eviction observation window (only when eviction is on) is
 stacked ``[n_repeats, n_attn, B, ...]`` and indexed by a block's ordinal
@@ -56,8 +61,10 @@ from repro_torch.launch.specs import cache_batch_axis
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
-from repro_torch.models.transformer import (_check_supported, _norm, ffn,
-                                            layer_params, stem_params)
+from repro_torch.models import xlstm as XL
+from repro_torch.models.transformer import (_norm, embed_inputs, ffn,
+                                            layer_params, stem_params,
+                                            unstack)
 from repro_torch.tree import tree_map, tree_map_with_path
 
 Params = Dict[str, Any]
@@ -65,6 +72,7 @@ CacheTree = Dict[str, Any]
 
 
 STATIC_POLICIES = ("streaming_llm", "duo")
+INT32_MAX = torch.iinfo(torch.int32).max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,23 +113,19 @@ def parse_selection_policy(policy: Optional[str]) -> Optional[int]:
 def _static_gates(cfg: ModelConfig, opts: Optional[DecodeOptions],
                   positions: torch.Tensor) -> Optional[torch.Tensor]:
     """Static admission gates at ``positions`` ([B] decode / [B, S]
-    prefill); None when the learned gate is in effect."""
+    prefill; of an M-RoPE stack [3, B, S] the first); None when the
+    learned gate is in effect."""
     if opts is None or opts.admission_policy is None:
         return None
+    pos = positions if positions.ndim <= 2 else positions[0]
     return BL.gates_from_positions(
-        opts.admission_policy, positions, cfg.n_kv_heads,
+        opts.admission_policy, pos, cfg.n_kv_heads,
         sink=opts.admission_sink, retrieval_heads=opts.duo_retrieval_heads)
 
 
-def _split_layers(node) -> list:
-    """A stacked per-block cache (DualCache, DenseCache or RGLRUState,
-    leaves ``[n_repeats, ...]``) -> one cache per repeat."""
-    cols = [leaf.unbind(0) for leaf in node]
-    return [type(node)(*(c[r] for c in cols)) for r in range(len(cols[0]))]
-
-
 def _stack_layers(layers: list):
-    return type(layers[0])(*(torch.stack(leaves) for leaves in zip(*layers)))
+    """One cache per repeat -> the stacked per-block cache."""
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
 
 
 class PrefillOut(NamedTuple):
@@ -134,7 +138,8 @@ def _attn_block_prefill(p: Params, cfg: ModelConfig, bt: str,
                         x: torch.Tensor, positions: torch.Tensor, *,
                         use_wgkv: bool, budget: int, max_len: int,
                         moe_groups: int = 1,
-                        opts: Optional[DecodeOptions] = None):
+                        opts: Optional[DecodeOptions] = None,
+                        enc_out: Optional[torch.Tensor] = None):
     """One attention block of the prefill. With WG-KV: vertical-slash
     attention over the block's window (``cfg.sliding_window`` for
     ``local_attn``, else ``cfg.wgkv.w_local``) under the learned gate or
@@ -142,8 +147,11 @@ def _attn_block_prefill(p: Params, cfg: ModelConfig, bt: str,
     populated from its K/V/gates. Without: causal attention (windowed
     for ``local_attn``) and a dense cache of ``max_len`` holding all S
     tokens. An ``attn_moe`` block's FFN routes the whole ``[B, S]`` chunk
-    in ``moe_groups`` groups. Returns (x, cache, admitted fraction; 0
-    without WG-KV)."""
+    in ``moe_groups`` groups. An ``attn_cross`` block then attends to the
+    encoder output through a cross cache budgeted at ``budget`` (the
+    self-attention's, as in the reference) under WG-KV, whole without;
+    its cache is ``{"self": ..., "cross": CrossCache}``. Returns (x,
+    cache, admitted fraction; 0 without WG-KV)."""
     b, s, _ = x.shape
     dt = torch_dtype(cfg.dtype)
     window = cfg.sliding_window if bt == "local_attn" else None
@@ -171,6 +179,11 @@ def _attn_block_prefill(p: Params, cfg: ModelConfig, bt: str,
         cache.v[:, :, :s] = v.to(dt)
         cache.t.fill_(s)
     x = x + h
+    if bt == "attn_cross":
+        cc = A.build_cross_cache(p["xattn"], cfg, enc_out,
+                                 budget=budget if use_wgkv else None)
+        x = x + A.attn_cross(p["xattn"], cfg, _norm(cfg, p["ln_x"], x), cc)
+        cache = {"self": cache, "cross": cc}
     y, _ = ffn(p, cfg, bt, x, moe_groups=moe_groups)
     return x + y, cache, adm
 
@@ -179,24 +192,35 @@ def _block_prefill(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
                    positions: torch.Tensor, **kw):
     """One block of the prefill -> (x, its cache, admitted fraction; 0
     for a block without a gate)."""
-    if bt in ("attn", "attn_moe", "local_attn"):
+    if bt in ATTN_BLOCKS:
         return _attn_block_prefill(p, cfg, bt, x, positions, **kw)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if bt == "rglru":
         y, state = RG.rglru_block(p["rec"], cfg, _norm(cfg, p["ln1"], x))
         x = x + y
         x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
-        return x, state, torch.zeros((), dtype=torch.float32,
-                                     device=x.device)
-    raise NotImplementedError(f"block type {bt!r} is not ported")
+        return x, state, zero
+    if bt == "mlstm":
+        x, state = XL.mlstm_auto(p["cell"], cfg, x)
+        return x, state, zero
+    if bt == "slstm":
+        x, state = XL.slstm_block(p["cell"], cfg, x)
+        return x, state, zero
+    raise ValueError(f"unknown block type {bt!r}")
 
 
-def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+def prefill(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None, *,
             positions: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None,
             use_wgkv: Optional[bool] = None, budget: Optional[int] = None,
             max_len: Optional[int] = None, moe_groups: int = 1,
             opts: DecodeOptions = DecodeOptions()
             ) -> Tuple[PrefillOut, CacheTree]:
-    """Prefill of tokens [B, S]. Every layer's cache is filled at once —
+    """Prefill of tokens [B, S] (or ``embeds`` [B, S, D], a VLM stream,
+    with M-RoPE ``positions`` [3, B, S]; ``enc_embeds`` [B, S_enc, D] for
+    the encoder-decoder, encoded once). Every layer's cache is filled at once —
     the stem's as a tuple, the repeats' stacked ``[n_repeats, B, ...]``
     — so :func:`decode_step` continues from the returned tree.
 
@@ -217,11 +241,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``mean_admission`` is the reference's: the admitted fractions summed
     over attention layers, divided by the stem's block count (of any
     type) plus ``n_repeats`` times the pattern's attention blocks."""
-    _check_supported(cfg)
     if use_wgkv is None:
         use_wgkv = cfg.wgkv.enabled
-    dt = torch_dtype(cfg.dtype)
-    x = L.embed(params["embed"], tokens, dt)
+    x, enc_out = embed_inputs(params, cfg, tokens, embeds, enc_embeds)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
@@ -233,7 +255,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if not use_wgkv and max_len < s:
         raise ValueError(f"max_len {max_len} < prompt length {s}")
     kw = dict(use_wgkv=use_wgkv, budget=budget, max_len=max_len,
-              moe_groups=moe_groups, opts=opts)
+              moe_groups=moe_groups, opts=opts, enc_out=enc_out)
     adm_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     stem_caches = []
     for bt, p in zip(cfg.stem_pattern, stem_params(params)):
@@ -290,7 +312,8 @@ def _quest_mask(cfg: ModelConfig, cache: DualCache, q: torch.Tensor,
 def _attn_block_decode(p: Params, cfg: ModelConfig, bt: str,
                        x: torch.Tensor, cache, *, opts: DecodeOptions,
                        sel_fn, sel_k: Optional[int],
-                       obs: Optional[EV.ObsWindow], moe_groups: int = 1):
+                       obs: Optional[EV.ObsWindow], moe_groups: int = 1,
+                       dense_limit: Optional[torch.Tensor] = None):
     """One attention block of a decode step. A DenseCache (the dense
     baseline) appends the token and reads its first ``t`` entries (the
     last ``cfg.sliding_window`` for ``local_attn``). A DualCache: the
@@ -301,20 +324,31 @@ def _attn_block_decode(p: Params, cfg: ModelConfig, bt: str,
     RoPE, as the reference) and ``maybe_evict`` runs. Returns (x, cache,
     obs, per-row admission or None (dense), per-row selected pages or
     None, per-row triggers or None). An ``attn_moe`` block routes the
-    step's ``[B, 1]`` tokens, every row, in ``moe_groups`` groups."""
-    def ffn_step(x):
+    step's ``[B, 1]`` tokens, every row, in ``moe_groups`` groups. An
+    ``attn_cross`` block's cache is ``{"self": ..., "cross": CrossCache}``:
+    the self cache as above, then one query over the (fixed) cross
+    memory."""
+    def rest(x, nc):
+        """The cross attention (``attn_cross``) and the FFN."""
+        if bt == "attn_cross":
+            x = x + A.attn_cross(p["xattn"], cfg,
+                                 _norm(cfg, p["ln_x"], x[:, None]),
+                                 cache["cross"])[:, 0]
+            nc = {"self": nc, "cross": cache["cross"]}
         y, _ = ffn(p, cfg, bt, x[:, None], moe_groups=moe_groups)
-        return x + y[:, 0]
+        return x + y[:, 0], nc
 
     xin = _norm(cfg, p["ln1"], x)
-    if isinstance(cache, A.DenseCache):
+    self_cache = cache["self"] if bt == "attn_cross" else cache
+    if isinstance(self_cache, A.DenseCache):
         window = cfg.sliding_window if bt == "local_attn" else None
-        h, nc = A.attn_decode_dense(p["attn"], cfg, xin, cache,
-                                    window=window)
-        return ffn_step(x + h), nc, obs, None, None, None
+        h, nc = A.attn_decode_dense(p["attn"], cfg, xin, self_cache,
+                                    window=window, limit=dense_limit)
+        return (*rest(x + h, nc), obs, None, None, None)
     h, nc, g_new, sel_pages = A.attn_decode_wgkv(
-        p["attn"], cfg, xin, cache, token_select_fn=sel_fn,
-        select_pages_k=sel_k, gate_override=_static_gates(cfg, opts, cache.t))
+        p["attn"], cfg, xin, self_cache, token_select_fn=sel_fn,
+        select_pages_k=sel_k,
+        gate_override=_static_gates(cfg, opts, self_cache.t))
     adm = (g_new >= cfg.wgkv.tau).float().mean(dim=-1)
     selp = None if sel_pages is None else sel_pages.float().mean(dim=-1)
     trig = None
@@ -325,7 +359,7 @@ def _attn_block_decode(p: Params, cfg: ModelConfig, bt: str,
         nc, trg = EV.maybe_evict(nc, obs, hard_budget=opts.evict_hard_budget,
                                  evict_frac=opts.evict_frac)
         trig = trg.float().mean(dim=-1)
-    return ffn_step(x + h), nc, obs, adm, selp, trig
+    return (*rest(x + h, nc), obs, adm, selp, trig)
 
 
 def _rglru_block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -339,11 +373,14 @@ def _rglru_block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 caches: CacheTree, *, moe_groups: int = 1,
                 opts: DecodeOptions = DecodeOptions(),
-                layers: Optional[List[Params]] = None
+                layers: Optional[List[Params]] = None,
+                dense_limit: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, CacheTree, Dict[str, torch.Tensor]]:
     """token: [B] int -> (logits [B, V], new caches, stats). ``layers``
     may pass precomputed per-layer parameter views
     (:func:`repro_torch.models.transformer.layer_params`).
+    ``dense_limit`` [B] int: every dense layer's ``limit``
+    (``attention.attn_decode_dense``; the ragged scan's masked rows).
 
     The stem blocks run first, then the repeats. Per attention layer: the
     decode read (with Quest selection when ``opts`` asks), then, when the
@@ -352,7 +389,9 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     the pattern's attention blocks; the stem has none) takes the step's
     query and ``maybe_evict`` runs. An ``rglru`` layer advances its state
     by one position. An ``attn_moe`` layer routes all B rows' tokens in
-    ``moe_groups`` groups. Stats are per row: ``evict_trigger_rows`` (triggered
+    ``moe_groups`` groups. An ``mlstm`` / ``slstm`` layer takes one
+    recurrent step. An encoder-decoder's token gets the sinusoid of its
+    row's ``t``. Stats are per row: ``evict_trigger_rows`` (triggered
     fraction of kv heads, summed over layers), ``mean_admission`` (mean
     over attention layers) and ``selected_pages_rows`` (valid gathered
     pages, mean over kv heads, summed over layers; zeros without gather
@@ -363,6 +402,11 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     x = L.embed(params["embed"], token, dt)                     # [B, D]
     b = x.shape[0]
     dev = x.device
+    if cfg.is_encdec:
+        # the decoder's sinusoid at each row's position t
+        ang = caches["t"][:, None].float() * L.sinusoidal_inv(
+            cfg.d_model, dev)[None]
+        x = x + torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dt)
     obs = caches.get("obs")
     evict = obs is not None and opts.evict_hard_budget is not None
     sel_fn = None
@@ -380,11 +424,15 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         if bt == "rglru":
             xo, nc = _rglru_block_decode(p, cfg, x, cache)
             return xo, nc, ob
-        if bt not in ("attn", "attn_moe", "local_attn"):
-            raise NotImplementedError(f"block type {bt!r} is not ported")
+        if bt == "mlstm":
+            return (*XL.mlstm_step(p["cell"], cfg, x, cache), ob)
+        if bt == "slstm":
+            return (*XL.slstm_step(p["cell"], cfg, x, cache), ob)
+        if bt not in ATTN_BLOCKS:
+            raise ValueError(f"unknown block type {bt!r}")
         xo, nc, ob, adm, selp, trig = _attn_block_decode(
             p, cfg, bt, x, cache, opts=opts, sel_fn=sel_fn, sel_k=sel_k,
-            obs=ob, moe_groups=moe_groups)
+            obs=ob, moe_groups=moe_groups, dense_limit=dense_limit)
         if adm is not None:
             adm_sum = adm_sum + adm
             adm_n += 1
@@ -402,7 +450,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
             x, nc, _ = run(bt, p, x, cache, None)
             stem_new.append(nc)
         new_caches["stem"] = tuple(stem_new)
-    per_block = {f"b{i}": _split_layers(caches["blocks"][f"b{i}"])
+    per_block = {f"b{i}": unstack(caches["blocks"][f"b{i}"])
                  for i in range(len(cfg.block_pattern))}
     new_block: Dict[str, list] = {k: [] for k in per_block}
     new_obs: List[List[EV.ObsWindow]] = []
@@ -437,31 +485,35 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         "selected_pages_rows": sel_sum}
 
 
-def _park_masked_dense(caches: CacheTree, active: torch.Tensor
-                       ) -> CacheTree:
-    """The tree a ragged position step runs on: every DenseCache row that
-    is masked at this position (``active`` [B] false) has its length
-    clamped to ``S_max - 1``. A masked row's append and read still run and
-    are discarded by the scan's select, but a row already at ``S_max``
-    (full, or retired full and still stepped) would write past its
-    buffer. Active rows keep their length, so a real write past capacity
-    still fails."""
-    def park(c):
-        if not isinstance(c, A.DenseCache):
-            return c
-        t = torch.where(active, c.t, c.t.clamp(max=c.k.shape[-2] - 1))
-        return c._replace(t=t)
-    out = dict(caches)
-    out["blocks"] = {k: park(c) for k, c in caches["blocks"].items()}
-    if "stem" in caches:
-        out["stem"] = tuple(park(c) for c in caches["stem"])
-    return out
+def _dense_limit(caches: CacheTree, active: torch.Tensor,
+                 capacity: Optional[int]) -> Optional[torch.Tensor]:
+    """The per-row ``limit`` a ragged position step gives every dense
+    read (``attention.attn_decode_dense``): ``capacity`` (default the
+    dense buffer's length) for the rows masked at this position, so that
+    a masked row at capacity (full, or retired full and still stepped)
+    writes nothing, ropes at its ``t`` and reads its first ``capacity``
+    entries, as in the reference, whose buffer is ``capacity`` long; no
+    limit for the active rows, whose write past the buffer still fails.
+    None without dense caches."""
+    nodes = list(caches["blocks"].values()) + list(caches.get("stem", ()))
+    dense = [c for c in (n["self"] if isinstance(n, dict) else n
+                         for n in nodes) if isinstance(c, A.DenseCache)]
+    if not dense:
+        return None
+    buf = dense[0].k.shape[-2]
+    cap = buf if capacity is None else capacity
+    if cap > buf:
+        raise ValueError(f"dense capacity {cap} > its buffer {buf}")
+    return torch.where(active, torch.full_like(active, INT32_MAX,
+                                               dtype=torch.int32),
+                       torch.full_like(active, cap, dtype=torch.int32))
 
 
 def prefill_extend_ragged(params: Params, cfg: ModelConfig,
                           tokens: torch.Tensor, lengths,
                           caches: CacheTree, *, moe_groups: int = 1,
-                          opts: DecodeOptions = DecodeOptions()
+                          opts: DecodeOptions = DecodeOptions(),
+                          capacity: Optional[int] = None
                           ) -> Tuple[torch.Tensor, CacheTree,
                                      Dict[str, torch.Tensor]]:
     """Ragged multi-row chunked prefill: advance B rows position by
@@ -474,8 +526,12 @@ def prefill_extend_ragged(params: Params, cfg: ModelConfig,
     length-0 row comes back bit-identical. Every row still runs each
     position, so an ``attn_moe`` layer routes the inactive rows' tokens
     beside the active ones (``moe_groups`` groups over all B rows), as the
-    reference does. Positions where no row is active are not run at all:
-    they would change nothing. Returns
+    reference does. A dense row masked at capacity writes nothing and
+    reads its first ``capacity`` entries (default the dense buffer's
+    length; the port rounds the buffer up to a page, so a caller whose
+    capacity is not a multiple of 16 passes it), as the reference's row
+    does in its buffer of that size. Positions where no row is active are
+    not run at all: they would change nothing. Returns
     (each row's logits at its LAST real position, zeros for length-0 rows;
     the advanced caches; per-row stats ``evict_trigger_rows``,
     ``adm_sum_rows``, ``selected_pages_rows``)."""
@@ -498,10 +554,10 @@ def prefill_extend_ragged(params: Params, cfg: ModelConfig,
             shape[cache_batch_axis(path)] = b
             return torch.where(active.reshape(shape), new_leaf, old_leaf)
 
-        logits, new, st = decode_step(params, cfg, tokens[:, j],
-                                      _park_masked_dense(caches, active),
-                                      moe_groups=moe_groups, opts=opts,
-                                      layers=layers)
+        logits, new, st = decode_step(
+            params, cfg, tokens[:, j], caches, moe_groups=moe_groups,
+            opts=opts, layers=layers,
+            dense_limit=_dense_limit(caches, active, capacity))
         caches = tree_map_with_path(keep, new, caches)
         last_logits = torch.where(active[:, None], logits, last_logits)
         zero = torch.zeros_like(trig)

@@ -1,19 +1,25 @@
 """Model registry (port of ``repro/models/registry.py``): analytic
-parameter counting.
+parameter counting and the modality-frontend stubs.
 
 The counting mirrors the reference's arithmetic block type by block type,
-including types whose modules the port has not brought over yet
-(cross/encoder attention, xLSTM), so ``ModelConfig.param_count`` answers
-for every config of the reference, the seven the port registers
-(``configs/__init__.py``) among them; ``active_only`` counts an
-``attn_moe`` block's top-k experts. The VLM patch and whisper frame
-embedding helpers wait for their slice (ROADMAP.md Queue 1 item 7c).
+so ``ModelConfig.param_count`` answers for every config of the reference,
+all ten of which the port registers (``configs/__init__.py``);
+``active_only`` counts an ``attn_moe`` block's top-k experts.
+:func:`build_vlm_embeds` scatters (stub) patch embeddings into a token
+stream with Qwen2-VL's M-RoPE ids, and :func:`whisper_frame_embeds` draws
+the (stub) frame embeddings that stand in for whisper's mel-spectrogram
+and conv frontend, from a ``torch.Generator``.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gate import gate_param_count
-from repro_torch.tree import tree_leaves
+from repro_torch.device import torch_dtype
+from repro_torch.tree import tree_leaves, tree_leaves_with_path
 
 
 def _block_params(cfg: ModelConfig, bt: str, active_only: bool) -> int:
@@ -82,3 +88,51 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
 def count_params_tree(params) -> int:
     """Elements in a parameter tree."""
     return sum(int(x.numel()) for x in tree_leaves(params))
+
+
+def gate_params_tree(params) -> int:
+    """Parameters belonging to Write-Gate MLPs (paper: ~0.4% of total)."""
+    return sum(int(x.numel()) for path, x in tree_leaves_with_path(params)
+               if "gate" in path)
+
+
+# ==========================================================================
+# modality-frontend stubs
+# ==========================================================================
+def build_vlm_embeds(params, cfg: ModelConfig, tokens: torch.Tensor,
+                     patch_embeds: torch.Tensor, grid_hw: Tuple[int, int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """embeds [B, S, D] with the image patches [B, n_img, D] in the
+    leading slots, and positions3 [3, B, S] int32: (t, h, w) = (0, row,
+    col) over the vision span, then equal text ids from max(gh, gw) on
+    (Qwen2-VL's M-RoPE scheme)."""
+    from repro_torch.models import layers as L
+
+    b, s = tokens.shape
+    n_img = patch_embeds.shape[1]
+    gh, gw = grid_hw
+    if gh * gw != n_img or n_img > s:
+        raise ValueError(f"grid {grid_hw} does not give {n_img} patches "
+                         f"within {s} tokens")
+    dev = tokens.device
+    emb = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype)).clone()
+    emb[:, :n_img] = patch_embeds.to(emb.dtype)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows = torch.arange(gh, **i32).repeat_interleave(gw)
+    cols = torch.arange(gw, **i32).repeat(gh)
+    text = torch.arange(s - n_img, **i32) + max(gh, gw)
+    pos3 = torch.stack([torch.cat([torch.zeros(n_img, **i32), text]),
+                        torch.cat([rows, text]), torch.cat([cols, text])])
+    return emb, pos3[:, None].expand(3, b, s)
+
+
+def whisper_frame_embeds(gen: torch.Generator, cfg: ModelConfig, batch: int,
+                         n_frames: int) -> torch.Tensor:
+    """STUB for the mel-spectrogram and conv feature extractor: random
+    frame embeddings [B, n_frames // enc_seq_divisor, D] (normal, times
+    0.1) from ``gen``, on its device, standing in for the conv stack's
+    output (its 2x temporal downsample)."""
+    s_enc = n_frames // cfg.enc_seq_divisor
+    x = torch.randn((batch, s_enc, cfg.d_model), generator=gen,
+                    device=gen.device)
+    return (x * 0.1).to(torch_dtype(cfg.dtype))

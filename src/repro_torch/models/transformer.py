@@ -1,21 +1,31 @@
-"""The decoder's parameter tree, init and full-sequence forward (port of
-``repro/models/transformer.py`` for RMSNorm decoders whose blocks are
-``"attn"``, ``"local_attn"``, ``"attn_moe"`` or ``"rglru"``).
+"""The model's parameter tree, init and full-sequence forward (port of
+``repro/models/transformer.py``).
 
 The tree mirrors the reference's, so weights carry across by path
 (:mod:`repro_torch.convert`): ``{"embed": {"tok"}, "stem": (block, ...),
-"blocks": {"b0": ...}, "ln_f": {"scale"}}`` with every block leaf stacked
-on a leading ``n_repeats`` axis and the stem (only when the config has
-one) a tuple of unstacked blocks run before the repeats.
+"blocks": {"b0": ...}, "ln_f": {...}, "enc": {"blocks", "ln_f"}}`` with
+every block leaf stacked on a leading ``n_repeats`` axis (the encoder's
+on ``n_enc_repeats``), the stem (only when the config has one) a tuple
+of unstacked blocks run before the repeats, and the encoder only for an
+encoder-decoder config. Norms are RMSNorm, or LayerNorm (scale and bias)
+for ``arch_type == "audio"``.
+
+Block types: ``"attn"`` / ``"local_attn"`` (GQA self-attention with the
+write gate, SwiGLU FFN), ``"attn_moe"`` (the same attention, the
+Mixture-of-Experts FFN of :mod:`repro_torch.models.moe`; its
+load-balance loss is summed into ``ForwardResult.lb_loss``), ``"rglru"``
+(the RG-LRU recurrence), ``"mlstm"`` / ``"slstm"`` (xLSTM blocks with
+their own projections, :mod:`repro_torch.models.xlstm`),
+``"attn_cross"`` (whisper's decoder block: self-attention, cross
+attention over the encoder output, a GELU MLP) and ``"enc_attn"`` (the
+encoder's bidirectional block).
 
 :func:`forward` is the training / teacher / hard-eval forward
-(``mode="teacher" | "gated" | "hard"``); on CUDA its gated mode runs the
-``gated_flash`` kernel in every attention layer and every ``"rglru"``
-block runs its recurrence through the ``rglru_scan`` kernel. An
-``"attn_moe"`` block is an ``"attn"`` block whose FFN is the
-Mixture-of-Experts of :mod:`repro_torch.models.moe` (its tree holds
-``"moe"`` in place of ``"mlp"``); its load-balance loss is summed over the
-layers into ``ForwardResult.lb_loss``.
+(``mode="teacher" | "gated" | "hard"``) over tokens or ``embeds`` (a VLM
+stream), with M-RoPE ``positions`` [3, B, S] and, for the
+encoder-decoder, ``enc_embeds``; on CUDA its gated mode runs the
+``gated_flash`` kernel in every self-attention layer and every
+``"rglru"`` block runs its recurrence through the ``rglru_scan`` kernel.
 """
 from __future__ import annotations
 
@@ -30,50 +40,66 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MoE
 from repro_torch.models import rglru as RG
+from repro_torch.models import xlstm as XL
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
-# block types the port runs; the attention ones carry a dual cache
-PORTED_BLOCKS = ("attn", "local_attn", "attn_moe", "rglru")
+def _norm_init(cfg: ModelConfig, dt, device):
+    if cfg.arch_type == "audio":
+        return L.init_layernorm(cfg.d_model, dt, device)
+    return L.init_rmsnorm(cfg.d_model, dt, device)
 
 
 def _norm(cfg: ModelConfig, p, x):
-    """The reference's norm choice for the ported archs: RMSNorm."""
+    """The reference's norm choice: LayerNorm for audio, else RMSNorm."""
+    if cfg.arch_type == "audio":
+        return L.layernorm(p, x)
     return L.rmsnorm(p, x)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    unported = [bt for bt in cfg.stem_pattern + cfg.block_pattern
-                if bt not in PORTED_BLOCKS]
-    if cfg.is_encdec or cfg.mrope or cfg.arch_type == "audio" or unported:
-        raise NotImplementedError(
-            f"{cfg.name}: repro_torch ports RMSNorm decoders of "
-            f"{PORTED_BLOCKS} blocks only (pattern {cfg.block_pattern}, "
-            f"stem {cfg.stem_pattern})")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, bt: str,
                device) -> Params:
-    """One block: ``"attn"`` / ``"local_attn"`` is GQA self-attention (with
-    the write gate) and a SwiGLU FFN, ``"attn_moe"`` the same attention and
-    a Mixture-of-Experts FFN, ``"rglru"`` the temporal conv + RG-LRU
-    recurrence and a SwiGLU FFN, each behind an RMSNorm."""
+    """One block, its leaves in the reference's tree (module docstring).
+    The draws come from ``gen`` in the tree's order; they differ from the
+    reference's ``jax.random`` init."""
     dt = torch_dtype(cfg.param_dtype)
+    d = cfg.d_model
+    if bt == "mlstm":
+        return {"cell": XL.init_mlstm(gen, cfg, device)}
+    if bt == "slstm":
+        return {"cell": XL.init_slstm(gen, cfg, device)}
+    if bt == "attn_cross":
+        return {
+            "ln1": _norm_init(cfg, dt, device),
+            "attn": A.init_attention(gen, cfg, device, kind="self"),
+            "ln_x": _norm_init(cfg, dt, device),
+            "xattn": A.init_attention(gen, cfg, device, kind="cross",
+                                      with_gate=cfg.wgkv.enabled),
+            "ln2": _norm_init(cfg, dt, device),
+            "mlp": L.init_gelu_mlp(gen, d, cfg.d_ff, dt, device),
+        }
+    if bt == "enc_attn":
+        return {
+            "ln1": _norm_init(cfg, dt, device),
+            "attn": A.init_attention(gen, cfg, device, kind="enc"),
+            "ln2": _norm_init(cfg, dt, device),
+            "mlp": L.init_gelu_mlp(gen, d, cfg.d_ff, dt, device),
+        }
     if bt in ("attn", "local_attn", "attn_moe"):
         mixer = {"attn": A.init_attention(gen, cfg, device)}
     elif bt == "rglru":
         mixer = {"rec": RG.init_rglru(gen, cfg, device)}
     else:
-        raise NotImplementedError(f"block type {bt!r} is not ported")
+        raise ValueError(f"unknown block type {bt!r}")
     if bt == "attn_moe":
         mlp = {"moe": MoE.init_moe(gen, cfg, device)}
     else:
-        mlp = {"mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, device)}
+        mlp = {"mlp": L.init_swiglu(gen, d, cfg.d_ff, dt, device)}
     return {
-        "ln1": L.init_rmsnorm(cfg.d_model, dt, device),
+        "ln1": _norm_init(cfg, dt, device),
         **mixer,
-        "ln2": L.init_rmsnorm(cfg.d_model, dt, device),
+        "ln2": _norm_init(cfg, dt, device),
         **mlp,
     }
 
@@ -86,6 +112,8 @@ def ffn(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor, *,
     if bt == "attn_moe":
         y, aux = MoE.moe_ffn(p["moe"], cfg, xin, groups=moe_groups)
         return y, aux["lb_loss"]
+    if bt in ("attn_cross", "enc_attn") or cfg.arch_type == "audio":
+        return L.gelu_mlp(p["mlp"], xin), None
     return L.swiglu(p["mlp"], xin), None
 
 
@@ -96,28 +124,38 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     from the reference's ``jax.random`` init; to compare the two
     packages, carry the reference's weights over with
     :func:`repro_torch.convert.params_from_numpy`."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg.param_dtype)
     params: Params = {"embed": L.init_embedding(generator, cfg, dev)}
     if cfg.stem_pattern:
         params["stem"] = tuple(init_block(generator, cfg, bt, dev)
                                for bt in cfg.stem_pattern)
-    # each repeat's draws go straight into the stacked leaves, so the peak
-    # is the model and one repeat (phi3-medium-14b: 54.6 GiB in f32), not
-    # twice the model
+    params["blocks"] = _init_stack(generator, cfg, cfg.block_pattern,
+                                   cfg.n_repeats, dev)
+    params["ln_f"] = _norm_init(cfg, dt, dev)
+    if cfg.is_encdec:
+        params["enc"] = {
+            "blocks": _init_stack(generator, cfg, cfg.enc_block_pattern,
+                                  cfg.n_enc_repeats, dev),
+            "ln_f": _norm_init(cfg, dt, dev)}
+    return params
+
+
+def _init_stack(generator: torch.Generator, cfg: ModelConfig, pattern,
+                repeats: int, dev) -> Params:
+    """``repeats`` copies of ``pattern`` stacked leaf by leaf. Each
+    repeat's draws go straight into the stacked leaves, so the peak is
+    the model and one repeat (phi3-medium-14b: 54.6 GiB in f32), not
+    twice the model."""
     blocks = None
-    for r in range(cfg.n_repeats):
+    for r in range(repeats):
         layer = {f"b{i}": init_block(generator, cfg, bt, dev)
-                 for i, bt in enumerate(cfg.block_pattern)}
+                 for i, bt in enumerate(pattern)}
         if blocks is None:
             blocks = tree_map(
-                lambda x: x.new_empty((cfg.n_repeats,) + tuple(x.shape)),
-                layer)
+                lambda x: x.new_empty((repeats,) + tuple(x.shape)), layer)
         tree_map(lambda dst, x: dst[r].copy_(x), blocks, layer)
-    params["blocks"] = blocks
-    params["ln_f"] = L.init_rmsnorm(cfg.d_model, dt, dev)
-    return params
+    return blocks
 
 
 def stem_params(params: Params) -> Tuple[Params, ...]:
@@ -125,15 +163,21 @@ def stem_params(params: Params) -> Tuple[Params, ...]:
     return tuple(params.get("stem", ()))
 
 
-def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
-    """Per-layer views of the stacked block tree: ``[r]`` -> {"b0": ...}
-    (one ``unbind`` per leaf, not one index op per leaf and layer)."""
-    cols = [x.unbind(0) for x in tree_leaves(params["blocks"])]
+def unstack(tree) -> List[Any]:
+    """A tree whose leaves are stacked on a leading axis -> one tree per
+    entry of that axis (one ``unbind`` per leaf, not one index op per leaf
+    and entry)."""
+    cols = [x.unbind(0) for x in tree_leaves(tree)]
     out = []
-    for r in range(cfg.n_repeats):
+    for r in range(len(cols[0])):
         it = iter([c[r] for c in cols])
-        out.append(tree_map(lambda _x, it=it: next(it), params["blocks"]))
+        out.append(tree_map(lambda _x, it=it: next(it), tree))
     return out
+
+
+def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
+    """Per-layer views of the stacked block tree: ``[r]`` -> {"b0": ...}."""
+    return unstack(params["blocks"])
 
 
 # ==========================================================================
@@ -146,6 +190,7 @@ class BlockAux(NamedTuple):
 
 def block_forward(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
                   positions: torch.Tensor, *, mode: str,
+                  enc_out: Optional[torch.Tensor] = None,
                   q_chunk: Optional[int] = None, moe_groups: int = 1,
                   gate_override: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, BlockAux]:
@@ -154,24 +199,77 @@ def block_forward(p: Params, cfg: ModelConfig, bt: str, x: torch.Tensor,
     ``local_attn`` blocks attend within ``cfg.sliding_window`` (which is
     also their W in the gate bias). An ``attn_moe`` block routes its
     ``B * S`` tokens in ``moe_groups`` groups and returns its
-    load-balance loss."""
+    load-balance loss. An ``attn_cross`` block attends to all of
+    ``enc_out`` [B, S_enc, D] (no budget in training, as the
+    reference)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    if bt in ("attn", "local_attn", "attn_moe"):
+    if bt in ATTN_BLOCKS:
         gate_mode = {"teacher": "off", "gated": "gated", "hard": "hard"}[mode]
         window = cfg.sliding_window if bt == "local_attn" else None
         h, g = A.attn_train(p["attn"], cfg, _norm(cfg, p["ln1"], x),
                             positions, gate_mode=gate_mode, window=window,
                             q_chunk=q_chunk, gate_override=gate_override)
         x = x + h
+        if bt == "attn_cross":
+            cc = A.build_cross_cache(p["xattn"], cfg, enc_out)
+            x = x + A.attn_cross(p["xattn"], cfg, _norm(cfg, p["ln_x"], x),
+                                 cc)
         y, lb = ffn(p, cfg, bt, x, moe_groups=moe_groups)
         return x + y, BlockAux(None if g is None else g[None],
                                zero if lb is None else lb)
+    if bt == "enc_attn":
+        x = x + A.attn_encoder(p["attn"], cfg, _norm(cfg, p["ln1"], x))
+        y, _ = ffn(p, cfg, bt, x)
+        return x + y, BlockAux(None, zero)
     if bt == "rglru":
         y, _ = RG.rglru_block(p["rec"], cfg, _norm(cfg, p["ln1"], x))
         x = x + y
         x = x + L.swiglu(p["mlp"], _norm(cfg, p["ln2"], x))
         return x, BlockAux(None, zero)
-    raise NotImplementedError(f"block type {bt!r} is not ported")
+    if bt == "mlstm":
+        x, _ = XL.mlstm_auto(p["cell"], cfg, x)
+        return x, BlockAux(None, zero)
+    if bt == "slstm":
+        x, _ = XL.slstm_block(p["cell"], cfg, x)
+        return x, BlockAux(None, zero)
+    raise ValueError(f"unknown block type {bt!r}")
+
+
+def encode(params: Params, cfg: ModelConfig,
+           enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder over precomputed (stub) frame embeddings
+    [B, S_enc, D]: sinusoidal positions, the encoder blocks, its final
+    norm."""
+    s = enc_embeds.shape[1]
+    x = enc_embeds + L.sinusoidal_positions(
+        s, cfg.d_model, enc_embeds.device)[None].to(enc_embeds.dtype)
+    zero = torch.zeros((1, 1), dtype=torch.int32, device=x.device)
+    for lp in unstack(params["enc"]["blocks"]):
+        for i, bt in enumerate(cfg.enc_block_pattern):
+            x, _ = block_forward(lp[f"b{i}"], cfg, bt, x, zero,
+                                 mode="teacher")
+    return _norm(cfg, params["enc"]["ln_f"], x)
+
+
+def embed_inputs(params: Params, cfg: ModelConfig,
+                 tokens: Optional[torch.Tensor],
+                 embeds: Optional[torch.Tensor],
+                 enc_embeds: Optional[torch.Tensor]):
+    """The decoder stream [B, S, D] (token embeddings, or ``embeds`` as
+    given: a VLM stream) and the encoder output (None without an encoder;
+    the decoder stream then carries whisper's sinusoidal positions)."""
+    dt = torch_dtype(cfg.dtype)
+    x = (L.embed(params["embed"], tokens, dt) if embeds is None
+         else embeds.to(dt))
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             "enc_embeds")
+        enc_out = encode(params, cfg, enc_embeds.to(dt))
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                       x.device)[None].to(dt)
+    return x, enc_out
 
 
 class ForwardResult(NamedTuple):
@@ -181,13 +279,20 @@ class ForwardResult(NamedTuple):
     lb_loss: torch.Tensor
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+def forward(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None, *,
             positions: Optional[torch.Tensor] = None, mode: str = "teacher",
+            embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None,
             q_chunk: Optional[int] = None, with_logits: bool = True,
             remat: bool = False, moe_groups: int = 1,
             gate_override: Optional[torch.Tensor] = None) -> ForwardResult:
     """Full-sequence forward: the stem blocks, then the repeats. tokens:
-    [B, S] int; positions: [B, S] (default 0..S-1). gate_override:
+    [B, S] int, or ``embeds`` [B, S, D] (a VLM stream,
+    ``registry.build_vlm_embeds``); positions: [B, S] (default 0..S-1)
+    or [3, B, S] (M-RoPE); ``enc_embeds`` [B, S_enc, D]: the
+    encoder-decoder's frame embeddings (``registry.whisper_frame_embeds``),
+    encoded once and attended by every ``attn_cross`` block. gate_override:
     [L_attn, B, Hkv, S] (one per attention layer, stem layers first) or
     [B, Hkv, S] (one policy for every attention layer). Gates come back
     [L_attn, B, Hkv, S] in the same order. ``remat``: each repeated block
@@ -197,9 +302,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     rematerialized there either. ``moe_groups``: the routing groups of
     every ``attn_moe`` block; ``lb_loss`` is the sum of their load-balance
     losses over the stem and the repeats (0 without MoE blocks)."""
-    _check_supported(cfg)
-    dt = torch_dtype(cfg.dtype)
-    x = L.embed(params["embed"], tokens, dt)
+    x, enc_out = embed_inputs(params, cfg, tokens, embeds, enc_embeds)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
@@ -224,13 +327,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             ai += 1
         if ckpt:
             x, aux = checkpoint(block_forward, p, cfg, bt, x, positions,
-                                mode=mode, q_chunk=q_chunk,
+                                mode=mode, enc_out=enc_out, q_chunk=q_chunk,
                                 moe_groups=moe_groups, gate_override=ov,
                                 use_reentrant=False)
         else:
             x, aux = block_forward(p, cfg, bt, x, positions, mode=mode,
-                                   q_chunk=q_chunk, moe_groups=moe_groups,
-                                   gate_override=ov)
+                                   enc_out=enc_out, q_chunk=q_chunk,
+                                   moe_groups=moe_groups, gate_override=ov)
         if aux.gates is not None:
             gates.append(aux.gates)
         lb_total = lb_total + aux.lb_loss

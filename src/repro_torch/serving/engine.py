@@ -247,7 +247,7 @@ class Engine:
             logits, batched, st = I.prefill_extend_ragged(
                 self.params, self.cfg,
                 host_to_device(toks, self.device), takes, batched,
-                opts=self.opts)
+                opts=self.opts, capacity=self.capacity)
             outs = (batched,) if b == 1 \
                 else [extract_slot_caches(batched, i) for i in range(b)]
             trig = _host(st["evict_trigger_rows"])
@@ -332,7 +332,8 @@ class Engine:
         use = host_to_device(use_dev, self.device)
         tokens[:, 0] = torch.where(use, self._tok_dev, tokens[:, 0])
         last_logits, caches, st = I.prefill_extend_ragged(
-            self.params, self.cfg, tokens, lengths, caches, opts=opts)
+            self.params, self.cfg, tokens, lengths, caches, opts=opts,
+            capacity=self.capacity)
         sampled = sample(self.generator, last_logits,
                          temperature=self.temperature)
         kv_rows = self._kv_tokens_device(caches)

@@ -58,20 +58,25 @@ def set_gates(params, gates: GateDict):
 # loss / step
 # ==========================================================================
 def _forward_kw(batch) -> Dict[str, Any]:
-    return {"positions": batch["positions"]} if "positions" in batch else {}
+    """The forward's inputs besides the tokens a batch carries:
+    ``enc_embeds`` (the encoder-decoder), ``positions`` (M-RoPE) and
+    ``embeds`` (a VLM stream)."""
+    return {k: batch[k] for k in ("enc_embeds", "positions", "embeds")
+            if k in batch}
 
 
 def distill_loss_fn(gates: GateDict, params, cfg: ModelConfig, batch, *,
                     lam: float, moe_groups: int = 1,
                     q_chunk: Optional[int] = None, remat: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: {"tokens": [B, S], "loss_mask": [B, S] or None, ...}."""
+    """batch: {"tokens": [B, S] (absent for a stream of ``embeds``),
+    "loss_mask": [B, S] or None, and :func:`_forward_kw`'s inputs}."""
     p = set_gates(params, gates)
     kw = dict(_forward_kw(batch), moe_groups=moe_groups, q_chunk=q_chunk)
     with torch.no_grad():
-        teacher = T.forward(p, cfg, batch["tokens"], mode="teacher",
+        teacher = T.forward(p, cfg, batch.get("tokens"), mode="teacher",
                             with_logits=False, **kw)
-    student = T.forward(p, cfg, batch["tokens"], mode="gated",
+    student = T.forward(p, cfg, batch.get("tokens"), mode="gated",
                         with_logits=False, remat=remat, **kw)
     return total_loss(student.hidden, teacher.hidden, student.gates, lam,
                       batch.get("loss_mask"))
@@ -88,7 +93,10 @@ def loss_and_grads(gates: GateDict, params, cfg: ModelConfig, batch, *,
         loss, aux = distill_loss_fn(leaves, params, cfg, batch, lam=lam,
                                     moe_groups=moe_groups, q_chunk=q_chunk,
                                     remat=remat)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        # a gate outside the loss's graph (whisper's cross-memory gates
+        # in training) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    materialize_grads=True)
     aux = {k: v.detach() for k, v in aux.items()}
     return loss.detach(), aux, dict(zip(leaves, grads))
 
@@ -144,7 +152,7 @@ def lm_loss_fn(params, cfg: ModelConfig, batch, *, moe_groups=1,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The next-token loss plus 0.01 times the summed MoE load-balance
     loss (0 without ``attn_moe`` blocks), as in the reference."""
-    out = T.forward(params, cfg, batch["tokens"], mode="teacher",
+    out = T.forward(params, cfg, batch.get("tokens"), mode="teacher",
                     moe_groups=moe_groups, q_chunk=q_chunk, remat=remat,
                     **_forward_kw(batch))
     ll = lm_loss(out.logits, batch["tokens"], batch.get("loss_mask"))

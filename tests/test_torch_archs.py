@@ -54,6 +54,8 @@ torch.set_num_threads(2)
 
 ARCHS = ("smollm-360m", "phi4-mini-3.8b", "phi3-medium-14b")
 MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
+# parity tests in tests/test_torch_{xlstm,whisper,vlm}.py
+NEW_ARCHS = ("xlstm-350m", "whisper-medium", "qwen2-vl-7b")
 TOL = 5e-5
 TAU_MARGIN = 1e-3
 
@@ -83,18 +85,19 @@ def test_config_matches_reference(arch, reduced):
 
 
 def test_the_port_registers_five_archs():
-    """Five archs until the MoE slice added two."""
+    """Five archs until the MoE slice added two and the xLSTM / whisper /
+    VLM slice the last three: all ten of the reference's."""
     assert TC.ARCH_NAMES == ("qwen3-0.6b", "recurrentgemma-9b", *ARCHS,
-                             *MOE_ARCHS)
-    assert set(TC.ARCH_NAMES) <= set(JC.ARCH_NAMES)
+                             *MOE_ARCHS, *NEW_ARCHS)
+    assert set(TC.ARCH_NAMES) == set(JC.ARCH_NAMES)
     with pytest.raises(KeyError):
-        TC.get_config("xlstm-350m")
+        TC.get_config("xlstm-1b")
     with pytest.raises(KeyError):
-        TC.get_reduced_config("whisper-medium")
+        TC.get_reduced_config("whisper-large")
 
 
 @pytest.mark.parametrize("arch", ("qwen3-0.6b", "recurrentgemma-9b") + ARCHS
-                         + MOE_ARCHS)
+                         + MOE_ARCHS + NEW_ARCHS)
 def test_registry_answers_as_the_reference(arch):
     tall, jall = TC.all_configs(), JC.all_configs()
     assert list(tall) == list(TC.ARCH_NAMES)

@@ -940,7 +940,7 @@ def _moe_cases(kernel, arch, runs):
     bitwise equal); ``runs`` gets the inputs of the first case."""
     hq, hkv, hd = _SMOKE.MOE_HEADS[arch]
     grp = hq // hkv
-    if kernel == "paged_decode":
+    if kernel in ("paged_decode", "paged_decode_stream"):
         return [_SMOKE.dual_cache_case(2, 128, 256, torch.float32, seed=1,
                                        hkv=hkv, grp=grp, hd=hd, runs=runs),
                 _SMOKE.dual_cache_case(1, 1024, 256, torch.float32, seed=2,
@@ -966,12 +966,71 @@ def test_forward_kernels_at_the_moe_heads_on_gpu(kernel, arch):
     """The forward kernels at granite-moe-3b-a800m's 24 / 8 heads of hd 64
     and qwen3-moe-235b-a22b's 64 / 4 of hd 128 (G 16): within 5e-5 of
     their plain versions (the gate 1e-5), two calls bitwise; then rebuilt
-    with ``FWD_FAULTS[kernel]`` planted, above 5e-5 on the same inputs.
-    Prints both errors (``-s``)."""
+    with ``FWD_FAULTS[kernel]`` planted (``paged_decode_stream`` on the
+    ``paged_decode`` cases), above 5e-5 on the same inputs. Prints both
+    errors (``-s``)."""
     runs = []
     sound = max(r["max_abs_err"] for r in _moe_cases(kernel, arch, runs))
     assert sound <= TOL["float32"]
     with _SMOKE.Planted([kernel]):
+        planted = [float((run().float() - want.float()).abs().max())
+                   for run, want in runs]
+    print(f"\n{kernel} {arch}: sound {sound:.3e}, planted {planted}")
+    assert runs and all(not err <= TOL["float32"] for err in planted)
+
+
+def _new_arch_cases(kernel, arch, runs):
+    """chip_smoke.py's phase-3 cases of ``kernel`` at qwen2-vl-7b's 28 / 4
+    heads of hd 128 (G 7) or whisper-medium's 16 / 16 of hd 64 (W 64, its
+    384-token prompt at budget 96), each raising unless within its limit
+    and two calls bitwise; ``runs`` gets the inputs of the first case."""
+    hq, hkv, hd = _SMOKE.NEW_HEADS[arch]
+    grp = hq // hkv
+    whisper = arch == "whisper-medium"
+    w = _SMOKE.WHISPER_W if whisper else 256
+    s = _SMOKE.WHISPER_S if whisper else 4096
+    c = _SMOKE.WHISPER_C if whisper else 1024
+    if kernel == "paged_decode":
+        return [_SMOKE.dual_cache_case(1, c, w, torch.float32, seed=1,
+                                       hkv=hkv, grp=grp, hd=hd, runs=runs),
+                _SMOKE.dual_cache_case(2, 128, w, torch.float32, seed=2,
+                                       hkv=hkv, grp=grp, hd=hd)]
+    if kernel == "gate_mlp":
+        # whisper's gate also over the 1,500 cross keys: a ragged last
+        # tile of the tensor-core path
+        sizes = (1, s, _SMOKE.WHISPER_ENC) if whisper else (1, s)
+        return [_SMOKE.gate_case(rows=hkv, s=n, seed=3 + i, h=hkv, f=2 * hd,
+                                 runs=runs if n > 1 else None)
+                for i, n in enumerate(sizes)]
+    if kernel == "vertical_slash":
+        return [_SMOKE.vertical_slash_case("float32", seed=5, hkv=hkv, hd=hd,
+                                           hq=hq, w=w, s=s, c=c, runs=runs)]
+    return [_SMOKE.gated_flash_case(n, "float32", seed=6 + n, hkv=hkv,
+                                    hd=hd, hq=hq, w=w,
+                                    runs=runs if n == 32 else None)
+            for n in (32, s if whisper else 2048)]
+
+
+@pytest.mark.parametrize("arch", sorted(_SMOKE.NEW_HEADS))
+@pytest.mark.parametrize("kernel", ["paged_decode", "gate_mlp",
+                                    "vertical_slash", "gated_flash"])
+def test_forward_kernels_at_the_new_archs_heads_on_gpu(kernel, arch):
+    """The forward kernels at qwen2-vl-7b's G 7 (128 % 7 != 0:
+    vertical_slash's unfolded path) and whisper-medium's 16 / 16 at hd 64
+    with its 64-token window, the gate also over whisper's 1,500 encoder
+    keys: within 5e-5 of their plain versions (the gate 1e-5), two calls
+    bitwise; then a fault planted (for ``paged_decode`` at whisper's G 1,
+    the CTA reading the next kv stream's query; the gate's on its
+    tensor-core path) reads above 5e-5 on the first case. Prints both
+    errors (``-s``)."""
+    runs = []
+    sound = max(r["max_abs_err"] for r in _new_arch_cases(kernel, arch,
+                                                           runs))
+    assert sound <= TOL["float32"]
+    fault = {"gate_mlp": "gate_mlp_mma"}.get(kernel, kernel)
+    if kernel == "paged_decode" and arch == "whisper-medium":
+        fault = "paged_decode_stream"
+    with _SMOKE.Planted([fault]):
         planted = [float((run().float() - want.float()).abs().max())
                    for run, want in runs]
     print(f"\n{kernel} {arch}: sound {sound:.3e}, planted {planted}")

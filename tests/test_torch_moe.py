@@ -431,3 +431,47 @@ def test_lm_loss_and_grads_match_reference(monkeypatch):
         _max_close(tgrads[key].numpy(), np.asarray(leaf))
     assert float(tgrads["blocks/b0/moe/router"].abs().max()) > 0
     assert rec.margin() >= ROUTE_MARGIN
+
+
+@pytest.mark.parametrize("capacity", [64, 56])
+def test_dense_retired_full_row_routes_as_reference(capacity, monkeypatch):
+    """A dense row that ends at ``t == capacity`` (request 0: its prompt
+    and 16 new tokens fill it) is retired and stepped masked beside four
+    decoding rows on 8 slots at capacity factor 0.5, so its hidden state
+    shares each decode step's expert capacity (4 of 16 entries) with
+    theirs. The masked full row writes nothing, ropes at ``t`` and reads
+    its first ``capacity`` entries, as the reference's
+    (``repro/models/attention.py:54-61``): at capacity 64 the port's
+    buffer is the reference's size, at 56 it is rounded up to 64. Streams
+    and every row's length identical to the reference's."""
+    jcfg, jparams, tcfg, tparams, _ = _setup(ARCHS[0])
+    jcfg, tcfg = _with_factor(jcfg, 0.5), _with_factor(tcfg, 0.5)
+    drops = []
+    inner = TM.moe_ffn
+
+    def rec(*a, **kw):
+        y, aux = inner(*a, **kw)
+        drops.append(float(aux["router_drop_frac"]))
+        return y, aux
+    monkeypatch.setattr(TM, "moe_ffn", rec)
+    routes = RouteRecorder(monkeypatch, tcfg.moe.top_k)
+    rng = np.random.default_rng(31)
+    reqs = [(capacity - 15, 16), (9, 30), (14, 30), (5, 30), (17, 30)]
+    prompts = [rng.integers(0, 500, n).tolist() for n, _ in reqs]
+
+    def serve(session):
+        hs = [session.submit(p, max_new=m) for p, (_, m) in zip(prompts,
+                                                                 reqs)]
+        session.run()
+        session.close()
+        return [h.tokens() for h in hs]
+
+    kw = dict(slots=8, capacity=capacity)
+    jeng = jax_make_backend("dense", jparams, jcfg, **kw)
+    teng = torch_make_backend("dense", tparams, tcfg, device="cpu", **kw)
+    want = serve(JSession(jeng, sched=JSched(chunk_tokens=16)))
+    got = serve(TSession(teng, sched=TSched(chunk_tokens=16)))
+    assert [len(s) for s in got] == [m for _, m in reqs]
+    assert got == want
+    assert max(drops) > 0
+    assert routes.margin() >= ROUTE_MARGIN
