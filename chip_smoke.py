@@ -8,9 +8,10 @@ prints no result, without them. Phases, any failure fatal:
 
   1. device   — the card's name and power limit (nvidia-smi).
   2. build    — the kernels from ``src/repro_torch/csrc`` (nine entry
-                points in eight sources: the six forward kernels and the
-                backward kernels of ``gate_mlp``, ``gated_flash`` and
-                ``rglru_scan``), one nvcc per source, all started together.
+                points in eight sources: the six forward kernels, two of
+                them with a second mode, and the backward kernels of
+                ``gate_mlp``, ``gated_flash`` and ``rglru_scan``), one nvcc
+                per source, all started together.
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 card, at the main paths' shapes (qwen3-0.6b's and
                 recurrentgemma-9b's, and a larger or smaller one), f32 and
@@ -59,13 +60,21 @@ prints no result, without them. Phases, any failure fatal:
  12. rg-prefill — ``inference.prefill`` of a 4096-token prompt through the
                 full-width hybrid (budget 1024, ring 2048): 26
                 ``rglru_scan`` and 12 ``vertical_slash`` launches; then 16
-                greedy decode steps.
+                greedy decode steps. Then rg-prefill-dense: the dense
+                baseline of the same prompt, ``prefill(use_wgkv=False)``
+                and 16 steps: 12 ``gated_flash_window`` (the hard window,
+                W 2048) and 26 ``rglru_scan`` a prefill, 12 x 16
+                ``paged_decode_starts`` (the read from a start offset),
+                and no other kernel; its wall and decode per step beside
+                WG-KV's.
  13. rg-forward — ``transformer.forward(mode="gated")`` of the hybrid over
                 4096 tokens: 26 ``rglru_scan`` and 12 ``gated_flash``.
  14. rg-substrate — the reduced hybrid with its 2-block stem (S 128,
                 window 32) through prefill + 8 greedy steps on the card and
                 on the CPU: identical tokens and integer cache state,
-                logits and recurrent states within 1e-4.
+                logits and recurrent states within 1e-4; then the same for
+                its dense baseline (``use_wgkv=False``: the windowed
+                prefill and decode read).
 
 The baselines and the prefix store (run after phase 10, before the
 recurrentgemma phases):
@@ -91,6 +100,16 @@ recurrentgemma phases):
                 ``streaming_llm`` and ``duo`` on the card and on the CPU:
                 identical streams, KV tokens per tick and integer cache
                 state.
+  sentinels   — a serve-cli-sized mix (reduced qwen3-0.6b, 4 slots, five
+                prompts, chunk 64, dispatch-ahead 1), as served and with
+                ``quest:2``, under ``analysis.CompileSentinel`` and
+                ``analysis.SyncSentinel``, whose dispatch window runs
+                under ``torch.cuda.set_sync_debug_mode("error")``: no
+                sync in dispatch, every step-shape budget held; and an
+                implicit sync planted in the window must raise.
+  legacy-loop — ``Engine.add_request`` / ``run`` (the fixed-slot loop)
+                with the trained substrate on the card and on the CPU:
+                equal streams and step-shape counts.
 
 Gate-distillation training (run after substrate-ab):
 
@@ -195,6 +214,17 @@ model at a time):
                 16 steps, and the gated forward of a 2,048-slot stream
                 whose first 1,024 slots are a 32 x 32 grid's patches,
                 roped by M-RoPE.
+
+Phase 3 also holds the dense baseline's windowed modes against their
+plain versions, f32 and bf16: ``gated_flash``'s hard window at
+recurrentgemma-9b's prefill (16 / 1 at hd 256, S 4096, W 2048) and a
+qwen3 shape (16 / 8 at hd 128, S 2048, W 256), W = S bitwise the causal
+form; ``paged_decode`` from a start offset at the hybrid's dense decode
+(G 16 at hd 256, t 4,104 in a 4,160-token buffer, W 2048) and three
+ragged rows whose starts are not page-aligned, starts of 0 over the
+buffer bitwise the read without starts; each mode also rebuilt with its
+fault of ``MODE_FAULTS`` planted (window ignored, start ignored), which
+must read above 5e-5.
 
 Phase 3 also holds the four forward kernels at qwen2-vl-7b's G 7 (28 / 4
 at hd 128) and whisper-medium's 16 / 16 at hd 64 (W 64, S 384, C 96), the
@@ -849,10 +879,154 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
             "two_calls_bitwise": True}
 
 
-def split_plan_of(qf, first, second, group: int) -> dict:
+def window_pairs(s: int, w: int) -> int:
+    """(query, key) pairs a hard window of ``w`` keeps over ``s`` tokens:
+    sum over i of min(i + 1, w)."""
+    m = min(s, w)
+    return m * (m + 1) // 2 + (s - m) * w
+
+
+def window_flash_case(s: int, dtype: str, seed: int, hkv: int, hd: int,
+                      hq: int, w: int, runs: list | None = None):
+    """``gated_flash``'s hard-window mode (the dense baseline's windowed
+    prefill, ``ops.windowed_causal_attention``) against its plain version
+    (the reference's windowed mask): within TOL, two calls bitwise, and
+    at W = S bitwise equal to the causal form (``gated_flash`` with g = 1,
+    W = S). Timed with events and a graph replay beside its plain
+    version and one SDPA call with a boolean window mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.device import torch_dtype
+    from repro_torch.kernels.gated_flash import (gated_flash,
+                                                 gated_flash_window,
+                                                 gated_flash_window_plain)
+    grp = hq // hkv
+    dt = torch_dtype(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    q, k, v = rn(hq, s, hd), rn(hkv, s, hd), rn(hkv, s, hd)
+
+    def call(win=w):
+        return gated_flash_window(q, k, v, window=win, group=grp)
+    got, again = call(), call()
+    want = gated_flash_window_plain(q, k, v, window=w, group=grp)
+    causal = gated_flash(q, k, v, torch.ones((hkv, s), device="cuda"),
+                         w_local=s, group=grp)
+    full = call(s)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tag = f"gated_flash window {hq}/{hkv} hd={hd} S={s} W={w} {dtype}"
+    check(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite")
+    check(err <= TOL[dtype], f"{tag} err {err:.3e} > {TOL[dtype]}")
+    check(torch.equal(got, again), f"{tag}: two calls differ")
+    check(torch.equal(full, causal), f"{tag}: W = S differs from the "
+          "causal form")
+    if runs is not None:
+        runs.append((call, want))
+    iters = 10 if s <= 2048 else 4
+    ms = cuda_ms(call, iters)
+    plain_ms = cuda_ms(lambda: gated_flash_window_plain(
+        q, k, v, window=w, group=grp), max(iters // 4, 3), warmup=1)
+    device_ms = graph_ms(call, iters)
+    qi = torch.arange(s, device="cuda")[:, None]
+    kj = torch.arange(s, device="cuda")[None, :]
+    mask = (qi >= kj) & (qi - kj < w)
+    kk = k.repeat_interleave(grp, dim=0)[None]
+    vv = v.repeat_interleave(grp, dim=0)[None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[None], kk, vv, attn_mask=mask), iters, warmup=1)
+    del kk, vv, mask
+    isz = q.element_size()
+    nbytes = isz * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * hd * hq * window_pairs(s, w)
+    b_ms, b_by = bound(nbytes, flops, ATTN_RATE[dtype][0])
+    return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] W={w} "
+                     f"group={grp} {dtype} hard window",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_rate": ATTN_RATE[dtype][1], "library_ms": library_ms,
+            "library": "SDPA, boolean window mask", "device_ms": device_ms,
+            "two_calls_bitwise": True, "w_eq_s_bitwise_causal": True}
+
+
+def start_decode_case(slots: int, max_len: int, t: list, w: int, dtype,
+                      seed: int, hkv: int = 1, grp: int = 16, hd: int = 256,
+                      runs: list | None = None):
+    """``paged_decode`` from a start offset (the dense baseline's windowed
+    decode read, ``ops.dense_cache_attention(window=)``): each row reads
+    [t - W, t) of a dense buffer of ``max_len``, against its plain
+    version; two calls bitwise; starts of 0 with a span over the whole
+    buffer bitwise equal to the read without starts. Timed beside SDPA
+    over the buffer with a boolean window mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    from repro_torch.models.attention import init_dense_cache
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cache = init_dense_cache(slots, hkv, hd, max_len, dtype, "cuda")
+    s_max = cache.k.shape[2]
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    tt = torch.tensor(t, dtype=torch.int32, device="cuda")
+    cache = cache._replace(k=rn(slots, hkv, s_max, hd),
+                           v=rn(slots, hkv, s_max, hd), t=tt)
+    q = rn(slots, hkv * grp, hd)
+    qf, seg, grp = ops.dense_cache_segment(q, cache)
+    starts = ops.dense_window_starts(tt, hkv, w)
+
+    def call():
+        return paged_decode(qf, *seg, group=grp, starts=starts, span=w)
+    got, again = call(), call()
+    want = paged_decode_plain(qf, *seg, group=grp, starts=starts, span=w)
+    zero = torch.zeros_like(starts)
+    whole = paged_decode(qf, *seg, group=grp, starts=zero, span=s_max)
+    old = paged_decode(qf, *seg, group=grp)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    tag = f"paged_decode starts {dtype} S_max={s_max} t={t} W={w}"
+    check(err <= TOL[name], f"{tag} err {err:.3e} > {TOL[name]}")
+    check(torch.equal(got, again), f"{tag}: two calls differ")
+    check(torch.equal(whole, old), f"{tag}: starts 0 over the buffer "
+          "differs from the read without starts")
+    if runs is not None:
+        runs.append((call, want))
+    ms = cuda_ms(call, 200)
+    plain_ms = cuda_ms(lambda: paged_decode_plain(
+        qf, *seg, group=grp, starts=starts, span=w), 20)
+    device_ms = graph_ms(call, 50)
+    qg = q.reshape(slots, hkv, grp, hd)
+    pos = torch.arange(s_max, device="cuda")[None, None, None]
+    tq = tt[:, None, None, None]
+    mask = (pos < tq) & (pos >= tq - w)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qg, cache.k, cache.v, attn_mask=mask), 200)
+    toks = sum(min(x, w) for x in t) * hkv
+    isz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * q.numel() * isz + 2 * toks * hd * isz
+              + 4 * (seg[2].numel() + seg[3].numel() + starts.numel()))
+    b_ms, b_by = bound(nbytes, 4 * toks * grp * hd,
+                       H100_F32_FLOPS if dtype == torch.float32
+                       else H100_BF16_FLOPS)
+    return {"shape": f"N={slots * hkv * grp} hd={hd} S_max={s_max} t={t} "
+                     f"W={w} starts={starts.tolist()} {dtype}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "library": "SDPA, boolean window mask", "device_ms": device_ms,
+            "split_plan": split_plan_of(qf, seg, None, grp, span=w),
+            "two_calls_bitwise": True, "starts0_bitwise_plain_read": True}
+
+
+def split_plan_of(qf, first, second, group: int,
+                  span: int | None = None) -> dict:
     """The split plan ``paged_decode`` launched with, for the record."""
     from repro_torch.kernels.paged_decode import walk_plan
-    plan = walk_plan(qf, first[2], second, group=group)
+    plan = walk_plan(qf, first[2], second, group=group, span=span)
     return {"pages_per_split": plan.pages_per_split,
             "splits": plan.n_splits, "heads_per_cta": plan.heads,
             "ctas": qf.shape[0] // group * plan.n_splits
@@ -945,11 +1119,23 @@ FWD_FAULTS = {
         "q_s[e] = to_f(q[((row0 + pl.group) % ((size_t)gridDim.x * "
         "pl.group)) * hd + e]);"),
 }
-FAULTS = {**BWD_FAULTS, **FWD_FAULTS}
+# faults planted in the dense baseline's windowed modes, each alone: the
+# hard window ignored in the mask (the keys of a partly visible tile
+# below the window are read), and the start offset ignored (the walk
+# reads from token 0). Each must read above TOL["float32"]
+MODE_FAULTS = {
+    "gated_flash_window": ("return (j > i || i - j >= W) ? NEG_INF : s;",
+                           "return j > i ? NEG_INF : s;"),
+    "paged_decode_starts": ("const int first = max(s.starts[kv], 0);",
+                            "const int first = 0 * s.starts[kv];"),
+}
+FAULTS = {**BWD_FAULTS, **FWD_FAULTS, **MODE_FAULTS}
 # the source of a fault whose name is not its source's
 FAULT_SOURCES = {"gated_flash_bwd_hd256": "gated_flash_bwd",
                  "gate_mlp_decode": "gate_mlp", "gate_mlp_mma": "gate_mlp",
-                 "paged_decode_stream": "paged_decode"}
+                 "paged_decode_stream": "paged_decode",
+                 "gated_flash_window": "gated_flash",
+                 "paged_decode_starts": "paged_decode"}
 
 
 def _entry_name(mangled: str) -> str:
@@ -1404,7 +1590,8 @@ def _counters():
             paged_decode.selected_launches, vertical_slash.launches,
             gated_flash.launches, rglru_scan.launches,
             gate_mlp.bwd_launches, gated_flash.bwd_launches,
-            rglru_scan.bwd_launches]
+            rglru_scan.bwd_launches, gated_flash.window_launches,
+            paged_decode.start_launches]
 
 
 def reset_counts():
@@ -2039,6 +2226,130 @@ def _serve_until_decoding(sess, eng, handles, verify: bool):
     return dev
 
 
+def sentinels_phase(card: str):
+    """A serve-cli-sized mix on the card under both run-time sentinels:
+    reduced qwen3-0.6b (f32, random weights), 4 slots, chunked prefill
+    (chunk 64) of prompts past the 256-token ring and short ones, decode
+    ticks, dispatch-ahead 1; once as served and once with ``quest:2``
+    decode selection. ``SyncSentinel`` runs the dispatch window under
+    ``torch.cuda.set_sync_debug_mode("error")``: a sync inside dispatch,
+    or between dispatch and collect outside the sanctioned methods,
+    raises. ``CompileSentinel`` holds the step shapes to
+    ``Engine.COMPILE_SHAPE_BUDGETS``."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import CompileSentinel, SyncSentinel
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.backend import make_backend
+    from repro_torch.serving.orchestrator import (Orchestrator,
+                                                  SchedulerConfig)
+    cfg = get_reduced_config("qwen3-0.6b").replace(dtype="float32")
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(9),
+                        "cuda")
+    rng = np.random.default_rng(40)
+    lens, max_new = (300, 290, 40, 120, 17), 8
+    out = {}
+    for selection in (None, "quest:2"):
+        tag = selection or "full"
+        eng = make_backend("wgkv", params, cfg, slots=4, capacity=512,
+                           pool_pages=1024, selection=selection,
+                           device="cuda")
+        orch = Orchestrator(eng, sched=SchedulerConfig(chunk_tokens=64,
+                                                       dispatch_ahead=1))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with CompileSentinel(eng) as cs, SyncSentinel(eng) as ss:
+            rids = [orch.submit(rng.integers(0, cfg.vocab_size, n).tolist(),
+                                max_new=max_new) for n in lens]
+            orch.run()
+            shapes = cs.check()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check(ss.cuda, "sentinels: the engine is not on the card")
+        toks = [orch.tokens(r) for r in rids]
+        check(all(len(t) == max_new for t in toks),
+              f"sentinels {tag}: not every request returned {max_new} "
+              f"tokens: {[len(t) for t in toks]}")
+        check(shapes["fused_step"] == (1 if selection else 2)
+              and shapes["extend_batch"] == 0
+              and shapes.get("fused_step_sel", 0) == (1 if selection else 0),
+              f"sentinels {tag}: step shapes {shapes}")
+        check(ss.syncs_in_collect > 0, f"sentinels {tag}: collect pulled "
+              "nothing")
+        if selection:
+            check(counts["paged_decode_selected"] > 0,
+                  f"sentinels {tag}: no selected read ({counts})")
+        out[tag] = {"compiled_shape_counts": shapes,
+                    "syncs_in_collect": ss.syncs_in_collect,
+                    "sync_debug_mode": "error", "wall_s": wall,
+                    "launches": counts}
+    # the sentinel is not a no-op on the card: a sync that no patched
+    # call shows (a tensor's truth value) raises inside the window
+    eng = make_backend("wgkv", params, cfg, slots=4, capacity=512,
+                       mirror_paged=False, device="cuda")
+    task = eng.start_prefill(list(range(2, 40)))
+    task.slot = 0
+    tripped = None
+    with SyncSentinel(eng):
+        step = eng.step_batch([task], 64)
+        try:
+            bool((step.tokens >= 0).all())
+        except RuntimeError as exc:
+            tripped = str(exc).splitlines()[0][:120]
+        eng.collect(step)
+    check(tripped is not None, "sentinels: an implicit sync in the "
+          "dispatch window did not raise")
+    out["implicit_sync_raised"] = tripped
+    print("sentinels: " + json.dumps(out), flush=True)
+    return {k: v["launches"] for k, v in out.items() if k in ("full",
+                                                             "quest:2")}
+
+
+def legacy_loop_phase():
+    """The reference's fixed-slot loop, ``Engine.add_request`` / ``run``,
+    on the card and on the CPU with the trained substrate: 2 slots, three
+    prompts (the third waits for a slot), 8 new tokens each. The token
+    streams and the step-shape counts must be equal."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.serving.backend import make_backend
+    cfg = substrate_cfg()
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (70, 33, 48)]
+
+    def run(device):
+        eng = make_backend("wgkv", params_from_numpy(SUBSTRATE, cfg, device),
+                           cfg, slots=2, capacity=128, pool_pages=512,
+                           device=device)
+        for p in prompts:
+            eng.add_request(p, max_new=8)
+        eng.run(max_steps=64)
+        return ([eng.requests[r].out for r in range(len(prompts))],
+                eng.compiled_shape_counts(), eng.verify_paged())
+    cpu_toks, cpu_shapes, _ = run("cpu")
+    torch.cuda.synchronize()
+    reset_counts()
+    gpu_toks, gpu_shapes, dev = run("cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(gpu_toks == cpu_toks, f"legacy-loop: streams differ: {gpu_toks} "
+          f"vs {cpu_toks}")
+    check(all(len(t) == 8 for t in gpu_toks), "legacy-loop: short streams")
+    check(gpu_shapes == cpu_shapes, f"legacy-loop: step shapes "
+          f"{gpu_shapes} vs {cpu_shapes}")
+    check(counts["paged_decode"] > 0 and counts["gate_mlp"] > 0,
+          f"legacy-loop: the card run missed its kernels: {counts}")
+    stats = {"tokens": gpu_toks, "compiled_shape_counts": gpu_shapes,
+             "verify_paged": dev, "launches": counts}
+    print("legacy-loop: " + json.dumps(stats), flush=True)
+    return counts
+
+
 def serve_ab(card: str):
     """The serving A/B at full width (depth cut to 14 of 28 layers, as in
     serve-compose): the same 2 x 384-token prompts and 16 new tokens
@@ -2523,7 +2834,8 @@ def rg_model(seed: int):
 def rg_prefill(cfg, params):
     """``inference.prefill`` of one 4096-token prompt through the hybrid
     (budget 1024, the local-attention ring 2048), then 16 greedy
-    ``decode_step``s."""
+    ``decode_step``s; then the dense baseline on the same prompt
+    (``prefill(use_wgkv=False)`` + 16 steps, :func:`rg_prefill_dense`)."""
     import numpy as np
     import torch
     from repro_torch.models import inference as I
@@ -2587,7 +2899,58 @@ def rg_prefill(cfg, params):
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "launches_prefill": prefill_counts, "launches": counts}
     print("rg-prefill: " + json.dumps(stats), flush=True)
-    return prefill_counts, counts
+    dense = rg_prefill_dense(cfg, params, toks, stats)
+    return prefill_counts, counts, dense
+
+
+def rg_prefill_dense(cfg, params, toks, wgkv_stats):
+    """The hybrid's dense baseline, the one the paper's speed-ups are read
+    against: ``prefill(use_wgkv=False)`` of rg-prefill's prompt, then 16
+    greedy steps. Each local-attention layer prefills through
+    ``gated_flash``'s hard window (W 2048) and decodes through
+    ``paged_decode`` from a start offset; no gate, no vertical_slash, no
+    plain attention. Printed beside WG-KV's wall and decode per step."""
+    import torch
+    from repro_torch.models import inference as I
+    from repro_torch.models.attention import DenseCache
+    s, steps = toks.shape[1], 16
+    n_attn = cfg.n_repeats * cfg.attn_blocks_per_pattern
+    n_rec = cfg.n_layers - n_attn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out, caches = I.prefill(params, cfg, toks, use_wgkv=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_counts = read_counts()
+        _, logits, dec_caches, _ = greedy_decode(params, cfg, out.logits,
+                                                 caches, steps)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counts = read_counts()
+    want_prefill = {"gated_flash_window": n_attn, "rglru_scan": n_rec}
+    want = {**want_prefill, "paged_decode_starts": n_attn * steps}
+    for tag, got, exp in (("prefill", prefill_counts, want_prefill),
+                          ("prefill + decode", counts, want)):
+        check(all(got[k] == exp.get(k, 0) for k in got),
+              f"rg-prefill-dense: {tag} launches {got}, want {exp} and no "
+              "other kernel")
+    node = dec_caches["blocks"]["b2"]
+    check(isinstance(node, DenseCache) and bool((node.t == s + steps).all()),
+          f"rg-prefill-dense: cache {type(node).__name__} t != {s + steps}")
+    check(bool(torch.isfinite(logits).all()), "rg-prefill-dense: non-finite "
+          "logits")
+    stats = {"prompt_len": s, "window": cfg.sliding_window,
+             "decode_steps": steps, "prefill_ms": (t1 - t0) * 1e3,
+             "decode_ms_per_step": (t2 - t1) * 1e3 / steps,
+             "wgkv_prefill_ms": wgkv_stats["prefill_ms"],
+             "wgkv_decode_ms_per_step": wgkv_stats["decode_ms_per_step"],
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches_prefill": prefill_counts, "launches": counts}
+    print("rg-prefill-dense: " + json.dumps(stats), flush=True)
+    return counts
 
 
 def rg_forward(cfg, params):
@@ -2662,10 +3025,11 @@ def rg_substrate():
     prompt = np.random.default_rng(21).integers(0, cfg.vocab_size, (1, 128))
     steps, tau = 8, cfg.wgkv.tau
 
-    def run(device, params):
+    def run(device, params, use_wgkv=None):
         with torch.no_grad():
             out, caches = I.prefill(params, cfg,
-                                    torch.as_tensor(prompt, device=device))
+                                    torch.as_tensor(prompt, device=device),
+                                    use_wgkv=use_wgkv)
             toks, logits, caches, _ = greedy_decode(params, cfg, out.logits,
                                                     caches, steps)
         return out, toks.cpu(), logits.cpu(), caches
@@ -2721,14 +3085,45 @@ def rg_substrate():
           f"rg-substrate: mean_admission {adm} (CPU "
           f"{float(cpu_out.mean_admission)})")
     gcnt = gpu_caches["blocks"]["b2"].gcnt
+    # the dense baseline on the same model and prompt: the windowed
+    # prefill and decode read (W 32, below the 128-token prompt)
+    cpu_d = run("cpu", cpu_params, use_wgkv=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    gpu_d = run("cuda", gpu_params, use_wgkv=False)
+    torch.cuda.synchronize()
+    dense_counts = read_counts()
+    want_d = {"rglru_scan": n_rec, "gated_flash_window": n_attn,
+              "paged_decode_starts": n_attn * steps}
+    check(all(dense_counts[k] == want_d.get(k, 0) for k in dense_counts),
+          f"rg-substrate dense: launches {dense_counts}, want {want_d}")
+    check(torch.equal(gpu_d[1], cpu_d[1]), f"rg-substrate dense: greedy "
+          f"tokens differ: {gpu_d[1].tolist()} vs {cpu_d[1].tolist()}")
+    d_err = float((gpu_d[2] - cpu_d[2]).abs().max())
+    check(d_err <= 1e-4, f"rg-substrate dense: logits differ by "
+          f"{d_err:.3e} > 1e-4")
+    d_leaves = dict(tree_leaves_with_path(gpu_d[3]))
+    d_h = 0.0
+    for path, want_leaf in tree_leaves_with_path(cpu_d[3]):
+        got = d_leaves[path].cpu()
+        if want_leaf.dtype == torch.int32:
+            check(torch.equal(got, want_leaf), f"rg-substrate dense: cache "
+                  f"{'/'.join(map(str, path))} differs between card and CPU")
+        elif path[-1] == "h":
+            d_h = max(d_h, float((got - want_leaf).abs().max()))
+    check(d_h <= 1e-4, f"rg-substrate dense: recurrent state h differs by "
+          f"{d_h:.3e} > 1e-4")
     stats = {"prompt_len": prompt.shape[1], "decode_steps": steps,
              "window": cfg.sliding_window, "layers": cfg.n_layers,
              "tau_margin": margin, "mean_admission": adm,
              "max_logit_err": err, "max_h_err": h_err,
              "min_top2_logit_gap": gap, "tokens": gpu_toks[0].tolist(),
-             "gcnt": gcnt[:, 0].tolist(), "launches": counts}
+             "gcnt": gcnt[:, 0].tolist(), "launches": counts,
+             "dense": {"max_logit_err": d_err, "max_h_err": d_h,
+                       "tokens": gpu_d[1][0].tolist(),
+                       "launches": dense_counts}}
     print("rg-substrate: " + json.dumps(stats), flush=True)
-    return counts
+    return counts, dense_counts
 
 
 def grad_rglru_blocks(cfg) -> int:
@@ -2755,7 +3150,8 @@ def train_launches(cfg) -> dict:
             "rglru_scan": 2 * n_rec,
             "rglru_scan_bwd": grad_rglru_blocks(cfg),
             "paged_decode": 0, "paged_decode_selected": 0,
-            "vertical_slash": 0}
+            "vertical_slash": 0, "gated_flash_window": 0,
+            "paged_decode_starts": 0}
 
 
 def cluster_gates(cfg, params, seed: int) -> None:
@@ -3667,6 +4063,34 @@ def main() -> int:
     gf_causal = gated_flash_case(4096, "float32", seed=36, causal=True)
     gf_causal_bf16 = gated_flash_case(4096, "bfloat16", seed=37,
                                       causal=True)
+    # this slice's: the dense baseline's windowed modes. gated_flash's
+    # hard window at recurrentgemma-9b's prefill (16 / 1 heads of hd 256,
+    # S 4096, W 2048) and at a qwen3 shape (16 / 8, hd 128, S 2048, W
+    # 256); paged_decode from a start offset at the hybrid's dense decode
+    # (G 16, hd 256, a 4,160-token buffer, t about 4,100, W 2048) and
+    # ragged rows whose starts are not page-aligned; each mode's first
+    # f32 case also runs its planted fault
+    mode_runs = {k: [] for k in MODE_FAULTS}
+    win_rg = window_flash_case(4096, "float32", seed=110, hkv=1, hd=256,
+                               hq=16, w=2048,
+                               runs=mode_runs["gated_flash_window"])
+    win_rg_bf16 = window_flash_case(4096, "bfloat16", seed=111, hkv=1,
+                                    hd=256, hq=16, w=2048)
+    win_q3 = window_flash_case(2048, "float32", seed=112, hkv=8, hd=128,
+                               hq=16, w=256,
+                               runs=mode_runs["gated_flash_window"])
+    win_q3_bf16 = window_flash_case(2048, "bfloat16", seed=113, hkv=8,
+                                    hd=128, hq=16, w=256)
+    st_rg = start_decode_case(1, 4160, [4104], 2048, torch.float32,
+                              seed=114, runs=mode_runs["paged_decode_starts"])
+    st_rg_bf16 = start_decode_case(1, 4160, [4104], 2048, torch.bfloat16,
+                                   seed=115)
+    st_ragged = start_decode_case(3, 4160, [4104, 3001, 2100], 2048,
+                                  torch.float32, seed=116,
+                                  runs=mode_runs["paged_decode_starts"])
+    st_ragged_bf16 = start_decode_case(3, 4160, [4104, 3001, 2100], 2048,
+                                       torch.bfloat16, seed=117)
+    mode_runs = [(name, r) for name, rs in mode_runs.items() for r in rs]
     # the backward kernels at the train phase's shapes (qwen3-0.6b, batch
     # 2 x 2048 tokens) and at the substrate's (batch 2 x 128 tokens), then
     # each rebuilt with a planted fault on the same inputs
@@ -3762,9 +4186,10 @@ def main() -> int:
                               ("gated_flash_bwd_hd256", fb_rg_run),
                               ("rglru_scan_bwd", rb_train_run),
                               ("rglru_scan_bwd", rb_h0_run), *fwd_runs,
-                              *new_runs])
+                              *new_runs, *mode_runs])
     del gb_train_run, gb_sub_run, fb_train_run, fb_sub_run, rb_train_run
     del rb_h0_run, fb_rg_run, fb_g3_run, gb_rg_run, fwd_runs, new_runs
+    del mode_runs
     free_cuda()
     for tag, r in (("gate_mlp", gate_main), ("gate_mlp", gate_big),
                    ("gate_mlp", gate_prefill),
@@ -3790,6 +4215,14 @@ def main() -> int:
                    ("paged_decode dense", dense_long_bf16),
                    ("gated_flash causal", gf_causal),
                    ("gated_flash causal", gf_causal_bf16),
+                   ("gated_flash_window rg", win_rg),
+                   ("gated_flash_window rg", win_rg_bf16),
+                   ("gated_flash_window qwen3", win_q3),
+                   ("gated_flash_window qwen3", win_q3_bf16),
+                   ("paged_decode_starts rg", st_rg),
+                   ("paged_decode_starts rg", st_rg_bf16),
+                   ("paged_decode_starts ragged", st_ragged),
+                   ("paged_decode_starts ragged", st_ragged_bf16),
                    ("gate_mlp_bwd", gb_train), ("gate_mlp_bwd", gb_sub),
                    ("gated_flash_bwd", fb_train),
                    ("gated_flash_bwd", fb_sub),
@@ -3823,6 +4256,11 @@ def main() -> int:
     ab_counts = serve_ab(card)
     prefix_counts = prefix_phase(card)
     sub_ab_counts = substrate_ab()
+    # this slice's: the serving tick under the run-time sentinels, and
+    # the fixed-slot loop on card and CPU
+    free_cuda()
+    sentinel_counts = sentinels_phase(card)
+    loop_counts = legacy_loop_phase()
     # gate-distillation training (this slice's paths)
     free_cuda()
     train_counts, train_stats = train_arch(card, "qwen3-0.6b", steps=4,
@@ -3835,11 +4273,12 @@ def main() -> int:
     rg_serve_counts = rg_serve(card)
     free_cuda()
     rg_cfg, rg_params = rg_model(seed=5)
-    rg_prefill_counts, rg_decode_counts = rg_prefill(rg_cfg, rg_params)
+    rg_prefill_counts, rg_decode_counts, rg_dense_counts = rg_prefill(
+        rg_cfg, rg_params)
     rg_forward_counts = rg_forward(rg_cfg, rg_params)
     del rg_params
     free_cuda()
-    rg_substrate_counts = rg_substrate()
+    rg_substrate_counts, rg_sub_dense_counts = rg_substrate()
     # this slice's: the hybrid's training at full width, its reduced
     # config's training on card and CPU, the three dense archs, and
     # smollm-360m's training (gated_flash_bwd at G 3)
@@ -4118,6 +4557,41 @@ def main() -> int:
          "launches_rg_train_substrate":
              rg_train_sub_counts["gated_flash_bwd"],
          "launches_smollm_train": smollm_train_counts["gated_flash_bwd"]},
+        {"name": "gated_flash_window", "route": "cuda",
+         "source": "src/repro_torch/csrc/gated_flash.cu",
+         "replaces": "src/repro/kernels/gated_flash.py:68",
+         "reference_path": "src/repro/models/attention.py:312",
+         "mode": "gated_flash's hard window (HARD): the dense baseline's "
+                 "windowed prefill of local-attention blocks",
+         "launches": rg_dense_counts["gated_flash_window"],
+         "max_abs_err": max(win_rg["max_abs_err"], win_q3["max_abs_err"]),
+         **{k: win_rg[k] for k in attn}, "shape": win_rg["shape"],
+         "device_ms": win_rg["device_ms"],
+         "bound_rate": win_rg["bound_rate"], "library": win_rg["library"],
+         "max_abs_err_bf16": max(win_rg_bf16["max_abs_err"],
+                                 win_q3_bf16["max_abs_err"]),
+         "bf16": win_rg_bf16, "qwen3": {"f32": win_q3, "bf16": win_q3_bf16},
+         "planted_fault_err": planted["gated_flash_window"],
+         "launches_rg_substrate_dense":
+             rg_sub_dense_counts["gated_flash_window"]},
+        {"name": "paged_decode_starts", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_decode.cu",
+         "replaces": "src/repro/kernels/paged_decode.py:59",
+         "reference_path": "src/repro/models/attention.py:428",
+         "mode": "paged_decode from a start offset: the dense baseline's "
+                 "windowed decode read",
+         "launches": rg_dense_counts["paged_decode_starts"],
+         "max_abs_err": max(st_rg["max_abs_err"], st_ragged["max_abs_err"]),
+         **{k: st_rg[k] for k in attn}, "shape": st_rg["shape"],
+         "device_ms": st_rg["device_ms"], "split_plan": st_rg["split_plan"],
+         "library": st_rg["library"],
+         "max_abs_err_bf16": max(st_rg_bf16["max_abs_err"],
+                                 st_ragged_bf16["max_abs_err"]),
+         "bf16": st_rg_bf16,
+         "ragged": {"f32": st_ragged, "bf16": st_ragged_bf16},
+         "planted_fault_err": planted["paged_decode_starts"],
+         "launches_rg_substrate_dense":
+             rg_sub_dense_counts["paged_decode_starts"]},
         {"name": "rglru_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:39",
@@ -4136,6 +4610,9 @@ def main() -> int:
     ]
     for entry in kernels:
         entry.update(moe_entry(entry["name"]))
+        entry["launches_sentinels"] = {k: c[entry["name"]]
+                                       for k, c in sentinel_counts.items()}
+        entry["launches_legacy_loop"] = loop_counts[entry["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -41,6 +41,15 @@
 //   one head.
 // - Key tiles above the diagonal are skipped, and the costliest query
 //   tiles (the last) launch first so the cheap ones fill the last wave.
+// - The hard window (HARD, gated_flash_window): the dense baseline's
+//   windowed prefill of local-attention blocks (the reference computes it
+//   outside any Pallas kernel, src/repro/models/attention.py:312-330,
+//   through the einsum of its sdpa). Query i sees key j iff 0 <= i - j
+//   < W: the keys outside the window are masked to NEG_INF where the
+//   gated form adds log2(g + eps), and no gate is read. The key loop
+//   starts at the first tile the CTA's first row can see, and a warp
+//   whose rows see no key of a tile skips it: the work is S * W per
+//   stream, not S^2 / 2. The causal form (HARD false) is unchanged.
 // Next on this card: wgmma (4-warp 64-row products from shared memory;
 // TF32 needs V transposed there) and TMA.
 #include <cuda_bf16.h>
@@ -61,7 +70,7 @@ using mma::NEG_INF;
 template <typename T, int HDMAX>
 using Cfg = mma::FlashCfg<T, HDMAX, (std::is_same<T, float>::value && HDMAX > 128) ? 8 : 4>;
 
-template <typename T, int HDMAX>
+template <typename T, int HDMAX, bool HARD>
 __global__ void __launch_bounds__(Cfg<T, HDMAX>::THREADS, HDMAX > 128 ? 1 : 2)
 gated_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ g,
@@ -99,7 +108,7 @@ gated_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       async_copy::cp16_zfill(ks + r * LD + c * EPC, k + off, ok);
       async_copy::cp16_zfill(vs + r * LD + c * EPC, v + off, ok);
     }
-    if (tid < BK) {
+    if (!HARD && tid < BK) {
       const int j = kb + tid;
       async_copy::cp4_zfill(g_s + st * BK + tid, g + (size_t)nk * S + (j < S ? j : 0),
                             j < S);
@@ -115,36 +124,54 @@ gated_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ib = p0 + ((tid >> 5) * 16 + 15) / F;
   mma::FlashRows<C> rows(q_s, r0, hd, lane);
 
-  const int ntiles = (p_last + BK) / BK;  // key tiles 0 .. the diagonal
-  issue(0, 0);
-  async_copy::commit();  // Q and tile 0
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1;
+  const int ntiles = (p_last + BK) / BK;  // key tiles .. the diagonal
+  // the hard window starts at the tile of the first row's first key
+  const int it0 = HARD ? max(p0 - W + 1, 0) / BK : 0;
+  issue(it0 * BK, 0);
+  async_copy::commit();  // Q and the first tile
+  for (int it = it0; it < ntiles; ++it) {
+    const int st = (it - it0) & 1;
     const int kb = it * BK;
     if (it + 1 < ntiles) issue(kb + BK, st ^ 1);
     async_copy::commit();
     async_copy::wait<1>();
     // each of the first BK threads turns the gate it copied into the
     // bias in base 2, log2(g + eps)
-    if (tid < BK) g_s[st * BK + tid] = log2f(g_s[st * BK + tid] + eps);
+    if (!HARD && tid < BK) g_s[st * BK + tid] = log2f(g_s[st * BK + tid] + eps);
     __syncthreads();
-    if (it == 0) rows.load_q();
-    const float* gl = g_s + st * BK;
-    rows.scores(k_s + st * BK * LD);
-    // causal mask; bias 0 in the window, log2(g + eps) outside it. A tile
-    // inside every row's window needs neither; one outside all of them
-    // only the bias.
+    if (it == it0) rows.load_q();
     const int ke = kb + BK - 1;
-    if (ia - ke >= W) {
-      rows.mask([&](int jl, int, float s) { return s + gl[jl]; });
-    } else if (ke > ia || ib - kb >= W) {
-      rows.mask([&](int jl, int h, float s) {
-        const int i = h ? i1 : i0;
-        const int j = kb + jl;
-        return j > i ? NEG_INF : (i - j < W ? s : s + gl[jl]);
-      });
+    if constexpr (HARD) {
+      // keys outside the window masked. A warp whose rows see no key of
+      // the tile leaves its state as a tile of NEG_INF logits would.
+      if (kb <= ib && ia - ke < W) {
+        rows.scores(k_s + st * BK * LD);
+        if (ke > ia || ib - kb >= W) {
+          rows.mask([&](int jl, int h, float s) {
+            const int i = h ? i1 : i0;
+            const int j = kb + jl;
+            return (j > i || i - j >= W) ? NEG_INF : s;
+          });
+        }
+        rows.update(v_s + st * BK * LD);
+      }
+    } else {
+      const float* gl = g_s + st * BK;
+      rows.scores(k_s + st * BK * LD);
+      // causal mask; bias 0 in the window, log2(g + eps) outside it. A
+      // tile inside every row's window needs neither; one outside all of
+      // them only the bias.
+      if (ia - ke >= W) {
+        rows.mask([&](int jl, int, float s) { return s + gl[jl]; });
+      } else if (ke > ia || ib - kb >= W) {
+        rows.mask([&](int jl, int h, float s) {
+          const int i = h ? i1 : i0;
+          const int j = kb + jl;
+          return j > i ? NEG_INF : (i - j < W ? s : s + gl[jl]);
+        });
+      }
+      rows.update(v_s + st * BK * LD);
     }
-    rows.update(v_s + st * BK * LD);
     __syncthreads();  // stage st is consumed before it is refilled
   }
   async_copy::wait<0>();
@@ -156,7 +183,7 @@ gated_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    lse + (size_t)(n0 + (r0 + 8) % F) * S + i1, i1 < S);
 }
 
-template <typename T, int HDMAX>
+template <typename T, int HDMAX, bool HARD>
 int launch(const void* q, const void* k, const void* v, const float* g,
            void* out, float* lse, int Nq, int S, int hd, int W, int G, float eps,
            cudaStream_t st) {
@@ -168,23 +195,30 @@ int launch(const void* q, const void* k, const void* v, const float* g,
   const size_t smem = C::tile_bytes() + 2 * C::BK * sizeof(float);
   if (smem > 48 * 1024) {  // above the default dynamic limit
     const cudaError_t err = cudaFuncSetAttribute(
-        gated_flash_kernel<T, HDMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gated_flash_kernel<T, HDMAX, HARD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  gated_flash_kernel<T, HDMAX><<<dim3(Nq / F, (S + P - 1) / P), C::THREADS, smem, st>>>(
+  gated_flash_kernel<T, HDMAX, HARD><<<dim3(Nq / F, (S + P - 1) / P), C::THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       g, static_cast<T*>(out), lse, S, hd, W, G, F, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool HARD>
 int launch_hd(const void* q, const void* k, const void* v, const float* g,
               void* out, float* lse, int Nq, int S, int hd, int W, int G, float eps,
               cudaStream_t st) {
-  if (hd <= 64) return launch<T, 64>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
-  if (hd <= 128) return launch<T, 128>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
-  return launch<T, 256>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
+  if (hd <= 64) return launch<T, 64, HARD>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
+  if (hd <= 128)
+    return launch<T, 128, HARD>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
+  return launch<T, 256, HARD>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
+}
+
+int check_args(int Nq, int hd, int G) {
+  if (hd <= 0 || hd > 256 || hd % 8 != 0 || G <= 0 || Nq % G != 0)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -195,11 +229,28 @@ extern "C" int gated_flash(const void* q, const void* k, const void* v,
                            const float* g, void* out, float* lse, int Nq, int S,
                            int hd, int W, int G, float eps, int dtype, void* stream) {
   if (Nq <= 0 || S <= 0) return 0;
-  if (hd <= 0 || hd > 256 || hd % 8 != 0 || G <= 0 || Nq % G != 0)
-    return (int)cudaErrorInvalidValue;
+  if (const int bad = check_args(Nq, hd, G)) return bad;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_hd<float>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
+  if (dtype == 0)
+    return launch_hd<float, false>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
+    return launch_hd<__nv_bfloat16, false>(q, k, v, g, out, lse, Nq, S, hd, W, G, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The hard window: query i sees key j iff 0 <= i - j < W (W >= 1); no
+// gate, no log-sum-exp (forward only). dtype as above.
+extern "C" int gated_flash_window(const void* q, const void* k, const void* v,
+                                  void* out, int Nq, int S, int hd, int W, int G,
+                                  int dtype, void* stream) {
+  if (Nq <= 0 || S <= 0) return 0;
+  if (const int bad = check_args(Nq, hd, G)) return bad;
+  if (W <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_hd<float, true>(q, k, v, nullptr, out, nullptr, Nq, S, hd, W, G, 0.f, st);
+  if (dtype == 1)
+    return launch_hd<__nv_bfloat16, true>(q, k, v, nullptr, out, nullptr, Nq, S, hd, W, G,
+                                          0.f, st);
   return (int)cudaErrorInvalidValue;
 }

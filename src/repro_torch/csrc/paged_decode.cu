@@ -25,6 +25,17 @@
 // position, so at the identity ids with K = every page the selected read
 // sees the same splits, live pages and order: bitwise paged_decode.
 //
+// A START offset (paged_decode with starts1 non-null): the dense
+// baseline's windowed read of local-attention blocks (the reference's
+// attn_decode_dense(window=), src/repro/models/attention.py:428-453,
+// outside any Pallas kernel). Segment 1 of kv stream kv then holds the
+// tokens [starts[kv], min(lengths[kv], starts[kv] + span)); its walk
+// begins at the page of the start (walk position j is logical page
+// starts[kv] / 16 + j) and is `walk1` positions long, enough for span
+// tokens from any offset, so the split plan counts only the pages a
+// window can touch. The first live page is masked below the start.
+// Without starts every line runs as before.
+//
 // What bounds it on this card: bytes at long caches (each live K/V page is
 // read once per kv stream for 4 * hd * G FLOPs per token, far below the
 // card's FLOP/byte ratio), latency at serving sizes (a few dozen pages per
@@ -82,6 +93,8 @@ struct Segment {
   const int* table;    // [Nkv, max_pages]
   const int* lengths;  // [Nkv]
   int max_pages;
+  const int* starts;   // [Nkv] first token read, or nullptr (from 0)
+  int span;            // with starts: the most tokens read from the start
 };
 
 struct Walk {
@@ -101,11 +114,11 @@ struct Plan {
   float scale;
 };
 
-// Walk position j of kv stream kv: its physical page, live tokens and
-// segment; false if it adds nothing (past the length, past n_sel, or an id
-// outside the table).
+// Walk position j of kv stream kv: its physical page, live tokens [lo, nv)
+// of the page and segment; false if it adds nothing (past the length,
+// below the start, past n_sel, or an id outside the table).
 __device__ __forceinline__ bool resolve(const Walk& w, int kv, int j,
-                                        int& phys, int& nv, int& seg) {
+                                        int& phys, int& lo, int& nv, int& seg) {
   const Segment& s = j < w.p1 ? w.s1 : w.s2;
   int logical = j < w.p1 ? j : j - w.p1;
   if (j < w.p1 && w.sel != nullptr) {
@@ -113,10 +126,19 @@ __device__ __forceinline__ bool resolve(const Walk& w, int kv, int j,
     logical = w.sel[(size_t)kv * w.p1 + j];
     if (logical < 0 || logical >= s.max_pages) return false;
   }
-  const int len = s.lengths[kv];
+  int len = s.lengths[kv];
+  lo = 0;
+  if (s.starts != nullptr) {
+    const int first = max(s.starts[kv], 0);
+    len = min(len, first + s.span);
+    logical += first / PAGE;
+    if (logical >= s.max_pages) return false;
+    lo = max(first - logical * PAGE, 0);
+  }
   if (logical * PAGE >= len) return false;
-  phys = s.table[(size_t)kv * s.max_pages + logical];
   nv = min(PAGE, len - logical * PAGE);
+  if (lo >= nv) return false;
+  phys = s.table[(size_t)kv * s.max_pages + logical];
   seg = j < w.p1 ? 0 : 1;
   return true;
 }
@@ -154,12 +176,12 @@ split_kernel(const T* __restrict__ q, Walk w, Plan pl, T* __restrict__ out,
     const int j1 = min(j0 + pl.pps, w.p1 + w.p2);
     int base = 0;
     for (int c = j0; c < j1; c += 32) {
-      int phys = 0, nv = 0, seg = 0;
-      const bool ok = c + lane < j1 && resolve(w, kv, c + lane, phys, nv, seg);
+      int phys = 0, lo = 0, nv = 0, seg = 0;
+      const bool ok = c + lane < j1 && resolve(w, kv, c + lane, phys, lo, nv, seg);
       const unsigned mask = __ballot_sync(0xffffffffu, ok);
       if (ok)
         live[base + __popc(mask & ((1u << lane) - 1u))] =
-            make_int2(phys, nv | (seg << 8));
+            make_int2(phys, nv | (seg << 8) | (lo << 16));
       base += __popc(mask);
     }
     if (lane == 0) *n_live_sh = base;
@@ -183,7 +205,7 @@ split_kernel(const T* __restrict__ q, Walk w, Plan pl, T* __restrict__ out,
 
   auto issue = [&](int idx) {
     const int2 e = live[idx];
-    const Segment& sg = (e.y >> 8) ? w.s2 : w.s1;
+    const Segment& sg = ((e.y >> 8) & 1) ? w.s2 : w.s1;
     const size_t off = (size_t)e.x * page_bytes;
     const unsigned char* ks = static_cast<const unsigned char*>(sg.k) + off;
     const unsigned char* vs = static_cast<const unsigned char*>(sg.v) + off;
@@ -210,6 +232,7 @@ split_kernel(const T* __restrict__ q, Walk w, Plan pl, T* __restrict__ out,
     const T* k_s = reinterpret_cast<const T*>(stages + (size_t)(idx % STAGES) * 2 * page_bytes);
     const T* v_s = reinterpret_cast<const T*>(reinterpret_cast<const unsigned char*>(k_s) + page_bytes);
     const int nv = live[idx].y & 0xff;
+    const int lo = live[idx].y >> 16;  // the first live token of the page
 
     // scores: eight lanes per token split the head dim, every head of the
     // CTA against the token's K row held in registers
@@ -235,7 +258,8 @@ split_kernel(const T* __restrict__ q, Walk w, Plan pl, T* __restrict__ out,
       part += __shfl_xor_sync(0xffffffffu, part, 4);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       part += __shfl_xor_sync(0xffffffffu, part, 1);
-      if (j8 == 0) s_sh[h * PAGE + tok] = tok < nv ? part * pl.scale : NEG_INF;
+      if (j8 == 0)
+        s_sh[h * PAGE + tok] = (tok < nv && tok >= lo) ? part * pl.scale : NEG_INF;
     }
     __syncthreads();
 
@@ -280,7 +304,7 @@ split_kernel(const T* __restrict__ q, Walk w, Plan pl, T* __restrict__ out,
           acc[a].w *= al;
         }
       }
-      for (int t = 0; t < nv; ++t) {
+      for (int t = lo; t < nv; ++t) {
         const float4 vv = load4(v_s + t * hd + 4 * col);
 #pragma unroll
         for (int a = 0; a < MAX_ACC; ++a) {
@@ -464,19 +488,28 @@ int launch(const void* q, Walk w, void* out, float* part, int N, int G,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. k2 == nullptr means one segment.
-// Tables, lengths (and ids) are per kv stream: [N / G, ...].
+// Tables, lengths (and ids, starts) are per kv stream: [N / G, ...].
+// starts1 == nullptr: segment 1 from token 0, walk1 ignored (its walk is
+// max_pages1). Else segment 1 is read over [starts1, min(lengths1,
+// starts1 + span1)) by a walk of walk1 <= max_pages1 positions from the
+// start's page (at least the pages span1 tokens can touch).
 extern "C" int paged_decode(const void* q,
                             const void* k1, const void* v1, const int* table1,
                             const int* lengths1, int max_pages1,
+                            const int* starts1, int span1, int walk1,
                             const void* k2, const void* v2, const int* table2,
                             const int* lengths2, int max_pages2,
                             void* out, float* part, int N, int G, int hd,
                             int page, int pps, int heads, int dtype,
                             void* stream) {
   const bool two = k2 != nullptr;
-  const Walk w{{k1, v1, table1, lengths1, max_pages1},
-               {two ? k2 : k1, two ? v2 : v1, table2, lengths2, max_pages2},
-               max_pages1, two ? max_pages2 : 0, nullptr, nullptr};
+  if (starts1 != nullptr && (span1 <= 0 || walk1 <= 0 || walk1 > max_pages1))
+    return (int)cudaErrorInvalidValue;
+  const Walk w{{k1, v1, table1, lengths1, max_pages1, starts1, span1},
+               {two ? k2 : k1, two ? v2 : v1, table2, lengths2, max_pages2,
+                nullptr, 0},
+               starts1 != nullptr ? walk1 : max_pages1, two ? max_pages2 : 0,
+               nullptr, nullptr};
   return launch(q, w, out, part, N, G, hd, page, pps, heads, dtype, stream);
 }
 
@@ -495,8 +528,9 @@ extern "C" int paged_decode_selected(const void* q,
   if (sel == nullptr || n_sel == nullptr || k_pages <= 0)
     return (int)cudaErrorInvalidValue;
   const bool two = k2 != nullptr;
-  const Walk w{{k1, v1, table1, lengths1, max_pages1},
-               {two ? k2 : k1, two ? v2 : v1, table2, lengths2, max_pages2},
+  const Walk w{{k1, v1, table1, lengths1, max_pages1, nullptr, 0},
+               {two ? k2 : k1, two ? v2 : v1, table2, lengths2, max_pages2,
+                nullptr, 0},
                k_pages, two ? max_pages2 : 0, sel, n_sel};
   return launch(q, w, out, part, N, G, hd, page, pps, heads, dtype, stream);
 }

@@ -148,7 +148,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
         lib.gate_mlp_bwd_smem_bytes.argtypes = [i, i]
         lib.gate_mlp_bwd_smem_bytes.restype = ctypes.c_longlong
     elif name == "paged_decode":
-        lib.paged_decode.argtypes = [p, p, p, p, p, i, p, p, p, p, i,
+        lib.paged_decode.argtypes = [p, p, p, p, p, i, p, i, i,
+                                     p, p, p, p, i,
                                      p, p, i, i, i, i, i, i, i, p]
         lib.paged_decode.restype = i
         lib.paged_decode_selected.argtypes = [p, p, p, p, p, i, p, p, i,
@@ -162,6 +163,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     elif name == "gated_flash":
         lib.gated_flash.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
         lib.gated_flash.restype = i
+        lib.gated_flash_window.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.gated_flash_window.restype = i
     elif name == "gated_flash_bwd":
         lib.gated_flash_bwd.argtypes = [p] * 13 + [i] * 5 + [f, p]
         lib.gated_flash_bwd.restype = i

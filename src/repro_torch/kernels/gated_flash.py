@@ -22,6 +22,14 @@ cores, tiles through a ``cp.async`` ring; f32, hd a multiple of 8 up to
 split over CTAs; its plain version :func:`gated_flash_bwd_plain`)
 computes dq, dk, dv and dg.
 Anything else that requires grad on CUDA (bf16, hd in 136..248) raises.
+
+The hard window. :func:`gated_flash_window` runs the same kernel in its
+hard-window mode (the dense baseline's windowed prefill of
+local-attention blocks): query i sees key j iff 0 <= i - j < W, no gate.
+Its plain version :func:`gated_flash_window_plain` is the reference's
+windowed mask (``attn_prefill_full(window=)``). Forward only: on CUDA an
+input that requires grad raises. Its launches count in
+``window_launches``.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ NEG_INF = -1e30
 
 launches = build.LaunchCounter("gated_flash")
 bwd_launches = build.LaunchCounter("gated_flash_bwd")
+window_launches = build.LaunchCounter("gated_flash_window")
 
 # head dims of the backward kernel: multiples of 8 up to 128, and 256
 BWD_HD = tuple(range(8, 129, 8)) + (256,)
@@ -109,6 +118,20 @@ def gated_flash_bwd_plain(q, k, v, g, o, lse, do, *, w_local: int,
     return dq.reshape(nq, s, hd), dk, dv, dg
 
 
+def gated_flash_window_plain(q, k, v, *, window: int, group: int = 1):
+    """q: [Nq, S, hd]; k, v: [Nq/group, S, hd] -> [Nq, S, hd] in q's
+    dtype (f32 math): key j visible to query i iff 0 <= i - j < window."""
+    nq, s, hd = q.shape
+    nk = nq // group
+    qg = q.reshape(nk, group, s, hd).float()
+    _, in_win = _masks(s, window, q.device)
+    logits = torch.einsum("ngqd,nkd->ngqk", qg, k.float()) * (hd ** -0.5)
+    logits = torch.where(in_win, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("ngqk,nkd->ngqd", w, v.float())
+    return out.reshape(nq, s, hd).to(q.dtype)
+
+
 def _check_cuda(q, k, v, g, group: int) -> None:
     nq, s, hd = q.shape
     if q.dtype not in _DTYPE_CODE:
@@ -122,7 +145,9 @@ def _check_cuda(q, k, v, g, group: int) -> None:
                          f"multiple of group {group}")
     nk = nq // group
     want = {"q": (q, (nq, s, hd)), "k": (k, (nk, s, hd)),
-            "v": (v, (nk, s, hd)), "g": (g, (nk, s))}
+            "v": (v, (nk, s, hd))}
+    if g is not None:
+        want["g"] = (g, (nk, s))
     for name, (t, shape) in want.items():
         if t.device != q.device:
             raise ValueError(f"gated_flash: {name} on {t.device}, q on "
@@ -136,7 +161,7 @@ def _check_cuda(q, k, v, g, group: int) -> None:
             raise ValueError(f"gated_flash: {name} must be 16-byte aligned")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"gated_flash: k and v must be {q.dtype}")
-    if g.dtype != torch.float32:
+    if g is not None and g.dtype != torch.float32:
         raise TypeError(f"gated_flash: g must be float32, got {g.dtype}")
 
 
@@ -249,3 +274,34 @@ def gated_flash(q, k, v, g, *, w_local: int, eps: float = 1e-6,
         _check_bwd(q)
         return GatedFlashFunction.apply(q, k, v, g, w_local, eps, group)
     return _forward_cuda(q, k, v, g, w_local, eps, group, False)[0]
+
+
+def gated_flash_window(q, k, v, *, window: int, group: int = 1):
+    """Hard-window causal attention -> [Nq, S, hd]: the kernel's
+    hard-window mode on CUDA (forward only), its plain version on the
+    CPU."""
+    if window < 1:
+        raise ValueError(f"gated_flash_window: window must be >= 1, got "
+                         f"{window}")
+    if q.device.type == "cpu":
+        return gated_flash_window_plain(q, k, v, window=window, group=group)
+    if q.device.type != "cuda":
+        raise ValueError(f"gated_flash_window: unsupported device "
+                         f"{q.device}")
+    if q.ndim != 3:
+        raise ValueError("gated_flash_window: q must be [Nq, S, hd]")
+    build.refuse_grad("gated_flash_window", (q, k, v))
+    _check_cuda(q, k, v, None, group)
+    nq, s, hd = q.shape
+    out = torch.empty_like(q)
+    lib = build.load("gated_flash")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.gated_flash_window(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    out.data_ptr(), nq, s, hd, window, group,
+                                    _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"gated_flash_window kernel launch failed: CUDA "
+                           f"error {rc}")
+    window_launches.count += 1
+    return out

@@ -1,9 +1,10 @@
 """Model-level folds around the kernels (port of ``repro/kernels/ops.py``):
 GQA head folding, the write-gate batch fold, the dual cache viewed as two
 paged segments, read whole or through the Quest-selected pages of its
-global segment, the dense baseline's cache read as one paged segment and
-its causal prefill through the write-gated kernel, and the RG-LRU linear
-scan.
+global segment, the dense baseline's cache read as one paged segment
+(from a start offset when windowed) and its causal prefill through the
+write-gated kernel (its hard-window mode when windowed), and the RG-LRU
+linear scan.
 
 The GQA fold keeps the reference's stream order ``(b, kv head, group)``
 (``q.reshape(b, hkv, g, s, hd)``) but does not repeat K, V, the gates, the
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.core.selection import PAGE_SIZE
 from repro_torch.kernels.gate_mlp import gate_mlp
-from repro_torch.kernels.gated_flash import gated_flash
+from repro_torch.kernels.gated_flash import gated_flash, gated_flash_window
 from repro_torch.kernels.paged_decode import (paged_decode,
                                               paged_decode_selected)
 from repro_torch.kernels.rglru_scan import rglru_scan
@@ -130,7 +131,8 @@ def dense_cache_segment(q, cache):
     (q [B*Hq, hd], one segment (k_pool, v_pool, page_table, lengths) per
     kv stream, group). The contiguous [B, Hkv, S_max, hd] buffer is
     S_max / 16 pages per kv stream (S_max a multiple of 16;
-    ``init_dense_cache`` rounds it up), each stream ``t`` long."""
+    ``init_dense_cache`` rounds it up), each stream ``t`` long.
+    :func:`dense_window_starts` gives a windowed read's starts."""
     b, hq, hd = q.shape
     _, hkv, s_max, _ = cache.k.shape
     if s_max % PAGE_SIZE:
@@ -145,12 +147,39 @@ def dense_cache_segment(q, cache):
     return q.reshape(b * hq, hd).contiguous(), seg, hq // hkv
 
 
-def dense_cache_attention(q, cache):
+def dense_window_starts(t, hkv: int, window: int):
+    """Per kv stream [B * Hkv] int32, the first token of a windowed read
+    of rows at position ``t`` [B]: ``max(t - window, 0)``."""
+    first = torch.clamp(t.to(torch.int32) - window, min=0)
+    return first[:, None].expand(t.shape[0], hkv).reshape(-1).contiguous()
+
+
+def dense_cache_attention(q, cache, window=None, end=None):
     """One query per head over a DenseCache's first ``t`` tokens, read in
-    place by the paged-decode kernel as ONE segment. q: [B, Hq, hd] ->
-    [B, Hq, hd]."""
-    qf, seg, g = dense_cache_segment(q, cache)
-    return paged_decode(qf, *seg, group=g).reshape(q.shape)
+    place by the paged-decode kernel as ONE segment; with ``window`` only
+    the last ``window`` of them, [t - window, t), through the kernel's
+    start offset. ``end`` [B] (default ``t``): the read stops there, the
+    window still ends at ``t``. q: [B, Hq, hd] -> [B, Hq, hd]."""
+    read = cache if end is None else cache._replace(t=end)
+    qf, seg, g = dense_cache_segment(q, read)
+    if window is None:
+        return paged_decode(qf, *seg, group=g).reshape(q.shape)
+    starts = dense_window_starts(cache.t, cache.k.shape[1], window)
+    return paged_decode(qf, *seg, group=g, starts=starts,
+                        span=window).reshape(q.shape)
+
+
+def windowed_causal_attention(q, k, v, window: int):
+    """Causal attention over the last ``window`` keys of each query
+    (0 <= i - j < window) through the write-gated kernel's hard-window
+    mode. q: [B, Hq, S, hd]; k, v: [B, Hkv, S, hd] -> [B, Hq, S, hd]."""
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    of = gated_flash_window(q.reshape(b * hq, s, hd).contiguous(),
+                            k.reshape(b * hkv, s, hd).contiguous(),
+                            v.reshape(b * hkv, s, hd).contiguous(),
+                            window=window, group=hq // hkv)
+    return of.reshape(b, hq, s, hd)
 
 
 def causal_attention(q, k, v):

@@ -21,6 +21,13 @@ head)): tables, lengths, ids and counts are given per kv stream, [N /
 group, ...], and the kernel stages each page once for the whole group.
 ``group=1`` is the reference's layout, one table row per query row.
 
+:func:`paged_decode` also takes ``starts`` [N / group] int32 and ``span``
+(the dense baseline's windowed read): the first segment of a kv stream
+is then read over [starts, min(lengths, starts + span)) only, its walk
+beginning at the page of the start and covering the pages ``span`` tokens
+can touch (:func:`start_walk`), so pages below the start or past the
+window are never walked. Those launches count in ``start_launches``.
+
 The kernel cuts each kv stream's walk [segment 1 pages ‖ segment 2
 pages] into splits (:func:`split_plan`, a function of shapes only) that
 run in parallel and are combined in a fixed order. Both kernels are
@@ -41,6 +48,7 @@ NEG_INF = -1e30
 
 launches = build.LaunchCounter("paged_decode")
 selected_launches = build.LaunchCounter("paged_decode_selected")
+start_launches = build.LaunchCounter("paged_decode_starts")
 
 Segment = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -83,12 +91,23 @@ def split_plan(walk_pages: int, kv_streams: int, group: int,
     return SplitPlan(pps, -(-walk // pps), heads)
 
 
+def start_walk(max_pages: int, span: int) -> int:
+    """Walk positions of a first segment read from a start offset: the
+    pages ``span`` tokens can touch from any offset in their first page,
+    at most the table's width."""
+    return min(max_pages, (span + 2 * PAGE - 2) // PAGE)
+
+
 def walk_plan(q, page_table, second: Optional[Segment] = None, *,
-              group: int = 1, sel_ids=None) -> SplitPlan:
+              group: int = 1, sel_ids=None,
+              span: Optional[int] = None) -> SplitPlan:
     """The split plan a wrapper launches with: the walk is segment 1's
-    table width (or the K of ``sel_ids``) plus segment 2's, so the
-    selected read at K = every page gets paged_decode's plan."""
+    table width (or the K of ``sel_ids``, or :func:`start_walk` of
+    ``span`` when read from a start) plus segment 2's, so the selected
+    read at K = every page gets paged_decode's plan."""
     first = page_table.shape[1] if sel_ids is None else sel_ids.shape[1]
+    if span is not None:
+        first = start_walk(first, span)
     walk = first + (second[2].shape[1] if second is not None else 0)
     return split_plan(walk, q.shape[0] // group, group, q.shape[1])
 
@@ -104,7 +123,8 @@ def _per_query_segment(seg: Optional[Segment], group: int):
     return k, v, _per_query(tbl, group), _per_query(lens, group)
 
 
-def _segment(q, k_pool, v_pool, page_table, lengths):
+def _segment(q, k_pool, v_pool, page_table, lengths, starts=None,
+             span: Optional[int] = None):
     n, hd = q.shape
     _, page, _ = k_pool.shape
     mp = page_table.shape[1]
@@ -113,6 +133,9 @@ def _segment(q, k_pool, v_pool, page_table, lengths):
     v = v_pool[tbl].reshape(n, mp * page, hd)
     pos = torch.arange(mp * page, device=q.device)[None]
     valid = pos < lengths[:, None]
+    if starts is not None:
+        first = starts.clamp_min(0)[:, None]
+        valid = valid & (pos >= first) & (pos < first + span)
     logits = torch.einsum("nd,nkd->nk", q.float(), k.float()) * (hd ** -0.5)
     return torch.where(valid, logits, torch.full_like(logits, NEG_INF)), v
 
@@ -150,11 +173,16 @@ def _combine(q, logits, v, second: Optional[Segment]):
 
 
 def paged_decode_plain(q, k_pool, v_pool, page_table, lengths,
-                       second: Optional[Segment] = None, *, group: int = 1):
+                       second: Optional[Segment] = None, *, group: int = 1,
+                       starts=None, span: Optional[int] = None):
     """q: [N, hd]; pools [P, page, hd]; page_table [N / group, max_pages]
-    int32; lengths [N / group] -> [N, hd] in q's dtype."""
+    int32; lengths [N / group] -> [N, hd] in q's dtype. With ``starts``
+    [N / group] int32 and ``span``, the first segment is read over
+    [starts, min(lengths, starts + span))."""
+    if starts is not None:
+        starts = _per_query(starts, group)
     logits, v = _segment(q, k_pool, v_pool, _per_query(page_table, group),
-                         _per_query(lengths, group))
+                         _per_query(lengths, group), starts, span)
     return _combine(q, logits, v, _per_query_segment(second, group))
 
 
@@ -261,19 +289,41 @@ def _launch(fn, q, plan: SplitPlan, group: int, args, tail):
 
 
 def paged_decode(q, k_pool, v_pool, page_table, lengths,
-                 second: Optional[Segment] = None, *, group: int = 1):
-    """Single-query paged decode over one or two segments -> [N, hd]."""
+                 second: Optional[Segment] = None, *, group: int = 1,
+                 starts=None, span: Optional[int] = None):
+    """Single-query paged decode over one or two segments -> [N, hd];
+    with ``starts`` and ``span`` the first segment is read from a start
+    offset (see the module's note)."""
+    if (starts is None) != (span is None):
+        raise ValueError("paged_decode: starts and span go together")
+    if span is not None and span < 1:
+        raise ValueError(f"paged_decode: span must be >= 1, got {span}")
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, page_table, lengths,
-                                  second, group=group)
-    _check_launch(q, (k_pool, v_pool, page_table, lengths), second, group)
+                                  second, group=group, starts=starts,
+                                  span=span)
+    nkv = _check_launch(q, (k_pool, v_pool, page_table, lengths), second,
+                        group)
+    start_args = (None, 0, 0)
+    if starts is not None:
+        if starts.device != q.device or starts.dtype != torch.int32 \
+                or not starts.is_contiguous() \
+                or tuple(starts.shape) != (nkv,):
+            raise ValueError(f"paged_decode: starts must be a contiguous "
+                             f"int32 [{nkv}] on {q.device}")
+        start_args = (starts.data_ptr(), span,
+                      start_walk(page_table.shape[1], span))
     lib = build.load("paged_decode")
     out = _launch(lib.paged_decode, q,
-                  walk_plan(q, page_table, second, group=group), group,
+                  walk_plan(q, page_table, second, group=group, span=span),
+                  group,
                   (k_pool.data_ptr(), v_pool.data_ptr(),
                    page_table.data_ptr(), lengths.data_ptr(),
-                   page_table.shape[1]), _second_args(second))
-    launches.count += 1
+                   page_table.shape[1], *start_args), _second_args(second))
+    if starts is None:
+        launches.count += 1
+    else:
+        start_launches.count += 1
     return out
 
 

@@ -29,13 +29,13 @@ two-segment ``paged_decode`` kernel (``paged_decode_selected`` under
 Quest selection), straight from the cache buffers. The dense baseline
 reuses two of them: its causal prefill runs ``gated_flash`` with every
 key inside the window (bias 0), its decode read is one ``paged_decode``
-segment over the dense buffer. On the CPU each wrapper runs its plain
-PyTorch version. The windowed dense baseline (``local_attn`` blocks with
-WG-KV off) has no kernel yet: it runs plain on the CPU and raises on
-CUDA. The teacher and hard modes, the cross attention and the encoder
-run plain PyTorch (:func:`sdpa`: an einsum and a softmax) on either
-device, as the reference computes them outside any Pallas kernel; the
-cross memory's gate runs in ``gate_mlp``.
+segment over the dense buffer. Windowed (``local_attn`` blocks with WG-KV
+off), the prefill runs ``gated_flash``'s hard-window mode and the decode
+read ``paged_decode`` from a start offset. On the CPU each wrapper runs
+its plain PyTorch version. The teacher and hard modes, the cross
+attention and the encoder run plain PyTorch (:func:`sdpa`: an einsum and
+a softmax) on either device, as the reference computes them outside any
+Pallas kernel; the cross memory's gate runs in ``gate_mlp``.
 """
 from __future__ import annotations
 
@@ -54,13 +54,6 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 Params = Dict[str, torch.Tensor]
-
-WINDOWED_DENSE_TODO = (
-    "windowed dense attention (local_attn with WG-KV off) has no CUDA "
-    "kernel yet: gated_flash adds log(eps) outside its window instead of "
-    "masking, and paged_decode has no start offset (ROADMAP.md Queue 1 "
-    "item 10)")
-
 
 # ==========================================================================
 # dense-cache baseline (full attention)
@@ -320,24 +313,15 @@ def attn_prefill_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """Full-attention baseline prefill: causal attention, windowed when
     ``window`` is given. Returns (out [B, S, D], k_rope [B, Hkv, S, hd],
     v). The causal form runs ``ops.causal_attention`` (on CUDA the
-    ``gated_flash`` kernel with every key in its window); the windowed
-    form is plain PyTorch on the CPU and raises on CUDA. The reference's
-    ``q_chunk`` (a memory bound on its dense einsum) has no counterpart:
-    the kernel tiles the queries itself."""
+    ``gated_flash`` kernel with every key in its window), the windowed
+    form ``ops.windowed_causal_attention`` (its hard-window mode). The
+    reference's ``q_chunk`` (a memory bound on its dense einsum) has no
+    counterpart: the kernel tiles the queries itself."""
     q, _, k_rope, v = project_qkv(p, cfg, x, positions)
     if window is None:
         out = ops.causal_attention(q, k_rope, v)
     else:
-        if x.device.type != "cpu":
-            raise NotImplementedError(WINDOWED_DENSE_TODO)
-        s = x.shape[1]
-
-        def bias_fn(q_start: int, q_len: int) -> torch.Tensor:
-            vis = M.local_window_mask(q_len, s, window, q_start, x.device)
-            zero = torch.zeros((), dtype=torch.float32, device=x.device)
-            return torch.where(vis, zero, torch.full_like(zero, M.NEG_INF))
-
-        out = sdpa(q, k_rope, v, bias_fn)
+        out = ops.windowed_causal_attention(q, k_rope, v, window)
     y = _merge_heads(out) @ p["w_o"].to(x.dtype)
     return y, k_rope, v
 
@@ -427,41 +411,23 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     return y, new_cache, g_new, sel_pages
 
 
-def _dense_window_read(q: torch.Tensor, cache: DenseCache, window: int,
-                       limit: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """Plain read of the last ``window`` of a dense cache's ``t`` tokens,
-    none at or past ``limit`` [B] when given (the windowed baseline; CPU
-    only). q: [B, Hq, hd] -> [B, Hq, hd]."""
-    b, hq, hd = q.shape
-    hkv, s = cache.k.shape[1], cache.k.shape[2]
-    pos = torch.arange(s, device=q.device)[None]
-    t = cache.t[:, None]
-    end = t if limit is None else torch.minimum(t, limit[:, None])
-    valid = (pos < end) & (pos >= t - window)                   # [B, S]
-    qg = q.reshape(b, hkv, hq // hkv, hd)
-    logits = torch.einsum("bhgd,bhkd->bhgk", qg, cache.k).float()
-    logits = logits * (hd ** -0.5)
-    logits = torch.where(valid[:, None, None], logits,
-                         torch.full_like(logits, M.NEG_INF))
-    w = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhgk,bhkd->bhgd", w.to(cache.v.dtype), cache.v)
-    return o.reshape(b, hq, hd)
-
-
 def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
                       cache: DenseCache, *, window: Optional[int] = None,
                       limit: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, DenseCache]:
     """Full-attention baseline decode step. x_t: [B, D]. The new token is
     appended first, then one query per head reads the cache's first
-    ``t`` tokens (the last ``window`` of them when given) — the
-    reference's order. ``limit`` [B] int: per row, the capacity of the
-    reference's buffer: a row at ``t >= limit`` writes nothing, and every
-    row reads at most ``limit`` entries, as the reference's ``where``
-    append and read over a buffer of that size do (the ragged scan's
-    masked rows; its active rows pass ``INT32_MAX``). Returns (out [B, D],
-    new cache)."""
+    ``t`` tokens (the last ``window`` of them when given, from a start
+    offset on the same kernel) — the reference's order. ``limit`` [B]
+    int: per row, the capacity of the reference's buffer: a row at ``t >=
+    limit`` writes nothing, and every row reads at most ``limit`` entries,
+    as the reference's ``where`` append and read over a buffer of that
+    size do (the ragged scan's masked rows; its active rows pass
+    ``INT32_MAX``); a window still starts ``window`` before ``t``. A
+    masked row whose window lies wholly at or past ``limit`` reads no key
+    and returns 0, the kernels' empty read (the reference's softmax over
+    no valid key averages its buffer); such a row's output is dropped.
+    Returns (out [B, D], new cache)."""
     b, _ = x_t.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x_t[:, None, :]
@@ -474,14 +440,8 @@ def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     k_new = _rope_single(cfg, k_pre, cache.t)
     write = None if limit is None else cache.t < limit
     cache = dense_cache_append(cache, k_new, v_new, write=write)
-    if window is None:
-        read = cache if limit is None else cache._replace(
-            t=torch.minimum(cache.t, limit))
-        o = ops.dense_cache_attention(q, read)
-    elif x_t.device.type != "cpu":
-        raise NotImplementedError(WINDOWED_DENSE_TODO)
-    else:
-        o = _dense_window_read(q, cache, window, limit)
+    end = None if limit is None else torch.minimum(cache.t, limit)
+    o = ops.dense_cache_attention(q, cache, window=window, end=end)
     y = o.reshape(b, hq * hd) @ p["w_o"].to(x_t.dtype)
     return y, cache
 

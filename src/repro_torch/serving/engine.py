@@ -36,6 +36,17 @@ protocol the orchestrator schedules:
   * ``verify_paged()`` — recompute one layer's attention from the
     PHYSICAL pool through the ``paged_decode`` kernel and compare with
     the logical cache.
+  * ``add_request`` / ``step`` / ``run`` — the reference's fixed-slot
+    loop, a thin layer over ``prefill`` / ``insert`` / ``step_batch`` /
+    ``collect``.
+  * ``COMPILE_SHAPE_BUDGETS`` / ``compiled_shape_counts()`` — the step
+    shapes the engine dispatches, per kind, and their budget
+    (``analysis.CompileSentinel`` holds a replay to it).
+
+The tick's methods carry ``analysis.contracts.tick_path``: the port's
+lint (``python -m repro_torch.analysis.lint``) flags any host sync in
+them that is not annotated with its reason, and
+``analysis.SyncSentinel`` checks the same discipline at run time.
 
 The dense and static-admission baselines (serving/dense.py,
 serving/static_admission.py) subclass this engine through its seams:
@@ -46,7 +57,7 @@ serving/static_admission.py) subclass this engine through its seams:
 Cache trees are never updated in place (every step returns a new tree),
 so an in-flight step's ``before``/``after`` trees stay valid for the
 mirror and a stored prefix tree stays valid for later hits. Not ported
-yet: meshes and the legacy ``add_request``/``step``/``run`` loop.
+yet: meshes.
 """
 from __future__ import annotations
 
@@ -57,6 +68,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import tick_path
 from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
 from repro_torch.core.dual_cache import DualCache
 from repro_torch.device import (DeviceLike, host_to_device,
@@ -76,6 +88,15 @@ from repro_torch.tree import tree_map
 
 def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
 
 
 class Engine:
@@ -141,6 +162,14 @@ class Engine:
                       "fused_slot_rows": 0.0, "fused_active_rows": 0.0,
                       "selected_pages": 0.0, "selection_time_s": 0.0}
         self.tracer = NULL_TRACER
+        # the legacy fixed-slot loop's requests and slot owners
+        self.requests: Dict[int, Request] = {}
+        self.slot_rid: List[Optional[int]] = [None] * slots
+        self._next_rid = 0
+        # the distinct step shapes dispatched, per kind
+        self._shapes: Dict[str, set] = {"extend_batch": set(),
+                                        "fused_step": set(),
+                                        "fused_step_sel": set()}
 
     # ------------------------------------------------------------------
     # EngineBackend protocol: descriptor + memory telemetry
@@ -151,6 +180,27 @@ class Engine:
             description="write-gated dual cache (learned admission)",
             sharded=False, selection=self.selection)
 
+    # the fused tick's declared step-shape budget, the reference's: the
+    # base fused step runs (slots, chunk) for prefill-carrying ticks and
+    # (slots, 1) for decode-only ticks; the selection variant (slots, 1)
+    # only. analysis.CompileSentinel holds a replay to it; the
+    # synchronous extend ("extend_batch") takes one shape per (batch
+    # width, chunk) by design and carries no budget.
+    COMPILE_SHAPE_BUDGETS: Dict[str, int] = {
+        "fused_step": 2,
+        "fused_step_sel": 1,
+    }
+
+    def compiled_shape_counts(self) -> Dict[str, int]:
+        """The distinct step shapes dispatched so far, per kind: eager
+        PyTorch keeps no jit cache, so this counts what the reference's
+        caches would hold, and what CUDA graphs a capture would need
+        (one per shape). ``fused_step_sel`` only with a selection
+        policy."""
+        return {kind: len(shapes) for kind, shapes in self._shapes.items()
+                if kind != "fused_step_sel" or self._sel_opts is not None}
+
+    @tick_path
     def memory_snapshot(self) -> Dict[str, float]:
         """Resident logical KV tokens/bytes over live slots, plus physical
         pool occupancy when mirroring. Reads host state only."""
@@ -225,9 +275,12 @@ class Engine:
             out = splice_caches(out, t, i)
         return out
 
+    @tick_path
     def _extend_ragged(self, tasks: List[PrefillTask],
                        max_tokens: Optional[int]) -> None:
-        """ONE batched ragged extend for every mid-prefill task."""
+        """ONE batched ragged extend for every mid-prefill task: the
+        synchronous path (it pulls its stats before it returns), one step
+        shape per (batch width, chunk)."""
         t_wall = time.perf_counter()
         takes = [len(t.prompt) - t.pos if max_tokens is None
                  else min(len(t.prompt) - t.pos, max_tokens) for t in tasks]
@@ -237,6 +290,7 @@ class Engine:
         else:
             s = max_tokens
         b = len(tasks)
+        self._shapes["extend_batch"].add((b, s))
         toks = np.zeros((b, s), np.int32)
         for i, (t, take) in enumerate(zip(tasks, takes)):
             toks[i, :take] = t.prompt[t.pos:t.pos + take]
@@ -250,7 +304,9 @@ class Engine:
                 opts=self.opts, capacity=self.capacity)
             outs = (batched,) if b == 1 \
                 else [extract_slot_caches(batched, i) for i in range(b)]
+            # torchlint: allow-sync(the synchronous extend pulls its stats)
             trig = _host(st["evict_trigger_rows"])
+            # torchlint: allow-sync(the synchronous extend pulls its stats)
             adm = _host(st["adm_sum_rows"])
         self.stats["extend_time_s"] += time.perf_counter() - t_wall
         self.stats["extend_tokens"] += float(sum(takes))
@@ -323,6 +379,7 @@ class Engine:
     # ------------------------------------------------------------------
     # fused megabatch tick
     # ------------------------------------------------------------------
+    @tick_path
     def _fused(self, toks: np.ndarray, lengths: np.ndarray,
                use_dev: np.ndarray, caches, opts: I.DecodeOptions):
         """The fused step: ragged extend over the persistent batched tree
@@ -340,6 +397,7 @@ class Engine:
         return last_logits, caches, {**st, "sampled": sampled,
                                      "kv_tokens_rows": kv_rows}
 
+    @tick_path
     def step_batch(self, tasks: List[PrefillTask],
                    max_tokens: Optional[int] = None, *,
                    decode: bool = True) -> Optional[FusedStep]:
@@ -410,6 +468,8 @@ class Engine:
         # decode-only ticks run the Quest selection variant when
         # configured; any prompt chunk aboard forces the full path
         use_sel = self._sel_opts is not None and not tasks
+        self._shapes["fused_step_sel" if use_sel else "fused_step"].add(
+            (self.slots, s))
         before = self.caches
         with self.tracer.device_scope("fused_step"):
             if use_sel:
@@ -457,6 +517,7 @@ class Engine:
         """Mean write-gate admission over the decode rows of one step."""
         return float(adm_rows[rows].mean())
 
+    @tick_path
     def collect(self, step: FusedStep) -> Dict[int, int]:
         """Synchronize one in-flight fused step: pull its sampled tokens
         and per-row stats to the host (the one sync), fold admission
@@ -465,6 +526,7 @@ class Engine:
         still owned by the request the step was dispatched for."""
         assert not step.collected, "in-flight step collected twice"
         step.collected = True
+        # torchlint: allow-sync(collect is the tick's one sync point)
         nxt, trig, adm, selp, kvr = (_host(x) for x in (
             step.tokens, step.stats["evict_trigger_rows"],
             step.stats["adm_sum_rows"], step.stats["selected_pages_rows"],
@@ -547,6 +609,7 @@ class Engine:
     # ------------------------------------------------------------------
     # content-addressed prefix store hooks (serving/prefix_cache.py)
     # ------------------------------------------------------------------
+    @tick_path
     def _adopt_prefix(self, slot: int, entry) -> None:
         """Host-side adoption of a stored prefix into a freshly spliced
         row: alias the entry's pool pages into the slot's streams (incref
@@ -753,6 +816,63 @@ class Engine:
                         else:
                             self.pool.overwrite(lkey, p, ring_k[r, j, h],
                                                 ring_v[r, j, h])
+
+    # ------------------------------------------------------------------
+    # legacy fixed-slot loop (thin layer over prefill/insert/dispatch)
+    # ------------------------------------------------------------------
+    def add_request(self, prompt: List[int], max_new: int = 32) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        self.requests[rid] = Request(rid, list(prompt), max_new)
+        return rid
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_rid) if r is None]
+
+    def _retire_if_done(self, req: Request, slot: int, tok: int) -> None:
+        if len(req.out) >= req.max_new or (self.eos is not None
+                                           and tok == self.eos):
+            req.done = True
+            self.slot_rid[slot] = None
+            self.free_slot(slot)
+
+    def step(self) -> Dict[int, int]:
+        """Admit pending requests, run one decode step, return {rid:
+        newest token}. A request admitted THIS step emits both its
+        prefill's first token and a decode token; the dict keeps only the
+        newest, ``requests[rid].out`` holds the full record."""
+        pending = [r for r in self.requests.values()
+                   if not r.done and r.rid not in self.slot_rid]
+        emitted: Dict[int, int] = {}
+        for slot in self._free_slots():
+            if not pending:
+                break
+            req = pending.pop(0)
+            self.slot_rid[slot] = req.rid
+            # the first generated token comes straight from the prefill's
+            # last-position logits; insert feeds it to the batched decode
+            prefix = self.prefill(req.prompt, emit_first=True)
+            self.insert(prefix, slot)
+            req.out.append(prefix.first_token)
+            emitted[req.rid] = prefix.first_token
+            self._retire_if_done(req, slot, prefix.first_token)
+        inflight = self.step_batch([])
+        emitted_slots = self.collect(inflight) if inflight is not None else {}
+        for slot, tok in emitted_slots.items():
+            rid = self.slot_rid[slot]
+            if rid is None:
+                continue
+            req = self.requests[rid]
+            req.out.append(tok)
+            emitted[rid] = tok
+            self._retire_if_done(req, slot, tok)
+        return emitted
+
+    def run(self, max_steps: int = 256) -> None:
+        for _ in range(max_steps):
+            self.step()
+            if all(r.done for r in self.requests.values()):
+                break
 
     # ------------------------------------------------------------------
     def verify_paged(self, layer_repeat: int = 0,

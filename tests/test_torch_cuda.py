@@ -1183,3 +1183,100 @@ def test_hybrid_gate_gradients_on_gpu_match_cpu_and_remat():
     for k, w in want[2].items():
         assert _rel(got[2][k].cpu(), w) <= BWD_REL, k
         assert torch.equal(got[2][k], got_remat[2][k]), k
+
+
+# ==========================================================================
+# the dense baseline's windowed modes: gated_flash's hard window and
+# paged_decode's start offset
+# ==========================================================================
+def _mode_cases(mode, runs):
+    """chip_smoke.py's phase-3 cases of a windowed mode (each raises
+    unless within its limit, two calls bitwise, and at W = S, or starts 0
+    over the buffer, bitwise equal to the form without the mode); ``runs``
+    gets the f32 cases' inputs."""
+    if mode == "gated_flash_window":
+        return [_SMOKE.window_flash_case(4096, dt, seed=1 + i, hkv=1, hd=256,
+                                         hq=16, w=2048,
+                                         runs=runs if i == 0 else None)
+                for i, dt in enumerate(("float32", "bfloat16"))] + [
+            _SMOKE.window_flash_case(2048, dt, seed=3 + i, hkv=8, hd=128,
+                                     hq=16, w=256,
+                                     runs=runs if i == 0 else None)
+            for i, dt in enumerate(("float32", "bfloat16"))]
+    return [_SMOKE.start_decode_case(1, 4160, [4104], 2048, dt, seed=5 + i,
+                                     runs=runs if i == 0 else None)
+            for i, dt in enumerate((torch.float32, torch.bfloat16))] + [
+        _SMOKE.start_decode_case(3, 4160, [4104, 3001, 2100], 2048, dt,
+                                 seed=7 + i, runs=runs if i == 0 else None)
+        for i, dt in enumerate((torch.float32, torch.bfloat16))]
+
+
+@pytest.mark.parametrize("mode", sorted(_SMOKE.MODE_FAULTS))
+def test_windowed_modes_match_plain_and_catch_faults_on_gpu(mode):
+    """recurrentgemma-9b's shapes (16 / 1 heads of hd 256; prefill S 4096
+    at W 2048, decode from t 4104 in a 4,160-token buffer), a qwen3 shape
+    for the hard window (16 / 8 at hd 128, S 2048, W 256) and ragged
+    decode rows whose starts are not page-aligned: within 5e-5 (f32) and
+    1e-2 (bf16) of the plain versions, two calls bitwise, the old forms
+    bitwise; then the mode's fault planted ("window ignored", "start
+    ignored") reads above 5e-5 on every f32 case. Prints both errors
+    (``-s``)."""
+    runs = []
+    cases = _mode_cases(mode, runs)
+    sound = max(r["max_abs_err"] for r in cases if "float32" in r["shape"])
+    with _SMOKE.Planted([mode]):
+        planted = [float((run().float() - want.float()).abs().max())
+                   for run, want in runs]
+    print(f"\n{mode}: sound {sound:.3e}, planted {planted}")
+    assert len(runs) == 2 and all(not err <= TOL["float32"]
+                                  for err in planted)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_modes_at_small_shapes_on_gpu(dtype):
+    """The modes' edges at small shapes: windows of 1 and wider than S, S
+    off the tile, G 3 at hd 80 (unfolded rows); starts past the length
+    (no key: 0, the kernels' empty read) and spans shorter than a page."""
+    from repro_torch.kernels.gated_flash import (gated_flash_window,
+                                                 gated_flash_window_plain)
+    rng = np.random.default_rng(50)
+    dt = TDT[dtype]
+    for hq, hkv, s, hd, w in ((6, 2, 77, 80, 1), (6, 2, 77, 80, 30),
+                              (4, 4, 130, 64, 500), (16, 1, 200, 256, 64)):
+        q = _cuda(rng.standard_normal((hq, s, hd)).astype(np.float32),
+                  dtype=dt)[0]
+        k, v = _cuda(*(rng.standard_normal((hkv, s, hd)).astype(np.float32)
+                       for _ in range(2)), dtype=dt)
+        got = gated_flash_window(q, k, v, window=w, group=hq // hkv)
+        want = gated_flash_window_plain(q, k, v, window=w, group=hq // hkv)
+        assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
+    n, hd, mp = 4, 128, 12
+    qd, kp, vp, tbl, _ = _cuda(*_paged_inputs(rng, n, hd, 16, 48, mp))
+    qd, kp, vp = (t.to(dt) for t in (qd, kp, vp))
+    lens = torch.tensor([150, 100, 40, 190], dtype=torch.int32,
+                        device="cuda")
+    starts = torch.tensor([141, 120, 3, 17], dtype=torch.int32,
+                          device="cuda")
+    for span in (5, 16, 60):
+        got = paged_decode(qd, kp, vp, tbl, lens, starts=starts, span=span)
+        want = paged_decode_plain(qd, kp, vp, tbl, lens, starts=starts,
+                                  span=span)
+        assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
+        assert float(got[1].float().abs().max()) == 0.0   # start past len
+    torch.cuda.synchronize()
+
+
+def test_gated_flash_window_refuses_grad_on_gpu():
+    """The hard window is forward-only: with grad enabled and an input
+    that requires it, the wrapper raises (``build.refuse_grad``); under
+    torch.no_grad() it runs."""
+    from repro_torch.kernels.gated_flash import gated_flash_window
+    rng = np.random.default_rng(51)
+    q, k, v = _cuda(*(rng.standard_normal((2, 64, 32)).astype(np.float32)
+                      for _ in range(3)))
+    x = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        gated_flash_window(x, k, v, window=16, group=1)
+    with torch.no_grad():
+        gated_flash_window(x, k, v, window=16, group=1)
+    torch.cuda.synchronize()

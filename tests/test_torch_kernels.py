@@ -393,3 +393,122 @@ def test_vertical_slash_attention_rg_head_layout_matches_reference():
         *map(torch.from_numpy, (q, k, v, kg, vg, gpos)), w_local=w)
     assert got.shape == (b, hq, s, hd)
     np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=5e-5)
+
+
+# ==========================================================================
+# the dense baseline's windowed modes: gated_flash's hard window and
+# paged_decode's start offset, against the reference's windowed cores
+# ==========================================================================
+@pytest.mark.parametrize("hq,hkv,s,hd,w", [(4, 2, 48, 16, 16),
+                                            (16, 1, 64, 32, 24),
+                                            (3, 3, 40, 8, 40)])
+def test_gated_flash_window_matches_reference_windowed_sdpa(hq, hkv, s, hd,
+                                                            w):
+    """The plain hard-window mode vs the reference's ``attn_prefill_full``
+    core: its ``sdpa`` under the windowed bias (0 where 0 <= i - j < W,
+    NEG_INF elsewhere); W = S is the causal form."""
+    from repro.models.attention import sdpa as jsdpa
+    from repro_torch.kernels.gated_flash import (gated_flash_window,
+                                                 gated_flash_window_plain)
+    rng = np.random.default_rng(hq * s + w)
+    q = rng.standard_normal((1, hq, s, hd)).astype(np.float32)
+    k = rng.standard_normal((1, hkv, s, hd)).astype(np.float32)
+    v = rng.standard_normal((1, hkv, s, hd)).astype(np.float32)
+
+    def bias_fn(q_start, q_len):
+        qi = jnp.arange(q_len)[:, None] + q_start
+        kj = jnp.arange(s)[None, :]
+        ok = (qi >= kj) & (qi - kj < w)
+        return jnp.where(ok, 0.0, -1e30)[None, None, None]
+
+    want = np.asarray(jsdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            bias_fn))
+    got = tops.windowed_causal_attention(torch.from_numpy(q),
+                                         torch.from_numpy(k),
+                                         torch.from_numpy(v), w)
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=0)
+    args = [torch.from_numpy(a[0]) for a in (q, k, v)]
+    assert torch.equal(gated_flash_window(*args, window=w, group=hq // hkv),
+                       gated_flash_window_plain(*args, window=w,
+                                                group=hq // hkv))
+    with pytest.raises(ValueError, match="window"):
+        gated_flash_window(*args, window=0, group=hq // hkv)
+
+
+@pytest.mark.parametrize("t,limit,w", [([5, 37, 70], None, 24),
+                                       ([40, 70, 17], [64, 64, 64], 16),
+                                       ([90, 63, 80], [64, 64, 64], 16),
+                                       ([3, 30, 64], None, 64)])
+def test_dense_window_read_matches_reference_core(t, limit, w):
+    """``ops.dense_cache_attention(window=)`` (the plain ``paged_decode``
+    with ``starts``) vs the reference's ``attn_decode_dense`` window read:
+    ``valid = (pos < t) & (pos >= t - W)`` over a buffer of ``limit``
+    (rows past it read the buffer's end), one softmax per query head. The
+    starts are not page-aligned; a window wider than ``t`` starts at 0. A
+    row with ``t >= limit + W`` (its window wholly past the buffer) reads
+    no key: the port returns 0 there, where the reference's softmax over
+    no valid key averages the buffer (the documented divergence: such a
+    masked row's output is dropped)."""
+    from repro_torch.models.attention import DenseCache
+    rng = np.random.default_rng(sum(t) + w)
+    b, hkv, grp, hd, s_max = len(t), 2, 3, 16, 96
+    k = rng.standard_normal((b, hkv, s_max, hd)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s_max, hd)).astype(np.float32)
+    q = rng.standard_normal((b, hkv * grp, hd)).astype(np.float32)
+    tt = np.asarray(t, np.int32)
+    cap = s_max if limit is None else limit[0]
+    pos = jnp.arange(cap)[None]
+    valid = (pos < jnp.asarray(tt)[:, None]) \
+        & (pos >= jnp.asarray(tt)[:, None] - w)
+    qg = jnp.asarray(q).reshape(b, hkv, grp, hd)
+    logits = jnp.einsum("bhgd,bhkd->bhgk", qg,
+                        jnp.asarray(k[:, :, :cap])) * hd ** -0.5
+    logits = jnp.where(valid[:, None, None], logits, -1e30)
+    wts = jnp.exp(logits - logits.max(-1, keepdims=True))
+    wts = wts / wts.sum(-1, keepdims=True)
+    want = np.asarray(jnp.einsum("bhgk,bhkd->bhgd", wts,
+                                 jnp.asarray(v[:, :, :cap])))
+    cache = DenseCache(torch.from_numpy(k), torch.from_numpy(v),
+                       torch.from_numpy(tt))
+    end = None if limit is None else torch.minimum(
+        cache.t, torch.tensor(limit, dtype=torch.int32))
+    got = tops.dense_cache_attention(torch.from_numpy(q), cache, window=w,
+                                     end=end).numpy().reshape(want.shape)
+    empty = tt >= cap + w
+    assert empty.any() == (t == [90, 63, 80])
+    np.testing.assert_array_equal(got[empty], 0.0)
+    np.testing.assert_allclose(got[~empty], want[~empty], atol=5e-5, rtol=0)
+
+
+def test_paged_decode_starts_mask_and_walk():
+    """The plain ``paged_decode`` with ``starts``: tokens below the start
+    and at or past ``starts + span`` are masked, ``starts=None`` is the
+    plain read, and the walk of a start read covers the pages ``span``
+    tokens can touch (the kernel's split plan counts only those)."""
+    from repro_torch.kernels.paged_decode import (paged_decode_plain,
+                                                  start_walk, walk_plan)
+    rng = np.random.default_rng(8)
+    n, hd, mp = 3, 8, 8
+    kp = torch.from_numpy(rng.standard_normal((n * mp, 16, hd))
+                          .astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((n * mp, 16, hd))
+                          .astype(np.float32))
+    tbl = torch.arange(n * mp, dtype=torch.int32).reshape(n, mp)
+    lens = torch.tensor([100, 128, 40], dtype=torch.int32)
+    starts = torch.tensor([37, 0, 39], dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((n, hd)).astype(np.float32))
+    got = paged_decode(q, kp, vp, tbl, lens, starts=starts, span=50)
+    # the same read as a plain one over the sliced tokens
+    for i, (a, e) in enumerate(((37, 87), (0, 50), (39, 40))):
+        kk = kp[tbl[i].long()].reshape(-1, hd)[a:e]
+        vv = vp[tbl[i].long()].reshape(-1, hd)[a:e]
+        p = torch.softmax(kk @ q[i] * hd ** -0.5, dim=0)
+        torch.testing.assert_close(got[i], p @ vv, atol=5e-6, rtol=0)
+    assert torch.equal(paged_decode(q, kp, vp, tbl, lens),
+                       paged_decode_plain(q, kp, vp, tbl, lens))
+    assert start_walk(mp, 50) == 5 and start_walk(mp, 16) == 2
+    assert start_walk(mp, 2048) == mp
+    assert walk_plan(q, tbl, span=50).n_splits \
+        <= walk_plan(q, tbl).n_splits
+    with pytest.raises(ValueError, match="together"):
+        paged_decode(q, kp, vp, tbl, lens, starts=starts)
