@@ -101,8 +101,10 @@ recurrentgemma phases):
                 identical streams, KV tokens per tick and integer cache
                 state.
   sentinels   — a serve-cli-sized mix (reduced qwen3-0.6b, 4 slots, five
-                prompts, chunk 64, dispatch-ahead 1), as served and with
-                ``quest:2``, under ``analysis.CompileSentinel`` and
+                prompts, chunk 64, dispatch-ahead 1), as served (with the
+                work counter active: its counted launches equal the
+                counters') and with ``quest:2``, under
+                ``analysis.CompileSentinel`` and
                 ``analysis.SyncSentinel``, whose dispatch window runs
                 under ``torch.cuda.set_sync_debug_mode("error")``: no
                 sync in dispatch, every step-shape budget held; and an
@@ -147,8 +149,9 @@ phi3-medium-14b (run after rg-substrate):
   dense-arch  — for each of the three dense archs at full width (f32,
                 seeded random weights; G 3 at hd 64 and 128, G 4, the
                 untied head of phi3-medium-14b, 54.6 GiB): ``launch.serve``
-                (2 x 64-token prompts, 8 new, 2 slots, capacity 512, the
-                tau probe; the pool within 2e-3), ``inference.prefill`` of
+                (depth cut to ``SERVE_REPEATS`` 8 layers; 2 x 64-token
+                prompts, 8 new, 2 slots, capacity 512, the tau probe; the
+                pool within 2e-3), ``inference.prefill`` of
                 4,096 tokens at budget 1,024 and 16 greedy steps, then the
                 reduced config (smollm-360m's G 3 at hd 80) on card and
                 CPU: the gated forward and the greedy streams, integer
@@ -167,11 +170,12 @@ Mixture-of-Experts FFN; run after smollm-train, one model at a time):
                 probability difference from the CPU; a second card run
                 bitwise the first.
   moe-serve   — ``launch.serve --arch granite-moe-3b-a800m`` at full
-                width (32 layers, d_model 1536, 24 / 8 heads of hd 64, 40
-                experts of d_ff 512, top 8; 12.3 GiB in f32): 4 x 64
+                width (depth cut to 8 of 32 layers; d_model 1536, 24 / 8
+                heads of hd 64, 40 experts of d_ff 512, top 8): 4 x 64
                 tokens, 8 new, 2 slots, the tau probe and
                 ``verify_paged``; TTFT, TPOT and launches.
-  moe-prefill — its prefill of 4,096 tokens at budget 1,024 + 16 greedy
+  moe-prefill — at full depth (32 layers, 12.3 GiB in f32): prefill of
+                4,096 tokens at budget 1,024 + 16 greedy
                 steps, and a warm repeat of the prefill.
   moe-forward — its gated forward over 2,048 tokens; then one layer's MoE
                 FFN over 4,096 tokens twice, bitwise equal.
@@ -201,19 +205,47 @@ model at a time):
   xlstm       — xlstm-350m at full width and depth (24 blocks, d_model
                 1,024, 1.5 GiB): prefill of 2,048 tokens (chunkwise
                 mLSTM) + 16 steps, a teacher forward over 2,048 tokens,
-                one layer of each block type timed alone, 2
-                ``lm_train_step``s at 1 x 1,024; no kernel launches.
+                one layer of each block type timed alone, one
+                ``lm_train_step`` at 1 x 1,024; no kernel launches.
   whisper     — whisper-medium at full width and depth (24 + 24 layers,
                 2.8 GiB): ``whisper_frame_embeds`` of 3,000 frames (1,500
                 encoder positions), a 384-token prompt at budget 96 (each
                 cross memory keeps 96 of 1,500 keys) + 16 steps, the gated
                 forward, 2 ``train_step``s at 2 x 384 with ``enc_embeds``.
   qwen2vl     — qwen2-vl-7b at full width and depth (28 layers, 28 / 4
-                heads of hd 128, 28.4 GiB): ``launch.serve`` (text, 2 x 64
-                tokens, 8 new), prefill of 4,096 tokens at budget 1,024 +
+                heads of hd 128, 28.4 GiB): ``launch.serve`` (depth cut
+                to 8 layers; text, 2 x 64 tokens, 8 new), prefill of 4,096
+                tokens at budget 1,024 +
                 16 steps, and the gated forward of a 2,048-slot stream
                 whose first 1,024 slots are a 32 x 32 grid's patches,
                 roped by M-RoPE.
+
+The roofline (after forward-gated, and after rg-forward for the hybrid):
+prefill-long's prefill (qwen3-0.6b, 1 x 4,096 tokens drawn from seed 0,
+budget 1,024), one of its decode steps (on the caches that prefill
+returned: t 4,096, the global cache at its budget), the train phase's
+step (2 x 2,048; no
+remat, no query chunks, as ``launch.train``) and rg-prefill's prefill
+(recurrentgemma-9b, 1 x 4,096), each as a dry-run bundle
+(``repro_torch.launch.dryrun``) run on the meta device and on the card
+under the work counter (``repro_torch.roofline.counter``): the two counts
+equal as integers (FLOPs by rate class, bytes, each kernel's launches,
+FLOPs and bytes), the card's launches equal to the launch counters' and
+to the path's (28 ``gate_mlp`` and 28 ``vertical_slash``; 28 ``gate_mlp``
+and 28 ``paged_decode``; 28 each of ``gated_flash``, ``gated_flash_bwd``,
+``gate_mlp``, ``gate_mlp_bwd``; 12 ``gate_mlp``, 12 ``vertical_slash``, 26
+``rglru_scan``). Each prints its compute and memory terms and the bound
+from this run's data (``vertical_slash``'s visible globals and
+``paged_decode``'s valid tokens recorded in the timed run; the bound from
+shapes alone, which counts every slot valid, beside it), the
+bundle's wall and device time (torch.profiler) over the bound, the model
+FLOPs over the wall at 67 and 989 TFLOP/s, the predicted peak beside
+``torch.cuda.max_memory_allocated()`` and the card's total memory, and the
+counted split by kernel and by aten class. The sentinels phase serves
+its mix with the counter active (sync debug mode "error" must see no
+sync; the counted launches equal the counters').
+Phase 3's bounds come from the same work functions
+(``repro_torch.roofline.work``) with the exact counts each case holds.
 
 Phase 3 also holds the dense baseline's windowed modes against their
 plain versions, f32 and bf16: ``gated_flash``'s hard window at
@@ -265,6 +297,7 @@ non-zero. The last two lines are the ``kernels`` JSON and the ``ok`` JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -274,26 +307,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
-H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
-H100_BF16_FLOPS = 989e12        # dense bf16 tensor cores
-H100_TF32_FLOPS = 495e12        # dense TF32 tensor cores
-# the f32 arithmetic of the tensor-core kernels: 3xTF32, three TF32
-# products per product
-H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 INT32_MAX = 2 ** 31 - 1
-PEAK = {"float32": H100_F32_FLOPS, "bfloat16": H100_BF16_FLOPS}
-# the prefill attention kernels' arithmetic: f32 in 3xTF32 (three TF32
-# products per product), bf16 on the bf16 tensor cores
-ATTN_RATE = {"float32": (H100_3XTF32_FLOPS,
-                         "3xTF32 tensor cores, 495/3 TFLOP/s"),
-             "bfloat16": (H100_BF16_FLOPS, "bf16 tensor cores, 989 TFLOP/s")}
 # max abs error of an attention kernel against its plain version: both
 # compute in f32 in different orders; in bf16 both round the output, so
 # they may differ by an ulp of an output (2**-9 under 0.5). A pair of
 # elements swapped or dropped in the bf16 load reads far above 1e-2
 # (tests/test_torch_cuda.py plants both).
 TOL = {"float32": 5e-5, "bfloat16": 1e-2}
+# the depth of the other archs' serve paths (smollm-360m, phi4-mini-3.8b,
+# phi3-medium-14b, granite-moe-3b-a800m, qwen2-vl-7b; full width): the
+# serving tick is host-bound, a Python step per layer and position, so
+# their full depth cost a minute of the script's time limit for no other
+# check. Their prefill, forward and train paths keep their full depth.
+SERVE_REPEATS = 8
 # the dense archs' heads: (q heads, kv heads, head_dim)
 DENSE_HEADS = {"smollm-360m": (15, 5, 64), "phi4-mini-3.8b": (24, 8, 128),
                "phi3-medium-14b": (40, 10, 128)}
@@ -394,10 +420,20 @@ def kernel_us(fn, iters: int = 20) -> dict:
     return out
 
 
-def bound(nbytes: float, flops: float, peak_flops: float):
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+def bound(work, rate: str | None = None):
+    """(ms, "bytes" or "operations"): the least time the card takes for a
+    kernel call's work (``repro_torch.roofline.work``): the larger of its
+    bytes over the HBM rate and its FLOPs over the peak of its rate class
+    (or of ``rate``; the H100's rates are ``roofline.analysis``')."""
+    from repro_torch.roofline.analysis import HBM_BYTES_PER_S, RATES
+    t_bytes = work.bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = work.flops / RATES[rate or work.rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rate_label(work) -> str:
+    from repro_torch.roofline.analysis import RATE_LABELS
+    return RATE_LABELS[work.rate]
 
 
 # --------------------------------------------------------------------------
@@ -411,6 +447,7 @@ def gate_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256,
     these inputs, the plain version's output), for a planted fault."""
     import torch
     from repro_torch.kernels.gate_mlp import gate_mlp, gate_mlp_plain, plan
+    from repro_torch.roofline import work as W
     g = torch.Generator(device="cuda").manual_seed(seed)
     m = 64
 
@@ -438,19 +475,16 @@ def gate_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256,
     # the same calls replayed from a CUDA graph
     device_ms = graph_ms(lambda: gate_mlp(*args), 50 if s == 1 else iters)
     plain_ms = cuda_ms(lambda: gate_mlp_plain(*args), iters)
-    nbytes = 4 * (x.numel() + rows * s + sum(a.numel() for a in args[1:]))
-    flops = rows * s * (2 * f * m + 2 * m)
     # the bound at the rate of the kernel's arithmetic: the decode path
     # (tile 0) multiplies in f32 on the CUDA cores, the tensor-core path
     # in 3xTF32; and at the CUDA cores' rate, the bound of the first kernel
     tile = plan(rows, s, h)
-    rate = ((H100_F32_FLOPS, "f32 CUDA cores, 67 TFLOP/s") if tile == 0
-            else ATTN_RATE["float32"])
-    b_ms, b_by = bound(nbytes, flops, rate[0])
-    cc_ms, _ = bound(nbytes, flops, H100_F32_FLOPS)
+    work = W.gate_mlp(rows, s, f, m, h, tile)
+    b_ms, b_by = bound(work)
+    cc_ms, _ = bound(work, "f32")
     return {"shape": f"x[{rows},{s},{f}] H={h} M={m}", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "bound_rate": rate[1],
+            "bound_by": b_by, "bound_rate": rate_label(work),
             "bound_ms_cuda_cores": cc_ms, "library_ms": None,
             "device_ms": device_ms, "tile": tile, "two_calls_bitwise": True}
 
@@ -469,6 +503,7 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
     from repro_torch.core.dual_cache import init_dual_cache
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
+    from repro_torch.roofline import work as W
     g = torch.Generator(device="cuda").manual_seed(seed)
     cache = init_dual_cache(slots, hkv, hd, w_local=w, budget=c, dtype=dtype,
                             device="cuda")
@@ -524,12 +559,9 @@ def dual_cache_case(slots: int, c: int, w: int, dtype, seed: int,
     # output once, page tables and lengths once
     toks = int(gcnt.sum()) + int(torch.clamp(t, max=w).sum()) * hkv
     isz = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * q.numel() * isz + 2 * toks * hd * isz
-              + 4 * sum(x.numel() for x in (first[2], first[3], second[2],
-                                            second[3])))
-    flops = 4 * toks * grp * hd
-    b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS if dtype == torch.float32
-                       else H100_BF16_FLOPS)
+    b_ms, b_by = bound(W.paged_decode(qf.shape[0], hd, grp, first[2].shape[1],
+                                      second[2].shape[1], isz=isz,
+                                      tokens=toks))
     plan = split_plan_of(qf, first, second, grp)
     return {"shape": f"N={slots * hkv * grp} hd={hd} C={c} W={w} {dtype}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -551,6 +583,7 @@ def dense_case(slots: int, max_len: int, t: list, dtype, seed: int,
     from repro_torch.kernels.paged_decode import (paged_decode,
                                                   paged_decode_plain)
     from repro_torch.models.attention import init_dense_cache
+    from repro_torch.roofline import work as W
     g = torch.Generator(device="cuda").manual_seed(seed)
     cache = init_dense_cache(slots, hkv, hd, max_len, dtype, "cuda")
     s_max = cache.k.shape[2]
@@ -581,11 +614,8 @@ def dense_case(slots: int, max_len: int, t: list, dtype, seed: int,
         qg, cache.k, cache.v, attn_mask=mask), 200)
     toks = sum(t) * hkv
     isz = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * q.numel() * isz + 2 * toks * hd * isz
-              + 4 * (seg[2].numel() + seg[3].numel()))
-    b_ms, b_by = bound(nbytes, 4 * toks * grp * hd,
-                       H100_F32_FLOPS if dtype == torch.float32
-                       else H100_BF16_FLOPS)
+    b_ms, b_by = bound(W.paged_decode(qf.shape[0], hd, grp, seg[2].shape[1],
+                                      isz=isz, tokens=toks))
     return {"shape": f"N={slots * hkv * grp} hd={hd} S_max={s_max} t={t} "
                      f"{dtype}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -609,6 +639,7 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
     from repro_torch.kernels.paged_decode import (paged_decode,
                                                   paged_decode_selected,
                                                   paged_decode_selected_plain)
+    from repro_torch.roofline import work as W
     g = torch.Generator(device="cuda").manual_seed(seed)
     hkv, grp, hd, page = 8, 2, 128, 16
     p_all = c // page
@@ -681,14 +712,10 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
     # K and V once per kv stream; q, the output, the ids, their counts,
     # the table entries they select and the lengths once
     toks = int(gvalid.sum()) + int(lvalid.sum())
-    isz = q.element_size()
     n = qf.shape[0]
-    nbytes = (2 * q.numel() * isz + 2 * toks * hd * isz
-              + 4 * (2 * sel.numel() + nsf.numel() + 2 * (n // grp)
-                     + second[2].numel()))
-    flops = 4 * toks * grp * hd
-    b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS
-                       if dtype == torch.float32 else H100_BF16_FLOPS)
+    b_ms, b_by = bound(W.paged_decode_selected(
+        n, hd, grp, k, second[2].shape[1], isz=q.element_size(),
+        tokens=toks))
     return {"shape": f"N={n} hd={hd} C={c} ({p_all} pages) K={k} W={w} "
                      f"{dtype}",
             "max_abs_err": err, "ms": ms, "full_read_ms": full_ms,
@@ -715,6 +742,7 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.vertical_slash import (vertical_slash,
                                                     vertical_slash_plain)
+    from repro_torch.roofline import work as W
     grp = hq // hkv
     dt = torch_dtype(dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -764,26 +792,24 @@ def vertical_slash_case(dtype: str, seed: int, hkv: int = 8, hd: int = 128,
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, kk, vv, attn_mask=mask), 5, warmup=1)
     del mask, kk, vv
-    # the bound: every visible (query, key) pair once, 4 * hd FLOPs each;
-    # q, out, k, v, kg, vg and gpos each moved once
-    local_keys = int(torch.clamp(torch.arange(s) + 1, max=w).sum())
+    # the bound: every visible (query, key) pair once (the globals each
+    # query past their window sees, from this call's positions)
     gp = gpos.long()
     glob_keys = int(torch.where(gp < INT32_MAX,
                                 torch.clamp(s - (gp + w), min=0),
                                 torch.zeros_like(gp)).sum())
-    visible = grp * (hkv * local_keys + glob_keys)
-    isz = q.element_size()
-    nbytes = (isz * (2 * q.numel() + k.numel() + v.numel() + kg.numel()
-                     + vg.numel()) + 4 * gpos.numel())
+    work = W.vertical_slash(hq, s, hd, grp, kg.shape[1], w,
+                            q.element_size(), global_pairs=glob_keys)
+    visible = work.flops // (4 * hd)
     # the bound at the rate of the kernel's arithmetic (as gated_flash's),
     # and for f32 also at the CUDA cores' rate
-    b_ms, b_by = bound(nbytes, 4 * hd * visible, ATTN_RATE[dtype][0])
-    cc_ms, _ = bound(nbytes, 4 * hd * visible, PEAK[dtype])
+    b_ms, b_by = bound(work)
+    cc_ms, _ = bound(work, "f32")
     return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] C={c} W={w} "
                      f"group={grp} {dtype}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "bound_rate": ATTN_RATE[dtype][1],
+            "bound_rate": rate_label(work),
             "bound_ms_cuda_cores": cc_ms if dtype == "float32" else None,
             "library_ms": library_ms, "device_ms": device_ms,
             "two_calls_bitwise": True, "visible_pairs": visible,
@@ -804,6 +830,7 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
     import torch.nn.functional as F
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.gated_flash import gated_flash, gated_flash_plain
+    from repro_torch.roofline import work as W
     eps = 1e-6
     grp = hq // hkv
     dt = torch_dtype(dtype)
@@ -861,29 +888,20 @@ def gated_flash_case(s: int, dtype: str, seed: int, hkv: int = 8,
         library_device_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             q4, kk, vv, attn_mask=bias), 50)
     del bias, kk, vv
-    isz = q.element_size()
-    nbytes = isz * (2 * q.numel() + k.numel() + v.numel()) + 4 * g.numel()
-    flops = 4 * hd * hq * s * (s + 1) // 2
+    work = W.gated_flash(hq, s, hd, grp, q.element_size())
     # the bound at the rate of the kernel's arithmetic, and for f32 also at
     # the CUDA cores' rate, the bound earlier versions were held to
-    b_ms, b_by = bound(nbytes, flops, ATTN_RATE[dtype][0])
-    cc_ms, _ = bound(nbytes, flops, PEAK[dtype])
+    b_ms, b_by = bound(work)
+    cc_ms, _ = bound(work, "f32")
     return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] W={w} "
                      f"group={grp} {dtype}" + (" g=1" if causal else ""),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "bound_rate": ATTN_RATE[dtype][1],
+            "bound_rate": rate_label(work),
             "bound_ms_cuda_cores": cc_ms if dtype == "float32" else None,
             "library_ms": library_ms, "device_ms": device_ms,
             "library_device_ms": library_device_ms,
             "two_calls_bitwise": True}
-
-
-def window_pairs(s: int, w: int) -> int:
-    """(query, key) pairs a hard window of ``w`` keeps over ``s`` tokens:
-    sum over i of min(i + 1, w)."""
-    m = min(s, w)
-    return m * (m + 1) // 2 + (s - m) * w
 
 
 def window_flash_case(s: int, dtype: str, seed: int, hkv: int, hd: int,
@@ -900,6 +918,7 @@ def window_flash_case(s: int, dtype: str, seed: int, hkv: int, hd: int,
     from repro_torch.kernels.gated_flash import (gated_flash,
                                                  gated_flash_window,
                                                  gated_flash_window_plain)
+    from repro_torch.roofline import work as W
     grp = hq // hkv
     dt = torch_dtype(dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -938,15 +957,13 @@ def window_flash_case(s: int, dtype: str, seed: int, hkv: int, hd: int,
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[None], kk, vv, attn_mask=mask), iters, warmup=1)
     del kk, vv, mask
-    isz = q.element_size()
-    nbytes = isz * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * hd * hq * window_pairs(s, w)
-    b_ms, b_by = bound(nbytes, flops, ATTN_RATE[dtype][0])
+    work = W.gated_flash_window(hq, s, hd, grp, w, q.element_size())
+    b_ms, b_by = bound(work)
     return {"shape": f"q[{hq},{s},{hd}] kv[{hkv},{s},{hd}] W={w} "
                      f"group={grp} {dtype} hard window",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "bound_rate": ATTN_RATE[dtype][1], "library_ms": library_ms,
+            "bound_rate": rate_label(work), "library_ms": library_ms,
             "library": "SDPA, boolean window mask", "device_ms": device_ms,
             "two_calls_bitwise": True, "w_eq_s_bitwise_causal": True}
 
@@ -966,6 +983,7 @@ def start_decode_case(slots: int, max_len: int, t: list, w: int, dtype,
     from repro_torch.kernels.paged_decode import (paged_decode,
                                                   paged_decode_plain)
     from repro_torch.models.attention import init_dense_cache
+    from repro_torch.roofline import work as W
     g = torch.Generator(device="cuda").manual_seed(seed)
     cache = init_dense_cache(slots, hkv, hd, max_len, dtype, "cuda")
     s_max = cache.k.shape[2]
@@ -1008,11 +1026,8 @@ def start_decode_case(slots: int, max_len: int, t: list, w: int, dtype,
         qg, cache.k, cache.v, attn_mask=mask), 200)
     toks = sum(min(x, w) for x in t) * hkv
     isz = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * q.numel() * isz + 2 * toks * hd * isz
-              + 4 * (seg[2].numel() + seg[3].numel() + starts.numel()))
-    b_ms, b_by = bound(nbytes, 4 * toks * grp * hd,
-                       H100_F32_FLOPS if dtype == torch.float32
-                       else H100_BF16_FLOPS)
+    b_ms, b_by = bound(W.paged_decode(qf.shape[0], hd, grp, seg[2].shape[1],
+                                      isz=isz, tokens=toks, span=w))
     return {"shape": f"N={slots * hkv * grp} hd={hd} S_max={s_max} t={t} "
                      f"W={w} starts={starts.tolist()} {dtype}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1042,6 +1057,7 @@ def rglru_case(b: int, s: int, d: int, with_h0: bool, seed: int):
     import torch
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
     from repro_torch.models import rglru as RG
+    from repro_torch.roofline import work as W
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device="cuda"))
     bb = torch.randn((b, s, d), generator=gen, device="cuda")
@@ -1064,9 +1080,7 @@ def rglru_case(b: int, s: int, d: int, with_h0: bool, seed: int):
     ms = cuda_ms(lambda: rglru_scan(a, bb), 20)
     device_ms = graph_ms(lambda: rglru_scan(a, bb), 20)
     plain_ms = cuda_ms(lambda: rglru_scan_plain(a, bb), 2, warmup=1)
-    # the bound: a and b read once, h written once; two operations each
-    n = b * s * d
-    b_ms, b_by = bound(12 * n, 2 * n, H100_F32_FLOPS)
+    b_ms, b_by = bound(W.rglru_scan(b, s, d))
     return {"shape": f"a,b[{b},{s},{d}] f32" + (" h0" if with_h0 else ""),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1247,6 +1261,7 @@ def gate_bwd_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256,
     from repro_torch.kernels.gate_mlp import (gate_mlp_bwd,
                                               gate_mlp_bwd_plain,
                                               gate_mlp_plain)
+    from repro_torch.roofline import work as W
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape, scale=1.0):
@@ -1277,22 +1292,17 @@ def gate_bwd_case(rows: int, s: int, seed: int, h: int = 8, f: int = 256,
     ms = cuda_ms(run, 20)
     device_ms = graph_ms(run, 20)
     plain_ms = cuda_ms(lambda: gate_mlp_bwd_plain(*args, g, dg), 5, warmup=1)
-    # the bound: x, the weights, g and dg read once, dx and the weight
-    # gradients written once; per token the recomputed pre-activation, dx
-    # and dw1 (2 F M FLOPs each) and about 12 M of elementwise work, at the
-    # card's f32 product rate (3xTF32); beside it the bound at the CUDA
-    # cores' rate, where the kernel multiplies
-    nbytes = 4 * (2 * x.numel() + 2 * sum(a.numel() for a in args[1:])
-                  + 2 * rows * s)
-    flops = rows * s * (6 * f * m + 12 * m)
-    b_ms, b_by = bound(nbytes, flops, ATTN_RATE["float32"][0])
-    cc_ms, _ = bound(nbytes, flops, H100_F32_FLOPS)
+    # the bound at the card's f32 product rate (3xTF32); beside it the
+    # bound at the CUDA cores' rate
+    work = W.gate_mlp_bwd(rows, s, f, m, h)
+    b_ms, b_by = bound(work)
+    cc_ms, _ = bound(work, "f32")
     rec = {"shape": f"x[{rows},{s},{f}] H={h} M={m}",
            "max_abs_err": max(float((a - b).abs().max())
                               for a, b in zip(got, want)),
            "max_rel_err": errs, "max_rel_err_autograd": errs_auto,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bound_rate": ATTN_RATE["float32"][1],
+           "bound_by": b_by, "bound_rate": rate_label(work),
            "bound_ms_cuda_cores": cc_ms,
            "library_ms": None, "device_ms": device_ms,
            "two_calls_bitwise": True}
@@ -1312,6 +1322,7 @@ def flash_bwd_case(nq: int, s: int, seed: int, nk: int, hd: int = 128,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import gated_flash as GF
+    from repro_torch.roofline import work as W
     grp, eps = nq // nk, 1e-6
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -1371,16 +1382,11 @@ def flash_bwd_case(nq: int, s: int, seed: int, nk: int, hd: int = 128,
         out4, (q4, k4, v4), do[None], retain_graph=True),
         max(iters // 2, 3), warmup=1)
     del bias, q4, k4, v4, out4
-    # the bound: q, k, v, g, o, lse and do read once, dq, dk, dv and dg
-    # written once; per causal pair the scores again (2 hd FLOPs), dO V^T,
-    # dV, dK and dQ (2 hd each), at the card's f32 product rate (3xTF32);
-    # beside it the bound at the CUDA cores' rate, where the kernel
-    # multiplies
-    pairs = nq * s * (s + 1) // 2
-    nbytes = 4 * (2 * (q.numel() + k.numel() + v.numel() + g.numel())
-                  + o.numel() + lse.numel() + do.numel())
-    b_ms, b_by = bound(nbytes, 10 * hd * pairs, ATTN_RATE["float32"][0])
-    cc_ms, _ = bound(nbytes, 10 * hd * pairs, H100_F32_FLOPS)
+    # the bound at the card's f32 product rate (3xTF32); beside it the
+    # bound at the CUDA cores' rate
+    work = W.gated_flash_bwd(nq, s, hd, grp)
+    b_ms, b_by = bound(work)
+    cc_ms, _ = bound(work, "f32")
     rec = {"shape": f"q[{nq},{s},{hd}] kv[{nk},{s},{hd}] W={w} group={grp} "
                     "f32",
            "max_abs_err": max(float((a - b).abs().max())
@@ -1388,7 +1394,7 @@ def flash_bwd_case(nq: int, s: int, seed: int, nk: int, hd: int = 128,
            "max_rel_err": errs, "max_rel_err_autograd": errs_auto,
            "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by,
-           "bound_rate": ATTN_RATE["float32"][1],
+           "bound_rate": rate_label(work),
            "bound_ms_cuda_cores": cc_ms, "library_ms": library_ms,
            "library": "SDPA backward alone (forward once, outside the "
                       "timed calls), additive bias, dq/dk/dv (no dg)",
@@ -1410,6 +1416,7 @@ def rglru_bwd_case(b: int, s: int, d: int, with_h0: bool, seed: int):
     import torch
     from repro_torch.kernels import rglru_scan as RS
     from repro_torch.models import rglru as RG
+    from repro_torch.roofline import work as W
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a = 0.9 + 0.099 * torch.rand((b, s, d), generator=gen, device="cuda")
     x = torch.randn((b, s, d), generator=gen, device="cuda")
@@ -1445,10 +1452,7 @@ def rglru_bwd_case(b: int, s: int, d: int, with_h0: bool, seed: int):
     ms = cuda_ms(run, 20)
     device_ms = graph_ms(run, 20)
     plain_ms = cuda_ms(lambda: RS.rglru_scan_bwd_plain(a, h, dy), 2, warmup=1)
-    # the bound: a, h and dy read once, da and db written once; four
-    # operations per element
-    n = b * s * d
-    b_ms, b_by = bound(20 * n, 4 * n, H100_F32_FLOPS)
+    b_ms, b_by = bound(W.rglru_scan_bwd(b, s, d))
     rec = {"shape": f"a,h,dy[{b},{s},{d}] f32" + (" h0" if with_h0 else ""),
            "max_abs_err": max(float((g - w).abs().max())
                               for g, w in zip(got, want)),
@@ -2230,12 +2234,13 @@ def sentinels_phase(card: str):
     """A serve-cli-sized mix on the card under both run-time sentinels:
     reduced qwen3-0.6b (f32, random weights), 4 slots, chunked prefill
     (chunk 64) of prompts past the 256-token ring and short ones, decode
-    ticks, dispatch-ahead 1; once as served and once with ``quest:2``
-    decode selection. ``SyncSentinel`` runs the dispatch window under
-    ``torch.cuda.set_sync_debug_mode("error")``: a sync inside dispatch,
-    or between dispatch and collect outside the sanctioned methods,
-    raises. ``CompileSentinel`` holds the step shapes to
-    ``Engine.COMPILE_SHAPE_BUDGETS``."""
+    ticks, dispatch-ahead 1; once as served, under the work counter
+    (its counted launches must equal the launch counters'), and once with
+    ``quest:2`` decode selection. ``SyncSentinel`` runs the dispatch
+    window under ``torch.cuda.set_sync_debug_mode("error")``: a sync
+    inside dispatch, or between dispatch and collect outside the
+    sanctioned methods, raises. ``CompileSentinel`` holds the step shapes
+    to ``Engine.COMPILE_SHAPE_BUDGETS``."""
     import numpy as np
     import torch
     from repro_torch.analysis import CompileSentinel, SyncSentinel
@@ -2247,11 +2252,14 @@ def sentinels_phase(card: str):
     cfg = get_reduced_config("qwen3-0.6b").replace(dtype="float32")
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(9),
                         "cuda")
+    from repro_torch.roofline.counter import WorkCounter
     rng = np.random.default_rng(40)
     lens, max_new = (300, 290, 40, 120, 17), 8
     out = {}
-    for selection in (None, "quest:2"):
-        tag = selection or "full"
+    # the served mix, under the work counter, then with quest:2: the
+    # counter reads shapes only, so the sync debug mode "error" still sees
+    # no sync in dispatch
+    for selection, tag in ((None, "full"), ("quest:2", "quest:2")):
         eng = make_backend("wgkv", params, cfg, slots=4, capacity=512,
                            pool_pages=1024, selection=selection,
                            device="cuda")
@@ -2260,7 +2268,9 @@ def sentinels_phase(card: str):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        with CompileSentinel(eng) as cs, SyncSentinel(eng) as ss:
+        wc = WorkCounter() if tag == "full" else None
+        with CompileSentinel(eng) as cs, SyncSentinel(eng) as ss, \
+                wc or contextlib.nullcontext():
             rids = [orch.submit(rng.integers(0, cfg.vocab_size, n).tolist(),
                                 max_new=max_new) for n in lens]
             orch.run()
@@ -2285,7 +2295,14 @@ def sentinels_phase(card: str):
         out[tag] = {"compiled_shape_counts": shapes,
                     "syncs_in_collect": ss.syncs_in_collect,
                     "sync_debug_mode": "error", "wall_s": wall,
-                    "launches": counts}
+                    "work_counter": wc is not None, "launches": counts}
+        if wc is not None:
+            counted = {k: v["launches"]
+                       for k, v in wc.record()["kernels"].items()}
+            check(counted == {k: v for k, v in counts.items() if v},
+                  f"sentinels {tag}: counted launches {counted} != the "
+                  f"launch counters' {counts}")
+            out[tag]["counted_launches"] = counted
     # the sentinel is not a no-op on the card: a sync that no patched
     # call shows (a tensor's truth value) raises inside the window
     eng = make_backend("wgkv", params, cfg, slots=4, capacity=512,
@@ -2751,6 +2768,226 @@ def train_substrate():
     return train_card_vs_cpu("train-substrate", cfg,
                              params_from_numpy(SUBSTRATE, cfg, "cpu"), 72,
                              1e-4)
+
+
+def device_kernel_ms(fn) -> tuple:
+    """(device busy ms, the top kernels [name, ms, calls]) of one call of
+    ``fn`` under torch.profiler: CUDA kernel self time summed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    del out
+    per_kernel = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", 0.0)
+              or getattr(e, "self_cuda_time_total", 0.0))
+        ms, calls = per_kernel.get(e.key, (0.0, 0))
+        per_kernel[e.key] = (ms + us / 1e3, calls + e.count)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    return (sum(ms for ms, _ in per_kernel.values()),
+            [[k[:60], ms, calls] for k, (ms, calls) in top])
+
+
+class ExactWork:
+    """While active, records the data-dependent counts of the
+    ``paged_decode`` (no start offset) and ``vertical_slash`` calls the
+    model makes through ``kernels.ops``: each read's valid tokens, each
+    prefill's visible global keys. After a sync, :meth:`works` sums each
+    kernel's exact work (``roofline.work`` given those counts) and
+    calls."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.calls = ops, []
+        self.inner = pd, vs = ops.paged_decode, ops.vertical_slash
+
+        def paged(q, k_pool, v_pool, page_table, lengths, second=None,
+                  **kw):
+            if kw.get("starts") is None:
+                self.calls.append(("paged_decode", tuple(q.shape),
+                                   q.element_size(), kw.get("group", 1),
+                                   page_table.shape[1], lengths, second))
+            return pd(q, k_pool, v_pool, page_table, lengths, second, **kw)
+
+        def vslash(q, k, v, kg, vg, gpos, *, w_local, group=1):
+            self.calls.append(("vertical_slash", tuple(q.shape),
+                               q.element_size(), group, kg.shape[1], gpos,
+                               w_local))
+            return vs(q, k, v, kg, vg, gpos, w_local=w_local, group=group)
+        ops.paged_decode, ops.vertical_slash = paged, vslash
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.paged_decode, self.ops.vertical_slash = self.inner
+        return False
+
+    def works(self) -> dict:
+        """{kernel: [calls, flops, bytes]} of this run's data."""
+        import torch
+        from repro_torch.roofline import work as W
+        out = {}
+        for name, shape, isz, grp, c, data, extra in self.calls:
+            if name == "paged_decode":
+                toks = int(torch.clamp(data, max=c * W.PAGE).sum())
+                c2 = 0
+                if extra is not None:
+                    c2 = extra[2].shape[1]
+                    toks += int(torch.clamp(extra[3], max=c2 * W.PAGE).sum())
+                w = W.paged_decode(*shape, grp, c, c2, isz=isz, tokens=toks)
+            else:
+                gp = data.long()
+                glob = int(torch.where(
+                    gp < INT32_MAX, torch.clamp(shape[1] - (gp + extra),
+                                                min=0),
+                    torch.zeros_like(gp)).sum())
+                w = W.vertical_slash(*shape, grp, c, extra, isz,
+                                     global_pairs=glob)
+            rec = out.setdefault(name, [0, 0, 0])
+            rec[0] += 1
+            rec[1] += w.flops
+            rec[2] += w.bytes
+        self.calls = []
+        return out
+
+
+def exact_cost(cost: dict, exact: dict) -> dict:
+    """``cost`` (a counter's record) with each kernel in ``exact`` (of
+    :meth:`ExactWork.works`, one entry per counted launch) counted from
+    this run's data instead of its shapes."""
+    flops, nbytes = dict(cost["flops"]), cost["bytes"]
+    kernels = {k: dict(v) for k, v in cost["kernels"].items()}
+    for name, (calls, f, b) in exact.items():
+        k = kernels[name]
+        check(calls == k["launches"], f"roofline: {calls} exact {name} "
+              f"calls recorded for {k['launches']} launches")
+        flops[k["rate"]] += f - k["flops"]
+        nbytes += b - k["bytes"]
+        k["flops"], k["bytes"] = f, b
+    return {**cost, "flops": flops, "bytes": nbytes, "kernels": kernels}
+
+
+def counted_split(cost: dict) -> dict:
+    """The counted work split by kernel (each kernel's bound, ms) and by
+    aten class: the matmuls (ops with a FLOP formula) by FLOPs and bytes,
+    every other op by bytes."""
+    from repro_torch.roofline.analysis import HBM_BYTES_PER_S, bound_s
+    kernels = {k: {"launches": v["launches"],
+                   "bound_ms": bound_s({v["rate"]: v["flops"]},
+                                       v["bytes"])["bound_s"] * 1e3}
+               for k, v in cost["kernels"].items()}
+    mm = {k: v for k, v in cost["aten"].items() if v["flops"]}
+    other = {k: v for k, v in cost["aten"].items() if not v["flops"]}
+    mm_flops = {c: f - sum(v["flops"] for v in cost["kernels"].values()
+                           if v["rate"] == c)
+                for c, f in cost["flops"].items()}
+    mm_bytes = sum(v["bytes"] for v in mm.values())
+    other_bytes = sum(v["bytes"] for v in other.values())
+    top_other = sorted(other.items(), key=lambda kv: -kv[1]["bytes"])[:6]
+    return {"kernels": kernels,
+            "aten_matmul": {"calls": sum(v["calls"] for v in mm.values()),
+                            "flops": mm_flops, "bytes": mm_bytes,
+                            "bound_ms": bound_s(mm_flops, mm_bytes)["bound_s"]
+                            * 1e3},
+            "aten_other": {"calls": sum(v["calls"] for v in other.values()),
+                           "bytes": other_bytes,
+                           "bound_ms": other_bytes / HBM_BYTES_PER_S * 1e3,
+                           "top_by_bytes": [[k, v["calls"], v["bytes"]]
+                                            for k, v in top_other]}}
+
+
+def roofline_path(card: str, tag: str, arch: str, cfg, params, shape,
+                  expect: dict, knob_overrides: dict | None = None,
+                  caches: tuple | None = None) -> tuple:
+    """One main path's step as a dry-run bundle (``launch.dryrun``): run
+    on the meta device and on the card under the work counter, the two
+    counts equal as integers (FLOPs by rate class, bytes, each kernel's
+    launches, FLOPs and bytes), the card's launches equal to the launch
+    counters' deltas and to ``expect``; then the same bundle timed on the
+    card (wall, with each data-dependent kernel's exact work recorded,
+    and device time under torch.profiler) beside its bound (from this
+    run's data; the shapes-only bound beside it), the model-FLOP share
+    and the predicted peak beside the measured. ``caches``: a decode
+    step's (meta, card) caches, such as a prefill step's. Returns the
+    record and the timed run's output."""
+    import torch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.steps import make_bundle
+    from repro_torch.roofline import analysis as A
+    kw = dict(cfg_override=cfg, knob_overrides=knob_overrides)
+    meta = D.run_dryrun(arch, shape, caches=caches and caches[0], **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got = D.run_dryrun(arch, shape, device="cuda", params=params,
+                       caches=caches and caches[1], **kw)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    mc, cc = meta["cost"], got["cost"]
+    diff = {k: (mc["aten"].get(k), cc["aten"].get(k))
+            for k in set(mc["aten"]) | set(cc["aten"])
+            if mc["aten"].get(k) != cc["aten"].get(k)}
+    check(mc["flops"] == cc["flops"] and mc["bytes"] == cc["bytes"]
+          and mc["kernels"] == cc["kernels"],
+          f"roofline {tag}: meta and card counts differ: flops "
+          f"{mc['flops']} / {cc['flops']}, bytes {mc['bytes']} / "
+          f"{cc['bytes']}, kernels {mc['kernels']} / {cc['kernels']}, "
+          f"aten ops that differ {str(diff)[:1500]}")
+    launches = {k: v["launches"] for k, v in cc["kernels"].items()}
+    check(launches == counts, f"roofline {tag}: counted launches "
+          f"{launches} != the launch counters' {counts}")
+    check(launches == expect, f"roofline {tag}: launches {launches} != "
+          f"{expect}")
+    bundle = make_bundle(cfg, shape, use_wgkv=meta["wgkv"], device="cuda",
+                         params=params, caches=caches and caches[1],
+                         knob_overrides=knob_overrides)
+    torch.cuda.synchronize()
+    with ExactWork() as ex:
+        t0 = time.perf_counter()
+        out = bundle.fn(*bundle.args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    ec = exact_cost(cc, ex.works())
+    device_ms, top = device_kernel_ms(lambda: bundle.fn(*bundle.args))
+    del bundle
+    shape_terms = A.roofline_terms(cc["flops"], cc["bytes"])
+    terms = A.roofline_terms(ec["flops"], ec["bytes"])
+    bound_s = max(terms["compute_s"], terms["memory_s"])
+    mf = A.model_flops(cfg, shape)
+    rec = {"card": card, "arch": arch,
+           "shape": [shape.global_batch, shape.seq_len, shape.kind],
+           "knobs": meta["knobs"], "flops": ec["flops"],
+           "bytes": ec["bytes"], "launches": launches,
+           "compute_ms": terms["compute_s"] * 1e3,
+           "memory_ms": terms["memory_s"] * 1e3, "bound_ms": bound_s * 1e3,
+           "bound_by": ("operations" if terms["compute_s"]
+                        > terms["memory_s"] else "bytes"),
+           "bound_ms_shapes": max(shape_terms["compute_s"],
+                                  shape_terms["memory_s"]) * 1e3,
+           "counted_flops": cc["flops"], "counted_bytes": cc["bytes"],
+           "wall_ms": wall_s * 1e3, "device_ms": device_ms,
+           "wall_over_bound": wall_s / bound_s,
+           "device_over_bound": device_ms / 1e3 / bound_s,
+           "model_flops": mf,
+           "model_flop_share_at_67T": mf / (wall_s * A.F32_FLOPS),
+           "model_flop_share_at_989T": mf / (wall_s * A.BF16_FLOPS),
+           "predicted_peak_bytes": got["memory"]["peak_bytes"],
+           "predicted_peak_bytes_meta": meta["memory"]["peak_bytes"],
+           "measured_peak_bytes": peak,
+           "total_memory_bytes":
+               torch.cuda.get_device_properties(0).total_memory,
+           "fits_one_h100": meta["memory"]["fits_one_h100"],
+           "meta_run_s": meta["run_s"], "card_counted_run_s": got["run_s"],
+           "split": counted_split(ec), "top_device_kernels_ms": top}
+    print(f"roofline {tag} ({card}): " + json.dumps(rec), flush=True)
+    return rec, out
 
 
 def free_cuda():
@@ -3317,7 +3554,7 @@ def dense_serve(arch: str, card: str, requests: int = 2,
         pc.count + 1) and counts["paged_decode"] >= n * pc.count,
         f"{arch} serve: launches {counts} over {pc.count} positions, "
         f"{n} layers")
-    return {"wall_s": wall, "positions": pc.count,
+    return {"layers": n, "wall_s": wall, "positions": pc.count,
             "ttft_mean_s": summ["ttft_mean_s"],
             "tpot_mean_s": summ["tpot_mean_s"],
             "tokens_per_s": summ["tokens_per_s"],
@@ -3472,14 +3709,15 @@ def dense_reduced(arch: str):
 
 
 def dense_arch(arch: str, card: str, seed: int):
-    """One plain ``("attn",)`` decoder at full width: serve, prefill 4096
-    tokens and decode 16, then its reduced config on card and CPU."""
+    """One plain ``("attn",)`` decoder at full width: serve (at
+    ``SERVE_REPEATS`` layers), prefill 4096 tokens and decode 16 (full
+    depth), then its reduced config on card and CPU."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     stats = {"arch": arch, "layers": cfg.n_layers,
              "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
              "tie_embeddings": cfg.tie_embeddings, "card": card}
-    stats["serve"] = dense_serve(arch, card)
+    stats["serve"] = dense_serve(arch, card, repeats=SERVE_REPEATS)
     free_cuda()
     stats["prefill"] = dense_prefill(arch, seed)
     stats["reduced"] = dense_reduced(arch)
@@ -3540,14 +3778,16 @@ def moe_model(arch: str, seed: int, repeats: int | None = None):
 def moe_granite(card: str, seed: int):
     """granite-moe-3b-a800m at full width (32 ``attn_moe`` layers,
     d_model 1536, 24 / 8 heads of hd 64, 40 experts of d_ff 512, top 8;
-    f32, random weights): moe-serve (``launch.serve``, 4 x 64 tokens, 8
-    new, 2 slots, the tau probe and ``verify_paged``), moe-prefill (4,096
+    f32, random weights): moe-serve (``launch.serve`` at ``SERVE_REPEATS``
+    layers, 4 x 64 tokens, 8 new, 2 slots, the tau probe and
+    ``verify_paged``), moe-prefill (4,096
     tokens at budget 1,024 + 16 greedy steps, and a warm repeat),
     moe-forward (the gated forward over 2,048 tokens) and one layer's MoE
     FFN twice, bitwise. Returns each path's launch counts."""
     arch = "granite-moe-3b-a800m"
     stats = {"arch": arch, "card": card}
-    stats["serve"] = dense_serve(arch, card, requests=4)
+    stats["serve"] = dense_serve(arch, card, requests=4,
+                                 repeats=SERVE_REPEATS)
     print("moe-serve: " + json.dumps(stats["serve"]), flush=True)
     free_cuda()
     cfg, params, stats["init"] = moe_model(arch, seed)
@@ -3736,7 +3976,7 @@ def xlstm_phase(card: str):
     sLSTM), d_model 1,024, f32, 1.5 GiB): prefill of 2,048 tokens (the
     chunkwise mLSTM, four chunks of 512; the sLSTM one Python step per
     token) + 16 greedy decode steps, a teacher forward over 2,048 tokens,
-    and 2 ``lm_train_step``s at 1 x 1,024 (every leaf trains, AdamW).
+    and one ``lm_train_step`` at 1 x 1,024 (every leaf trains, AdamW).
     No kernel of the port is on its path: every count stays 0."""
     import numpy as np
     import torch
@@ -3794,7 +4034,7 @@ def xlstm_phase(card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
-    for _ in range(2):
+    for _ in range(1):
         t0 = time.perf_counter()
         state, m = TR.lm_train_step(state, cfg, batch, lr=1e-4)
         torch.cuda.synchronize()
@@ -3928,7 +4168,8 @@ def whisper_phase(card: str):
 def qwen2vl_phase(card: str):
     """qwen2-vl-7b at full width and depth (28 layers, d_model 3,584, 28 /
     4 heads of hd 128: G 7; untied vocab 152,064; f32, 28.4 GiB):
-    ``launch.serve`` (text only, as the reference serves it: 2 x 64
+    ``launch.serve`` at ``SERVE_REPEATS`` layers (text only, as the
+    reference serves it: 2 x 64
     tokens, 8 new, the tau probe, the pool verified), prefill of 4,096
     tokens at budget 1,024 + 16 greedy steps, and the gated forward of a
     2,048-slot stream whose first 1,024 slots are the patch embeddings of
@@ -3938,7 +4179,7 @@ def qwen2vl_phase(card: str):
     from repro_torch.models import transformer as T
     arch = "qwen2-vl-7b"
     stats = {"arch": arch, "card": card}
-    stats["serve"] = dense_serve(arch, card)
+    stats["serve"] = dense_serve(arch, card, repeats=SERVE_REPEATS)
     print("qwen2vl-serve: " + json.dumps(stats["serve"]), flush=True)
     free_cuda()
     cfg, params, stats["init"] = moe_model(arch, 100)
@@ -3984,6 +4225,17 @@ def qwen2vl_phase(card: str):
     return {k: stats[k]["launches"] for k in ("serve", "prefill", "forward")}
 
 
+PHASE_S: dict = {}        # phase group -> seconds, in run order
+_LAP = [0.0]
+
+
+def lap(name: str) -> None:
+    """Records the seconds since the previous lap under ``name``."""
+    now = time.perf_counter()
+    PHASE_S[name] = round(now - _LAP[0], 1)
+    _LAP[0] = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3995,6 +4247,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    _LAP[0] = t_start
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # 1. device
@@ -4007,6 +4260,7 @@ def main() -> int:
     from repro_torch.kernels import build
     build_s = build.timed_build_all()
     print(f"build: {build_s:.2f}s")
+    lap("device+build")
     for name in build.KERNELS:
         log = build.log_path(name)
         if log.exists():
@@ -4236,9 +4490,12 @@ def main() -> int:
     print("planted faults (backward: relative error, limit "
           f"{BWD_REL}; forward: max abs error, limit {TOL['float32']}): "
           + json.dumps(planted), flush=True)
+    lap("kernels")
     # 4-10. the main paths, counts set to 0 just before each
     cli_counts = serve_cli(n_layers=28)
+    lap("serve-cli")
     long_counts = serve_long(card)
+    lap("serve-long")
     cfg, params = full_model(seed=2)
     base = prefill_long(cfg, params)
     prefill_counts = base["counts"]
@@ -4248,19 +4505,58 @@ def main() -> int:
     free_cuda()
     dense_counts = prefill_dense(cfg, params, long_stats)
     forward_counts = forward_gated(cfg, params)["launches"]
+    lap("prefill-long..forward-gated")
+    free_cuda()
+    # the roofline: prefill-long's prefill, one of its decode steps (on
+    # the caches that prefill returned: t = 4,096, the global cache at its
+    # budget) and the train phase's step (launch.train: no remat, no
+    # query chunks) as dry-run bundles, counted on meta and on the card
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.steps import make_bundle
+    pre_shape = InputShape("prefill_4k", 4096, 1, "prefill")
+    roof = {}
+    roof["prefill-long"], out = roofline_path(
+        card, "prefill-long", "qwen3-0.6b", cfg, params, pre_shape,
+        {"gate_mlp": 28, "vertical_slash": 28})
+    card_caches = out[2]
+    del out
+    meta_pre = make_bundle(cfg, pre_shape, use_wgkv=True)
+    meta_caches = meta_pre.fn(*meta_pre.args)[2]
+    del meta_pre
+    roof["decode"], out = roofline_path(
+        card, "decode", "qwen3-0.6b", cfg, params,
+        InputShape("decode_4k", 4096, 1, "decode"),
+        {"gate_mlp": 28, "paged_decode": 28},
+        caches=(meta_caches, card_caches))
+    del out, card_caches, meta_caches
+    free_cuda()
+    roof["train"], out = roofline_path(
+        card, "train", "qwen3-0.6b", cfg, params,
+        InputShape("train_2k", 2048, 2, "train"),
+        {k: 28 for k in ("gated_flash", "gated_flash_bwd", "gate_mlp",
+                         "gate_mlp_bwd")},
+        knob_overrides={"remat": False, "q_chunk": None})
+    del out
+    lap("roofline qwen3")
     del params
     free_cuda()
     compose_counts = serve_compose(card)
+    lap("serve-compose")
     substrate_counts = substrate()
+    lap("substrate")
     # the baselines and the prefix store (this slice's paths)
     ab_counts = serve_ab(card)
+    lap("serve-ab")
     prefix_counts = prefix_phase(card)
     sub_ab_counts = substrate_ab()
+    lap("prefix+substrate-ab")
     # this slice's: the serving tick under the run-time sentinels, and
     # the fixed-slot loop on card and CPU
     free_cuda()
     sentinel_counts = sentinels_phase(card)
+    lap("sentinels")
     loop_counts = legacy_loop_phase()
+    lap("legacy-loop")
     # gate-distillation training (this slice's paths)
     free_cuda()
     train_counts, train_stats = train_arch(card, "qwen3-0.6b", steps=4,
@@ -4268,17 +4564,34 @@ def main() -> int:
                                            check_backbone=True)
     free_cuda()
     train_sub_counts = train_substrate()
+    lap("train+train-substrate")
     # 11-14. recurrentgemma-9b (one 32 GiB model at a time)
     free_cuda()
     rg_serve_counts = rg_serve(card)
+    lap("rg-serve")
     free_cuda()
     rg_cfg, rg_params = rg_model(seed=5)
     rg_prefill_counts, rg_decode_counts, rg_dense_counts = rg_prefill(
         rg_cfg, rg_params)
     rg_forward_counts = rg_forward(rg_cfg, rg_params)
+    lap("rg-prefill+rg-forward")
+    free_cuda()
+    roof["rg-prefill"], out = roofline_path(
+        card, "rg-prefill", "recurrentgemma-9b", rg_cfg, rg_params,
+        InputShape("rg_prefill_4k", 4096, 1, "prefill"),
+        {"gate_mlp": 12, "vertical_slash": 12, "rglru_scan": 26})
+    del out
+    lap("roofline rg")
+    print("roofline: " + json.dumps({k: {
+        x: v[x] for x in ("bound_ms", "bound_ms_shapes", "bound_by",
+                          "wall_ms", "device_ms", "wall_over_bound",
+                          "model_flop_share_at_67T",
+                          "predicted_peak_bytes", "measured_peak_bytes")}
+        for k, v in roof.items()}), flush=True)
     del rg_params
     free_cuda()
     rg_substrate_counts, rg_sub_dense_counts = rg_substrate()
+    lap("rg-substrate")
     # this slice's: the hybrid's training at full width, its reduced
     # config's training on card and CPU, the three dense archs, and
     # smollm-360m's training (gated_flash_bwd at G 3)
@@ -4286,40 +4599,52 @@ def main() -> int:
     rg_train_counts, rg_train_stats = train_arch(
         card, "recurrentgemma-9b", steps=3, batch=1, seq=4096,
         tag="rg-train")
+    lap("rg-train")
     free_cuda()
     rg_train_sub_counts = rg_train_substrate()
+    lap("rg-train-substrate")
     dense_counts_by = {}
     for seed, arch in enumerate(DENSE_HEADS):
         free_cuda()
         dense_counts_by[arch] = dense_arch(arch, card, seed=60 + seed)
+        lap(f"dense-arch {arch}")
     free_cuda()
     smollm_train_counts, _ = train_arch(card, "smollm-360m", steps=2,
                                         batch=2, seq=2048,
                                         tag="smollm-train")
+    lap("smollm-train")
     # the MoE archs: their reduced configs on card and CPU,
     # granite-moe-3b-a800m at full width (serve, prefill, gated forward,
     # training) and qwen3-moe-235b-a22b at full width, 4 repeats
     free_cuda()
     moe_reduced_counts = moe_reduced()
+    lap("moe-reduced")
     free_cuda()
     moe_counts = moe_granite(card, seed=70)
+    lap("moe granite")
     free_cuda()
     moe_train_counts, moe_train_stats = train_arch(
         card, "granite-moe-3b-a800m", steps=2, batch=2, seq=2048,
         tag="moe-train")
+    lap("moe-train")
     free_cuda()
     q3m_counts = qwen3moe_d4(card, seed=71)
+    lap("qwen3moe-d4")
     # this slice's: the three reduced configs on card and CPU, then
     # xlstm-350m, whisper-medium and qwen2-vl-7b at full width, one model
     # at a time
     free_cuda()
     new_reduced_counts = new_archs_reduced()
+    lap("new-archs-reduced")
     free_cuda()
     xlstm_counts = xlstm_phase(card)
+    lap("xlstm")
     free_cuda()
     whisper_counts = whisper_phase(card)
+    lap("whisper")
     free_cuda()
     q2vl_counts = qwen2vl_phase(card)
+    lap("qwen2vl")
     new_launches = {"xlstm": xlstm_counts,
                     **{f"whisper_{k}": c for k, c in whisper_counts.items()},
                     **{f"qwen2vl_{k}": c for k, c in q2vl_counts.items()},
@@ -4613,6 +4938,7 @@ def main() -> int:
         entry["launches_sentinels"] = {k: c[entry["name"]]
                                        for k, c in sentinel_counts.items()}
         entry["launches_legacy_loop"] = loop_counts[entry["name"]]
+    print("phase seconds: " + json.dumps(PHASE_S))
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,13 @@ the chunks chosen by the kernel's C side, :func:`bwd_scratch`; f32,
 F M <= 32768; its plain version
 :func:`gate_mlp_bwd_plain`) for the backward. A shape the backward does
 not take raises in the forward, before any graph is built.
+
+On the ``meta`` device both return empty outputs of the right shapes and
+dtypes, through :class:`GateMLPFunction` when grad is wanted, as on CUDA:
+no plain version runs, no kernel, no check of what the kernel takes.
+While a :class:`repro_torch.roofline.counter.WorkCounter` is active,
+every call on any device reports its work from its shapes
+(:func:`repro_torch.roofline.counter.counted`).
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.roofline import counter
+from repro_torch.roofline import work as W
 
 launches = build.LaunchCounter("gate_mlp")
 bwd_launches = build.LaunchCounter("gate_mlp_bwd")
@@ -118,6 +127,8 @@ def _forward_cuda(x, w1, b1, w2, b2):
     r, s, f = x.shape
     m = w1.shape[-1]
     g = torch.empty((r, s), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        return g
     lib = build.load("gate_mlp")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -150,10 +161,15 @@ def bwd_scratch(r: int, s: int, f: int, m: int, h: int):
     return nch, lib.gate_mlp_bwd_scratch_floats(h, f, m, nch)
 
 
+@counter.counted("gate_mlp_bwd", lambda x, w1, *a: W.gate_mlp_bwd(
+    *x.shape, w1.shape[2], w1.shape[0]))
 def gate_mlp_bwd(x, w1, b1, w2, b2, g, dg):
     """Gradients of ``gate_mlp`` -> (dx, dw1, db1, dw2, db2) by the
     hand-written kernel, on CUDA tensors only (on the CPU autograd
-    differentiates :func:`gate_mlp_plain`)."""
+    differentiates :func:`gate_mlp_plain`; on ``meta``, the outputs'
+    shapes)."""
+    if x.device.type == "meta":
+        return tuple(torch.empty_like(t) for t in (x, w1, b1, w2, b2))
     if x.device.type != "cuda":
         raise ValueError(f"gate_mlp_bwd: unsupported device {x.device}")
     _check_cuda(x, w1, b1, w2, b2)
@@ -201,17 +217,23 @@ class GateMLPFunction(torch.autograd.Function):
         return gate_mlp_bwd(x, w1, b1, w2, b2, g, dg.contiguous())
 
 
+@counter.counted("gate_mlp", lambda x, w1, *a: W.gate_mlp(
+    *x.shape, w1.shape[2], w1.shape[0], plan(x.shape[0], x.shape[1],
+                                             w1.shape[0]), x.element_size()))
 def gate_mlp(x, w1, b1, w2, b2):
     """The ``gate_mlp`` contract: x [R, S, F] -> g [R, S] float32 with
     per-head weights indexed by ``row % H``. Differentiable on both
     devices (see the module's note)."""
     if x.device.type == "cpu":
         return gate_mlp_plain(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"gate_mlp: unsupported device {x.device}")
-    _check_cuda(x, w1, b1, w2, b2)
+    cuda = x.device.type == "cuda"
+    if cuda:
+        _check_cuda(x, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
-        _check_bwd(w1)
+        if cuda:
+            _check_bwd(w1)
         return GateMLPFunction.apply(x, w1, b1, w2, b2)
     return _forward_cuda(x, w1, b1, w2, b2)

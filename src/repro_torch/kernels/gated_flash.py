@@ -30,12 +30,22 @@ Its plain version :func:`gated_flash_window_plain` is the reference's
 windowed mask (``attn_prefill_full(window=)``). Forward only: on CUDA an
 input that requires grad raises. Its launches count in
 ``window_launches``.
+
+On the ``meta`` device every entry returns empty outputs of the right
+shapes and dtypes (through :class:`GatedFlashFunction` when grad is
+wanted, as on CUDA): no plain version runs, no kernel, no check of what
+the kernel takes. While a
+:class:`repro_torch.roofline.counter.WorkCounter` is active, every call
+on any device reports its work from its shapes
+(:func:`repro_torch.roofline.counter.counted`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import counter
+from repro_torch.roofline import work as W
 
 NEG_INF = -1e30
 
@@ -171,6 +181,8 @@ def _forward_cuda(q, k, v, g, w_local: int, eps: float, group: int,
     out = torch.empty_like(q)
     lse = (torch.empty((nq, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.device.type == "meta":
+        return out, lse
     lib = build.load("gated_flash")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -195,11 +207,16 @@ def _check_bwd(q) -> None:
             f"the forward under torch.no_grad() or in float32")
 
 
+@counter.counted("gated_flash_bwd", lambda q, *a, group=1, **kw:
+                 W.gated_flash_bwd(*q.shape, group))
 def gated_flash_bwd(q, k, v, g, o, lse, do, *, w_local: int,
                     eps: float = 1e-6, group: int = 1):
     """Gradients of ``gated_flash`` -> (dq, dk, dv, dg) by the
     hand-written kernel, on CUDA tensors only (on the CPU autograd
-    differentiates :func:`gated_flash_plain`)."""
+    differentiates :func:`gated_flash_plain`; on ``meta``, the outputs'
+    shapes)."""
+    if q.device.type == "meta":
+        return tuple(torch.empty_like(t) for t in (q, k, v, g))
     if q.device.type != "cuda":
         raise ValueError(f"gated_flash_bwd: unsupported device {q.device}")
     _check_cuda(q, k, v, g, group)
@@ -258,6 +275,13 @@ class GatedFlashFunction(torch.autograd.Function):
         return dq, dk, dv, dg, None, None, None
 
 
+def _flash_work(q, k, v, g, *, group=1, **kw):
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, g))
+    return W.gated_flash(*q.shape, group, q.element_size(), with_lse=grad)
+
+
+@counter.counted("gated_flash", _flash_work)
 def gated_flash(q, k, v, g, *, w_local: int, eps: float = 1e-6,
                 group: int = 1):
     """Write-gated causal attention -> [Nq, S, hd]. Differentiable on
@@ -265,17 +289,23 @@ def gated_flash(q, k, v, g, *, w_local: int, eps: float = 1e-6,
     if q.device.type == "cpu":
         return gated_flash_plain(q, k, v, g, w_local=w_local, eps=eps,
                                  group=group)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"gated_flash: unsupported device {q.device}")
     if q.ndim != 3:
         raise ValueError("gated_flash: q must be [Nq, S, hd]")
-    _check_cuda(q, k, v, g, group)
+    cuda = q.device.type == "cuda"
+    if cuda:
+        _check_cuda(q, k, v, g, group)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, g)):
-        _check_bwd(q)
+        if cuda:
+            _check_bwd(q)
         return GatedFlashFunction.apply(q, k, v, g, w_local, eps, group)
     return _forward_cuda(q, k, v, g, w_local, eps, group, False)[0]
 
 
+@counter.counted("gated_flash_window", lambda q, k, v, *, window, group=1:
+                 W.gated_flash_window(*q.shape, group, window,
+                                      q.element_size()))
 def gated_flash_window(q, k, v, *, window: int, group: int = 1):
     """Hard-window causal attention -> [Nq, S, hd]: the kernel's
     hard-window mode on CUDA (forward only), its plain version on the
@@ -285,6 +315,8 @@ def gated_flash_window(q, k, v, *, window: int, group: int = 1):
                          f"{window}")
     if q.device.type == "cpu":
         return gated_flash_window_plain(q, k, v, window=window, group=group)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"gated_flash_window: unsupported device "
                          f"{q.device}")

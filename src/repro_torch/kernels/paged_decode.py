@@ -33,6 +33,12 @@ pages] into splits (:func:`split_plan`, a function of shapes only) that
 run in parallel and are combined in a fixed order. Both kernels are
 forward-only: on CUDA a query or pool that requires grad (with grad
 enabled) raises rather than yield an output without a graph.
+
+On the ``meta`` device both return an empty output of the right shape
+and dtype: no plain version runs, no kernel, no check of what the kernel
+takes. While a :class:`repro_torch.roofline.counter.WorkCounter` is
+active, every call on any device reports its work from its shapes
+(:func:`repro_torch.roofline.counter.counted`).
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import counter
+from repro_torch.roofline import work as W
 
 NEG_INF = -1e30
 
@@ -288,6 +296,26 @@ def _launch(fn, q, plan: SplitPlan, group: int, args, tail):
     return out
 
 
+def _read_name(*args, starts=None, **kw) -> str:
+    return "paged_decode" if starts is None else "paged_decode_starts"
+
+
+def _read_work(q, k_pool, v_pool, page_table, lengths, second=None, *,
+               group=1, starts=None, span=None):
+    return W.paged_decode(*q.shape, group, page_table.shape[1],
+                          second[2].shape[1] if second is not None else 0,
+                          isz=q.element_size(), span=span)
+
+
+def _selected_work(q, k_pool, v_pool, page_table, lengths, sel_ids, n_sel,
+                   second=None, *, group=1):
+    return W.paged_decode_selected(
+        *q.shape, group, sel_ids.shape[1],
+        second[2].shape[1] if second is not None else 0,
+        isz=q.element_size())
+
+
+@counter.counted(_read_name, _read_work)
 def paged_decode(q, k_pool, v_pool, page_table, lengths,
                  second: Optional[Segment] = None, *, group: int = 1,
                  starts=None, span: Optional[int] = None):
@@ -302,6 +330,8 @@ def paged_decode(q, k_pool, v_pool, page_table, lengths,
         return paged_decode_plain(q, k_pool, v_pool, page_table, lengths,
                                   second, group=group, starts=starts,
                                   span=span)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     nkv = _check_launch(q, (k_pool, v_pool, page_table, lengths), second,
                         group)
     start_args = (None, 0, 0)
@@ -327,6 +357,7 @@ def paged_decode(q, k_pool, v_pool, page_table, lengths,
     return out
 
 
+@counter.counted("paged_decode_selected", _selected_work)
 def paged_decode_selected(q, k_pool, v_pool, page_table, lengths, sel_ids,
                           n_sel, second: Optional[Segment] = None, *,
                           group: int = 1):
@@ -338,6 +369,8 @@ def paged_decode_selected(q, k_pool, v_pool, page_table, lengths, sel_ids,
         return paged_decode_selected_plain(q, k_pool, v_pool, page_table,
                                            lengths, sel_ids, n_sel, second,
                                            group=group)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     nkv = _check_launch(q, (k_pool, v_pool, page_table, lengths), second,
                         group)
     for name, t in (("sel_ids", sel_ids), ("n_sel", n_sel)):

@@ -27,12 +27,21 @@ runs through :class:`RGLRUScanFunction`: the forward kernel, and
 :func:`rglru_scan_bwd` (``csrc/rglru_scan_bwd.cu``: the reverse scan in
 the forward's chunks, from the forward's h; its plain version
 :func:`rglru_scan_bwd_plain`) for da and db.
+
+On the ``meta`` device both return empty outputs of the right shapes
+(through :class:`RGLRUScanFunction` when grad is wanted, as on CUDA): no
+plain loop runs, no kernel, no check of what the kernel takes. While a
+:class:`repro_torch.roofline.counter.WorkCounter` is active, every call
+on any device reports its work from its shapes
+(:func:`repro_torch.roofline.counter.counted`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import counter
+from repro_torch.roofline import work as W
 
 launches = build.LaunchCounter("rglru_scan")
 bwd_launches = build.LaunchCounter("rglru_scan_bwd")
@@ -88,6 +97,8 @@ def _check_cuda(kernel: str, a: torch.Tensor, *others) -> None:
 def _forward_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bsz, s, d = a.shape
     h = torch.empty_like(a)
+    if a.device.type == "meta":
+        return h
     lib = build.load("rglru_scan")
     # the ticket counter and the chunks' carry words, zeroed on every call
     scratch = torch.zeros(lib.rglru_scan_scratch_words(bsz, s, d),
@@ -102,10 +113,14 @@ def _forward_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h
 
 
+@counter.counted("rglru_scan_bwd", lambda a, h, dy: W.rglru_scan_bwd(*a.shape))
 def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dy: torch.Tensor):
     """Gradients of ``rglru_scan`` -> (da, db) by the hand-written kernel
     from a, the forward's h and dy, on CUDA tensors only (on the CPU
-    autograd differentiates :func:`rglru_scan_plain`)."""
+    autograd differentiates :func:`rglru_scan_plain`; on ``meta``, the
+    outputs' shapes)."""
+    if a.device.type == "meta":
+        return torch.empty_like(a), torch.empty_like(a)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan_bwd: unsupported device {a.device}")
     _check_cuda("rglru_scan_bwd", a, ("h", h), ("dy", dy))
@@ -145,6 +160,7 @@ class RGLRUScanFunction(torch.autograd.Function):
         return rglru_scan_bwd(a, h, dy.contiguous())
 
 
+@counter.counted("rglru_scan", lambda a, b: W.rglru_scan(*a.shape))
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The ``rglru_scan_pallas`` contract: a, b [B, S, D] float32 ->
     h [B, S, D] float32 with ``h[:, t] = a[:, t] * h[:, t-1] + b[:, t]``
@@ -152,9 +168,10 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     module's note)."""
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
-    _check_cuda("rglru_scan", a, ("b", b))
+    if a.device.type == "cuda":
+        _check_cuda("rglru_scan", a, ("b", b))
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return RGLRUScanFunction.apply(a, b)
     return _forward_cuda(a, b)

@@ -15,12 +15,20 @@ Rows that see no key keep the Pallas kernel's handling (``m_safe``, zero
 ``alpha``, ``acc / max(l, 1e-30)``): they return 0. The kernel is
 forward-only: on CUDA an input that requires grad (with grad enabled)
 raises rather than yield an output without a graph.
+
+On the ``meta`` device it returns an empty output of the right shape and
+dtype: no plain version runs, no kernel, no check of what the kernel
+takes. While a :class:`repro_torch.roofline.counter.WorkCounter` is
+active, every call on any device reports its work from its shapes
+(:func:`repro_torch.roofline.counter.counted`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import counter
+from repro_torch.roofline import work as W
 
 NEG_INF = -1e30
 
@@ -96,11 +104,17 @@ def _check_cuda(q, k, v, kg, vg, gpos, group: int) -> None:
         raise ValueError("vertical_slash: q must be 16-byte aligned")
 
 
+@counter.counted("vertical_slash",
+                 lambda q, k, v, kg, vg, gpos, *, w_local, group=1:
+                 W.vertical_slash(*q.shape, group, kg.shape[1], w_local,
+                                  q.element_size()))
 def vertical_slash(q, k, v, kg, vg, gpos, *, w_local: int, group: int = 1):
     """Budgeted vertical-slash prefill attention -> [Nq, S, hd]."""
     if q.device.type == "cpu":
         return vertical_slash_plain(q, k, v, kg, vg, gpos, w_local=w_local,
                                     group=group)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"vertical_slash: unsupported device {q.device}")
     if q.ndim != 3:

@@ -1,5 +1,15 @@
-"""Decode cache construction and batched splice helpers (port of the
-serving half of ``repro/launch/specs.py``).
+"""Step inputs, decode cache construction and batched splice helpers
+(port of ``repro/launch/specs.py``).
+
+The input constructors (:func:`train_inputs`, :func:`prefill_inputs`,
+:func:`decode_inputs`) and :func:`decode_cache_structs` return tensors
+where the reference returns ``ShapeDtypeStruct``s: on the ``meta`` device
+(the default) they hold shapes and dtypes only, as the reference's
+structs do. On a real device the token ids are drawn uniformly from the
+vocabulary with seed 0 (on the CPU, so every device gets the same ids),
+``loss_mask`` is ones, and the rest (embeddings, positions, caches) is
+zeros. Dtypes: tokens and M-RoPE positions int32, as in the reference;
+``loss_mask`` float32; embeddings in ``cfg.dtype``.
 
 The splice helpers are functional: they return new trees and leave their
 inputs untouched, so an in-flight step's before/after trees stay valid.
@@ -10,13 +20,81 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
+from repro_torch.configs.base import ATTN_BLOCKS, InputShape, ModelConfig
 from repro_torch.core.dual_cache import init_dual_cache
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as A
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+
+
+# number of vision patches in the VLM stream (32x32 grid)
+VLM_GRID = (32, 32)
+VLM_N_IMG = VLM_GRID[0] * VLM_GRID[1]
+
+
+def _zeros(shape, dtype, device):
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+def _tokens(cfg: ModelConfig, shape, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.int32, device=device)
+    gen = torch.Generator().manual_seed(0)
+    return torch.randint(0, cfg.vocab_size, tuple(shape), generator=gen,
+                         dtype=torch.int32).to(device)
+
+
+def _ones(shape, device) -> torch.Tensor:
+    return torch.ones(tuple(shape), dtype=torch.float32, device=device)
+
+
+# ==========================================================================
+# token / embedding inputs per step kind
+# ==========================================================================
+def train_inputs(cfg: ModelConfig, shape: InputShape,
+                 device="meta") -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    dt = torch_dtype(cfg.dtype)
+    if cfg.arch_type == "audio":
+        s_dec = cfg.dec_max_len
+        return {
+            "tokens": _tokens(cfg, (b, s_dec), device),
+            "enc_embeds": _zeros((b, s // cfg.enc_seq_divisor, cfg.d_model),
+                                 dt, device),
+            "loss_mask": _ones((b, s_dec), device),
+        }
+    out = {
+        "tokens": _tokens(cfg, (b, s), device),
+        "loss_mask": _ones((b, s), device),
+    }
+    if cfg.arch_type == "vlm":
+        out["patch_embeds"] = _zeros((b, VLM_N_IMG, cfg.d_model), dt, device)
+        out["positions"] = _zeros((3, b, s), torch.int32, device)
+    return out
+
+
+def prefill_inputs(cfg: ModelConfig, shape: InputShape,
+                   device="meta") -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    dt = torch_dtype(cfg.dtype)
+    if cfg.arch_type == "audio":
+        return {
+            "tokens": _tokens(cfg, (b, cfg.dec_max_len), device),
+            "enc_embeds": _zeros((b, s // cfg.enc_seq_divisor, cfg.d_model),
+                                 dt, device),
+        }
+    out = {"tokens": _tokens(cfg, (b, s), device)}
+    if cfg.arch_type == "vlm":
+        out["patch_embeds"] = _zeros((b, VLM_N_IMG, cfg.d_model), dt, device)
+        out["positions"] = _zeros((3, b, s), torch.int32, device)
+    return out
+
+
+def decode_inputs(cfg: ModelConfig, shape: InputShape,
+                  device="meta") -> Dict[str, Any]:
+    return {"token": _tokens(cfg, (shape.global_batch,), device)}
 
 
 def _block_cache(cfg: ModelConfig, bt: str, batch: int, capacity: int,
@@ -133,3 +211,14 @@ def extract_slot_caches(batch_tree: Any, slot: int) -> Any:
 def cache_tree_bytes(tree: Any) -> int:
     """Device-buffer bytes a cache tree holds, from leaf metadata only."""
     return sum(int(x.numel()) * x.element_size() for x in tree_leaves(tree))
+
+
+def decode_cache_structs(cfg: ModelConfig, shape: InputShape, *,
+                         use_wgkv: bool, device="meta") -> Dict[str, Any]:
+    """The decode cache tree of ``shape``: batch ``global_batch``,
+    capacity ``seq_len``, an encoder-decoder's cross memory over
+    ``seq_len // enc_seq_divisor`` encoder positions; nothing prefilled."""
+    b, s = shape.global_batch, shape.seq_len
+    s_enc = s // cfg.enc_seq_divisor if cfg.is_encdec else None
+    return build_decode_caches(cfg, b, s, use_wgkv=use_wgkv, device=device,
+                               s_enc=s_enc)

@@ -430,12 +430,28 @@ def slstm_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         state = init_slstm_state(cfg, b, device=x.device)
     xin = L.rmsnorm(p["norm"], x)
     pre = xin @ p["w_in"].to(x.dtype) + p["b"].to(x.dtype)   # [B, S, 4D]
-    r_t = _recurrent_weights(p)
+    hs, state = _slstm_scan(cfg, _recurrent_weights(p), pre, state)
+    return _slstm_mlp(p, x, hs), state
+
+
+def _slstm_scan(cfg: ModelConfig, r_t: torch.Tensor, pre: torch.Tensor,
+                state: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
+    """The cell over pre [B, S, 4D], one step per token -> (the stacked
+    cell outputs [B, S, D], the last state). On the ``meta`` device (the
+    dry run) the loop does not run: the outputs are empty tensors of the
+    loop's shapes, and the dry run adds the loop's recurrent products
+    from ``roofline.analysis.slstm_hidden_flops``, as the reference adds
+    them to XLA's count of its hidden scan."""
+    if pre.device.type == "meta":
+        b, s, _ = pre.shape
+        d = cfg.d_model
+        return pre.new_empty((b, s, d), dtype=torch.float32), SLSTMState(
+            *(pre.new_empty((b, d), dtype=torch.float32) for _ in range(4)))
     hs = []
-    for t in range(s):
+    for t in range(pre.shape[1]):
         state = _slstm_cell(cfg, r_t, pre[:, t], state)
         hs.append(state.h)
-    return _slstm_mlp(p, x, torch.stack(hs, dim=1)), state
+    return torch.stack(hs, dim=1), state
 
 
 def slstm_step(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
