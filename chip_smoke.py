@@ -30,9 +30,10 @@ prints no result, without them. Phases, any failure fatal:
                 ``gate_mlp`` and ``rglru_scan`` bitwise equal.
   4. serve-cli  — ``repro_torch.launch.serve`` at full qwen3-0.6b width,
                 its startup tau probe (a gated forward) included.
-  5. serve-long — ``ServeSession`` at full width with 384-token prompts,
-                so tokens leave the 256-token ring and lazy promotion
-                runs; launch counters prove the decode kernels carried it.
+  5. serve-long — ``ServeSession`` at full width (depth cut to
+                ``SERVE_REPEATS`` 8 layers) with 384-token prompts, so
+                tokens leave the 256-token ring and lazy promotion runs;
+                launch counters prove the decode kernels carried it.
   6. prefill-long  — ``inference.prefill`` (budgeted vertical-slash, paper
                 §4.2) of a 4096-token prompt at full width, budget 1024,
                 then 16 greedy ``decode_step``s from its dual caches.
@@ -247,6 +248,21 @@ sync; the counted launches equal the counters').
 Phase 3's bounds come from the same work functions
 (``repro_torch.roofline.work``) with the exact counts each case holds.
 
+The figures (after the qwen3 roofline): fig8 — Fig. 8's method
+(``repro_torch.benchmarks.bench_fig8_efficiency.measure``) on
+prefill-long's full-width model at S 1,024, 2,048 and 4,096, budget S /
+4: the WG-KV prefill and decode step against the dense ones (each timed
+row's launches per call one per layer of exactly its kernels:
+``gate_mlp`` + ``vertical_slash``, ``gate_mlp`` + ``paged_decode``,
+``gated_flash`` (causal), ``paged_decode``) and both caches' bytes,
+each of these kernels held against its plain version at these shapes in
+phase 3 (``figure_cases``); then figures —
+``repro_torch.benchmarks.run`` over every module on the card (no
+``_error`` row; the serving record into a temp dir), fig7's rows and fig13's per-head admission on the
+card equal to the CPU's on host-drawn batches, and the four examples
+(``repro_torch.examples``; serve_longcontext's pool drains and verifies
+within 2e-3). The kernels line gives each kernel's ``launches_figures``.
+
 Phase 3 also holds the dense baseline's windowed modes against their
 plain versions, f32 and bf16: ``gated_flash``'s hard window at
 recurrentgemma-9b's prefill (16 / 1 at hd 256, S 4096, W 2048) and a
@@ -299,7 +315,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -314,11 +329,12 @@ INT32_MAX = 2 ** 31 - 1
 # elements swapped or dropped in the bf16 load reads far above 1e-2
 # (tests/test_torch_cuda.py plants both).
 TOL = {"float32": 5e-5, "bfloat16": 1e-2}
-# the depth of the other archs' serve paths (smollm-360m, phi4-mini-3.8b,
-# phi3-medium-14b, granite-moe-3b-a800m, qwen2-vl-7b; full width): the
-# serving tick is host-bound, a Python step per layer and position, so
-# their full depth cost a minute of the script's time limit for no other
-# check. Their prefill, forward and train paths keep their full depth.
+# the depth of serve-long's model and of the other archs' serve paths
+# (smollm-360m, phi4-mini-3.8b, phi3-medium-14b, granite-moe-3b-a800m,
+# qwen2-vl-7b; full width): the serving tick is host-bound, a Python step
+# per layer and position, so their full depth cost minutes of the
+# script's time limit for no other check. Their prefill, forward and
+# train paths keep their full depth.
 SERVE_REPEATS = 8
 # the dense archs' heads: (q heads, kv heads, head_dim)
 DENSE_HEADS = {"smollm-360m": (15, 5, 64), "phi4-mini-3.8b": (24, 8, 128),
@@ -340,15 +356,6 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    check(bool(out), "nvidia-smi printed nothing")
-    return out[0].strip()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -624,13 +631,15 @@ def dense_case(slots: int, max_len: int, t: list, dtype, seed: int,
             "split_plan": split_plan_of(qf, seg, None, grp)}
 
 
-def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
+def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int,
+                  hkv: int = 8, grp: int = 2, hd: int = 128):
     """The dual-cache read with Quest selection: a random dual cache with
     ragged gcnt, its page metadata rebuilt, and the top-K page ids of a
     random query (``selection.topk_page_ids``, the decode path's scorer);
     the global segment read through the ids, the ring whole. Also checks
     that the identity ids with K covering every page give exactly
-    ``paged_decode``'s output."""
+    ``paged_decode``'s output. qwen3-0.6b's heads by default; the bench
+    substrate's are 2 kv heads, group 2, hd 32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import selection as SEL
@@ -641,7 +650,7 @@ def selected_case(slots: int, c: int, w: int, k: int, dtype, seed: int):
                                                   paged_decode_selected_plain)
     from repro_torch.roofline import work as W
     g = torch.Generator(device="cuda").manual_seed(seed)
-    hkv, grp, hd, page = 8, 2, 128, 16
+    page = 16
     p_all = c // page
     cache = init_dual_cache(slots, hkv, hd, w_local=w, budget=c, dtype=dtype,
                             device="cuda")
@@ -1526,6 +1535,44 @@ def new_arch_cases():
     return cases, runs
 
 
+def figure_cases():
+    """Phase 3's cases at the shapes the figures give each kernel, f32.
+    Fig. 8 at full-width qwen3-0.6b (16 / 8 heads of hd 128, W 256) for S
+    1,024 and 2,048 at budget C = S / 4 (S 4,096's are the cases above):
+    the gate over the prompt and at the one-slot decode, vertical_slash,
+    the dense prefill's causal gated_flash, the WG-KV decode's dual cache
+    and the dense decode's buffer (S + 8 slots rounded up to a page, S + 1
+    tokens read); fig. 8's kernel row (gated_flash over 4 / 2 heads of hd
+    64, S 1,024, W 64); the bench substrate's selected read (2 kv heads,
+    group 2, hd 32, W 16) at the serving bench's shape (4 slots, C 192,
+    K 4) and at fig. 9's (one row, C 64, K 2). Returns (tag, record)
+    pairs, tagged ``<kernel> fig8`` or ``<kernel> bench``."""
+    import torch
+    f32 = torch.float32
+    cases = []
+    for i, s in enumerate((1024, 2048)):
+        sd, c = 140 + 10 * i, s // 4
+        cases += [
+            ("gate_mlp fig8", gate_case(rows=8, s=s, seed=sd)),
+            ("vertical_slash fig8", vertical_slash_case(
+                "float32", seed=sd + 1, s=s, c=c)),
+            ("gated_flash fig8", gated_flash_case(s, "float32", seed=sd + 2,
+                                                  causal=True)),
+            ("paged_decode fig8", dual_cache_case(1, c, 256, f32,
+                                                  seed=sd + 3)),
+            ("paged_decode fig8", dense_case(1, s + 8, [s + 1], f32,
+                                             seed=sd + 4))]
+    cases += [
+        ("gate_mlp fig8", gate_case(rows=8, s=1, seed=160)),
+        ("gated_flash fig8", gated_flash_case(1024, "float32", seed=161,
+                                              hkv=2, hd=64, w=64, hq=4)),
+        ("paged_decode_selected bench", selected_case(
+            4, 192, 16, 4, f32, seed=162, hkv=2, grp=2, hd=32)),
+        ("paged_decode_selected bench", selected_case(
+            1, 64, 16, 2, f32, seed=163, hkv=2, grp=2, hd=32))]
+    return cases
+
+
 def planted_faults(cases) -> dict:
     """Each fault of ``FAULTS`` planted alone in a rebuild of its kernel
     (all built at once), run on the inputs of its cases (fault name, (run,
@@ -1587,24 +1634,15 @@ def position_counter():
     return Wrapped(I, "decode_step")
 
 
-def _counters():
-    from repro_torch.kernels import (gate_mlp, gated_flash, paged_decode,
-                                     rglru_scan, vertical_slash)
-    return [gate_mlp.launches, paged_decode.launches,
-            paged_decode.selected_launches, vertical_slash.launches,
-            gated_flash.launches, rglru_scan.launches,
-            gate_mlp.bwd_launches, gated_flash.bwd_launches,
-            rglru_scan.bwd_launches, gated_flash.window_launches,
-            paged_decode.start_launches]
-
-
 def reset_counts():
-    for c in _counters():
+    from repro_torch.benchmarks.common import kernel_counters
+    for c in kernel_counters():
         c.reset()
 
 
 def read_counts():
-    return {c.name: c.count for c in _counters()}
+    from repro_torch.benchmarks.common import kernel_counters
+    return {c.name: c.count for c in kernel_counters()}
 
 
 def serve_cli(n_layers: int):
@@ -1682,7 +1720,8 @@ def serve_long(card: str):
     from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
 
     slots, cap, prompt_len, max_new = 2, 512, 384, 16
-    cfg = get_config("qwen3-0.6b").replace(dtype="float32")
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32",
+                                           n_repeats=SERVE_REPEATS)
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = init_model(cfg, gen, "cuda")
     pool_pages = pool_pages_for(cfg, slots, cap)
@@ -4225,6 +4264,167 @@ def qwen2vl_phase(card: str):
     return {k: stats[k]["launches"] for k in ("serve", "prefill", "forward")}
 
 
+def fig8_full(card: str, cfg, params):
+    """Fig. 8's method (``repro_torch.benchmarks.bench_fig8_efficiency.
+    measure``) at full-width qwen3-0.6b: S 1,024, 2,048 and 4,096 at
+    budget S / 4, the WG-KV prefill and decode step against the dense
+    ones, and both caches' bytes. Each timed entry carries its launches
+    per call, which must be one of each of its kernels a layer and
+    nothing else: ``gate_mlp`` and ``vertical_slash`` in the WG-KV
+    prefill, ``gate_mlp`` and ``paged_decode`` in its decode step,
+    ``gated_flash`` (the causal form) in the dense prefill and
+    ``paged_decode`` in its decode step. Phase 3's ``fig8`` cases hold
+    each of these kernels against its plain version at these shapes."""
+    from repro_torch.benchmarks.bench_fig8_efficiency import measure, rows_of
+    n = cfg.n_layers
+    want = {"prefill_wgkv": {"gate_mlp": n, "vertical_slash": n},
+            "decode_wgkv": {"gate_mlp": n, "paged_decode": n},
+            "prefill_full": {"gated_flash": n},
+            "decode_full": {"paged_decode": n}}
+    out = {}
+    for m in measure(cfg, params, (1024, 2048, 4096)):
+        for name, us, derived in rows_of(m):
+            print(f"fig8 {name},{us:.1f},{derived} ({card})", flush=True)
+        s = m["s"]
+        for kind, launches in want.items():
+            got = m[kind]["launches"]
+            check(got == launches,
+                  f"fig8: {kind}_s{s} launched {got}, want {launches}")
+            out[f"{kind}_s{s}"] = dict(m[kind], ms=m[kind]["us"] / 1e3)
+        check(m["bytes"]["wgkv"] < m["bytes"]["full"],
+              f"fig8: S {s}: WG-KV's cache is not the smaller one")
+        out[f"cache_bytes_s{s}"] = m["bytes"]
+        out[f"mean_admission_s{s}"] = m["mean_admission"]
+    return out
+
+
+def _tau_margin(cfg, params, toks, taus) -> float:
+    """The least distance of a gate score from any of ``taus`` in the
+    gated forward of ``toks`` (on the CPU): how near a flip the card's
+    comparison with the CPU stands."""
+    import torch
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        g = T.forward(params, cfg, torch.as_tensor(toks), mode="gated").gates
+    return min(float((g - t).abs().min()) for t in taus)
+
+
+def figures_phase(card: str):
+    """The paper's figure benchmarks and the four examples on the card:
+
+    * ``repro_torch.benchmarks.run`` over every module (serving at its
+      smoke trace, as ``MODULE_KWARGS`` asks, its record into a temp
+      dir), on ``cuda``: no ``_error`` row, the card line first;
+    * fig7's rows and fig13's per-head admission computed on the card
+      equal to the same functions on the CPU, on batches drawn on the
+      host (the least distance of a gate from a tau the figures
+      threshold at is printed beside them);
+    * the four examples (``train_gate --small`` with 4 + 4 steps, its
+      gates into a temp dir): serve_longcontext's pool drains to 0 pages
+      and its paged read stays within 2e-3.
+
+    Returns the launch counts over the phase; every kernel of these
+    paths must have launched."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import bench_fig7_memory_accuracy as F7
+    from repro_torch.benchmarks import bench_fig13_patterns as F13
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks.common import needle_batch, trained_model
+    from repro_torch.examples import (composability, quickstart,
+                                      serve_longcontext, train_gate)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(buf):
+        rc = bench_run.main(["--serving-json",
+                             str(Path(tmp) / "BENCH_serving_torch.json")])
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"figures: {ln}")
+    errors = [ln for ln in lines if "/_error," in ln]
+    check(rc == 0 and not errors, f"figures: benchmarks.run: {errors[:3]}")
+    check(lines[0] == card, f"figures: runner's device line {lines[0]!r}")
+    walls = {ln.split("/")[0]: float(ln.split(",")[1]) / 1e6
+             for ln in lines if "/_wall_s," in ln}
+    check(set(walls) == set(bench_run.MODULES),
+          f"figures: modules run {sorted(walls)}")
+    stats = {"card": card, "runner_s": time.perf_counter() - t0,
+             "module_s": walls}
+    # card against CPU on the same host-drawn batches
+    t1 = time.perf_counter()
+    batches = {777: needle_batch(777, 32, "cpu"),
+               778: needle_batch(778, 16, "cpu"),
+               5: needle_batch(5, 8, "cpu")}
+    f7_card, f7_cpu = (F7.run(d, batches=batches) for d in ("cuda", "cpu"))
+    toks = F13.task_tokens("cpu")
+    f13_card, f13_cpu = (F13.run(d, tokens=toks) for d in ("cuda", "cpu"))
+    sizes_card, sizes_cpu = ([F13._per_head_sizes(*trained_model(device=d),
+                                                  t) for t in toks]
+                             for d in ("cuda", "cpu"))
+    cfg, params = trained_model(device="cpu")
+    margin = {
+        "fig7_acc": _tau_margin(cfg, params, batches[777]["tokens"],
+                                (0.02, 0.1, 0.3, 0.6, 0.9)),
+        "fig7_size": _tau_margin(cfg, params, batches[778]["tokens"],
+                                 (0.02, 0.1, 0.3, 0.6, 0.9)),
+        "fig13": min(_tau_margin(cfg, params, t, (cfg.wgkv.tau,))
+                     for t in toks)}
+    stats.update(tau_margin=margin, fig7=[r[2] for r in f7_card],
+                 fig13=[r[2] for r in f13_card],
+                 card_vs_cpu_s=time.perf_counter() - t1)
+    check(f7_card == f7_cpu,
+          f"figures: fig7 card {f7_card} != CPU {f7_cpu} "
+          f"(gates' least distance from a tau {margin})")
+    check(all(np.array_equal(a, b) for a, b in zip(sizes_card, sizes_cpu))
+          and f13_card == f13_cpu,
+          f"figures: fig13 card != CPU (least distance {margin})")
+    # the four examples
+    ex = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mod, argv in (
+                ("quickstart", quickstart, []),
+                ("composability", composability, []),
+                ("serve_longcontext", serve_longcontext, []),
+                ("train_gate", train_gate, [
+                    "--small", "--pretrain-steps", "4", "--gate-steps", "4",
+                    "--out", str(Path(tmp) / "wgkv_gates.npz")])):
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(argv)
+            torch.cuda.synchronize()
+            ex[name] = {"s": time.perf_counter() - t1,
+                        "last_lines": buf.getvalue().splitlines()[-2:]}
+            if name == "serve_longcontext":
+                check(res["pool_pages"] == 0
+                      and res["verify_paged"] is not None
+                      and res["verify_paged"] < 2e-3,
+                      f"figures: serve_longcontext pool {res['pool_pages']}"
+                      f" pages, paged deviation {res['verify_paged']}")
+                ex[name].update(verify_paged=res["verify_paged"],
+                                ticks=res["ticks"])
+            if name == "train_gate":
+                check(all(np.isfinite(h["loss"]) for h in res["history"]),
+                      "figures: train_gate loss not finite")
+                check((Path(tmp) / "wgkv_gates.npz").exists(),
+                      "figures: train_gate wrote no gates")
+    counts = read_counts()
+    stats.update(examples=ex, launches=counts,
+                 wall_s=time.perf_counter() - t0)
+    print("figures: " + json.dumps(stats), flush=True)
+    for name in ("gate_mlp", "paged_decode", "paged_decode_selected",
+                 "vertical_slash", "gated_flash", "gate_mlp_bwd",
+                 "gated_flash_bwd"):
+        check(counts[name] > 0, f"figures: {name} never launched: {counts}")
+    return counts
+
+
 PHASE_S: dict = {}        # phase group -> seconds, in run order
 _LAP = [0.0]
 
@@ -4251,6 +4451,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # 1. device
+    from repro_torch.benchmarks.common import card_line
     card = card_line()
     print(card)
     print(f"device: {torch.cuda.get_device_name(0)} x "
@@ -4430,6 +4631,10 @@ def main() -> int:
     # backward kernels at whisper's train shape
     new_kernels, new_runs = new_arch_cases()
     free_cuda()
+    # this slice's: the figures' shapes (fig. 8 at full width, the bench
+    # substrate's selected read)
+    fig_kernels = figure_cases()
+    free_cuda()
     planted = planted_faults([("gate_mlp_bwd", gb_train_run),
                               ("gate_mlp_bwd", gb_sub_run),
                               ("gate_mlp_bwd", gb_rg_run),
@@ -4485,7 +4690,7 @@ def main() -> int:
                    ("gated_flash_bwd G3", fb_g3),
                    ("gated_flash_bwd G3", fb_g3_80),
                    ("gate_mlp_bwd rg", gb_rg), *dense_kernels,
-                   *moe_kernels, *new_kernels):
+                   *moe_kernels, *new_kernels, *fig_kernels):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
     print("planted faults (backward: relative error, limit "
           f"{BWD_REL}; forward: max abs error, limit {TOL['float32']}): "
@@ -4538,7 +4743,14 @@ def main() -> int:
         knob_overrides={"remat": False, "q_chunk": None})
     del out
     lap("roofline qwen3")
+    # this slice's: Fig. 8 at full width on prefill-long's model, then the
+    # figure benchmarks and the four examples
+    free_cuda()
+    fig8_full(card, cfg, params)
     del params
+    free_cuda()
+    figures_counts = figures_phase(card)
+    lap("figures")
     free_cuda()
     compose_counts = serve_compose(card)
     lap("serve-compose")
@@ -4688,6 +4900,11 @@ def main() -> int:
     for tag, r in new_kernels:
         name, arch = tag.split()
         new_by.setdefault(name, {}).setdefault(arch, []).append(r)
+
+    fig_by = {}  # kernel -> figure -> its cases at the figures' shapes
+    for tag, r in fig_kernels:
+        name, fig = tag.split()
+        fig_by.setdefault(name, {}).setdefault(fig, []).append(r)
 
     def dense_err(name):
         return max(r["max_abs_err"] for by in (dense_by, moe_by, new_by)
@@ -4938,6 +5155,13 @@ def main() -> int:
         entry["launches_sentinels"] = {k: c[entry["name"]]
                                        for k, c in sentinel_counts.items()}
         entry["launches_legacy_loop"] = loop_counts[entry["name"]]
+        entry["launches_figures"] = figures_counts[entry["name"]]
+        if entry["name"] in fig_by:
+            entry["figures"] = fig_by[entry["name"]]
+            entry["max_abs_err"] = max(
+                entry["max_abs_err"], *(r["max_abs_err"] for rs in
+                                        fig_by[entry["name"]].values()
+                                        for r in rs))
     print("phase seconds: " + json.dumps(PHASE_S))
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -96,19 +96,30 @@ def dual_cache_segments(q, cache):
     (B*Hkv rows) and ``group`` = Hq / Hkv. The global segment holds
     ``gcnt`` tokens per head; the valid ring slots are exactly the first
     ``min(t, W)`` (the ring is written at ``ptr``, which starts at 0 and
-    advances with ``t``)."""
+    advances with ``t``).
+
+    A global budget off the page grid (a fraction of the capacity, such
+    as 0.4 x 512 = 204) is read through a copy padded to whole pages:
+    ``gcnt <= C`` keeps the padding unread. The ring must be
+    page-aligned."""
     b, hq, hd = q.shape
     _, hkv, c, _ = cache.gk.shape
     w = cache.lk.shape[2]
-    if c % PAGE_SIZE or w % PAGE_SIZE:
-        raise ValueError(f"dual-cache read needs page-aligned C={c} and "
-                         f"W={w} (multiples of {PAGE_SIZE})")
+    if w % PAGE_SIZE:
+        raise ValueError(f"dual-cache read needs a page-aligned ring, "
+                         f"W={w} (a multiple of {PAGE_SIZE})")
+    gk, gv = cache.gk, cache.gv
+    if c % PAGE_SIZE:
+        pad = -c % PAGE_SIZE
+        gk = torch.nn.functional.pad(gk, (0, 0, 0, pad))
+        gv = torch.nn.functional.pad(gv, (0, 0, 0, pad))
+        c += pad
     s = b * hkv
     glen = cache.gcnt.reshape(s)
     llen = torch.clamp(cache.t, max=w).to(torch.int32)[:, None] \
         .expand(b, hkv).reshape(s)
-    first = (cache.gk.reshape(s * c // PAGE_SIZE, PAGE_SIZE, hd),
-             cache.gv.reshape(s * c // PAGE_SIZE, PAGE_SIZE, hd),
+    first = (gk.reshape(s * c // PAGE_SIZE, PAGE_SIZE, hd),
+             gv.reshape(s * c // PAGE_SIZE, PAGE_SIZE, hd),
              _identity_tables(s, c // PAGE_SIZE, q.device),
              glen.contiguous())
     second = (cache.lk.reshape(s * w // PAGE_SIZE, PAGE_SIZE, hd),

@@ -15,12 +15,18 @@ WG-KV admission (0.7166) and peak (1328) were measured on substrate
 weights older than the committed checkpoint; the arbiter is the
 reference's ``replay`` on the same trace and checkpoint, and the port
 must equal it exactly (streams, peak) and in admission to 1e-6.
+
+The port's replays are its own bench's drivers
+(``repro_torch.benchmarks.bench_serving``: ``replay``,
+``multi_turn_replay``); this file also holds that module's trace and
+flag handling. Its whole smoke A/B (``run(smoke=True)``, about 25 s on
+the CPU) runs in ``tests/test_torch_bench_serving.py``, which keeps this
+file under a minute.
 """
 import json
 from pathlib import Path
 
 import jax
-import numpy as np
 import pytest
 import torch
 
@@ -32,9 +38,9 @@ from repro.serving.backend import make_backend as jax_make_backend
 from repro.training import checkpoint as JCK
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.configs.base import WGKVConfig as TWGKVConfig
+from repro_torch.benchmarks import bench_serving as PB
 from repro_torch.convert import params_from_numpy
 from repro_torch.serving.backend import make_backend
-from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
 from repro_torch.serving.prefix_cache import PrefixCache
 from test_torch_prefill import SUBSTRATE, _substrate_cfg
 
@@ -55,46 +61,6 @@ def _reference_trace():
         jax.config.update("jax_threefry_partitionable", old)
 
 
-def replay(eng, trace):
-    """``bench_serving.replay`` over the port's ``ServeSession``."""
-    sess = ServeSession(eng, sched=SchedulerConfig(
-        chunk_tokens=B.CHUNK, dispatch_ahead=B.DISPATCH_AHEAD))
-    handles, pending, tick = [], list(trace), 0
-    while pending or not sess.orchestrator.queue.all_done():
-        while pending and pending[0]["arrival_tick"] <= tick:
-            r = pending.pop(0)
-            handles.append(sess.submit(r["prompt"], max_new=r["max_new"]))
-        sess.tick()
-        tick += 1
-        assert tick < 10_000, "trace replay did not drain"
-    sess.close()
-    return sess.telemetry.summary(), [h.tokens() for h in handles]
-
-
-def multi_turn_replay(eng, *, convs, turns, user_tokens, plen, mnew,
-                      vocab, seed=5, prefix_cache=None):
-    """``bench_serving.multi_turn_replay`` over the port (numpy prompts,
-    as the reference draws them): each turn resends the conversation
-    plus the model's reply plus fresh user tokens."""
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, vocab - 8, size=plen).tolist()
-               for _ in range(convs)]
-    streams = [[] for _ in range(convs)]
-    for _ in range(turns):
-        sess = ServeSession(eng, sched=SchedulerConfig(
-            chunk_tokens=B.CHUNK, dispatch_ahead=B.DISPATCH_AHEAD),
-            prefix_cache=prefix_cache)
-        hs = [sess.submit(p, max_new=mnew) for p in prompts]
-        sess.run()
-        sess.close()
-        for c, h in enumerate(hs):
-            out = h.tokens()
-            streams[c].append(out)
-            prompts[c] = prompts[c] + out + rng.integers(
-                0, vocab - 8, size=user_tokens).tolist()
-    return streams
-
-
 @pytest.fixture(scope="module")
 def ab():
     tcfg = _substrate_cfg((TModelConfig, TWGKVConfig))
@@ -105,7 +71,8 @@ def ab():
         eng = make_backend(name, params, tcfg, slots=B.SLOTS,
                            capacity=B.CAPACITY, device="cpu")
         eng.mirror = False
-        out[name] = (eng,) + replay(eng, trace)
+        sess, toks = PB.replay(eng, trace)
+        out[name] = (eng, sess.telemetry.summary(), toks)
     return out
 
 
@@ -156,12 +123,50 @@ def test_prefix_hit_rate_matches_record(ab, name):
     eng = ab[name][0]
     kw = dict(plen=B.PROMPT_LEN, mnew=B.MAX_NEW, vocab=ab["cfg"].vocab_size,
               **B.MULTI_TURN)
-    cold = multi_turn_replay(eng, **kw)
+    cold, _ = PB.multi_turn_replay(eng, **kw)
     pc = PrefixCache(quantum=B.CHUNK, free_fn=eng.release_prefix)
-    warm = multi_turn_replay(eng, prefix_cache=pc, **kw)
+    warm, _ = PB.multi_turn_replay(eng, prefix_cache=pc, **kw)
     assert warm == cold
     rec = RECORD["backends"][name]["prefix"]
     assert (pc.hits, pc.misses, pc.inserts) == (rec["hits"], rec["misses"],
                                                 rec["inserts"]) == (8, 4, 12)
     assert pc.hits / (pc.hits + pc.misses) == pytest.approx(rec["hit_rate"])
     pc.clear()
+
+
+@pytest.mark.parametrize("spec", ["burst", "poisson:0.5", "poisson:3",
+                                  "poisson:0", "poisson:-1", "poisson:x",
+                                  "poisson", "uniform", ""])
+def test_poisson_rate_accepts_and_rejects_as_reference(spec):
+    try:
+        want = B.poisson_rate(spec)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            PB.poisson_rate(spec)
+        assert str(got.value) == str(e)
+    else:
+        assert PB.poisson_rate(spec) == want
+
+
+@pytest.mark.parametrize("arrival", ["burst", "poisson:0.5"])
+def test_record_trace_is_deterministic_and_sorted(arrival):
+    kw = dict(prompt_len=96, max_new=16, arrival=arrival)
+    a = PB.record_trace(12, 256, seed=1, **kw)
+    assert a == PB.record_trace(12, 256, seed=1, **kw)
+    assert a != PB.record_trace(12, 256, seed=2, **kw)
+    ticks = [r["arrival_tick"] for r in a]
+    assert ticks == sorted(ticks) and len(a) == 12
+    assert all(len(r["prompt"]) == 96 and r["max_new"] == 16
+               and max(r["prompt"]) < 256 - 8 for r in a)
+    if arrival == "burst":
+        assert max(ticks) < 12
+
+
+def test_bench_serving_mesh_exits_2(capsys, tmp_path):
+    with pytest.raises(SystemExit) as ex:
+        PB.main(["--mesh", "2x4", "--device", "cpu",
+                 "--json-out", str(tmp_path / "x.json")])
+    assert ex.value.code == 2
+    assert "not ported" in capsys.readouterr().err
+    assert not (tmp_path / "x.json").exists()
+    assert PB.JSON_PATH.endswith("BENCH_serving_torch.json")

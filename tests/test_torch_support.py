@@ -130,6 +130,17 @@ def test_entry_points_need_cuda_without_explicit_cpu():
             np.asarray, T.init_model(jax.random.PRNGKey(0), make_cfg())), tcfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "qwen3-0.6b", "--reduced", "--requests", "1"])
+    # the benchmarks' runner, the serving A/B and an example
+    from repro_torch.benchmarks import bench_serving
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.examples import quickstart
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_run.main(["--only", "fig13"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_serving.main(["--smoke", "--json-out",
+                            os.devnull])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
     # and the explicit CPU request works
     Engine(params, tcfg, slots=1, capacity=64, device="cpu")
 
