@@ -85,8 +85,9 @@ recurrentgemma phases):
                 ``gated_flash`` launches at W = S, g = 1) and 16 greedy
                 dense decode steps (28 one-segment ``paged_decode`` each),
                 beside prefill-long's WG-KV numbers.
-  serve-ab    — ``ServeSession`` at full width, depth cut to 14 of 28
-                layers: 2 x 384-token prompts, 16 new tokens, through
+  serve-ab    — ``ServeSession`` at full width, depth cut to
+                ``SERVE_REPEATS`` (8) of 28 layers: 2 x 384-token
+                prompts, 16 new tokens, through
                 ``wgkv`` and ``dense``, and one of them through
                 ``streaming_llm`` and ``duo``; TTFT, TPOT, tokens/s, the
                 KV-token peak and KV bytes per backend. ``dense`` runs
@@ -113,6 +114,15 @@ recurrentgemma phases):
   legacy-loop — ``Engine.add_request`` / ``run`` (the fixed-slot loop)
                 with the trained substrate on the card and on the CPU:
                 equal streams and step-shape counts.
+  mesh        — sharded serving (``serving/sharded.py``) of full-width
+                qwen3-0.6b (28 layers): the flat port, a 1 x 1 mesh over
+                NCCL (a world of one, under both sentinels) and a 1 x 2
+                mesh whose two ranks share the card over gloo (heads
+                split: tokens equal the flat run's, integer cache state
+                equal to its head slice, floats within 1e-4, 28
+                ``gate_mlp`` and 28 ``paged_decode`` per position step on
+                each rank, the counted collective bytes equal the
+                prediction); each run's wall and the ranks per card.
 
 Gate-distillation training (run after substrate-ab):
 
@@ -1573,6 +1583,26 @@ def figure_cases():
     return cases
 
 
+def mesh_cases():
+    """Phase 3's cases at the shapes one rank of the mesh phase's 1 x 2
+    mesh gives each kernel (f32): qwen3-0.6b's heads split in two, 8 q
+    heads over 4 kv heads of hd 128 (the split plan depends on the head
+    count), 2 slots, W 256; the dual cache at the mesh phase's capacity
+    (C 64 of 256) and at the serving shape's C 128, the gate at decode (F
+    256), and the selected read at C 128, K 2. Returns (tag, record)
+    pairs, tagged ``<kernel> mesh``."""
+    import torch
+    f32 = torch.float32
+    return [
+        ("paged_decode mesh", dual_cache_case(2, 64, 256, f32, seed=170,
+                                              hkv=4, grp=2, hd=128)),
+        ("paged_decode mesh", dual_cache_case(2, 128, 256, f32, seed=171,
+                                              hkv=4, grp=2, hd=128)),
+        ("gate_mlp mesh", gate_case(rows=2 * 4, s=1, seed=172, h=4)),
+        ("paged_decode_selected mesh", selected_case(
+            2, 128, 256, 2, f32, seed=173, hkv=4, grp=2, hd=128))]
+
+
 def planted_faults(cases) -> dict:
     """Each fault of ``FAULTS`` planted alone in a rebuild of its kernel
     (all built at once), run on the inputs of its cases (fault name, (run,
@@ -2406,9 +2436,216 @@ def legacy_loop_phase():
     return counts
 
 
+MESH_SLOTS, MESH_CAP, MESH_NEW, MESH_LENS = 2, 256, 6, (24, 32, 40)
+
+
+def mesh_drive(eng, sentinels: bool):
+    """The mesh phase's three prompts through ``eng`` (chunk 16,
+    dispatch-ahead 1): (tokens, positions stepped, launches, wall,
+    step shapes or None)."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import CompileSentinel, SyncSentinel
+    from repro_torch.serving.orchestrator import (Orchestrator,
+                                                  SchedulerConfig)
+    rng = np.random.default_rng(47)
+    vocab = eng.cfg.vocab_size
+    orch = Orchestrator(eng, sched=SchedulerConfig(chunk_tokens=16,
+                                                   dispatch_ahead=1))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with position_counter() as pc, CompileSentinel(eng) as cs, \
+            (SyncSentinel(eng) if sentinels else contextlib.nullcontext()):
+        rids = [orch.submit(rng.integers(0, vocab - 8, n).tolist(),
+                            max_new=MESH_NEW) for n in MESH_LENS]
+        orch.run()
+        shapes = cs.check()
+    torch.cuda.synchronize()
+    return ([orch.tokens(r) for r in rids], pc.count, read_counts(),
+            time.perf_counter() - t0, shapes)
+
+
+def mesh_model(device):
+    """Full-width qwen3-0.6b, f32, weights drawn on ``device`` from seed
+    46 (every rank draws the same)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(46)
+    return cfg, init_model(cfg, gen, device)
+
+
+def host_leaves(tree) -> dict:
+    from repro_torch.tree import tree_leaves_with_path
+    return {tuple(str(k) for k in p): x.cpu().numpy()
+            for p, x in tree_leaves_with_path(tree)}
+
+
+def mesh_rank(mesh):
+    """One rank of the mesh phase's 1 x 2 run: its shard of the model,
+    the drive (no ``SyncSentinel``: gloo stages CUDA tensors through the
+    host), and what the parent checks."""
+    import torch
+    from repro_torch.roofline.counter import WorkCounter
+    from repro_torch.serving.backend import make_backend
+    cfg, params = mesh_model(mesh.device)
+    eng = make_backend("wgkv", params, cfg, slots=MESH_SLOTS,
+                       capacity=MESH_CAP, mirror_paged=False, mesh=mesh,
+                       device="cuda")
+    del params
+    torch.cuda.empty_cache()
+    # the work counter is the one tally of the collectives' bytes (aten
+    # ops not counted: the drive's wall stays the drive's)
+    with WorkCounter(aten=False) as wc:
+        toks, positions, counts, wall, shapes = mesh_drive(eng,
+                                                           sentinels=False)
+    from repro_torch.launch.specs import cache_tree_bytes
+    return {"tokens": toks, "positions": positions, "launches": counts,
+            "wall_s": wall, "shapes": shapes,
+            "cache_bytes": cache_tree_bytes(eng.caches),
+            "fused_steps": int(eng.stats["fused_steps"]),
+            "collective_bytes": wc.record()["collective_bytes_by_axis"],
+            "kv_heads": eng.plan.kv_heads,
+            "caches": host_leaves(eng.caches)}
+
+
+def mesh_phase(card: str):
+    """Sharded serving on the card, full-width qwen3-0.6b (28 layers, f32,
+    seeded weights), three prompts of 24-40 tokens, 6 new tokens each, 2
+    slots, dispatch-ahead 1:
+
+    (a) the flat port on ``cuda``, the yardstick;
+    (b) a 1 x 1 mesh over NCCL (a world of one, the production backend's
+        path): tokens equal (a)'s, under both sentinels (sync debug mode
+        "error" in the dispatch window);
+    (c) a 1 x 2 mesh whose two ranks share the card over gloo: tokens
+        equal (a)'s, each rank's integer cache state equals its head
+        slice of (a)'s and its floats are within 1e-4, each rank
+        launches 28 ``gate_mlp`` and 28 ``paged_decode`` a position step,
+        and the collective bytes each rank counts equal the prediction:
+        per position step 56 sums of [2, 1,024] f32 over "model" (ring
+        all-reduce over 2: 2 x bytes x 1/2), and per fused step one
+        [5, 2] f32 sum of the sampled tokens and stats. ``SyncSentinel``
+        is exempt there: gloo stages CUDA tensors through the host.
+    Times on the one-card gloo mesh measure host staging, not NVLink."""
+    import numpy as np
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.specs import cache_tree_bytes
+    from repro_torch.serving.backend import make_backend
+    cfg, params = mesh_model("cuda")
+    n = cfg.n_layers
+    out, counts_by = {}, {}
+    # (a) flat
+    eng = make_backend("wgkv", params, cfg, slots=MESH_SLOTS,
+                       capacity=MESH_CAP, mirror_paged=False, device="cuda")
+    toks, positions, counts, wall, shapes = mesh_drive(eng, sentinels=True)
+    flat_caches = host_leaves(eng.caches)
+    flat_bytes = cache_tree_bytes(eng.caches)
+    check(all(len(t) == MESH_NEW for t in toks), f"mesh flat: {toks}")
+    check(counts["gate_mlp"] == n * positions
+          and counts["paged_decode"] == n * positions,
+          f"mesh flat: {counts} for {positions} positions")
+    out["flat"] = {"tokens": toks, "positions": positions, "wall_s": wall,
+                   "shapes": shapes, "cache_bytes": flat_bytes}
+    counts_by["flat"] = counts
+    del eng
+    free_cuda()
+    # (b) a 1 x 1 mesh over NCCL, in this process
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = M.init_mesh((1, 1), backend="nccl", device="cuda")
+        eng = make_backend("wgkv", params, cfg, slots=MESH_SLOTS,
+                           capacity=MESH_CAP, mirror_paged=False, mesh=mesh,
+                           device="cuda")
+        check(eng.capabilities().sharded, "mesh 1x1: not sharded")
+        toks1, pos1, counts1, wall1, shapes1 = mesh_drive(eng,
+                                                          sentinels=True)
+        del eng
+    finally:
+        dist.destroy_process_group()
+    check(toks1 == toks, f"mesh 1x1: tokens {toks1} != flat {toks}")
+    check(counts1 == counts, f"mesh 1x1: launches {counts1} != {counts}")
+    out["1x1 nccl"] = {"positions": pos1, "wall_s": wall1,
+                       "shapes": shapes1, "sync_debug_mode": "error"}
+    counts_by["1x1 nccl"] = counts1
+    del params
+    free_cuda()
+    # (c) 1 x 2 over gloo, both ranks on this card
+    t0 = time.perf_counter()
+    ranks = M.spawn(mesh_rank, (1, 2), backend="gloo", device="cuda",
+                    timeout_s=600)
+    spawn_wall = time.perf_counter() - t0
+    d = cfg.d_model
+    for r, res in sorted(ranks.items()):
+        tag = f"1x2 gloo rank {r}"
+        check(res["tokens"] == toks, f"{tag}: tokens {res['tokens']} != "
+              f"flat {toks}")
+        p = res["positions"]
+        check(res["launches"]["gate_mlp"] == n * p
+              and res["launches"]["paged_decode"] == n * p,
+              f"{tag}: {res['launches']} for {p} positions")
+        want = {"model": p * 2 * n * 2 * (MESH_SLOTS * d * 4) // 2,
+                "world": res["fused_steps"] * 2 * (5 * MESH_SLOTS * 4) // 2}
+        check(res["collective_bytes"] == want,
+              f"{tag}: collective bytes {res['collective_bytes']} != "
+              f"predicted {want}")
+        h0, nh = res["kv_heads"]
+        worst, ints = 0.0, 0
+        for path, mine in res["caches"].items():
+            full = flat_caches[path]
+            ax = 1 if "blocks" in path else 0
+            if mine.ndim > ax + 1 and mine.shape[ax + 1] != full.shape[ax + 1]:
+                full = np.take(full, range(h0, h0 + nh), axis=ax + 1)
+            check(mine.shape == full.shape, f"{tag}: {path} {mine.shape} "
+                  f"vs {full.shape}")
+            if np.issubdtype(full.dtype, np.integer):
+                check(np.array_equal(mine, full), f"{tag}: {path} differs")
+                ints += 1
+            else:
+                worst = max(worst, float(np.abs(mine - full).max()))
+        check(worst <= 1e-4, f"{tag}: cache floats differ by {worst}")
+        # the per-head leaves halve; t, ptr and lpos are every rank's
+        share = res["cache_bytes"] / flat_bytes
+        check(0.5 <= share < 0.51, f"{tag}: cache bytes {res['cache_bytes']}"
+              f" of the flat run's {flat_bytes}")
+        out[tag] = {"positions": p, "wall_s": res["wall_s"],
+                    "shapes": res["shapes"],
+                    "collective_bytes": res["collective_bytes"],
+                    "collective_bytes_predicted": want,
+                    "collective_bytes_per_position_step":
+                        res["collective_bytes"]["model"] / p,
+                    "nvlink_us_per_position_step_at_450GB_s":
+                        res["collective_bytes"]["model"] / p / 450e9 * 1e6,
+                    "cache_int_leaves_equal": ints,
+                    "cache_float_max_abs_err": worst,
+                    "cache_bytes": res["cache_bytes"],
+                    "cache_bytes_share_of_flat": share,
+                    "sync_sentinel": "exempt: gloo stages CUDA tensors "
+                                     "through the host"}
+        counts_by[tag] = res["launches"]
+    out["1x2 gloo"] = {"spawn_wall_s": spawn_wall, "ranks_per_card": 2,
+                       "note": "two ranks share one card over gloo: its "
+                               "times measure host staging, not NVLink"}
+    print("mesh: " + json.dumps({"card": card, "layers": n,
+                                 "slots": MESH_SLOTS, "capacity": MESH_CAP,
+                                 "prompt_lens": MESH_LENS,
+                                 "max_new": MESH_NEW, "runs": out}),
+          flush=True)
+    return counts_by
+
+
 def serve_ab(card: str):
-    """The serving A/B at full width (depth cut to 14 of 28 layers, as in
-    serve-compose): the same 2 x 384-token prompts and 16 new tokens
+    """The serving A/B at full width (depth cut to ``SERVE_REPEATS`` of
+    28 layers): the same 2 x 384-token prompts and 16 new tokens
     through ``ServeSession`` over ``wgkv`` then ``dense``, then one of
     them through ``streaming_llm`` and ``duo``. Per backend: TTFT, TPOT,
     tokens/s, the KV-token peak and resident KV bytes (logical, and the
@@ -2425,7 +2662,8 @@ def serve_ab(card: str):
     from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
 
     slots, cap, prompt_len, max_new = 2, 512, 384, 16
-    cfg = get_config("qwen3-0.6b").replace(dtype="float32", n_repeats=14)
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32",
+                                           n_repeats=SERVE_REPEATS)
     gen = torch.Generator(device="cuda").manual_seed(15)
     params = init_model(cfg, gen, "cuda")
     rng = np.random.default_rng(15)
@@ -4635,6 +4873,9 @@ def main() -> int:
     # substrate's selected read)
     fig_kernels = figure_cases()
     free_cuda()
+    # this slice's: one mesh rank's shapes
+    mesh_kernels = mesh_cases()
+    free_cuda()
     planted = planted_faults([("gate_mlp_bwd", gb_train_run),
                               ("gate_mlp_bwd", gb_sub_run),
                               ("gate_mlp_bwd", gb_rg_run),
@@ -4690,7 +4931,8 @@ def main() -> int:
                    ("gated_flash_bwd G3", fb_g3),
                    ("gated_flash_bwd G3", fb_g3_80),
                    ("gate_mlp_bwd rg", gb_rg), *dense_kernels,
-                   *moe_kernels, *new_kernels, *fig_kernels):
+                   *moe_kernels, *new_kernels, *fig_kernels,
+                   *mesh_kernels):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
     print("planted faults (backward: relative error, limit "
           f"{BWD_REL}; forward: max abs error, limit {TOL['float32']}): "
@@ -4769,6 +5011,11 @@ def main() -> int:
     lap("sentinels")
     loop_counts = legacy_loop_phase()
     lap("legacy-loop")
+    # sharded serving: flat, a 1 x 1 NCCL mesh, a 1 x 2 gloo mesh on the
+    # one card
+    free_cuda()
+    mesh_counts = mesh_phase(card)
+    lap("mesh")
     # gate-distillation training (this slice's paths)
     free_cuda()
     train_counts, train_stats = train_arch(card, "qwen3-0.6b", steps=4,
@@ -4905,6 +5152,9 @@ def main() -> int:
     for tag, r in fig_kernels:
         name, fig = tag.split()
         fig_by.setdefault(name, {}).setdefault(fig, []).append(r)
+    mesh_by = {}  # kernel -> its cases at one mesh rank's shapes
+    for tag, r in mesh_kernels:
+        mesh_by.setdefault(tag.split()[0], []).append(r)
 
     def dense_err(name):
         return max(r["max_abs_err"] for by in (dense_by, moe_by, new_by)
@@ -5155,6 +5405,8 @@ def main() -> int:
         entry["launches_sentinels"] = {k: c[entry["name"]]
                                        for k, c in sentinel_counts.items()}
         entry["launches_legacy_loop"] = loop_counts[entry["name"]]
+        entry["launches_mesh"] = {k: c[entry["name"]]
+                                  for k, c in mesh_counts.items()}
         entry["launches_figures"] = figures_counts[entry["name"]]
         if entry["name"] in fig_by:
             entry["figures"] = fig_by[entry["name"]]
@@ -5162,6 +5414,11 @@ def main() -> int:
                 entry["max_abs_err"], *(r["max_abs_err"] for rs in
                                         fig_by[entry["name"]].values()
                                         for r in rs))
+        if entry["name"] in mesh_by:
+            entry["mesh_rank"] = mesh_by[entry["name"]]
+            entry["max_abs_err"] = max(
+                entry["max_abs_err"],
+                *(r["max_abs_err"] for r in mesh_by[entry["name"]]))
     print("phase seconds: " + json.dumps(PHASE_S))
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -65,8 +65,13 @@ first ``n`` scheduler ticks; ``poisson:<rate>`` draws i.i.d. exponential
 inter-arrival gaps (``rate`` = mean arrivals per tick), the open-loop
 traffic model the TTFT tail percentiles are meaningful under.
 
-Multi-device serving is not ported: ``--mesh`` exits 2, as
-``repro_torch.launch.serve`` does.
+``--mesh DxM`` replays the A/B on a data x model mesh
+(serving/sharded.py): every rank runs the same replays on its shard, as
+``repro_torch.launch.serve --mesh`` does (ranks spawned here, or the
+world ``torchrun`` started; ``--dist-backend gloo`` shares one card), and
+rank 0 writes the record, whose trace carries the mesh. Without
+``--json-out`` a mesh run writes to a temporary file, never over
+``BENCH_serving_torch.json``.
 
 The arrival trace is drawn with numpy (``np.random.default_rng(seed)``),
 not ``jax.random``: the port's prompts and ticks are its own, so its
@@ -91,6 +96,7 @@ import datetime
 import json
 import os
 import sys
+import tempfile
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -100,12 +106,15 @@ from repro_torch.benchmarks.common import (REPO, device_label, needle_batch,
                                            trained_model)
 from repro_torch.core.selection import PAGE_SIZE
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import build
+from repro_torch.launch import mesh as M
 from repro_torch.serving.backend import BACKEND_NAMES, make_backend
 from repro_torch.serving.obs.export import (validate_chrome_trace,
                                             write_chrome_trace)
 from repro_torch.serving.obs.trace import Tracer
 from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
 from repro_torch.serving.orchestrator.telemetry import PHASE_TIME_KEYS
+from repro_torch.serving.sharded import parse_mesh_shape
 
 N_REQUESTS = 12
 PROMPT_LEN = 96
@@ -432,7 +441,7 @@ def _trace_path(base: str, name: str) -> str:
     return f"{stem}.{name}{ext or '.json'}"
 
 
-def _selection_ab(name: str, params, cfg, dev, trace, warmup,
+def _selection_ab(name: str, params, cfg, bkw, trace, warmup,
                   async_toks, base_tok_rate, *, ks: Sequence[int],
                   needle_n: int) -> Dict:
     """Decode-time page-selection A/B on one paged backend: a fresh
@@ -442,8 +451,8 @@ def _selection_ab(name: str, params, cfg, dev, trace, warmup,
     then the timed K sweep with serving-path needle accuracy."""
     k_all = CAPACITY // PAGE_SIZE
     sel_eng = make_backend(name, params, cfg, slots=SLOTS,
-                           capacity=CAPACITY, device=dev,
-                           selection=f"quest:{k_all}")
+                           capacity=CAPACITY, selection=f"quest:{k_all}",
+                           **bkw)
     sel_eng.mirror = False
     replay(sel_eng, warmup)
     _, all_toks = replay(sel_eng, trace)
@@ -457,8 +466,8 @@ def _selection_ab(name: str, params, cfg, dev, trace, warmup,
     out: Dict = {"parity_k": k_all, "per_k": {}}
     for k in ks:
         eng = make_backend(name, params, cfg, slots=SLOTS,
-                           capacity=CAPACITY, device=dev,
-                           selection=f"quest:{k}")
+                           capacity=CAPACITY, selection=f"quest:{k}",
+                           **bkw)
         eng.mirror = False
         t0 = time.perf_counter()
         replay(eng, warmup)
@@ -492,18 +501,36 @@ def _selection_ab(name: str, params, cfg, dev, trace, warmup,
 def run(backends: Optional[Sequence[str]] = None, smoke: bool = False,
         arrival: str = "burst", mesh: Optional[str] = None,
         trace_out: Optional[str] = None, device: DeviceLike = None,
-        json_path: str = JSON_PATH):
-    """The A/B on ``device`` (default ``cuda``); the record goes to
-    ``json_path``. ``mesh`` raises: multi-device serving is not ported."""
+        json_path: str = JSON_PATH, dist_backend: Optional[str] = None):
+    """The A/B on ``device`` (default ``cuda``), or on every rank of a
+    ``mesh`` ("DxM") over ``dist_backend``; the record goes to
+    ``json_path`` (rank 0's rows are returned)."""
     names = tuple(backends) if backends else ("wgkv", "dense")
     for n in names:
         if n not in BACKEND_NAMES:
             raise ValueError(f"unknown backend {n!r}; known: {BACKEND_NAMES}")
     poisson_rate(arrival)       # validate before any model work
-    if mesh is not None:
-        raise NotImplementedError("bench_serving --mesh is not ported to "
-                                  "repro_torch yet (see ROADMAP.md)")
-    dev = resolve_device(device)
+    kw = dict(names=names, smoke=smoke, arrival=arrival, spec=mesh,
+              trace_out=trace_out, device=device, json_path=json_path)
+    if mesh is None:
+        return _run(None, **kw)
+    shape = parse_mesh_shape(mesh)
+    if M.under_torchrun():
+        return _run(M.from_env(shape, backend=dist_backend, device=device),
+                    **kw)
+    if resolve_device(device).type == "cuda":
+        build.build_all()   # once, before the ranks would each run nvcc
+    return M.spawn(_run, shape, kwargs=kw, backend=dist_backend,
+                   device=device or "cuda")[0]
+
+
+def _run(mesh_obj, *, names, smoke, arrival, spec, trace_out, device,
+         json_path):
+    """The A/B of :func:`run` on this process: unsharded, or this rank's
+    shard of ``mesh_obj`` (only rank 0 writes files)."""
+    dev = resolve_device(device) if mesh_obj is None else mesh_obj.device
+    writer = mesh_obj is None or mesh_obj.rank == 0
+    bkw = dict(device=dev, mesh=mesh_obj)
     n_req, plen, mnew = ((SMOKE["n_requests"], SMOKE["prompt_len"],
                           SMOKE["max_new"]) if smoke
                          else (N_REQUESTS, PROMPT_LEN, MAX_NEW))
@@ -524,7 +551,7 @@ def run(backends: Optional[Sequence[str]] = None, smoke: bool = False,
             datetime.timezone.utc).isoformat(),
         "device": device_label(dev),
         "trace": {"requests": n_req, "prompt_len": plen, "max_new": mnew,
-                  "arrival": arrival, "mesh": mesh,
+                  "arrival": arrival, "mesh": spec,
                   "arrival_ticks": [r["arrival_tick"] for r in trace],
                   "dispatch_ahead": DISPATCH_AHEAD, "smoke": smoke},
         "backends": {},
@@ -532,7 +559,7 @@ def run(backends: Optional[Sequence[str]] = None, smoke: bool = False,
     rows = []
     for name in names:
         eng = make_backend(name, params, cfg, slots=SLOTS, capacity=CAPACITY,
-                           device=dev)
+                           **bkw)
         paged = eng.capabilities().paged
         # the timed replays run with the host-side paged mirror OFF so the
         # throughput/latency A/B isolates the cache policy; mirroring cost
@@ -591,7 +618,7 @@ def run(backends: Optional[Sequence[str]] = None, smoke: bool = False,
             # decode-time page selection A/B: parity at K = all pages,
             # timed K sweep, serving-path needle accuracy (the engines
             # are per-K — the selection spec is an engine option)
-            sel = _selection_ab(name, params, cfg, dev, trace,
+            sel = _selection_ab(name, params, cfg, bkw, trace,
                                 warmup, async_toks, s["tokens_per_s"],
                                 ks=sel_ks, needle_n=needle_n)
             sel["needle_accuracy_off"] = needle_serving_accuracy(
@@ -599,7 +626,7 @@ def run(backends: Optional[Sequence[str]] = None, smoke: bool = False,
             rec["selection"] = sel
             if "selection_speedup" in sel:
                 rec["selection_speedup"] = sel["selection_speedup"]
-        if trace_out:
+        if trace_out and writer:
             # dedicated traced replay on the warm engine, AFTER the timed
             # A/B (spans cover the production async replay; the timed
             # numbers above stay tracing-free). The artifact is validated
@@ -693,6 +720,8 @@ def run(backends: Optional[Sequence[str]] = None, smoke: bool = False,
             rows.append((f"serving/ab/{name}", 0.0,
                          " ".join(f"{k}={v:.3f}" for k, v in ab.items())
                          or "n/a"))
+    if not writer:
+        return None
     with open(json_path, "w") as fh:
         json.dump(record, fh, indent=2)
     rows.append(("serving/json", 0.0, json_path))
@@ -711,7 +740,11 @@ def main(argv=None) -> None:
                     help="arrival process: burst | poisson:<rate> "
                          "(mean arrivals per scheduler tick)")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="not ported: exits 2")
+                    help="replay the A/B on a data x model mesh of D * M "
+                         "ranks")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="the mesh's process-group backend (default: nccl "
+                         "on cuda, gloo on cpu)")
     ap.add_argument("--slo-tolerance", type=float, default=None,
                     metavar="FRAC",
                     help="fail (exit 1) when a backend's p99 TTFT exceeds "
@@ -724,21 +757,29 @@ def main(argv=None) -> None:
                          "(trace.json -> trace.wgkv.json, ...)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
-    ap.add_argument("--json-out", default=JSON_PATH, metavar="PATH",
-                    help="the port's record and SLO history "
-                         "(default: BENCH_serving_torch.json at the root)")
+    ap.add_argument("--json-out", default=None, metavar="PATH",
+                    help="the port's record and SLO history (default: "
+                         "BENCH_serving_torch.json at the root; with "
+                         "--mesh, a temporary file)")
     args = ap.parse_args(argv)
     if args.mesh is not None:
-        ap.exit(2, f"{ap.prog}: --mesh (multi-device serving) is not ported "
-                   "to repro_torch yet (see ROADMAP.md)\n")
+        try:
+            parse_mesh_shape(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.json_out is None:
+        args.json_out = JSON_PATH if args.mesh is None else os.path.join(
+            tempfile.mkdtemp(prefix="bench_serving_mesh_"),
+            "BENCH_serving_torch.json")
     # snapshot the committed history BEFORE run() overwrites it
     prev_record = None
     if args.slo_tolerance is not None and os.path.exists(args.json_out):
         with open(args.json_out) as fh:
             prev_record = json.load(fh)
     rows = run(backends=args.backends.split(","), smoke=args.smoke,
-               arrival=args.arrival, trace_out=args.trace_out,
-               device=args.device, json_path=args.json_out)
+               arrival=args.arrival, mesh=args.mesh, trace_out=args.trace_out,
+               device=args.device, json_path=args.json_out,
+               dist_backend=args.dist_backend)
     print(device_label(resolve_device(args.device)))
     for r in rows:
         print(",".join(str(x) for x in r))

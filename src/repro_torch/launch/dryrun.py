@@ -13,9 +13,10 @@ report their work (``repro_torch.roofline.work``), and the counter
 :func:`run_dryrun` also takes ``device="cuda"`` and weights on the card:
 ``chip_smoke.py`` runs the same bundle there under the same counter and
 holds the two counts equal. The reference lowers and compiles its step
-for a 16 x 16 TPU mesh; the mesh half (shardings, collectives, the
-reference's ``n_repeats_override`` for its L1/L2 differencing) waits for
-ROADMAP Queue 1 item 8, so ``collectives`` is 0 here. Records are
+for a 16 x 16 TPU mesh; the mesh half (the sharded bundles on a fake
+process group, the reference's ``n_repeats_override`` for its L1/L2
+differencing) waits for ROADMAP Queue 1 item 8b. ``collectives`` holds
+the counter's collective bytes, 0 on one card. Records are
 appended to ``build/roofline/dryrun.json`` (git-ignored) or ``--out``.
 
 xlstm's sLSTM runs one Python step per token, far too many ops to count
@@ -119,7 +120,8 @@ def run_dryrun(arch: str, shape: Union[str, InputShape], *,
             "fits_one_h100": peak <= A.H100_PROCESS_BYTES,
         },
         "cost": cost,
-        "collectives": {"per_chip_bytes": 0},
+        "collectives": {"per_chip_bytes": cost.pop("collective_bytes"),
+                        "by_axis": cost.pop("collective_bytes_by_axis")},
     }
     slstm = A.slstm_hidden_flops(cfg, shape, 1)
     if torch.device(device).type == "meta" and slstm and \

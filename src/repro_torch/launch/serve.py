@@ -17,19 +17,33 @@ telemetry.
         --reduced --device cpu --backend dense --prefix-cache
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --reduced --device cpu --backend duo --retrieval-ratio 0.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --reduced --device cpu --mesh 2x2 --requests 2 --max-new 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --mesh 1x2 --dist-backend gloo
 
 Weights are random, drawn from ``--seed`` with a ``torch.Generator``;
-prompts are drawn with numpy from the same seed. Flags of the reference
-CLI that this port does not support yet exit with a message instead of
-being ignored (``--mesh``). As in the reference, an arch without a KV
-cache (xlstm-350m) and the encoder-decoder (whisper-medium) are refused;
-qwen2-vl-7b serves text only. At startup of the ``wgkv`` backend a short
-gated forward probes the gate scores (:func:`tau_probe`) and warns on
-stderr when tau sits inside their cluster.
+prompts are drawn with numpy from the same seed. As in the reference, an
+arch without a KV cache (xlstm-350m) and the encoder-decoder
+(whisper-medium) are refused; qwen2-vl-7b serves text only. At startup of
+the ``wgkv`` backend a short gated forward probes the gate scores
+(:func:`tau_probe`) and warns on stderr when tau sits inside their
+cluster.
+
+``--mesh DxM`` serves on a data x model mesh (serving/sharded.py): under
+``torchrun`` the CLI joins the world it is given; otherwise it starts its
+``D * M`` ranks itself (``launch.mesh.spawn``; on CUDA it builds the
+kernels once first). Every rank draws the same weights, runs the tau
+probe on them whole, and serves its shard; rank 0 alone streams and
+prints. ``--dist-backend`` is ``nccl`` on CUDA (one card per rank) and
+``gloo`` on the CPU; ``--dist-backend gloo`` on CUDA runs ranks that share
+a card.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import sys
 import warnings
 from typing import Dict, List, Optional
@@ -41,6 +55,8 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_reduced_config
 from repro_torch.configs.base import ATTN_BLOCKS
 from repro_torch.core.admission import check_tau_margin
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
+from repro_torch.launch import mesh as M
 from repro_torch.models import inference as I
 from repro_torch.models import transformer as T
 from repro_torch.serving.backend import BACKEND_NAMES, make_backend
@@ -48,6 +64,8 @@ from repro_torch.serving.obs import Tracer, write_chrome_trace
 from repro_torch.serving.orchestrator import (QueueFull, SchedulerConfig,
                                               ServeSession)
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.sharded import parse_mesh_shape
+from repro_torch.sharding import rules
 
 
 def pool_pages_for(cfg, slots: int, capacity: int) -> int:
@@ -93,11 +111,6 @@ def tau_probe(params, cfg, *, prompt_len: int, seed: int,
     return margin
 
 
-_UNPORTED = {
-    "mesh": "--mesh (multi-device serving)",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
@@ -135,7 +148,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = synchronous one-step-per-tick baseline)")
     ap.add_argument("--deadline-s", type=float, default=None)
     ap.add_argument("--max-pending", type=int, default=None)
-    ap.add_argument("--mesh", default=None, metavar="DxM")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a data x model mesh of D * M ranks")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="the mesh's process-group backend (default: nccl "
+                         "on cuda, gloo on cpu)")
     ap.add_argument("--quest-pages", type=int, default=None,
                     help="Quest selection as a page mask on every step")
     ap.add_argument("--evict-budget", type=int, default=None,
@@ -159,12 +176,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     "paged_dev": float, "report": str, "summary": the telemetry summary
     of the burst} for callers that drive it."""
     ap = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
-    for name, flag in _UNPORTED.items():
-        val = getattr(args, name)
-        if val not in (None, False):
-            ap.exit(2, f"{ap.prog}: {flag} is not ported to repro_torch "
-                       "yet (see ROADMAP.md)\n")
     if args.prefix_cache_mb < 1:
         ap.error("--prefix-cache-mb must be >= 1")
     if args.max_pending is not None and args.max_pending < 1:
@@ -179,7 +192,40 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         ap.error("--trace-capacity must be >= 1")
     if args.metrics_interval is not None and args.metrics_interval <= 0:
         ap.error("--metrics-interval must be > 0")
-    device = resolve_device(args.device)
+    if args.mesh is None:
+        return serve(args, None)
+    try:
+        shape = parse_mesh_shape(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    try:   # before any rank starts
+        rules.check_mesh_arch(get_config(args.arch))
+    except NotImplementedError as e:
+        ap.exit(2, f"{ap.prog}: {e}\n")
+    if M.under_torchrun():
+        return serve(args, M.from_env(shape, backend=args.dist_backend,
+                                      device=args.device))
+    if resolve_device(args.device).type == "cuda":
+        build.build_all()   # once, before the ranks would each run nvcc
+    return M.spawn(_serve_rank, shape, args=(argv,),
+                   backend=args.dist_backend, device=args.device)[0]
+
+
+def _serve_rank(mesh, argv: List[str]):
+    """One rank of a spawned ``--mesh`` serve: rank 0 prints and returns
+    the result, the others serve silently."""
+    args = build_parser().parse_args(argv)
+    if mesh.rank == 0:
+        return serve(args, mesh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        serve(args, mesh)
+    return None
+
+
+def serve(args, mesh) -> Dict[str, object]:
+    """The serve of parsed ``args``, on ``mesh``'s shard or (None) on
+    ``args.device``."""
+    device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     cfg = cfg.replace(dtype="float32")
     if not cfg.has_attention_cache:
@@ -205,8 +251,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                        temperature=args.temperature, seed=args.seed,
                        pool_pages=pool_pages_for(cfg, args.slots,
                                                  args.capacity),
-                       device=device, **static_kw)
+                       device=device, mesh=mesh, **static_kw)
     print(f"backend: {eng.capabilities()}")
+    if mesh is not None:
+        print(f"mesh: {mesh.describe()}")
     prefix_cache = None
     if args.prefix_cache:
         prefix_cache = PrefixCache(quantum=args.chunk_tokens,

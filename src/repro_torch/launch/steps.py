@@ -6,7 +6,8 @@ Used by :mod:`repro_torch.launch.dryrun`, which runs a bundle once on the
 mesh-derived knobs resolve as on a 1 x 1 mesh: ``moe_groups`` is 1. The
 reference's sharding half (``_with_act_sharding``, ``_named``,
 ``_replicated_tree``, ``_input_shardings`` and every ``rules.*`` call)
-waits for the mesh (ROADMAP Queue 1 item 8), and so does its decode
+waits for the sharded bundles (ROADMAP Queue 1 item 8b; the serving
+half of the mesh is ``serving/sharded.py``), and so does its decode
 bundle's ``replicate_params``. ``scan_unroll`` is an XLA compile hint with
 no eager counterpart (ROADMAP item 6c). The reference's prefill knobs
 ``block_chunk`` and ``q_chunk`` bound its dense einsum's scores; the

@@ -52,6 +52,7 @@ from repro_torch.core.gate import gate_scores, init_gate
 from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import comm
 
 Params = Dict[str, torch.Tensor]
 
@@ -373,7 +374,7 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     b, _ = x_t.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x_t[:, None, :]
-    q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)[:, :, 0]        # [B,Hq,hd]
+    q = _heads(comm.gather_q(x @ p["w_q"].to(x.dtype)), hq, hd)[:, :, 0]
     k_pre = _heads(x @ p["w_k"].to(x.dtype), hkv, hd)[:, :, 0]
     v_new = _heads(x @ p["w_v"].to(x.dtype), hkv, hd)[:, :, 0]
     q, k_pre = _qk_norm(p, q[:, :, None], k_pre[:, :, None])
@@ -407,7 +408,8 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
         else:
             ids, n_sel = SEL.page_ids_from_mask(token_select_fn(new_cache, q))
         o = ops.dual_cache_selected_attention(q, new_cache, ids, n_sel)
-    y = o.reshape(b, hq * hd) @ p["w_o"].to(x_t.dtype)
+    y = comm.reduce_model(
+        comm.local_q(o.reshape(b, hq * hd)) @ p["w_o"].to(x_t.dtype), "attn")
     return y, new_cache, g_new, sel_pages
 
 
@@ -431,7 +433,7 @@ def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     b, _ = x_t.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x_t[:, None, :]
-    q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)[:, :, 0]
+    q = _heads(comm.gather_q(x @ p["w_q"].to(x.dtype)), hq, hd)[:, :, 0]
     k_pre = _heads(x @ p["w_k"].to(x.dtype), hkv, hd)[:, :, 0]
     v_new = _heads(x @ p["w_v"].to(x.dtype), hkv, hd)[:, :, 0]
     q, k_pre = _qk_norm(p, q[:, :, None], k_pre[:, :, None])
@@ -442,7 +444,8 @@ def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     cache = dense_cache_append(cache, k_new, v_new, write=write)
     end = None if limit is None else torch.minimum(cache.t, limit)
     o = ops.dense_cache_attention(q, cache, window=window, end=end)
-    y = o.reshape(b, hq * hd) @ p["w_o"].to(x_t.dtype)
+    y = comm.reduce_model(
+        comm.local_q(o.reshape(b, hq * hd)) @ p["w_o"].to(x_t.dtype), "attn")
     return y, cache
 
 

@@ -66,6 +66,7 @@ from repro_torch.models import xlstm as XL
 from repro_torch.models.transformer import (_norm, embed_inputs, ffn,
                                             layer_params, stem_params,
                                             unstack)
+from repro_torch.sharding import comm
 from repro_torch.tree import tree_map, tree_map_with_path
 
 Params = Dict[str, Any]
@@ -355,8 +356,9 @@ def _attn_block_decode(p: Params, cfg: ModelConfig, bt: str,
     selp = None if sel_pages is None else sel_pages.float().mean(dim=-1)
     trig = None
     if obs is not None and opts.evict_hard_budget is not None:
-        q_obs = A._heads(xin[:, None] @ p["attn"]["w_q"].to(xin.dtype),
-                         cfg.n_heads, cfg.head_dim)[:, :, 0]
+        q_obs = A._heads(comm.gather_q(
+            xin[:, None] @ p["attn"]["w_q"].to(xin.dtype)),
+            cfg.n_heads, cfg.head_dim)[:, :, 0]
         obs = EV.push_query(obs, q_obs)
         nc, trg = EV.maybe_evict(nc, obs, hard_budget=opts.evict_hard_budget,
                                  evict_frac=opts.evict_frac)

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.sharding import comm
 
 Params = Dict[str, torch.Tensor]
 
@@ -157,7 +158,8 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    # on a mesh: the row-parallel w_down's partials summed over "model"
+    return comm.reduce_model(h @ p["w_down"].to(dt), "ffn")
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,

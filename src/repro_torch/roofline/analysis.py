@@ -6,14 +6,16 @@ record (FLOPs by rate class, bytes, collective bytes)::
 
     compute_s    = sum over rate classes of flops[class] / RATES[class]
     memory_s     = bytes / HBM_BYTES_PER_S
-    collective_s = collective bytes / NVLINK_BYTES_PER_S   (0 on one card)
+    collective_s = collective bytes / NVLINK_BYTES_PER_S
 
 The reference compiles its step with XLA, whose ``cost_analysis`` counts
 a ``while`` body once, so it differences unrolled one- and two-repeat
 compiles (its L1/L2 totals). The port runs the step eagerly and its
 counter sees every layer's ops, so that differencing is not ported. The
-reference's collective parse of HLO text has no counterpart on one card;
-the mesh (ROADMAP Queue 1 item 8) adds the collective bytes.
+reference parses its collectives out of HLO text; the port's mesh
+collectives (``sharding/comm.py``) report their bytes to the counter in
+the same ring accounting (``roofline.counter.collective_bytes``), and
+NVLink's rate prices them (on one card there are none).
 """
 from __future__ import annotations
 

@@ -27,10 +27,14 @@ records
   on the CPU nor a kernel's scratch on CUDA is counted twice; the
   wrapper's outputs count as made.
 
+- **collective bytes** a chip moves, reported by the mesh's collectives
+  (``sharding/comm.py``) in the ring accounting of
+  :func:`collective_bytes`, the reference's ``roofline/hlo_parse.py``
+  rules; 0 on one card. The collective ops themselves count no HBM
+  bytes.
+
 Everything read is a shape, a dtype or a storage's size: the counter
-never syncs the host with the card. The collective parse of the
-reference (``roofline/hlo_parse.py``) has no counterpart yet: on one card
-the collective bytes are 0 (ROADMAP Queue 1 item 8).
+never syncs the host with the card.
 
 With no counter active, a decorated wrapper checks :data:`ACTIVE` and
 does nothing else::
@@ -84,6 +88,20 @@ def counted(name: Union[str, Callable[..., str]],
     return wrap
 
 
+def collective_bytes(kind: str, nbytes: int, n: int) -> int:
+    """Bytes one chip moves for a collective over ``n`` chips whose
+    input (all-reduce, reduce-scatter, broadcast) or output (the others)
+    is ``nbytes``, in ring accounting (``repro/roofline/hlo_parse.py``):
+    all-reduce 2 x bytes x (n-1)/n, all-gather, reduce-scatter,
+    all-to-all and broadcast bytes x (n-1)/n, collective-permute bytes."""
+    if n <= 1:
+        return 0
+    if kind == "collective_permute":
+        return nbytes
+    factor = 2 if kind == "all_reduce" else 1
+    return factor * nbytes * (n - 1) // n
+
+
 def _tensors(tree) -> list:
     return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
@@ -101,13 +119,17 @@ def _rate(args) -> str:
 
 class WorkCounter(TorchDispatchMode):
     """Counts the work of everything run inside ``with WorkCounter() as
-    wc:``; :meth:`record` returns it as plain integers."""
+    wc:``; :meth:`record` returns it as plain integers. ``aten=False``
+    counts only the kernel wrappers and the collectives: no dispatch mode
+    is entered, so a timed run pays nothing per aten op."""
 
-    def __init__(self):
+    def __init__(self, aten: bool = True):
         super().__init__()
+        self._aten = aten
         self.flops: Dict[str, int] = defaultdict(int)
         self.bytes = 0
         self.host_copy_bytes = 0
+        self.collective_bytes: Dict[str, int] = defaultdict(int)  # by axis
         # aten op -> [calls, flops, bytes]
         self.ops: Dict[str, list] = defaultdict(lambda: [0, 0, 0])
         # kernel -> [launches, flops, bytes, rate]
@@ -121,12 +143,12 @@ class WorkCounter(TorchDispatchMode):
     def __enter__(self):
         global ACTIVE
         self._outer, ACTIVE = ACTIVE, self
-        return super().__enter__()
+        return super().__enter__() if self._aten else self
 
     def __exit__(self, *exc):
         global ACTIVE
         ACTIVE = self._outer
-        return super().__exit__(*exc)
+        return super().__exit__(*exc) if self._aten else None
 
     # ---- storages -------------------------------------------------------
     def _made(self, out) -> None:
@@ -168,11 +190,16 @@ class WorkCounter(TorchDispatchMode):
         self._made(out)
         return out
 
+    def collective(self, nbytes: int, axis: str) -> None:
+        """Records ``nbytes`` moved by one collective over the mesh's
+        ``axis`` (:func:`collective_bytes`)."""
+        self.collective_bytes[axis] += int(nbytes)
+
     # ---- aten ops -------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if self._suspended:
+        if self._suspended or func.namespace == "c10d":
             return out
         schema = func._schema
         op = func.overloadpacket.__name__
@@ -225,7 +252,8 @@ class WorkCounter(TorchDispatchMode):
 
     def record(self) -> Dict[str, Any]:
         """The counts as plain integers: FLOPs by rate class, bytes,
-        host-copy bytes, peak live bytes of the storages made, each
+        host-copy bytes, collective bytes (in all and by mesh axis),
+        peak live bytes of the storages made, each
         kernel's launches, FLOPs, bytes and rate, and each aten op's calls,
         FLOPs and bytes."""
         return {
@@ -233,6 +261,9 @@ class WorkCounter(TorchDispatchMode):
                       for c in ("f32", "3xtf32", "bf16")},
             "bytes": int(self.bytes),
             "host_copy_bytes": int(self.host_copy_bytes),
+            "collective_bytes": int(sum(self.collective_bytes.values())),
+            "collective_bytes_by_axis": dict(sorted(
+                self.collective_bytes.items())),
             "peak_made_bytes": int(self.peak_bytes),
             "kernels": {k: {"launches": v[0], "flops": v[1], "bytes": v[2],
                             "rate": v[3]}

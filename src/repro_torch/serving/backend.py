@@ -1,6 +1,6 @@
 """EngineBackend: the backend-agnostic serving protocol (port of
-``repro/serving/backend.py``; every backend of the reference, without
-its mesh-sharded path).
+``repro/serving/backend.py``; every backend of the reference, on one
+device or a mesh).
 
 The orchestrator (serving/orchestrator/) schedules *any* accelerator
 backend that exposes the JetStream-style prefill/insert/generate
@@ -97,7 +97,7 @@ Concrete implementations in the port:
   serving/engine.py           Engine                (wgkv — paper system)
   serving/dense.py            DenseEngine           (full-KV baseline)
   serving/static_admission.py StaticAdmissionEngine (StreamingLLM / Duo)
-The reference's mesh-sharded path is not ported yet.
+Each serves on a data x model mesh with ``mesh=`` (serving/sharded.py).
 """
 from __future__ import annotations
 
@@ -275,12 +275,11 @@ def make_backend(name: str, params, cfg, **kw) -> EngineBackend:
     page-selection policy, ``"quest:K"``, folded into
     ``opts.selection_policy``; dual-cache backends only). WG-KV family:
     ``pool_pages``, ``mirror_paged``. Static admission: ``sink``,
-    ``retrieval_heads`` / ``retrieval_ratio`` (duo). ``mesh`` raises
-    :class:`NotImplementedError`: multi-device serving is not ported.
+    ``retrieval_heads`` / ``retrieval_ratio`` (duo). ``mesh``: this
+    rank's :class:`~repro_torch.launch.mesh.Mesh` (serving/sharded.py);
+    an arch the port does not serve on a mesh raises
+    :class:`NotImplementedError`.
     """
-    if kw.pop("mesh", None) is not None:
-        raise NotImplementedError("make_backend(mesh=...) is not ported to "
-                                  "repro_torch yet")
     from repro_torch.models import inference as I
     selection = kw.pop("selection", None)
     if selection is not None:

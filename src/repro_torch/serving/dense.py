@@ -28,8 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.specs import (build_decode_caches, cache_tree_bytes,
-                                      extract_slot_caches)
+from repro_torch.launch.specs import build_decode_caches, cache_tree_bytes
 from repro_torch.models import inference as I
 from repro_torch.models.attention import DenseCache
 from repro_torch.serving.backend import BackendCapabilities, PrefillTask
@@ -44,7 +43,7 @@ class DenseEngine(Engine):
                  eos: Optional[int] = None, temperature: float = 0.0,
                  seed: int = 0, device=None,
                  pool_pages: Optional[int] = None,
-                 mirror_paged: bool = False):
+                 mirror_paged: bool = False, mesh=None):
         # dense caches are contiguous buffers: the paged mirror does not
         # apply, so pool_pages and mirror_paged (the WG-KV family's
         # keywords, taken so one call builds any backend) are ignored
@@ -55,7 +54,8 @@ class DenseEngine(Engine):
                 "full-KV baseline has no page metadata to select against")
         super().__init__(params, cfg, slots=slots, capacity=capacity,
                          opts=opts, eos=eos, temperature=temperature,
-                         seed=seed, mirror_paged=False, device=device)
+                         seed=seed, mirror_paged=False, device=device,
+                         mesh=mesh)
         # host-tracked length per slot: a write past the buffer must fail
         # before it is dispatched, never be dropped
         self._slot_len = [0] * slots
@@ -64,7 +64,7 @@ class DenseEngine(Engine):
         return BackendCapabilities(
             name="dense", gated=False, paged=False,
             description="uncompressed full-KV cache (no admission)",
-            sharded=False)
+            sharded=self.mesh is not None)
 
     def _dense_nodes(self, caches) -> List[DenseCache]:
         """The stacked DenseCache of every full-attention block."""
@@ -135,12 +135,11 @@ class DenseEngine(Engine):
     def capture_prefix(self, step, slot: int, key: str, *,
                        adm_weighted: float = 0.0):
         from repro_torch.serving.prefix_cache import CachedPrefix
-        caches = extract_slot_caches(step.after, slot)
+        caches = self._slot_tree(step.after, slot)
         n = int(caches["t"][0])
-        nodes = self._dense_nodes(caches)
-        layers = sum(dc.k.shape[0] for dc in nodes)
-        heads = nodes[0].k.shape[2] if nodes else 0
+        layers = sum(dc.k.shape[0] for dc in self._dense_nodes(caches))
+        n_bytes, = self._head_sum_host(cache_tree_bytes(caches))
         return CachedPrefix(key=key, n_tokens=n, caches=caches,
                             adm_weighted=adm_weighted, meta={},
-                            kv_tokens=n * heads * layers,
-                            n_bytes=cache_tree_bytes(caches))
+                            kv_tokens=n * self.full_cfg.n_kv_heads * layers,
+                            n_bytes=n_bytes)

@@ -1,6 +1,6 @@
 """Serving engine for the write-gated dual cache (port of the ``wgkv``
-Engine of ``repro/serving/engine.py`` with the unmeshed half of
-``repro/serving/sharded.py`` folded in).
+Engine of ``repro/serving/engine.py``; its mesh placement is
+:class:`~repro_torch.serving.sharded.ShardedDecodeMixin`).
 
 The model math runs through :func:`repro_torch.models.inference.prefill_extend_ragged`;
 on CUDA its gate and dual-cache read run in the hand-written kernels.
@@ -56,8 +56,12 @@ serving/static_admission.py) subclass this engine through its seams:
 
 Cache trees are never updated in place (every step returns a new tree),
 so an in-flight step's ``before``/``after`` trees stay valid for the
-mirror and a stored prefix tree stays valid for later hits. Not ported
-yet: meshes.
+mirror and a stored prefix tree stays valid for later hits.
+
+On a mesh (``mesh=``, serving/sharded.py) each rank's engine holds its
+rows and kv heads of the batched tree; the host state (``live``,
+``last_token``, the scheduler's view) is every slot's, the same on every
+rank, and each rank mirrors its own rows' and heads' pages.
 """
 from __future__ import annotations
 
@@ -83,6 +87,8 @@ from repro_torch.serving.backend import (BackendCapabilities, FusedStep,
                                          Prefix, PrefillTask)
 from repro_torch.serving.obs.trace import NULL_TRACER
 from repro_torch.serving.sampling import sample
+from repro_torch.serving.sharded import ShardedDecodeMixin
+from repro_torch.sharding import comm
 from repro_torch.tree import tree_map
 
 
@@ -99,21 +105,30 @@ class Request:
     done: bool = False
 
 
-class Engine:
+class Engine(ShardedDecodeMixin):
     """Batched serving backend (slots = max concurrent decodes) for the
     paper's write-gated dual cache. ``device`` defaults to ``cuda``;
-    ``device="cpu"`` runs the plain PyTorch path."""
+    ``device="cpu"`` runs the plain PyTorch path. ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh`, one per rank) serves on this
+    rank's shard, on the mesh's device."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 4,
                  capacity: int = 4096, opts: Optional[I.DecodeOptions] = None,
                  pool_pages: int = 4096, eos: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0,
-                 mirror_paged: bool = True, device: DeviceLike = None):
+                 mirror_paged: bool = True, device: DeviceLike = None,
+                 mesh=None):
         if not cfg.has_attention_cache:
             raise ValueError("engine serves KV-cache archs")
-        self.device = resolve_device(device)
-        self.cfg = cfg
         self.slots = slots
+        params, cfg = self._sharding_setup(params, cfg, mesh)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if mesh is not None:
+            if self.device.type != mesh.device.type:
+                raise ValueError(f"device {self.device} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
         self.capacity = capacity
         self.opts = opts or I.DecodeOptions()
         # decode-time page selection: the base opts run the full path
@@ -125,6 +140,8 @@ class Engine:
         if self.selection is not None:
             self._sel_opts = self.opts
             self.opts = dataclasses.replace(self.opts, selection_policy=None)
+        self.opts = self._local_opts(self.opts)
+        self._sel_opts = self._local_opts(self._sel_opts)
         self.eos = eos
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device)
@@ -178,7 +195,7 @@ class Engine:
         return BackendCapabilities(
             name="wgkv", gated=True, paged=self.mirror,
             description="write-gated dual cache (learned admission)",
-            sharded=False, selection=self.selection)
+            sharded=self.mesh is not None, selection=self.selection)
 
     # the fused tick's declared step-shape budget, the reference's: the
     # base fused step runs (slots, chunk) for prefill-carrying ticks and
@@ -213,7 +230,7 @@ class Engine:
         snap["kv_tokens"] = toks
         snap["kv_bytes"] = float(toks * 2 * self.cfg.head_dim
                                  * torch_dtype(self.cfg.dtype).itemsize)
-        return snap
+        return self._per_shard_snapshot(snap)
 
     def _attn_blocks(self) -> List[int]:
         """Indices ``i`` of the pattern's attention blocks (``"b{i}"``):
@@ -297,7 +314,8 @@ class Engine:
         batched = tasks[0].caches if b == 1 \
             else self._stack_rows([t.caches for t in tasks])
         with self.tracer.span("prefill_extend_ragged", batch=b, s=s,
-                              tokens=int(sum(takes))):
+                              tokens=int(sum(takes))), \
+                comm.active(self.mesh, self.plan):
             logits, batched, st = I.prefill_extend_ragged(
                 self.params, self.cfg,
                 host_to_device(toks, self.device), takes, batched,
@@ -305,9 +323,9 @@ class Engine:
             outs = (batched,) if b == 1 \
                 else [extract_slot_caches(batched, i) for i in range(b)]
             # torchlint: allow-sync(the synchronous extend pulls its stats)
-            trig = _host(st["evict_trigger_rows"])
+            trig = _host(self._head_mean(st["evict_trigger_rows"]))
             # torchlint: allow-sync(the synchronous extend pulls its stats)
-            adm = _host(st["adm_sum_rows"])
+            adm = _host(self._head_mean(st["adm_sum_rows"]))
         self.stats["extend_time_s"] += time.perf_counter() - t_wall
         self.stats["extend_tokens"] += float(sum(takes))
         self.stats["evict_triggers"] += float(trig.sum())
@@ -360,15 +378,16 @@ class Engine:
         """Splice a prefix's caches into batch row ``slot`` and mirror it
         into the physical paged pool."""
         if self.caches is None:
-            self.caches = alloc_batched_caches(prefix.caches, self.slots)
-        self.caches = splice_caches(self.caches, prefix.caches, slot)
+            self.caches = alloc_batched_caches(prefix.caches, self._n_rows)
+        self.caches = self._splice(self.caches, prefix.caches, slot)
         self.live[slot] = True
         self._slot_gen[slot] += 1
         tok = prefix.first_token if prefix.first_token is not None else 0
         self.last_token[slot] = tok
         self._set_tok(slot, tok)
-        self._kv_rows[slot] = float(self._kv_tokens_device(prefix.caches)[0])
-        if self.mirror:
+        self._kv_rows[slot] = float(self._head_sum(
+            self._kv_tokens_device(prefix.caches))[0])
+        if self.mirror and self._local_row(slot) is not None:
             self._mirror_prefill(slot, prefix.caches)
 
     def _set_tok(self, slot: int, tok: int) -> None:
@@ -384,18 +403,31 @@ class Engine:
                use_dev: np.ndarray, caches, opts: I.DecodeOptions):
         """The fused step: ragged extend over the persistent batched tree
         with decode rows fed from the on-device sampled vector, sampling
-        and per-row resident-token counts on the device too."""
-        tokens = host_to_device(toks, self.device)
-        use = host_to_device(use_dev, self.device)
-        tokens[:, 0] = torch.where(use, self._tok_dev, tokens[:, 0])
-        last_logits, caches, st = I.prefill_extend_ragged(
-            self.params, self.cfg, tokens, lengths, caches, opts=opts,
-            capacity=self.capacity)
-        sampled = sample(self.generator, last_logits,
-                         temperature=self.temperature)
-        kv_rows = self._kv_tokens_device(caches)
-        return last_logits, caches, {**st, "sampled": sampled,
-                                     "kv_tokens_rows": kv_rows}
+        and per-row resident-token counts on the device too. On a mesh
+        the rank runs its rows, and the tokens and stats come back for
+        every slot (``_assemble_step``)."""
+        rows = self._rows
+        tokens = host_to_device(toks[rows], self.device)
+        use = host_to_device(use_dev[rows], self.device)
+        tokens[:, 0] = torch.where(use, self._tok_dev[rows], tokens[:, 0])
+        with comm.active(self.mesh, self.plan):
+            last_logits, caches, st = I.prefill_extend_ragged(
+                self.params, self.cfg, tokens, lengths[rows], caches,
+                opts=opts, capacity=self.capacity)
+        st = {**st, "kv_tokens_rows": self._kv_tokens_device(caches)}
+        if self.mesh is None:
+            sampled = sample(self.generator, last_logits,
+                             temperature=self.temperature)
+            return last_logits, caches, {**st, "sampled": sampled}
+        if self.temperature > 0.0:
+            # every rank draws the same tokens from the same whole batch
+            sampled = sample(self.generator, self._gather_rows(last_logits),
+                             temperature=self.temperature)
+            _, st = self._assemble_step(None, st)
+        else:
+            sampled, st = self._assemble_step(
+                sample(None, last_logits), st)
+        return last_logits, caches, {**st, "sampled": sampled}
 
     @tick_path
     def step_batch(self, tasks: List[PrefillTask],
@@ -415,7 +447,7 @@ class Engine:
         t0 = time.perf_counter()
         if self.caches is None:
             self.caches = alloc_batched_caches(self._fresh_task_caches(),
-                                               self.slots)
+                                               self._n_rows)
         for t in tasks:
             assert t.slot is not None, "fused step_batch needs slot-bound tasks"
             assert not self.live[t.slot], "prefill task in a live decode row"
@@ -426,12 +458,12 @@ class Engine:
                     # resume at the suffix
                     with self.tracer.span("prefix_splice", slot=t.slot,
                                           tokens=t.prefix_entry.n_tokens):
-                        self.caches = splice_caches(
+                        self.caches = self._splice(
                             self.caches, t.prefix_entry.caches, t.slot)
                     self._adopt_prefix(t.slot, t.prefix_entry)
                 else:
                     with self.tracer.span("fused_open", slot=t.slot):
-                        self.caches = splice_caches(
+                        self.caches = self._splice(
                             self.caches, self._fresh_task_caches(), t.slot)
                     self._slot_prefix[t.slot] = None
                 self._resident[t.slot] = True
@@ -561,18 +593,21 @@ class Engine:
                 if self.live[s] and self._slot_gen[s] == step.gen[s]]
         if self.mirror and step.before is not None:
             for t, fin in zip(step.tasks, step.finishing):
-                if fin and self._slot_gen[t.slot] == step.gen[t.slot]:
+                row = self._local_row(t.slot)
+                if fin and row is not None and \
+                        self._slot_gen[t.slot] == step.gen[t.slot]:
                     # a prefix-hit row already aliases the entry's pages:
                     # only its suffix is mirrored, unless an eviction
                     # compacted the global cache (then the full re-sync)
                     entry = self._slot_prefix[t.slot]
-                    sc = extract_slot_caches(step.after, t.slot)
+                    sc = extract_slot_caches(step.after, row)
                     if entry is not None and not self._slot_evicted[t.slot]:
                         self._mirror_prefill_suffix(t.slot, sc, entry)
                     else:
                         self._mirror_prefill(t.slot, sc)
-            if rows:
-                self._mirror_decode(step.before, step.after, rows=rows,
+            mine = [s for s in rows if self._local_row(s) is not None]
+            if mine:
+                self._mirror_decode(step.before, step.after, rows=mine,
                                     evicted_rows=trig > 0)
         out: Dict[int, int] = {}
         for t, fin in zip(step.tasks, step.finishing):
@@ -635,7 +670,7 @@ class Engine:
         bytes, ready to be aliased into a hitting slot. A host sync, run
         once per unique prefix after the collect that produced it."""
         from repro_torch.serving.prefix_cache import CachedPrefix
-        caches = extract_slot_caches(step.after, slot)
+        caches = self._slot_tree(step.after, slot)
         meta: Dict[Tuple, Dict] = {}
         stream_keys: List[Tuple] = []
         kv_tokens = n_tokens = pool_pages = 0
@@ -667,6 +702,9 @@ class Engine:
                     pool_pages += len(self.pool.table(lkey_).pages)
         n_bytes = cache_tree_bytes(caches) + \
             pool_pages * paged.PAGE_SIZE * self.cfg.head_dim * 2 * 4
+        # on a mesh both are the model ranks' sums, the same on every
+        # rank: the store's LRU decisions must be the same everywhere
+        kv_tokens, n_bytes = self._head_sum_host(kv_tokens, n_bytes)
         return CachedPrefix(key=key, n_tokens=n_tokens, caches=caches,
                             adm_weighted=adm_weighted, meta=meta,
                             kv_tokens=kv_tokens, n_bytes=n_bytes,
@@ -763,11 +801,12 @@ class Engine:
         needs). A stream that grew cannot have evicted this step: eviction
         drops at least one entry and promotion adds at most one."""
         if rows is None:
-            rows = [s for s in range(self.slots) if self.live[s]]
+            rows = [s for s in range(self.slots)
+                    if self.live[s] and self._local_row(s) is not None]
         if not rows:
             return
         dev = self.device
-        ridx = torch.as_tensor(rows, device=dev)
+        ridx = torch.as_tensor([self._local_row(s) for s in rows], device=dev)
         ev_rows = [s for s in rows
                    if evicted_rows is not None and bool(evicted_rows[s])]
         for (i, dcb), (_, dca) in zip(self._dual_nodes(before),
@@ -788,7 +827,8 @@ class Engine:
                     gcb, ptrb, gca))
             full_k = full_v = None
             if ev_rows:
-                eidx = torch.as_tensor(ev_rows, device=dev)
+                eidx = torch.as_tensor([self._local_row(s) for s in ev_rows],
+                                       device=dev)
                 full_k, full_v = _host(dca.gk[:, eidx]), _host(dca.gv[:, eidx])
             ev_pos = {s: e for e, s in enumerate(ev_rows)}
             for r in range(n_rep):
@@ -882,7 +922,8 @@ class Engine:
         the PHYSICAL pool via the paged_decode kernel and compare with the
         logical dual-cache contents. ``block`` (default: the pattern's
         first attention block) must be an attention block. Returns max
-        abs deviation."""
+        abs deviation (on a mesh, the largest of every rank's, each over
+        its rows and kv heads)."""
         assert self.mirror and self.caches is not None
         if block is None:
             block = self._attn_blocks()[0]
@@ -890,7 +931,13 @@ class Engine:
             raise ValueError(f"block b{block} "
                              f"({self.cfg.block_pattern[block]!r}) keeps no "
                              "dual cache to verify")
-        live = [s for s in range(self.slots) if self.live[s]]
+        if not any(self.live):
+            return 0.0
+        return self._mesh_max(self._verify_local(layer_repeat, block))
+
+    def _verify_local(self, layer_repeat: int, block: int) -> float:
+        live = [s for s in range(self.slots)
+                if self.live[s] and self._local_row(s) is not None]
         if not live:
             return 0.0
         node = self.caches["blocks"][f"b{block}"]
@@ -898,11 +945,12 @@ class Engine:
         lkey = (layer_repeat, block)
         worst = 0.0
         for slot in live:
-            n_local = min(int(dc.t[slot]), node.w_local)
+            row = self._local_row(slot)
+            n_local = min(int(dc.t[row]), node.w_local)
             for h in range(self.cfg.n_kv_heads):
                 gk, _ = self.pool.gather((slot, lkey, h, "global"))
-                cnt = int(dc.gcnt[slot, h])
-                logical = np.asarray(dc.gk[slot, h, :cnt], np.float32)
+                cnt = int(dc.gcnt[row, h])
+                logical = np.asarray(dc.gk[row, h, :cnt], np.float32)
                 if cnt:
                     worst = max(worst, float(np.abs(gk[:cnt] - logical).max()))
                 lk, _ = self.pool.gather((slot, lkey, h, "local"))
@@ -911,7 +959,7 @@ class Engine:
                 assert lk.shape[0] == n_local, (lk.shape, n_local)
                 if n_local:
                     worst = max(worst, float(np.abs(
-                        lk - np.asarray(dc.lk[slot, h, :n_local],
+                        lk - np.asarray(dc.lk[row, h, :n_local],
                                         np.float32)).max()))
         # kernel-level check: paged attention over the global streams
         keys = [(s, lkey, h, "global")
@@ -924,11 +972,12 @@ class Engine:
             out = _host(paged_decode(q, kp, vp, tbl, lens))
             i = 0
             for s in live:
+                row = self._local_row(s)
                 for h in range(self.cfg.n_kv_heads):
-                    cnt = int(dc.gcnt[s, h])
+                    cnt = int(dc.gcnt[row, h])
                     if cnt:
-                        kk = np.asarray(dc.gk[s, h, :cnt], np.float32)
-                        vv = np.asarray(dc.gv[s, h, :cnt], np.float32)
+                        kk = np.asarray(dc.gk[row, h, :cnt], np.float32)
+                        vv = np.asarray(dc.gv[row, h, :cnt], np.float32)
                         lg = (np.ones(hd) / hd) @ kk.T / np.sqrt(hd)
                         w = np.exp(lg - lg.max())
                         w /= w.sum()

@@ -60,6 +60,7 @@ from repro_torch.serving.orchestrator.queue import (InvalidRequest, QueueFull,
                                               RequestQueue, ServeRequest)
 from repro_torch.serving.orchestrator.stream import OnToken, StreamMux
 from repro_torch.serving.orchestrator.telemetry import Telemetry
+from repro_torch.sharding import comm
 
 # engine-side stat counters mirrored into telemetry as deltas relative to
 # the orchestrator's birth (engines are reusable across replays):
@@ -347,12 +348,20 @@ class Orchestrator:
         if not self._deadlined:
             return
         now = self.clock()
+        expired = []
         for rid, req in list(self._deadlined.items()):
             if req.state in ("done", "cancelled"):
                 del self._deadlined[rid]
             elif now > req.deadline_t:
-                self.cancel(rid, reason="deadline")
-                self._deadlined.pop(rid, None)
+                expired.append(rid)
+        mesh = getattr(self.engine, "mesh", None)
+        if mesh is not None and self._deadlined:
+            # each rank reads its own clock: rank 0 decides for all, or
+            # the ranks' collectives would part ways
+            expired = comm.bcast_from_root(expired, mesh)
+        for rid in expired:
+            self.cancel(rid, reason="deadline")
+            self._deadlined.pop(rid, None)
 
     # ------------------------------------------------------------------
     # content-addressed prefix cache (serving/prefix_cache.py): hit at

@@ -77,7 +77,9 @@ class CachedPrefix:
     adm_weighted: float = 0.0     # sum of admission probs over [0, n_tokens)
     meta: Dict[Any, Dict[str, Any]] = field(default_factory=dict)
     kv_tokens: int = 0            # logical KV entries summed over streams
-    n_bytes: int = 0              # device + mirrored pool bytes (LRU budget)
+    # device + mirrored pool bytes, what the LRU budget counts (on a mesh,
+    # summed over its model ranks)
+    n_bytes: int = 0
     stream_keys: Tuple[Any, ...] = ()   # pool streams pinned by this entry
     refs: int = 0                 # admitted-but-not-spliced requests
     hits: int = 0

@@ -66,4 +66,4 @@ class StaticAdmissionEngine(Engine):
             name=self.policy, gated=True, paged=self.mirror,
             description="static admission baseline "
                         "(position/head-only write gate)",
-            sharded=False, selection=self.selection)
+            sharded=self.mesh is not None, selection=self.selection)

@@ -1,0 +1,469 @@
+"""Logical-axis sharding rules with divisibility fallback (port of
+``repro/sharding/rules.py``), and the port's placement on them.
+
+Mesh axes: ("data", "model") on one host, ("pod", "data", "model") across
+pods. "model" is tensor parallelism (attention heads, d_ff, experts);
+"data" (with "pod") batches and, in training, shards weights FSDP-style.
+A dimension is sharded only when its axis size divides it; otherwise the
+rule falls back to its next preference, or to replication.
+
+The rules are pure functions of a leaf's path and shape and a mesh
+shape, given as ``{"data": d, "model": m}`` (``{"pod": p, "data": d,
+"model": m}`` across pods) or any object with such a ``shape``. A spec is
+a tuple with one entry per dimension: ``None`` (replicated), an axis name,
+or a tuple of axis names, the entries of the reference's
+``PartitionSpec``.
+
+The reference's activation pinning (``activation_sharding``,
+``constrain_tokens``, ``constrain_moe``) is not ported: it is a layout
+hint to XLA's partitioner, and eager PyTorch has no partitioner to hint.
+
+**The port's placement** (:func:`tp_plan`, :func:`local_config`,
+:func:`local_params`) follows the spec with ``replicate_fsdp=True``, as
+the reference's serving does, leaf by leaf for the leaves that carry
+tensor parallelism: ``w_q`` / ``w_k`` / ``w_v`` column-parallel by whole
+heads, ``w_o`` row-parallel, the dense FFN's ``w_gate`` / ``w_up``
+column-parallel and ``w_down`` row-parallel. Each rank holds its block
+as a plain local tensor (:func:`local_shard`); the model adds the
+row-parallel partials with ``sharding.comm.reduce_model``. Leaves the
+reference splits only by inserting another collective stay whole on
+every rank: the embedding's d_model, a 1-D leaf of 4,096 or more, and
+the row-parallel fallback of q/k/v over d_model. The write gate, which
+the reference replicates, is sliced by the rank's kv heads: the kernel
+picks weights by ``row % H``, so the local slice computes what the whole
+gate computes for those heads.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import tree_map_with_path
+
+Spec = Tuple[Any, ...]
+# the port serves on a mesh the archs whose blocks are all GQA attention
+# with a dense FFN; the others wait for ROADMAP Queue 1 item 8b
+MESH_BLOCKS = ("attn",)
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """``{"data": d, "model": m}`` of a mesh, or the mapping itself."""
+    return dict(getattr(mesh, "shape", mesh))
+
+
+def fsdp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh_shape(mesh) if a in ("pod", "data"))
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return fsdp_axes(mesh)
+
+
+def _axsize(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    shape = mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        n *= shape[a]
+    return n
+
+
+def _fits(dim: int, mesh, axes) -> bool:
+    return dim % _axsize(mesh, axes) == 0
+
+
+def pick(dim: int, mesh, *prefs):
+    """First preference (an axis name, tuple of names, or None) that divides
+    ``dim``; None (replicate) if none fit."""
+    for p in prefs:
+        if p is None:
+            return None
+        if _fits(dim, mesh, p):
+            return p
+    return None
+
+
+def _spec(entries) -> Spec:
+    """A spec as ``PartitionSpec`` keeps it: a one-axis tuple is its
+    name."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
+
+
+# ==========================================================================
+# parameter specs (path-based; mirrors models/* param trees)
+# ==========================================================================
+def _param_spec(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
+                cfg: ModelConfig) -> Spec:
+    fa = fsdp_axes(mesh)
+    name = path[-1]
+    # stacked super-block params carry a leading n_repeats axis
+    stacked = "blocks" in path
+    lead = (None,) if stacked else ()
+    core = shape[1:] if stacked else shape
+
+    def spec(*dims):
+        return _spec(lead + dims)
+
+    if len(core) == 0:
+        return spec()
+    if "gate" in path:
+        # Write-Gate MLP: tiny (~0.4% params) — replicated by the rule
+        return spec(*(None,) * len(core))
+    if name in ("tok", "unembed"):
+        v_or_d, d_or_v = core
+        return spec(pick(v_or_d, mesh, fa, "data"), pick(d_or_v, mesh, "model"))
+    if name in ("w_q", "w_k", "w_v"):
+        din, dout = core
+        # column-parallel over whole heads when the HEAD COUNT divides;
+        # else row-parallel on d_model
+        heads = cfg.n_heads if name == "w_q" else cfg.n_kv_heads
+        out_ax = "model" if (_fits(heads, mesh, "model")
+                             and _fits(dout, mesh, "model")) else None
+        in_ax = pick(din, mesh, fa, "data") if out_ax else pick(din, mesh, "model", fa)
+        if out_ax and in_ax == out_ax:
+            in_ax = None
+        return spec(in_ax, out_ax)
+    if name == "w_o":
+        din, dout = core
+        in_ax = "model" if (_fits(cfg.n_heads, mesh, "model")
+                            and _fits(din, mesh, "model")) else None
+        out_ax = pick(dout, mesh, fa, "data")
+        return spec(in_ax, out_ax)
+    if name in ("w_gate", "w_up", "w_down", "router") and "moe" in path:
+        if name == "router":
+            d, e = core
+            return spec(pick(d, mesh, fa), pick(e, mesh, "model"))
+        e, a, b = core
+        e_ax = pick(e, mesh, "model")
+        if e_ax:
+            return spec(e_ax, pick(a, mesh, fa), None)
+        # experts not divisible (granite 40e): shard the expert FFN width
+        if name == "w_down":
+            return spec(None, pick(a, mesh, "model"), pick(b, mesh, fa))
+        return spec(None, pick(a, mesh, fa), pick(b, mesh, "model"))
+    if name in ("w_gate", "w_up"):        # dense SwiGLU
+        d, f = core
+        return spec(pick(d, mesh, fa, "data"), pick(f, mesh, "model"))
+    if name == "w_down":
+        f, d = core
+        return spec(pick(f, mesh, "model"), pick(d, mesh, fa, "data"))
+    if name in ("w_in",):                  # gelu mlp / slstm input
+        d, f = core
+        return spec(pick(d, mesh, fa, "data"), pick(f, mesh, "model"))
+    if name == "w_out" and len(core) == 2:
+        f, d = core
+        return spec(pick(f, mesh, "model"), pick(d, mesh, fa, "data"))
+    if name in ("w_gelu", "w_x", "w_up_x", "w_up_z", "w_up1", "w_up2"):
+        d, f = core
+        return spec(pick(d, mesh, fa, "data"), pick(f, mesh, "model"))
+    if name in ("conv",):
+        cw, dr = core
+        return spec(None, pick(dr, mesh, "model"))
+    if name in ("w_r", "w_i") and len(core) == 3:  # rglru block-diag [H,dh,dh]
+        h, dh, _ = core
+        return spec(pick(h, mesh, "model"), None, None)
+    if name == "r" and len(core) == 4:     # slstm recurrent [4,H,dh,dh]
+        _, h, dh, _ = core
+        return spec(None, pick(h, mesh, "model"), None, None)
+    if len(core) == 2 and min(core) >= 512:
+        a, b = core
+        return spec(pick(a, mesh, fa, "data"), pick(b, mesh, "model"))
+    if len(core) == 1 and core[0] >= 4096:
+        return spec(pick(core[0], mesh, "model"))
+    return spec(*(None,) * len(core))
+
+
+def _strip_fsdp(spec: Spec) -> Spec:
+    """Drop the FSDP ("data"/"pod") axes from a spec: weights replicated
+    across data, sharded only over "model"."""
+    def fix(ax):
+        if ax is None:
+            return None
+        axes = (ax,) if isinstance(ax, str) else tuple(ax)
+        kept = tuple(a for a in axes if a == "model")
+        return kept[0] if len(kept) == 1 else (kept if kept else None)
+    return tuple(fix(a) for a in spec)
+
+
+def param_shardings(params: Any, mesh, cfg: ModelConfig, *,
+                    replicate_fsdp: bool = False) -> Any:
+    """Spec tree matching ``params``. ``replicate_fsdp`` drops the FSDP
+    axes from every spec (the serving placement: weights replicated
+    across "data", sharded only over "model")."""
+    def walk(path, leaf):
+        spec = _param_spec(tuple(str(k) for k in path), tuple(leaf.shape),
+                           mesh, cfg)
+        return _strip_fsdp(spec) if replicate_fsdp else spec
+    return tree_map_with_path(walk, params)
+
+
+# ==========================================================================
+# activation / cache specs
+# ==========================================================================
+def tokens_spec(mesh, batch: int, extra_dims: int = 1) -> Spec:
+    ba = pick(batch, mesh, batch_axes(mesh), "data")
+    return _spec((ba,) + (None,) * extra_dims)
+
+
+def _cache_leaf_spec(path: Tuple[str, ...], shape, mesh, cfg: ModelConfig,
+                     seq_shard: bool) -> Spec:
+    """Cache trees: DualCache/DenseCache/recurrent states, possibly stacked
+    with a leading n_repeats axis. When ``seq_shard`` (long_500k, batch=1)
+    the long token axis goes to "data" (context-parallel decode)."""
+    fa = batch_axes(mesh)
+    if "obs" in path:
+        # eviction observation windows: [n_repeats, n_attn, B, ...] (q ring)
+        # or [n_repeats, n_attn, B] (counter)
+        core = tuple(shape[2:])
+        if not core:
+            return (None, None)
+        b_ax = pick(core[0], mesh, fa, "data")
+        if len(core) >= 2:
+            return _spec((None, None, b_ax, pick(core[1], mesh, "model"),
+                          *(None,) * (len(core) - 2)))
+        return _spec((None, None, b_ax))
+    stacked = "blocks" in path
+    lead = (None,) if stacked else ()
+    core = tuple(shape[1:]) if stacked else tuple(shape)
+
+    def spec(*dims):
+        return _spec(lead + dims)
+
+    if len(core) == 0:
+        return spec()
+    b_ax = pick(core[0], mesh, fa, "data")
+    name = path[-1]
+    if name in ("gk", "gv", "k", "v") and len(core) == 4:
+        _, h, s, hd = core
+        if b_ax is None and seq_shard:
+            return spec(None, pick(h, mesh, "model"), pick(s, mesh, "data"), None)
+        return spec(b_ax, pick(h, mesh, "model"), None, None)
+    if name in ("pkmin", "pkmax") and len(core) == 4:
+        _, h, p_pages, hd = core
+        return spec(b_ax, pick(h, mesh, "model"), None, None)
+    if name in ("gpos",) and len(core) == 3:
+        _, h, s = core
+        if b_ax is None and seq_shard:
+            return spec(None, pick(h, mesh, "model"), pick(s, mesh, "data"))
+        return spec(b_ax, pick(h, mesh, "model"), None)
+    if name in ("lk", "lv") and len(core) == 4:
+        _, h, w, hd = core
+        return spec(b_ax, pick(h, mesh, "model"), None, None)
+    if name in ("lg",) and len(core) == 3:
+        return spec(b_ax, pick(core[1], mesh, "model"), None)
+    if name == "c" and len(core) == 4:  # mLSTM matrix memory [B,H,dh,dh]
+        return spec(b_ax, pick(core[1], mesh, "model"), None, None)
+    if name == "conv" and len(core) == 3:  # [B,cw-1,dr]
+        return spec(b_ax, None, pick(core[2], mesh, "model"))
+    if name == "h" and len(core) == 2:  # rglru state [B,dr]
+        return spec(b_ax, pick(core[1], mesh, "model"))
+    if len(core) >= 2:
+        return spec(b_ax, *(None,) * (len(core) - 1))
+    return spec(b_ax)
+
+
+def cache_shardings(caches: Any, mesh, cfg: ModelConfig, *,
+                    seq_shard: bool = False) -> Any:
+    return tree_map_with_path(
+        lambda path, leaf: _cache_leaf_spec(
+            tuple(str(k) for k in path), tuple(leaf.shape), mesh, cfg,
+            seq_shard), caches)
+
+
+# ==========================================================================
+# blocks of a spec: GSPMD's order, the contiguous block of each split dim
+# ==========================================================================
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one device's block of a leaf of ``shape`` under
+    ``spec``."""
+    out = []
+    for i, dim in enumerate(shape):
+        n = _axsize(mesh, _axes_of(spec[i]) or None) if i < len(spec) else 1
+        if dim % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not divide "
+                             f"over {spec[i]!r} ({n} ways)")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def block(dim: int, entry, coords: Mapping[str, int], mesh) -> slice:
+    """The part of a dimension of size ``dim`` that the device at
+    ``coords`` (``{"data": i, "model": j}``) holds under one spec entry:
+    the contiguous block, indexed row-major over the entry's axes, as
+    GSPMD lays it out."""
+    axes = _axes_of(entry)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh_shape(mesh)[a] + coords[a]
+    n = dim // _axsize(mesh, axes or None)
+    return slice(idx * n, (idx + 1) * n)
+
+
+def local_shard(x: torch.Tensor, spec: Spec, coords: Mapping[str, int],
+                mesh) -> torch.Tensor:
+    """The block of ``x`` that the device at ``coords`` holds under
+    ``spec`` (:func:`block` of each split dimension). A fresh contiguous
+    tensor (the whole leaf can be freed)."""
+    out = x
+    for i, entry in enumerate(spec):
+        if _axes_of(entry):
+            b = block(out.shape[i], entry, coords, mesh)
+            out = out.narrow(i, b.start, b.stop - b.start)
+    return out.contiguous() if out is not x else x
+
+
+def cache_blocks(cfg: ModelConfig, slots: int, mesh,
+                 coords: Mapping[str, int]) -> Tuple[slice, slice]:
+    """(rows, kv heads) of the device at ``coords``: its block of a
+    batched dual cache's keys ``[n_repeats, slots, kv heads, S, hd]``
+    under :func:`_cache_leaf_spec`, the block every leaf of a serving
+    cache tree follows."""
+    shape = (cfg.n_repeats, slots, cfg.n_kv_heads, 1, cfg.head_dim)
+    spec = _cache_leaf_spec(("blocks", "b0", "gk"), shape, mesh, cfg, False)
+    return (block(slots, spec[1], coords, mesh),
+            block(cfg.n_kv_heads, spec[2], coords, mesh))
+
+
+# ==========================================================================
+# the port's tensor-parallel placement
+# ==========================================================================
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """What one rank of a "model" axis of ``ways`` computes.
+
+    ``attn``: "split" (q and kv heads both divide: each rank holds
+    ``n_heads / ways`` q heads and ``n_kv_heads / ways`` kv heads, the
+    matching dual caches, and adds its ``w_o`` partial), "gather_q" (the q
+    heads divide, the kv heads do not: ``w_q`` and ``w_o`` split, the kv
+    projections, gate and caches whole on every rank; the q heads are
+    gathered, every rank reads every head, and each multiplies its own
+    heads' outputs by its ``w_o`` rows), or "whole" (nothing split, no
+    sum). ``ffn``: the dense FFN's d_ff divides (``w_gate`` / ``w_up``
+    columns, ``w_down`` rows, partials added)."""
+    ways: int = 1
+    index: int = 0
+    attn: str = "whole"
+    ffn: bool = False
+    n_heads: int = 0
+    n_kv_heads: int = 0
+
+    @property
+    def q_heads(self) -> Tuple[int, int]:
+        """(first, count) of this rank's q heads of ``w_q`` / ``w_o``."""
+        if self.attn == "whole":
+            return 0, self.n_heads
+        n = self.n_heads // self.ways
+        return self.index * n, n
+
+    @property
+    def kv_heads(self) -> Tuple[int, int]:
+        """(first, count) of this rank's kv heads: its caches and gate."""
+        if self.attn != "split":
+            return 0, self.n_kv_heads
+        n = self.n_kv_heads // self.ways
+        return self.index * n, n
+
+
+def check_mesh_arch(cfg: ModelConfig) -> None:
+    """Raises for an arch the port does not serve on a mesh yet."""
+    blocks = tuple(cfg.stem_pattern) + tuple(cfg.block_pattern)
+    odd = sorted({b for b in blocks if b not in MESH_BLOCKS})
+    if odd or cfg.is_encdec or cfg.mrope:
+        what = odd or (["encoder-decoder"] if cfg.is_encdec else ["M-RoPE"])
+        raise NotImplementedError(
+            f"{cfg.name}: mesh serving takes GQA attention blocks with a "
+            f"dense FFN; {', '.join(what)} on a mesh waits for ROADMAP "
+            "Queue 1 item 8b")
+
+
+def tp_plan(cfg: ModelConfig, mesh, index: int = 0) -> TPPlan:
+    """The tensor-parallel plan of ``cfg`` on ``mesh``'s "model" axis for
+    the rank at model index ``index``; the reference's rules decide
+    (``_param_spec`` of ``w_q``, ``w_k`` and ``w_down``)."""
+    m = mesh_shape(mesh).get("model", 1)
+    if m == 1:
+        return TPPlan(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+    q_split = _fits(cfg.n_heads, mesh, "model")
+    kv_split = _fits(cfg.n_kv_heads, mesh, "model")
+    attn = ("split" if q_split and kv_split
+            else "gather_q" if q_split else "whole")
+    return TPPlan(ways=m, index=index, attn=attn,
+                  ffn=_fits(cfg.d_ff, mesh, "model"),
+                  n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+
+
+def local_config(cfg: ModelConfig, plan: TPPlan) -> ModelConfig:
+    """The config one rank's model code runs: its head counts and d_ff
+    (``head_dim`` stays explicit; the config derives it from ``d_model //
+    n_heads`` only when it is 0)."""
+    kw: Dict[str, Any] = {"head_dim": cfg.head_dim}
+    if plan.attn == "split":
+        kw.update(n_heads=plan.q_heads[1], n_kv_heads=plan.kv_heads[1])
+    if plan.ffn:
+        kw["d_ff"] = cfg.d_ff // plan.ways
+    return cfg.replace(**kw)
+
+
+# the leaves the placement splits, and the dim (within the leaf's core)
+# whose "model" entry it follows
+_TP_LEAVES = {"w_q": 1, "w_k": 1, "w_v": 1, "w_o": 0,
+              "w_gate": 1, "w_up": 1, "w_down": 0}
+
+
+def param_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
+                    cfg: ModelConfig) -> Spec:
+    """The spec :func:`local_params` applies to one leaf: the reference's
+    serving spec (``replicate_fsdp=True``) on the tensor-parallel leaves,
+    whole elsewhere; the write gate split over its kv heads when they
+    divide "model" (the reference replicates it)."""
+    spec = _strip_fsdp(_param_spec(path, shape, mesh, cfg))
+    lead = 1 if "blocks" in path else 0
+    out = [None] * len(shape)
+    if "gate" in path:
+        if len(shape) > lead and _fits(cfg.n_kv_heads, mesh, "model"):
+            out[lead] = "model"
+        return tuple(out)
+    dim = _TP_LEAVES.get(path[-1])
+    if dim is not None and "moe" not in path and spec[lead + dim] == "model":
+        out[lead + dim] = "model"
+    return tuple(out)
+
+
+def local_params(params: Any, cfg: ModelConfig, mesh,
+                 coords: Mapping[str, int]) -> Any:
+    """One rank's block of every leaf of ``params`` under
+    :func:`param_placement` (whole leaves are shared, not copied)."""
+    def walk(path, leaf):
+        spec = param_placement(tuple(str(k) for k in path),
+                               tuple(leaf.shape), mesh, cfg)
+        return local_shard(leaf, spec, coords, mesh)
+    return tree_map_with_path(walk, params)
+
+
+def held_whole(params: Any, cfg: ModelConfig, mesh) -> Dict[str, int]:
+    """``{path: bytes}`` of the leaves the reference's serving spec splits
+    over "model" and the placement keeps whole on every rank."""
+    out: Dict[str, int] = {}
+
+    def walk(path, leaf):
+        keys = tuple(str(k) for k in path)
+        ref = _strip_fsdp(_param_spec(keys, tuple(leaf.shape), mesh, cfg))
+        mine = param_placement(keys, tuple(leaf.shape), mesh, cfg)
+        if any(r is not None and m is None for r, m in zip(ref, mine)):
+            out["/".join(keys)] = int(leaf.numel()) * leaf.element_size()
+        return leaf
+    tree_map_with_path(walk, params)
+    return out

@@ -1280,3 +1280,66 @@ def test_gated_flash_window_refuses_grad_on_gpu():
     with torch.no_grad():
         gated_flash_window(x, k, v, window=16, group=1)
     torch.cuda.synchronize()
+
+
+def _card_serve(mesh=None):
+    """Reduced qwen3-0.6b (f32, weights drawn on the card from seed 3)
+    served on the card through the orchestrator (three prompts, 4 new
+    tokens, chunk 16, dispatch-ahead 1), flat (``mesh=None``) or on this
+    rank's shard: tokens, kernel launches, the rank's cache tree and kv
+    heads. Module-level: the mesh's spawned ranks import it."""
+    from repro_torch.benchmarks.common import kernel_counters
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.backend import make_backend
+    from repro_torch.serving.orchestrator import (Orchestrator,
+                                                  SchedulerConfig)
+    from repro_torch.tree import tree_leaves_with_path
+    cfg = get_reduced_config("qwen3-0.6b").replace(dtype="float32")
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(3),
+                        "cuda")
+    eng = make_backend("wgkv", params, cfg, slots=2, capacity=128,
+                       mirror_paged=False, mesh=mesh, device="cuda")
+    for c in kernel_counters():
+        c.reset()
+    orch = Orchestrator(eng, sched=SchedulerConfig(chunk_tokens=16,
+                                                   dispatch_ahead=1))
+    rids = [orch.submit(list(range(7 + i, 39 + i)), max_new=4)
+            for i in range(3)]
+    orch.run()
+    torch.cuda.synchronize()
+    return {"tokens": [orch.tokens(r) for r in rids],
+            "launches": {c.name: c.count for c in kernel_counters()},
+            "caches": {tuple(str(k) for k in p): x.cpu().numpy()
+                       for p, x in tree_leaves_with_path(eng.caches)},
+            "kv_heads": None if mesh is None else eng.plan.kv_heads}
+
+
+def test_mesh_1x2_over_gloo_on_one_card_matches_flat():
+    """Sharded serving on the card: a 1 x 2 mesh whose two ranks share it
+    over gloo (heads split) serves reduced qwen3-0.6b with the flat run's
+    tokens and kernel launches; each rank's integer cache state equals
+    its head slice of the flat run's, its floats within 1e-4."""
+    from repro_torch.launch import mesh as M
+    build.build_all()
+    flat = _card_serve()
+    assert flat["launches"]["gate_mlp"] > 0
+    ranks = M.spawn(_card_serve, (1, 2), backend="gloo", device="cuda",
+                    timeout_s=600)
+    assert sorted(ranks) == [0, 1]
+    for out in ranks.values():
+        assert out["tokens"] == flat["tokens"]
+        for k in ("gate_mlp", "paged_decode"):
+            assert out["launches"][k] == flat["launches"][k], k
+        h0, nh = out["kv_heads"]
+        for path, mine in out["caches"].items():
+            full = flat["caches"][path]
+            ax = 1 if "blocks" in path else 0
+            if mine.ndim > ax + 1 and mine.shape[ax + 1] != full.shape[ax + 1]:
+                full = full[(slice(None),) * (ax + 1) + (slice(h0, h0 + nh),)]
+            assert mine.shape == full.shape, path
+            if np.issubdtype(full.dtype, np.integer):
+                np.testing.assert_array_equal(mine, full, err_msg=str(path))
+            else:
+                np.testing.assert_allclose(mine, full, rtol=0, atol=1e-4,
+                                           err_msg=str(path))

@@ -163,10 +163,12 @@ def test_record_trace_is_deterministic_and_sorted(arrival):
 
 
 def test_bench_serving_mesh_exits_2(capsys, tmp_path):
+    """``--mesh DxM`` replays the A/B on a mesh (README); a malformed
+    mesh exits 2 before any rank starts, and writes nothing."""
     with pytest.raises(SystemExit) as ex:
-        PB.main(["--mesh", "2x4", "--device", "cpu",
+        PB.main(["--mesh", "2x", "--device", "cpu",
                  "--json-out", str(tmp_path / "x.json")])
     assert ex.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    assert "mesh spec" in capsys.readouterr().err
     assert not (tmp_path / "x.json").exists()
     assert PB.JSON_PATH.endswith("BENCH_serving_torch.json")

@@ -145,19 +145,24 @@ def test_entry_points_need_cuda_without_explicit_cpu():
     Engine(params, tcfg, slots=1, capacity=64, device="cpu")
 
 
-@pytest.mark.parametrize("flag", [
-    ["--backend", "dense", "--mesh", "1x1"],
-    ["--prefix-cache", "--mesh", "2x4"], ["--mesh", "1x1"],
+@pytest.mark.parametrize("flag,says", [
+    (["--arch", "granite-moe-3b-a800m", "--backend", "dense", "--mesh",
+      "1x1"], "item 8b"),
+    (["--arch", "recurrentgemma-9b", "--prefix-cache", "--mesh", "2x4"],
+     "item 8b"),
+    (["--arch", "qwen3-0.6b", "--mesh", "0x2"], "mesh"),
 ])
-def test_serve_rejects_unported_flags(flag, capsys):
-    """Multi-device serving is not ported: ``--mesh`` exits 2 with any
-    backend and with the prefix store (both of which serve)."""
+def test_serve_rejects_unported_flags(flag, says, capsys):
+    """``--mesh`` serves the archs of GQA attention with a dense FFN
+    (tests/test_torch_sharded_serving.py); on an arch whose mesh split is
+    not ported (MoE experts, RG-LRU channels: ROADMAP Queue 1 item 8b),
+    with any backend or the prefix store, and on a malformed mesh, it
+    exits 2 before any rank starts."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit) as ex:
-        serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
-                    *flag])
+        serve.main(["--reduced", "--device", "cpu", *flag])
     assert ex.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", [
