@@ -31,7 +31,7 @@ prints no result, without them. Phases, any failure fatal:
   4. serve-cli  — ``repro_torch.launch.serve`` at full qwen3-0.6b width,
                 its startup tau probe (a gated forward) included.
   5. serve-long — ``ServeSession`` at full width (depth cut to
-                ``SERVE_REPEATS`` 8 layers) with 384-token prompts, so
+                ``SERVE_REPEATS`` 4 layers) with 384-token prompts, so
                 tokens leave the 256-token ring and lazy promotion runs;
                 launch counters prove the decode kernels carried it.
   6. prefill-long  — ``inference.prefill`` (budgeted vertical-slash, paper
@@ -86,7 +86,7 @@ recurrentgemma phases):
                 dense decode steps (28 one-segment ``paged_decode`` each),
                 beside prefill-long's WG-KV numbers.
   serve-ab    — ``ServeSession`` at full width, depth cut to
-                ``SERVE_REPEATS`` (8) of 28 layers: 2 x 384-token
+                ``SERVE_REPEATS`` (4) of 28 layers: 2 x 384-token
                 prompts, 16 new tokens, through
                 ``wgkv`` and ``dense``, and one of them through
                 ``streaming_llm`` and ``duo``; TTFT, TPOT, tokens/s, the
@@ -123,6 +123,21 @@ recurrentgemma phases):
                 ``gate_mlp`` and 28 ``paged_decode`` per position step on
                 each rank, the counted collective bytes equal the
                 prediction); each run's wall and the ranks per card.
+  mesh-steps  — the sharded step bundles (``launch/steps.py`` with a
+                mesh) of full-width qwen3-0.6b (28 layers, f32): one
+                train step at 2 x 1,024 (remat; FSDP over "data"), one
+                prefill (1 x 4,096, budget 1,024; 2 x 512 on 2 x 1) and
+                16 greedy decode steps on its caches, on a 1 x 1 NCCL
+                mesh and 1 x 2 and 2 x 1 gloo meshes on the one card,
+                each rank held to the flat bundles (loss 1e-5 relative,
+                new gates, logits 1e-4, tokens and integer cache leaves
+                equal), its launches to the counts from the shapes, its
+                collective bytes by axis to a fake-group meta run's
+                (which overlaps the gloo ranks), and rank 0's counts to
+                it whole; at 2 x 1 also one decode step with the global
+                cache split over "data" (``paged_decode``'s lse, combined
+                over the ranks) against the flat step; the 16 x 16 dry
+                run's rank-0 record of train_4k printed.
 
 Gate-distillation training (run after substrate-ab):
 
@@ -160,7 +175,7 @@ phi3-medium-14b (run after rg-substrate):
   dense-arch  — for each of the three dense archs at full width (f32,
                 seeded random weights; G 3 at hd 64 and 128, G 4, the
                 untied head of phi3-medium-14b, 54.6 GiB): ``launch.serve``
-                (depth cut to ``SERVE_REPEATS`` 8 layers; 2 x 64-token
+                (depth cut to ``SERVE_REPEATS`` 4 layers; 2 x 64-token
                 prompts, 8 new, 2 slots, capacity 512, the tau probe; the
                 pool within 2e-3), ``inference.prefill`` of
                 4,096 tokens at budget 1,024 and 16 greedy steps, then the
@@ -213,8 +228,8 @@ model at a time):
                 through ``build_vlm_embeds``, M-RoPE) + 8 greedy steps:
                 tokens, integer cache leaves and every selection's indices
                 equal, logits within 1e-4.
-  xlstm       — xlstm-350m at full width and depth (24 blocks, d_model
-                1,024, 1.5 GiB): prefill of 2,048 tokens (chunkwise
+  xlstm       — xlstm-350m at full width, depth cut to 12 of 24 blocks
+                (d_model 1,024): prefill of 2,048 tokens (chunkwise
                 mLSTM) + 16 steps, a teacher forward over 2,048 tokens,
                 one layer of each block type timed alone, one
                 ``lm_train_step`` at 1 x 1,024; no kernel launches.
@@ -225,7 +240,7 @@ model at a time):
                 forward, 2 ``train_step``s at 2 x 384 with ``enc_embeds``.
   qwen2vl     — qwen2-vl-7b at full width and depth (28 layers, 28 / 4
                 heads of hd 128, 28.4 GiB): ``launch.serve`` (depth cut
-                to 8 layers; text, 2 x 64 tokens, 8 new), prefill of 4,096
+                to 4 layers; text, 2 x 64 tokens, 8 new), prefill of 4,096
                 tokens at budget 1,024 +
                 16 steps, and the gated forward of a 2,048-slot stream
                 whose first 1,024 slots are a 32 x 32 grid's patches,
@@ -345,7 +360,7 @@ TOL = {"float32": 5e-5, "bfloat16": 1e-2}
 # per layer and position, so their full depth cost minutes of the
 # script's time limit for no other check. Their prefill, forward and
 # train paths keep their full depth.
-SERVE_REPEATS = 8
+SERVE_REPEATS = 4
 # the dense archs' heads: (q heads, kv heads, head_dim)
 DENSE_HEADS = {"smollm-360m": (15, 5, 64), "phi4-mini-3.8b": (24, 8, 128),
                "phi3-medium-14b": (40, 10, 128)}
@@ -1603,6 +1618,119 @@ def mesh_cases():
             2, 128, 256, 2, f32, seed=173, hkv=4, grp=2, hd=128))]
 
 
+def lse_case(seed: int, slots: int = 2, c: int = 1024, w: int = 256,
+             hkv: int = 4, grp: int = 2, hd: int = 128):
+    """``paged_decode`` with its log-sum-exp at one rank's shapes of the
+    context-parallel decode: qwen3-0.6b's heads split in two (8 q on 4 kv
+    heads), a global cache of C split in two blocks over "data", each
+    read as its rank reads it (block 1 without the ring; kv heads whose
+    gcnt stays in block 0 leave block 1 empty: lse -inf, out 0). Each
+    block's out and lse held to the plain version's, and the two blocks
+    combined by their lse (``comm.combine_lse``'s formula) held to the
+    plain read of the whole cache."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.dual_cache import init_dual_cache
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
+    from repro_torch.roofline import work as W
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = torch.float32
+    cache = init_dual_cache(slots, hkv, hd, w_local=w, budget=c, dtype=f32,
+                            device="cuda")
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    pattern = torch.tensor([0, 7, c, c // 2 + 3, 1, c // 2, 16, c - 1],
+                           dtype=torch.int32, device="cuda")
+    gcnt = torch.stack([pattern.roll(i)[:hkv] for i in range(slots)])
+    t = torch.tensor([w + 101 * i for i in range(slots)], dtype=torch.int32,
+                     device="cuda")
+    cache = cache._replace(gk=rn(slots, hkv, c, hd), gv=rn(slots, hkv, c, hd),
+                           lk=rn(slots, hkv, w, hd), lv=rn(slots, hkv, w, hd),
+                           gcnt=gcnt, t=t)
+    q = rn(slots, hkv * grp, hd)
+    whole = ops.dual_cache_attention(q, cache)
+    cb = c // 2
+    err, parts, empty = 0.0, [], 0
+    for i in range(2):
+        blk = cache._replace(gk=cache.gk[:, :, i * cb:(i + 1) * cb].contiguous(),
+                             gv=cache.gv[:, :, i * cb:(i + 1) * cb].contiguous())
+        qf, first, second, gg = ops.dual_cache_segments(q, blk, (i, 2))
+        got, lse = paged_decode(qf, *first, second=second, group=gg, lse=True)
+        want, wlse = paged_decode_plain(qf, *first, second=second, group=gg,
+                                        lse=True)
+        again, _ = paged_decode(qf, *first, second=second, group=gg, lse=True)
+        torch.cuda.synchronize()
+        dead = torch.isinf(wlse)
+        check(torch.equal(torch.isinf(lse), dead), f"lse block {i}: the "
+              "empty reads differ from the plain version's")
+        check(bool((got[dead] == 0).all()), f"lse block {i}: an empty read "
+              "is not 0")
+        check(torch.equal(got, again), f"lse block {i}: two calls differ")
+        empty += int(dead.sum())
+        err = max(err, float((got - want).abs().max()),
+                  float((lse[~dead] - wlse[~dead]).abs().max()))
+        parts.append((got, lse))
+        if i == 1:
+            run = (qf, first, second, gg)
+    check(empty > 0, "lse: no empty block read")
+    m = torch.maximum(parts[0][1], parts[1][1])
+    ms_ = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    wts = [torch.where(torch.isfinite(l), torch.exp(l - ms_),
+                       torch.zeros_like(l)) for _, l in parts]
+    comb = sum(w_[:, None] * o for (o, _), w_ in zip(parts, wts)) \
+        / torch.clamp(sum(wts), min=1e-30)[:, None]
+    comb_err = float((comb - whole.reshape(comb.shape)).abs().max())
+    check(err <= TOL["float32"] and comb_err <= TOL["float32"],
+          f"paged_decode lse: err {err:.3e}, combined {comb_err:.3e} > "
+          f"{TOL['float32']}")
+    qf, first, second, gg = run
+    ms = cuda_ms(lambda: paged_decode(qf, *first, second=second, group=gg,
+                                      lse=True), 200)
+    plain_ms = cuda_ms(lambda: paged_decode_plain(
+        qf, *first, second=second, group=gg, lse=True), 50)
+    # library yardstick: SDPA over the block with a validity mask (the
+    # group's heads as SDPA's queries)
+    kb, vb = cache.gk[:, :, cb:], cache.gv[:, :, cb:]
+    pos = torch.arange(cb, device="cuda")
+    mask = (pos[None, None] < (gcnt - cb).clamp(0, cb)[..., None])[:, :, None]
+    qg = q.reshape(slots, hkv, grp, hd)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qg, kb, vb, attn_mask=mask), 200)
+    toks = int((gcnt - cb).clamp(0, cb).sum())
+    b_ms, b_by = bound(W.paged_decode(qf.shape[0], hd, gg, first[2].shape[1],
+                                      second[2].shape[1], tokens=toks,
+                                      lse=True))
+    return {"shape": f"N={slots * hkv * grp} hd={hd} C={c} block 1 of 2 "
+            f"(C {cb}, no ring) W={w} float32 lse",
+            "max_abs_err": err, "combined_err": comb_err,
+            "empty_reads": empty, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def mesh_step_cases():
+    """Phase 3's cases at one rank's shapes of the mesh-steps phase's 1 x
+    2 mesh (f32; qwen3-0.6b's heads split in two: 8 q on 4 kv heads, hd
+    128, W 256): the train step's ``gated_flash`` and its backward (2 x
+    1,024 tokens: Nq 16, Nk 8 rows), the gate and its backward at H 4,
+    the prefill's ``vertical_slash`` (q [8, 4096, 128], C 1,024), and
+    ``paged_decode`` with its lse on one block of a 2-way split. Returns
+    (tag, record) pairs tagged ``<kernel> mesh-steps``."""
+    fb, _ = flash_bwd_case(16, 1024, seed=180, nk=8)
+    gb, _ = gate_bwd_case(rows=2 * 4, s=1024, seed=181, h=4)
+    return [
+        ("gated_flash mesh-steps", gated_flash_case(
+            1024, "float32", seed=182, hkv=4, hq=8)),
+        ("gated_flash_bwd mesh-steps", fb),
+        ("gate_mlp mesh-steps", gate_case(rows=2 * 4, s=1024, seed=183,
+                                          h=4)),
+        ("gate_mlp_bwd mesh-steps", gb),
+        ("vertical_slash mesh-steps", vertical_slash_case(
+            "float32", seed=184, hkv=4, hq=8)),
+        ("paged_decode mesh-steps", lse_case(seed=185))]
+
+
 def planted_faults(cases) -> dict:
     """Each fault of ``FAULTS`` planted alone in a rebuild of its kernel
     (all built at once), run on the inputs of its cases (fault name, (run,
@@ -2010,7 +2138,7 @@ def decode_select(cfg, params, base):
 
 
 def serve_compose(card: str):
-    """``ServeSession`` at full width (14 layers) composing the three
+    """``ServeSession`` at full width (8 layers) composing the three
     primitives:
     learned admission, ``quest:2`` decode selection and SnapKV eviction
     (hard budget 96 global tokens per head). Prompts of 384 tokens leave
@@ -2029,10 +2157,10 @@ def serve_compose(card: str):
     from repro_torch.serving.orchestrator import SchedulerConfig, ServeSession
 
     slots, cap, prompt_len, max_new, budget = 2, 512, 384, 16, 96
-    # full width, depth cut to 14 of 28 layers: eviction adds about 100
+    # full width, depth cut to 8 of 28 layers: eviction adds about 100
     # host-dispatched ops per layer and position, and the phase's time
-    # scales with depth (28 layers: 96 s on one H100)
-    cfg = get_config("qwen3-0.6b").replace(dtype="float32", n_repeats=14)
+    # scales with depth (28 layers: 96 s on one H100; 14: 39-49 s)
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32", n_repeats=8)
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = init_model(cfg, gen, "cuda")
     eng = make_backend("wgkv", params, cfg, slots=slots, capacity=cap,
@@ -4249,8 +4377,9 @@ def new_archs_reduced():
 
 
 def xlstm_phase(card: str):
-    """xlstm-350m at full width and depth (24 blocks: 12 x (mLSTM,
-    sLSTM), d_model 1,024, f32, 1.5 GiB): prefill of 2,048 tokens (the
+    """xlstm-350m at full width, depth cut to 12 of its 24 blocks (6 x
+    (mLSTM, sLSTM), d_model 1,024, f32; the sLSTM's Python step a token
+    makes the phase's time scale with depth): prefill of 2,048 tokens (the
     chunkwise mLSTM, four chunks of 512; the sLSTM one Python step per
     token) + 16 greedy decode steps, a teacher forward over 2,048 tokens,
     and one ``lm_train_step`` at 1 x 1,024 (every leaf trains, AdamW).
@@ -4262,7 +4391,7 @@ def xlstm_phase(card: str):
     from repro_torch.models import xlstm as XL
     from repro_torch.models.transformer import layer_params
     from repro_torch.training import trainer as TR
-    cfg, params, init = moe_model("xlstm-350m", 80)
+    cfg, params, init = moe_model("xlstm-350m", 80, repeats=6)
     stats = {"arch": cfg.name, "layers": cfg.n_layers, "card": card,
              "init": init}
     rng = np.random.default_rng(81)
@@ -4663,6 +4792,395 @@ def figures_phase(card: str):
     return counts
 
 
+# --------------------------------------------------------------------------
+# mesh-steps: the sharded step bundles (train with FSDP, prefill, decode,
+# context-parallel decode) against the flat bundles of the same shapes
+# --------------------------------------------------------------------------
+MS_DECODE_STEPS = 16
+MS_TRAIN = ("train_1k", 1024, 2, "train")
+MS_PREFILL = {(1, 1): ("prefill_4k", 4096, 1, "prefill"),
+              (1, 2): ("prefill_4k", 4096, 1, "prefill"),
+              (2, 1): ("prefill_512", 512, 2, "prefill")}
+MS_TRAIN_LAUNCHES = {"gate_mlp": 56, "gated_flash": 56, "gate_mlp_bwd": 28,
+                     "gated_flash_bwd": 28}   # remat: forward twice
+MS_PREFILL_LAUNCHES = {"gate_mlp": 28, "vertical_slash": 28}
+MS_DECODE_LAUNCHES = {"gate_mlp": 28, "paged_decode": 28}
+
+
+def ms_shape(spec):
+    from repro_torch.configs.base import InputShape
+    return InputShape(*spec)
+
+
+def ms_model(device):
+    """Full-width qwen3-0.6b, f32, weights drawn on ``device`` from seed
+    0 (every rank draws the same)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(0)
+    return cfg, init_model(cfg, gen, device)
+
+
+def ms_counts(wc) -> dict:
+    rec = wc.record()
+    return {"flops": rec["flops"], "bytes": rec["bytes"],
+            "kernels": {k: v["launches"] for k, v in rec["kernels"].items()},
+            "collectives": dict(rec["collective_bytes_by_axis"])}
+
+
+def ms_ints(tree) -> dict:
+    """{path: numpy} of a cache tree's integer leaves."""
+    import torch
+    from repro_torch.tree import tree_leaves_with_path
+    return {tuple(str(k) for k in p): x.cpu().numpy()
+            for p, x in tree_leaves_with_path(tree)
+            if not torch.is_floating_point(x)}
+
+
+def ms_step(fn, *args):
+    """``fn(*args)`` under the work counter, with the launch counters'
+    deltas and the wall: (out, counts, launches, wall s)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.roofline.counter import WorkCounter
+    torch.cuda.synchronize()
+    reset_counts()
+    # the identity page tables are cached per process: a count that
+    # starts from none does not depend on what ran before (as the dry
+    # run's)
+    ops._identity_tables.cache_clear()
+    t0 = time.perf_counter()
+    with WorkCounter() as wc:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, ms_counts(wc), {k: v for k, v in read_counts().items()
+                                if v}, wall
+
+
+def ms_run(mesh, cfg, params, prefill_spec, seq: bool = False,
+           train: bool = True) -> dict:
+    """One train step (``train``), one prefill and 16 greedy decode steps
+    on its caches through ``make_bundle`` (``mesh=None``: the flat
+    bundles), on the card, each step's first call under the work counter
+    (the other decode steps timed without it); with ``seq`` also one
+    decode step of the flat 1 x 4,096 prefill's row with its global cache
+    split over "data"."""
+    import torch
+    from repro_torch.launch.steps import make_bundle
+    from repro_torch.models import inference as I
+    from repro_torch.sharding import rules
+    res = {}
+    if train:
+        tr = make_bundle(cfg, ms_shape(MS_TRAIN), use_wgkv=True,
+                         device="cuda", params=params, mesh=mesh)
+        (state, aux), cnt, lc, wall = ms_step(tr.fn, *tr.args)
+        res["train"] = {"loss": float(aux["loss"]), "counts": cnt,
+                        "launches": lc, "wall_s": wall,
+                        "gates": {k: v.cpu().numpy()
+                                  for k, v in state.gates.items()}}
+        del tr, state
+    pre = make_bundle(cfg, ms_shape(prefill_spec), use_wgkv=True,
+                      device="cuda", params=params, mesh=mesh)
+    (logits, adm, caches), cnt, lc, wall = ms_step(pre.fn, *pre.args)
+    res["prefill"] = {"logits": logits.cpu().numpy(), "adm": float(adm),
+                      "counts": cnt, "launches": lc, "wall_s": wall,
+                      "ints": ms_ints(caches)}
+    del pre
+    name, s, b, _ = prefill_spec
+    dec = make_bundle(cfg, ms_shape(("decode_" + name, s, b, "decode")),
+                      use_wgkv=True, device="cuda", params=params,
+                      caches=caches, mesh=mesh)
+    token = logits.argmax(-1).to(torch.int32)
+    (logits, caches), cnt, lc, _ = ms_step(dec.fn, dec.args[0], caches,
+                                           {"token": token})
+    res["decode_counts"], res["decode_launches"] = cnt, lc
+    token = logits.argmax(-1).to(torch.int32)
+    steps = [(logits.cpu().numpy(), token.cpu().numpy())]
+    t0 = time.perf_counter()
+    for _ in range(MS_DECODE_STEPS - 1):
+        logits, caches = dec.fn(dec.args[0], caches, {"token": token})
+        token = logits.argmax(-1).to(torch.int32)
+        steps.append((logits.cpu().numpy(), token.cpu().numpy()))
+    res["decode"] = {"steps": steps, "ints": ms_ints(caches),
+                     "ms_per_step": (time.perf_counter() - t0) * 1e3
+                     / (MS_DECODE_STEPS - 1)}
+    del dec, caches
+    if seq:
+        with torch.no_grad():
+            out, flat = I.prefill(params, cfg, ms_tokens(cfg, 1, 4096),
+                                  use_wgkv=True,
+                                  budget=cfg.wgkv.global_budget(4096),
+                                  max_len=4096 + 64)
+        caches = rules.local_caches(flat, cfg, mesh, mesh.coords,
+                                    seq_shard=True)
+        del flat
+        sd = make_bundle(cfg, ms_shape(("decode_seq", 4096, 1, "decode")),
+                         use_wgkv=True, device="cuda", params=params,
+                         caches=caches, mesh=mesh)
+        token = out.logits.argmax(-1).to(torch.int32)
+        (logits, _), cnt, lc, wall = ms_step(sd.fn, sd.args[0], caches,
+                                             {"token": token})
+        res["seq"] = {"logits": logits.cpu().numpy(), "counts": cnt,
+                      "launches": lc, "wall_s": wall,
+                      "block": int(caches["blocks"]["b0"].gk.shape[3]),
+                      "gcnt_max": int(caches["blocks"]["b0"].gcnt.max())}
+    return res
+
+
+def ms_tokens(cfg, b: int, s: int):
+    """The prefill bundle's tokens (``launch.specs``: seed 0 on the CPU)."""
+    from repro_torch.launch import specs as S
+    return S.prefill_inputs(cfg, ms_shape(("p", s, b, "prefill")),
+                            "cuda")["tokens"]
+
+
+def mesh_steps_rank(mesh):
+    """One rank of a mesh-steps world: its shard of the model and
+    :func:`ms_run`."""
+    import torch
+    cfg, params = ms_model(mesh.device)
+    t0 = time.perf_counter()
+    shape = (mesh.shape["data"], mesh.shape["model"])
+    res = ms_run(mesh, cfg, params, MS_PREFILL[shape],
+                 seq=shape == (2, 1))
+    res["wall_s"] = time.perf_counter() - t0
+    res["coords"] = mesh.coords
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return res
+
+
+def ms_meta(cfg, shape, backend, seq: bool) -> dict:
+    """Rank (0, 0)'s counts of the same bundles on ``meta`` over a fake
+    process group that stands for ``backend`` (each from no cached page
+    table, as :func:`ms_step`'s)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.steps import make_bundle
+    from repro_torch.models import inference as I
+    from repro_torch.roofline.counter import WorkCounter
+    from repro_torch.sharding import rules
+    out = {}
+    with M.fake_mesh(shape, backend=backend) as mesh:
+        for tag, spec in (("train", MS_TRAIN), ("prefill", MS_PREFILL[shape])):
+            b = make_bundle(cfg, ms_shape(spec), use_wgkv=True, mesh=mesh)
+            ops._identity_tables.cache_clear()
+            with WorkCounter() as wc:
+                res = b.fn(*b.args)
+            out[tag] = ms_counts(wc)
+        name, s, bb, _ = MS_PREFILL[shape]
+        d = make_bundle(cfg, ms_shape(("decode_" + name, s, bb, "decode")),
+                        use_wgkv=True, caches=res[2], mesh=mesh)
+        ops._identity_tables.cache_clear()
+        with WorkCounter() as wc:
+            d.fn(*d.args)
+        out["decode"] = ms_counts(wc)
+        if seq:
+            b = make_bundle(cfg, ms_shape(("p", 4096, 1, "prefill")),
+                            use_wgkv=True)
+            flat = I.prefill(b.args[0], cfg, b.args[1]["tokens"],
+                             use_wgkv=True,
+                             budget=cfg.wgkv.global_budget(4096),
+                             max_len=4096 + 64)[1]
+            caches = rules.local_caches(flat, cfg, mesh, mesh.coords,
+                                        seq_shard=True)
+            d = make_bundle(cfg, ms_shape(("decode_seq", 4096, 1, "decode")),
+                            use_wgkv=True, caches=caches, mesh=mesh)
+            ops._identity_tables.cache_clear()
+            with WorkCounter() as wc:
+                d.fn(*d.args)
+            out["seq"] = ms_counts(wc)
+    return out
+
+
+def ms_check(tag, cfg, shape, res, flat, meta, rank0: bool) -> dict:
+    """Holds one rank's run to the flat run of the same shapes, its
+    launches to the counts from the shapes, its collective bytes by axis
+    to rank (0, 0)'s in the fake-group meta run (the dry run's counter:
+    in ring accounting every rank moves what rank (0, 0) moves) and, for
+    rank (0, 0), all its counts to the meta run's. Returns its summary."""
+    import numpy as np
+    import torch
+    from repro_torch.sharding import rules
+    mesh = {"data": shape[0], "model": shape[1]}
+    coords = res["coords"]
+    f_tr, m_tr = flat["train"], res["train"]
+    rel = abs(m_tr["loss"] - f_tr["loss"]) / abs(f_tr["loss"])
+    check(rel <= 1e-5, f"{tag}: loss {m_tr['loss']} vs flat {f_tr['loss']}"
+          f" ({rel:.2e} relative)")
+    gate_err = 0.0
+    for key, want in f_tr["gates"].items():
+        spec = rules.param_placement(tuple(key.split("/")), want.shape, mesh,
+                                     cfg, replicate_fsdp=False)
+        blk = rules.local_shard(torch.from_numpy(want), spec, coords,
+                                mesh).numpy()
+        gate_err = max(gate_err, float(np.abs(m_tr["gates"][key] - blk).max()))
+    check(gate_err <= 1e-4, f"{tag}: new gates differ by {gate_err:.3e}")
+    rows = rules.block(flat["prefill"]["logits"].shape[0],
+                       rules.tokens_spec(mesh, flat["prefill"]["logits"]
+                                         .shape[0], 0)[0], coords, mesh)
+    lg_err = float(np.abs(res["prefill"]["logits"]
+                          - flat["prefill"]["logits"][rows]).max())
+    for (lg, tok), (flg, ftok) in zip(res["decode"]["steps"],
+                                      flat["decode"]["steps"]):
+        check(np.array_equal(tok, ftok[rows]), f"{tag}: greedy tokens "
+              f"{tok} != flat {ftok[rows]}")
+        lg_err = max(lg_err, float(np.abs(lg - flg[rows]).max()))
+    check(lg_err <= 1e-4, f"{tag}: logits differ by {lg_err:.3e}")
+    for part in ("prefill", "decode"):
+        for path, want in flat[part]["ints"].items():
+            spec = rules.cache_placement(path, want.shape, mesh, cfg)
+            blk = rules.local_shard(torch.from_numpy(want), spec, coords,
+                                    mesh).numpy()
+            check(np.array_equal(res[part]["ints"][path], blk),
+                  f"{tag}: {part} cache leaf {'/'.join(path)} differs")
+    check(res["train"]["launches"] == MS_TRAIN_LAUNCHES,
+          f"{tag}: train launches {res['train']['launches']}")
+    check(res["prefill"]["launches"] == MS_PREFILL_LAUNCHES,
+          f"{tag}: prefill launches {res['prefill']['launches']}")
+    check(res["decode_launches"] == MS_DECODE_LAUNCHES,
+          f"{tag}: decode launches {res['decode_launches']}")
+    kinds = [("train", res["train"]["counts"]),
+             ("prefill", res["prefill"]["counts"]),
+             ("decode", res["decode_counts"])]
+    if "seq" in res:
+        kinds.append(("seq", res["seq"]["counts"]))
+    coll = {}
+    for kind, cnt in kinds:
+        want = meta[kind]["collectives"]
+        check(cnt["collectives"] == want, f"{tag}: {kind} collective bytes "
+              f"{cnt['collectives']} != the meta run's {want}")
+        coll[kind] = cnt["collectives"]
+        if rank0:
+            check(cnt == meta[kind], f"{tag}: {kind} counts on the card "
+                  f"{cnt} != the fake-group meta run's {meta[kind]}")
+    out = {"train_wall_s": res["train"]["wall_s"],
+           "prefill_wall_s": res["prefill"]["wall_s"],
+           "decode_ms_per_step": res["decode"]["ms_per_step"],
+           "loss_rel_err": rel, "gate_err": gate_err, "logit_err": lg_err,
+           "collective_bytes": coll}
+    if "seq" in res:
+        f1 = flat["seq_logits"]
+        err = float(np.abs(res["seq"]["logits"] - f1).max())
+        check(err <= 1e-4, f"{tag}: seq-sharded decode logits differ by "
+              f"{err:.3e}")
+        check(res["seq"]["launches"] == MS_DECODE_LAUNCHES,
+              f"{tag}: seq decode launches {res['seq']['launches']}")
+        out.update(seq_logit_err=err, seq_block=res["seq"]["block"],
+                   seq_gcnt_max=res["seq"]["gcnt_max"],
+                   seq_wall_s=res["seq"]["wall_s"])
+    return out
+
+
+def ms_host_runs(cfg) -> tuple:
+    """The phase's runs on ``meta`` (host work alone): the 16 x 16 dry
+    run's rank-0 record of train_4k, and rank (0, 0)'s counts of the
+    phase's bundles on each of its meshes (:func:`ms_meta`)."""
+    from repro_torch.launch import dryrun as D
+    rec = D.run_dryrun("qwen3-0.6b", "train_4k", mesh="single")
+    return rec, {(1, 1): ms_meta(cfg, (1, 1), "nccl", False),
+                 (1, 2): ms_meta(cfg, (1, 2), "gloo", False),
+                 (2, 1): ms_meta(cfg, (2, 1), "gloo", True)}
+
+
+def mesh_steps_phase(card: str):
+    """The sharded step bundles at full-width qwen3-0.6b (28 layers, f32,
+    seed-0 weights): one train step at 2 x 1,024 (remat, FSDP over
+    "data"), one prefill (1 x 4,096 at budget 1,024; 2 x 512 on 2 x 1)
+    and 16 greedy decode steps on its caches, on a 1 x 1 NCCL mesh (in
+    this process), a 1 x 2 gloo mesh (heads 8 / 4 a rank) and a 2 x 1
+    gloo mesh (FSDP gathers over "data"; and one decode step of the flat
+    1 x 4,096 prefill's row, its global cache split over "data"), each
+    held to the flat bundles of the same shapes and to the fake-group meta
+    run (ms_check), and the 16 x 16 dry run's rank-0 record of train_4k
+    printed. The meta runs, host work in this process, overlap the gloo
+    ranks, which run in their own processes. Returns each run's launches
+    (its train step, prefill and first decode step)."""
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    cfg, params = ms_model("cuda")
+    t0 = time.perf_counter()
+    flat = {MS_PREFILL[(1, 2)]: ms_run(None, cfg, params, MS_PREFILL[(1, 2)])}
+    flat[MS_PREFILL[(2, 1)]] = dict(
+        ms_run(None, cfg, params, MS_PREFILL[(2, 1)], train=False),
+        train=flat[MS_PREFILL[(1, 2)]]["train"])
+    # the seq-sharded decode (2 x 1) reads the 1 x 4,096 prefill's cache:
+    # its flat first decode step is the yardstick
+    flat[MS_PREFILL[(2, 1)]]["seq_logits"] = \
+        flat[MS_PREFILL[(1, 2)]]["decode"]["steps"][0][0]
+    flat_wall = time.perf_counter() - t0
+    def launches(res):
+        """The run's launches: its train step, prefill and first decode
+        step (and the seq-sharded step) added."""
+        tot = {}
+        for lc in (res["train"]["launches"], res["prefill"]["launches"],
+                   res["decode_launches"],
+                   res.get("seq", {}).get("launches", {})):
+            for k, v in lc.items():
+                tot[k] = tot.get(k, 0) + v
+        return tot
+    out = {"flat_wall_s": flat_wall, "flat": {
+        "train_wall_s": flat[MS_PREFILL[(1, 2)]]["train"]["wall_s"],
+        **{f"{spec[0]} {k}": flat[spec][part][key]
+           for spec in (MS_PREFILL[(1, 2)], MS_PREFILL[(2, 1)])
+           for k, part, key in (("prefill_wall_s", "prefill", "wall_s"),
+                                ("decode_ms_per_step", "decode",
+                                 "ms_per_step"))}}}
+    counts = {"flat": launches(flat[MS_PREFILL[(1, 2)]])}
+    # 1 x 1 over NCCL, in this process
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = M.init_mesh((1, 1), backend="nccl", device="cuda")
+        one = ms_run(mesh, cfg, params, MS_PREFILL[(1, 1)])
+        one["coords"] = mesh.coords
+    finally:
+        dist.destroy_process_group()
+    one_wall = time.perf_counter() - t0
+    del params
+    free_cuda()
+    ranks, walls = {}, {}
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(ms_host_runs, cfg)
+        for shape in ((1, 2), (2, 1)):
+            t0 = time.perf_counter()
+            ranks[shape] = M.spawn(mesh_steps_rank, shape, backend="gloo",
+                                   device="cuda", timeout_s=600)
+            walls[shape] = time.perf_counter() - t0
+        rec, meta = host.result()
+    print("mesh-steps dryrun 16x16 train_4k rank 0: " + json.dumps({
+        k: rec[k] for k in ("knobs", "memory", "collectives", "compute_s",
+                            "memory_s", "collective_s", "bottleneck")}
+        | {"flops": rec["cost"]["flops"], "bytes": rec["cost"]["bytes"],
+           "launches": {k: v["launches"]
+                        for k, v in rec["cost"]["kernels"].items()}}),
+        flush=True)
+    out["1x1 nccl"] = ms_check("mesh-steps 1x1", cfg, (1, 1), one,
+                               flat[MS_PREFILL[(1, 1)]], meta[(1, 1)], True)
+    out["1x1 nccl"]["wall_s"] = one_wall
+    counts["1x1 nccl"] = launches(one)
+    for shape in ((1, 2), (2, 1)):
+        tag = f"{shape[0]}x{shape[1]} gloo"
+        out[tag] = {"wall_s": walls[shape]}
+        for r, res in sorted(ranks[shape].items()):
+            out[tag][f"rank {r}"] = ms_check(
+                f"mesh-steps {tag} rank {r}", cfg, shape, res,
+                flat[MS_PREFILL[shape]], meta[shape], r == 0)
+            out[tag][f"rank {r}"].update(wall_s=res["wall_s"],
+                                         peak_bytes=res["peak_bytes"])
+        counts[tag] = launches(ranks[shape][0])
+    print("mesh-steps: " + json.dumps(out), flush=True)
+    return counts
+
+
 PHASE_S: dict = {}        # phase group -> seconds, in run order
 _LAP = [0.0]
 
@@ -4873,8 +5391,8 @@ def main() -> int:
     # substrate's selected read)
     fig_kernels = figure_cases()
     free_cuda()
-    # this slice's: one mesh rank's shapes
-    mesh_kernels = mesh_cases()
+    # one mesh rank's shapes: the serving mesh's, then the mesh-steps'
+    mesh_kernels = mesh_cases() + mesh_step_cases()
     free_cuda()
     planted = planted_faults([("gate_mlp_bwd", gb_train_run),
                               ("gate_mlp_bwd", gb_sub_run),
@@ -5016,6 +5534,12 @@ def main() -> int:
     free_cuda()
     mesh_counts = mesh_phase(card)
     lap("mesh")
+    # the sharded step bundles: train (FSDP), prefill and decode on 1 x 1
+    # NCCL, 1 x 2 and 2 x 1 gloo meshes, against the flat bundles
+    free_cuda()
+    mesh_counts.update({f"steps {k}": c for k, c in
+                        mesh_steps_phase(card).items()})
+    lap("mesh-steps")
     # gate-distillation training (this slice's paths)
     free_cuda()
     train_counts, train_stats = train_arch(card, "qwen3-0.6b", steps=4,
@@ -5405,7 +5929,7 @@ def main() -> int:
         entry["launches_sentinels"] = {k: c[entry["name"]]
                                        for k, c in sentinel_counts.items()}
         entry["launches_legacy_loop"] = loop_counts[entry["name"]]
-        entry["launches_mesh"] = {k: c[entry["name"]]
+        entry["launches_mesh"] = {k: c.get(entry["name"], 0)
                                   for k, c in mesh_counts.items()}
         entry["launches_figures"] = figures_counts[entry["name"]]
         if entry["name"] in fig_by:

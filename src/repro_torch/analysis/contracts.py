@@ -10,7 +10,9 @@ Grammar (one directive per comment, attached to the physical line)::
 
     # torchlint: tick-path                    scope marker on a ``def`` line
     # torchlint: masked-scan-body             scope marker on a ``def`` line
+    # torchlint: sharded-path                 scope marker on a ``def`` line
     # torchlint: allow-sync(reason)           suppress TL001 on this line
+    # torchlint: allow-concat(reason)         suppress TL002 on this line
     # torchlint: allow-unmasked-write(reason) suppress TL003 on this line
 
 ``allow-*`` directives REQUIRE a non-empty reason; a reasonless
@@ -30,13 +32,15 @@ from typing import Callable, Dict, List, Optional, Tuple, TypeVar
 
 PREFIX = "torchlint"
 
-SCOPE_MARKERS = frozenset({"tick-path", "masked-scan-body"})
-SUPPRESSIONS = frozenset({"allow-sync", "allow-unmasked-write"})
+SCOPE_MARKERS = frozenset({"tick-path", "masked-scan-body", "sharded-path"})
+SUPPRESSIONS = frozenset({"allow-sync", "allow-concat",
+                          "allow-unmasked-write"})
 KNOWN_DIRECTIVES = SCOPE_MARKERS | SUPPRESSIONS
 
 # Which suppression silences which pass.
 SUPPRESSION_FOR_CODE = {
     "TL001": "allow-sync",
+    "TL002": "allow-concat",
     "TL003": "allow-unmasked-write",
 }
 

@@ -14,11 +14,18 @@ TL001  host sync in a tick-path function without ``allow-sync(reason)``:
        ``_host``, and a Python ``if``/``while``/``assert`` on a tensor
        value (in eager mode such a branch is itself a host sync: the
        reference's JL004 folds in here)
+TL002  ``torch.cat`` / ``torch.stack`` (and ``concat`` / ``concatenate``)
+       in a module of the sharded path (``SHARDED_PATH_MODULES``) or a
+       function marked ``sharded-path``, without ``allow-concat(reason)``
+       (the reference's JL002). There a rank holds blocks of tensors
+       split over "data" or "model": a concat of local blocks along a
+       split axis builds a tensor no rank should hold, and the one that
+       should exist is assembled by a collective, in
+       ``sharding/comm.py``.
 TL003  cache state escaping a masked scan body without the per-row
        select (``tree_map`` / ``torch.where``), or written in place there
 
-The reference's JL002 (concat on a sharded axis) waits for the port's
-mesh, and its JL005 (jit shape budget) has no static counterpart in
+The reference's JL005 (jit shape budget) has no static counterpart in
 eager PyTorch: the budget is data on the Engine, which
 ``sentinels.CompileSentinel`` checks at run time.
 """
@@ -65,7 +72,13 @@ SYNC_METHODS: FrozenSet[str] = frozenset({"item", "tolist", "cpu", "numpy"})
 SYNC_FUNCTIONS: FrozenSet[str] = frozenset(
     {"_host", "torch.cuda.synchronize"})
 
-ALL_CODES: Tuple[str, ...] = ("TL000", "TL001", "TL003")
+ALL_CODES: Tuple[str, ...] = ("TL000", "TL001", "TL002", "TL003")
+
+# Modules whose every concat or stack is a TL002 finding: the sharded
+# serving's helpers hold rank-local blocks of batched cache trees.
+SHARDED_PATH_MODULES: Tuple[str, ...] = ("repro_torch/serving/sharded.py",)
+CONCAT_CALLS: FrozenSet[str] = frozenset(
+    {"torch.cat", "torch.concat", "torch.concatenate", "torch.stack"})
 
 
 @dataclass
@@ -390,11 +403,46 @@ def check_masked_scan_body(ctx: ModuleContext) -> List[Finding]:
     return out
 
 
+# TL002 — concat on the sharded path ----------------------------------------
+
+
+def check_sharded_concat(ctx: ModuleContext) -> List[Finding]:
+    if any(ctx.path.endswith(m) for m in SHARDED_PATH_MODULES):
+        spans = [(1, len(ctx.lines) or 1)]
+    else:
+        spans = [(fn.lineno, fn.end_lineno or fn.lineno)
+                 for fn in _functions(ctx.tree)
+                 if ctx.ann.scope_marker("sharded-path", fn.lineno)]
+    if not spans:
+        return []
+    out: List[Finding] = []
+    for node in ast.walk(ctx.tree):
+        if not isinstance(node, ast.Call):
+            continue
+        d = _dotted(node.func) or ""
+        if d not in CONCAT_CALLS:
+            continue
+        if not any(lo <= node.lineno <= hi for lo, hi in spans):
+            continue
+        if ctx.ann.suppressed("TL002", node.lineno):
+            continue
+        out.append(ctx.finding(
+            "TL002", node.lineno,
+            f"{d} on the sharded path: a rank holds blocks split over "
+            "'data' or 'model', and a concat of local blocks along a split "
+            "axis builds a tensor no rank should hold; assemble it with a "
+            "collective in sharding/comm.py, or annotate "
+            "`# torchlint: allow-concat(reason)` for an axis no mesh "
+            "splits"))
+    return out
+
+
 # Driver --------------------------------------------------------------------
 
 PASSES = {
     "TL000": check_annotations,
     "TL001": check_host_sync,
+    "TL002": check_sharded_concat,
     "TL003": check_masked_scan_body,
 }
 

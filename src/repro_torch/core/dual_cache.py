@@ -137,7 +137,7 @@ def prefill_populate(cache: DualCache, k: torch.Tensor, v: torch.Tensor,
 
 def lazy_promote_and_write(cache: DualCache, k_new: torch.Tensor,
                            v_new: torch.Tensor, g_new: torch.Tensor, *,
-                           tau: float) -> DualCache:
+                           tau: float, block=None) -> DualCache:
     """Decode-phase cache update (paper Fig. 6d):
 
     1. inspect the victim at the ring pointer;
@@ -145,9 +145,18 @@ def lazy_promote_and_write(cache: DualCache, k_new: torch.Tensor,
        while the budget lasts (a full cache counts the drop in
        ``overflow`` and leaves slot ``C - 1`` as it was);
     3. overwrite the ring slot with the new token; advance the pointer.
-    """
+
+    ``block`` (i, n): the global token axis (``gk``, ``gv``, ``gpos``) is
+    split over n ranks and this cache holds block i of it (context-
+    parallel decode). The budget is then ``n`` times the block, the
+    victim's global slot ``gcnt`` lies in one block, and only that rank
+    writes it; ``gcnt``, ``overflow``, the ring, ``t``, ``ptr`` and the
+    page metadata (whole on every rank) advance alike everywhere."""
     b, h, w, d = cache.lk.shape
     c = cache.budget
+    off = 0
+    if block is not None:
+        off, c = block[0] * c, block[1] * c
     dev = cache.lk.device
     bar = torch.arange(b, device=dev)
     ptr = cache.ptr.long()
@@ -163,13 +172,18 @@ def lazy_promote_and_write(cache: DualCache, k_new: torch.Tensor,
     dest = torch.clamp(cache.gcnt, max=c - 1)         # [B, H]
     bi = bar[:, None].expand(b, h)
     hi = torch.arange(h, device=dev)[None, :].expand(b, h)
+    mine = can_write
     di = dest.long()
+    if block is not None:
+        cb = cache.budget
+        mine = can_write & (dest >= off) & (dest < off + cb)
+        di = torch.clamp(di - off, 0, cb - 1)
     old_k = cache.gk[bi, hi, di]
     old_v = cache.gv[bi, hi, di]
     old_p = cache.gpos[bi, hi, di]
-    up_k = torch.where(can_write[..., None], vk.to(cache.gk.dtype), old_k)
-    up_v = torch.where(can_write[..., None], vv.to(cache.gv.dtype), old_v)
-    up_p = torch.where(can_write, vpos[:, None].expand(b, h), old_p)
+    up_k = torch.where(mine[..., None], vk.to(cache.gk.dtype), old_k)
+    up_v = torch.where(mine[..., None], vv.to(cache.gv.dtype), old_v)
+    up_p = torch.where(mine, vpos[:, None].expand(b, h), old_p)
     gk, gv, gpos = cache.gk.clone(), cache.gv.clone(), cache.gpos.clone()
     gk[bi, hi, di] = up_k
     gv[bi, hi, di] = up_v

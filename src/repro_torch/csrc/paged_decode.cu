@@ -36,6 +36,13 @@
 // window can touch. The first live page is masked below the start.
 // Without starts every line runs as before.
 //
+// The LOG-SUM-EXP (lse non-null, paged_decode only): besides out, one f32
+// per query row, m + log(l) of the read's online softmax (scores already
+// scaled by hd^-1/2), -inf for a row that saw no token (out 0). The
+// context-parallel decode combines the "data" ranks' reads of their
+// blocks of the global cache by it (src/repro_torch/sharding/comm.py::
+// combine_lse); the split combine already holds m and l and writes it.
+//
 // What bounds it on this card: bytes at long caches (each live K/V page is
 // read once per kv stream for 4 * hd * G FLOPs per token, far below the
 // card's FLOP/byte ratio), latency at serving sizes (a few dozen pages per
@@ -146,7 +153,8 @@ __device__ __forceinline__ bool resolve(const Walk& w, int kv, int j,
 template <typename T, int STAGES>
 __global__ void __launch_bounds__(THREADS)
 split_kernel(const T* __restrict__ q, Walk w, Plan pl, T* __restrict__ out,
-             float* __restrict__ part_acc, float2* __restrict__ part_ml) {
+             float* __restrict__ lse, float* __restrict__ part_acc,
+             float2* __restrict__ part_ml) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = pl.hd;
   const size_t page_bytes = (size_t)PAGE * hd * sizeof(T);
@@ -335,6 +343,8 @@ split_kernel(const T* __restrict__ q, Walk w, Plan pl, T* __restrict__ out,
       store(o + 1, acc[a].y / denom);
       store(o + 2, acc[a].z / denom);
       store(o + 3, acc[a].w / denom);
+      if (lse != nullptr && col == 0)
+        lse[row0 + h] = l_sh[h] > 0.f ? m_sh[h] + logf(l_sh[h]) : -INFINITY;
     } else {
       // a split with no live page leaves m = NEG_INF and its acc unwritten:
       // the combine skips it
@@ -355,7 +365,7 @@ template <typename T>
 __global__ void __launch_bounds__(COMBINE_THREADS)
 combine_kernel(const float* __restrict__ part_acc,
                const float2* __restrict__ part_ml, T* __restrict__ out,
-               int group, int nsplit, int hd) {
+               float* __restrict__ lse, int group, int nsplit, int hd) {
   __shared__ float red_m[COMBINE_THREADS];
   __shared__ float red_l[COMBINE_THREADS];
   __shared__ float4 red_a[COMBINE_THREADS];
@@ -417,6 +427,8 @@ combine_kernel(const float* __restrict__ part_acc,
   store(o + 1, acc.y / denom);
   store(o + 2, acc.z / denom);
   store(o + 3, acc.w / denom);
+  if (lse != nullptr && col == 0)
+    lse[row] = l > 0.f ? m_safe + logf(l) : -INFINITY;
 }
 
 size_t smem_bytes(const Plan& pl, int stages, size_t elem) {
@@ -429,7 +441,8 @@ size_t smem_bytes(const Plan& pl, int stages, size_t elem) {
 
 template <typename T, int STAGES>
 int launch_split(const T* q, const Walk& w, const Plan& pl, int nkv, int chunks,
-                 T* out, float* part_acc, float2* part_ml, cudaStream_t st) {
+                 T* out, float* lse, float* part_acc, float2* part_ml,
+                 cudaStream_t st) {
   const size_t smem = smem_bytes(pl, STAGES, sizeof(T));
   if (smem > 48 * 1024) {  // above the default dynamic limit
     const cudaError_t err = cudaFuncSetAttribute(
@@ -437,32 +450,34 @@ int launch_split(const T* q, const Walk& w, const Plan& pl, int nkv, int chunks,
     if (err != cudaSuccess) return (int)err;
   }
   split_kernel<T, STAGES><<<dim3(nkv, pl.nsplit, chunks), THREADS, smem, st>>>(
-      q, w, pl, out, part_acc, part_ml);
+      q, w, pl, out, lse, part_acc, part_ml);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || pl.nsplit == 1) return (int)err;
   combine_kernel<T><<<nkv * pl.group, COMBINE_THREADS, 0, st>>>(
-      part_acc, part_ml, out, pl.group, pl.nsplit, pl.hd);
+      part_acc, part_ml, out, lse, pl.group, pl.nsplit, pl.hd);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_typed(const void* q, const Walk& w, const Plan& pl, int nkv,
-                 int chunks, void* out, float* part, cudaStream_t st) {
+                 int chunks, void* out, float* lse, float* part,
+                 cudaStream_t st) {
   float* part_acc = part;  // hd is a multiple of 4: part_ml stays aligned
   float2* part_ml = reinterpret_cast<float2*>(
       part + (size_t)nkv * pl.nsplit * pl.group * pl.hd);
   const T* qt = static_cast<const T*>(q);
   T* ot = static_cast<T*>(out);
   if (pl.pps <= 2)
-    return launch_split<T, 2>(qt, w, pl, nkv, chunks, ot, part_acc, part_ml, st);
-  return launch_split<T, 3>(qt, w, pl, nkv, chunks, ot, part_acc, part_ml, st);
+    return launch_split<T, 2>(qt, w, pl, nkv, chunks, ot, lse, part_acc, part_ml, st);
+  return launch_split<T, 3>(qt, w, pl, nkv, chunks, ot, lse, part_acc, part_ml, st);
 }
 
 // N query rows of hd; G heads per kv stream; `heads` per CTA; `pps` walk
 // positions per split. part: Nkv * nsplit * G * (hd + 2) floats of
 // scratch, acc then (m, l) (unused, may be null, with one split).
-int launch(const void* q, Walk w, void* out, float* part, int N, int G,
-           int hd, int page, int pps, int heads, int dtype, void* stream) {
+int launch(const void* q, Walk w, void* out, float* lse, float* part, int N,
+           int G, int hd, int page, int pps, int heads, int dtype,
+           void* stream) {
   if (N <= 0) return 0;
   const size_t elem = dtype == 0 ? 4 : 2;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
@@ -481,13 +496,14 @@ int launch(const void* q, Walk w, void* out, float* part, int N, int G,
   const int chunks = (G + heads - 1) / heads;
   const Plan pl{G, heads, pps, nsplit, hd, 1.f / sqrtf((float)hd)};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_typed<float>(q, w, pl, nkv, chunks, out, part, st);
-  return launch_typed<__nv_bfloat16>(q, w, pl, nkv, chunks, out, part, st);
+  if (dtype == 0) return launch_typed<float>(q, w, pl, nkv, chunks, out, lse, part, st);
+  return launch_typed<__nv_bfloat16>(q, w, pl, nkv, chunks, out, lse, part, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. k2 == nullptr means one segment.
+// lse: [N] f32 log-sum-exp of each row's read, or nullptr.
 // Tables, lengths (and ids, starts) are per kv stream: [N / G, ...].
 // starts1 == nullptr: segment 1 from token 0, walk1 ignored (its walk is
 // max_pages1). Else segment 1 is read over [starts1, min(lengths1,
@@ -499,8 +515,8 @@ extern "C" int paged_decode(const void* q,
                             const int* starts1, int span1, int walk1,
                             const void* k2, const void* v2, const int* table2,
                             const int* lengths2, int max_pages2,
-                            void* out, float* part, int N, int G, int hd,
-                            int page, int pps, int heads, int dtype,
+                            void* out, float* lse, float* part, int N, int G,
+                            int hd, int page, int pps, int heads, int dtype,
                             void* stream) {
   const bool two = k2 != nullptr;
   if (starts1 != nullptr && (span1 <= 0 || walk1 <= 0 || walk1 > max_pages1))
@@ -510,7 +526,8 @@ extern "C" int paged_decode(const void* q,
                 nullptr, 0},
                starts1 != nullptr ? walk1 : max_pages1, two ? max_pages2 : 0,
                nullptr, nullptr};
-  return launch(q, w, out, part, N, G, hd, page, pps, heads, dtype, stream);
+  return launch(q, w, out, lse, part, N, G, hd, page, pps, heads, dtype,
+                stream);
 }
 
 // The first segment read through sel [N / G, k_pages] / n_sel [N / G];
@@ -522,9 +539,10 @@ extern "C" int paged_decode_selected(const void* q,
                                      const int* n_sel, int k_pages,
                                      const void* k2, const void* v2,
                                      const int* table2, const int* lengths2,
-                                     int max_pages2, void* out, float* part,
-                                     int N, int G, int hd, int page, int pps,
-                                     int heads, int dtype, void* stream) {
+                                     int max_pages2, void* out, float* lse,
+                                     float* part, int N, int G, int hd,
+                                     int page, int pps, int heads, int dtype,
+                                     void* stream) {
   if (sel == nullptr || n_sel == nullptr || k_pages <= 0)
     return (int)cudaErrorInvalidValue;
   const bool two = k2 != nullptr;
@@ -532,5 +550,6 @@ extern "C" int paged_decode_selected(const void* q,
                {two ? k2 : k1, two ? v2 : v1, table2, lengths2, max_pages2,
                 nullptr, 0},
                k_pages, two ? max_pages2 : 0, sel, n_sel};
-  return launch(q, w, out, part, N, G, hd, page, pps, heads, dtype, stream);
+  return launch(q, w, out, lse, part, N, G, hd, page, pps, heads, dtype,
+                stream);
 }

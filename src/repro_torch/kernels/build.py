@@ -150,11 +150,12 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     elif name == "paged_decode":
         lib.paged_decode.argtypes = [p, p, p, p, p, i, p, i, i,
                                      p, p, p, p, i,
-                                     p, p, i, i, i, i, i, i, i, p]
+                                     p, p, p, i, i, i, i, i, i, i, p]
         lib.paged_decode.restype = i
         lib.paged_decode_selected.argtypes = [p, p, p, p, p, i, p, p, i,
                                               p, p, p, p, i,
-                                              p, p, i, i, i, i, i, i, i, p]
+                                              p, p, p, i, i, i, i, i, i, i,
+                                              p]
         lib.paged_decode_selected.restype = i
     elif name == "vertical_slash":
         lib.vertical_slash.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,

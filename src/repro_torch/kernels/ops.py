@@ -89,7 +89,7 @@ def _identity_tables(streams: int, pages: int,
     return tbl.contiguous()
 
 
-def dual_cache_segments(q, cache):
+def dual_cache_segments(q, cache, block=None):
     """The paged-decode arguments of a DualCache read, viewed in place:
     (q [B*Hq, hd], global segment, local-ring segment, group), each
     segment a (k_pool, v_pool, page_table, lengths) tuple per kv stream
@@ -101,7 +101,13 @@ def dual_cache_segments(q, cache):
     A global budget off the page grid (a fraction of the capacity, such
     as 0.4 x 512 = 204) is read through a copy padded to whole pages:
     ``gcnt <= C`` keeps the padding unread. The ring must be
-    page-aligned."""
+    page-aligned.
+
+    ``block`` (i, n): the cache's global token axis is split over n
+    ranks and this one holds block i of it (context-parallel decode):
+    the global segment is this rank's ``C / n`` slots, holding
+    ``clamp(gcnt - i C / n, 0, C / n)`` tokens, and only block 0 reads
+    the ring (the others read it with length 0)."""
     b, hq, hd = q.shape
     _, hkv, c, _ = cache.gk.shape
     w = cache.lk.shape[2]
@@ -118,6 +124,12 @@ def dual_cache_segments(q, cache):
     glen = cache.gcnt.reshape(s)
     llen = torch.clamp(cache.t, max=w).to(torch.int32)[:, None] \
         .expand(b, hkv).reshape(s)
+    if block is not None:
+        i, _ = block
+        cb = cache.gk.shape[2]
+        glen = torch.clamp(glen - i * cb, 0, cb).to(torch.int32)
+        if i:
+            llen = torch.zeros_like(llen)
     first = (gk.reshape(s * c // PAGE_SIZE, PAGE_SIZE, hd),
              gv.reshape(s * c // PAGE_SIZE, PAGE_SIZE, hd),
              _identity_tables(s, c // PAGE_SIZE, q.device),
@@ -129,12 +141,18 @@ def dual_cache_segments(q, cache):
     return q.reshape(b * hq, hd).contiguous(), first, second, hq // hkv
 
 
-def dual_cache_attention(q, cache):
+def dual_cache_attention(q, cache, block=None):
     """One query per head over a DualCache's [admitted global ‖ local
     ring], read in place by the paged-decode kernel as two segments.
-    q: [B, Hq, hd] -> [B, Hq, hd]."""
-    qf, first, second, g = dual_cache_segments(q, cache)
-    return paged_decode(qf, *first, second=second, group=g).reshape(q.shape)
+    q: [B, Hq, hd] -> [B, Hq, hd]. With ``block`` (this rank's block of a
+    seq-sharded global axis, :func:`dual_cache_segments`): (out, the
+    read's log-sum-exp [B, Hq] f32), for ``sharding.comm.combine_lse``."""
+    qf, first, second, g = dual_cache_segments(q, cache, block)
+    if block is None:
+        return paged_decode(qf, *first, second=second,
+                            group=g).reshape(q.shape)
+    out, lse = paged_decode(qf, *first, second=second, group=g, lse=True)
+    return out.reshape(q.shape), lse.reshape(q.shape[:2])
 
 
 def dense_cache_segment(q, cache):

@@ -34,6 +34,13 @@ run in parallel and are combined in a fixed order. Both kernels are
 forward-only: on CUDA a query or pool that requires grad (with grad
 enabled) raises rather than yield an output without a graph.
 
+:func:`paged_decode` with ``lse=True`` also returns the read's
+log-sum-exp per query row in f32, ``m + log(l)`` of the online softmax
+(scores scaled by hd^-1/2), and -inf for a row that read no key (whose
+output is 0): the context-parallel decode combines the "data" ranks'
+reads of their blocks of the global cache by it
+(``sharding.comm.combine_lse``).
+
 On the ``meta`` device both return an empty output of the right shape
 and dtype: no plain version runs, no kernel, no check of what the kernel
 takes. While a :class:`repro_torch.roofline.counter.WorkCounter` is
@@ -168,6 +175,7 @@ def _selected_segment(q, k_pool, v_pool, page_table, lengths, sel_ids,
 
 
 def _combine(q, logits, v, second: Optional[Segment]):
+    """-> (out [N, hd] in q's dtype, lse [N] f32)."""
     if second is not None:
         l2, v2 = _segment(q, *second)
         logits = torch.cat([logits, l2], dim=1)
@@ -175,23 +183,28 @@ def _combine(q, logits, v, second: Optional[Segment]):
     m = logits.amax(dim=-1, keepdim=True)
     m_safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
     p = torch.exp(logits - m_safe)
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("nk,nkd->nd", p, v.float()) / denom
-    return out.to(q.dtype)
+    psum = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("nk,nkd->nd", p, v.float()) / psum.clamp_min(1e-30)
+    lse = torch.where(psum > 0, m_safe + torch.log(psum),
+                      torch.full_like(psum, -math.inf))[:, 0]
+    return out.to(q.dtype), lse
 
 
 def paged_decode_plain(q, k_pool, v_pool, page_table, lengths,
                        second: Optional[Segment] = None, *, group: int = 1,
-                       starts=None, span: Optional[int] = None):
+                       starts=None, span: Optional[int] = None,
+                       lse: bool = False):
     """q: [N, hd]; pools [P, page, hd]; page_table [N / group, max_pages]
-    int32; lengths [N / group] -> [N, hd] in q's dtype. With ``starts``
-    [N / group] int32 and ``span``, the first segment is read over
-    [starts, min(lengths, starts + span))."""
+    int32; lengths [N / group] -> [N, hd] in q's dtype (and, with
+    ``lse``, the log-sum-exp [N] f32). With ``starts`` [N / group] int32
+    and ``span``, the first segment is read over [starts, min(lengths,
+    starts + span))."""
     if starts is not None:
         starts = _per_query(starts, group)
     logits, v = _segment(q, k_pool, v_pool, _per_query(page_table, group),
                          _per_query(lengths, group), starts, span)
-    return _combine(q, logits, v, _per_query_segment(second, group))
+    out, l_se = _combine(q, logits, v, _per_query_segment(second, group))
+    return (out, l_se) if lse else out
 
 
 def paged_decode_selected_plain(q, k_pool, v_pool, page_table, lengths,
@@ -206,7 +219,7 @@ def paged_decode_selected_plain(q, k_pool, v_pool, page_table, lengths,
         q, k_pool, v_pool, _per_query(page_table, group),
         _per_query(lengths, group), _per_query(sel_ids, group),
         _per_query(n_sel, group))
-    return _combine(q, logits, v, _per_query_segment(second, group))
+    return _combine(q, logits, v, _per_query_segment(second, group))[0]
 
 
 def _check_cuda(q, seg: Segment, tag: str, n: int) -> None:
@@ -275,8 +288,10 @@ def _second_args(second: Optional[Segment]):
             t2.shape[1])
 
 
-def _launch(fn, q, plan: SplitPlan, group: int, args, tail):
-    """Runs a kernel entry with its split plan and scratch; returns out."""
+def _launch(fn, q, plan: SplitPlan, group: int, args, tail,
+            lse: Optional[torch.Tensor] = None):
+    """Runs a kernel entry with its split plan and scratch; returns out
+    (and writes the log-sum-exp into ``lse`` [N] f32 when given)."""
     n, hd = q.shape
     nkv = n // group
     out = torch.empty_like(q)
@@ -287,6 +302,7 @@ def _launch(fn, q, plan: SplitPlan, group: int, args, tail):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), *args, *tail, out.data_ptr(),
+                lse.data_ptr() if lse is not None else None,
                 part.data_ptr() if part is not None else None, n, group, hd,
                 PAGE, plan.pages_per_split, plan.heads, _DTYPE_CODE[q.dtype],
                 stream)
@@ -301,10 +317,10 @@ def _read_name(*args, starts=None, **kw) -> str:
 
 
 def _read_work(q, k_pool, v_pool, page_table, lengths, second=None, *,
-               group=1, starts=None, span=None):
+               group=1, starts=None, span=None, lse=False):
     return W.paged_decode(*q.shape, group, page_table.shape[1],
                           second[2].shape[1] if second is not None else 0,
-                          isz=q.element_size(), span=span)
+                          isz=q.element_size(), span=span, lse=lse)
 
 
 def _selected_work(q, k_pool, v_pool, page_table, lengths, sel_ids, n_sel,
@@ -318,10 +334,12 @@ def _selected_work(q, k_pool, v_pool, page_table, lengths, sel_ids, n_sel,
 @counter.counted(_read_name, _read_work)
 def paged_decode(q, k_pool, v_pool, page_table, lengths,
                  second: Optional[Segment] = None, *, group: int = 1,
-                 starts=None, span: Optional[int] = None):
-    """Single-query paged decode over one or two segments -> [N, hd];
-    with ``starts`` and ``span`` the first segment is read from a start
-    offset (see the module's note)."""
+                 starts=None, span: Optional[int] = None,
+                 lse: bool = False):
+    """Single-query paged decode over one or two segments -> [N, hd]
+    (with ``lse``: (out, log-sum-exp [N] f32)); with ``starts`` and
+    ``span`` the first segment is read from a start offset (see the
+    module's note)."""
     if (starts is None) != (span is None):
         raise ValueError("paged_decode: starts and span go together")
     if span is not None and span < 1:
@@ -329,9 +347,11 @@ def paged_decode(q, k_pool, v_pool, page_table, lengths,
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, page_table, lengths,
                                   second, group=group, starts=starts,
-                                  span=span)
+                                  span=span, lse=lse)
     if q.device.type == "meta":
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        return (out, q.new_empty(q.shape[0], dtype=torch.float32)) if lse \
+            else out
     nkv = _check_launch(q, (k_pool, v_pool, page_table, lengths), second,
                         group)
     start_args = (None, 0, 0)
@@ -344,17 +364,20 @@ def paged_decode(q, k_pool, v_pool, page_table, lengths,
         start_args = (starts.data_ptr(), span,
                       start_walk(page_table.shape[1], span))
     lib = build.load("paged_decode")
+    l_se = (torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
+            if lse else None)
     out = _launch(lib.paged_decode, q,
                   walk_plan(q, page_table, second, group=group, span=span),
                   group,
                   (k_pool.data_ptr(), v_pool.data_ptr(),
                    page_table.data_ptr(), lengths.data_ptr(),
-                   page_table.shape[1], *start_args), _second_args(second))
+                   page_table.shape[1], *start_args), _second_args(second),
+                  l_se)
     if starts is None:
         launches.count += 1
     else:
         start_launches.count += 1
-    return out
+    return (out, l_se) if lse else out
 
 
 @counter.counted("paged_decode_selected", _selected_work)

@@ -15,6 +15,16 @@ index ``r % m``, ``jax.make_mesh``'s row-major order.
 * :func:`spawn` starts the ``d * m`` ranks of a mesh on this host and runs
   a function on each (``torch.multiprocessing``, ``spawn`` start method);
   :func:`from_env` joins the world ``torchrun`` started.
+* :func:`fake_mesh` makes this process ONE rank of a mesh of any size,
+  the production 16 x 16 or 2 x 16 x 16 included, over torch's ``fake``
+  process group: its collectives return at once, on ``meta`` tensors
+  too, so the mesh dry run (``launch/dryrun.py``) runs rank (0, 0)'s step
+  of a 256- or 512-rank mesh in one process without a card.
+
+Across pods the mesh is ``("pod", "data", "model")``, row-major too; the
+batch and FSDP axes are then ("pod", "data"), as the reference's
+``rules.batch_axes``. ``spawn`` and ``init_mesh`` build ``data x model``
+meshes; a pod axis exists only on a fake mesh here (one host, no pods).
 
 The backend is explicit: ``nccl`` when every rank has its own card,
 ``gloo`` on the CPU, and ``gloo`` on CUDA only when the caller asks for
@@ -23,18 +33,30 @@ explicit ``gloo`` raises; nothing downgrades quietly.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
 import queue as queue_mod
 import tempfile
 import traceback
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+POD_AXES = ("pod", "data", "model")
+
+
+def shape_dict(shape) -> Dict[str, int]:
+    """``{"data": d, "model": m}`` (or with "pod" first) of a shape tuple
+    ``(d, m)`` / ``(p, d, m)`` or mapping."""
+    if isinstance(shape, dict):
+        return dict(shape)
+    shape = tuple(shape)
+    return dict(zip(POD_AXES if len(shape) == 3 else AXES, shape))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
@@ -50,42 +72,97 @@ def make_debug_mesh(shape=(2, 4), axes=AXES) -> Dict[str, int]:
     return dict(zip(axes, shape))
 
 
+def axes_key(shape: Dict[str, int], axis) -> str:
+    """The group key of ``axis`` (an axis name, a tuple of them, or
+    "world") on a mesh of ``shape``: its axes joined by "+" in mesh
+    order, "world" when they are all of them."""
+    if axis == "world":
+        return "world"
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    axes = tuple(a for a in shape if a in axes)
+    return "world" if axes == tuple(shape) else "+".join(axes)
+
+
 @dataclasses.dataclass
 class Mesh:
-    """One rank's view of a ``data x model`` mesh: its place, its device,
-    and its process groups by axis (None for a group of one): ``groups``
-    on the mesh's backend for the model's tensors, ``host_groups`` on
-    ``gloo`` for the host decisions every rank must share (they never
-    stage a device tensor, so they never sync the host with a card)."""
+    """One rank's view of a ``data x model`` mesh (``pod x data x model``
+    across pods): its place, its device, and its process groups by axis
+    (None for a group of one): ``groups`` on the mesh's backend for the
+    model's tensors, ``host_groups`` on ``gloo`` for the host decisions
+    every rank must share (they never stage a device tensor, so they
+    never sync the host with a card). Groups are keyed by the axes they
+    span, joined by "+" in mesh order ("model", "data", "pod+data"), and
+    "world" for all of them."""
     shape: Dict[str, int]
     rank: int
     backend: str
     device: torch.device
     groups: Dict[str, Any]
     host_groups: Dict[str, Any]
+    fake: bool = False      # a rank of torch's fake group (fake_mesh)
 
     @property
     def size(self) -> int:
-        return self.shape["data"] * self.shape["model"]
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
 
     @property
     def coords(self) -> Dict[str, int]:
-        m = self.shape["model"]
-        return {"data": self.rank // m, "model": self.rank % m}
+        out, r = {}, self.rank
+        for a in reversed(list(self.shape)):
+            out[a] = r % self.shape[a]
+            r //= self.shape[a]
+        return {a: out[a] for a in self.shape}
 
     def global_rank(self, data: int, model: int) -> int:
-        return data * self.shape["model"] + model
+        """The rank at (data, model) of this rank's pod."""
+        c = dict(self.coords, data=data, model=model)
+        r = 0
+        for a in self.shape:
+            r = r * self.shape[a] + c[a]
+        return r
 
-    def group(self, axis: str, host: bool = False) -> Tuple[Any, int]:
-        """(process group, ranks in it) of "data", "model" or "world"; the
-        ``gloo`` one for host values when ``host``."""
-        n = self.size if axis == "world" else self.shape[axis]
-        return (self.host_groups if host else self.groups).get(axis), n
+    def axes_key(self, axis) -> str:
+        """The group key of ``axis``: an axis name, a tuple of them, or
+        "world"."""
+        return axes_key(self.shape, axis)
+
+    def group(self, axis, host: bool = False) -> Tuple[Any, int]:
+        """(process group, ranks in it) of an axis ("data", "model",
+        "pod"), a tuple of axes, or "world"; the ``gloo`` one for host
+        values when ``host``."""
+        key = self.axes_key(axis)
+        axes = tuple(self.shape) if key == "world" else key.split("+")
+        n = 1
+        for a in axes:
+            n *= self.shape[a]
+        groups = self.host_groups if host else self.groups
+        if key not in groups and self.fake:
+            groups[key] = None if n == 1 else dist.new_group(
+                self._members(axes))
+        return groups.get(key), n
+
+    def _members(self, axes) -> list:
+        """Global ranks of this rank's group over ``axes`` (ascending:
+        row-major over the axes, the order of a spec entry's blocks)."""
+        names = list(self.shape)
+        c = self.coords
+        out = []
+        for r in range(self.size):
+            rc, rr = {}, r
+            for a in reversed(names):
+                rc[a] = rr % self.shape[a]
+                rr //= self.shape[a]
+            if all(rc[a] == c[a] for a in names if a not in axes):
+                out.append(r)
+        return out
 
     def describe(self) -> str:
-        return (f"{self.shape['data']}x{self.shape['model']} "
-                f"({self.backend}, rank {self.rank} of {self.size} on "
-                f"{self.device})")
+        dims = "x".join(str(v) for v in self.shape.values())
+        return (f"{dims} ({self.backend}, rank {self.rank} of {self.size} "
+                f"on {self.device})")
 
 
 def check_backend(world: int, backend: Optional[str],
@@ -133,8 +210,10 @@ def init_mesh(shape, *, backend: Optional[str] = None,
     ``{"data": d, "model": m}``) over the initialised default world of
     ``d * m`` ranks. Every rank calls it, in the same order as any other
     group creation (process groups are made collectively)."""
-    shape = dict(zip(AXES, shape)) if not isinstance(shape, dict) \
-        else dict(shape)
+    shape = shape_dict(shape)
+    if set(shape) != set(AXES):
+        raise ValueError(f"init_mesh builds data x model meshes, got "
+                         f"{shape}; a pod axis runs on fake_mesh")
     if not dist.is_initialized():
         raise RuntimeError("init_mesh needs an initialised process group "
                            "(launch.mesh.spawn, from_env or "
@@ -225,8 +304,7 @@ def spawn(fn: Callable, shape, args: Sequence = (),
     result}``; raises :class:`RuntimeError` with the failing rank's
     traceback if any rank fails, or when ``timeout_s`` passes (a deadlock
     fails, it does not hang), after stopping every rank."""
-    shape = dict(zip(AXES, shape)) if not isinstance(shape, dict) \
-        else dict(shape)
+    shape = shape_dict(shape)
     world = shape["data"] * shape["model"]
     backend, dev = check_backend(world, backend, device)
     ctx = torch.multiprocessing.get_context("spawn")
@@ -272,3 +350,39 @@ def spawn(fn: Callable, shape, args: Sequence = (),
     if error is not None:
         raise RuntimeError(error)
     return out
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, coords: Optional[Dict[str, int]] = None, *,
+              backend: str = "nccl") -> Iterator[Mesh]:
+    """This process as the rank at ``coords`` (default all 0) of a
+    ``shape`` mesh over torch's ``fake`` process group, on the ``meta``
+    device: every collective returns at once without moving data, so a
+    step runs as that one rank of a mesh of any size, shapes only.
+    ``backend``: the backend the group stands for ("nccl", the cards', or
+    "gloo"), which decides the collectives ``sharding.comm`` calls and
+    counts, so a meta run counts what a real mesh of that backend moves.
+    The group is torn down on exit; a process runs one fake mesh at a
+    time."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape = shape_dict(shape)
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh needs a process with no process "
+                           "group initialised")
+    world, rank = 1, 0
+    for a, n in shape.items():
+        c = (coords or {}).get(a, 0)
+        if not 0 <= c < n:
+            raise ValueError(f"coordinate {a}={c} outside the {a} axis "
+                             f"of {n}")
+        world *= n
+        rank = rank * n + c
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield Mesh(shape=shape, rank=rank, backend=backend,
+                   device=torch.device("meta"), groups={}, host_groups={},
+                   fake=True)
+    finally:
+        dist.destroy_process_group()

@@ -150,11 +150,19 @@ def project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
                            torch.Tensor]:
     """x: [B, S, D]; positions: [B, S] int, or [3, B, S] for an M-RoPE
     config (the (t, h, w) ids). Returns (q_rope [B,Hq,S,hd],
-    k_pre [B,Hkv,S,hd], k_rope, v)."""
+    k_pre [B,Hkv,S,hd], k_rope, v).
+
+    On a mesh (``sharding.comm``) x enters the column-parallel ``w_q``
+    (and ``w_k`` / ``w_v`` when the kv heads are split) through
+    ``copy_to_model``, and under the "gather_q" plan every rank's q heads
+    are assembled after ``w_q``: ``cfg`` is then the rank's local config
+    and q comes back with every head."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)
-    k_pre = _heads(x @ p["w_k"].to(x.dtype), hkv, hd)
-    v = _heads(x @ p["w_v"].to(x.dtype), hkv, hd)
+    xq = comm.copy_to_model(x, "attn")
+    xkv = xq if comm.heads_split() else x
+    q = _heads(comm.gather_q(xq @ p["w_q"].to(x.dtype)), hq, hd)
+    k_pre = _heads(xkv @ p["w_k"].to(x.dtype), hkv, hd)
+    v = _heads(xkv @ p["w_v"].to(x.dtype), hkv, hd)
     q, k_pre = _qk_norm(p, q, k_pre)
     if cfg.mrope and positions.ndim == 3:
         pos3 = positions[:, :, None, :]      # [3, B, 1, S] over the heads
@@ -224,7 +232,12 @@ def attn_train(p: Params, cfg: ModelConfig, x: torch.Tensor,
     given), "gated" (the log-space write-gate bias; on CUDA the
     ``gated_flash`` kernel) or "hard" (binary vertical-slash mask at
     tau). ``window`` doubles as W_local in the gate bias. Returns
-    (out [B, S, D], g [B, Hkv, S] or None)."""
+    (out [B, S, D], g [B, Hkv, S] or None).
+
+    On a mesh the read runs the rank's heads (every q head under
+    "gather_q", whose whole k, v and gates enter the read through
+    ``copy_to_model``: each rank's gradient of them is its heads'
+    part), and ``w_o``'s partials are summed over "model"."""
     b, s, _ = x.shape
     if gate_mode not in ("off", "gated", "hard"):
         raise ValueError(gate_mode)
@@ -234,8 +247,11 @@ def attn_train(p: Params, cfg: ModelConfig, x: torch.Tensor,
         g = (gate_override if gate_override is not None
              else compute_gates(p, k_pre, k_rope))
     w_local = window if window is not None else cfg.wgkv.w_local
+    k_read, v_read = (comm.copy_to_model(k_rope, "kv"),
+                      comm.copy_to_model(v, "kv"))
     if gate_mode == "gated":
-        out = ops.gated_flash_attention(q, k_rope, v, g.float(),
+        out = ops.gated_flash_attention(q, k_read, v_read,
+                                        comm.copy_to_model(g.float(), "kv"),
                                         w_local=w_local,
                                         eps=cfg.wgkv.log_eps)
     else:
@@ -254,9 +270,15 @@ def attn_train(p: Params, cfg: ModelConfig, x: torch.Tensor,
             neg = torch.full((), M.NEG_INF, dtype=torch.float32, device=dev)
             return torch.where(vis, zero, neg)
 
-        out = sdpa(q, k_rope, v, bias_fn, q_chunk=q_chunk)
-    y = _merge_heads(out) @ p["w_o"].to(x.dtype)
-    return y, g
+        out = sdpa(q, k_read, v_read, bias_fn, q_chunk=q_chunk)
+    return _out_proj(p, out), g
+
+
+def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, hd] -> [B, S, D] through ``w_o``: on a mesh this rank's
+    heads' rows, their partials summed over "model"."""
+    y = comm.local_q(_merge_heads(out)) @ p["w_o"].to(out.dtype)
+    return comm.reduce_model(y, "attn")
 
 
 # ==========================================================================
@@ -292,6 +314,8 @@ def attn_prefill_budgeted(p: Params, cfg: ModelConfig, x: torch.Tensor,
     q, k_pre, k_rope, v = project_qkv(p, cfg, x, positions)
     g = (gate_override if gate_override is not None
          else compute_gates(p, k_pre, k_rope))
+    # the top-budget choice is per kv head: on a mesh each rank chooses
+    # for its own heads, with no collective
     sel = select_global(g, budget=budget, tau=cfg.wgkv.tau,
                         sink=cfg.wgkv.sink, exclude_from=s - min(w, s))
     hkv = cfg.n_kv_heads
@@ -303,8 +327,7 @@ def attn_prefill_budgeted(p: Params, cfg: ModelConfig, x: torch.Tensor,
     gpos = torch.where(sel.valid, sel.idx,
                        torch.full_like(sel.idx, torch.iinfo(torch.int32).max))
     out = ops.vertical_slash_attention(q, k_rope, v, kg, vg, gpos, w_local=w)
-    y = _merge_heads(out) @ p["w_o"].to(x.dtype)
-    return PrefillResult(y, k_rope, v, g, sel)
+    return PrefillResult(_out_proj(p, out), k_rope, v, g, sel)
 
 
 def attn_prefill_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -323,8 +346,7 @@ def attn_prefill_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = ops.causal_attention(q, k_rope, v)
     else:
         out = ops.windowed_causal_attention(q, k_rope, v, window)
-    y = _merge_heads(out) @ p["w_o"].to(x.dtype)
-    return y, k_rope, v
+    return _out_proj(p, out), k_rope, v
 
 
 # ==========================================================================
@@ -386,10 +408,21 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     else:
         g_new = gate_scores(p["gate"], k_pre[:, :, None],
                             k_new[:, :, None])[..., 0]
+    # context-parallel decode (a seq-sharded cache): this rank's block of
+    # the global axis, read and combined with the other data ranks'
+    block = comm.seq_block()
     new_cache = lazy_promote_and_write(cache, k_new, v_new, g_new,
-                                       tau=cfg.wgkv.tau)
+                                       tau=cfg.wgkv.tau, block=block)
     sel_pages = None
-    if select_pages_k is None and token_select_fn is None:
+    if block is not None:
+        if select_pages_k is not None or token_select_fn is not None:
+            raise NotImplementedError(
+                "Quest selection on a seq-sharded cache: the page "
+                "metadata is whole on every rank but the pages are not; "
+                "see ROADMAP Queue 1 item 8b.5")
+        o, lse = ops.dual_cache_attention(q, new_cache, block)
+        o = comm.combine_lse(o, lse)
+    elif select_pages_k is None and token_select_fn is None:
         o = ops.dual_cache_attention(q, new_cache)               # [B,Hq,hd]
     else:
         if select_pages_k is not None and token_select_fn is not None:

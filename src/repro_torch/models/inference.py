@@ -63,8 +63,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
-from repro_torch.models.transformer import (_norm, embed_inputs, ffn,
-                                            layer_params, stem_params,
+from repro_torch.models.transformer import (_norm, embed_inputs,
+                                            embed_params, ffn, layer_params,
+                                            stem_params, unembed_params,
                                             unstack)
 from repro_torch.sharding import comm
 from repro_torch.tree import tree_map, tree_map_with_path
@@ -261,16 +262,19 @@ def prefill(params: Params, cfg: ModelConfig,
               moe_groups=moe_groups, opts=opts, enc_out=enc_out)
     adm_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     stem_caches = []
-    for bt, p in zip(cfg.stem_pattern, stem_params(params)):
-        x, cache, adm = _block_prefill(p, cfg, bt, x, positions, **kw)
+    for j, (bt, p) in enumerate(zip(cfg.stem_pattern, stem_params(params))):
+        x, cache, adm = _block_prefill(
+            comm.gather_params(p, ("stem", str(j))), cfg, bt, x, positions,
+            **kw)
         stem_caches.append(cache)
         adm_sum = adm_sum + adm
     per_block: Dict[str, list] = {
         f"b{i}": [] for i in range(len(cfg.block_pattern))}
     for lp in layer_params(params, cfg):
         for i, bt in enumerate(cfg.block_pattern):
-            x, cache, adm = _block_prefill(lp[f"b{i}"], cfg, bt, x,
-                                           positions, **kw)
+            x, cache, adm = _block_prefill(
+                comm.gather_params(lp[f"b{i}"], ("blocks", f"b{i}"), True),
+                cfg, bt, x, positions, **kw)
             per_block[f"b{i}"].append(cache)
             adm_sum = adm_sum + adm
     adm_n = (len(cfg.stem_pattern)
@@ -283,8 +287,9 @@ def prefill(params: Params, cfg: ModelConfig,
     if opts.evict_hard_budget is not None:
         caches["obs"] = _init_obs_tree(cfg, b, opts, x.device)
     hidden = _norm(cfg, params["ln_f"], x)
-    logits = L.unembed(params["embed"], hidden[:, -1])
-    return PrefillOut(logits, hidden, adm_sum / adm_n), caches
+    logits = L.unembed(unembed_params(params), hidden[:, -1])
+    return PrefillOut(logits, hidden,
+                      comm.mean_blocks(adm_sum / adm_n)), caches
 
 
 def _init_obs_tree(cfg: ModelConfig, b: int, opts: DecodeOptions,
@@ -403,7 +408,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     dt = torch_dtype(cfg.dtype)
     if layers is None:
         layers = layer_params(params, cfg)
-    x = L.embed(params["embed"], token, dt)                     # [B, D]
+    x = L.embed(embed_params(params), token, dt)                # [B, D]
     b = x.shape[0]
     dev = x.device
     if cfg.is_encdec:
@@ -449,9 +454,10 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     new_caches: CacheTree = {"t": caches["t"] + 1}
     if cfg.stem_pattern:
         stem_new = []
-        for bt, p, cache in zip(cfg.stem_pattern, stem_params(params),
-                                caches["stem"]):
-            x, nc, _ = run(bt, p, x, cache, None)
+        for j, (bt, p, cache) in enumerate(zip(
+                cfg.stem_pattern, stem_params(params), caches["stem"])):
+            x, nc, _ = run(bt, comm.gather_params(p, ("stem", str(j))), x,
+                           cache, None)
             stem_new.append(nc)
         new_caches["stem"] = tuple(stem_new)
     per_block = {f"b{i}": unstack(caches["blocks"][f"b{i}"])
@@ -467,13 +473,15 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
             if evict and bt in ATTN_BLOCKS:
                 ob = EV.ObsWindow(*(leaf[r, ai] for leaf in obs))
                 ai += 1
-            x, nc, ob = run(bt, layers[r][key], x, per_block[key][r], ob)
+            x, nc, ob = run(bt, comm.gather_params(
+                layers[r][key], ("blocks", key), True), x,
+                per_block[key][r], ob)
             if ob is not None:
                 row_obs.append(ob)
             new_block[key].append(nc)
         new_obs.append(row_obs)
     hidden = _norm(cfg, params["ln_f"], x)
-    logits = L.unembed(params["embed"], hidden)
+    logits = L.unembed(unembed_params(params), hidden)
     new_caches["blocks"] = {k: _stack_layers(v) for k, v in new_block.items()}
     if evict:
         new_caches["obs"] = EV.ObsWindow(*(

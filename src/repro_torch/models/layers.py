@@ -157,8 +157,11 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
 
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
+    # on a mesh: the column-parallel w_gate / w_up take x through the
+    # seam whose backward sums the gradient over "model", and the
+    # row-parallel w_down's partials are summed over "model"
+    x = comm.copy_to_model(x, "ffn")
     h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    # on a mesh: the row-parallel w_down's partials summed over "model"
     return comm.reduce_model(h @ p["w_down"].to(dt), "ffn")
 
 

@@ -41,6 +41,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MoE
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
+from repro_torch.sharding import comm
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -259,7 +260,7 @@ def embed_inputs(params: Params, cfg: ModelConfig,
     given: a VLM stream) and the encoder output (None without an encoder;
     the decoder stream then carries whisper's sinusoidal positions)."""
     dt = torch_dtype(cfg.dtype)
-    x = (L.embed(params["embed"], tokens, dt) if embeds is None
+    x = (L.embed(embed_params(params), tokens, dt) if embeds is None
          else embeds.to(dt))
     enc_out = None
     if cfg.is_encdec:
@@ -270,6 +271,34 @@ def embed_inputs(params: Params, cfg: ModelConfig,
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
                                        x.device)[None].to(dt)
     return x, enc_out
+
+
+def embed_params(params: Params) -> Params:
+    """The embedding's table as :func:`repro_torch.models.layers.embed`
+    takes it; on an FSDP mesh assembled from its "data" blocks for this
+    one use."""
+    return comm.gather_params({"tok": params["embed"]["tok"]}, ("embed",))
+
+
+def unembed_params(params: Params) -> Params:
+    """The unembedding's leaf (``unembed``, or the tied ``tok``) as
+    :func:`repro_torch.models.layers.unembed` takes it, assembled as
+    :func:`embed_params`'."""
+    e = params["embed"]
+    key = "unembed" if "unembed" in e else "tok"
+    return comm.gather_params({key: e[key]}, ("embed",))
+
+
+def gathered_block(p: Params, prefix: Tuple[str, ...], stacked: bool,
+                   cfg: ModelConfig, bt: str, x: torch.Tensor,
+                   positions: torch.Tensor, **kw
+                   ) -> Tuple[torch.Tensor, BlockAux]:
+    """:func:`block_forward` of the block whose params are ``p`` (at
+    ``prefix`` in the tree; ``stacked``: one repeat's view): on an FSDP
+    mesh its leaves are assembled just before it runs and dropped after
+    it (under ``remat`` the recompute assembles them again)."""
+    return block_forward(comm.gather_params(p, prefix, stacked), cfg, bt,
+                         x, positions, **kw)
 
 
 class ForwardResult(NamedTuple):
@@ -301,18 +330,21 @@ def forward(params: Params, cfg: ModelConfig,
     reference's ``jax.checkpoint`` of its scan body; the stem is not
     rematerialized there either. ``moe_groups``: the routing groups of
     every ``attn_moe`` block; ``lb_loss`` is the sum of their load-balance
-    losses over the stem and the repeats (0 without MoE blocks)."""
+    losses over the stem and the repeats (0 without MoE blocks). On an
+    FSDP mesh (``sharding.comm.gather_params``) each block's leaves are
+    assembled just before it runs."""
     x, enc_out = embed_inputs(params, cfg, tokens, embeds, enc_embeds)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-    layers = ([(bt, p, False) for bt, p in zip(cfg.stem_pattern,
-                                               stem_params(params))]
-              + [(bt, lp[f"b{i}"], remat)
+    layers = ([(bt, p, ("stem", str(j)), False, False)
+               for j, (bt, p) in enumerate(zip(cfg.stem_pattern,
+                                               stem_params(params)))]
+              + [(bt, lp[f"b{i}"], ("blocks", f"b{i}"), True, remat)
                  for lp in layer_params(params, cfg)
                  for i, bt in enumerate(cfg.block_pattern)])
-    n_attn = sum(1 for bt, _, _ in layers if bt in ATTN_BLOCKS)
+    n_attn = sum(1 for bt, *_ in layers if bt in ATTN_BLOCKS)
     overrides: List[Optional[torch.Tensor]] = [None] * n_attn
     if gate_override is not None:
         overrides = (list(gate_override.unbind(0)) if gate_override.ndim == 4
@@ -320,20 +352,19 @@ def forward(params: Params, cfg: ModelConfig,
     gates = []
     lb_total = torch.zeros((), dtype=torch.float32, device=x.device)
     ai = 0
-    for bt, p, ckpt in layers:
+    for bt, p, prefix, stacked, ckpt in layers:
         ov = None
         if bt in ATTN_BLOCKS:
             ov = overrides[ai]
             ai += 1
+        kw = dict(mode=mode, enc_out=enc_out, q_chunk=q_chunk,
+                  moe_groups=moe_groups, gate_override=ov)
         if ckpt:
-            x, aux = checkpoint(block_forward, p, cfg, bt, x, positions,
-                                mode=mode, enc_out=enc_out, q_chunk=q_chunk,
-                                moe_groups=moe_groups, gate_override=ov,
-                                use_reentrant=False)
+            x, aux = checkpoint(gathered_block, p, prefix, stacked, cfg, bt,
+                                x, positions, use_reentrant=False, **kw)
         else:
-            x, aux = block_forward(p, cfg, bt, x, positions, mode=mode,
-                                   enc_out=enc_out, q_chunk=q_chunk,
-                                   moe_groups=moe_groups, gate_override=ov)
+            x, aux = gathered_block(p, prefix, stacked, cfg, bt, x,
+                                    positions, **kw)
         if aux.gates is not None:
             gates.append(aux.gates)
         lb_total = lb_total + aux.lb_loss
@@ -341,6 +372,6 @@ def forward(params: Params, cfg: ModelConfig,
     if mode != "teacher" and cfg.wgkv.enabled and gates:
         out_gates = torch.cat(gates, dim=0)
     hidden = _norm(cfg, params["ln_f"], x)
-    logits = (L.unembed(params["embed"], hidden) if with_logits
+    logits = (L.unembed(unembed_params(params), hidden) if with_logits
               else torch.zeros((), dtype=torch.float32, device=x.device))
     return ForwardResult(logits, hidden, out_gates, lb_total)

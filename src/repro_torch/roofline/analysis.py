@@ -15,7 +15,10 @@ counter sees every layer's ops, so that differencing is not ported. The
 reference parses its collectives out of HLO text; the port's mesh
 collectives (``sharding/comm.py``) report their bytes to the counter in
 the same ring accounting (``roofline.counter.collective_bytes``), and
-NVLink's rate prices them (on one card there are none).
+NVLink's rate prices them (on one card there are none). On a 16-way axis
+that spans two 8-card NVLink nodes (:func:`crosses_node`) part of the
+traffic crosses InfiniBand, which is slower: the NVLink price is then
+still a least time, so the bound stays a bound.
 """
 from __future__ import annotations
 
@@ -36,6 +39,10 @@ TF32_FLOPS = 495e12
 TF32X3_FLOPS = TF32_FLOPS / 3
 BF16_FLOPS = 989e12
 NVLINK_BYTES_PER_S = 450e9
+# cards one NVLink domain joins (an 8-card H100 node): a mesh axis whose
+# group spans more crosses a node, where InfiniBand is slower than NVLink,
+# so NVLINK_BYTES_PER_S still gives a least time there
+CARDS_PER_NODE = 8
 # the device memory one process gets of an "NVIDIA H100 80GB HBM3"
 H100_PROCESS_BYTES = 79 * 2 ** 30
 
@@ -81,6 +88,22 @@ def model_flops(cfg: ModelConfig, shape: InputShape) -> float:
                 shape.seq_len // cfg.enc_seq_divisor + cfg.dec_max_len)
         return 2.0 * n * tokens
     return 2.0 * n * shape.global_batch  # one decode step
+
+
+def crosses_node(shape: Dict[str, int], axis: str) -> bool:
+    """Whether the group of ``axis`` ("model", "data", "pod+data",
+    "world": ``Mesh.axes_key``) of a mesh of ``shape``, its ranks laid
+    out row-major over ``CARDS_PER_NODE``-card nodes, spans more than one
+    node (rank 0's group; every group of an axis spans alike)."""
+    names = list(shape)
+    axes = names if axis == "world" else axis.split("+")
+    ranks = [0]
+    for a in axes:
+        stride = 1
+        for b in names[names.index(a) + 1:]:
+            stride *= shape[b]
+        ranks = [r + i * stride for r in ranks for i in range(shape[a])]
+    return len({r // CARDS_PER_NODE for r in ranks}) > 1
 
 
 # ==========================================================================

@@ -1,5 +1,6 @@
-"""The dry-run and roofline tables of one H100, from the records under
-``build/roofline/`` (``launch/dryrun.py``, ``roofline/run_all.py``).
+"""The dry-run and roofline tables of one H100, and of rank (0, 0) of the
+mesh dry runs, from the records under ``build/roofline/``
+(``launch/dryrun.py``, ``roofline/run_all.py``).
 
     PYTHONPATH=src python -m repro_torch.roofline.report [--dryrun PATH] \\
         [--roofline PATH]
@@ -58,6 +59,31 @@ def dryrun_table(recs) -> str:
     return "\n".join(out)
 
 
+def mesh_table(recs) -> str:
+    """Rank (0, 0) of each mesh dry run: its peak, collective bytes by
+    axis (an axis marked * spans more than one 8-card NVLink node, where
+    the NVLink price of ``collective_s`` is a least time) and terms."""
+    out = ["| arch | shape | mesh | status | peak GiB | collective bytes "
+           "by axis | compute s | memory s | collective s | bottleneck |",
+           "|---|---|---|---|---|---|---|---|---|---|"]
+    for r in sorted(recs, key=lambda x: (x["arch"], x["shape"],
+                                         x.get("mesh"))):
+        bad = _status(r)
+        if bad:
+            out.append(f"| {r['arch']} | {r['shape']} | {r.get('mesh')} "
+                       f"| {bad} | - | - | - | - | - | - |")
+            continue
+        c = r["collectives"]
+        by = ", ".join(f"{k}{'*' if c['crosses_node'].get(k) else ''} {v:,}"
+                       for k, v in c["by_axis"].items()) or "-"
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok "
+            f"| {_gb(r['memory']['peak_bytes'])} | {by} "
+            f"| {r['compute_s']:.4g} | {r['memory_s']:.4g} "
+            f"| {r['collective_s']:.4g} | **{r['bottleneck']}** |")
+    return "\n".join(out)
+
+
 def roofline_table(recs) -> str:
     out = ["| arch | shape | compute s | memory s | collective s | "
            "bottleneck | MODEL_FLOPS | useful | kernel share of bytes |",
@@ -87,10 +113,16 @@ def main(argv=None) -> int:
 
     def key(r):
         return (r["arch"], r["shape"], r.get("wgkv"))
+    records = _load(args.dryrun)
     dry = {key(r): r for r in roof}
-    dry.update({key(r): r for r in _load(args.dryrun)})
+    dry.update({key(r): r for r in records if not r.get("mesh")})
     print("## Dry run (one H100, meta device; peak and argument bytes)\n")
     print(dryrun_table(list(dry.values())))
+    mesh = [r for r in records if r.get("mesh")]
+    if mesh:
+        print("\n## Mesh dry run (rank (0, 0), meta device, fake process "
+              "group; * an axis across 8-card nodes)\n")
+        print(mesh_table(mesh))
     print("\n## Roofline (one NVIDIA H100 SXM: 3.35 TB/s, 67 / 165 / 989 "
           "TFLOP/s for f32 / 3xTF32 / bf16)\n")
     print(roofline_table(roof))

@@ -112,7 +112,7 @@ def vertical_slash(nq: int, s: int, hd: int, group: int, c: int,
 
 def paged_decode(n: int, hd: int, group: int, pages1: int, pages2: int = 0,
                  *, isz: int = 4, tokens: Optional[int] = None,
-                 span: Optional[int] = None) -> Work:
+                 span: Optional[int] = None, lse: bool = False) -> Work:
     """One query row per (kv stream, head) over segment 1's table of
     ``pages1`` pages per kv stream and, when ``pages2``, segment 2's: each
     valid K/V token read once per kv stream, q read and the output
@@ -120,13 +120,15 @@ def paged_decode(n: int, hd: int, group: int, pages1: int, pages2: int = 0,
     read once; 4 hd FLOPs per (query row, token), on the CUDA cores in
     f32. ``tokens``: the valid tokens read, summed over kv streams; left
     out, every slot of both tables (segment 1's only ``span`` tokens from
-    its start)."""
+    its start). ``lse``: the read's log-sum-exp written too, one f32 per
+    query row."""
     nkv = n // group
     if tokens is None:
         first = pages1 * PAGE if span is None else min(span, pages1 * PAGE)
         tokens = nkv * (first + pages2 * PAGE)
     ints = nkv * (pages1 + 1) + (nkv * (pages2 + 1) if pages2 else 0)
     ints += nkv if span is not None else 0
+    ints += n if lse else 0
     return Work(4 * tokens * group * hd,
                 2 * n * hd * isz + 2 * tokens * hd * isz + 4 * ints,
                 F32 if isz == 4 else BF16)

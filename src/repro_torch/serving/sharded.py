@@ -216,6 +216,7 @@ class ShardedDecodeMixin:
         buf = torch.zeros((5, self.slots), dtype=torch.float32,
                           device=vals[0].device)
         if rows_mine:
+            # torchlint: allow-concat(a new leading axis that no mesh splits)
             buf[:, self._rows] = torch.stack(vals)
         comm.all_reduce(buf, self.mesh, "world")
         out = dict(stats)

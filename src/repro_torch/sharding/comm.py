@@ -1,18 +1,38 @@
 """The mesh's explicit collectives (new in the port: the reference's GSPMD
 inserts its collectives itself, so it has no counterpart module).
 
-Serving on a mesh is multi-controller SPMD: every rank runs the same
-orchestrator, scheduler and engine on the same inputs, holds its shard of
-the weights and caches as plain local tensors, and calls the collectives
-below where GSPMD would insert them. The engine enters :func:`active`
+The mesh is multi-controller SPMD: every rank runs the same
+orchestrator, scheduler and engine (or the same step bundle,
+``launch/steps.py``) on the same inputs, holds its shard of the weights
+and caches as plain local tensors, and calls the collectives below where
+GSPMD would insert them. The engine and the bundles enter :func:`active`
 around each model call, the role ``rules.activation_sharding`` plays in
 the reference; the model's seams then read the context:
 
 * :func:`reduce_model` — sum the partials of a row-parallel product over
   "model" (``w_o`` after the attention, ``w_down`` after the FFN);
+* :func:`copy_to_model` — the input of a column-parallel product
+  (``w_q``, ``w_k``, ``w_v``, ``w_gate``, ``w_up``), and under "gather_q"
+  the whole k, v and gates a per-head read consumes: the identity, whose
+  gradient is summed over "model" (each rank's gradient is the part its
+  heads or columns give);
 * :func:`gather_q` / :func:`local_q` — the "gather_q" plan (q heads split,
   kv heads whole): assemble every q head before the read, and keep this
-  rank's heads' outputs for its ``w_o`` rows.
+  rank's heads' outputs for its ``w_o`` rows;
+* :func:`gather_params` / :func:`gather_fsdp` — FSDP: a layer's leaves
+  assembled from their "data" (and "pod") blocks just before the layer
+  runs, and dropped after it;
+* :func:`sum_rows` — loss terms (sums and counts) added over the axes
+  the batch rows are split over (and over "model" for a per-kv-head
+  term when the heads are split), and :func:`sum_grads` the gate
+  gradients over the rows' axes;
+* :func:`combine_lse` — context-parallel decode: each "data" rank's read
+  of its block of the global cache, combined by its log-sum-exp.
+
+The first four go through autograd: forward and backward are the
+tensor-parallel pair (a sum over "model" forward is the identity
+backward, and the reverse), written here because torch's ready-made
+differentiable all-reduce also sums in its backward.
 
 The engine and the scheduler call the others with their mesh:
 
@@ -26,36 +46,61 @@ The engine and the scheduler call the others with their mesh:
   with a card.
 
 Every helper is the identity when no mesh is set, and a group of one rank
-calls nothing. Only ``all_reduce`` and ``broadcast`` run, the two
-collectives ``gloo`` moves CUDA tensors for: ``gather_rows`` is an
-``all_reduce`` of a zero-filled buffer in which each rank writes its own
-rows (adding exact zeros is exact). Each collective of device tensors
-reports its bytes, in the ring accounting of
+calls nothing. On ``gloo`` only ``all_reduce`` and ``broadcast`` run, the
+two collectives ``gloo`` moves CUDA tensors for: ``gather_rows``, and on
+``gloo`` ``gather_q`` and ``gather_fsdp``, are an ``all_reduce`` of a
+zero-filled buffer in which each rank writes its own block (adding exact
+zeros is exact); on ``nccl`` (and a ``fake`` group that stands for it,
+``launch.mesh.fake_mesh``) ``gather_q`` and ``gather_fsdp`` are
+``all_gather_into_tensor``. That is a choice by backend, not a
+fallback. Each collective of device tensors reports the
+bytes it really moves, in the ring accounting of
 ``roofline.counter.collective_bytes``, to an active
-``roofline.counter.WorkCounter``, the one tally.
+``roofline.counter.WorkCounter``, the one tally, under its group's key
+(``Mesh.axes_key``: "model", "data", "pod+data", "world").
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Iterator, List, Optional, Sequence
+from typing import (Any, Dict, Iterator, List, Mapping, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.roofline import counter
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map_with_path
 
-# (mesh, plan) while the engine runs the model on a mesh
-ACTIVE: Optional[tuple] = None
+
+class Active(NamedTuple):
+    """What the model code runs under on a mesh: the mesh, the rank's
+    :class:`~repro_torch.sharding.rules.TPPlan`, and for a step bundle
+    the FSDP placement (``{path: spec}`` of the leaves held in "data"
+    blocks), the spec entry the batch rows are split over (None: every
+    data rank holds every row) and the entry the global token axis of a
+    seq-sharded decode cache is split over (None: not seq-sharded)."""
+    mesh: Any
+    plan: Any
+    fsdp: Mapping[str, tuple] = {}
+    rows: Any = None
+    seq: Any = None
+
+
+# set while the engine or a step bundle runs the model on a mesh
+ACTIVE: Optional[Active] = None
 
 
 @contextlib.contextmanager
-def active(mesh, plan) -> Iterator[None]:
+def active(mesh, plan, *, fsdp: Optional[Mapping[str, tuple]] = None,
+           rows=None, seq=None) -> Iterator[None]:
     """Run model code on ``mesh`` under ``plan``
-    (:class:`repro_torch.sharding.rules.TPPlan`); no-op for ``mesh=None``."""
+    (:class:`repro_torch.sharding.rules.TPPlan`) and, for a step bundle,
+    its FSDP placement, rows and seq entries (:class:`Active`); no-op for
+    ``mesh=None``."""
     global ACTIVE
     prev = ACTIVE
-    ACTIVE = None if mesh is None else (mesh, plan)
+    ACTIVE = None if mesh is None else Active(mesh, plan, dict(fsdp or {}),
+                                              rows, seq)
     try:
         yield
     finally:
@@ -65,56 +110,170 @@ def active(mesh, plan) -> Iterator[None]:
 def _mesh(mesh):
     if mesh is not None:
         return mesh
-    return ACTIVE[0] if ACTIVE is not None else None
+    return ACTIVE.mesh if ACTIVE is not None else None
 
 
-def all_reduce(x: torch.Tensor, mesh=None,
-               axis: str = "world") -> torch.Tensor:
-    """``x`` summed in place over ``axis`` ("model", "data" or "world")
-    of ``mesh`` (default: the active one)."""
+def all_reduce(x: torch.Tensor, mesh=None, axis="world",
+               op: str = "sum") -> torch.Tensor:
+    """``x`` summed (or its max, ``op="max"``) in place over ``axis``
+    ("model", "data", a tuple of axes, or "world") of ``mesh`` (default:
+    the active one)."""
     mesh = _mesh(mesh)
     if mesh is None:
         return x
     group, n = mesh.group(axis)
     if n == 1:
         return x
-    dist.all_reduce(x, group=group)
-    _count(axis, "all_reduce", x, n)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX, group=group)
+    _count(mesh.axes_key(axis), "all_reduce", x, n)
     return x
+
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SumForward(torch.autograd.Function):
+    """Forward: the sum over ``axis``; backward: the identity (the
+    output's gradient is the same on every rank of the axis, and it is
+    each partial's)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x.contiguous().clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Forward: the identity; backward: the gradient summed over
+    ``axis`` (each rank's gradient is the part its own heads or columns
+    give)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, ctx.axis), \
+            None, None
+
+
+def _sum(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """``x`` summed over ``axis``: in place without a graph, else through
+    :class:`_SumForward`."""
+    if _wants_grad(x):
+        return _SumForward.apply(x, mesh, axis)
+    return all_reduce(x.contiguous(), mesh, axis)
+
+
+def _splits(part: str, plan) -> bool:
+    if part == "attn":
+        return plan.attn != "whole"
+    if part == "ffn":
+        return plan.ffn
+    if part == "kv":
+        return plan.attn == "gather_q"
+    raise ValueError(f"unknown part {part!r}")
+
+
+def heads_split() -> bool:
+    """The active plan splits the kv heads (and so ``w_k`` / ``w_v``)."""
+    return ACTIVE is not None and ACTIVE.plan.attn == "split"
 
 
 def reduce_model(x: torch.Tensor, part: str) -> torch.Tensor:
     """Sum a row-parallel product's partials over "model" when the active
-    plan splits ``part`` ("attn" or "ffn"); else ``x``."""
-    if ACTIVE is None:
+    plan splits ``part`` ("attn" or "ffn"); else ``x``. Its backward is
+    the identity."""
+    if ACTIVE is None or not _splits(part, ACTIVE.plan):
         return x
-    mesh, plan = ACTIVE
-    if (part == "attn" and plan.attn == "whole") or \
-            (part == "ffn" and not plan.ffn):
+    return _sum(x, ACTIVE.mesh, "model")
+
+
+def copy_to_model(x: torch.Tensor, part: str) -> torch.Tensor:
+    """``x`` as it enters a region whose gradient each "model" rank holds
+    only in part: the input of a column-parallel product of ``part``
+    ("attn": ``w_q`` always and ``w_k`` / ``w_v`` when the kv heads are
+    split; "ffn": ``w_gate`` / ``w_up``), or, "kv", the whole k, v and
+    gates that the "gather_q" plan's per-head read consumes on every
+    rank. The identity forward; backward sums the gradient over "model".
+    Without a graph, or when the plan does not split ``part``, ``x``."""
+    if ACTIVE is None or not _wants_grad(x) or \
+            not _splits(part, ACTIVE.plan):
         return x
-    return all_reduce(x.contiguous(), mesh, "model")
+    return _SumBackward.apply(x, ACTIVE.mesh, "model")
+
+
+def _gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Every rank's block of dimension ``dim`` over ``axes`` assembled in
+    the blocks' order: on ``gloo`` an ``all_reduce`` of a zero-filled
+    buffer in which this rank writes its block (counted as an
+    all-reduce), else ``all_gather_into_tensor`` (counted as an
+    all-gather)."""
+    group, n = mesh.group(axes)
+    if n == 1:
+        return x
+    dim = dim % x.ndim
+    if mesh.backend == "gloo":
+        idx = 0
+        for a in _axes_tuple(axes):
+            idx = idx * mesh.shape[a] + mesh.coords[a]
+        size = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = size * n
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, idx * size, size).copy_(x)
+        return all_reduce(buf, mesh, axes)
+    src = x.movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    _count(mesh.axes_key(axes), "all_gather", out, n)
+    return out.movedim(0, dim)
+
+
+def _axes_tuple(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class _GatherQ(torch.autograd.Function):
+    """Forward: every rank's q heads assembled over "model"
+    (:func:`_gather_dim` of the last dimension); backward: this rank's
+    heads' slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, mesh, first, n, n_heads):
+        hd = q.shape[-1] // n
+        ctx.cols = (first * hd, (first + n) * hd)
+        return _gather_dim(q, mesh, "model", -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.cols
+        return g[..., a:b], None, None, None, None
 
 
 def gather_q(q: torch.Tensor) -> torch.Tensor:
     """[..., local q heads * hd] -> [..., all q heads * hd] under the
-    "gather_q" plan (each rank writes its heads into a zero-filled
-    buffer); else ``q``."""
-    if ACTIVE is None or ACTIVE[1].attn != "gather_q":
+    "gather_q" plan; else ``q``. Backward keeps this rank's heads."""
+    if ACTIVE is None or ACTIVE.plan.attn != "gather_q":
         return q
-    mesh, plan = ACTIVE
+    plan = ACTIVE.plan
     first, n = plan.q_heads
-    hd = q.shape[-1] // n
-    buf = q.new_zeros(q.shape[:-1] + (plan.n_heads * hd,))
-    buf[..., first * hd:(first + n) * hd] = q
-    return all_reduce(buf, mesh, "model")
+    return _GatherQ.apply(q, ACTIVE.mesh, first, n, plan.n_heads)
 
 
 def local_q(o: torch.Tensor) -> torch.Tensor:
     """[..., all q heads * hd] -> this rank's heads under the "gather_q"
     plan, the rows its ``w_o`` holds; else ``o``."""
-    if ACTIVE is None or ACTIVE[1].attn != "gather_q":
+    if ACTIVE is None or ACTIVE.plan.attn != "gather_q":
         return o
-    plan = ACTIVE[1]
+    plan = ACTIVE.plan
     first, n = plan.q_heads
     hd = o.shape[-1] // plan.n_heads
     return o[..., first * hd:(first + n) * hd]
@@ -194,3 +353,137 @@ def _count(axis: str, kind: str, x: torch.Tensor, n: int) -> None:
     if counter.ACTIVE is not None:
         counter.ACTIVE.collective(counter.collective_bytes(
             kind, x.numel() * x.element_size(), n), axis)
+
+
+# ==========================================================================
+# FSDP: a leaf's "data" blocks assembled before use
+# ==========================================================================
+def _fsdp_entry(entry) -> Tuple[str, ...]:
+    """The batch axes ("pod", "data") of one spec entry."""
+    if entry is None:
+        return ()
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    return tuple(a for a in axes if a in ("pod", "data"))
+
+
+def gather_fsdp(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The leaf whose local block is ``x`` under ``spec`` (its placement,
+    :func:`repro_torch.sharding.rules.param_placement`), assembled over
+    every entry's FSDP axes; its "model" entries stay split. On ``gloo``
+    a zero-filled ``all_reduce`` (counted as one), else
+    ``all_gather_into_tensor`` (counted as an all-gather). No gradient
+    flows through: only frozen leaves are held in blocks."""
+    for dim, entry in enumerate(spec):
+        axes = _fsdp_entry(entry)
+        if axes:
+            x = _gather_dim(x.detach(), mesh, axes, dim)
+    return x
+
+
+def gather_params(tree: Any, prefix: Tuple[str, ...],
+                  stacked: bool = False) -> Any:
+    """A subtree of the params (at ``prefix``; ``stacked``: one repeat's
+    view of stacked leaves, whose placement carries the repeat axis
+    first) with every leaf the active FSDP placement holds in blocks
+    assembled (:func:`gather_fsdp`); the other leaves as they are."""
+    if ACTIVE is None or not ACTIVE.fsdp:
+        return tree
+    fsdp, mesh = ACTIVE.fsdp, ACTIVE.mesh
+
+    def walk(path, leaf):
+        spec = fsdp.get("/".join(prefix + tuple(str(k) for k in path)))
+        if spec is None:
+            return leaf
+        return gather_fsdp(leaf, mesh, spec[1:] if stacked else spec)
+    return tree_map_with_path(walk, tree)
+
+
+# ==========================================================================
+# loss terms and gradients over the batch rows
+# ==========================================================================
+def _loss_axes(heads: bool) -> Tuple[str, ...]:
+    """The axes a loss term sums over: the rows' batch axes, and "model"
+    for a per-kv-head term when the plan splits the kv heads."""
+    axes = _fsdp_entry(ACTIVE.rows)
+    if heads and ACTIVE.plan.attn == "split":
+        axes = axes + ("model",)
+    return axes
+
+
+def sum_rows(x: torch.Tensor, heads: bool = False) -> torch.Tensor:
+    """A loss term's local sums ``x`` (a small vector: sums and counts)
+    added over the axes the batch rows are split over, and over "model"
+    when ``heads`` (a term over the rank's kv heads) and the heads are
+    split: every rank then holds the global sums. The backward is the
+    identity, so each rank's gradient is its own rows' and heads' part
+    (:func:`sum_grads` adds the rows')."""
+    if ACTIVE is None:
+        return x
+    axes = _loss_axes(heads)
+    if not axes or ACTIVE.mesh.group(axes)[1] == 1:
+        return x
+    return _sum(x, ACTIVE.mesh, axes)
+
+
+def mean_blocks(x: torch.Tensor) -> torch.Tensor:
+    """A mean over the rank's rows and kv heads (a scalar of equal-sized
+    blocks) -> the mean over every row and head: the blocks' means added
+    over the rows' axes and, when the heads are split, "model", then
+    divided by their count. ``x`` off a mesh or outside a bundle."""
+    if ACTIVE is None:
+        return x
+    axes = _loss_axes(True)
+    if not axes:
+        return x
+    n = ACTIVE.mesh.group(axes)[1]
+    return x if n == 1 else _sum(x, ACTIVE.mesh, axes) / n
+
+
+def sum_grads(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Gate gradients summed in place over the axes the batch rows are
+    split over: each data rank's gradient is its rows' part."""
+    if ACTIVE is None:
+        return grads
+    axes = _fsdp_entry(ACTIVE.rows)
+    if axes and ACTIVE.mesh.group(axes)[1] > 1:
+        for g in grads.values():
+            all_reduce(g, ACTIVE.mesh, axes)
+    return grads
+
+
+# ==========================================================================
+# context-parallel decode: the data ranks' reads combined
+# ==========================================================================
+def seq_block() -> Optional[Tuple[int, int]]:
+    """(this rank's index, ranks) along the global token axis of a
+    seq-sharded decode cache; None when the cache is not seq-sharded."""
+    if ACTIVE is None or ACTIVE.seq is None:
+        return None
+    mesh = ACTIVE.mesh
+    axes = _fsdp_entry(ACTIVE.seq)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.coords[a]
+    return idx, mesh.group(axes)[1]
+
+
+def combine_lse(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Context-parallel decode: ``o`` [..., hd] (this rank's read of its
+    block of the keys) and ``lse`` [...] (its log-sum-exp in f32, -inf
+    for a read of no key) -> the read over every rank's keys:
+    ``M = max lse``, ``w = exp(lse - M)``, ``o = sum w o / sum w``. A
+    rank whose block held no key has ``w = 0``; no rank's key at all
+    gives 0, as an empty read does."""
+    mesh = ACTIVE.mesh
+    axes = _fsdp_entry(ACTIVE.seq)
+    m = all_reduce(lse.clone(), mesh, axes, op="max")
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.where(torch.isfinite(lse), torch.exp(lse - m_safe),
+                    torch.zeros_like(lse))
+    hd = o.shape[-1]
+    buf = o.new_zeros(o.shape[:-1] + (hd + 1,), dtype=torch.float32)
+    buf[..., :hd] = w[..., None] * o.float()
+    buf[..., hd] = w
+    all_reduce(buf, mesh, axes)
+    den = buf[..., hd:].clamp_min(1e-30)
+    return (buf[..., :hd] / den).to(o.dtype)

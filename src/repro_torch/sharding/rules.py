@@ -20,8 +20,13 @@ hint to XLA's partitioner, and eager PyTorch has no partitioner to hint.
 
 **The port's placement** (:func:`tp_plan`, :func:`local_config`,
 :func:`local_params`) follows the spec with ``replicate_fsdp=True``, as
-the reference's serving does, leaf by leaf for the leaves that carry
-tensor parallelism: ``w_q`` / ``w_k`` / ``w_v`` column-parallel by whole
+the reference's serving and its weights-stationary decode do, or, for
+the training and prefill bundles, with the FSDP axes too
+(``replicate_fsdp=False``: every "data" / ("pod", "data") entry of the
+reference's spec, so each rank holds its "data" block of a backbone leaf
+and the model assembles a layer's leaves just before it runs,
+``sharding.comm.gather_params``). Its "model" entries go leaf by leaf
+on the leaves that carry tensor parallelism: ``w_q`` / ``w_k`` / ``w_v`` column-parallel by whole
 heads, ``w_o`` row-parallel, the dense FFN's ``w_gate`` / ``w_up``
 column-parallel and ``w_down`` row-parallel. Each rank holds its block
 as a plain local tensor (:func:`local_shard`); the model adds the
@@ -31,7 +36,14 @@ every rank: the embedding's d_model, a 1-D leaf of 4,096 or more, and
 the row-parallel fallback of q/k/v over d_model. The write gate, which
 the reference replicates, is sliced by the rank's kv heads: the kernel
 picks weights by ``row % H``, so the local slice computes what the whole
-gate computes for those heads.
+gate computes for those heads. It is never held in "data" blocks, and
+its optimizer state follows it.
+
+Under ``seq_shard`` (a decode batch narrower than the batch axes, the
+reference's long_500k) a cache's global token axis (``gk``, ``gv``,
+``gpos``) goes over "data" and the ring stays whole
+(:func:`local_caches`): the context-parallel decode of
+``models/attention.py``.
 """
 from __future__ import annotations
 
@@ -44,8 +56,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import tree_map_with_path
 
 Spec = Tuple[Any, ...]
-# the port serves on a mesh the archs whose blocks are all GQA attention
-# with a dense FFN; the others wait for ROADMAP Queue 1 item 8b
+# the port runs on a mesh the archs whose blocks are all GQA attention
+# with a dense FFN; the others wait for ROADMAP Queue 1 item 8b.5
 MESH_BLOCKS = ("attn",)
 
 
@@ -207,6 +219,21 @@ def param_shardings(params: Any, mesh, cfg: ModelConfig, *,
 # ==========================================================================
 # activation / cache specs
 # ==========================================================================
+def replicate_params(cfg: ModelConfig, mesh) -> bool:
+    """The reference's weights-stationary rule for a decode step: the
+    weights replicated over "data" when the model-sharded params (2 bytes
+    each) fit 4 GiB a chip, which takes the per-step FSDP gathers away."""
+    ways = mesh_shape(mesh).get("model", 1)
+    return cfg.param_count() * 2 / ways / 2 ** 30 <= 4.0
+
+
+def seq_shard(mesh, batch: int) -> bool:
+    """Whether a decode batch of ``batch`` rows is narrower than the batch
+    axes (the reference's long_500k): its caches' global token axis then
+    goes over "data" (:func:`cache_placement`)."""
+    return batch < _axsize(mesh, batch_axes(mesh))
+
+
 def tokens_spec(mesh, batch: int, extra_dims: int = 1) -> Spec:
     ba = pick(batch, mesh, batch_axes(mesh), "data")
     return _spec((ba,) + (None,) * extra_dims)
@@ -378,15 +405,16 @@ class TPPlan:
 
 
 def check_mesh_arch(cfg: ModelConfig) -> None:
-    """Raises for an arch the port does not serve on a mesh yet."""
+    """Raises for an arch the port does not run on a mesh yet (serving
+    and the step bundles alike)."""
     blocks = tuple(cfg.stem_pattern) + tuple(cfg.block_pattern)
     odd = sorted({b for b in blocks if b not in MESH_BLOCKS})
     if odd or cfg.is_encdec or cfg.mrope:
         what = odd or (["encoder-decoder"] if cfg.is_encdec else ["M-RoPE"])
         raise NotImplementedError(
-            f"{cfg.name}: mesh serving takes GQA attention blocks with a "
+            f"{cfg.name}: the mesh takes GQA attention blocks with a "
             f"dense FFN; {', '.join(what)} on a mesh waits for ROADMAP "
-            "Queue 1 item 8b")
+            "Queue 1 item 8b.5")
 
 
 def tp_plan(cfg: ModelConfig, mesh, index: int = 0) -> TPPlan:
@@ -423,13 +451,25 @@ _TP_LEAVES = {"w_q": 1, "w_k": 1, "w_v": 1, "w_o": 0,
               "w_gate": 1, "w_up": 1, "w_down": 0}
 
 
+def _fsdp_only(spec: Spec) -> Spec:
+    """The FSDP ("data" / "pod") entries of a spec, None elsewhere."""
+    def keep(ax):
+        axes = _axes_of(ax)
+        kept = tuple(a for a in axes if a in ("pod", "data"))
+        return kept[0] if len(kept) == 1 else (kept if kept else None)
+    return tuple(keep(a) for a in spec)
+
+
 def param_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
-                    cfg: ModelConfig) -> Spec:
+                    cfg: ModelConfig, *,
+                    replicate_fsdp: bool = True) -> Spec:
     """The spec :func:`local_params` applies to one leaf: the reference's
-    serving spec (``replicate_fsdp=True``) on the tensor-parallel leaves,
-    whole elsewhere; the write gate split over its kv heads when they
-    divide "model" (the reference replicates it)."""
-    spec = _strip_fsdp(_param_spec(path, shape, mesh, cfg))
+    spec's "model" entries on the tensor-parallel leaves, whole elsewhere;
+    the write gate split over its kv heads when they divide "model" (the
+    reference replicates it). With ``replicate_fsdp=False`` (FSDP) every
+    FSDP entry of the reference's spec too, the gate excepted."""
+    full = _param_spec(path, shape, mesh, cfg)
+    spec = _strip_fsdp(full)
     lead = 1 if "blocks" in path else 0
     out = [None] * len(shape)
     if "gate" in path:
@@ -439,31 +479,108 @@ def param_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
     dim = _TP_LEAVES.get(path[-1])
     if dim is not None and "moe" not in path and spec[lead + dim] == "model":
         out[lead + dim] = "model"
+    if not replicate_fsdp:
+        for i, e in enumerate(_fsdp_only(full)):
+            if e is not None:
+                out[i] = e
     return tuple(out)
 
 
 def local_params(params: Any, cfg: ModelConfig, mesh,
-                 coords: Mapping[str, int]) -> Any:
+                 coords: Mapping[str, int], *,
+                 replicate_fsdp: bool = True) -> Any:
     """One rank's block of every leaf of ``params`` under
     :func:`param_placement` (whole leaves are shared, not copied)."""
     def walk(path, leaf):
         spec = param_placement(tuple(str(k) for k in path),
-                               tuple(leaf.shape), mesh, cfg)
+                               tuple(leaf.shape), mesh, cfg,
+                               replicate_fsdp=replicate_fsdp)
         return local_shard(leaf, spec, coords, mesh)
     return tree_map_with_path(walk, params)
 
 
-def held_whole(params: Any, cfg: ModelConfig, mesh) -> Dict[str, int]:
-    """``{path: bytes}`` of the leaves the reference's serving spec splits
-    over "model" and the placement keeps whole on every rank."""
+def fsdp_placement(params: Any, cfg: ModelConfig, mesh) -> Dict[str, Spec]:
+    """``{path: placement}`` of the leaves FSDP holds in blocks: what
+    ``sharding.comm.gather_params`` assembles before each use."""
+    out: Dict[str, Spec] = {}
+
+    def walk(path, leaf):
+        keys = tuple(str(k) for k in path)
+        spec = param_placement(keys, tuple(leaf.shape), mesh, cfg,
+                               replicate_fsdp=False)
+        if any(_fsdp_only(spec)):
+            out["/".join(keys)] = spec
+        return leaf
+    tree_map_with_path(walk, params)
+    return out
+
+
+def held_whole(params: Any, cfg: ModelConfig, mesh, *,
+               replicate_fsdp: bool = True) -> Dict[str, int]:
+    """``{path: bytes}`` of the leaves the reference's spec splits (its
+    serving spec, or with ``replicate_fsdp=False`` its FSDP spec) on a
+    dimension the placement keeps whole on every rank."""
     out: Dict[str, int] = {}
 
     def walk(path, leaf):
         keys = tuple(str(k) for k in path)
-        ref = _strip_fsdp(_param_spec(keys, tuple(leaf.shape), mesh, cfg))
-        mine = param_placement(keys, tuple(leaf.shape), mesh, cfg)
+        ref = _param_spec(keys, tuple(leaf.shape), mesh, cfg)
+        if replicate_fsdp:
+            ref = _strip_fsdp(ref)
+        mine = param_placement(keys, tuple(leaf.shape), mesh, cfg,
+                               replicate_fsdp=replicate_fsdp)
         if any(r is not None and m is None for r, m in zip(ref, mine)):
             out["/".join(keys)] = int(leaf.numel()) * leaf.element_size()
         return leaf
     tree_map_with_path(walk, params)
+    return out
+
+
+# per-kv-head cache leaves [B, H] the reference's rule keeps whole over
+# "model" (GSPMD slices them where the heads are split)
+_HEAD_COUNTERS = ("gcnt", "overflow")
+
+
+def cache_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
+                    cfg: ModelConfig, seq_shard: bool = False) -> Spec:
+    """The spec of one rank's block of a cache leaf: the reference's
+    (:func:`cache_shardings`), whose "model" entries are the plan's kv
+    heads (:func:`tp_plan` and the cache rule both split the kv heads iff
+    they divide "model"), and the per-head counters ``gcnt`` /
+    ``overflow`` split with them (a rank's model code counts its own
+    heads). Under ``seq_shard`` the global token axis of ``gk`` / ``gv``
+    / ``gpos`` goes over "data" while the ring, ``gcnt``, ``t``, ``ptr``
+    and the page metadata stay whole."""
+    spec = list(_cache_leaf_spec(path, shape, mesh, cfg, seq_shard))
+    lead = 1 if "blocks" in path else 0
+    if path[-1] in _HEAD_COUNTERS and len(shape) == lead + 2 \
+            and _fits(cfg.n_kv_heads, mesh, "model"):
+        spec[lead + 1] = "model"
+    return tuple(spec)
+
+
+def local_caches(caches: Any, cfg: ModelConfig, mesh,
+                 coords: Mapping[str, int], *,
+                 seq_shard: bool = False) -> Any:
+    """One rank's block of every leaf of a whole cache tree under
+    :func:`cache_placement`."""
+    return tree_map_with_path(
+        lambda p, leaf: local_shard(
+            leaf, cache_placement(tuple(str(k) for k in p),
+                                  tuple(leaf.shape), mesh, cfg, seq_shard),
+            coords, mesh), caches)
+
+
+def specs_by_path(tree: Any, specs: Any) -> Dict[Tuple[str, ...], Spec]:
+    """``{path: spec}`` of every leaf of ``tree`` in a spec tree of the
+    same structure (specs are tuples, so they are read at the leaves'
+    paths rather than flattened)."""
+    from repro_torch.tree import tree_leaves_with_path
+    out = {}
+    for path, _ in tree_leaves_with_path(tree):
+        node = specs
+        for k in path:
+            node = getattr(node, k) if isinstance(k, str) and \
+                hasattr(node, "_fields") else node[k]
+        out[tuple(str(k) for k in path)] = node
     return out

@@ -18,6 +18,13 @@ under ``torch.no_grad()`` (the reference's ``stop_gradient``). There is no
 (the routing groups of every ``attn_moe`` block) is passed through to
 both forwards, as in the reference; its ``scan_unroll`` (an XLA compile
 hint with no eager counterpart) is not taken.
+
+On a mesh (``launch.steps.make_bundle`` with a mesh runs the step under
+``sharding.comm.active``) the losses are global (``core/losses.py``),
+each rank's gate leaves are its kv heads' slices, and the gate gradients
+are summed over the axes the batch rows are split over before AdamW
+updates the rank's slices (AdamW is elementwise). Full-parameter LM
+training on a mesh waits for ROADMAP Queue 1 item 8b.5.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from repro_torch.convert import flat_paths
 from repro_torch.core.losses import total_loss
 from repro_torch.data.synthetic import lm_loss
 from repro_torch.models import transformer as T
+from repro_torch.sharding import comm
 from repro_torch.training.optimizer import (AdamWState, adamw_init,
                                             adamw_update)
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
@@ -121,6 +129,7 @@ def train_step(state: TrainState, params, cfg: ModelConfig, batch, *, lr,
     loss, aux, grads = loss_and_grads(state.gates, params, cfg, batch,
                                       lam=lam, moe_groups=moe_groups,
                                       q_chunk=q_chunk, remat=remat)
+    grads = comm.sum_grads(grads)
     new_gates, new_opt = adamw_update(grads, state.opt, state.gates, lr=lr)
     return TrainState(new_gates, new_opt), dict(aux, loss=loss)
 
@@ -162,6 +171,10 @@ def lm_loss_fn(params, cfg: ModelConfig, batch, *, moe_groups=1,
 def lm_train_step(state: LMTrainState, cfg: ModelConfig, batch, *, lr,
                   moe_groups=1, q_chunk=None, remat=False
                   ) -> Tuple[LMTrainState, Dict[str, torch.Tensor]]:
+    if comm.ACTIVE is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: full-parameter LM training on a mesh waits for "
+            "ROADMAP Queue 1 item 8b.5")
     params = tree_map(lambda v: v.detach().requires_grad_(), state.params)
     with torch.enable_grad():
         loss, aux = lm_loss_fn(params, cfg, batch, moe_groups=moe_groups,

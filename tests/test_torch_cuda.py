@@ -1343,3 +1343,86 @@ def test_mesh_1x2_over_gloo_on_one_card_matches_flat():
             else:
                 np.testing.assert_allclose(mine, full, rtol=0, atol=1e-4,
                                            err_msg=str(path))
+
+
+def test_paged_decode_lse_matches_plain_with_an_empty_block():
+    """``paged_decode(lse=True)`` on the card against its plain version:
+    the log-sum-exp of each read (split and single-split walks) within
+    1e-4, and a kv stream with no key (one block of a seq-sharded global
+    cache past its gcnt) reads -inf and 0 on both."""
+    from repro_torch.core.dual_cache import init_dual_cache
+    from repro_torch.kernels import ops
+    build.build_all()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for c in (128, 1024):
+        cache = init_dual_cache(2, 4, 128, w_local=256, budget=c,
+                                device="cuda")
+        rn = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa
+        gcnt = torch.tensor([[0, 5, c // 2, c], [c // 2 + 1, 0, 17, c - 1]],
+                            dtype=torch.int32, device="cuda")
+        cache = cache._replace(gk=rn(2, 4, c, 128), gv=rn(2, 4, c, 128),
+                               lk=rn(2, 4, 256, 128), lv=rn(2, 4, 256, 128),
+                               gcnt=gcnt, t=torch.tensor(
+                                   [300, 90], dtype=torch.int32,
+                                   device="cuda"))
+        q = rn(2, 8, 128)
+        cb = c // 2
+        for i in range(2):
+            blk = cache._replace(
+                gk=cache.gk[:, :, i * cb:(i + 1) * cb].contiguous(),
+                gv=cache.gv[:, :, i * cb:(i + 1) * cb].contiguous())
+            qf, first, second, grp = ops.dual_cache_segments(q, blk, (i, 2))
+            out, lse = paged_decode(qf, *first, second=second, group=grp,
+                                    lse=True)
+            want, wlse = paged_decode_plain(qf, *first, second=second,
+                                            group=grp, lse=True)
+            dead = torch.isinf(wlse)
+            assert torch.equal(torch.isinf(lse), dead)
+            if i == 1:
+                assert dead.any()
+                assert bool((out[dead] == 0).all())
+            torch.testing.assert_close(lse[~dead], wlse[~dead], rtol=0,
+                                       atol=1e-4)
+            torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+
+
+def _nccl_train():
+    """One sharded train step of reduced qwen3-0.6b on a 1 x 1 NCCL mesh
+    and the flat bundle's, on the card."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.steps import make_bundle, param_structs
+    cfg = get_reduced_config("qwen3-0.6b").replace(dtype="float32")
+    params = param_structs(cfg, "cuda")
+    shape = InputShape("train", 512, 2, "train")
+    flat = make_bundle(cfg, shape, use_wgkv=True, device="cuda",
+                       params=params)
+    f_state, f_aux = flat.fn(*flat.args)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = M.init_mesh((1, 1), backend="nccl", device="cuda")
+        b = make_bundle(cfg, shape, use_wgkv=True, device="cuda",
+                        params=params, mesh=mesh)
+        state, aux = b.fn(*b.args)
+    finally:
+        dist.destroy_process_group()
+    return f_state, f_aux, state, aux
+
+
+def test_sharded_train_step_on_a_1x1_nccl_mesh_matches_flat():
+    """The train bundle on a 1 x 1 NCCL mesh (every seam a group of one)
+    gives the flat bundle's loss and new gates on the card."""
+    build.build_all()
+    f_state, f_aux, state, aux = _nccl_train()
+    assert abs(float(aux["loss"]) - float(f_aux["loss"])) <= \
+        1e-5 * abs(float(f_aux["loss"]))
+    for k, v in f_state.gates.items():
+        torch.testing.assert_close(state.gates[k], v, rtol=0, atol=1e-4)
