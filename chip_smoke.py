@@ -115,20 +115,22 @@ recurrentgemma phases):
                 with the trained substrate on the card and on the CPU:
                 equal streams and step-shape counts.
   mesh        — sharded serving (``serving/sharded.py``) of full-width
-                qwen3-0.6b (28 layers): the flat port, a 1 x 1 mesh over
-                NCCL (a world of one, under both sentinels) and a 1 x 2
-                mesh whose two ranks share the card over gloo (heads
-                split: tokens equal the flat run's, integer cache state
-                equal to its head slice, floats within 1e-4, 28
-                ``gate_mlp`` and 28 ``paged_decode`` per position step on
-                each rank, the counted collective bytes equal the
-                prediction); each run's wall and the ranks per card.
+                qwen3-0.6b (14 of 28 layers): the flat port,
+                a 1 x 1 mesh over NCCL (a world of one, under both
+                sentinels) and a 1 x 2 mesh whose two ranks share the
+                card over gloo (heads split: tokens equal the flat
+                run's, integer cache state equal to its head slice,
+                floats within 1e-4, a ``gate_mlp`` and a
+                ``paged_decode`` a layer and position step on each rank,
+                the counted collective bytes equal the prediction); each
+                run's wall and the ranks per card.
   mesh-steps  — the sharded step bundles (``launch/steps.py`` with a
                 mesh) of full-width qwen3-0.6b (28 layers, f32): one
-                train step at 2 x 1,024 (remat; FSDP over "data"), one
-                prefill (1 x 4,096, budget 1,024; 2 x 512 on 2 x 1) and
-                16 greedy decode steps on its caches, on a 1 x 1 NCCL
-                mesh and 1 x 2 and 2 x 1 gloo meshes on the one card,
+                train step at 2 x 1,024 (remat; FSDP over "data"; 2 x
+                256 on 2 x 1), one prefill (1 x 4,096, budget 1,024; 2 x 512 on
+                2 x 1) and 16 greedy decode steps on its caches, on a 1
+                x 1 NCCL mesh and 1 x 2 and 2 x 1 gloo meshes on the
+                one card,
                 each rank held to the flat bundles (loss 1e-5 relative,
                 new gates, logits 1e-4, tokens and integer cache leaves
                 equal), its launches to the counts from the shapes, its
@@ -138,6 +140,29 @@ recurrentgemma phases):
                 cache split over "data" (``paged_decode``'s lse, combined
                 over the ranks) against the flat step; the 16 x 16 dry
                 run's rank-0 record of train_4k printed.
+  mesh-archs  — the MoE and hybrid archs on the mesh, full width, f32,
+                depth cut (printed), gates admitting about 16 % of
+                tokens: granite-moe-3b-a800m (8 of 32 layers) served
+                flat, on a 1 x 1 NCCL mesh under both sentinels and on a
+                1 x 2 gloo mesh (20 of 40 experts a rank), and its
+                prefill of 1 x 2,048 (budget 512) and 8 decode steps
+                through the bundles; recurrentgemma-9b (stem + 2
+                repeats) a train step, a prefill of 1 x 2,048 and 8
+                decode steps with its RG-LRU channels split
+                (``rglru_scan`` and its backward on 2,048 channels a
+                rank); qwen3-moe-235b-a22b (1 of 94 repeats, 64 experts
+                a rank) a prefill of 1 x 1,024 and 4 decode steps; each
+                1 x 2 rank held to the flat run with mesh-steps' holds
+                (logits within 1e-4 of their scale); granite's prefill
+                again with the init's gates, the budget binding (512 of
+                2,048), flat and on the 1 x 2 ranks: layer 0's scores
+                within 1e-6 and its choices equal but for near-ties
+                (1e-6 of the budget's edge), each deeper layer's up to
+                the first that differs within twice its score gap; the
+                rank's ``x @ w_k`` against the flat columns, bitwise,
+                printed; the 16 x 16 dry
+                run's rank-0 records of qwen3-moe-235b-a22b at train_4k
+                and decode_32k printed beside the card's process bytes.
 
 Gate-distillation training (run after substrate-ab):
 
@@ -1731,6 +1756,38 @@ def mesh_step_cases():
         ("paged_decode mesh-steps", lse_case(seed=185))]
 
 
+def mesh_arch_cases():
+    """Phase 3's cases at one rank's shapes of the mesh-archs phase's 1 x
+    2 mesh (f32): recurrentgemma-9b's RG-LRU scan and its backward on
+    half its channels ([1, 4096, 2048]: a 4,096-token prefill's and train
+    step's), its train step at 1 x 2,048 (every q head on its one kv head
+    under "gather_q": ``gated_flash``'s backward at hd 256, W 2,048, and
+    the gate's at F 512); granite-moe-3b-a800m on half its kv heads (12 q
+    on 4 kv of hd 64; the gate at H 4, F 128) at decode (2 slots, C 64 of
+    the serve's capacity 256, W 256) and over its 2,048-token prefill (C
+    512). Returns (tag, record) pairs tagged ``<kernel> mesh-archs``."""
+    import torch
+    rb, _ = rglru_bwd_case(1, 4096, 2048, False, seed=191)
+    fb, _ = flash_bwd_case(16, 2048, seed=194, nk=1, hd=256, w=2048)
+    gb, _ = gate_bwd_case(rows=1, s=2048, seed=195, h=1, f=512)
+    return [
+        ("rglru_scan mesh-archs", rglru_case(1, 4096, 2048, False,
+                                             seed=190)),
+        ("rglru_scan_bwd mesh-archs", rb),
+        ("gated_flash_bwd mesh-archs", fb),
+        ("gate_mlp_bwd mesh-archs", gb),
+        ("gate_mlp mesh-archs", gate_case(rows=2 * 4, s=1, seed=192, h=4,
+                                          f=128)),
+        ("gate_mlp mesh-archs", gate_case(rows=4, s=2048, seed=193, h=4,
+                                          f=128)),
+        ("paged_decode mesh-archs", dual_cache_case(
+            2, 64, 256, torch.float32, seed=196, hkv=4, grp=3, hd=64)),
+        ("vertical_slash mesh-archs", vertical_slash_case(
+            "float32", seed=197, hkv=4, hd=64, hq=12, s=2048, c=512)),
+        ("gated_flash mesh-archs", gated_flash_case(
+            2048, "float32", seed=198, hkv=1, hd=256, w=2048))]
+
+
 def planted_faults(cases) -> dict:
     """Each fault of ``FAULTS`` planted alone in a rebuild of its kernel
     (all built at once), run on the inputs of its cases (fault name, (run,
@@ -2594,13 +2651,20 @@ def mesh_drive(eng, sentinels: bool):
             time.perf_counter() - t0, shapes)
 
 
+# the mesh phase's depth: 14 of qwen3-0.6b's 28 layers (its gloo ranks'
+# serve stages every layer's sums through the host)
+MESH_LAYERS = 14
+
+
 def mesh_model(device):
-    """Full-width qwen3-0.6b, f32, weights drawn on ``device`` from seed
-    46 (every rank draws the same)."""
+    """Full-width qwen3-0.6b cut to :data:`MESH_LAYERS` layers, f32,
+    weights drawn on ``device`` from seed 46 (every rank draws the
+    same)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_model
-    cfg = get_config("qwen3-0.6b").replace(dtype="float32")
+    cfg = get_config("qwen3-0.6b").replace(dtype="float32",
+                                           n_repeats=MESH_LAYERS)
     gen = torch.Generator(device=device).manual_seed(46)
     return cfg, init_model(cfg, gen, device)
 
@@ -2640,8 +2704,8 @@ def mesh_rank(mesh):
 
 
 def mesh_phase(card: str):
-    """Sharded serving on the card, full-width qwen3-0.6b (28 layers, f32,
-    seeded weights), three prompts of 24-40 tokens, 6 new tokens each, 2
+    """Sharded serving on the card, full-width qwen3-0.6b (14 of 28 layers,
+    f32, seeded weights), three prompts of 24-40 tokens, 6 new tokens each, 2
     slots, dispatch-ahead 1:
 
     (a) the flat port on ``cuda``, the yardstick;
@@ -2651,9 +2715,10 @@ def mesh_phase(card: str):
     (c) a 1 x 2 mesh whose two ranks share the card over gloo: tokens
         equal (a)'s, each rank's integer cache state equals its head
         slice of (a)'s and its floats are within 1e-4, each rank
-        launches 28 ``gate_mlp`` and 28 ``paged_decode`` a position step,
-        and the collective bytes each rank counts equal the prediction:
-        per position step 56 sums of [2, 1,024] f32 over "model" (ring
+        launches a ``gate_mlp`` and a ``paged_decode`` a layer and
+        position step, and the collective bytes each rank counts equal
+        the prediction: per layer and position step 2 sums of [2, 1,024]
+        f32 over "model" (ring
         all-reduce over 2: 2 x bytes x 1/2), and per fused step one
         [5, 2] f32 sum of the sampled tokens and stats. ``SyncSentinel``
         is exempt there: gloo stages CUDA tensors through the host.
@@ -4798,6 +4863,10 @@ def figures_phase(card: str):
 # --------------------------------------------------------------------------
 MS_DECODE_STEPS = 16
 MS_TRAIN = ("train_1k", 1024, 2, "train")
+# the 2 x 1 mesh's train step: FSDP's gathers and their backward over
+# "data" and the gate gradients summed over the rows, at a shorter
+# sequence (gloo's zero-filled sums of the gathers set its time)
+MS_TRAIN_DATA = ("train_256", 256, 2, "train")
 MS_PREFILL = {(1, 1): ("prefill_4k", 4096, 1, "prefill"),
               (1, 2): ("prefill_4k", 4096, 1, "prefill"),
               (2, 1): ("prefill_512", 512, 2, "prefill")}
@@ -4861,20 +4930,21 @@ def ms_step(fn, *args):
 
 
 def ms_run(mesh, cfg, params, prefill_spec, seq: bool = False,
-           train: bool = True) -> dict:
-    """One train step (``train``), one prefill and 16 greedy decode steps
-    on its caches through ``make_bundle`` (``mesh=None``: the flat
-    bundles), on the card, each step's first call under the work counter
-    (the other decode steps timed without it); with ``seq`` also one
-    decode step of the flat 1 x 4,096 prefill's row with its global cache
-    split over "data"."""
+           train: bool = True, train_spec=MS_TRAIN,
+           decode_steps: int = MS_DECODE_STEPS) -> dict:
+    """One train step (``train``, of ``train_spec``), one prefill and
+    ``decode_steps`` greedy decode steps on its caches through
+    ``make_bundle`` (``mesh=None``: the flat bundles), on the card, each
+    step's first call under the work counter (the other decode steps
+    timed without it); with ``seq`` also one decode step of the flat 1 x
+    4,096 prefill's row with its global cache split over "data"."""
     import torch
     from repro_torch.launch.steps import make_bundle
     from repro_torch.models import inference as I
     from repro_torch.sharding import rules
     res = {}
     if train:
-        tr = make_bundle(cfg, ms_shape(MS_TRAIN), use_wgkv=True,
+        tr = make_bundle(cfg, ms_shape(train_spec), use_wgkv=True,
                          device="cuda", params=params, mesh=mesh)
         (state, aux), cnt, lc, wall = ms_step(tr.fn, *tr.args)
         res["train"] = {"loss": float(aux["loss"]), "counts": cnt,
@@ -4900,13 +4970,13 @@ def ms_run(mesh, cfg, params, prefill_spec, seq: bool = False,
     token = logits.argmax(-1).to(torch.int32)
     steps = [(logits.cpu().numpy(), token.cpu().numpy())]
     t0 = time.perf_counter()
-    for _ in range(MS_DECODE_STEPS - 1):
+    for _ in range(decode_steps - 1):
         logits, caches = dec.fn(dec.args[0], caches, {"token": token})
         token = logits.argmax(-1).to(torch.int32)
         steps.append((logits.cpu().numpy(), token.cpu().numpy()))
     res["decode"] = {"steps": steps, "ints": ms_ints(caches),
                      "ms_per_step": (time.perf_counter() - t0) * 1e3
-                     / (MS_DECODE_STEPS - 1)}
+                     / (decode_steps - 1)}
     del dec, caches
     if seq:
         with torch.no_grad():
@@ -4945,17 +5015,20 @@ def mesh_steps_rank(mesh):
     t0 = time.perf_counter()
     shape = (mesh.shape["data"], mesh.shape["model"])
     res = ms_run(mesh, cfg, params, MS_PREFILL[shape],
-                 seq=shape == (2, 1))
+                 seq=shape == (2, 1),
+                 train_spec=MS_TRAIN_DATA if shape == (2, 1) else MS_TRAIN)
     res["wall_s"] = time.perf_counter() - t0
     res["coords"] = mesh.coords
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
     return res
 
 
-def ms_meta(cfg, shape, backend, seq: bool) -> dict:
+def ms_meta(cfg, shape, backend, seq: bool, prefill_spec=None,
+            train_spec=MS_TRAIN) -> dict:
     """Rank (0, 0)'s counts of the same bundles on ``meta`` over a fake
     process group that stands for ``backend`` (each from no cached page
-    table, as :func:`ms_step`'s)."""
+    table, as :func:`ms_step`'s); ``prefill_spec`` default
+    ``MS_PREFILL[shape]``, no train step for ``train_spec`` None."""
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as M
     from repro_torch.launch.steps import make_bundle
@@ -4963,14 +5036,17 @@ def ms_meta(cfg, shape, backend, seq: bool) -> dict:
     from repro_torch.roofline.counter import WorkCounter
     from repro_torch.sharding import rules
     out = {}
+    prefill_spec = prefill_spec or MS_PREFILL[shape]
     with M.fake_mesh(shape, backend=backend) as mesh:
-        for tag, spec in (("train", MS_TRAIN), ("prefill", MS_PREFILL[shape])):
+        for tag, spec in (("train", train_spec), ("prefill", prefill_spec)):
+            if spec is None:
+                continue
             b = make_bundle(cfg, ms_shape(spec), use_wgkv=True, mesh=mesh)
             ops._identity_tables.cache_clear()
             with WorkCounter() as wc:
                 res = b.fn(*b.args)
             out[tag] = ms_counts(wc)
-        name, s, bb, _ = MS_PREFILL[shape]
+        name, s, bb, _ = prefill_spec
         d = make_bundle(cfg, ms_shape(("decode_" + name, s, bb, "decode")),
                         use_wgkv=True, caches=res[2], mesh=mesh)
         ops._identity_tables.cache_clear()
@@ -4995,29 +5071,43 @@ def ms_meta(cfg, shape, backend, seq: bool) -> dict:
     return out
 
 
-def ms_check(tag, cfg, shape, res, flat, meta, rank0: bool) -> dict:
+def ms_check(tag, cfg, shape, res, flat, meta, rank0: bool,
+             launches=None, scaled: bool = False) -> dict:
     """Holds one rank's run to the flat run of the same shapes, its
-    launches to the counts from the shapes, its collective bytes by axis
-    to rank (0, 0)'s in the fake-group meta run (the dry run's counter:
-    in ring accounting every rank moves what rank (0, 0) moves) and, for
-    rank (0, 0), all its counts to the meta run's. Returns its summary."""
+    launches to ``launches`` (``{"train", "prefill", "decode"}``; default
+    the counts from qwen3-0.6b's shapes), its collective bytes by axis to
+    rank (0, 0)'s in the fake-group meta run (the dry run's counter: in
+    ring accounting every rank moves what rank (0, 0) moves) and, for
+    rank (0, 0), all its counts to the meta run's. A run without a train
+    step skips its holds. ``scaled``: the logits within 1e-4 of the flat
+    logits' largest magnitude (at least 1), where the MoE experts' sums
+    in another order reach further than 1e-4 absolute. Returns its
+    summary."""
     import numpy as np
     import torch
     from repro_torch.sharding import rules
+    launches = launches or {"train": MS_TRAIN_LAUNCHES,
+                            "prefill": MS_PREFILL_LAUNCHES,
+                            "decode": MS_DECODE_LAUNCHES}
     mesh = {"data": shape[0], "model": shape[1]}
     coords = res["coords"]
-    f_tr, m_tr = flat["train"], res["train"]
-    rel = abs(m_tr["loss"] - f_tr["loss"]) / abs(f_tr["loss"])
-    check(rel <= 1e-5, f"{tag}: loss {m_tr['loss']} vs flat {f_tr['loss']}"
-          f" ({rel:.2e} relative)")
-    gate_err = 0.0
-    for key, want in f_tr["gates"].items():
-        spec = rules.param_placement(tuple(key.split("/")), want.shape, mesh,
-                                     cfg, replicate_fsdp=False)
-        blk = rules.local_shard(torch.from_numpy(want), spec, coords,
-                                mesh).numpy()
-        gate_err = max(gate_err, float(np.abs(m_tr["gates"][key] - blk).max()))
-    check(gate_err <= 1e-4, f"{tag}: new gates differ by {gate_err:.3e}")
+    rel = gate_err = None
+    if "train" in res:
+        f_tr, m_tr = flat["train"], res["train"]
+        rel = abs(m_tr["loss"] - f_tr["loss"]) / abs(f_tr["loss"])
+        check(rel <= 1e-5, f"{tag}: loss {m_tr['loss']} vs flat "
+              f"{f_tr['loss']} ({rel:.2e} relative)")
+        gate_err = 0.0
+        for key, want in f_tr["gates"].items():
+            spec = rules.param_placement(tuple(key.split("/")), want.shape,
+                                         mesh, cfg, replicate_fsdp=False)
+            blk = rules.local_shard(torch.from_numpy(want), spec, coords,
+                                    mesh).numpy()
+            gate_err = max(gate_err,
+                           float(np.abs(m_tr["gates"][key] - blk).max()))
+        check(gate_err <= 1e-4, f"{tag}: new gates differ by {gate_err:.3e}")
+        check(res["train"]["launches"] == launches["train"],
+              f"{tag}: train launches {res['train']['launches']}")
     rows = rules.block(flat["prefill"]["logits"].shape[0],
                        rules.tokens_spec(mesh, flat["prefill"]["logits"]
                                          .shape[0], 0)[0], coords, mesh)
@@ -5028,7 +5118,13 @@ def ms_check(tag, cfg, shape, res, flat, meta, rank0: bool) -> dict:
         check(np.array_equal(tok, ftok[rows]), f"{tag}: greedy tokens "
               f"{tok} != flat {ftok[rows]}")
         lg_err = max(lg_err, float(np.abs(lg - flg[rows]).max()))
-    check(lg_err <= 1e-4, f"{tag}: logits differ by {lg_err:.3e}")
+    lg_scale = 1.0
+    if scaled:
+        lg_scale = max(1.0, float(np.abs(flat["prefill"]["logits"]).max()),
+                       *(float(np.abs(flg).max())
+                         for flg, _ in flat["decode"]["steps"]))
+    check(lg_err <= 1e-4 * lg_scale, f"{tag}: logits differ by "
+          f"{lg_err:.3e} (scale {lg_scale:.3g})")
     for part in ("prefill", "decode"):
         for path, want in flat[part]["ints"].items():
             spec = rules.cache_placement(path, want.shape, mesh, cfg)
@@ -5036,15 +5132,14 @@ def ms_check(tag, cfg, shape, res, flat, meta, rank0: bool) -> dict:
                                     mesh).numpy()
             check(np.array_equal(res[part]["ints"][path], blk),
                   f"{tag}: {part} cache leaf {'/'.join(path)} differs")
-    check(res["train"]["launches"] == MS_TRAIN_LAUNCHES,
-          f"{tag}: train launches {res['train']['launches']}")
-    check(res["prefill"]["launches"] == MS_PREFILL_LAUNCHES,
+    check(res["prefill"]["launches"] == launches["prefill"],
           f"{tag}: prefill launches {res['prefill']['launches']}")
-    check(res["decode_launches"] == MS_DECODE_LAUNCHES,
+    check(res["decode_launches"] == launches["decode"],
           f"{tag}: decode launches {res['decode_launches']}")
-    kinds = [("train", res["train"]["counts"]),
-             ("prefill", res["prefill"]["counts"]),
+    kinds = [("prefill", res["prefill"]["counts"]),
              ("decode", res["decode_counts"])]
+    if "train" in res:
+        kinds.insert(0, ("train", res["train"]["counts"]))
     if "seq" in res:
         kinds.append(("seq", res["seq"]["counts"]))
     coll = {}
@@ -5056,10 +5151,11 @@ def ms_check(tag, cfg, shape, res, flat, meta, rank0: bool) -> dict:
         if rank0:
             check(cnt == meta[kind], f"{tag}: {kind} counts on the card "
                   f"{cnt} != the fake-group meta run's {meta[kind]}")
-    out = {"train_wall_s": res["train"]["wall_s"],
+    out = {"train_wall_s": res.get("train", {}).get("wall_s"),
            "prefill_wall_s": res["prefill"]["wall_s"],
            "decode_ms_per_step": res["decode"]["ms_per_step"],
            "loss_rel_err": rel, "gate_err": gate_err, "logit_err": lg_err,
+           "logit_scale": lg_scale,
            "collective_bytes": coll}
     if "seq" in res:
         f1 = flat["seq_logits"]
@@ -5082,17 +5178,20 @@ def ms_host_runs(cfg) -> tuple:
     rec = D.run_dryrun("qwen3-0.6b", "train_4k", mesh="single")
     return rec, {(1, 1): ms_meta(cfg, (1, 1), "nccl", False),
                  (1, 2): ms_meta(cfg, (1, 2), "gloo", False),
-                 (2, 1): ms_meta(cfg, (2, 1), "gloo", True)}
+                 (2, 1): ms_meta(cfg, (2, 1), "gloo", True,
+                                 train_spec=MS_TRAIN_DATA)}
 
 
 def mesh_steps_phase(card: str):
     """The sharded step bundles at full-width qwen3-0.6b (28 layers, f32,
     seed-0 weights): one train step at 2 x 1,024 (remat, FSDP over
-    "data"), one prefill (1 x 4,096 at budget 1,024; 2 x 512 on 2 x 1)
-    and 16 greedy decode steps on its caches, on a 1 x 1 NCCL mesh (in
-    this process), a 1 x 2 gloo mesh (heads 8 / 4 a rank) and a 2 x 1
-    gloo mesh (FSDP gathers over "data"; and one decode step of the flat
-    1 x 4,096 prefill's row, its global cache split over "data"), each
+    "data"; 2 x 256 on 2 x 1), one prefill (1 x 4,096 at budget 1,024;
+    2 x 512 on 2 x 1) and 16 greedy decode steps on its caches, on a 1 x
+    1 NCCL mesh (in this process), a 1 x 2 gloo mesh (heads 8 / 4 a rank)
+    and a 2 x 1 gloo mesh (a row a rank: FSDP's gathers over "data" and
+    their backward, the gate gradients summed over the rows; and one
+    decode step of the flat 1 x 4,096 prefill's row, its global cache
+    split over "data"), each
     held to the flat bundles of the same shapes and to the fake-group meta
     run (ms_check), and the 16 x 16 dry run's rank-0 record of train_4k
     printed. The meta runs, host work in this process, overlap the gloo
@@ -5105,9 +5204,8 @@ def mesh_steps_phase(card: str):
     cfg, params = ms_model("cuda")
     t0 = time.perf_counter()
     flat = {MS_PREFILL[(1, 2)]: ms_run(None, cfg, params, MS_PREFILL[(1, 2)])}
-    flat[MS_PREFILL[(2, 1)]] = dict(
-        ms_run(None, cfg, params, MS_PREFILL[(2, 1)], train=False),
-        train=flat[MS_PREFILL[(1, 2)]]["train"])
+    flat[MS_PREFILL[(2, 1)]] = ms_run(None, cfg, params, MS_PREFILL[(2, 1)],
+                                      train_spec=MS_TRAIN_DATA)
     # the seq-sharded decode (2 x 1) reads the 1 x 4,096 prefill's cache:
     # its flat first decode step is the yardstick
     flat[MS_PREFILL[(2, 1)]]["seq_logits"] = \
@@ -5117,7 +5215,8 @@ def mesh_steps_phase(card: str):
         """The run's launches: its train step, prefill and first decode
         step (and the seq-sharded step) added."""
         tot = {}
-        for lc in (res["train"]["launches"], res["prefill"]["launches"],
+        for lc in (res.get("train", {}).get("launches", {}),
+                   res["prefill"]["launches"],
                    res["decode_launches"],
                    res.get("seq", {}).get("launches", {})):
             for k, v in lc.items():
@@ -5125,6 +5224,7 @@ def mesh_steps_phase(card: str):
         return tot
     out = {"flat_wall_s": flat_wall, "flat": {
         "train_wall_s": flat[MS_PREFILL[(1, 2)]]["train"]["wall_s"],
+        "train_256_wall_s": flat[MS_PREFILL[(2, 1)]]["train"]["wall_s"],
         **{f"{spec[0]} {k}": flat[spec][part][key]
            for spec in (MS_PREFILL[(1, 2)], MS_PREFILL[(2, 1)])
            for k, part, key in (("prefill_wall_s", "prefill", "wall_s"),
@@ -5178,6 +5278,469 @@ def mesh_steps_phase(card: str):
                                          peak_bytes=res["peak_bytes"])
         counts[tag] = launches(ranks[shape][0])
     print("mesh-steps: " + json.dumps(out), flush=True)
+    return counts
+
+
+# --------------------------------------------------------------------------
+# mesh-archs: the MoE and hybrid archs on the mesh (expert-parallel MoE,
+# channel-parallel RG-LRU), served and stepped against the flat port
+# --------------------------------------------------------------------------
+# arch -> (repeats kept, weight seed, train spec or None, prefill spec,
+# decode steps); every run of an arch (flat and mesh) at that depth.
+# recurrentgemma-9b keeps two repeats: only an RG-LRU block past the first
+# gate gets a gradient, so one repeat would run no rglru_scan_bwd
+MA_RUNS = {
+    "granite-moe-3b-a800m": (8, 80, None, ("prefill_2k", 2048, 1, "prefill"),
+                             8),
+    "recurrentgemma-9b": (2, 81, ("train_2k", 2048, 1, "train"),
+                          ("prefill_2k", 2048, 1, "prefill"), 8),
+    "qwen3-moe-235b-a22b": (1, 82, None, ("prefill_1k", 1024, 1, "prefill"),
+                            4),
+}
+
+
+def ma_model(arch: str, device):
+    """``arch`` at full width, f32, cut to ``MA_RUNS``' repeats (the
+    stem kept), weights drawn on ``device`` from its seed (every rank
+    draws the same), the gates admitting fewer tokens than the budget
+    holds (:func:`sparse_gates`), so that every choice is exact and the
+    runs can be held token for token. With the init's gates, which admit
+    almost every token, the top-budget choice among near-equal scores
+    turns on the last bits of ``x @ w_k``: :func:`ma_binding` runs that
+    case and :func:`ma_tie_check` holds it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    repeats, seed = MA_RUNS[arch][:2]
+    cfg = get_config(arch).replace(dtype="float32", n_repeats=repeats)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_model(cfg, gen, device)
+    return cfg, params, sparse_gates(cfg, params)
+
+
+def sparse_gates(cfg, params) -> dict:
+    """Every attention block's gate set to admit the tokens whose
+    RMS-normalised key has its first coordinate (gate feature 0, about N(0,
+    1)) above 1, about 16 % of them, with scores far from tau: hidden unit
+    0 reads that feature less 1, the others are off, and ``g =
+    sigmoid(200 gelu(x0 - 1) - 4)`` (below sigmoid(-4) = 0.018 for x0 <
+    1). In place; returns the init's gates ({block: {leaf: copy}})."""
+    import torch
+    init = {}
+    for i, bt in enumerate(cfg.block_pattern):
+        if "attn" not in bt:
+            continue
+        gate = params["blocks"][f"b{i}"]["attn"]["gate"]
+        init[f"b{i}"] = {k: v.clone() for k, v in gate.items()}
+        with torch.no_grad():
+            for k in ("w1", "b1", "w2"):
+                gate[k].zero_()
+            gate["w1"][:, :, 0, 0] = 1.0
+            gate["b1"][:, :, 0] = -1.0
+            gate["w2"][:, :, 0, 0] = 200.0
+            gate["b2"].fill_(-4.0)
+    return init
+
+
+# the binding-budget run: granite-moe-3b-a800m's prefill (1 x 2,048,
+# budget 512, the phase's 8 layers) with the init's gates put back; they
+# admit almost every token, so the budget binds at every layer. Layer 0
+# reads the embeddings, the same bits flat and on a 1 x 2 rank: there the
+# gate scores must agree within MA_TIE_EPS and the top-budget choices
+# may differ only where a flat score lies within MA_TIE_EPS of the lowest
+# one chosen. Deeper layers read inputs that the sums in another order
+# have moved (by the layer's score gap d_L): up to the first choice that
+# differs, a flipped position must lie within 2 d_L of that edge, as a
+# top-budget choice under scores that differ by at most d_L allows. The
+# same holds for each MoE layer's expert choice (a token's top-k may
+# change only where two of its top k + 1 router probabilities lie within
+# twice the layer's probability gap). Past the first choice that differs
+# the inputs differ by whole tokens and are only read
+MA_BINDING = "granite-moe-3b-a800m"
+MA_TIE_EPS = 1e-6
+
+
+def ma_binding(mesh, cfg, params, gates) -> dict:
+    """:data:`MA_BINDING`'s prefill (its ``MA_RUNS`` spec) through the
+    bundles on ``mesh`` (None: flat), its attention gates first set back
+    to ``gates`` (in place), with layer 0's input and ``k_pre`` (``x @
+    w_k``) and every layer's gate scores, top-budget choice, router
+    probabilities and experts captured (numpy). Flat, also layer 0's gate
+    scores of each 1 x 2 rank's kv heads computed from the flat keys
+    (``g_split``: the gate at a rank's shapes alone)."""
+    import torch
+    from repro_torch.launch.steps import make_bundle
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as MoE
+    for blk, leaves in gates.items():
+        with torch.no_grad():
+            for k, v in leaves.items():
+                params["blocks"][blk]["attn"]["gate"][k].copy_(v)
+    spec = MA_RUNS[MA_BINDING][3]
+    pre = make_bundle(cfg, ms_shape(spec), use_wgkv=True, device="cuda",
+                      params=params, mesh=mesh)
+    got = {"layers": []}
+    inner, proj, route = A.attn_prefill_budgeted, A.project_qkv, MoE.route
+
+    def project_qkv(*args, **kw):
+        out = proj(*args, **kw)
+        if "x" in got:
+            return out
+        got["x"], got["k"] = args[2].cpu().numpy(), out[1].cpu().numpy()
+        if mesh is None:
+            half = cfg.n_kv_heads // 2
+            got["g_split"] = torch.cat([A.compute_gates(
+                {"gate": {k: v[h:h + half]
+                          for k, v in args[0]["gate"].items()}},
+                out[1][:, h:h + half], out[2][:, h:h + half])
+                for h in (0, half)], dim=1).cpu().numpy()
+        return out
+
+    def budgeted(*args, **kw):
+        A.project_qkv = project_qkv
+        try:
+            r = inner(*args, **kw)
+        finally:
+            A.project_qkv = proj
+        got["layers"].append({"g": r.g.cpu().numpy(),
+                              "idx": r.sel.idx.cpu().numpy(),
+                              "valid": r.sel.valid.cpu().numpy()})
+        got["budget"] = kw["budget"]
+        return r
+
+    def routed(*args, **kw):
+        r = route(*args, **kw)
+        got["layers"][-1].update(probs=r.probs.cpu().numpy(),
+                                 top=r.top_idx.cpu().numpy())
+        return r
+    A.attn_prefill_budgeted, MoE.route = budgeted, routed
+    try:
+        logits, _, _ = pre.fn(*pre.args)
+    finally:
+        A.attn_prefill_budgeted, MoE.route = inner, route
+    got["logits"] = logits.cpu().numpy()
+    got["tau"], got["sink"] = cfg.wgkv.tau, cfg.wgkv.sink
+    got["exclude_from"] = spec[1] - cfg.wgkv.w_local
+    del pre
+    return got
+
+
+def ma_tie_check(tag, flat, rank, kv_heads) -> dict:
+    """Holds a rank's :func:`ma_binding` to the flat one's (the rules
+    above :data:`MA_BINDING`): layer 0's input bitwise equal, its gate
+    scores within :data:`MA_TIE_EPS`, the budget binding at every layer,
+    and each kv head's choice and each token's experts equal but for
+    near-ties (within :data:`MA_TIE_EPS` of the lowest flat score chosen
+    at layer 0, 2 d_L at a deeper layer; experts within twice the
+    layer's probability gap), up to the first choice that differs; sinks
+    aside. Returns the readings: the elements of the rank's layer-0
+    ``x @ w_k`` that differ from the flat one's columns and by how much,
+    the gate's own share of the score gap, each layer's gaps, flips and
+    their distance from a tie, the first choice that differs, and the
+    logits' difference (not held: a flipped choice moves them)."""
+    import numpy as np
+    h0, nh = kv_heads
+    hs = slice(h0, h0 + nh)
+    check(np.array_equal(rank["x"], flat["x"]),
+          f"{tag}: the attention input differs from the flat run's")
+    kf = flat["k"][:, hs]
+    out = {"k_pre_differing": int((rank["k"] != kf).sum()),
+           "k_pre_elements": int(kf.size),
+           "k_pre_max_abs_diff": float(np.abs(rank["k"] - kf).max()),
+           "gate_at_rank_heads_max_abs_diff": float(np.abs(
+               flat["g_split"][:, hs]
+               - flat["layers"][0]["g"][:, hs]).max()),
+           "gate_from_rank_k_max_abs_diff": float(np.abs(
+               rank["layers"][0]["g"] - flat["g_split"][:, hs]).max()),
+           "budget": flat["budget"], "layers": []}
+    check(len(rank["layers"]) == len(flat["layers"]),
+          f"{tag}: {len(rank['layers'])} budgeted layers, flat "
+          f"{len(flat['layers'])}")
+    first_flip = None
+    for i, (fl, rl) in enumerate(zip(flat["layers"], rank["layers"])):
+        gf, gr = fl["g"][:, hs], rl["g"]
+        gap = float(np.abs(gr - gf).max())
+        pos = np.arange(gf.shape[-1])
+        eligible = int(((gf >= flat["tau"]) & (pos >= flat["sink"])
+                        & (pos < flat["exclude_from"])).sum(-1).min())
+        check(eligible > flat["budget"], f"{tag}: layer {i}'s budget "
+              f"{flat['budget']} does not bind ({eligible} eligible)")
+        if i == 0:
+            check(gap <= MA_TIE_EPS, f"{tag}: layer 0's gate scores differ "
+                  f"by {gap:.3e}")
+        flips, worst = 0, 0.0
+        for b in range(gf.shape[0]):
+            for h in range(nh):
+                mine = set(rl["idx"][b, h][rl["valid"][b, h]].tolist())
+                want = set(fl["idx"][b, h0 + h][fl["valid"][b, h0 + h]]
+                           .tolist())
+                if mine == want:
+                    continue
+                edge = min(float(gf[b, h, t]) for t in want
+                           if t >= flat["sink"])
+                for t in mine ^ want:
+                    worst = max(worst, abs(float(gf[b, h, t]) - edge))
+                flips += len(mine ^ want)
+        if first_flip is None:
+            lim = MA_TIE_EPS if i == 0 else 2 * gap
+            check(worst <= lim, f"{tag}: layer {i}'s choices differ "
+                  f"{worst:.3e} from the budget's edge, past {lim:.3e}")
+            if flips:
+                first_flip = f"layer {i} global tokens"
+        row = {"score_gap": gap, "eligible_min": eligible,
+               "flipped": flips, "flipped_max_from_edge": worst}
+        if "probs" in fl:
+            pf = fl["probs"]
+            pgap = float(np.abs(rl["probs"] - pf).max())
+            moved = (rl["top"] != fl["top"]).any(-1)
+            top = -np.sort(-pf, axis=-1)[..., :fl["top"].shape[-1] + 1]
+            near = (top[..., :-1] - top[..., 1:]).min(-1)
+            tie = float(near[moved].max()) if moved.any() else 0.0
+            if first_flip is None:
+                check(tie <= 2 * pgap, f"{tag}: layer {i} routes tokens "
+                      f"{tie:.3e} from a tie, past {2 * pgap:.3e}")
+                if moved.any():
+                    first_flip = f"layer {i} experts"
+            row.update(prob_gap=pgap, rerouted=int(moved.sum()),
+                       rerouted_max_from_tie=tie)
+        out["layers"].append(row)
+    out.update(first_flipped_layer=first_flip,
+               logit_max_abs_diff=float(np.abs(rank["logits"]
+                                               - flat["logits"]).max()))
+    return out
+
+
+def ma_launches(res) -> dict:
+    """{"train", "prefill", "decode"}: a run's kernel launches by step."""
+    out = {"prefill": res["prefill"]["launches"],
+           "decode": res["decode_launches"]}
+    if "train" in res:
+        out["train"] = res["train"]["launches"]
+    return out
+
+
+def ma_steps(mesh, arch: str, cfg, params) -> dict:
+    """:func:`ms_run` of ``arch``'s ``MA_RUNS`` steps on ``mesh`` (None:
+    the flat bundles)."""
+    _, _, train, prefill, steps = MA_RUNS[arch]
+    return ms_run(mesh, cfg, params, prefill, train=train is not None,
+                  train_spec=train, decode_steps=steps)
+
+
+def ma_serve(eng, sentinels: bool) -> dict:
+    """The mesh phase's drive (:func:`mesh_drive`) of ``eng`` and its
+    integer cache leaves."""
+    toks, positions, counts, wall, shapes = mesh_drive(eng, sentinels)
+    return {"tokens": toks, "positions": positions, "launches": counts,
+            "wall_s": wall, "shapes": shapes, "ints": ms_ints(eng.caches)}
+
+
+def mesh_archs_rank(mesh, arch: str):
+    """One rank of a 1 x 2 gloo world: its shard of ``arch`` (the whole
+    model drawn first: building params already sharded is ROADMAP item
+    8b.6), granite's serve drive, and the arch's steps."""
+    import torch
+    from repro_torch.serving.backend import make_backend
+    cfg, params, init_gates = ma_model(arch, mesh.device)
+    t0 = time.perf_counter()
+    out = {}
+    if arch == "granite-moe-3b-a800m":
+        eng = make_backend("wgkv", params, cfg, slots=MESH_SLOTS,
+                           capacity=MESH_CAP, mirror_paged=False, mesh=mesh,
+                           device="cuda")
+        out["serve"] = ma_serve(eng, sentinels=False)
+        out["experts"] = eng.plan.experts
+        out["kv_heads"] = eng.plan.kv_heads
+        del eng
+    out.update(ma_steps(mesh, arch, cfg, params))
+    if arch == MA_BINDING:
+        out["binding"] = ma_binding(mesh, cfg, params, init_gates)
+    out["coords"] = mesh.coords
+    out["wall_s"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def ma_host_runs(cfgs) -> tuple:
+    """The phase's runs on ``meta`` (host work alone): the 16 x 16 dry
+    run's rank-0 records of qwen3-moe-235b-a22b at train_4k and
+    decode_32k (every layer), and rank (0, 0)'s counts of each arch's
+    bundles on the 1 x 2 mesh (:func:`ms_meta`)."""
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    recs = {name: D.run_dryrun("qwen3-moe-235b-a22b", name, mesh="single")
+            for name in ("train_4k", "decode_32k")}
+    recs["host_s"] = time.perf_counter() - t0
+    meta = {}
+    for arch, cfg in cfgs.items():
+        _, _, train, prefill, _ = MA_RUNS[arch]
+        meta[arch] = ms_meta(cfg, (1, 2), "gloo", False,
+                             prefill_spec=prefill, train_spec=train)
+    return recs, meta
+
+
+def mesh_archs_phase(card: str):
+    """The MoE and hybrid archs on a ``data x model`` mesh, full width,
+    f32, depth cut (``MA_RUNS``; printed): granite-moe-3b-a800m at 8 of 32
+    layers served flat, on a 1 x 1 NCCL mesh (both sentinels) and on a 1
+    x 2 gloo mesh (20 of 40 experts and 4 of 8 kv heads a rank), and its
+    prefill of 1 x 2,048 (budget 512) and 8 decode steps through the
+    bundles; recurrentgemma-9b (its 2-block stem and two repeats) one
+    train step at 1 x 2,048, a prefill of 1 x 2,048 and 8 decode steps,
+    its RG-LRU channels split (2,048 a rank: ``rglru_scan`` and its
+    backward on sharded channels); qwen3-moe-235b-a22b at one of 94
+    repeats (64 of 128 experts a rank) a prefill of 1 x 1,024 and 4
+    decode steps; granite's binding-budget prefill (:data:`MA_BINDING`)
+    flat and on each rank (:func:`ma_tie_check`). Each mesh run is held
+    to the flat run of the same depth with mesh-steps' holds (:func:`ms_check`: tokens and integer cache
+    leaves equal, gates within 1e-4, logits within 1e-4 of their scale,
+    the loss 1e-5 relative,
+    launches equal to the flat run's, collective bytes and rank 0's
+    counts equal to the fake-group meta run's), and the 16 x 16 dry
+    run's rank-0 records of qwen3-moe-235b-a22b at train_4k and
+    decode_32k are printed beside the card's process bytes. Returns each
+    run's launches."""
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.serving.backend import make_backend
+    cfgs = {arch: get_config(arch).replace(dtype="float32",
+                                           n_repeats=MA_RUNS[arch][0])
+            for arch in MA_RUNS}
+    print("mesh-archs depth: " + json.dumps({
+        a: {"n_layers": c.n_layers, "of": get_config(a).n_layers,
+            "stem": list(c.stem_pattern), "repeats": c.n_repeats}
+        for a, c in cfgs.items()}), flush=True)
+    out, counts = {}, {}
+
+    def tally(tag, res):
+        tot = {}
+        for lc in ma_launches(res).values():
+            for k, v in lc.items():
+                tot[k] = tot.get(k, 0) + v
+        if "serve" in res:
+            for k, v in res["serve"]["launches"].items():
+                tot[k] = tot.get(k, 0) + v
+        counts[tag] = tot
+
+    # the flat runs first, one model on the card at a time: the meta runs
+    # (a fake process group, the counter) must not overlap a counted run
+    # or the NCCL group of this process
+    flat = {}
+    for arch in MA_RUNS:
+        cfg, params, init_gates = ma_model(arch, "cuda")
+        t0 = time.perf_counter()
+        res = {}
+        if arch == "granite-moe-3b-a800m":
+            eng = make_backend("wgkv", params, cfg, slots=MESH_SLOTS,
+                               capacity=MESH_CAP, mirror_paged=False,
+                               device="cuda")
+            res["serve"] = ma_serve(eng, sentinels=True)
+            del eng
+            # a 1 x 1 mesh over NCCL, in this process, both sentinels
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                port = sk.getsockname()[1]
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                world_size=1)
+            try:
+                mesh = M.init_mesh((1, 1), backend="nccl", device="cuda")
+                eng = make_backend("wgkv", params, cfg, slots=MESH_SLOTS,
+                                   capacity=MESH_CAP, mirror_paged=False,
+                                   mesh=mesh, device="cuda")
+                one = ma_serve(eng, sentinels=True)
+                del eng
+            finally:
+                dist.destroy_process_group()
+            check(one["tokens"] == res["serve"]["tokens"],
+                  f"mesh-archs granite 1x1: tokens {one['tokens']} != "
+                  f"flat {res['serve']['tokens']}")
+            check(one["launches"] == res["serve"]["launches"],
+                  f"mesh-archs granite 1x1: launches {one['launches']}")
+            out[f"{arch} serve 1x1 nccl"] = {
+                "wall_s": one["wall_s"], "shapes": one["shapes"],
+                "sync_debug_mode": "error"}
+            counts[f"{arch} serve 1x1 nccl"] = one["launches"]
+        res.update(ma_steps(None, arch, cfg, params))
+        if arch == MA_BINDING:
+            res["binding"] = ma_binding(None, cfg, params, init_gates)
+        flat[arch] = res
+        tally(f"{arch} flat", res)
+        out[f"{arch} flat"] = {
+            "wall_s": time.perf_counter() - t0,
+            "train_wall_s": res.get("train", {}).get("wall_s"),
+            "prefill_wall_s": res["prefill"]["wall_s"],
+            "decode_ms_per_step": res["decode"]["ms_per_step"]}
+        del params
+        free_cuda()
+    # the gloo ranks, in their own processes, overlap the meta runs
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(ma_host_runs, cfgs)
+        for arch in MA_RUNS:
+            t0 = time.perf_counter()
+            flat[arch]["ranks"] = M.spawn(mesh_archs_rank, (1, 2),
+                                          args=(arch,), backend="gloo",
+                                          device="cuda", timeout_s=600)
+            out[f"{arch} 1x2 gloo"] = {"wall_s": time.perf_counter() - t0}
+        recs, meta = host.result()
+    out["dryrun_host_s"] = recs.pop("host_s")
+    for arch, res in flat.items():
+        cfg = cfgs[arch]
+        tag = f"{arch} 1x2 gloo"
+        for r, rr in sorted(res["ranks"].items()):
+            summary = ms_check(f"mesh-archs {arch} 1x2 rank {r}", cfg, (1, 2),
+                               rr, res, meta[arch], r == 0,
+                               launches=ma_launches(res), scaled=True)
+            summary.update(wall_s=rr["wall_s"], peak_bytes=rr["peak_bytes"])
+            if "serve" in rr:
+                check(rr["serve"]["tokens"] == res["serve"]["tokens"],
+                      f"{tag} rank {r}: served tokens "
+                      f"{rr['serve']['tokens']} != flat "
+                      f"{res['serve']['tokens']}")
+                check(rr["serve"]["launches"] == res["serve"]["launches"],
+                      f"{tag} rank {r}: serve launches "
+                      f"{rr['serve']['launches']}")
+                h0, nh = rr["kv_heads"]
+                for path, want in res["serve"]["ints"].items():
+                    mine = rr["serve"]["ints"][path]
+                    ax = 1 if "blocks" in path else 0
+                    if mine.ndim > ax + 1 and \
+                            mine.shape[ax + 1] != want.shape[ax + 1]:
+                        want = np.take(want, range(h0, h0 + nh), axis=ax + 1)
+                    check(np.array_equal(mine, want),
+                          f"{tag} rank {r}: served cache {path} differs")
+                summary.update(serve_wall_s=rr["serve"]["wall_s"],
+                               experts=rr["experts"],
+                               serve_positions=rr["serve"]["positions"])
+            if "binding" in rr:
+                summary["binding"] = ma_tie_check(
+                    f"{tag} rank {r} binding", res["binding"],
+                    rr["binding"], rr["kv_heads"])
+            out[tag][f"rank {r}"] = summary
+        tally(tag, res["ranks"][0])
+    rg = counts["recurrentgemma-9b 1x2 gloo"]
+    check(rg.get("rglru_scan", 0) > 0 and rg.get("rglru_scan_bwd", 0) > 0,
+          f"mesh-archs: the RG-LRU kernels did not run on sharded channels: "
+          f"{rg}")
+    for name, rec in recs.items():
+        print(f"mesh-archs dryrun 16x16 qwen3-moe-235b-a22b {name} rank 0: "
+              + json.dumps({k: rec[k] for k in (
+                  "knobs", "memory", "collectives", "compute_s", "memory_s",
+                  "collective_s", "bottleneck")}
+                  | {"flops": rec["cost"]["flops"],
+                     "bytes": rec["cost"]["bytes"],
+                     "peak_over_h100_process_bytes":
+                         rec["memory"]["peak_bytes"] / RA.H100_PROCESS_BYTES,
+                     "launches": {k: v["launches"] for k, v in
+                                  rec["cost"]["kernels"].items()}}),
+              flush=True)
+    print("mesh-archs: " + json.dumps({"card": card, "runs": out}),
+          flush=True)
     return counts
 
 
@@ -5391,8 +5954,9 @@ def main() -> int:
     # substrate's selected read)
     fig_kernels = figure_cases()
     free_cuda()
-    # one mesh rank's shapes: the serving mesh's, then the mesh-steps'
-    mesh_kernels = mesh_cases() + mesh_step_cases()
+    # one mesh rank's shapes: the serving mesh's, the mesh-steps', then the
+    # mesh-archs' (the RG-LRU scan on half the channels, granite's gate)
+    mesh_kernels = mesh_cases() + mesh_step_cases() + mesh_arch_cases()
     free_cuda()
     planted = planted_faults([("gate_mlp_bwd", gb_train_run),
                               ("gate_mlp_bwd", gb_sub_run),
@@ -5540,6 +6104,12 @@ def main() -> int:
     mesh_counts.update({f"steps {k}": c for k, c in
                         mesh_steps_phase(card).items()})
     lap("mesh-steps")
+    # the MoE and hybrid archs on the mesh: granite served and stepped,
+    # recurrentgemma-9b trained and stepped, qwen3-moe stepped, 1 x 2
+    free_cuda()
+    mesh_counts.update({f"archs {k}": c for k, c in
+                        mesh_archs_phase(card).items()})
+    lap("mesh-archs")
     # gate-distillation training (this slice's paths)
     free_cuda()
     train_counts, train_stats = train_arch(card, "qwen3-0.6b", steps=4,

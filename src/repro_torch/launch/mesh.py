@@ -37,6 +37,7 @@ import contextlib
 import dataclasses
 import datetime
 import os
+import pickle
 import queue as queue_mod
 import tempfile
 import traceback
@@ -273,9 +274,11 @@ def under_torchrun() -> bool:
 
 
 def _rank_main(rank: int, shape: Dict[str, int], init_method: str,
-               backend: str, device: str, fn: Callable, args: Sequence,
-               kwargs: Dict[str, Any], results, timeout_s: float) -> None:
+               backend: str, device: str, call: str, results,
+               timeout_s: float) -> None:
     try:
+        with open(call, "rb") as f:
+            fn, args, kwargs = pickle.load(f)
         world = shape["data"] * shape["model"]
         if torch.device(device).type == "cpu":
             # the ranks share the host's cores
@@ -311,10 +314,15 @@ def spawn(fn: Callable, shape, args: Sequence = (),
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         init_method = "file://" + os.path.join(tmp, "rendezvous")
+        # the call reaches the ranks in a file: arguments past a pipe's
+        # buffer would hold each start until the rank before it had
+        # imported torch
+        call = os.path.join(tmp, "call.pkl")
+        with open(call, "wb") as f:
+            pickle.dump((fn, tuple(args), dict(kwargs or {})), f)
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(r, shape, init_method, backend, str(dev),
-                                   fn, tuple(args), dict(kwargs or {}),
-                                   results, timeout_s))
+                                   call, results, timeout_s))
                  for r in range(world)]
         for p in procs:
             p.start()

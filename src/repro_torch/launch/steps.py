@@ -26,10 +26,14 @@ some "model" splits held whole), and ``fn`` runs the rank's step under
 ``sharding.comm.active``: multi-controller SPMD, every collective
 explicit. On a mesh ``caches`` are the rank's blocks already (a sharded
 prefill's, or ``rules.local_caches`` of a whole tree). The mesh takes
-the archs ``rules.check_mesh_arch`` admits; the other archs on a mesh
-and building params already sharded wait for ROADMAP Queue 1 items 8b.5
-and 8b.6. The reference's ``_with_act_sharding`` is a layout hint to
-XLA with no eager counterpart.
+the archs ``rules.check_mesh_arch`` admits (GQA attention, MoE and RG-LRU
+blocks); the other archs on a mesh and building params already sharded
+wait for ROADMAP Queue 1 items 8b.5 and 8b.6. ``knobs["moe_groups"]`` is
+the reference's count over the whole batch; ``models/moe.py`` turns it
+into the rank's own groups (the rows' share) or, when it is not a
+multiple of the rows' ways, routes a group gathered over "data". The
+reference's ``_with_act_sharding`` is a layout hint to XLA with no eager
+counterpart.
 
 ``scan_unroll`` is an XLA compile hint with no eager counterpart (ROADMAP
 item 6c). The reference's prefill knobs ``block_chunk`` and ``q_chunk``
@@ -42,7 +46,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.base import ATTN_BLOCKS, InputShape, ModelConfig
 from repro_torch.launch import specs as S
 from repro_torch.models import inference as I
 from repro_torch.models import registry as R
@@ -297,7 +301,9 @@ def make_decode_bundle(cfg: ModelConfig, shape: InputShape, knobs, *,
                 f"{shape.name} on this mesh splits the dense baseline's "
                 "token axis over 'data': a seq-sharded dense read waits "
                 "for ROADMAP Queue 1 item 8b.5")
-        seq = c_sh["blocks"]["b0"].gk[3]
+        first = next(i for i, bt in enumerate(cfg.block_pattern)
+                     if bt in ATTN_BLOCKS)
+        seq = c_sh["blocks"][f"b{first}"].gk[3]
 
     @torch.no_grad()
     def fn(params, caches, batch):

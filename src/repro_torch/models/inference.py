@@ -550,7 +550,8 @@ def prefill_extend_ragged(params: Params, cfg: ModelConfig,
                           tokens: torch.Tensor, lengths,
                           caches: CacheTree, *, moe_groups: int = 1,
                           opts: DecodeOptions = DecodeOptions(),
-                          capacity: Optional[int] = None
+                          capacity: Optional[int] = None,
+                          steps: Optional[int] = None
                           ) -> Tuple[torch.Tensor, CacheTree,
                                      Dict[str, torch.Tensor]]:
     """Ragged multi-row chunked prefill: advance B rows position by
@@ -568,13 +569,18 @@ def prefill_extend_ragged(params: Params, cfg: ModelConfig,
     length; the port rounds the buffer up to a page, so a caller whose
     capacity is not a multiple of 16 passes it), as the reference's row
     does in its buffer of that size. Positions where no row is active are
-    not run at all: they would change nothing. Returns
+    not run at all: they would change nothing. ``steps`` (default the
+    longest row's length) sets the positions run: a mesh rank whose
+    routing group spans the data ranks runs the whole tick's, so every
+    rank takes part in every position's gather. Returns
     (each row's logits at its LAST real position, zeros for length-0 rows;
     the advanced caches; per-row stats ``evict_trigger_rows``,
     ``adm_sum_rows``, ``selected_pages_rows``)."""
     b, s = tokens.shape
     lens = torch.as_tensor(lengths, dtype=torch.int32, device="cpu")
-    steps = min(int(lens.max()), s) if b else 0
+    if steps is None:
+        steps = int(lens.max()) if b else 0
+    steps = min(steps, s)
     dev = tokens.device
     lens_dev = host_to_device(lens, dev)
     layers = layer_params(params, cfg)

@@ -21,7 +21,20 @@ points at a zero row) and summed in expert order, so on CUDA the float
 adds happen in a fixed order and two calls are bitwise equal. The expert
 products are plain ``torch.einsum``: the reference computes them outside
 any Pallas kernel. The reference's sharding constraints (``constrain_moe``)
-are mesh-only and left out.
+are layout hints to XLA and left out.
+
+On a mesh (``sharding.comm``) the block is expert-parallel. The router is
+whole on every rank, and x is the same on every "model" rank, so every
+model rank routes alike; the expert products run over the rank's experts
+(the plan's "experts") or its block of every expert's FFN width
+("width"), the combine reads the rank's slots (zeros for the others),
+and one ``reduce_model("moe")`` of ``y`` closes the block. Routing groups
+keep the reference's tokens: ``groups`` is the whole batch's count (the
+reference's "one per data shard"); when it is a multiple of the ways the
+batch rows are split over, a rank routes its share of the groups over
+its own rows, else the group spans data ranks (serving's one group over
+the tick) and the rank gathers the rows over "data", routes the whole
+group and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -33,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.sharding import comm
 
 Params = Dict[str, torch.Tensor]
 
@@ -102,10 +116,12 @@ class Dispatch(NamedTuple):
     #                          dropped entry (the combine's zero row)
 
 
-def dispatch(xf: torch.Tensor, r: Route, cap: int,
-             n_experts: int) -> Dispatch:
+def dispatch(xf: torch.Tensor, r: Route, cap: int, n_experts: int,
+             held: Tuple[int, int] = (0, -1)) -> Dispatch:
     """The reference's ``_dispatch_one_group`` over every group at once,
-    plus the inverse map the combine reads."""
+    plus the inverse map the combine reads. ``held``: (first, count)
+    of the experts whose slots ``x_ec`` holds (default all; the other
+    fields always cover every expert)."""
     g, t, k = r.top_idx.shape
     tk, e = t * k, n_experts
     dev = xf.device
@@ -127,7 +143,9 @@ def dispatch(xf: torch.Tensor, r: Route, cap: int,
                        torch.gather(sw, 1, pos_ec).reshape(g, e, cap),
                        torch.zeros((), dtype=sw.dtype, device=dev))
     rows = torch.arange(g, device=dev)[:, None, None]
-    x_ec = xf[rows, tok_ec] * valid_ec[..., None].to(xf.dtype)
+    e0, ne = held[0], (e if held[1] < 0 else held[1])
+    x_ec = (xf[rows, tok_ec[:, e0:e0 + ne]]
+            * valid_ec[:, e0:e0 + ne, :, None].to(xf.dtype))
     load = (end - start).clamp(max=cap).float()
     # inverse map: entry i of the unsorted list sits at sorted position
     # rank[i]; its slot is that rank within its expert
@@ -140,36 +158,73 @@ def dispatch(xf: torch.Tensor, r: Route, cap: int,
     return Dispatch(x_ec, tok_ec, w_ec, valid_ec, load, slot_tk)
 
 
+def spans_rows(cfg: ModelConfig, groups: int, rows_n: int) -> bool:
+    """Whether ``cfg``'s MoE blocks route ``groups`` groups (the whole
+    batch's count) that span the ``rows_n`` ranks its rows are split
+    over: :func:`moe_ffn` then gathers every rank's rows, so every rank
+    must run each position its peers run. False without MoE blocks."""
+    return "attn_moe" in cfg.block_pattern + cfg.stem_pattern and \
+        groups % rows_n != 0
+
+
 def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
             groups: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, S, D] -> (y [B, S, D], {"lb_loss", "router_drop_frac"}).
     The ``B * S`` tokens form ``groups`` groups of consecutive tokens
-    (row-major), each routed with its own capacity."""
+    (row-major), each routed with its own capacity. On a mesh (module
+    note) ``x`` holds the rank's rows and ``groups`` counts the whole
+    batch's groups; the aux values are the whole routing's (a rank's own
+    groups' averaged over the rows' axes)."""
     mc = cfg.moe
+    e, k = mc.n_experts, mc.top_k
+    x = comm.copy_to_model(x, "moe")
+    _, rows_i, rows_n = comm.rows_block()
+    own = None
+    if spans_rows(cfg, groups, rows_n):
+        # route every rank's rows, keep ours
+        own = slice(rows_i * x.shape[0], (rows_i + 1) * x.shape[0])
+        x = comm.gather_moe_rows(x)
+    else:
+        groups //= rows_n
     b, s, d = x.shape
     tot = b * s
     if tot % groups:
         raise ValueError(f"{tot} tokens do not split into {groups} groups")
     tg = tot // groups
-    e, k = mc.n_experts, mc.top_k
     cap = capacity(tg, e, k, mc.capacity_factor)
     xf = x.reshape(groups, tg, d)
     r = route(p, cfg, xf)
-    dp = dispatch(xf, r, cap, e)
-    dt = x.dtype
-    h = torch.einsum("gecd,edf->gecf", dp.x_ec, p["w_gate"].to(dt))
-    u = torch.einsum("gecd,edf->gecf", dp.x_ec, p["w_up"].to(dt))
-    yo = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dt))
-    yo = yo * (dp.w_ec * dp.valid_ec)[..., None].to(yo.dtype)
-    # combine: each token's entries gathered from the slot table (plus a
-    # zero row for dropped entries) and summed in expert order
-    table = torch.cat([yo.reshape(groups, e * cap, d),
-                       yo.new_zeros((groups, 1, d))], dim=1)
-    rows = torch.arange(groups, device=x.device)[:, None, None]
-    y = table[rows, dp.slot_tk].sum(dim=2).reshape(b, s, d)
-    # Switch-style load-balance aux loss
+    plan = comm.ACTIVE.plan if comm.ACTIVE is not None else None
+    e0, ne = plan.experts if plan is not None and plan.n_experts else (0, e)
+    dp = dispatch(xf, r, cap, e, (e0, ne))
+    # Switch-style load-balance aux loss (before the experts: a
+    # rematerialized block's recompute then stops at the combine, short
+    # of the collectives below)
     frac_tokens = dp.load / dp.load.sum(-1, keepdim=True).clamp_min(1.0)
     mean_prob = r.probs.mean(dim=1)
     lb = e * (frac_tokens * mean_prob).sum(-1).mean()
     dropped = 1.0 - dp.load.sum() / (groups * tg * k)
+    dt = x.dtype
+    h = torch.einsum("gecd,edf->gecf", dp.x_ec, p["w_gate"].to(dt))
+    u = torch.einsum("gecd,edf->gecf", dp.x_ec, p["w_up"].to(dt))
+    yo = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dt))
+    mine = slice(e0, e0 + ne)
+    yo = yo * (dp.w_ec[:, mine] * dp.valid_ec[:, mine])[..., None].to(
+        yo.dtype)
+    # combine: each token's entries gathered from the slot table of this
+    # rank's experts (plus a zero row for dropped entries and the other
+    # ranks' experts) and summed in expert order
+    table = torch.cat([yo.reshape(groups, ne * cap, d),
+                       yo.new_zeros((groups, 1, d))], dim=1)
+    slot = dp.slot_tk - e0 * cap
+    slot = torch.where((slot >= 0) & (slot < ne * cap), slot,
+                       torch.full_like(slot, ne * cap))
+    rows = torch.arange(groups, device=x.device)[:, None, None]
+    y = table[rows, slot].sum(dim=2).reshape(b, s, d)
+    if own is not None:
+        y = y[own]
+    y = comm.reduce_model(y, "moe")
+    if own is None and rows_n > 1:
+        lb, dropped = comm.mean_blocks(torch.stack([lb, dropped]),
+                                       heads=False).unbind(0)
     return y, {"lb_loss": lb, "router_drop_frac": dropped}

@@ -14,6 +14,13 @@ it with ``jax.lax.associative_scan``, which rounds in another order; the
 port's scan is sequential in t, as the Pallas kernel and the oracle are.
 Decoding (:func:`rglru_step`) advances the state one position at a time.
 The gates and the recurrence run in float32 whatever the model dtype.
+
+On a mesh (``sharding.comm``, the plan's ``rec``) the block is
+channel-parallel: x enters through ``copy_to_model("rec")``, the rank
+runs ``w_gelu``, ``w_x``, the causal conv, the block-diagonal gates and
+the scan on its ``dr / ways`` channels (whole gate blocks), its state
+holds those channels, and ``reduce_model("rec")`` sums ``w_out``'s
+partials.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import comm
 
 Params = Dict[str, torch.Tensor]
 _C = 8.0  # Griffin's gate sharpness constant
@@ -119,6 +127,7 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, RGLRUState]:
     """Full-sequence forward. x: [B, S, D] -> (y [B, S, D], final state).
     On CUDA the recurrence is one ``rglru_scan`` launch."""
+    x = comm.copy_to_model(x, "rec")
     x1 = F.gelu(x @ p["w_gelu"].to(x.dtype), approximate="tanh")
     x2 = x @ p["w_x"].to(x.dtype)
     conv_state = state.conv if state is not None else None
@@ -126,20 +135,23 @@ def rglru_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     a, gated = _rg_lru_gates(p, xc)
     h0 = state.h if state is not None else None
     h = rglru_scan(a, gated, h0)
-    y = (h.to(x.dtype) * x1) @ p["w_out"].to(x.dtype)
+    y = comm.reduce_model((h.to(x.dtype) * x1) @ p["w_out"].to(x.dtype),
+                          "rec")
     return y, RGLRUState(conv=new_conv, h=h[:, -1].clone())
 
 
 def rglru_step(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
                state: RGLRUState) -> Tuple[torch.Tensor, RGLRUState]:
     """Single decode step. x_t: [B, D]."""
+    x_t = comm.copy_to_model(x_t, "rec")
     x1 = F.gelu(x_t @ p["w_gelu"].to(x_t.dtype), approximate="tanh")
     x2 = x_t @ p["w_x"].to(x_t.dtype)
     window = torch.cat([state.conv.to(x2.dtype), x2[:, None]], dim=1)
     xc = torch.einsum("bcd,cd->bd", window, p["conv"].to(x2.dtype))
     a, gated = _rg_lru_gates(p, xc)
     h = a * state.h.float() + gated
-    y = (h.to(x_t.dtype) * x1) @ p["w_out"].to(x_t.dtype)
+    y = comm.reduce_model((h.to(x_t.dtype) * x1) @ p["w_out"].to(x_t.dtype),
+                          "rec")
     return y, RGLRUState(conv=window[:, 1:], h=h)
 
 

@@ -118,10 +118,11 @@ class Engine(ShardedDecodeMixin):
                  temperature: float = 0.0, seed: int = 0,
                  mirror_paged: bool = True, device: DeviceLike = None,
                  mesh=None):
+        self.slots = slots
+        # an arch the mesh does not take raises here, on a mesh
+        params, cfg = self._sharding_setup(params, cfg, mesh)
         if not cfg.has_attention_cache:
             raise ValueError("engine serves KV-cache archs")
-        self.slots = slots
-        params, cfg = self._sharding_setup(params, cfg, mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         if mesh is not None:
@@ -410,10 +411,14 @@ class Engine(ShardedDecodeMixin):
         tokens = host_to_device(toks[rows], self.device)
         use = host_to_device(use_dev[rows], self.device)
         tokens[:, 0] = torch.where(use, self._tok_dev[rows], tokens[:, 0])
-        with comm.active(self.mesh, self.plan):
+        # the rows entry: an MoE block's routing group (every row of the
+        # tick) spans the data ranks when they split the slots
+        with comm.active(self.mesh, self.plan,
+                         rows="data" if self._rows_split else None):
             last_logits, caches, st = I.prefill_extend_ragged(
                 self.params, self.cfg, tokens, lengths[rows], caches,
-                opts=opts, capacity=self.capacity)
+                opts=opts, capacity=self.capacity,
+                steps=self._tick_steps(lengths))
         st = {**st, "kv_tokens_rows": self._kv_tokens_device(caches)}
         if self.mesh is None:
             sampled = sample(self.generator, last_logits,

@@ -20,6 +20,9 @@ dispatch route of its own.
 * **cache trees**: decode slots split over "data" when the slot count
   divides it (else every data rank keeps every row), kv heads over
   "model" by the same plan. A rank's tree holds only its block.
+* **an MoE arch**: the tick's rows are one routing group, as in the
+  reference; with the slots split over "data" each rank gathers the
+  group's rows (``models/moe.py``) and steps every position of the tick.
 * **the fused step** runs the rank's rows; its sampled tokens and per-row
   stats are assembled inside the step (one ``all_reduce`` over the mesh),
   so ``collect`` still makes one host pull. Temperature sampling draws
@@ -42,6 +45,7 @@ import torch.distributed as dist
 
 from repro_torch.launch.mesh import Mesh, init_mesh
 from repro_torch.launch.specs import extract_slot_caches, splice_caches
+from repro_torch.models import moe as MoE
 from repro_torch.sharding import comm, rules
 
 
@@ -123,6 +127,17 @@ class ShardedDecodeMixin:
         heads = tuple(h - first for h in opts.duo_retrieval_heads
                       if first <= h < first + n)
         return dataclasses.replace(opts, duo_retrieval_heads=heads)
+
+    def _tick_steps(self, lengths) -> Optional[int]:
+        """The positions a fused tick runs on this rank: the whole tick's
+        longest row when the tick's one routing group (the reference's,
+        ``prefill_extend_ragged``'s ``moe_groups=1``) spans the data
+        ranks (``moe.spans_rows``: its gather needs every data rank at
+        every position); else None (the rank's own rows decide)."""
+        if not self._rows_split or not MoE.spans_rows(
+                self.full_cfg, 1, self.mesh.shape["data"]):
+            return None
+        return int(lengths.max())
 
     @property
     def _n_rows(self) -> int:

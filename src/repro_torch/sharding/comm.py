@@ -27,7 +27,10 @@ the reference; the model's seams then read the context:
   term when the heads are split), and :func:`sum_grads` the gate
   gradients over the rows' axes;
 * :func:`combine_lse` — context-parallel decode: each "data" rank's read
-  of its block of the global cache, combined by its log-sum-exp.
+  of its block of the global cache, combined by its log-sum-exp;
+* :func:`gather_moe_rows` — an MoE block's input gathered over the rows'
+  axes when its routing group spans the data ranks (:func:`rows_block`
+  says where this rank's rows sit).
 
 The first four go through autograd: forward and backward are the
 tensor-parallel pair (a sum over "model" forward is the identity
@@ -179,6 +182,10 @@ def _splits(part: str, plan) -> bool:
         return plan.ffn
     if part == "kv":
         return plan.attn == "gather_q"
+    if part == "moe":
+        return plan.moe != "whole"
+    if part == "rec":
+        return plan.rec
     raise ValueError(f"unknown part {part!r}")
 
 
@@ -189,8 +196,10 @@ def heads_split() -> bool:
 
 def reduce_model(x: torch.Tensor, part: str) -> torch.Tensor:
     """Sum a row-parallel product's partials over "model" when the active
-    plan splits ``part`` ("attn" or "ffn"); else ``x``. Its backward is
-    the identity."""
+    plan splits ``part`` ("attn", "ffn", "moe": the rank's experts' or
+    expert-width share of the combine, "rec": the RG-LRU block's
+    ``w_out`` over the rank's channels); else ``x``. Its backward is the
+    identity."""
     if ACTIVE is None or not _splits(part, ACTIVE.plan):
         return x
     return _sum(x, ACTIVE.mesh, "model")
@@ -202,8 +211,10 @@ def copy_to_model(x: torch.Tensor, part: str) -> torch.Tensor:
     ("attn": ``w_q`` always and ``w_k`` / ``w_v`` when the kv heads are
     split; "ffn": ``w_gate`` / ``w_up``), or, "kv", the whole k, v and
     gates that the "gather_q" plan's per-head read consumes on every
-    rank. The identity forward; backward sums the gradient over "model".
-    Without a graph, or when the plan does not split ``part``, ``x``."""
+    rank; "moe": the MoE FFN's input (the router and the rank's experts);
+    "rec": the RG-LRU block's input (``w_gelu`` / ``w_x`` columns). The
+    identity forward; backward sums the gradient over "model". Without a
+    graph, or when the plan does not split ``part``, ``x``."""
     if ACTIVE is None or not _wants_grad(x) or \
             not _splits(part, ACTIVE.plan):
         return x
@@ -277,6 +288,42 @@ def local_q(o: torch.Tensor) -> torch.Tensor:
     first, n = plan.q_heads
     hd = o.shape[-1] // plan.n_heads
     return o[..., first * hd:(first + n) * hd]
+
+
+def rows_block() -> Tuple[Tuple[str, ...], int, int]:
+    """(the axes the active batch rows are split over, this rank's index
+    along them, their size); ((), 0, 1) when every rank holds every
+    row."""
+    if ACTIVE is None:
+        return (), 0, 1
+    axes = _fsdp_entry(ACTIVE.rows)
+    if not axes:
+        return (), 0, 1
+    mesh = ACTIVE.mesh
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.coords[a]
+    return axes, idx, mesh.group(axes)[1]
+
+
+def gather_moe_rows(x: torch.Tensor) -> torch.Tensor:
+    """An MoE block's input [rows, ...] assembled over the axes the batch
+    rows are split over, for a routing group that spans data ranks (the
+    reference routes serving's whole tick as one group): every rank's
+    rows in their order, counted like every other gather. Without a
+    graph only: a step that trains through such a group (the step
+    bundles' groups are a multiple of the rows' ways) waits for ROADMAP
+    Queue 1 item 8b.5, since its load-balance loss reads every rank's
+    rows."""
+    axes, _, n = rows_block()
+    if n == 1:
+        return x
+    if _wants_grad(x):
+        raise NotImplementedError(
+            "a gradient through an MoE routing group gathered over the "
+            "data ranks waits for ROADMAP Queue 1 item 8b.5; route a "
+            "multiple of the rows' ways in groups")
+    return _gather_dim(x.contiguous(), ACTIVE.mesh, axes, 0)
 
 
 def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -425,14 +472,16 @@ def sum_rows(x: torch.Tensor, heads: bool = False) -> torch.Tensor:
     return _sum(x, ACTIVE.mesh, axes)
 
 
-def mean_blocks(x: torch.Tensor) -> torch.Tensor:
-    """A mean over the rank's rows and kv heads (a scalar of equal-sized
+def mean_blocks(x: torch.Tensor, heads: bool = True) -> torch.Tensor:
+    """A mean over the rank's rows and kv heads (a tensor of equal-sized
     blocks) -> the mean over every row and head: the blocks' means added
-    over the rows' axes and, when the heads are split, "model", then
-    divided by their count. ``x`` off a mesh or outside a bundle."""
+    over the rows' axes and, when ``heads`` and the heads are split,
+    "model", then divided by their count (``heads=False``: a mean over
+    rows alone, such as the MoE load-balance loss of the rank's routing
+    groups). ``x`` off a mesh or outside a bundle."""
     if ACTIVE is None:
         return x
-    axes = _loss_axes(True)
+    axes = _loss_axes(heads)
     if not axes:
         return x
     n = ACTIVE.mesh.group(axes)[1]

@@ -28,7 +28,11 @@ and the model assembles a layer's leaves just before it runs,
 ``sharding.comm.gather_params``). Its "model" entries go leaf by leaf
 on the leaves that carry tensor parallelism: ``w_q`` / ``w_k`` / ``w_v`` column-parallel by whole
 heads, ``w_o`` row-parallel, the dense FFN's ``w_gate`` / ``w_up``
-column-parallel and ``w_down`` row-parallel. Each rank holds its block
+column-parallel and ``w_down`` row-parallel, the MoE block's expert
+leaves by expert or, where the experts do not divide, by the expert FFN
+width (:func:`moe_split`; the router whole on every rank), and the
+RG-LRU block's leaves by channel, its 1-D leaves too (:func:`rec_split`,
+whose gate blocks must divide with the channels). Each rank holds its block
 as a plain local tensor (:func:`local_shard`); the model adds the
 row-parallel partials with ``sharding.comm.reduce_model``. Leaves the
 reference splits only by inserting another collective stay whole on
@@ -56,9 +60,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import tree_map_with_path
 
 Spec = Tuple[Any, ...]
-# the port runs on a mesh the archs whose blocks are all GQA attention
-# with a dense FFN; the others wait for ROADMAP Queue 1 item 8b.5
-MESH_BLOCKS = ("attn",)
+# the block types the port runs on a mesh: GQA attention (global or
+# windowed) with a dense FFN, with the MoE FFN, and the RG-LRU block; the
+# xLSTM blocks, cross attention and M-RoPE wait for ROADMAP Queue 1 item
+# 8b.5
+MESH_BLOCKS = ("attn", "local_attn", "attn_moe", "rglru")
+# the blocks whose FFN is the dense SwiGLU (``plan.ffn`` splits its d_ff)
+DENSE_FFN_BLOCKS = ("attn", "local_attn", "rglru")
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -379,13 +387,20 @@ class TPPlan:
     gathered, every rank reads every head, and each multiplies its own
     heads' outputs by its ``w_o`` rows), or "whole" (nothing split, no
     sum). ``ffn``: the dense FFN's d_ff divides (``w_gate`` / ``w_up``
-    columns, ``w_down`` rows, partials added)."""
+    columns, ``w_down`` rows, partials added). ``moe``: the MoE FFN's
+    split (:func:`moe_split`): "experts" (the rank holds experts
+    :attr:`experts`), "width" (every expert's ``expert_d_ff`` columns and
+    rows split) or "whole"; the router is whole on every rank either way.
+    ``rec``: the RG-LRU block's channels split (:func:`rec_split`)."""
     ways: int = 1
     index: int = 0
     attn: str = "whole"
     ffn: bool = False
     n_heads: int = 0
     n_kv_heads: int = 0
+    moe: str = "whole"
+    n_experts: int = 0
+    rec: bool = False
 
     @property
     def q_heads(self) -> Tuple[int, int]:
@@ -403,6 +418,15 @@ class TPPlan:
         n = self.n_kv_heads // self.ways
         return self.index * n, n
 
+    @property
+    def experts(self) -> Tuple[int, int]:
+        """(first, count) of this rank's experts (all of them unless the
+        plan splits the experts)."""
+        if self.moe != "experts":
+            return 0, self.n_experts
+        n = self.n_experts // self.ways
+        return self.index * n, n
+
 
 def check_mesh_arch(cfg: ModelConfig) -> None:
     """Raises for an arch the port does not run on a mesh yet (serving
@@ -412,36 +436,83 @@ def check_mesh_arch(cfg: ModelConfig) -> None:
     if odd or cfg.is_encdec or cfg.mrope:
         what = odd or (["encoder-decoder"] if cfg.is_encdec else ["M-RoPE"])
         raise NotImplementedError(
-            f"{cfg.name}: the mesh takes GQA attention blocks with a "
-            f"dense FFN; {', '.join(what)} on a mesh waits for ROADMAP "
+            f"{cfg.name}: the mesh takes GQA attention, MoE and RG-LRU "
+            f"blocks; {', '.join(what)} on a mesh waits for ROADMAP "
             "Queue 1 item 8b.5")
+
+
+def _blocks(cfg: ModelConfig) -> Tuple[str, ...]:
+    return tuple(cfg.stem_pattern) + tuple(cfg.block_pattern)
+
+
+def moe_split(cfg: ModelConfig, mesh) -> str:
+    """The reference's spec of the expert leaves on ``mesh``'s "model"
+    axis: "experts" when the expert count divides it, else "width" when
+    ``expert_d_ff`` does (granite's 40 experts at 16 ways), else
+    "whole"."""
+    if cfg.moe is None or "attn_moe" not in _blocks(cfg) or \
+            mesh_shape(mesh).get("model", 1) == 1:
+        return "whole"
+    if _fits(cfg.moe.n_experts, mesh, "model"):
+        return "experts"
+    return "width" if _fits(cfg.moe.expert_d_ff, mesh, "model") else "whole"
+
+
+def rglru_width(cfg: ModelConfig) -> int:
+    """The RG-LRU recurrence width dr."""
+    return int(cfg.rglru_expand * cfg.d_model)
+
+
+def rec_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether the RG-LRU channels split over "model": dr and the
+    block-diagonal gates' block count (``cfg.n_heads``) both divide it,
+    so each rank holds whole gate blocks of its channels."""
+    return ("rglru" in _blocks(cfg)
+            and mesh_shape(mesh).get("model", 1) > 1
+            and _fits(rglru_width(cfg), mesh, "model")
+            and _fits(cfg.n_heads, mesh, "model"))
 
 
 def tp_plan(cfg: ModelConfig, mesh, index: int = 0) -> TPPlan:
     """The tensor-parallel plan of ``cfg`` on ``mesh``'s "model" axis for
     the rank at model index ``index``; the reference's rules decide
-    (``_param_spec`` of ``w_q``, ``w_k`` and ``w_down``)."""
+    (``_param_spec`` of ``w_q``, ``w_k``, ``w_down``, the expert leaves
+    and the RG-LRU leaves)."""
     m = mesh_shape(mesh).get("model", 1)
+    n_exp = cfg.moe.n_experts if cfg.moe is not None else 0
     if m == 1:
-        return TPPlan(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+        return TPPlan(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                      n_experts=n_exp)
     q_split = _fits(cfg.n_heads, mesh, "model")
     kv_split = _fits(cfg.n_kv_heads, mesh, "model")
     attn = ("split" if q_split and kv_split
             else "gather_q" if q_split else "whole")
+    dense_ffn = any(b in DENSE_FFN_BLOCKS for b in _blocks(cfg))
     return TPPlan(ways=m, index=index, attn=attn,
-                  ffn=_fits(cfg.d_ff, mesh, "model"),
-                  n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+                  ffn=dense_ffn and _fits(cfg.d_ff, mesh, "model"),
+                  n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                  moe=moe_split(cfg, mesh), n_experts=n_exp,
+                  rec=rec_split(cfg, mesh))
 
 
 def local_config(cfg: ModelConfig, plan: TPPlan) -> ModelConfig:
-    """The config one rank's model code runs: its head counts and d_ff
-    (``head_dim`` stays explicit; the config derives it from ``d_model //
-    n_heads`` only when it is 0)."""
+    """The config one rank's model code runs: its head counts, its dense
+    FFN's d_ff and its RG-LRU width (``head_dim`` stays explicit; the
+    config derives it from ``d_model // n_heads`` only when it is 0). An
+    MoE arch's ``d_ff`` is the per-expert width and ``plan.ffn`` is off
+    for it; the MoE config stays whole (routing and capacity need every
+    expert; the rank's expert products read :attr:`TPPlan.experts`)."""
     kw: Dict[str, Any] = {"head_dim": cfg.head_dim}
     if plan.attn == "split":
         kw.update(n_heads=plan.q_heads[1], n_kv_heads=plan.kv_heads[1])
     if plan.ffn:
         kw["d_ff"] = cfg.d_ff // plan.ways
+    if plan.rec:
+        dr = rglru_width(cfg) // plan.ways
+        kw["rglru_expand"] = cfg.rglru_expand / plan.ways
+        if int(kw["rglru_expand"] * cfg.d_model) != dr:
+            raise ValueError(f"{cfg.name}: the RG-LRU width {dr} a rank is "
+                             "not a width the config can express")
     return cfg.replace(**kw)
 
 
@@ -464,10 +535,12 @@ def param_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
                     cfg: ModelConfig, *,
                     replicate_fsdp: bool = True) -> Spec:
     """The spec :func:`local_params` applies to one leaf: the reference's
-    spec's "model" entries on the tensor-parallel leaves, whole elsewhere;
-    the write gate split over its kv heads when they divide "model" (the
-    reference replicates it). With ``replicate_fsdp=False`` (FSDP) every
-    FSDP entry of the reference's spec too, the gate excepted."""
+    spec's "model" entries on the tensor-parallel leaves (attention, the
+    dense FFN, the experts, the RG-LRU block), whole elsewhere (the MoE
+    router included); the write gate split over its kv heads when they
+    divide "model" (the reference replicates it). With
+    ``replicate_fsdp=False`` (FSDP) every FSDP entry of the reference's
+    spec too, the gate excepted."""
     full = _param_spec(path, shape, mesh, cfg)
     spec = _strip_fsdp(full)
     lead = 1 if "blocks" in path else 0
@@ -476,9 +549,24 @@ def param_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
         if len(shape) > lead and _fits(cfg.n_kv_heads, mesh, "model"):
             out[lead] = "model"
         return tuple(out)
-    dim = _TP_LEAVES.get(path[-1])
-    if dim is not None and "moe" not in path and spec[lead + dim] == "model":
-        out[lead + dim] = "model"
+    if "moe" in path:
+        # the expert leaves as the reference's spec splits them (experts,
+        # or the expert FFN width); the router stays whole: routing needs
+        # every expert's logit
+        if path[-1] != "router":
+            out = [e if e == "model" else None for e in spec]
+    elif "rec" in path:
+        # the RG-LRU leaves by channel when the plan splits them; the 1-D
+        # leaves (b_r, b_i, lam) too, at every size (the reference splits
+        # a 1-D leaf only from 4,096)
+        if rec_split(cfg, mesh):
+            out = [e if e == "model" else None for e in spec]
+            if len(shape) == lead + 1:
+                out[lead] = "model"
+    else:
+        dim = _TP_LEAVES.get(path[-1])
+        if dim is not None and spec[lead + dim] == "model":
+            out[lead + dim] = "model"
     if not replicate_fsdp:
         for i, e in enumerate(_fsdp_only(full)):
             if e is not None:
@@ -539,6 +627,8 @@ def held_whole(params: Any, cfg: ModelConfig, mesh, *,
 # per-kv-head cache leaves [B, H] the reference's rule keeps whole over
 # "model" (GSPMD slices them where the heads are split)
 _HEAD_COUNTERS = ("gcnt", "overflow")
+# an RG-LRU block's recurrent state leaves, [B, dr] and [B, cw - 1, dr]
+_REC_STATES = ("h", "conv")
 
 
 def cache_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
@@ -548,11 +638,15 @@ def cache_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
     heads (:func:`tp_plan` and the cache rule both split the kv heads iff
     they divide "model"), and the per-head counters ``gcnt`` /
     ``overflow`` split with them (a rank's model code counts its own
-    heads). Under ``seq_shard`` the global token axis of ``gk`` / ``gv``
+    heads); an RG-LRU state by its channels when :func:`rec_split`. Under ``seq_shard`` the global token axis of ``gk`` / ``gv``
     / ``gpos`` goes over "data" while the ring, ``gcnt``, ``t``, ``ptr``
     and the page metadata stay whole."""
     spec = list(_cache_leaf_spec(path, shape, mesh, cfg, seq_shard))
     lead = 1 if "blocks" in path else 0
+    if path[-1] in _REC_STATES and not rec_split(cfg, mesh):
+        # the RG-LRU state follows the plan's channels: whole unless the
+        # gate blocks split with them
+        spec = [None if e == "model" else e for e in spec]
     if path[-1] in _HEAD_COUNTERS and len(shape) == lead + 2 \
             and _fits(cfg.n_kv_heads, mesh, "model"):
         spec[lead + 1] = "model"

@@ -23,8 +23,10 @@ On a mesh (``launch.steps.make_bundle`` with a mesh runs the step under
 ``sharding.comm.active``) the losses are global (``core/losses.py``),
 each rank's gate leaves are its kv heads' slices, and the gate gradients
 are summed over the axes the batch rows are split over before AdamW
-updates the rank's slices (AdamW is elementwise). Full-parameter LM
-training on a mesh waits for ROADMAP Queue 1 item 8b.5.
+updates the rank's slices (AdamW is elementwise). The MoE and RG-LRU
+blocks run expert- and channel-parallel there (``models/moe.py``,
+``models/rglru.py``). Full-parameter LM training on a mesh waits for
+ROADMAP Queue 1 item 8b.5.
 """
 from __future__ import annotations
 

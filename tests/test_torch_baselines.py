@@ -368,13 +368,14 @@ def test_dense_capacity_and_selection_guards(substrate):
     with pytest.raises(ValueError, match="selection_policy"):
         torch_make_backend("dense", tparams, tcfg, selection="quest:2",
                            device="cpu")
-    # a mesh serves GQA attention with a dense FFN (ROADMAP item 8's
-    # serving half); an MoE arch on a mesh raises before its weights are
-    # read (tests/test_torch_sharded_serving.py serves the supported ones)
+    # a mesh serves GQA attention, MoE and RG-LRU archs; an xLSTM arch on
+    # a mesh raises before its weights are read
+    # (tests/test_torch_sharded_serving.py and test_torch_mesh_archs.py
+    # serve the supported ones)
     from repro_torch.configs import get_reduced_config
     with pytest.raises(NotImplementedError, match="mesh"):
         torch_make_backend("dense", {}, get_reduced_config(
-            "granite-moe-3b-a800m"), mesh=object(), device="cpu")
+            "xlstm-350m"), mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="pool_page"):    # a misspelt option
         torch_make_backend("dense", tparams, tcfg, pool_page=64,
                            device="cpu")

@@ -1282,8 +1282,8 @@ def test_gated_flash_window_refuses_grad_on_gpu():
     torch.cuda.synchronize()
 
 
-def _card_serve(mesh=None):
-    """Reduced qwen3-0.6b (f32, weights drawn on the card from seed 3)
+def _card_serve(mesh=None, arch="qwen3-0.6b"):
+    """Reduced ``arch`` (f32, weights drawn on the card from seed 3)
     served on the card through the orchestrator (three prompts, 4 new
     tokens, chunk 16, dispatch-ahead 1), flat (``mesh=None``) or on this
     rank's shard: tokens, kernel launches, the rank's cache tree and kv
@@ -1295,7 +1295,7 @@ def _card_serve(mesh=None):
     from repro_torch.serving.orchestrator import (Orchestrator,
                                                   SchedulerConfig)
     from repro_torch.tree import tree_leaves_with_path
-    cfg = get_reduced_config("qwen3-0.6b").replace(dtype="float32")
+    cfg = get_reduced_config(arch).replace(dtype="float32")
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(3),
                         "cuda")
     eng = make_backend("wgkv", params, cfg, slots=2, capacity=128,
@@ -1313,6 +1313,35 @@ def _card_serve(mesh=None):
             "caches": {tuple(str(k) for k in p): x.cpu().numpy()
                        for p, x in tree_leaves_with_path(eng.caches)},
             "kv_heads": None if mesh is None else eng.plan.kv_heads}
+
+
+def test_moe_mesh_1x2_over_gloo_on_one_card_matches_flat():
+    """Expert-parallel serving on the card: reduced granite-moe-3b-a800m
+    (4 experts, top 2) on a 1 x 2 mesh whose two ranks share the card
+    over gloo (2 experts and 1 kv head a rank) streams the flat run's
+    tokens with its kernel launches; each rank's integer cache state
+    equals its head slice of the flat run's."""
+    from repro_torch.launch import mesh as M
+    build.build_all()
+    arch = "granite-moe-3b-a800m"
+    flat = _card_serve(arch=arch)
+    assert flat["launches"]["gate_mlp"] > 0
+    ranks = M.spawn(_card_serve, (1, 2), args=(arch,), backend="gloo",
+                    device="cuda", timeout_s=600)
+    assert sorted(ranks) == [0, 1]
+    for out in ranks.values():
+        assert out["tokens"] == flat["tokens"]
+        for k in ("gate_mlp", "paged_decode"):
+            assert out["launches"][k] == flat["launches"][k], k
+        h0, nh = out["kv_heads"]
+        for path, mine in out["caches"].items():
+            full = flat["caches"][path]
+            if not np.issubdtype(full.dtype, np.integer):
+                continue
+            ax = 1 if "blocks" in path else 0
+            if mine.ndim > ax + 1 and mine.shape[ax + 1] != full.shape[ax + 1]:
+                full = full[(slice(None),) * (ax + 1) + (slice(h0, h0 + nh),)]
+            np.testing.assert_array_equal(mine, full, err_msg=str(path))
 
 
 def test_mesh_1x2_over_gloo_on_one_card_matches_flat():

@@ -146,18 +146,19 @@ def test_entry_points_need_cuda_without_explicit_cpu():
 
 
 @pytest.mark.parametrize("flag,says", [
-    (["--arch", "granite-moe-3b-a800m", "--backend", "dense", "--mesh",
-      "1x1"], "item 8b"),
-    (["--arch", "recurrentgemma-9b", "--prefix-cache", "--mesh", "2x4"],
+    (["--arch", "xlstm-350m", "--backend", "dense", "--mesh", "1x1"],
+     "item 8b"),
+    (["--arch", "qwen2-vl-7b", "--prefix-cache", "--mesh", "2x4"],
      "item 8b"),
     (["--arch", "qwen3-0.6b", "--mesh", "0x2"], "mesh"),
 ])
 def test_serve_rejects_unported_flags(flag, says, capsys):
-    """``--mesh`` serves the archs of GQA attention with a dense FFN
-    (tests/test_torch_sharded_serving.py); on an arch whose mesh split is
-    not ported (MoE experts, RG-LRU channels: ROADMAP Queue 1 item 8b),
-    with any backend or the prefix store, and on a malformed mesh, it
-    exits 2 before any rank starts."""
+    """``--mesh`` serves the archs of GQA attention, MoE and RG-LRU
+    blocks (tests/test_torch_sharded_serving.py,
+    tests/test_torch_mesh_archs.py); on an arch whose mesh split is not
+    ported (the xLSTM blocks, M-RoPE: ROADMAP Queue 1 item 8b), with any
+    backend or the prefix store, and on a malformed mesh, it exits 2
+    before any rank starts."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit) as ex:
         serve.main(["--reduced", "--device", "cpu", *flag])

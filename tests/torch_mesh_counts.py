@@ -8,9 +8,9 @@ The port's one source of the collective term is the work counter
 independent count of what ``comm`` should issue per layer and pass, which
 the meta run and the gloo ranks are held to.
 """
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
-from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.base import ATTN_BLOCKS, InputShape, ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.launch.mesh import axes_key
 from repro_torch.launch.steps import exec_knobs, param_structs
@@ -20,32 +20,43 @@ from repro_torch.tree import tree_leaves_with_path
 
 
 def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
-                          use_wgkv: bool = True,
-                          backend: str = "nccl") -> Dict[str, int]:
+                          use_wgkv: bool = True, backend: str = "nccl",
+                          moe_groups: Optional[int] = None
+                          ) -> Dict[str, int]:
     """Bytes one rank at coords 0 moves per collective axis (the keys of
     ``launch.mesh.axes_key``) in the step of ``launch.steps.make_bundle``
     on ``mesh`` (a shape mapping), in ring accounting, derived from the
     shapes alone: what ``sharding/comm.py`` calls per layer and pass.
     ``backend``: "nccl" assembles blocks with all-gathers, "gloo" with
-    all-reduces of the whole buffer. The mesh archs only (dense GQA
-    attention; WG-KV for the train step).
+    all-reduces of the whole buffer. ``moe_groups``: the bundle's
+    routing groups when a knob override sets them (default
+    ``exec_knobs``'). The mesh archs only (GQA attention, MoE and RG-LRU
+    blocks; WG-KV for the train step).
 
     * every pass of the model over a layer: under "gather_q" the q heads
-      gathered over "model"; the attention's and the FFN's row-parallel
-      partials summed over "model" when the plan splits them; under FSDP
-      the layer's blocked leaves gathered over their axes;
-    * a train step makes three passes (the teacher, the student and, with
-      remat, its recompute, which stops before the FFN's sum: torch's
-      checkpoint recomputes only up to the last tensor the backward
-      needs), and its backward sums over "model" the
-      gradients of the column-parallel inputs (x of ``w_q``, and under
-      "gather_q" the whole k, v and gates the read consumes; not where
-      nothing before them needs a gradient: layer 0's x, k and v), then
-      the loss terms and the gate gradients over the batch rows' axes;
+      gathered over "model"; the attention's, the dense FFN's, the MoE
+      block's and the RG-LRU block's row-parallel partials summed over
+      "model" when the plan splits them; an MoE block's rows gathered over
+      the rows' axes when its routing group spans them, else its
+      load-balance loss and drop fraction averaged over them (when they
+      split the rows); under FSDP the layer's blocked leaves gathered over
+      their axes;
+    * a train step makes three passes over a repeated layer that has a
+      gate or follows one (the teacher, the student and, with remat, its
+      recompute, which stops at the
+      last tensor the backward needs: short of the dense FFN's and the
+      MoE combine's sums and of the MoE averages) and two over any other
+      layer, and its backward sums over "model" the gradients of the
+      column-parallel inputs where they need one (past the first
+      attention layer: x of ``w_q``, under "gather_q" the whole k and v,
+      the RG-LRU block's x, a dense FFN's x in an RG-LRU block; in every
+      attention layer: the gates under "gather_q", the FFN's and the MoE
+      block's x), then the loss terms and the gate gradients over the
+      batch rows' axes;
     * the embedding is gathered once per pass that embeds (and the tied
       unembedding again), the prefill's mean admission summed once, and a
-      seq-sharded decode combines each layer's read over "data" (its
-      log-sum-exp max and the weighted sum)."""
+      seq-sharded decode combines each attention layer's read over
+      "data" (its log-sum-exp max and the weighted sum)."""
     mesh = R.mesh_shape(mesh)
     out: Dict[str, int] = {}
 
@@ -67,34 +78,24 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
     par = torch_dtype(cfg.param_dtype).itemsize
     plan = R.tp_plan(cfg, mesh)
     lcfg = R.local_config(cfg, plan)
-    n_layers = cfg.n_repeats * len(cfg.block_pattern)
     b, s, d = shape.global_batch, shape.seq_len, cfg.d_model
     rows = R.tokens_spec(mesh, b, 0)[0]
     row_axes = R._axes_of(rows)
-    b_loc = b // R._axsize(mesh, row_axes or None)
+    row_n = R._axsize(mesh, row_axes or None)
+    b_loc = b // row_n
     knobs = exec_knobs(cfg, shape, mesh)
+    if moe_groups is not None:
+        knobs["moe_groups"] = moe_groups
     decode = shape.kind == "decode"
     tokens = b_loc * (1 if decode else s)
+    moe_local = knobs["moe_groups"] % row_n == 0
     replicate = decode and R.replicate_params(cfg, mesh)
-    # per pass over one layer
-    per_layer: Dict[str, int] = {}
-
-    def layer_pass(times, ffn_times=None):
-        if plan.attn == "gather_q":
-            gather("model", tokens * cfg.n_heads * cfg.head_dim * act,
-                   times)
-        if plan.attn != "whole":
-            add("model", "all_reduce", tokens * d * act, times)
-        if plan.ffn:
-            add("model", "all_reduce", tokens * d * act,
-                times if ffn_times is None else ffn_times)
-        for axes, nbytes in per_layer.items():
-            gather(tuple(axes.split("+")), nbytes, times)
 
     params = param_structs(cfg, "meta")
     fsdp = {} if replicate else R.fsdp_placement(params, cfg, mesh)
     leaves = {"/".join(str(k) for k in p): x
               for p, x in tree_leaves_with_path(params)}
+    block_gathers: Dict[str, Dict[str, int]] = {}
     embed_gathers: Dict[str, Tuple[str, int]] = {}
     for path, spec in fsdp.items():
         leaf = leaves[path]
@@ -105,11 +106,52 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
             numel *= v
         axes = [a for e in spec for a in R._axes_of(e) if a != "model"]
         key = axes_key(mesh, tuple(axes))
-        if path.startswith("blocks/"):
-            per = numel // leaf.shape[0] * par
-            per_layer[key] = per_layer.get(key, 0) + per
+        parts = path.split("/")
+        if parts[0] in ("blocks", "stem"):
+            block = "/".join(parts[:2])
+            per = numel * par // (leaf.shape[0] if parts[0] == "blocks"
+                                  else 1)
+            g = block_gathers.setdefault(block, {})
+            g[key] = g.get(key, 0) + per
         else:
             embed_gathers[path] = (key, numel * par)
+    # (block type, its FSDP gathers, repeated (rematerialized), a gate
+    # before it) of every layer in order
+    layers = []
+    seen_attn = False
+    for j, bt in enumerate(cfg.stem_pattern):
+        layers.append((bt, block_gathers.get(f"stem/{j}", {}), False,
+                       seen_attn))
+        seen_attn |= bt in ATTN_BLOCKS
+    for _ in range(cfg.n_repeats):
+        for i, bt in enumerate(cfg.block_pattern):
+            layers.append((bt, block_gathers.get(f"blocks/b{i}", {}), True,
+                           seen_attn))
+            seen_attn |= bt in ATTN_BLOCKS
+    n_attn = sum(1 for bt, *_ in layers if bt in ATTN_BLOCKS)
+
+    def layer_pass(bt, gathers, recompute=False):
+        """One forward pass over a layer (``recompute``: a remat
+        recompute, which stops short of the last sums)."""
+        if bt in ATTN_BLOCKS:
+            if plan.attn == "gather_q":
+                gather("model", tokens * cfg.n_heads * cfg.head_dim * act)
+            if plan.attn != "whole":
+                add("model", "all_reduce", tokens * d * act)
+        if bt == "rglru" and plan.rec:
+            add("model", "all_reduce", tokens * d * act)
+        if bt == "attn_moe":
+            if not moe_local:
+                gather(row_axes, tokens * row_n * d * act)
+            if not recompute:
+                if plan.moe != "whole":
+                    add("model", "all_reduce", tokens * d * act)
+                if moe_local and row_n > 1:
+                    add(row_axes, "all_reduce", 2 * 4)
+        elif plan.ffn and not recompute:
+            add("model", "all_reduce", tokens * d * act)
+        for axes, nbytes in gathers.items():
+            gather(tuple(axes.split("+")), nbytes)
 
     def embed_pass(unembed: bool):
         for path, (key, nbytes) in embed_gathers.items():
@@ -122,22 +164,33 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
             gather(tuple(key.split("+")), nbytes)
 
     if shape.kind == "train":
-        # the recompute stops at the last tensor the backward needs, the
-        # FFN's hidden: its row-parallel sum does not run again
-        passes = 3 if knobs["remat"] else 2
-        layer_pass(passes * n_layers, 2 * n_layers)
+        for bt, gathers, repeated, grad_in in layers:
+            layer_pass(bt, gathers)                       # the teacher
+            layer_pass(bt, gathers)                       # the student
+            # the backward recomputes a rematerialized layer it passes
+            # through: one with a gate, or past one
+            if repeated and knobs["remat"] and (grad_in
+                                                or bt in ATTN_BLOCKS):
+                layer_pass(bt, gathers, recompute=True)
         embed_pass(False)
         embed_pass(False)
-        later = n_layers - 1
-        if plan.attn != "whole":
-            add("model", "all_reduce", tokens * d * act, later)
-        if plan.attn == "gather_q":
-            kv = b_loc * cfg.n_kv_heads * s * cfg.head_dim * act
-            add("model", "all_reduce", kv, 2 * later)
-            add("model", "all_reduce", b_loc * cfg.n_kv_heads * s * 4,
-                n_layers)
-        if plan.ffn:
-            add("model", "all_reduce", tokens * d * act, n_layers)
+        kv = b_loc * cfg.n_kv_heads * s * cfg.head_dim * act
+        for bt, _, _, grad_in in layers:
+            if bt in ATTN_BLOCKS:
+                if plan.attn != "whole" and grad_in:
+                    add("model", "all_reduce", tokens * d * act)
+                if plan.attn == "gather_q":
+                    if grad_in:
+                        add("model", "all_reduce", kv, 2)
+                    add("model", "all_reduce", b_loc * cfg.n_kv_heads * s
+                        * 4)
+            if bt == "rglru" and plan.rec and grad_in:
+                add("model", "all_reduce", tokens * d * act)
+            if bt == "attn_moe":
+                if plan.moe != "whole":
+                    add("model", "all_reduce", tokens * d * act)
+            elif plan.ffn and (bt in ATTN_BLOCKS or grad_in):
+                add("model", "all_reduce", tokens * d * act)
         heads = row_axes + (("model",) if plan.attn == "split" else ())
         add(row_axes, "all_reduce", 2 * 4)
         add(heads, "all_reduce", 5 * 4)
@@ -151,7 +204,8 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
                     numel *= v
                 add(row_axes, "all_reduce", numel * par)
         return out
-    layer_pass(n_layers)
+    for bt, gathers, _, _ in layers:
+        layer_pass(bt, gathers)
     embed_pass(True)
     if shape.kind == "prefill":
         heads = row_axes + (("model",) if plan.attn == "split" else ())
@@ -161,6 +215,6 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
         c = cfg.wgkv.global_budget(s)
         seq = R.pick(c, mesh, "data")
         hq = lcfg.n_heads
-        add(seq, "all_reduce", b * hq * 4, n_layers)
-        add(seq, "all_reduce", b * hq * (cfg.head_dim + 1) * 4, n_layers)
+        add(seq, "all_reduce", b * hq * 4, n_attn)
+        add(seq, "all_reduce", b * hq * (cfg.head_dim + 1) * 4, n_attn)
     return out
