@@ -4929,24 +4929,42 @@ def ms_step(fn, *args):
                                 if v}, wall
 
 
+def ms_args(bundle, mesh, batch=None):
+    """The bundle's args, its inputs replaced by ``batch`` (whole tensors;
+    on a mesh the rank's blocks under the bundle's input specs) when
+    given."""
+    from repro_torch.sharding import rules
+    if batch is None:
+        return bundle.args
+    if mesh is not None:
+        specs = bundle.in_shardings[-1]
+        batch = {k: rules.local_shard(v, specs[k], mesh.coords, mesh)
+                 for k, v in batch.items()}
+    return bundle.args[:-1] + (batch,)
+
+
 def ms_run(mesh, cfg, params, prefill_spec, seq: bool = False,
            train: bool = True, train_spec=MS_TRAIN,
-           decode_steps: int = MS_DECODE_STEPS) -> dict:
+           decode_steps: int = MS_DECODE_STEPS, feed=None) -> dict:
     """One train step (``train``, of ``train_spec``), one prefill and
     ``decode_steps`` greedy decode steps on its caches through
     ``make_bundle`` (``mesh=None``: the flat bundles), on the card, each
     step's first call under the work counter (the other decode steps
     timed without it); with ``seq`` also one decode step of the flat 1 x
-    4,096 prefill's row with its global cache split over "data"."""
+    4,096 prefill's row with its global cache split over "data".
+    ``feed``: {"train", "prefill"} whole inputs in place of the bundles'
+    own (:func:`ms_args`)."""
     import torch
     from repro_torch.launch.steps import make_bundle
     from repro_torch.models import inference as I
     from repro_torch.sharding import rules
     res = {}
+    feed = feed or {}
     if train:
         tr = make_bundle(cfg, ms_shape(train_spec), use_wgkv=True,
                          device="cuda", params=params, mesh=mesh)
-        (state, aux), cnt, lc, wall = ms_step(tr.fn, *tr.args)
+        (state, aux), cnt, lc, wall = ms_step(
+            tr.fn, *ms_args(tr, mesh, feed.get("train")))
         res["train"] = {"loss": float(aux["loss"]), "counts": cnt,
                         "launches": lc, "wall_s": wall,
                         "gates": {k: v.cpu().numpy()
@@ -4954,7 +4972,8 @@ def ms_run(mesh, cfg, params, prefill_spec, seq: bool = False,
         del tr, state
     pre = make_bundle(cfg, ms_shape(prefill_spec), use_wgkv=True,
                       device="cuda", params=params, mesh=mesh)
-    (logits, adm, caches), cnt, lc, wall = ms_step(pre.fn, *pre.args)
+    (logits, adm, caches), cnt, lc, wall = ms_step(
+        pre.fn, *ms_args(pre, mesh, feed.get("prefill")))
     res["prefill"] = {"logits": logits.cpu().numpy(), "adm": float(adm),
                       "counts": cnt, "launches": lc, "wall_s": wall,
                       "ints": ms_ints(caches)}
@@ -5014,9 +5033,11 @@ def mesh_steps_rank(mesh):
     cfg, params = ms_model(mesh.device)
     t0 = time.perf_counter()
     shape = (mesh.shape["data"], mesh.shape["model"])
+    # no train step on 1 x 2: the split plan's train step runs in
+    # mesh-encdec (whisper's and qwen2-vl's heads split in two)
     res = ms_run(mesh, cfg, params, MS_PREFILL[shape],
-                 seq=shape == (2, 1),
-                 train_spec=MS_TRAIN_DATA if shape == (2, 1) else MS_TRAIN)
+                 seq=shape == (2, 1), train=shape != (1, 2),
+                 train_spec=MS_TRAIN_DATA)
     res["wall_s"] = time.perf_counter() - t0
     res["coords"] = mesh.coords
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -5177,7 +5198,8 @@ def ms_host_runs(cfg) -> tuple:
     from repro_torch.launch import dryrun as D
     rec = D.run_dryrun("qwen3-0.6b", "train_4k", mesh="single")
     return rec, {(1, 1): ms_meta(cfg, (1, 1), "nccl", False),
-                 (1, 2): ms_meta(cfg, (1, 2), "gloo", False),
+                 (1, 2): ms_meta(cfg, (1, 2), "gloo", False,
+                                 train_spec=None),
                  (2, 1): ms_meta(cfg, (2, 1), "gloo", True,
                                  train_spec=MS_TRAIN_DATA)}
 
@@ -5185,10 +5207,11 @@ def ms_host_runs(cfg) -> tuple:
 def mesh_steps_phase(card: str):
     """The sharded step bundles at full-width qwen3-0.6b (28 layers, f32,
     seed-0 weights): one train step at 2 x 1,024 (remat, FSDP over
-    "data"; 2 x 256 on 2 x 1), one prefill (1 x 4,096 at budget 1,024;
-    2 x 512 on 2 x 1) and 16 greedy decode steps on its caches, on a 1 x
-    1 NCCL mesh (in this process), a 1 x 2 gloo mesh (heads 8 / 4 a rank)
-    and a 2 x 1 gloo mesh (a row a rank: FSDP's gathers over "data" and
+    "data"; 2 x 256 on 2 x 1; none on 1 x 2, whose split plan mesh-encdec
+    trains), one prefill (1 x 4,096 at budget 1,024; 2 x 512 on 2 x 1)
+    and 16 greedy decode steps on its caches, on a 1 x 1 NCCL mesh (in
+    this process), a 1 x 2 gloo mesh (heads 8 / 4 a rank) and a 2 x 1
+    gloo mesh (a row a rank: FSDP's gathers over "data" and
     their backward, the gate gradients summed over the rows; and one
     decode step of the flat 1 x 4,096 prefill's row, its global cache
     split over "data"), each
@@ -5324,21 +5347,26 @@ def sparse_gates(cfg, params) -> dict:
     1)) above 1, about 16 % of them, with scores far from tau: hidden unit
     0 reads that feature less 1, the others are off, and ``g =
     sigmoid(200 gelu(x0 - 1) - 4)`` (below sigmoid(-4) = 0.018 for x0 <
-    1). In place; returns the init's gates ({block: {leaf: copy}})."""
+    1). The cross attention's gates (whisper's) too. In place; returns
+    the init's self-attention gates ({block: {leaf: copy}})."""
     import torch
     init = {}
     for i, bt in enumerate(cfg.block_pattern):
         if "attn" not in bt:
             continue
-        gate = params["blocks"][f"b{i}"]["attn"]["gate"]
-        init[f"b{i}"] = {k: v.clone() for k, v in gate.items()}
-        with torch.no_grad():
-            for k in ("w1", "b1", "w2"):
-                gate[k].zero_()
-            gate["w1"][:, :, 0, 0] = 1.0
-            gate["b1"][:, :, 0] = -1.0
-            gate["w2"][:, :, 0, 0] = 200.0
-            gate["b2"].fill_(-4.0)
+        node = params["blocks"][f"b{i}"]
+        init[f"b{i}"] = {k: v.clone() for k, v in node["attn"]["gate"].items()}
+        for mixer in ("attn", "xattn"):
+            if mixer not in node:
+                continue
+            gate = node[mixer]["gate"]
+            with torch.no_grad():
+                for k in ("w1", "b1", "w2"):
+                    gate[k].zero_()
+                gate["w1"][:, :, 0, 0] = 1.0
+                gate["b1"][:, :, 0] = -1.0
+                gate["w2"][:, :, 0, 0] = 200.0
+                gate["b2"].fill_(-4.0)
     return init
 
 
@@ -5360,14 +5388,15 @@ MA_BINDING = "granite-moe-3b-a800m"
 MA_TIE_EPS = 1e-6
 
 
-def ma_binding(mesh, cfg, params, gates) -> dict:
-    """:data:`MA_BINDING`'s prefill (its ``MA_RUNS`` spec) through the
-    bundles on ``mesh`` (None: flat), its attention gates first set back
-    to ``gates`` (in place), with layer 0's input and ``k_pre`` (``x @
-    w_k``) and every layer's gate scores, top-budget choice, router
-    probabilities and experts captured (numpy). Flat, also layer 0's gate
-    scores of each 1 x 2 rank's kv heads computed from the flat keys
-    (``g_split``: the gate at a rank's shapes alone)."""
+def ma_binding(mesh, cfg, params, gates, spec=None, feed=None) -> dict:
+    """A prefill of ``spec`` (default :data:`MA_BINDING`'s ``MA_RUNS``
+    spec; ``feed``: its whole inputs in place of the bundle's own)
+    through the bundles on ``mesh`` (None: flat), its attention gates
+    first set back to ``gates`` (in place), with layer 0's input and
+    ``k_pre`` (``x @ w_k``) and every layer's gate scores, top-budget
+    choice, router probabilities and experts captured (numpy). Flat, also
+    layer 0's gate scores of each 1 x 2 rank's kv heads computed from the
+    flat keys (``g_split``: the gate at a rank's shapes alone)."""
     import torch
     from repro_torch.launch.steps import make_bundle
     from repro_torch.models import attention as A
@@ -5376,7 +5405,7 @@ def ma_binding(mesh, cfg, params, gates) -> dict:
         with torch.no_grad():
             for k, v in leaves.items():
                 params["blocks"][blk]["attn"]["gate"][k].copy_(v)
-    spec = MA_RUNS[MA_BINDING][3]
+    spec = spec or MA_RUNS[MA_BINDING][3]
     pre = make_bundle(cfg, ms_shape(spec), use_wgkv=True, device="cuda",
                       params=params, mesh=mesh)
     got = {"layers": []}
@@ -5415,7 +5444,7 @@ def ma_binding(mesh, cfg, params, gates) -> dict:
         return r
     A.attn_prefill_budgeted, MoE.route = budgeted, routed
     try:
-        logits, _, _ = pre.fn(*pre.args)
+        logits, _, _ = pre.fn(*ms_args(pre, mesh, feed))
     finally:
         A.attn_prefill_budgeted, MoE.route = inner, route
     got["logits"] = logits.cpu().numpy()
@@ -5744,6 +5773,619 @@ def mesh_archs_phase(card: str):
     return counts
 
 
+# --------------------------------------------------------------------------
+# mesh-encdec: the seq-sharded reads' kernel cases, whisper-medium and
+# qwen2-vl-7b on the mesh, and the seq-sharded dense and Quest reads
+# --------------------------------------------------------------------------
+def _lse_join(parts):
+    """Reads of disjoint key sets [(out, lse)] joined by their log-sum-exp
+    (``comm.combine_lse``'s formula, in f32)."""
+    import torch
+    m = torch.maximum(parts[0][1], parts[1][1])
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    wts = [torch.where(torch.isfinite(l), torch.exp(l - m),
+                       torch.zeros_like(l)) for _, l in parts]
+    return sum(w[:, None] * o.float() for (o, _), w in zip(parts, wts)) \
+        / torch.clamp(sum(wts), min=1e-30)[:, None]
+
+
+def _lse_blocks(tag, dtype, reads):
+    """Each block's read (``reads``: (kernel call, plain call) per block,
+    each returning (out, lse)) against its plain version: out within the
+    dtype's limit, lse within 5e-5, the same rows empty (lse -inf, out
+    0), two calls bitwise. Returns (the kernel's parts, out error, lse
+    error, empty reads)."""
+    import torch
+    parts, err, lse_err, empty = [], 0.0, 0.0, 0
+    for i, (kernel, plain) in enumerate(reads):
+        got, lse = kernel()
+        again, _ = kernel()
+        want, wlse = plain()
+        torch.cuda.synchronize()
+        dead = torch.isinf(wlse)
+        check(torch.equal(torch.isinf(lse), dead), f"{tag} block {i}: the "
+              "empty reads differ from the plain version's")
+        check(bool((got[dead] == 0).all()), f"{tag} block {i}: an empty "
+              "read is not 0")
+        check(torch.equal(got, again), f"{tag} block {i}: two calls differ")
+        empty += int(dead.sum())
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        if bool((~dead).any()):
+            lse_err = max(lse_err, float((lse[~dead] - wlse[~dead])
+                                         .abs().max()))
+        parts.append((got, lse))
+    check(err <= TOL[str(dtype).split(".")[-1]] and lse_err <= 5e-5,
+          f"{tag}: out err {err:.3e}, lse err {lse_err:.3e}")
+    return parts, err, lse_err, empty
+
+
+def sel_lse_case(dtype, seed: int, slots: int = 2, c: int = 1024,
+                 w: int = 256, hkv: int = 8, grp: int = 2, hd: int = 128,
+                 k: int = 8):
+    """``paged_decode_selected`` with its log-sum-exp at the seq-sharded
+    Quest read's shapes (mesh-encdec's 2 x 1 run: qwen3-0.6b's 16 q on 8
+    kv heads whole on each rank, C 1,024 of 64 pages split in two blocks
+    over "data", K 8): K ids chosen over the whole cache's valid pages,
+    each block reading those it holds (``ops.block_page_ids``; block 1
+    without the ring). Kv heads whose gcnt stays in block 0 select
+    nothing in block 1: lse -inf, out 0. Each block held to the plain
+    version (:func:`_lse_blocks`), and the two joined by lse held to the
+    kernel's selected read of the whole cache (f32 5e-5, bf16 1e-2)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.dual_cache import init_dual_cache
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import (paged_decode_selected,
+                                                  paged_decode_selected_plain)
+    from repro_torch.roofline import work as W
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cache = init_dual_cache(slots, hkv, hd, w_local=w, budget=c, dtype=dtype,
+                            device="cuda")
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    pattern = torch.tensor([0, 7, c, c // 2 + 3, 1, c // 2, 16, c - 1],
+                           dtype=torch.int32, device="cuda")
+    gcnt = torch.stack([pattern.roll(i)[:hkv] for i in range(slots)])
+    t = torch.tensor([w + 101 * i for i in range(slots)], dtype=torch.int32,
+                     device="cuda")
+    cache = cache._replace(gk=rn(slots, hkv, c, hd), gv=rn(slots, hkv, c, hd),
+                           lk=rn(slots, hkv, w, hd), lv=rn(slots, hkv, w, hd),
+                           gcnt=gcnt, t=t)
+    q = rn(slots, hkv * grp, hd)
+    pages = c // 16
+    live = torch.arange(pages, device="cuda") < ((gcnt + 15) // 16)[..., None]
+    score = torch.where(live, torch.rand((slots, hkv, pages), generator=g,
+                                        device="cuda"),
+                        torch.full((), -float("inf"), device="cuda"))
+    top = torch.topk(score, k, dim=-1)
+    ids = torch.sort(top.indices, dim=-1).values.to(torch.int32)
+    n_sel = torch.isfinite(top.values).sum(-1).to(torch.int32)
+    whole = ops.dual_cache_selected_attention(q, cache, ids, n_sel)
+    cb = c // 2
+    reads, args = [], []
+    for i in range(2):
+        blk = cache._replace(
+            gk=cache.gk[:, :, i * cb:(i + 1) * cb].contiguous(),
+            gv=cache.gv[:, :, i * cb:(i + 1) * cb].contiguous())
+        qf, first, second, gg = ops.dual_cache_segments(q, blk, (i, 2))
+        loc, cnt = ops.block_page_ids(ids, n_sel, (i, 2), cb // 16)
+        a = (qf, *first, loc.reshape(-1, loc.shape[-1]).contiguous(),
+             cnt.reshape(-1).contiguous())
+        args.append((a, second, gg, blk, loc, cnt))
+        reads.append((
+            lambda a=a, s=second, gg=gg: paged_decode_selected(
+                *a, second=s, group=gg, lse=True),
+            lambda a=a, s=second, gg=gg: paged_decode_selected_plain(
+                *a, second=s, group=gg, lse=True)))
+    tag = f"paged_decode_selected lse {dtype}"
+    parts, err, lse_err, empty = _lse_blocks(tag, dtype, reads)
+    check(empty > 0, f"{tag}: no empty block read")
+    comb = _lse_join(parts)
+    comb_err = float((comb - whole.reshape(comb.shape).float()).abs().max())
+    check(comb_err <= TOL[str(dtype).split(".")[-1]],
+          f"{tag}: the joined blocks differ from the whole read by "
+          f"{comb_err:.3e}")
+    a, second, gg, blk, loc, cnt = args[1]
+    ms = cuda_ms(lambda: paged_decode_selected(*a, second=second, group=gg,
+                                               lse=True), 200)
+    plain_ms = cuda_ms(lambda: paged_decode_selected_plain(
+        *a, second=second, group=gg, lse=True), 50)
+    # the selected valid tokens block 1 reads, and SDPA over its keys
+    # under that mask: the library yardstick
+    glen = (gcnt - cb).clamp(0, cb)
+    pos = torch.arange(cb, device="cuda")
+    chosen = torch.zeros((slots, hkv, cb // 16), dtype=torch.bool,
+                         device="cuda")
+    chosen.scatter_(-1, loc.long(), torch.arange(
+        loc.shape[-1], device="cuda") < cnt[..., None])
+    mask = chosen.repeat_interleave(16, -1) & (pos < glen[..., None])
+    toks = int(mask.sum())
+    qg = q.reshape(slots, hkv, grp, hd)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qg, blk.gk, blk.gv, attn_mask=mask[:, :, None]), 200)
+    b_ms, b_by = bound(W.paged_decode_selected(
+        a[0].shape[0], hd, gg, a[5].shape[1], second[2].shape[1],
+        isz=q.element_size(), tokens=toks, lse=True))
+    return {"shape": f"N={slots * hkv * grp} hd={hd} C={c} K={k}: block 1 "
+            f"of 2 (C {cb}, no ring) W={w} {dtype} lse",
+            "max_abs_err": err, "lse_err": lse_err, "combined_err": comb_err,
+            "empty_reads": empty, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def dense_lse_case(dtype, seed: int, window=None, hkv: int = 8,
+                   grp: int = 2, hd: int = 128, s_max: int = 4160,
+                   t: int = 4100):
+    """``paged_decode`` with its log-sum-exp over two blocks of a dense
+    buffer split over "data" (mesh-encdec's seq-sharded dense read), each
+    read as ``ops.dense_cache_attention(block=)`` reads it (its length and
+    window start clipped to the block): with ``window`` the windowed read
+    from a start offset (recurrentgemma-9b's local attention: 16 q on 1
+    kv head of hd 256, W 2,048, t 3,000 in 4,160 slots, so [952, 3,000)
+    straddles the edge at 2,080), without it qwen3-0.6b's global read (16
+    q on 8 kv heads, t 4,100). Each block held to the plain version
+    (:func:`_lse_blocks`) and to the ops call bitwise, the two joined by
+    lse held to the kernel's read of the whole buffer."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
+    from repro_torch.models.attention import DenseCache
+    from repro_torch.roofline import work as W
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    k, v = rn(1, hkv, s_max, hd), rn(1, hkv, s_max, hd)
+    tt = torch.tensor([t], dtype=torch.int32, device="cuda")
+    q = rn(1, hkv * grp, hd)
+    whole = ops.dense_cache_attention(q, DenseCache(k, v, tt), window=window)
+    cb = s_max // 2
+    reads, args = [], []
+    for i in range(2):
+        blk = DenseCache(k[:, :, i * cb:(i + 1) * cb].contiguous(),
+                         v[:, :, i * cb:(i + 1) * cb].contiguous(), tt)
+        end = torch.clamp(tt - i * cb, 0, cb).to(torch.int32)
+        qf, seg, gg = ops.dense_cache_segment(q, blk._replace(t=end))
+        kw = {}
+        if window is not None:
+            st = torch.clamp(torch.clamp(tt - window, min=0) - i * cb, 0, cb)
+            kw = {"starts": st.to(torch.int32).repeat_interleave(hkv)
+                  .contiguous(), "span": window}
+        via_ops = ops.dense_cache_attention(q, blk, window=window,
+                                            block=(i, 2))
+        mine = paged_decode(qf, *seg, group=gg, lse=True, **kw)
+        check(torch.equal(via_ops[0].reshape(mine[0].shape), mine[0]),
+              f"dense lse block {i}: the ops read is not the kernel call's")
+        args.append((qf, seg, gg, kw, blk, end))
+        reads.append((
+            lambda qf=qf, seg=seg, gg=gg, kw=kw: paged_decode(
+                qf, *seg, group=gg, lse=True, **kw),
+            lambda qf=qf, seg=seg, gg=gg, kw=kw: paged_decode_plain(
+                qf, *seg, group=gg, lse=True, **kw)))
+    tag = f"paged_decode{'_starts' if window else ''} dense lse {dtype}"
+    parts, err, lse_err, empty = _lse_blocks(tag, dtype, reads)
+    comb = _lse_join(parts)
+    comb_err = float((comb - whole.reshape(comb.shape).float()).abs().max())
+    check(comb_err <= TOL[str(dtype).split(".")[-1]],
+          f"{tag}: the joined blocks differ from the whole read by "
+          f"{comb_err:.3e}")
+    qf, seg, gg, kw, blk, end = args[1]
+    ms = cuda_ms(lambda: paged_decode(qf, *seg, group=gg, lse=True, **kw),
+                 200)
+    plain_ms = cuda_ms(lambda: paged_decode_plain(qf, *seg, group=gg,
+                                                  lse=True, **kw), 50)
+    pos = torch.arange(cb, device="cuda")
+    lo = int(kw["starts"][0]) if kw else 0
+    mask = (pos >= lo) & (pos < int(end[0]))
+    qg = q.reshape(1, hkv, grp, hd)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qg, blk.k, blk.v, attn_mask=mask[None]), 200)
+    b_ms, b_by = bound(W.paged_decode(
+        qf.shape[0], hd, gg, seg[2].shape[1], isz=q.element_size(),
+        tokens=hkv * int(mask.sum()), span=window, lse=True))
+    what = f"W={window} t={t}" if window else f"t={t}"
+    return {"shape": f"N={hkv * grp} hd={hd} {s_max} slots, {what}: block "
+            f"1 of 2 ({cb} slots) {dtype} lse",
+            "max_abs_err": err, "lse_err": lse_err, "combined_err": comb_err,
+            "empty_reads": empty, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def me_cases():
+    """Phase 3's cases of the seq-sharded reads (mesh-encdec), f32 and
+    bf16: the Quest-selected read and the windowed dense read with their
+    lse over two blocks, and the global dense read's f32. Returns
+    (f32 cases, bf16 cases), (tag, record) pairs tagged ``<kernel>
+    mesh-encdec``."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    rg = dict(window=2048, hkv=1, grp=16, hd=256, t=3000)
+    return ([("paged_decode_selected mesh-encdec", sel_lse_case(f32, 200)),
+             ("paged_decode_starts mesh-encdec",
+              dense_lse_case(f32, 201, **rg)),
+             ("paged_decode mesh-encdec", dense_lse_case(f32, 202))],
+            [("paged_decode_selected mesh-encdec", sel_lse_case(bf16, 203)),
+             ("paged_decode_starts mesh-encdec",
+              dense_lse_case(bf16, 204, **rg))])
+
+
+# arch -> (repeats kept, weight seed, train spec, prefill spec, decode
+# steps); flat, 1 x 1 NCCL and 1 x 2 gloo runs of an arch at that depth.
+# whisper-medium keeps 4 of its 24 encoder and 24 decoder repeats, its
+# steps the 448-token decoder prompt over 512 (train) and 1,500 (prefill:
+# 30 s of audio) encoder positions; qwen2-vl-7b 4 of its 28 layers
+# (about 8 GiB of f32 weights, 4.4 of them the embedding tables), its
+# stream the 32 x 32 grid's 1,024 patches and 1,024 text tokens
+ME_RUNS = {
+    "whisper-medium": (4, 85, ("train_w1k", 1024, 1, "train"),
+                       ("prefill_w3k", 3000, 1, "prefill"), 8),
+    "qwen2-vl-7b": (4, 86, ("train_2k", 2048, 1, "train"),
+                    ("prefill_2k", 2048, 1, "prefill"), 8),
+}
+# the VLM's prefill again with the init's gates (the budget, 512 of
+# 2,048, binds at every layer), flat and on each 1 x 2 rank, held by
+# ``ma_tie_check``
+ME_BINDING = "qwen2-vl-7b"
+# the seq-sharded reads on a 2 x 1 gloo mesh: qwen3-0.6b at 4 of 28
+# layers (the dense buffer's global read; Quest gather mode at K 8 of the
+# WG-KV cache's 64 pages) and recurrentgemma-9b's stem and one repeat
+# (its local attention's windowed dense read), each a 1 x 4,096 prefill
+# and 4 decode steps
+ME_SEQ_S = 4096
+ME_SEQ_STEPS = 4
+ME_SEQ_RUNS = {"qwen3-0.6b": (4, 87), "recurrentgemma-9b": (1, 88)}
+ME_QUEST = "quest:8"
+
+
+def me_model(arch: str, device):
+    """``arch`` at full width, f32, cut to ``ME_RUNS``' repeats (whisper's
+    encoder too), weights drawn on ``device`` from its seed (every rank
+    draws the same), the gates (the cross attention's too) admitting
+    about 16 % of tokens (:func:`sparse_gates`); returns (cfg, params,
+    the init's self-attention gates)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    repeats, seed = ME_RUNS[arch][:2]
+    kw = {"n_enc_repeats": repeats} if arch == "whisper-medium" else {}
+    cfg = get_config(arch).replace(dtype="float32", n_repeats=repeats, **kw)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_model(cfg, gen, device)
+    return cfg, params, sparse_gates(cfg, params)
+
+
+def me_feed(cfg, arch: str) -> dict:
+    """The whole inputs of the train and prefill bundles: the bundles'
+    own (tokens from seed 0), with whisper's frames
+    (``whisper_frame_embeds``) or the VLM's patches drawn on the card from
+    seed 89 in place of their zeros."""
+    import torch
+    from repro_torch.launch import specs as S
+    from repro_torch.models import registry as REG
+    gen = torch.Generator(device="cuda").manual_seed(89)
+    out = {}
+    for kind, spec in (("train", ME_RUNS[arch][2]),
+                       ("prefill", ME_RUNS[arch][3])):
+        shape = ms_shape(spec)
+        make = S.train_inputs if kind == "train" else S.prefill_inputs
+        batch = make(cfg, shape, "cuda")
+        if cfg.is_encdec:
+            batch["enc_embeds"] = REG.whisper_frame_embeds(
+                gen, cfg, shape.global_batch, shape.seq_len)
+        else:
+            batch["patch_embeds"] = 0.02 * torch.randn(
+                tuple(batch["patch_embeds"].shape), generator=gen,
+                device="cuda")
+        out[kind] = batch
+    return out
+
+
+def me_steps(mesh, arch: str, cfg, params) -> dict:
+    """:func:`ms_run` of ``arch``'s ``ME_RUNS`` steps on ``mesh`` (None:
+    the flat bundles), on :func:`me_feed`'s inputs."""
+    _, _, train, prefill, steps = ME_RUNS[arch]
+    return ms_run(mesh, cfg, params, prefill, train_spec=train,
+                  decode_steps=steps, feed=me_feed(cfg, arch))
+
+
+def me_seq_model(arch: str, device):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    repeats, seed = ME_SEQ_RUNS[arch]
+    cfg = get_config(arch).replace(dtype="float32", n_repeats=repeats)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, init_model(cfg, gen, device)
+
+
+def me_seq_read(mesh, cfg, params, quest: bool) -> dict:
+    """One row's 1 x ``ME_SEQ_S`` prefill (the dense baseline's, or with
+    ``quest`` WG-KV's at budget 1,024), its cache split over "data" on
+    ``mesh`` (None: flat), then ``ME_SEQ_STEPS`` greedy decode steps: the
+    dense decode bundle, or Quest gather mode (``ME_QUEST``) through the
+    rank's model code under ``comm.active(seq=)``, as the bundle runs it,
+    with the options the bundle does not take. The first step under the
+    work counter."""
+    import torch
+    from repro_torch.launch.steps import make_bundle
+    from repro_torch.models import inference as I
+    from repro_torch.sharding import comm, rules
+    toks = ms_tokens(cfg, 1, ME_SEQ_S)
+    with torch.no_grad():
+        out, caches = I.prefill(
+            params, cfg, toks, use_wgkv=quest,
+            budget=cfg.wgkv.global_budget(ME_SEQ_S), max_len=ME_SEQ_S + 64)
+    if mesh is not None:
+        caches = rules.local_caches(caches, cfg, mesh, mesh.coords,
+                                    seq_shard=True)
+    if quest:
+        opts = I.DecodeOptions(selection_policy=ME_QUEST)
+        plan = lcfg = lparams = None
+        if mesh is not None:
+            plan = rules.tp_plan(cfg, mesh, mesh.coords["model"])
+            lcfg = rules.local_config(cfg, plan)
+            lparams = rules.local_params(params, cfg, mesh, mesh.coords)
+
+        def step(tok, caches):
+            with torch.no_grad(), comm.active(mesh, plan, seq="data"):
+                logits, caches, _ = I.decode_step(
+                    lparams if mesh is not None else params,
+                    lcfg if mesh is not None else cfg, tok, caches,
+                    opts=opts)
+            return logits, caches
+    else:
+        dec = make_bundle(cfg, ms_shape(("decode_seq", ME_SEQ_S, 1,
+                                         "decode")), use_wgkv=False,
+                          device="cuda", params=params, caches=caches,
+                          mesh=mesh)
+
+        def step(tok, caches):
+            return dec.fn(dec.args[0], caches, {"token": tok})
+    token = out.logits.argmax(-1).to(torch.int32)
+    (logits, caches), cnt, lc, wall = ms_step(step, token, caches)
+    token = logits.argmax(-1).to(torch.int32)
+    steps = [(logits.cpu().numpy(), token.cpu().numpy())]
+    t0 = time.perf_counter()
+    for _ in range(ME_SEQ_STEPS - 1):
+        logits, caches = step(token, caches)
+        token = logits.argmax(-1).to(torch.int32)
+        steps.append((logits.cpu().numpy(), token.cpu().numpy()))
+    node = next(c for c in (caches["blocks"][f"b{i}"] for i in range(
+        len(cfg.block_pattern))) if hasattr(c, "k") or hasattr(c, "gk"))
+    return {"steps": steps, "counts": cnt, "launches": lc,
+            "first_wall_s": wall,
+            "ms_per_step": (time.perf_counter() - t0) * 1e3
+            / (ME_SEQ_STEPS - 1),
+            "block": int((node.gk if quest else node.k).shape[3])}
+
+
+def me_seq_runs(mesh) -> dict:
+    """The seq-sharded reads (``ME_SEQ_RUNS``) on ``mesh`` (None: flat):
+    qwen3-0.6b's dense and Quest reads, recurrentgemma-9b's windowed
+    dense read; one model on the card at a time."""
+    out = {}
+    for arch in ME_SEQ_RUNS:
+        cfg, params = me_seq_model(arch, "cuda")
+        out[f"{arch} dense"] = me_seq_read(mesh, cfg, params, quest=False)
+        if arch == "qwen3-0.6b":
+            out[f"{arch} quest"] = me_seq_read(mesh, cfg, params, quest=True)
+        del params
+        free_cuda()
+    return out
+
+
+def mesh_encdec_rank(mesh, runs: str):
+    """One rank of a mesh-encdec world: ``runs`` "archs" (1 x 2: its shard
+    of each ``ME_RUNS`` arch, the whole model drawn first, its steps, and
+    the VLM's binding prefill) or "seq" (2 x 1: :func:`me_seq_runs`)."""
+    import torch
+    from repro_torch.sharding import rules
+    t0 = time.perf_counter()
+    out = {"coords": mesh.coords}
+    if runs == "seq":
+        out.update(me_seq_runs(mesh))
+    else:
+        for arch in ME_RUNS:
+            cfg, params, init_gates = me_model(arch, mesh.device)
+            res = me_steps(mesh, arch, cfg, params)
+            res["coords"] = mesh.coords
+            res["kv_heads"] = rules.tp_plan(cfg, mesh,
+                                            mesh.coords["model"]).kv_heads
+            if arch == ME_BINDING:
+                res["binding"] = ma_binding(
+                    mesh, cfg, params, init_gates, spec=ME_RUNS[arch][3],
+                    feed=me_feed(cfg, arch)["prefill"])
+            out[arch] = res
+            del params
+            free_cuda()
+    out["wall_s"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def me_host_runs(cfgs) -> dict:
+    """Rank (0, 0)'s counts of each arch's bundles on the 1 x 2 mesh and
+    on a 1 x 1 NCCL mesh (:func:`ms_meta`), on ``meta``: host work
+    alone."""
+    out = {}
+    for arch, cfg in cfgs.items():
+        _, _, train, prefill, _ = ME_RUNS[arch]
+        for shape, backend in (((1, 1), "nccl"), ((1, 2), "gloo")):
+            out[(arch, shape)] = ms_meta(cfg, shape, backend, False,
+                                         prefill_spec=prefill,
+                                         train_spec=train)
+    return out
+
+
+def me_seq_check(tag, cfg, res, flat, launches) -> dict:
+    """A rank's seq-sharded read held to the flat one: tokens equal,
+    logits within 1e-4 of their scale, the first step's launches equal
+    to ``launches`` and its "data" bytes to the count from the shapes
+    (each attention layer's combine: the lse max and the weighted sum of
+    [hd + 1] f32 over the row's q heads, a 2-rank ring all-reduce moving
+    each buffer's bytes once)."""
+    import numpy as np
+    err, scale = 0.0, 1.0
+    for (lg, tok), (flg, ftok) in zip(res["steps"], flat["steps"]):
+        check(np.array_equal(tok, ftok), f"{tag}: tokens {tok} != flat "
+              f"{ftok}")
+        err = max(err, float(np.abs(lg - flg).max()))
+        scale = max(scale, float(np.abs(flg).max()))
+    check(err <= 1e-4 * scale, f"{tag}: logits differ by {err:.3e} (scale "
+          f"{scale:.3g})")
+    check(res["launches"] == launches, f"{tag}: launches "
+          f"{res['launches']} != {launches}")
+    n_attn = sum(1 for bt in tuple(cfg.stem_pattern) + tuple(
+        cfg.block_pattern) * cfg.n_repeats if "attn" in bt)
+    want = {"data": n_attn * cfg.n_heads * (4 + (cfg.head_dim + 1) * 4)}
+    check(res["counts"]["collectives"] == want, f"{tag}: collective bytes "
+          f"{res['counts']['collectives']} != {want}")
+    return {"logit_err": err, "logit_scale": scale, "block": res["block"],
+            "first_step_wall_s": res["first_wall_s"],
+            "ms_per_step": res["ms_per_step"], "flat_ms_per_step":
+            flat["ms_per_step"], "collective_bytes": want}
+
+
+def mesh_encdec_phase(card: str):
+    """whisper-medium and qwen2-vl-7b on a ``data x model`` mesh, full
+    width, f32, depth cut (``ME_RUNS``; printed), their gates admitting
+    about 16 % of tokens: one train step (whisper's encoder frames in the
+    batch; the VLM's stream of patches and text with M-RoPE ids), one
+    prefill and 8 decode steps (whisper's cross memory built on each
+    rank's heads), flat, on a 1 x 1 NCCL mesh (in this process) and on a
+    1 x 2 gloo mesh (whisper's 16 / 16 heads and the VLM's 28 / 4 split
+    in two, the GELU MLP's d_ff too), each mesh run held to the flat run
+    with mesh-steps' holds (:func:`ms_check`: tokens and integer cache
+    leaves, the cross memory's ``valid`` included, equal; logits within
+    1e-4 of their scale; the loss 1e-5 relative; launches equal to the
+    flat run's; collective bytes and rank 0's counts equal to the
+    fake-group meta run's); the VLM's binding prefill (the init's gates)
+    flat and on each rank held by :func:`ma_tie_check`. Then the
+    seq-sharded reads (``ME_SEQ_RUNS``) flat and on a 2 x 1 gloo mesh
+    (:func:`me_seq_check`). Returns each run's launches."""
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    cfgs = {}
+    for arch, (r, *_) in ME_RUNS.items():
+        kw = {"n_enc_repeats": r} if arch == "whisper-medium" else {}
+        cfgs[arch] = get_config(arch).replace(dtype="float32", n_repeats=r,
+                                              **kw)
+    print("mesh-encdec depth: " + json.dumps({
+        a: {"n_layers": c.n_layers, "of": get_config(a).n_layers,
+            "enc_layers": c.n_enc_layers,
+            "enc_of": get_config(a).n_enc_layers}
+        for a, c in cfgs.items()}), flush=True)
+    out, counts, flat = {}, {}, {}
+
+    def tally(tag, res):
+        tot = {}
+        for lc in ma_launches(res).values():
+            for k, v in lc.items():
+                tot[k] = tot.get(k, 0) + v
+        counts[tag] = tot
+
+    for arch in ME_RUNS:
+        cfg, params, init_gates = me_model(arch, "cuda")
+        t0 = time.perf_counter()
+        res = me_steps(None, arch, cfg, params)
+        out[f"{arch} flat"] = {"wall_s": time.perf_counter() - t0,
+                               "train_wall_s": res["train"]["wall_s"],
+                               "prefill_wall_s": res["prefill"]["wall_s"],
+                               "decode_ms_per_step":
+                                   res["decode"]["ms_per_step"]}
+        tally(f"{arch} flat", res)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+        try:
+            mesh = M.init_mesh((1, 1), backend="nccl", device="cuda")
+            one = me_steps(mesh, arch, cfg, params)
+            one["coords"] = mesh.coords
+        finally:
+            dist.destroy_process_group()
+        res["one"], res["one_wall_s"] = one, time.perf_counter() - t0
+        if arch == ME_BINDING:
+            res["binding"] = ma_binding(
+                None, cfg, params, init_gates, spec=ME_RUNS[arch][3],
+                feed=me_feed(cfg, arch)["prefill"])
+        flat[arch] = res
+        del params
+        free_cuda()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(me_host_runs, cfgs)
+        t0 = time.perf_counter()
+        ranks = M.spawn(mesh_encdec_rank, (1, 2), args=("archs",),
+                        backend="gloo", device="cuda", timeout_s=600)
+        out["1x2 gloo wall_s"] = time.perf_counter() - t0
+        meta = host.result()
+    for arch, res in flat.items():
+        cfg = cfgs[arch]
+        want = ma_launches(res)
+        summary = ms_check(f"mesh-encdec {arch} 1x1 nccl", cfg, (1, 1),
+                           res["one"], res, meta[(arch, (1, 1))], True,
+                           launches=want, scaled=True)
+        summary["wall_s"] = res["one_wall_s"]
+        out[f"{arch} 1x1 nccl"] = summary
+        tally(f"{arch} 1x1 nccl", res["one"])
+        tag = f"{arch} 1x2 gloo"
+        out[tag] = {}
+        for r, rr in sorted(ranks.items()):
+            mine = rr[arch]
+            summary = ms_check(f"mesh-encdec {tag} rank {r}", cfg, (1, 2),
+                               mine, res, meta[(arch, (1, 2))], r == 0,
+                               launches=want, scaled=True)
+            summary.update(kv_heads=mine["kv_heads"])
+            if "binding" in mine:
+                summary["binding"] = ma_tie_check(
+                    f"mesh-encdec {tag} rank {r} binding", res["binding"],
+                    mine["binding"], mine["kv_heads"])
+            out[tag][f"rank {r}"] = summary
+        tally(tag, ranks[0][arch])
+    for r, rr in sorted(ranks.items()):
+        out["1x2 gloo"] = out.get("1x2 gloo", {})
+        out["1x2 gloo"][f"rank {r}"] = {"wall_s": rr["wall_s"],
+                                        "peak_bytes": rr["peak_bytes"]}
+    del ranks
+    free_cuda()
+    # the seq-sharded reads: flat, then 2 x 1 gloo
+    t0 = time.perf_counter()
+    seq_flat = me_seq_runs(None)
+    out["seq flat wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = M.spawn(mesh_encdec_rank, (2, 1), args=("seq",), backend="gloo",
+                  device="cuda", timeout_s=600)
+    out["seq 2x1 gloo wall_s"] = time.perf_counter() - t0
+    seq_cfgs = {a: get_config(a).replace(dtype="float32", n_repeats=r)
+                for a, (r, _) in ME_SEQ_RUNS.items()}
+    for name, fr in seq_flat.items():
+        cfg = seq_cfgs[name.split()[0]]
+        counts[f"seq {name} flat"] = fr["launches"]
+        check(fr["counts"]["collectives"] == {},
+              f"mesh-encdec seq {name} flat: collectives "
+              f"{fr['counts']['collectives']}")
+        for r, rr in sorted(seq.items()):
+            out[f"seq {name} 2x1 rank {r}"] = me_seq_check(
+                f"mesh-encdec seq {name} 2x1 rank {r}", cfg, rr[name], fr,
+                fr["launches"])
+        counts[f"seq {name} 2x1 gloo"] = seq[0][name]["launches"]
+    for key, sel in (("qwen3-0.6b quest", "paged_decode_selected"),
+                     ("recurrentgemma-9b dense", "paged_decode_starts"),
+                     ("qwen3-0.6b dense", "paged_decode")):
+        check(counts[f"seq {key} 2x1 gloo"].get(sel, 0) > 0,
+              f"mesh-encdec seq {key}: no {sel} launch on the 2 x 1 mesh")
+    print("mesh-encdec: " + json.dumps({"card": card, "runs": out}),
+          flush=True)
+    return counts
+
+
 PHASE_S: dict = {}        # phase group -> seconds, in run order
 _LAP = [0.0]
 
@@ -5954,9 +6596,12 @@ def main() -> int:
     # substrate's selected read)
     fig_kernels = figure_cases()
     free_cuda()
-    # one mesh rank's shapes: the serving mesh's, the mesh-steps', then the
-    # mesh-archs' (the RG-LRU scan on half the channels, granite's gate)
-    mesh_kernels = mesh_cases() + mesh_step_cases() + mesh_arch_cases()
+    # one mesh rank's shapes: the serving mesh's, the mesh-steps', the
+    # mesh-archs' (the RG-LRU scan on half the channels, granite's gate),
+    # then mesh-encdec's seq-sharded reads with their lse (bf16 apart)
+    me_f32, me_bf16 = me_cases()
+    mesh_kernels = (mesh_cases() + mesh_step_cases() + mesh_arch_cases()
+                    + me_f32)
     free_cuda()
     planted = planted_faults([("gate_mlp_bwd", gb_train_run),
                               ("gate_mlp_bwd", gb_sub_run),
@@ -6014,7 +6659,7 @@ def main() -> int:
                    ("gated_flash_bwd G3", fb_g3_80),
                    ("gate_mlp_bwd rg", gb_rg), *dense_kernels,
                    *moe_kernels, *new_kernels, *fig_kernels,
-                   *mesh_kernels):
+                   *mesh_kernels, *me_bf16):
         print(f"kernel {tag}: " + json.dumps(r), flush=True)
     print("planted faults (backward: relative error, limit "
           f"{BWD_REL}; forward: max abs error, limit {TOL['float32']}): "
@@ -6110,6 +6755,12 @@ def main() -> int:
     mesh_counts.update({f"archs {k}": c for k, c in
                         mesh_archs_phase(card).items()})
     lap("mesh-archs")
+    # whisper-medium and qwen2-vl-7b on the mesh (1 x 1 NCCL, 1 x 2 gloo),
+    # and the seq-sharded dense and Quest reads (2 x 1 gloo)
+    free_cuda()
+    mesh_counts.update({f"encdec {k}": c for k, c in
+                        mesh_encdec_phase(card).items()})
+    lap("mesh-encdec")
     # gate-distillation training (this slice's paths)
     free_cuda()
     train_counts, train_stats = train_arch(card, "qwen3-0.6b", steps=4,
@@ -6249,6 +6900,9 @@ def main() -> int:
     mesh_by = {}  # kernel -> its cases at one mesh rank's shapes
     for tag, r in mesh_kernels:
         mesh_by.setdefault(tag.split()[0], []).append(r)
+    mesh_bf16 = {}
+    for tag, r in me_bf16:
+        mesh_bf16.setdefault(tag.split()[0], []).append(r)
 
     def dense_err(name):
         return max(r["max_abs_err"] for by in (dense_by, moe_by, new_by)
@@ -6513,6 +7167,11 @@ def main() -> int:
             entry["max_abs_err"] = max(
                 entry["max_abs_err"],
                 *(r["max_abs_err"] for r in mesh_by[entry["name"]]))
+        if entry["name"] in mesh_bf16:
+            entry["mesh_rank_bf16"] = mesh_bf16[entry["name"]]
+            entry["max_abs_err_bf16"] = max(
+                entry["max_abs_err_bf16"],
+                *(r["max_abs_err"] for r in mesh_bf16[entry["name"]]))
     print("phase seconds: " + json.dumps(PHASE_S))
     print(f"total: {time.perf_counter() - t_start:.1f}s")
     print(card)

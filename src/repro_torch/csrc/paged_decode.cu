@@ -36,11 +36,12 @@
 // window can touch. The first live page is masked below the start.
 // Without starts every line runs as before.
 //
-// The LOG-SUM-EXP (lse non-null, paged_decode only): besides out, one f32
+// The LOG-SUM-EXP (lse non-null, either entry): besides out, one f32
 // per query row, m + log(l) of the read's online softmax (scores already
 // scaled by hd^-1/2), -inf for a row that saw no token (out 0). The
 // context-parallel decode combines the "data" ranks' reads of their
-// blocks of the global cache by it (src/repro_torch/sharding/comm.py::
+// blocks of the global cache (or of the dense buffer, or of the Quest-
+// selected pages each block holds) by it (src/repro_torch/sharding/comm.py::
 // combine_lse); the split combine already holds m and l and writes it.
 //
 // What bounds it on this card: bytes at long caches (each live K/V page is

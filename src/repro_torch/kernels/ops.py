@@ -183,19 +183,39 @@ def dense_window_starts(t, hkv: int, window: int):
     return first[:, None].expand(t.shape[0], hkv).reshape(-1).contiguous()
 
 
-def dense_cache_attention(q, cache, window=None, end=None):
+def dense_cache_attention(q, cache, window=None, end=None, block=None):
     """One query per head over a DenseCache's first ``t`` tokens, read in
     place by the paged-decode kernel as ONE segment; with ``window`` only
     the last ``window`` of them, [t - window, t), through the kernel's
     start offset. ``end`` [B] (default ``t``): the read stops there, the
-    window still ends at ``t``. q: [B, Hq, hd] -> [B, Hq, hd]."""
-    read = cache if end is None else cache._replace(t=end)
-    qf, seg, g = dense_cache_segment(q, read)
-    if window is None:
-        return paged_decode(qf, *seg, group=g).reshape(q.shape)
-    starts = dense_window_starts(cache.t, cache.k.shape[1], window)
-    return paged_decode(qf, *seg, group=g, starts=starts,
-                        span=window).reshape(q.shape)
+    window still ends at ``t``. q: [B, Hq, hd] -> [B, Hq, hd].
+
+    ``block`` (i, n): the buffer's token axis is split over n ranks and
+    ``cache.k`` / ``cache.v`` are this rank's block i of it, tokens
+    [i S, (i + 1) S) for a block of S slots (context-parallel decode;
+    ``t`` stays global). The read's length and window start are clipped
+    to the block, so a block that holds none of a row's keys reads
+    nothing; returns (out, the read's log-sum-exp [B, Hq] f32), for
+    ``sharding.comm.combine_lse``."""
+    end = cache.t if end is None else end
+    starts = None
+    if block is not None:
+        cb = cache.k.shape[2]
+        off = block[0] * cb
+        if window is not None:
+            starts = torch.clamp(torch.clamp(cache.t.to(torch.int32)
+                                             - window, min=0) - off, 0, cb)
+            starts = starts.to(torch.int32)[:, None].expand(
+                cache.t.shape[0], cache.k.shape[1]).reshape(-1).contiguous()
+        end = torch.clamp(end.to(torch.int32) - off, 0, cb).to(torch.int32)
+    elif window is not None:
+        starts = dense_window_starts(cache.t, cache.k.shape[1], window)
+    qf, seg, g = dense_cache_segment(q, cache._replace(t=end))
+    kw = {} if window is None else {"starts": starts, "span": window}
+    if block is None:
+        return paged_decode(qf, *seg, group=g, **kw).reshape(q.shape)
+    out, lse = paged_decode(qf, *seg, group=g, lse=True, **kw)
+    return out.reshape(q.shape), lse.reshape(q.shape[:2])
 
 
 def windowed_causal_attention(q, k, v, window: int):
@@ -221,18 +241,51 @@ def causal_attention(q, k, v):
     return gated_flash_attention(q, k, v, g, w_local=s, eps=1e-6)
 
 
-def dual_cache_selected_attention(q, cache, ids, n_sel):
+def block_page_ids(ids, n_sel, block, pages: int):
+    """The selected pages of a global page list that block ``block`` (i,
+    n) of a seq-sharded global cache holds, as that block's read takes
+    them: ``ids`` [..., K] int32 with the first ``n_sel`` [...] valid, in
+    ascending order (or any order that keeps each block's ids together:
+    the mask mode's), each block ``pages`` pages wide. Returns (local
+    ids [..., min(K, pages)] int32, shifted to the block's first page and
+    moved to the front, their count [...] int32). Every rank of the
+    block's axis took the same global ids, so together the blocks read
+    each selected page once."""
+    lo_id = block[0] * pages
+    k = ids.shape[-1]
+    valid = torch.arange(k, device=ids.device) < n_sel[..., None]
+    before = (valid & (ids < lo_id)).sum(-1, keepdim=True)
+    mine = (valid & (ids >= lo_id) & (ids < lo_id + pages)).sum(-1)
+    kl = min(k, pages)
+    at = torch.clamp(torch.arange(kl, device=ids.device) + before, max=k - 1)
+    local = torch.clamp(torch.gather(ids, -1, at) - lo_id, 0, pages - 1)
+    return local.to(torch.int32), mine.to(torch.int32)
+
+
+def dual_cache_selected_attention(q, cache, ids, n_sel, block=None):
     """:func:`dual_cache_attention` with Quest read-time selection: the
     global segment is read through only the pages ``ids`` [B, Hkv, K]
     int32 (ascending logical page ids per kv head, the first ``n_sel``
     [B, Hkv] valid), the local ring whole, in one softmax. q: [B, Hq, hd]
-    -> [B, Hq, hd]."""
-    qf, first, second, g = dual_cache_segments(q, cache)
+    -> [B, Hq, hd]. With ``block`` (this rank's block of a seq-sharded
+    global axis, whole pages): the ids are the global selection, the same
+    on every rank; the rank reads those its block holds
+    (:func:`block_page_ids`; the ring on block 0 only, as
+    :func:`dual_cache_segments`) and returns (out, the read's
+    log-sum-exp [B, Hq] f32)."""
+    qf, first, second, g = dual_cache_segments(q, cache, block)
+    if block is not None:
+        ids, n_sel = block_page_ids(ids, n_sel, block,
+                                    cache.gk.shape[2] // PAGE_SIZE)
     b, hkv, k = ids.shape
-    return paged_decode_selected(
-        qf, *first, ids.reshape(b * hkv, k).contiguous(),
-        n_sel.reshape(b * hkv).contiguous(), second=second,
-        group=g).reshape(q.shape)
+    args = (qf, *first, ids.reshape(b * hkv, k).contiguous(),
+            n_sel.reshape(b * hkv).contiguous())
+    if block is None:
+        return paged_decode_selected(*args, second=second,
+                                     group=g).reshape(q.shape)
+    out, lse = paged_decode_selected(*args, second=second, group=g,
+                                     lse=True)
+    return out.reshape(q.shape), lse.reshape(q.shape[:2])
 
 
 def rglru_linear_scan(a, b):

@@ -34,12 +34,12 @@ run in parallel and are combined in a fixed order. Both kernels are
 forward-only: on CUDA a query or pool that requires grad (with grad
 enabled) raises rather than yield an output without a graph.
 
-:func:`paged_decode` with ``lse=True`` also returns the read's
-log-sum-exp per query row in f32, ``m + log(l)`` of the online softmax
-(scores scaled by hd^-1/2), and -inf for a row that read no key (whose
-output is 0): the context-parallel decode combines the "data" ranks'
-reads of their blocks of the global cache by it
-(``sharding.comm.combine_lse``).
+:func:`paged_decode` and :func:`paged_decode_selected` with ``lse=True``
+also return the read's log-sum-exp per query row in f32, ``m + log(l)``
+of the online softmax (scores scaled by hd^-1/2), and -inf for a row
+that read no key (whose output is 0): the context-parallel decode
+combines the "data" ranks' reads of their blocks of a seq-sharded cache
+by it (``sharding.comm.combine_lse``).
 
 On the ``meta`` device both return an empty output of the right shape
 and dtype: no plain version runs, no kernel, no check of what the kernel
@@ -210,16 +210,18 @@ def paged_decode_plain(q, k_pool, v_pool, page_table, lengths,
 def paged_decode_selected_plain(q, k_pool, v_pool, page_table, lengths,
                                 sel_ids, n_sel,
                                 second: Optional[Segment] = None, *,
-                                group: int = 1):
+                                group: int = 1, lse: bool = False):
     """As :func:`paged_decode_plain` with the first segment read through
-    ``sel_ids`` [N / group, K] int32 / ``n_sel`` [N / group] int32. At the
-    identity ids (K covering every page) it is bitwise equal to
+    ``sel_ids`` [N / group, K] int32 / ``n_sel`` [N / group] int32 (and,
+    with ``lse``, the log-sum-exp [N] f32 too). At the identity ids (K
+    covering every page) it is bitwise equal to
     :func:`paged_decode_plain`."""
     logits, v = _selected_segment(
         q, k_pool, v_pool, _per_query(page_table, group),
         _per_query(lengths, group), _per_query(sel_ids, group),
         _per_query(n_sel, group))
-    return _combine(q, logits, v, _per_query_segment(second, group))[0]
+    out, l_se = _combine(q, logits, v, _per_query_segment(second, group))
+    return (out, l_se) if lse else out
 
 
 def _check_cuda(q, seg: Segment, tag: str, n: int) -> None:
@@ -324,11 +326,11 @@ def _read_work(q, k_pool, v_pool, page_table, lengths, second=None, *,
 
 
 def _selected_work(q, k_pool, v_pool, page_table, lengths, sel_ids, n_sel,
-                   second=None, *, group=1):
+                   second=None, *, group=1, lse=False):
     return W.paged_decode_selected(
         *q.shape, group, sel_ids.shape[1],
         second[2].shape[1] if second is not None else 0,
-        isz=q.element_size())
+        isz=q.element_size(), lse=lse)
 
 
 @counter.counted(_read_name, _read_work)
@@ -383,17 +385,20 @@ def paged_decode(q, k_pool, v_pool, page_table, lengths,
 @counter.counted("paged_decode_selected", _selected_work)
 def paged_decode_selected(q, k_pool, v_pool, page_table, lengths, sel_ids,
                           n_sel, second: Optional[Segment] = None, *,
-                          group: int = 1):
-    """Quest-selected single-query paged decode -> [N, hd]: the first
-    segment read through only the pages ``sel_ids`` [N / group, K] int32
-    (ascending logical ids) of which the first ``n_sel`` [N / group]
-    int32 are valid; ``second`` read whole."""
+                          group: int = 1, lse: bool = False):
+    """Quest-selected single-query paged decode -> [N, hd] (with
+    ``lse``: (out, log-sum-exp [N] f32), as :func:`paged_decode`'s): the
+    first segment read through only the pages ``sel_ids`` [N / group, K]
+    int32 (ascending logical ids) of which the first ``n_sel`` [N /
+    group] int32 are valid; ``second`` read whole."""
     if q.device.type == "cpu":
         return paged_decode_selected_plain(q, k_pool, v_pool, page_table,
                                            lengths, sel_ids, n_sel, second,
-                                           group=group)
+                                           group=group, lse=lse)
     if q.device.type == "meta":
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        return (out, q.new_empty(q.shape[0], dtype=torch.float32)) if lse \
+            else out
     nkv = _check_launch(q, (k_pool, v_pool, page_table, lengths), second,
                         group)
     for name, t in (("sel_ids", sel_ids), ("n_sel", n_sel)):
@@ -408,12 +413,14 @@ def paged_decode_selected(q, k_pool, v_pool, page_table, lengths, sel_ids,
                          f"{tuple(n_sel.shape)} do not match {nkv} kv "
                          f"streams")
     lib = build.load("paged_decode")
+    l_se = (torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
+            if lse else None)
     out = _launch(lib.paged_decode_selected, q,
                   walk_plan(q, page_table, second, group=group,
                             sel_ids=sel_ids), group,
                   (k_pool.data_ptr(), v_pool.data_ptr(),
                    page_table.data_ptr(), lengths.data_ptr(),
                    page_table.shape[1], sel_ids.data_ptr(), n_sel.data_ptr(),
-                   sel_ids.shape[1]), _second_args(second))
+                   sel_ids.shape[1]), _second_args(second), l_se)
     selected_launches.count += 1
-    return out
+    return (out, l_se) if lse else out

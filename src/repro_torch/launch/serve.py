@@ -25,7 +25,8 @@ telemetry.
 Weights are random, drawn from ``--seed`` with a ``torch.Generator``;
 prompts are drawn with numpy from the same seed. As in the reference, an
 arch without a KV cache (xlstm-350m) and the encoder-decoder
-(whisper-medium) are refused; qwen2-vl-7b serves text only. At startup of
+(whisper-medium) are refused, on a mesh too (before any rank starts);
+qwen2-vl-7b serves text only, on one device or a mesh. At startup of
 the ``wgkv`` backend a short gated forward probes the gate scores
 (:func:`tau_probe`) and warns on stderr when tau sits inside their
 cluster.
@@ -202,6 +203,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         rules.check_mesh_arch(get_config(args.arch))
     except NotImplementedError as e:
         ap.exit(2, f"{ap.prog}: {e}\n")
+    refused = _refusal(get_config(args.arch))
+    if refused:
+        ap.exit(2, f"{ap.prog}: {refused}\n")
     if M.under_torchrun():
         return serve(args, M.from_env(shape, backend=args.dist_backend,
                                       device=args.device))
@@ -222,18 +226,27 @@ def _serve_rank(mesh, argv: List[str]):
     return None
 
 
+def _refusal(cfg) -> Optional[str]:
+    """The reference's message for an arch it does not serve (no KV
+    cache, or the encoder-decoder), else None."""
+    if not cfg.has_attention_cache:
+        return (f"{cfg.name} has no KV cache; engine serves attention "
+                "archs (SSM decode via examples/)")
+    if cfg.is_encdec:
+        return ("enc-dec serving requires audio frontends; see examples/ "
+                "for whisper decode")
+    return None
+
+
 def serve(args, mesh) -> Dict[str, object]:
     """The serve of parsed ``args``, on ``mesh``'s shard or (None) on
     ``args.device``."""
     device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     cfg = cfg.replace(dtype="float32")
-    if not cfg.has_attention_cache:
-        raise SystemExit(f"{args.arch} has no KV cache; engine serves "
-                         "attention archs (SSM decode via examples/)")
-    if cfg.is_encdec:
-        raise SystemExit("enc-dec serving requires audio frontends; see "
-                         "examples/ for whisper decode")
+    refused = _refusal(cfg)
+    if refused:
+        raise SystemExit(refused)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = T.init_model(cfg, gen, device)

@@ -25,10 +25,15 @@ from the spec only where ``rules`` says: the gate sliced by kv heads,
 some "model" splits held whole), and ``fn`` runs the rank's step under
 ``sharding.comm.active``: multi-controller SPMD, every collective
 explicit. On a mesh ``caches`` are the rank's blocks already (a sharded
-prefill's, or ``rules.local_caches`` of a whole tree). The mesh takes
-the archs ``rules.check_mesh_arch`` admits (GQA attention, MoE and RG-LRU
-blocks); the other archs on a mesh and building params already sharded
-wait for ROADMAP Queue 1 items 8b.5 and 8b.6. ``knobs["moe_groups"]`` is
+prefill's, or ``rules.local_caches`` of a whole tree); a seq-sharded
+decode reads the dual caches' global keys or the dense buffers (the
+baseline, ``use_wgkv=False``) by block. Inputs are split as the
+reference's ``_input_shardings`` splits them: by batch rows, M-RoPE
+``positions`` [3, B, S] on dim 1. The mesh takes the archs
+``rules.check_mesh_arch`` admits (GQA attention with M-RoPE or cross
+attention, MoE, RG-LRU and encoder blocks); the xLSTM on a mesh and
+building params already sharded wait for ROADMAP Queue 1 items 8b.5 and
+8b.6. ``knobs["moe_groups"]`` is
 the reference's count over the whole batch; ``models/moe.py`` turns it
 into the rank's own groups (the rows' share) or, when it is not a
 multiple of the rows' ways, routes a group gathered over "data". The
@@ -201,6 +206,8 @@ def make_train_bundle(cfg: ModelConfig, shape: InputShape, knobs, *,
     lr = cosine_schedule(1e-3, 7500)
 
     def _vlm_fix(params, batch):
+        # the VLM stream, from the rank's rows (the table assembled on an
+        # FSDP mesh by ``build_vlm_embeds``)
         batch = dict(batch)
         if cfg.arch_type == "vlm":
             embeds, pos3 = R.build_vlm_embeds(
@@ -296,14 +303,12 @@ def make_decode_bundle(cfg: ModelConfig, shape: InputShape, knobs, *,
             S.decode_cache_structs(cfg, shape, use_wgkv=use_wgkv), mesh,
             cfg, seq_shard=seq_shard)
     if seq_shard:
-        if not use_wgkv:
+        if cfg.is_encdec:
             raise NotImplementedError(
-                f"{shape.name} on this mesh splits the dense baseline's "
-                "token axis over 'data': a seq-sharded dense read waits "
-                "for ROADMAP Queue 1 item 8b.5")
-        first = next(i for i, bt in enumerate(cfg.block_pattern)
-                     if bt in ATTN_BLOCKS)
-        seq = c_sh["blocks"][f"b{first}"].gk[3]
+                f"{cfg.name}: a decode batch narrower than the batch axes "
+                "would split the cross memory's token axis too; the "
+                "reference skips the one shape that has it (long_500k)")
+        seq = _seq_entry(cfg, c_sh)
 
     @torch.no_grad()
     def fn(params, caches, batch):
@@ -314,6 +319,16 @@ def make_decode_bundle(cfg: ModelConfig, shape: InputShape, knobs, *,
 
     return on.bundle(fn, (on.params, caches, inputs), knobs,
                      (on.param_specs, c_sh, in_sh), seq=seq)
+
+
+def _seq_entry(cfg: ModelConfig, c_sh):
+    """The spec entry of a seq-sharded decode cache's token axis: the
+    global keys' (a dual cache's ``gk``) or the dense buffer's (``k``)
+    of the first attention block."""
+    first = next(i for i, bt in enumerate(cfg.block_pattern)
+                 if bt in ATTN_BLOCKS)
+    spec = c_sh["blocks"][f"b{first}"]
+    return (spec.gk if hasattr(spec, "gk") else spec.k)[3]
 
 
 def make_bundle(cfg: ModelConfig, shape: InputShape, *, use_wgkv: bool,

@@ -36,6 +36,12 @@ its plain PyTorch version. The teacher and hard modes, the cross
 attention and the encoder run plain PyTorch (:func:`sdpa`: an einsum and
 a softmax) on either device, as the reference computes them outside any
 Pallas kernel; the cross memory's gate runs in ``gate_mlp``.
+
+On a ``data x model`` mesh (``sharding.comm``) every attention here,
+cross attention and the encoder's included, runs the rank's heads and
+sums its ``w_o`` partial over "model"; the decode reads of a cache whose
+token axis is split over "data" (dual, dense and Quest-selected) read
+the rank's block and combine by log-sum-exp.
 """
 from __future__ import annotations
 
@@ -83,7 +89,9 @@ def init_dense_cache(batch: int, n_kv: int, head_dim: int, max_len: int,
 
 def dense_cache_append(cache: DenseCache, k_new: torch.Tensor,
                        v_new: torch.Tensor,
-                       write: Optional[torch.Tensor] = None) -> DenseCache:
+                       write: Optional[torch.Tensor] = None,
+                       block: Optional[Tuple[int, int]] = None
+                       ) -> DenseCache:
     """k_new, v_new: [B, H, hd] appended at each row's position ``t``:
     one slot per row written into a copy of the buffers (the dual cache's
     functional style). ``write`` [B] bool: the rows whose token is
@@ -91,9 +99,18 @@ def dense_cache_append(cache: DenseCache, k_new: torch.Tensor,
     at capacity, whose write the reference drops). Every row's ``t``
     advances. A write past the buffer fails (an index error on the CPU, a
     device-side assert on CUDA), never drops: the serving engine guards
-    capacity on the host before it dispatches."""
+    capacity on the host before it dispatches. ``block`` (i, n): the
+    buffers are this rank's block i of a token axis split over n ranks
+    (context-parallel decode; ``t`` global): only the rank whose block
+    holds position ``t`` writes it (the last block takes a position past
+    the buffer, and fails)."""
     bar = torch.arange(cache.k.shape[0], device=cache.k.device)
     t = cache.t.long()
+    if block is not None:
+        cb = cache.k.shape[2]
+        t = t - block[0] * cb
+        mine = t >= 0 if block[0] == block[1] - 1 else (t >= 0) & (t < cb)
+        write = mine if write is None else write & mine
     k, v = cache.k.clone(), cache.v.clone()
     k_new, v_new = k_new.to(k.dtype), v_new.to(v.dtype)
     if write is not None:
@@ -390,6 +407,14 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
 
     The two are exclusive, and both need a page-aligned global budget.
 
+    On a seq-sharded cache (``comm.seq_block``: this rank holds block i
+    of the global axis) the rank whose block holds the victim's slot
+    promotes it, every rank reads its block (the ring on block 0 only)
+    and the reads are combined by their log-sum-exp
+    (``comm.combine_lse``). Under selection every rank scores the whole
+    page metadata alike and takes the same global ids, and reads those
+    its block holds (whole pages in each block).
+
     Returns (out [B, D], new cache, g_new [B, Hkv], sel_pages) where
     sel_pages is [B, Hkv] int32 valid selected-page counts of the gather
     mode (None otherwise)."""
@@ -414,33 +439,31 @@ def attn_decode_wgkv(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     new_cache = lazy_promote_and_write(cache, k_new, v_new, g_new,
                                        tau=cfg.wgkv.tau, block=block)
     sel_pages = None
-    if block is not None:
-        if select_pages_k is not None or token_select_fn is not None:
-            raise NotImplementedError(
-                "Quest selection on a seq-sharded cache: the page "
-                "metadata is whole on every rank but the pages are not; "
-                "see ROADMAP Queue 1 item 8b.5")
-        o, lse = ops.dual_cache_attention(q, new_cache, block)
-        o = comm.combine_lse(o, lse)
-    elif select_pages_k is None and token_select_fn is None:
-        o = ops.dual_cache_attention(q, new_cache)               # [B,Hq,hd]
+    if select_pages_k is None and token_select_fn is None:
+        o = ops.dual_cache_attention(q, new_cache, block)        # [B,Hq,hd]
     else:
         if select_pages_k is not None and token_select_fn is not None:
             raise ValueError("mask and gather selection are exclusive")
         c = new_cache.budget
         if c % SEL.PAGE_SIZE:
             raise ValueError(f"Quest selection needs a page-aligned global "
-                             f"budget, got C={c}")
+                             f"budget (each block of a seq-sharded one "
+                             f"page-aligned), got C={c}")
+        # the page metadata is whole on every rank (and advances alike),
+        # so every rank scores every page and takes the same ids
+        pages = new_cache.pkmin.shape[2]
         if select_pages_k is not None:
             meta = SEL.PageMeta(
                 new_cache.pkmin, new_cache.pkmax,
-                SEL.page_valid_from_count(new_cache.gcnt,
-                                          c // SEL.PAGE_SIZE))
+                SEL.page_valid_from_count(new_cache.gcnt, pages))
             ids, sel_pages = SEL.topk_page_ids(q, meta, select_pages_k)
             n_sel = sel_pages
         else:
             ids, n_sel = SEL.page_ids_from_mask(token_select_fn(new_cache, q))
-        o = ops.dual_cache_selected_attention(q, new_cache, ids, n_sel)
+        o = ops.dual_cache_selected_attention(q, new_cache, ids, n_sel,
+                                              block)
+    if block is not None:
+        o = comm.combine_lse(*o)
     y = comm.reduce_model(
         comm.local_q(o.reshape(b, hq * hd)) @ p["w_o"].to(x_t.dtype), "attn")
     return y, new_cache, g_new, sel_pages
@@ -462,7 +485,11 @@ def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     masked row whose window lies wholly at or past ``limit`` reads no key
     and returns 0, the kernels' empty read (the reference's softmax over
     no valid key averages its buffer); such a row's output is dropped.
-    Returns (out [B, D], new cache)."""
+    On a seq-sharded buffer (``comm.seq_block``) the rank whose block
+    holds position ``t`` writes it, every rank reads its block (length
+    and window clipped to it) and the reads are combined by their
+    log-sum-exp; a window may straddle two blocks. Returns (out [B, D],
+    new cache)."""
     b, _ = x_t.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = x_t[:, None, :]
@@ -473,10 +500,17 @@ def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     q, k_pre = q[:, :, 0], k_pre[:, :, 0]
     q = _rope_single(cfg, q, cache.t)
     k_new = _rope_single(cfg, k_pre, cache.t)
+    # context-parallel decode (a seq-sharded buffer): the rank whose
+    # block holds position t writes it, every rank reads its block, and
+    # the reads are combined with the other data ranks'
+    block = comm.seq_block()
     write = None if limit is None else cache.t < limit
-    cache = dense_cache_append(cache, k_new, v_new, write=write)
+    cache = dense_cache_append(cache, k_new, v_new, write=write, block=block)
     end = None if limit is None else torch.minimum(cache.t, limit)
-    o = ops.dense_cache_attention(q, cache, window=window, end=end)
+    o = ops.dense_cache_attention(q, cache, window=window, end=end,
+                                  block=block)
+    if block is not None:
+        o = comm.combine_lse(*o)
     y = comm.reduce_model(
         comm.local_q(o.reshape(b, hq * hd)) @ p["w_o"].to(x_t.dtype), "attn")
     return y, cache
@@ -499,7 +533,11 @@ def build_cross_cache(p: Params, cfg: ModelConfig, enc_out: torch.Tensor,
     keys (no RoPE: the pre- and post-RoPE features are the same keys) and
     only the top-``budget`` admitted tokens are kept, sinks first
     (``select_global``): WG-KV on the cross stream. On CUDA the gate runs
-    in the ``gate_mlp`` kernel."""
+    in the ``gate_mlp`` kernel. On a mesh whose plan splits the kv heads
+    the rank builds its heads' memory (its ``w_k`` / ``w_v`` columns and
+    gate slice; the top-``budget`` choice is per head, so it is the
+    whole memory's for those heads); else every head's. No gradient
+    reaches it (the encoder is frozen), so it takes no autograd seam."""
     b, s, _ = enc_out.shape
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
     k = _heads(enc_out @ p["w_k"].to(enc_out.dtype), hkv, hd)
@@ -520,10 +558,15 @@ def attn_cross(p: Params, cfg: ModelConfig, x: torch.Tensor,
                cc: CrossCache) -> torch.Tensor:
     """x: [B, Sq, D], the decoder stream, attending to the (possibly
     budgeted) encoder memory: plain PyTorch on either device, as the
-    reference computes it outside any Pallas kernel."""
+    reference computes it outside any Pallas kernel. On a mesh the read
+    runs the rank's heads (every q head under "gather_q", over the whole
+    memory) and ``w_o``'s partials are summed over "model", as
+    :func:`attn_train`'s; x enters ``w_q`` through ``copy_to_model`` (in
+    training it carries the gated self-attention's gradient)."""
     b, sq, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)
+    xq = comm.copy_to_model(x, "attn")
+    q = _heads(comm.gather_q(xq @ p["w_q"].to(x.dtype)), hq, hd)
     qg = q.reshape(b, hkv, hq // hkv, sq, hd)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, cc.k).float()
     logits = logits * (hd ** -0.5)
@@ -531,18 +574,19 @@ def attn_cross(p: Params, cfg: ModelConfig, x: torch.Tensor,
                          torch.full_like(logits, M.NEG_INF))
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", w.to(cc.v.dtype), cc.v)
-    return _merge_heads(o.reshape(b, hq, sq, hd)) @ p["w_o"].to(x.dtype)
+    return _out_proj(p, o.reshape(b, hq, sq, hd))
 
 
 def attn_encoder(p: Params, cfg: ModelConfig, x: torch.Tensor
                  ) -> torch.Tensor:
     """Bidirectional encoder self-attention (whisper) through the plain
-    :func:`sdpa`, no mask and no RoPE."""
+    :func:`sdpa`, no mask and no RoPE; on a mesh over the rank's heads as
+    :func:`attn_cross` (the encoder is frozen: no autograd seam)."""
     s = x.shape[1]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _heads(x @ p["w_q"].to(x.dtype), hq, hd)
+    q = _heads(comm.gather_q(x @ p["w_q"].to(x.dtype)), hq, hd)
     k = _heads(x @ p["w_k"].to(x.dtype), hkv, hd)
     v = _heads(x @ p["w_v"].to(x.dtype), hkv, hd)
     zero = torch.zeros((1, 1, 1, 1, s), dtype=torch.float32, device=x.device)
     out = sdpa(q, k, v, lambda qs, ql: zero)
-    return _merge_heads(out) @ p["w_o"].to(x.dtype)
+    return _out_proj(p, out)

@@ -310,10 +310,11 @@ def _quest_mask(cfg: ModelConfig, cache: DualCache, q: torch.Tensor,
     incrementally maintained page metadata. The reference returns the
     token mask ``token_mask_from_pages(mask) & gvalid`` joined with an
     all-visible ring; the port reads the pages themselves. The budget is
-    page-aligned (``attn_decode_wgkv`` checks it)."""
+    page-aligned (``attn_decode_wgkv`` checks it); the page metadata is
+    whole on every rank of a seq-sharded cache, so the mask is too."""
     meta = SEL.PageMeta(cache.pkmin, cache.pkmax,
                         SEL.page_valid_from_count(
-                            cache.gcnt, cache.budget // SEL.PAGE_SIZE))
+                            cache.gcnt, cache.pkmin.shape[2]))
     return SEL.select_pages(q, meta, pages)
 
 

@@ -176,10 +176,14 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
 
 
 def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """GELU in its tanh form, ``jax.nn.gelu``'s default."""
+    """GELU in its tanh form, ``jax.nn.gelu``'s default. On a mesh as
+    :func:`swiglu`: ``w_in`` (with its bias ``b_in``) column-parallel,
+    ``w_out``'s partials summed over "model", then ``b_out`` added once."""
     dt = x.dtype
+    x = comm.copy_to_model(x, "ffn")
     h = F.gelu(x @ p["w_in"].to(dt) + p["b_in"].to(dt), approximate="tanh")
-    return h @ p["w_out"].to(dt) + p["b_out"].to(dt)
+    return comm.reduce_model(h @ p["w_out"].to(dt), "ffn") + \
+        p["b_out"].to(dt)
 
 
 # --------------------------------------------------------------------------

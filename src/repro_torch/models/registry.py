@@ -105,8 +105,10 @@ def build_vlm_embeds(params, cfg: ModelConfig, tokens: torch.Tensor,
     """embeds [B, S, D] with the image patches [B, n_img, D] in the
     leading slots, and positions3 [3, B, S] int32: (t, h, w) = (0, row,
     col) over the vision span, then equal text ids from max(gh, gw) on
-    (Qwen2-VL's M-RoPE scheme)."""
+    (Qwen2-VL's M-RoPE scheme). The token table is read through
+    ``transformer.embed_params``, which assembles it on an FSDP mesh."""
     from repro_torch.models import layers as L
+    from repro_torch.models.transformer import embed_params
 
     b, s = tokens.shape
     n_img = patch_embeds.shape[1]
@@ -115,7 +117,8 @@ def build_vlm_embeds(params, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(f"grid {grid_hw} does not give {n_img} patches "
                          f"within {s} tokens")
     dev = tokens.device
-    emb = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype)).clone()
+    emb = L.embed(embed_params(params), tokens,
+                  torch_dtype(cfg.dtype)).clone()
     emb[:, :n_img] = patch_embeds.to(emb.dtype)
     i32 = dict(dtype=torch.int32, device=dev)
     rows = torch.arange(gh, **i32).repeat_interleave(gw)

@@ -240,16 +240,18 @@ def encode(params: Params, cfg: ModelConfig,
            enc_embeds: torch.Tensor) -> torch.Tensor:
     """The whisper encoder over precomputed (stub) frame embeddings
     [B, S_enc, D]: sinusoidal positions, the encoder blocks, its final
-    norm."""
+    norm. On an FSDP mesh each block's leaves are assembled just before
+    it runs (:func:`gathered_block`), as the decoder's are."""
     s = enc_embeds.shape[1]
     x = enc_embeds + L.sinusoidal_positions(
         s, cfg.d_model, enc_embeds.device)[None].to(enc_embeds.dtype)
     zero = torch.zeros((1, 1), dtype=torch.int32, device=x.device)
-    for lp in unstack(params["enc"]["blocks"]):
+    enc = params["enc"]
+    for lp in unstack(enc["blocks"]):
         for i, bt in enumerate(cfg.enc_block_pattern):
-            x, _ = block_forward(lp[f"b{i}"], cfg, bt, x, zero,
-                                 mode="teacher")
-    return _norm(cfg, params["enc"]["ln_f"], x)
+            x, _ = gathered_block(lp[f"b{i}"], ("enc", "blocks", f"b{i}"),
+                                  True, cfg, bt, x, zero, mode="teacher")
+    return _norm(cfg, comm.gather_params(enc["ln_f"], ("enc", "ln_f")), x)
 
 
 def embed_inputs(params: Params, cfg: ModelConfig,

@@ -135,16 +135,18 @@ def paged_decode(n: int, hd: int, group: int, pages1: int, pages2: int = 0,
 
 
 def paged_decode_selected(n: int, hd: int, group: int, k: int, pages2: int,
-                          *, isz: int = 4,
-                          tokens: Optional[int] = None) -> Work:
+                          *, isz: int = 4, tokens: Optional[int] = None,
+                          lse: bool = False) -> Work:
     """:func:`paged_decode` with segment 1 read through ``k`` selected
     pages per kv stream: the ids, their counts, the table entries they
     select and both segments' lengths read once. ``tokens`` left out:
-    every selected page full and segment 2 whole."""
+    every selected page full and segment 2 whole. ``lse``: the read's
+    log-sum-exp written too, one f32 per query row."""
     nkv = n // group
     if tokens is None:
         tokens = nkv * (k + pages2) * PAGE
     ints = 2 * nkv * k + nkv + 2 * nkv + nkv * pages2
+    ints += n if lse else 0
     return Work(4 * tokens * group * hd,
                 2 * n * hd * isz + 2 * tokens * hd * isz + 4 * ints,
                 F32 if isz == 4 else BF16)

@@ -104,6 +104,12 @@ class ShardedDecodeMixin:
         if mesh is None:
             return params, cfg
         rules.check_mesh_arch(cfg)
+        if cfg.is_encdec:
+            # as the reference's serve: its mesh path is the step bundles
+            raise NotImplementedError(
+                f"{cfg.name}: enc-dec serving requires audio frontends; "
+                "the encoder-decoder runs on a mesh through the step "
+                "bundles (launch/steps.py)")
         coords = mesh.coords
         self.plan = rules.tp_plan(cfg, mesh, coords["model"])
         # the rows and kv heads of the rank's cache blocks: the reference's

@@ -27,8 +27,11 @@ reference's spec, so each rank holds its "data" block of a backbone leaf
 and the model assembles a layer's leaves just before it runs,
 ``sharding.comm.gather_params``). Its "model" entries go leaf by leaf
 on the leaves that carry tensor parallelism: ``w_q`` / ``w_k`` / ``w_v`` column-parallel by whole
-heads, ``w_o`` row-parallel, the dense FFN's ``w_gate`` / ``w_up``
-column-parallel and ``w_down`` row-parallel, the MoE block's expert
+heads, ``w_o`` row-parallel (self attention, whisper's cross attention
+and its encoder alike), the dense FFN's ``w_gate`` / ``w_up``
+column-parallel and ``w_down`` row-parallel, the GELU MLP's ``w_in``
+column-parallel with its bias ``b_in`` and ``w_out`` row-parallel (its
+``b_out`` whole, added once after the sum), the MoE block's expert
 leaves by expert or, where the experts do not divide, by the expert FFN
 width (:func:`moe_split`; the router whole on every rank), and the
 RG-LRU block's leaves by channel, its 1-D leaves too (:func:`rec_split`,
@@ -41,13 +44,19 @@ the row-parallel fallback of q/k/v over d_model. The write gate, which
 the reference replicates, is sliced by the rank's kv heads: the kernel
 picks weights by ``row % H``, so the local slice computes what the whole
 gate computes for those heads. It is never held in "data" blocks, and
-its optimizer state follows it.
+its optimizer state follows it. Two more placements differ from the
+spec the same way: ``b_in`` follows ``w_in``'s columns at every size
+(the reference splits a 1-D leaf only from 4,096, so a rank would
+otherwise add the whole bias to its columns' slice), and the cross
+cache's ``valid`` [B, H, S], which the reference's generic rule keeps
+whole over "model", is sliced by the rank's kv heads as its ``k`` and
+``v`` are.
 
 Under ``seq_shard`` (a decode batch narrower than the batch axes, the
 reference's long_500k) a cache's global token axis (``gk``, ``gv``,
-``gpos``) goes over "data" and the ring stays whole
-(:func:`local_caches`): the context-parallel decode of
-``models/attention.py``.
+``gpos``; the dense baseline's buffer ``k``, ``v``) goes over "data" and
+the ring and the page metadata stay whole (:func:`local_caches`): the
+context-parallel decode of ``models/attention.py``.
 """
 from __future__ import annotations
 
@@ -61,12 +70,14 @@ from repro_torch.tree import tree_map_with_path
 
 Spec = Tuple[Any, ...]
 # the block types the port runs on a mesh: GQA attention (global or
-# windowed) with a dense FFN, with the MoE FFN, and the RG-LRU block; the
-# xLSTM blocks, cross attention and M-RoPE wait for ROADMAP Queue 1 item
-# 8b.5
-MESH_BLOCKS = ("attn", "local_attn", "attn_moe", "rglru")
-# the blocks whose FFN is the dense SwiGLU (``plan.ffn`` splits its d_ff)
-DENSE_FFN_BLOCKS = ("attn", "local_attn", "rglru")
+# windowed) with a dense FFN, with the MoE FFN, the RG-LRU block, and
+# whisper's decoder block (self and cross attention, a GELU MLP) and
+# encoder block; the xLSTM blocks wait for ROADMAP Queue 1 item 8b.5
+MESH_BLOCKS = ("attn", "local_attn", "attn_moe", "rglru", "attn_cross",
+               "enc_attn")
+# the blocks whose FFN is dense, the SwiGLU or the GELU MLP (``plan.ffn``
+# splits its d_ff)
+DENSE_FFN_BLOCKS = ("attn", "local_attn", "rglru", "attn_cross", "enc_attn")
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -431,14 +442,14 @@ class TPPlan:
 def check_mesh_arch(cfg: ModelConfig) -> None:
     """Raises for an arch the port does not run on a mesh yet (serving
     and the step bundles alike)."""
-    blocks = tuple(cfg.stem_pattern) + tuple(cfg.block_pattern)
-    odd = sorted({b for b in blocks if b not in MESH_BLOCKS})
-    if odd or cfg.is_encdec or cfg.mrope:
-        what = odd or (["encoder-decoder"] if cfg.is_encdec else ["M-RoPE"])
+    odd = sorted({b for b in _blocks(cfg) + tuple(cfg.enc_block_pattern)
+                  if b not in MESH_BLOCKS})
+    if odd:
         raise NotImplementedError(
-            f"{cfg.name}: the mesh takes GQA attention, MoE and RG-LRU "
-            f"blocks; {', '.join(what)} on a mesh waits for ROADMAP "
-            "Queue 1 item 8b.5")
+            f"{cfg.name}: the mesh takes GQA attention (M-RoPE and cross "
+            "attention included), MoE, RG-LRU and encoder blocks; "
+            f"{', '.join(odd)} on a mesh waits for ROADMAP Queue 1 item "
+            "8b.5")
 
 
 def _blocks(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -487,7 +498,8 @@ def tp_plan(cfg: ModelConfig, mesh, index: int = 0) -> TPPlan:
     kv_split = _fits(cfg.n_kv_heads, mesh, "model")
     attn = ("split" if q_split and kv_split
             else "gather_q" if q_split else "whole")
-    dense_ffn = any(b in DENSE_FFN_BLOCKS for b in _blocks(cfg))
+    dense_ffn = any(b in DENSE_FFN_BLOCKS
+                    for b in _blocks(cfg) + tuple(cfg.enc_block_pattern))
     return TPPlan(ways=m, index=index, attn=attn,
                   ffn=dense_ffn and _fits(cfg.d_ff, mesh, "model"),
                   n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -517,9 +529,10 @@ def local_config(cfg: ModelConfig, plan: TPPlan) -> ModelConfig:
 
 
 # the leaves the placement splits, and the dim (within the leaf's core)
-# whose "model" entry it follows
+# whose "model" entry it follows (q/k/v/o of self attention, cross
+# attention and the encoder alike; the dense SwiGLU's and the GELU MLP's)
 _TP_LEAVES = {"w_q": 1, "w_k": 1, "w_v": 1, "w_o": 0,
-              "w_gate": 1, "w_up": 1, "w_down": 0}
+              "w_gate": 1, "w_up": 1, "w_down": 0, "w_in": 1, "w_out": 0}
 
 
 def _fsdp_only(spec: Spec) -> Spec:
@@ -563,6 +576,12 @@ def param_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
             out = [e if e == "model" else None for e in spec]
             if len(shape) == lead + 1:
                 out[lead] = "model"
+    elif path[-1] == "b_in":
+        # the GELU MLP's bias goes with w_in's columns whenever those
+        # split (the reference splits a 1-D leaf only from 4,096); b_out
+        # stays whole, added once after the sum
+        if "mlp" in path and tp_plan(cfg, mesh).ffn:
+            out[lead] = "model"
     else:
         dim = _TP_LEAVES.get(path[-1])
         if dim is not None and spec[lead + dim] == "model":
@@ -627,6 +646,9 @@ def held_whole(params: Any, cfg: ModelConfig, mesh, *,
 # per-kv-head cache leaves [B, H] the reference's rule keeps whole over
 # "model" (GSPMD slices them where the heads are split)
 _HEAD_COUNTERS = ("gcnt", "overflow")
+# the cross cache's per-head mask [B, H, S], whole over "model" by the
+# reference's generic rule
+_HEAD_MASKS = ("valid",)
 # an RG-LRU block's recurrent state leaves, [B, dr] and [B, cw - 1, dr]
 _REC_STATES = ("h", "conv")
 
@@ -637,17 +659,20 @@ def cache_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
     (:func:`cache_shardings`), whose "model" entries are the plan's kv
     heads (:func:`tp_plan` and the cache rule both split the kv heads iff
     they divide "model"), and the per-head counters ``gcnt`` /
-    ``overflow`` split with them (a rank's model code counts its own
-    heads); an RG-LRU state by its channels when :func:`rec_split`. Under ``seq_shard`` the global token axis of ``gk`` / ``gv``
-    / ``gpos`` goes over "data" while the ring, ``gcnt``, ``t``, ``ptr``
-    and the page metadata stay whole."""
+    ``overflow`` and the cross cache's ``valid`` split with them (a
+    rank's model code counts and reads its own heads); an RG-LRU state
+    by its channels when :func:`rec_split`. Under ``seq_shard`` the
+    global token axis of ``gk`` / ``gv`` / ``gpos`` (a dense cache's
+    ``k`` / ``v``) goes over "data" while the ring, ``gcnt``, ``t``,
+    ``ptr`` and the page metadata stay whole."""
     spec = list(_cache_leaf_spec(path, shape, mesh, cfg, seq_shard))
     lead = 1 if "blocks" in path else 0
     if path[-1] in _REC_STATES and not rec_split(cfg, mesh):
         # the RG-LRU state follows the plan's channels: whole unless the
         # gate blocks split with them
         spec = [None if e == "model" else e for e in spec]
-    if path[-1] in _HEAD_COUNTERS and len(shape) == lead + 2 \
+    if ((path[-1] in _HEAD_COUNTERS and len(shape) == lead + 2)
+            or (path[-1] in _HEAD_MASKS and len(shape) == lead + 3)) \
             and _fits(cfg.n_kv_heads, mesh, "model"):
         spec[lead + 1] = "model"
     return tuple(spec)

@@ -512,3 +512,127 @@ def test_paged_decode_starts_mask_and_walk():
         <= walk_plan(q, tbl).n_splits
     with pytest.raises(ValueError, match="together"):
         paged_decode(q, kp, vp, tbl, lens, starts=starts)
+
+
+# ==========================================================================
+# the log-sum-exp of the seq-sharded reads
+# ==========================================================================
+def _lse_np(q, k, valid):
+    """log sum exp of the scaled scores q . k / sqrt(hd) over the valid
+    keys of each row; -inf for a row with none."""
+    s = np.einsum("nd,nkd->nk", q.astype(np.float64),
+                  k.astype(np.float64)) * q.shape[1] ** -0.5
+    s = np.where(valid, s, -np.inf)
+    m = s.max(axis=1, keepdims=True)
+    m_safe = np.where(np.isfinite(m), m, 0.0)
+    with np.errstate(divide="ignore"):
+        return (m_safe + np.log(np.exp(s - m_safe).sum(1, keepdims=True))
+                )[:, 0]
+
+
+def _combine_np(parts):
+    """Reads of disjoint key sets [(out [N, hd], lse [N])] joined by their
+    log-sum-exp, as ``comm.combine_lse`` joins the ranks'."""
+    lse = np.stack([p[1] for p in parts])
+    m = lse.max(axis=0)
+    m = np.where(np.isfinite(m), m, 0.0)
+    w = np.where(np.isfinite(lse), np.exp(lse - m), 0.0)
+    num = sum(wi[:, None] * p[0] for wi, p in zip(w, parts))
+    return num / np.maximum(w.sum(0), 1e-30)[:, None]
+
+
+def test_paged_decode_selected_plain_lse_matches_oracle_and_blocks():
+    """``paged_decode_selected_plain(lse=True)``: ``out`` the reference's
+    ``paged_decode_selected_ref``, ``lse`` the log-sum-exp of the selected
+    valid keys' scaled scores (-inf and 0 for a row that selected
+    nothing); two blocks of the pages, each reading the selected ids it
+    holds (``ops.block_page_ids``), joined by lse give the whole read."""
+    from repro_torch.kernels.paged_decode import paged_decode_selected_plain
+    rng = np.random.default_rng(12)
+    n, hd, mp, k = 5, 32, 8, 5
+    kp = rng.standard_normal((n * mp, 16, hd)).astype(np.float32)
+    vp = rng.standard_normal((n * mp, 16, hd)).astype(np.float32)
+    tbl = np.arange(n * mp, dtype=np.int32).reshape(n, mp)
+    lens = np.array([128, 100, 70, 20, 128], np.int32)
+    q = rng.standard_normal((n, hd)).astype(np.float32)
+    ids = np.stack([np.sort(rng.choice(mp, k, replace=False))
+                    for _ in range(n)]).astype(np.int32)
+    n_sel = np.array([5, 3, 4, 2, 0], np.int32)
+    t = [torch.from_numpy(a) for a in (q, kp, vp, tbl, lens, ids, n_sel)]
+    out, lse = paged_decode_selected_plain(*t, lse=True)
+    want = np.asarray(jref.paged_decode_selected_ref(
+        *map(jnp.asarray, (q, kp, vp, tbl, lens, ids, n_sel))))
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-5, rtol=1e-5)
+    pos = ids[:, :, None] * 16 + np.arange(16)
+    keys = kp[np.take_along_axis(tbl, ids, 1)].reshape(n, -1, hd)
+    valid = (pos < lens[:, None, None]) & \
+        (np.arange(k)[None, :, None] < n_sel[:, None, None])
+    np.testing.assert_allclose(lse.numpy(), _lse_np(q, keys,
+                                                    valid.reshape(n, -1)),
+                               atol=1e-5, rtol=1e-5)
+    assert lse[4] == -np.inf and torch.all(out[4] == 0)
+    parts = []
+    for i in range(2):
+        lo = i * mp // 2
+        loc, cnt = tops.block_page_ids(t[5], t[6], (i, 2), mp // 2)
+        o, l_se = paged_decode_selected_plain(
+            t[0], t[1], t[2], t[3][:, lo:lo + mp // 2].contiguous(),
+            torch.clamp(t[4] - lo * 16, 0, mp // 2 * 16), loc, cnt,
+            lse=True)
+        parts.append((o.numpy(), l_se.numpy()))
+    np.testing.assert_allclose(_combine_np(parts), out.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_paged_decode_starts_lse_matches_oracle_and_blocks():
+    """``paged_decode_plain(starts=, span=, lse=True)``: ``out`` the
+    reference's ``paged_decode_ref`` over the window's pages (page-aligned
+    starts), ``lse`` the log-sum-exp of the window's scaled scores; a
+    dense buffer split in two blocks, a window across their edge, each
+    block's read (``ops.dense_cache_attention(block=)``) joined by lse
+    gives the whole windowed read, and a block the window misses reads
+    nothing."""
+    from repro_torch.kernels.paged_decode import paged_decode_plain
+    from repro_torch.models.attention import DenseCache
+    rng = np.random.default_rng(13)
+    n, hd, mp, span = 4, 32, 8, 40
+    kp = rng.standard_normal((n * mp, 16, hd)).astype(np.float32)
+    vp = rng.standard_normal((n * mp, 16, hd)).astype(np.float32)
+    tbl = np.arange(n * mp, dtype=np.int32).reshape(n, mp)
+    lens = np.array([128, 100, 70, 30], np.int32)
+    starts = np.array([32, 48, 16, 0], np.int32)
+    q = rng.standard_normal((n, hd)).astype(np.float32)
+    out, lse = paged_decode_plain(
+        *map(torch.from_numpy, (q, kp, vp, tbl, lens)),
+        starts=torch.from_numpy(starts), span=span, lse=True)
+    ends = np.minimum(lens, starts + span)
+    want = np.stack([np.asarray(jref.paged_decode_ref(
+        jnp.asarray(q[i:i + 1]), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tbl[i:i + 1, starts[i] // 16:]),
+        jnp.asarray(ends[i:i + 1] - starts[i])))[0] for i in range(n)])
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-5, rtol=1e-5)
+    keys = kp[tbl].reshape(n, -1, hd)
+    p = np.arange(mp * 16)[None]
+    valid = (p >= starts[:, None]) & (p < ends[:, None])
+    np.testing.assert_allclose(lse.numpy(), _lse_np(q, keys, valid),
+                               atol=1e-5, rtol=1e-5)
+    # a dense buffer [B 2, Hkv 1, 64, hd], G 2; rows at t 40 and 24 with a
+    # window of 20: [20, 40) straddles the blocks' edge at 32, [4, 24)
+    # lies in block 0 and block 1 reads nothing for it
+    b, s_max, w = 2, 64, 20
+    k = torch.from_numpy(rng.standard_normal((b, 1, s_max, hd))
+                         .astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, 1, s_max, hd))
+                         .astype(np.float32))
+    t = torch.tensor([40, 24], dtype=torch.int32)
+    qq = torch.from_numpy(rng.standard_normal((b, 2, hd)).astype(np.float32))
+    whole = tops.dense_cache_attention(qq, DenseCache(k, v, t), window=w)
+    parts = []
+    for i in range(2):
+        blk = DenseCache(k[:, :, i * 32:(i + 1) * 32].contiguous(),
+                         v[:, :, i * 32:(i + 1) * 32].contiguous(), t)
+        o, l_se = tops.dense_cache_attention(qq, blk, window=w, block=(i, 2))
+        parts.append((o.reshape(-1, hd).numpy(), l_se.reshape(-1).numpy()))
+    assert np.all(parts[1][1][2:] == -np.inf) and np.all(parts[1][0][2:] == 0)
+    np.testing.assert_allclose(_combine_np(parts), whole.reshape(-1, hd),
+                               atol=1e-5, rtol=1e-5)

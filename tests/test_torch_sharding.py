@@ -284,16 +284,26 @@ def test_cache_blocks_are_the_cache_spec_blocks(trees, arch, shape, slots):
 
 
 def test_unsupported_archs_raise_naming_8b(trees):
-    """The mesh admits GQA attention, MoE and RG-LRU archs; the xLSTM
-    blocks, the encoder-decoder and M-RoPE still raise, naming the
-    ROADMAP item."""
-    refused = {"xlstm-350m", "whisper-medium", "qwen2-vl-7b"}
+    """The mesh admits GQA attention (M-RoPE and cross attention
+    included), MoE, RG-LRU and encoder archs; the xLSTM blocks still
+    raise, naming the ROADMAP item. whisper-medium and qwen2-vl-7b plan
+    on the production mesh: heads split (whole for qwen2-vl's 28 q heads
+    at 16 ways), the GELU MLP's d_ff split with its ``b_in``."""
+    refused = {"xlstm-350m"}
     for arch in ARCH_NAMES:
         cfg = trees[arch][2]
         if arch not in refused:
             R.check_mesh_arch(cfg)
             continue
-        with pytest.raises(NotImplementedError, match="8b"):
+        with pytest.raises(NotImplementedError, match="8b.5"):
             R.check_mesh_arch(cfg)
     assert {"granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
-            "recurrentgemma-9b"} <= set(ARCH_NAMES) - refused
+            "recurrentgemma-9b", "whisper-medium",
+            "qwen2-vl-7b"} <= set(ARCH_NAMES) - refused
+    mesh = {"data": 16, "model": 16}
+    wh, vl = trees["whisper-medium"][2], trees["qwen2-vl-7b"][2]
+    assert R.tp_plan(wh, mesh).attn == "split" and R.tp_plan(wh, mesh).ffn
+    assert R.tp_plan(vl, mesh).attn == "whole" and R.tp_plan(vl, mesh).ffn
+    assert R.param_placement(("blocks", "b0", "mlp", "b_in"),
+                             (wh.n_repeats, wh.d_ff), mesh, wh) == \
+        (None, "model")

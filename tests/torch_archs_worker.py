@@ -1,5 +1,6 @@
-"""Rank bodies for ``tests/test_torch_mesh_archs.py`` (torch only: the
-ranks are spawned processes and never import JAX).
+"""Rank bodies for ``tests/test_torch_mesh_archs.py`` and
+``tests/test_torch_mesh_encdec.py`` (torch only: the ranks are spawned
+processes and never import JAX).
 
 :func:`arch_meshes` runs on every rank of one ``gloo`` world on the CPU:
 for each arch and each mesh shape it is given it builds the mesh over
@@ -12,14 +13,23 @@ two drives through the orchestrator: ``wgkv`` with three requests, and
 while the others decode. It returns what the parent compares: losses,
 gate slices and first moments, logits, tokens, cache blocks, each step's
 counts, and the top-k expert ids of every routing the rank did.
+
+:func:`encdec_meshes` runs the same steps for whisper-medium (with its
+encoder frames) and qwen2-vl-7b (with its patches, on a small grid; it
+serves the two drives too), and the seq-sharded decode reads: the dense
+baseline's buffer split over "data" (:func:`seq_dense`) and Quest
+selection over a split global cache (:func:`seq_quest`).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.configs.base import InputShape
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.ops import _identity_tables
+from repro_torch.launch import specs
 from repro_torch.launch.mesh import init_mesh
 from repro_torch.launch.steps import make_bundle
 from repro_torch.models import inference as I
@@ -27,7 +37,7 @@ from repro_torch.models import moe as MoE
 from repro_torch.roofline.counter import WorkCounter
 from repro_torch.serving.backend import make_backend
 from repro_torch.serving.orchestrator import Orchestrator, SchedulerConfig
-from repro_torch.sharding import rules
+from repro_torch.sharding import comm, rules
 from repro_torch.tree import tree_leaves_with_path
 
 S, BATCH = 32, 2
@@ -106,23 +116,31 @@ def knobs(cfg):
     return {"moe_groups": MOE_GROUPS} if cfg.moe is not None else {}
 
 
-def run_steps(mesh, cfg, params, data):
-    """The train, prefill and decode bundles (and the seq-sharded decode
-    where "data" has two ranks)."""
+def run_steps(mesh, cfg, params, data, *, shapes=(TRAIN, PREFILL, DECODE),
+              train=None, prefill=None, seq=True):
+    """The train, prefill and decode bundles of ``shapes`` (and, with
+    ``seq``, the seq-sharded decode where "data" has two ranks). The
+    train and prefill batches (whole tensors) default to ``data``'s
+    tokens."""
+    shape_tr, shape_pre, shape_dec = shapes
+    if train is None:
+        train = {"tokens": data["train_tokens"],
+                 "loss_mask": data["loss_mask"]}
+    if prefill is None:
+        prefill = {"tokens": data["prefill_tokens"]}
     out = {"coords": mesh.coords}
-    tr = make_bundle(cfg, TRAIN, use_wgkv=True, device="cpu",
+    tr = make_bundle(cfg, shape_tr, use_wgkv=True, device="cpu",
                      params=params, mesh=mesh, knob_overrides=knobs(cfg))
-    args = with_inputs(tr, {"tokens": data["train_tokens"],
-                            "loss_mask": data["loss_mask"]}, mesh)
+    args = with_inputs(tr, train, mesh)
     _identity_tables.cache_clear()
     with WorkCounter() as wc:
         state, aux = tr.fn(*args)
     out["train"] = {"aux": {k: float(v) for k, v in aux.items()},
                     "gates": host_tree(state.gates),
                     "m": host_tree(state.opt.m), "counts": counts(wc)}
-    pre = make_bundle(cfg, PREFILL, use_wgkv=True, device="cpu",
+    pre = make_bundle(cfg, shape_pre, use_wgkv=True, device="cpu",
                       params=params, mesh=mesh, knob_overrides=knobs(cfg))
-    args = with_inputs(pre, {"tokens": data["prefill_tokens"]}, mesh)
+    args = with_inputs(pre, prefill, mesh)
     _identity_tables.cache_clear()
     with Routes() as routes:
         with WorkCounter() as wc:
@@ -130,7 +148,7 @@ def run_steps(mesh, cfg, params, data):
         out["prefill"] = {"logits": logits.numpy().copy(),
                           "adm": float(adm), "caches": host_tree(caches),
                           "counts": counts(wc)}
-        dec = make_bundle(cfg, DECODE, use_wgkv=True, device="cpu",
+        dec = make_bundle(cfg, shape_dec, use_wgkv=True, device="cpu",
                           params=params, caches=caches, mesh=mesh,
                           knob_overrides=knobs(cfg))
         token = logits.argmax(-1).to(torch.int32)
@@ -148,7 +166,7 @@ def run_steps(mesh, cfg, params, data):
     out["routes"] = {"ids": routes.ids, "margins": [
         MoE.routing_margin(torch.from_numpy(p), cfg.moe.top_k)
         for p in routes.probs] if cfg.moe is not None else []}
-    if mesh.shape["data"] == 2:
+    if seq and mesh.shape["data"] == 2:
         out["seq"] = seq_decode(mesh, cfg, params, data)
     return out
 
@@ -218,4 +236,163 @@ def arch_meshes(world_mesh, jobs, data):
             out = run_steps(mesh, cfg, params, data)
             out["serve"] = serve(mesh, cfg, params)
             results[(arch, shape)] = out
+    return results
+
+
+# ==========================================================================
+# whisper-medium and qwen2-vl-7b on the mesh, and the seq-sharded dense
+# and Quest reads (tests/test_torch_mesh_encdec.py)
+# ==========================================================================
+# the VLM grid of these runs (the bundles read ``specs.VLM_GRID``): 16
+# patches lead a 32-token stream
+SMALL_GRID = (4, 4)
+# whisper's steps: the decoder prompt is ``dec_max_len`` (64 reduced),
+# the encoder ``seq_len // 2`` = 32 frames, and at a budget fraction of
+# 0.25 the self and cross caches keep 16 (the cross memory 16 of 32)
+W_SEQ = 64
+W_TRAIN = InputShape("train_w", W_SEQ, BATCH, "train")
+W_PREFILL = InputShape("prefill_w", W_SEQ, BATCH, "prefill")
+W_DECODE = InputShape("decode_w", W_SEQ, BATCH, "decode")
+
+
+@contextlib.contextmanager
+def small_vlm_grid():
+    """``specs.VLM_GRID`` / ``VLM_N_IMG`` set to :data:`SMALL_GRID` for
+    the block, restored after."""
+    old = specs.VLM_GRID, specs.VLM_N_IMG
+    specs.VLM_GRID = SMALL_GRID
+    specs.VLM_N_IMG = SMALL_GRID[0] * SMALL_GRID[1]
+    try:
+        yield
+    finally:
+        specs.VLM_GRID, specs.VLM_N_IMG = old
+
+
+def encdec_shapes(cfg):
+    """(train, prefill, decode) shapes of ``cfg``'s steps."""
+    if cfg.is_encdec:
+        return W_TRAIN, W_PREFILL, W_DECODE
+    return TRAIN, PREFILL, DECODE
+
+
+def encdec_batches(cfg, d):
+    """(train batch, prefill batch) of whole tensors from ``d`` (the
+    arch's numpy draws): whisper's tokens and frames, the VLM's tokens
+    and patches (and the zero positions the bundles rebuild)."""
+    t = {k: torch.as_tensor(v) for k, v in d.items()}
+    if cfg.is_encdec:
+        return ({"tokens": t["train_tokens"], "loss_mask": t["loss_mask"],
+                 "enc_embeds": t["train_extra"]},
+                {"tokens": t["prefill_tokens"],
+                 "enc_embeds": t["prefill_extra"]})
+    pos = torch.zeros((3,) + tuple(t["train_tokens"].shape),
+                      dtype=torch.int32)
+    return ({"tokens": t["train_tokens"], "loss_mask": t["loss_mask"],
+             "patch_embeds": t["train_extra"], "positions": pos},
+            {"tokens": t["prefill_tokens"], "patch_embeds": t["prefill_extra"],
+             "positions": pos})
+
+
+def _steps(n, fn, token):
+    """``n`` greedy steps of ``fn(token) -> (logits, caches)``."""
+    steps, caches = [], None
+    for _ in range(n):
+        logits, caches = fn(token)
+        token = logits.argmax(-1).to(torch.int32)
+        steps.append((logits.numpy().copy(), token.numpy().copy()))
+    return steps, caches
+
+
+def seq_dense(mesh, cfg, params, tokens, token, max_len):
+    """One row's dense baseline cache (``prefill(use_wgkv=False)`` of
+    ``tokens`` [1, S] into a buffer of ``max_len``), its token axis split
+    over "data", then the decode bundle's steps on it."""
+    with torch.no_grad():
+        _, flat = I.prefill(params, cfg, tokens, use_wgkv=False,
+                            max_len=max_len)
+    caches = rules.local_caches(flat, cfg, mesh, mesh.coords, seq_shard=True)
+    dec = make_bundle(cfg, DECODE_ONE, use_wgkv=False, device="cpu",
+                      params=params, caches=caches, mesh=mesh)
+    state = {"caches": caches}
+
+    def step(tok):
+        logits, state["caches"] = dec.fn(dec.args[0], state["caches"],
+                                         {"token": tok})
+        return logits, state["caches"]
+    steps, caches = _steps(DECODE_STEPS, step, token)
+    return {"steps": steps, "caches": host_tree(caches)}
+
+
+def seq_quest(mesh, cfg, params, tokens, token, selections):
+    """One row's WG-KV cache (``prefill`` of ``tokens`` [1, S] at budget
+    S), its global axis split over "data", then three decode steps per
+    entry of ``selections`` ({name: DecodeOptions}) under the
+    context-parallel read: the rank's model code under
+    ``comm.active(seq="data")``, as the decode bundle runs it, with the
+    options the bundle does not take."""
+    s = tokens.shape[1]
+    with torch.no_grad():
+        _, flat = I.prefill(params, cfg, tokens, use_wgkv=True,
+                            budget=cfg.wgkv.global_budget(s), max_len=s + 64)
+    caches0 = rules.local_caches(flat, cfg, mesh, mesh.coords,
+                                 seq_shard=True)
+    plan = rules.tp_plan(cfg, mesh, mesh.coords["model"])
+    lcfg = rules.local_config(cfg, plan)
+    lparams = rules.local_params(params, cfg, mesh, mesh.coords)
+    out = {}
+    for name, opts in selections.items():
+        state = {"caches": caches0, "sel": []}
+
+        def step(tok, opts=opts, state=state):
+            with torch.no_grad(), comm.active(mesh, plan, seq="data"):
+                logits, state["caches"], st = I.decode_step(
+                    lparams, lcfg, tok, state["caches"], opts=opts)
+            state["sel"].append(st["selected_pages_rows"].numpy().copy())
+            return logits, state["caches"]
+        steps, caches = _steps(DECODE_STEPS, step, token)
+        out[name] = {"steps": steps, "caches": host_tree(caches),
+                     "sel": state["sel"]}
+    return out
+
+
+def _mesh_over(world_mesh, meshes, shape):
+    shape = tuple(shape)
+    if shape not in meshes:
+        meshes[shape] = world_mesh if shape == (
+            world_mesh.shape["data"], world_mesh.shape["model"]) \
+            else init_mesh(shape, backend="gloo", device="cpu")
+    return meshes[shape]
+
+
+def encdec_meshes(world_mesh, jobs, seq_jobs):
+    """The rank body of tests/test_torch_mesh_encdec.py: for each ``(arch,
+    cfg, params_np, draws, shapes)`` of ``jobs`` :func:`run_steps` on each
+    of ``shapes`` (and for the VLM :func:`serve`); for each ``(name, cfg,
+    params_np, kind, shapes, kw)`` of ``seq_jobs`` :func:`seq_dense` or
+    :func:`seq_quest` (``kind``) on each of ``shapes``."""
+    torch.set_num_threads(1)
+    results, meshes = {}, {}
+    with small_vlm_grid():
+        for arch, cfg, params_np, draws, shapes in jobs:
+            params = params_from_numpy(params_np, cfg, "cpu")
+            train, prefill = encdec_batches(cfg, draws)
+            for shape in shapes:
+                mesh = _mesh_over(world_mesh, meshes, shape)
+                out = run_steps(mesh, cfg, params, None,
+                                shapes=encdec_shapes(cfg), train=train,
+                                prefill=prefill, seq=False)
+                if not cfg.is_encdec:
+                    out["serve"] = serve(mesh, cfg, params)
+                results[(arch, tuple(shape))] = out
+    for name, cfg, params_np, kind, shapes, kw in seq_jobs:
+        params = params_from_numpy(params_np, cfg, "cpu")
+        kw = dict(kw)
+        tokens = torch.as_tensor(kw.pop("tokens"))
+        token = torch.as_tensor(kw.pop("token"))
+        for shape in shapes:
+            mesh = _mesh_over(world_mesh, meshes, shape)
+            fn = seq_dense if kind == "dense" else seq_quest
+            out = fn(mesh, cfg, params, tokens, token, **kw)
+            results[(name, tuple(shape))] = {"coords": mesh.coords,
+                                             "seq": out}
     return results

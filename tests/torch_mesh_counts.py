@@ -30,8 +30,8 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
     ``backend``: "nccl" assembles blocks with all-gathers, "gloo" with
     all-reduces of the whole buffer. ``moe_groups``: the bundle's
     routing groups when a knob override sets them (default
-    ``exec_knobs``'). The mesh archs only (GQA attention, MoE and RG-LRU
-    blocks; WG-KV for the train step).
+    ``exec_knobs``'). The mesh archs only (GQA attention, MoE, RG-LRU,
+    cross attention and encoder blocks; WG-KV for the train step).
 
     * every pass of the model over a layer: under "gather_q" the q heads
       gathered over "model"; the attention's, the dense FFN's, the MoE
@@ -53,8 +53,14 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
       attention layer: the gates under "gather_q", the FFN's and the MoE
       block's x), then the loss terms and the gate gradients over the
       batch rows' axes;
-    * the embedding is gathered once per pass that embeds (and the tied
-      unembedding again), the prefill's mean admission summed once, and a
+    * an encoder-decoder's encoder runs once per forward pass (twice in
+      a train step, never in decode), its blocks' attention and FFN
+      seams and FSDP gathers as a layer's; an ``attn_cross`` block adds
+      its cross attention's seams to its self-attention's, and in the
+      backward the sum of its x's gradient in every layer;
+    * the embedding is gathered once per pass that embeds (once in a
+      VLM's train step, whose stream is embedded before both passes;
+      and the tied unembedding again), the prefill's mean admission summed once, and a
       seq-sharded decode combines each attention layer's read over
       "data" (its log-sum-exp max and the weighted sum)."""
     mesh = R.mesh_shape(mesh)
@@ -87,6 +93,11 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
     if moe_groups is not None:
         knobs["moe_groups"] = moe_groups
     decode = shape.kind == "decode"
+    # an encoder-decoder's decoder runs its ``dec_max_len`` prompt, its
+    # encoder ``s // enc_seq_divisor`` frames
+    enc_tokens = b_loc * s // cfg.enc_seq_divisor if cfg.is_encdec else 0
+    if cfg.is_encdec:
+        s = cfg.dec_max_len
     tokens = b_loc * (1 if decode else s)
     moe_local = knobs["moe_groups"] % row_n == 0
     replicate = decode and R.replicate_params(cfg, mesh)
@@ -107,7 +118,11 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
         axes = [a for e in spec for a in R._axes_of(e) if a != "model"]
         key = axes_key(mesh, tuple(axes))
         parts = path.split("/")
-        if parts[0] in ("blocks", "stem"):
+        if parts[0] == "enc":
+            block = "/".join(parts[:3])           # enc/blocks/bI
+            g = block_gathers.setdefault(block, {})
+            g[key] = g.get(key, 0) + numel * par // leaf.shape[0]
+        elif parts[0] in ("blocks", "stem"):
             block = "/".join(parts[:2])
             per = numel * par // (leaf.shape[0] if parts[0] == "blocks"
                                   else 1)
@@ -129,15 +144,37 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
                            seen_attn))
             seen_attn |= bt in ATTN_BLOCKS
     n_attn = sum(1 for bt, *_ in layers if bt in ATTN_BLOCKS)
+    enc_layers = [(bt, block_gathers.get(f"enc/blocks/b{i}", {}))
+                  for _ in range(cfg.n_enc_repeats)
+                  for i, bt in enumerate(cfg.enc_block_pattern)]
+
+    def attention(n_tok):
+        """One attention's seams over ``n_tok`` tokens: the gathered q
+        heads and the summed ``w_o`` partials."""
+        if plan.attn == "gather_q":
+            gather("model", n_tok * cfg.n_heads * cfg.head_dim * act)
+        if plan.attn != "whole":
+            add("model", "all_reduce", n_tok * d * act)
+
+    def encode():
+        """The encoder's pass (no remat, no gradient): each block's
+        attention and FFN over the frames, and its FSDP gathers."""
+        for _, gathers in enc_layers:
+            attention(enc_tokens)
+            if plan.ffn:
+                add("model", "all_reduce", enc_tokens * d * act)
+            for axes, nbytes in gathers.items():
+                gather(tuple(axes.split("+")), nbytes)
 
     def layer_pass(bt, gathers, recompute=False):
         """One forward pass over a layer (``recompute``: a remat
-        recompute, which stops short of the last sums)."""
+        recompute, which stops short of the last sums; an
+        ``attn_cross`` block's cross attention feeds its FFN's norm, so
+        its sum is recomputed)."""
         if bt in ATTN_BLOCKS:
-            if plan.attn == "gather_q":
-                gather("model", tokens * cfg.n_heads * cfg.head_dim * act)
-            if plan.attn != "whole":
-                add("model", "all_reduce", tokens * d * act)
+            attention(tokens)
+            if bt == "attn_cross":
+                attention(tokens)
         if bt == "rglru" and plan.rec:
             add("model", "all_reduce", tokens * d * act)
         if bt == "attn_moe":
@@ -164,6 +201,8 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
             gather(tuple(key.split("+")), nbytes)
 
     if shape.kind == "train":
+        encode()                                          # the teacher's
+        encode()                                          # the student's
         for bt, gathers, repeated, grad_in in layers:
             layer_pass(bt, gathers)                       # the teacher
             layer_pass(bt, gathers)                       # the student
@@ -172,12 +211,18 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
             if repeated and knobs["remat"] and (grad_in
                                                 or bt in ATTN_BLOCKS):
                 layer_pass(bt, gathers, recompute=True)
+        # a VLM stream is embedded once, before both passes
         embed_pass(False)
-        embed_pass(False)
+        if cfg.arch_type != "vlm":
+            embed_pass(False)
         kv = b_loc * cfg.n_kv_heads * s * cfg.head_dim * act
         for bt, _, _, grad_in in layers:
             if bt in ATTN_BLOCKS:
                 if plan.attn != "whole" and grad_in:
+                    add("model", "all_reduce", tokens * d * act)
+                # the cross attention's x carries the gated
+                # self-attention's gradient in every layer
+                if bt == "attn_cross" and plan.attn != "whole":
                     add("model", "all_reduce", tokens * d * act)
                 if plan.attn == "gather_q":
                     if grad_in:
@@ -204,6 +249,8 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
                     numel *= v
                 add(row_axes, "all_reduce", numel * par)
         return out
+    if shape.kind == "prefill":
+        encode()
     for bt, gathers, _, _ in layers:
         layer_pass(bt, gathers)
     embed_pass(True)
