@@ -146,11 +146,11 @@ recurrentgemma phases):
                 flat, on a 1 x 1 NCCL mesh under both sentinels and on a
                 1 x 2 gloo mesh (20 of 40 experts a rank), and its
                 prefill of 1 x 2,048 (budget 512) and 8 decode steps
-                through the bundles; recurrentgemma-9b (stem + 2
-                repeats) a train step, a prefill of 1 x 2,048 and 8
-                decode steps with its RG-LRU channels split
-                (``rglru_scan`` and its backward on 2,048 channels a
-                rank); qwen3-moe-235b-a22b (1 of 94 repeats, 64 experts
+                through the bundles; recurrentgemma-9b (stem + 1
+                repeat) a prefill of 1 x 2,048 and 8 decode steps with
+                its RG-LRU channels split (``rglru_scan`` on 2,048
+                channels a rank; its 1 x 2 train step was cut for time);
+                qwen3-moe-235b-a22b (1 of 94 repeats, 64 experts
                 a rank) a prefill of 1 x 1,024 and 4 decode steps; each
                 1 x 2 rank held to the flat run with mesh-steps' holds
                 (logits within 1e-4 of their scale); granite's prefill
@@ -163,6 +163,27 @@ recurrentgemma phases):
                 printed; the 16 x 16 dry
                 run's rank-0 records of qwen3-moe-235b-a22b at train_4k
                 and decode_32k printed beside the card's process bytes.
+  mesh-xlstm  — xlstm-350m on the mesh at full width (d 1,024, 4 heads),
+                f32, depth cut to 2 of 12 repeats (printed): the
+                full-parameter train step at 2 x 256 (remat; from AdamW
+                step 749, at the schedule's peak rate; its gradients
+                read from AdamW's moments), a prefill of 1 x 512 and 8
+                greedy decode steps, flat, on a 1 x 1 NCCL mesh, a 1 x 2
+                gloo mesh (2 heads a rank: the mLSTM and the sLSTM split
+                by head, the sLSTM's MLP by its width) and a 2 x 1 gloo
+                mesh (rows and FSDP over "data"); each rank held to the
+                flat run (loss 1e-5 relative; each leaf's gradient, the
+                logits and each state leaf within 1e-4 of their own
+                scale, the mLSTM gate biases' floored at 1e-2 of the
+                largest gradient; each leaf's new value within 1e-4 of
+                AdamW's step on the rank's block with its moments;
+                tokens equal) and its collective bytes
+                to the fake-group meta run's; in the 2 x 1 world also
+                granite-moe-3b-a800m's ``moe_ffn`` at full width on 2 x
+                64 rows in one routing group gathered over "data", its
+                gradients (x, the router, the experts) against the flat
+                ones; the 16 x 16 dry run's rank-0 records of xlstm-350m
+                printed beside the card's process bytes.
 
 Gate-distillation training (run after substrate-ab):
 
@@ -253,7 +274,7 @@ model at a time):
                 through ``build_vlm_embeds``, M-RoPE) + 8 greedy steps:
                 tokens, integer cache leaves and every selection's indices
                 equal, logits within 1e-4.
-  xlstm       — xlstm-350m at full width, depth cut to 12 of 24 blocks
+  xlstm       — xlstm-350m at full width, depth cut to 4 of 24 blocks
                 (d_model 1,024): prefill of 2,048 tokens (chunkwise
                 mLSTM) + 16 steps, a teacher forward over 2,048 tokens,
                 one layer of each block type timed alone, one
@@ -4442,9 +4463,10 @@ def new_archs_reduced():
 
 
 def xlstm_phase(card: str):
-    """xlstm-350m at full width, depth cut to 12 of its 24 blocks (6 x
+    """xlstm-350m at full width, depth cut to 4 of its 24 blocks (2 x
     (mLSTM, sLSTM), d_model 1,024, f32; the sLSTM's Python step a token
-    makes the phase's time scale with depth): prefill of 2,048 tokens (the
+    makes the phase's time scale with depth; mesh-xlstm runs the arch
+    again): prefill of 2,048 tokens (the
     chunkwise mLSTM, four chunks of 512; the sLSTM one Python step per
     token) + 16 greedy decode steps, a teacher forward over 2,048 tokens,
     and one ``lm_train_step`` at 1 x 1,024 (every leaf trains, AdamW).
@@ -4456,7 +4478,7 @@ def xlstm_phase(card: str):
     from repro_torch.models import xlstm as XL
     from repro_torch.models.transformer import layer_params
     from repro_torch.training import trainer as TR
-    cfg, params, init = moe_model("xlstm-350m", 80, repeats=6)
+    cfg, params, init = moe_model("xlstm-350m", 80, repeats=2)
     stats = {"arch": cfg.name, "layers": cfg.n_layers, "card": card,
              "init": init}
     rng = np.random.default_rng(81)
@@ -4908,9 +4930,11 @@ def ms_ints(tree) -> dict:
             if not torch.is_floating_point(x)}
 
 
-def ms_step(fn, *args):
+def ms_step(fn, *args, aten: bool = True):
     """``fn(*args)`` under the work counter, with the launch counters'
-    deltas and the wall: (out, counts, launches, wall s)."""
+    deltas and the wall: (out, counts, launches, wall s). ``aten=False``:
+    the kernels and collectives only (no per-op dispatch mode, which
+    slows a loop of thousands of small ops such as the sLSTM's)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.roofline.counter import WorkCounter
@@ -4921,7 +4945,7 @@ def ms_step(fn, *args):
     # run's)
     ops._identity_tables.cache_clear()
     t0 = time.perf_counter()
-    with WorkCounter() as wc:
+    with WorkCounter(aten=aten) as wc:
         out = fn(*args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -5310,13 +5334,18 @@ def mesh_steps_phase(card: str):
 # --------------------------------------------------------------------------
 # arch -> (repeats kept, weight seed, train spec or None, prefill spec,
 # decode steps); every run of an arch (flat and mesh) at that depth.
-# recurrentgemma-9b keeps two repeats: only an RG-LRU block past the first
-# gate gets a gradient, so one repeat would run no rglru_scan_bwd
+# recurrentgemma-9b keeps one repeat (its 2-block RG-LRU stem, then
+# RG-LRU, RG-LRU, local attention). Its 1 x 2 train step (the split
+# plan's gate training, ``rglru_scan_bwd`` on half the channels), which
+# needed a second repeat for an RG-LRU block past the first gate, was cut
+# for the script's time: mesh-xlstm trains the split plan (every
+# parameter) instead, and phase 3 holds the backward scan at a rank's
+# channels
 MA_RUNS = {
     "granite-moe-3b-a800m": (8, 80, None, ("prefill_2k", 2048, 1, "prefill"),
                              8),
-    "recurrentgemma-9b": (2, 81, ("train_2k", 2048, 1, "train"),
-                          ("prefill_2k", 2048, 1, "prefill"), 8),
+    "recurrentgemma-9b": (1, 81, None, ("prefill_2k", 2048, 1, "prefill"),
+                          8),
     "qwen3-moe-235b-a22b": (1, 82, None, ("prefill_1k", 1024, 1, "prefill"),
                             4),
 }
@@ -5614,10 +5643,10 @@ def mesh_archs_phase(card: str):
     layers served flat, on a 1 x 1 NCCL mesh (both sentinels) and on a 1
     x 2 gloo mesh (20 of 40 experts and 4 of 8 kv heads a rank), and its
     prefill of 1 x 2,048 (budget 512) and 8 decode steps through the
-    bundles; recurrentgemma-9b (its 2-block stem and two repeats) one
-    train step at 1 x 2,048, a prefill of 1 x 2,048 and 8 decode steps,
-    its RG-LRU channels split (2,048 a rank: ``rglru_scan`` and its
-    backward on sharded channels); qwen3-moe-235b-a22b at one of 94
+    bundles; recurrentgemma-9b (its 2-block stem and one repeat) a
+    prefill of 1 x 2,048 and 8 decode steps, its RG-LRU channels split
+    (2,048 a rank: ``rglru_scan`` on sharded channels);
+    qwen3-moe-235b-a22b at one of 94
     repeats (64 of 128 experts a rank) a prefill of 1 x 1,024 and 4
     decode steps; granite's binding-budget prefill (:data:`MA_BINDING`)
     flat and on each rank (:func:`ma_tie_check`). Each mesh run is held
@@ -5753,8 +5782,8 @@ def mesh_archs_phase(card: str):
             out[tag][f"rank {r}"] = summary
         tally(tag, res["ranks"][0])
     rg = counts["recurrentgemma-9b 1x2 gloo"]
-    check(rg.get("rglru_scan", 0) > 0 and rg.get("rglru_scan_bwd", 0) > 0,
-          f"mesh-archs: the RG-LRU kernels did not run on sharded channels: "
+    check(rg.get("rglru_scan", 0) > 0,
+          f"mesh-archs: the RG-LRU scan did not run on sharded channels: "
           f"{rg}")
     for name, rec in recs.items():
         print(f"mesh-archs dryrun 16x16 qwen3-moe-235b-a22b {name} rank 0: "
@@ -5889,6 +5918,8 @@ def sel_lse_case(dtype, seed: int, slots: int = 2, c: int = 1024,
     a, second, gg, blk, loc, cnt = args[1]
     ms = cuda_ms(lambda: paged_decode_selected(*a, second=second, group=gg,
                                                lse=True), 200)
+    device_ms = graph_ms(lambda: paged_decode_selected(
+        *a, second=second, group=gg, lse=True), 50)
     plain_ms = cuda_ms(lambda: paged_decode_selected_plain(
         *a, second=second, group=gg, lse=True), 50)
     # the selected valid tokens block 1 reads, and SDPA over its keys
@@ -5910,8 +5941,9 @@ def sel_lse_case(dtype, seed: int, slots: int = 2, c: int = 1024,
     return {"shape": f"N={slots * hkv * grp} hd={hd} C={c} K={k}: block 1 "
             f"of 2 (C {cb}, no ring) W={w} {dtype} lse",
             "max_abs_err": err, "lse_err": lse_err, "combined_err": comb_err,
-            "empty_reads": empty, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "empty_reads": empty, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
 
 
 def dense_lse_case(dtype, seed: int, window=None, hkv: int = 8,
@@ -5974,6 +6006,8 @@ def dense_lse_case(dtype, seed: int, window=None, hkv: int = 8,
     qf, seg, gg, kw, blk, end = args[1]
     ms = cuda_ms(lambda: paged_decode(qf, *seg, group=gg, lse=True, **kw),
                  200)
+    device_ms = graph_ms(lambda: paged_decode(qf, *seg, group=gg, lse=True,
+                                              **kw), 50)
     plain_ms = cuda_ms(lambda: paged_decode_plain(qf, *seg, group=gg,
                                                   lse=True, **kw), 50)
     pos = torch.arange(cb, device="cuda")
@@ -5989,8 +6023,9 @@ def dense_lse_case(dtype, seed: int, window=None, hkv: int = 8,
     return {"shape": f"N={hkv * grp} hd={hd} {s_max} slots, {what}: block "
             f"1 of 2 ({cb} slots) {dtype} lse",
             "max_abs_err": err, "lse_err": lse_err, "combined_err": comb_err,
-            "empty_reads": empty, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "empty_reads": empty, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
 
 
 def me_cases():
@@ -6386,6 +6421,498 @@ def mesh_encdec_phase(card: str):
     return counts
 
 
+# --------------------------------------------------------------------------
+# mesh-xlstm: xlstm-350m on the mesh (its blocks split by head, the
+# full-parameter train step with FSDP), and an MoE routing group gathered
+# over "data" under a gradient
+# --------------------------------------------------------------------------
+MX_REPEATS = 2                   # of xlstm-350m's 12 (mLSTM, sLSTM)
+# the train step starts from this AdamW step count: it runs at the
+# schedule's peak rate (1e-3 at step 750), where its update (about 2.3e-3
+# an element) shows in the new params
+MX_START_STEP = 749
+# the mLSTM gate biases' gradients are sums over every token that cancel
+# to about a thousandth of the largest gradient, and two runs of the same
+# CPU code put them up to 9.1e-4 of themselves apart: their holds take
+# this share of the largest gradient as their scale's floor
+MX_BIAS_LEAVES = ("b_i", "b_f")
+MX_BIAS_FLOOR = 1e-2
+MX_TRAIN = ("train_256", 256, 2, "train")
+MX_PREFILL = ("prefill_512", 512, 1, "prefill")
+MX_DECODE_STEPS = 8
+MX_MOE = ("granite-moe-3b-a800m", 2, 64)    # arch, rows, tokens a row
+# the MoE cotangent's scale: <y, c>'s gradients within a few hundred times
+# 0.01 lb's, so a load-balance term counted once per rank would show
+MX_MOE_C = 1e-6
+MX_SHAPES = ((1, 2), (2, 1))
+
+
+def mx_model(device):
+    """xlstm-350m at full width (d 1,024, 4 heads), f32, cut to
+    ``MX_REPEATS`` repeats, its weights drawn on ``device`` from seed 90
+    (every rank draws the same)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("xlstm-350m").replace(dtype="float32",
+                                            n_repeats=MX_REPEATS)
+    gen = torch.Generator(device=device).manual_seed(90)
+    return cfg, init_model(cfg, gen, device)
+
+
+def mx_feed(cfg) -> dict:
+    """The train batch (tokens and a loss mask with zeros) and the
+    prefill prompt, drawn on the host from seed 91."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(91)
+    _, s, b, _ = MX_TRAIN
+    mask = np.ones((b, s), np.float32)
+    mask[1, -32:] = 0.0
+    _, sp, bp, _ = MX_PREFILL
+    return {"train": {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, s), dtype=np.int32)).cuda(),
+                      "loss_mask": torch.from_numpy(mask).cuda()},
+            "prefill": {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (bp, sp), dtype=np.int32)).cuda()}}
+
+
+def mx_run(mesh, cfg, params, feed) -> dict:
+    """The train bundle's full-parameter step (``trainer.lm_train_step``
+    on the rank's blocks from AdamW step ``MX_START_STEP``: the blocks
+    before and after it and both AdamW moments, 0.1 g and 0.001 g^2 of
+    the gradient g), a prefill and
+    ``MX_DECODE_STEPS`` greedy decode steps on its states, through
+    ``make_bundle`` (``mesh=None``: the flat bundles); each step's first
+    call counted without aten ops (:func:`ms_step`)."""
+    import torch
+    from repro_torch.launch.steps import make_bundle
+    res = {}
+    tr = make_bundle(cfg, ms_shape(MX_TRAIN), use_wgkv=False, device="cuda",
+                     params=params, mesh=mesh)
+    state, batch = ms_args(tr, mesh, feed["train"])
+    state = state._replace(opt=state.opt._replace(
+        step=torch.tensor(MX_START_STEP, dtype=torch.int32)))
+    (new, aux), cnt, lc, wall = ms_step(tr.fn, state, batch, aten=False)
+    res["train"] = {"loss": float(aux["loss"]),
+                    "old": host_leaves(state.params),
+                    "m": host_leaves(new.opt.m),
+                    "v": host_leaves(new.opt.v),
+                    "params": host_leaves(new.params),
+                    "counts": cnt["collectives"], "launches": lc,
+                    "wall_s": wall}
+    del tr, new, state
+    pre = make_bundle(cfg, ms_shape(MX_PREFILL), use_wgkv=False,
+                      device="cuda", params=params, mesh=mesh)
+    (logits, _, caches), cnt, lc, wall = ms_step(
+        pre.fn, *ms_args(pre, mesh, feed["prefill"]), aten=False)
+    res["prefill"] = {"logits": logits.cpu(), "counts": cnt["collectives"],
+                      "launches": lc, "wall_s": wall}
+    del pre
+    name, s, b, _ = MX_PREFILL
+    dec = make_bundle(cfg, ms_shape(("decode_" + name, s, b, "decode")),
+                      use_wgkv=False, device="cuda", params=params,
+                      caches=caches, mesh=mesh)
+    token = logits.argmax(-1).to(torch.int32)
+    (logits, caches), cnt, lc, _ = ms_step(dec.fn, dec.args[0], caches,
+                                           {"token": token}, aten=False)
+    res["decode_counts"], res["decode_launches"] = cnt["collectives"], lc
+    token = logits.argmax(-1).to(torch.int32)
+    steps = [(logits.cpu(), token.cpu())]
+    t0 = time.perf_counter()
+    for _ in range(MX_DECODE_STEPS - 1):
+        logits, caches = dec.fn(dec.args[0], caches, {"token": token})
+        token = logits.argmax(-1).to(torch.int32)
+        steps.append((logits.cpu(), token.cpu()))
+    res["decode"] = {"steps": steps, "states": host_leaves(caches),
+                     "ms_per_step": (time.perf_counter() - t0) * 1e3
+                     / (MX_DECODE_STEPS - 1)}
+    return res
+
+
+def mx_moe_inputs(cfg):
+    """Block 0's MoE leaves of ``MX_MOE``'s arch at full width (seed 92 on
+    the card), x [rows, tokens, D] and the cotangent (host-drawn, seed
+    93)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.moe import init_moe
+    _, rows, s = MX_MOE
+    p = init_moe(torch.Generator(device="cuda").manual_seed(92), cfg,
+                 "cuda")
+    rng = np.random.default_rng(93)
+    x = rng.standard_normal((rows, s, cfg.d_model)).astype(np.float32)
+    c = (MX_MOE_C * rng.standard_normal(x.shape)).astype(np.float32)
+    return p, torch.from_numpy(x).cuda(), torch.from_numpy(c).cuda()
+
+
+def mx_moe_grad(mesh, cfg) -> dict:
+    """The gradients of ``<y, c> + 0.01 lb`` through ``moe_ffn(groups=1)``
+    (one routing group over every row) with respect to x and the MoE
+    leaves: flat (``mesh`` None), or on a mesh whose "data" ranks each
+    hold one row, where the group is gathered over "data" (the rank's
+    rows of x's gradient, the leaves' summed over "data")."""
+    import torch
+    from repro_torch.models import moe as MoE
+    from repro_torch.sharding import comm, rules
+    p, x, c = mx_moe_inputs(cfg)
+    p = {k: v.requires_grad_() for k, v in p.items()}
+    rows = slice(0, x.shape[0])
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        rows = rules.block(x.shape[0], "data", mesh.coords, mesh)
+        ctx = comm.active(mesh, rules.tp_plan(cfg, mesh, 0), rows="data")
+    xl = x[rows].clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ctx, torch.enable_grad():
+        y, aux = MoE.moe_ffn(p, cfg, xl, groups=1)
+        dot = comm.sum_rows((y * c[rows]).sum()[None])[0] \
+            if mesh is not None else (y * c).sum()
+        grads = torch.autograd.grad(dot + 0.01 * aux["lb_loss"],
+                                    [xl] + list(p.values()))
+        out = {"x": grads[0].cpu().numpy()}
+        for k, g in zip(p, grads[1:]):
+            if mesh is not None:
+                comm.all_reduce(g, mesh, "data")
+            out[k] = g.cpu().numpy()
+        if mesh is None:
+            lb_router = torch.autograd.grad(
+                0.01 * MoE.moe_ffn(p, cfg, x, groups=1)[1]["lb_loss"],
+                [p["router"]])[0]
+            out["lb_share"] = float(lb_router.abs().max()
+                                    / abs(out["router"]).max())
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _mx_err(got, want, scale=None) -> float:
+    """Max |got - want| over ``scale`` (default max |want|; arrays; the
+    difference itself for a scale of 0)."""
+    import numpy as np
+    d = float(np.abs(got.astype(np.float64) - want).max())
+    s = float(np.abs(want).max()) if scale is None else scale
+    return d / s if s > 0 else d
+
+
+def mx_adamw(old, m, v):
+    """AdamW's step from ``MX_START_STEP`` on the blocks ``old`` with the
+    moments ``m`` and ``v`` after it (numpy), in f64: the formula of
+    ``training/optimizer.py`` at the train bundle's schedule."""
+    import numpy as np
+    from repro_torch.training.optimizer import cosine_schedule
+    step = MX_START_STEP + 1
+    lr = float(cosine_schedule(1e-3, 7500)(step))
+    b1t, b2t = 1.0 - 0.9 ** step, 1.0 - 0.999 ** step
+    old = old.astype(np.float64)
+    return old - lr * ((m / b1t) / (np.sqrt(v / b2t) + 1e-8) + 0.01 * old)
+
+
+def mx_compare(tag, cfg, shape, res, flat) -> dict:
+    """One mesh run (:func:`mx_run`, the rank at ``res["coords"]``) held
+    to the flat run: the loss within 1e-5 relative; the gradient, read
+    as AdamW's first moment (0.1 g) and the root of its second
+    (0.0316 |g|), the rank's block of each leaf (``rules.local_params``'
+    FSDP placement) within 1e-4 of that leaf's own largest magnitude
+    (the mLSTM gate biases' scale at least ``MX_BIAS_FLOOR`` of the
+    largest gradient: see ``MX_BIAS_LEAVES``); each leaf's new value
+    within 1e-4 of its scale of AdamW's step on the rank's block with
+    those moments (:func:`mx_adamw`: at a rate where the update shows,
+    AdamW's step of an element whose gradient lies within rounding of 0
+    is not fixed by a gradient held to 1e-4), the update above 1e-3;
+    logits within 1e-4 of their scale; greedy tokens equal; each state
+    leaf's block (``rules.cache_placement``) within 1e-4 of its scale.
+    Returns the errors."""
+    import numpy as np
+    import torch
+    from repro_torch.sharding import rules
+    mesh = {"data": shape[0], "model": shape[1]}
+    coords = res["coords"]
+    f_tr, m_tr = flat["train"], res["train"]
+    rel = abs(m_tr["loss"] - f_tr["loss"]) / abs(f_tr["loss"])
+    check(rel <= 1e-5, f"{tag}: loss {m_tr['loss']} vs flat "
+          f"{f_tr['loss']} ({rel:.2e} relative)")
+    errs = {}
+    for part, fn in (("m", lambda x: x), ("v", np.sqrt)):
+        check(set(m_tr[part]) == set(f_tr[part]), f"{tag}: {part} leaves")
+        top = max(float(np.abs(fn(w)).max()) for w in f_tr[part].values())
+        worst = (0.0, "")
+        for path, want in f_tr[part].items():
+            spec = rules.param_placement(path, want.shape, mesh, cfg,
+                                         replicate_fsdp=False)
+            blk = fn(rules.local_shard(torch.from_numpy(want), spec, coords,
+                                       mesh, rules.gate_parts(path, cfg))
+                     .numpy())
+            got = m_tr[part][path]
+            key = "/".join(path)
+            check(got.shape == blk.shape,
+                  f"{tag}: {part} {key} shape {got.shape}")
+            scale = float(np.abs(blk).max())
+            if path[-1] in MX_BIAS_LEAVES:
+                scale = max(scale, MX_BIAS_FLOOR * top)
+            worst = max(worst, (_mx_err(fn(got), blk, scale), key))
+        check(worst[0] <= 1e-4, f"{tag}: {part} {worst[1]} differs by "
+              f"{worst[0]:.3e} of its scale")
+        errs[part] = worst
+    worst, least = (0.0, ""), (float("inf"), "")
+    for path, old in m_tr["old"].items():
+        want = mx_adamw(old, m_tr["m"][path], m_tr["v"][path])
+        key = "/".join(path)
+        least = min(least, (float(np.abs(want - old).max()), key))
+        worst = max(worst, (_mx_err(m_tr["params"][path], want), key))
+    check(worst[0] <= 1e-4, f"{tag}: params {worst[1]} differ from AdamW's "
+          f"step by {worst[0]:.3e} of their scale")
+    check(least[0] > 1e-3, f"{tag}: params {least[1]}: AdamW's update "
+          f"{least[0]:.3e} does not show")
+    errs["params"], errs["least_update"] = worst, least
+    rows = rules.block(flat["prefill"]["logits"].shape[0],
+                       rules.tokens_spec(mesh, flat["prefill"]["logits"]
+                                         .shape[0], 0)[0], coords, mesh)
+    lg = [(res["prefill"]["logits"], flat["prefill"]["logits"][rows])]
+    for (l, t), (fl, ft) in zip(res["decode"]["steps"],
+                                flat["decode"]["steps"]):
+        check(torch.equal(t, ft[rows]), f"{tag}: greedy tokens "
+              f"{t.tolist()} != flat {ft[rows].tolist()}")
+        lg.append((l, fl[rows]))
+    scale = max(float(w.abs().max()) for _, w in lg)
+    lg_err = max(float((g - w).abs().max()) for g, w in lg)
+    check(lg_err <= 1e-4 * scale, f"{tag}: logits differ by {lg_err:.3e} "
+          f"(scale {scale:.3g})")
+    st = (0.0, "")
+    for path, want in flat["decode"]["states"].items():
+        spec = rules.cache_placement(path, want.shape, mesh, cfg)
+        blk = rules.local_shard(torch.from_numpy(want), spec, coords,
+                                mesh).numpy()
+        got = res["decode"]["states"][path]
+        key = "/".join(path)
+        if np.issubdtype(want.dtype, np.floating):
+            st = max(st, (_mx_err(got, blk), key))
+        else:
+            check(np.array_equal(got, blk), f"{tag}: state {key} differs")
+    check(st[0] <= 1e-4, f"{tag}: state {st[1]} differs by {st[0]:.3e}")
+    for kind, cnt in (("train", m_tr), ("prefill", res["prefill"])):
+        check(cnt["launches"] == {}, f"{tag}: {kind} launched "
+              f"{cnt['launches']}: the xLSTM runs no kernel")
+    return {"loss_rel_err": rel, "grad_err": errs["m"],
+            "grad_sq_err": errs["v"], "param_err": errs["params"],
+            "least_update": errs["least_update"], "logit_err": lg_err,
+            "logit_scale": scale, "state_err": st,
+            "train_wall_s": m_tr["wall_s"],
+            "prefill_wall_s": res["prefill"]["wall_s"],
+            "decode_ms_per_step": res["decode"]["ms_per_step"],
+            "collective_bytes": {"train": m_tr["counts"],
+                                 "prefill": res["prefill"]["counts"],
+                                 "decode": res["decode_counts"]}}
+
+
+def mx_moe_compare(tag, cfg, res, flat, coords) -> dict:
+    """The rank's MoE gradients (:func:`mx_moe_grad`) held to the flat
+    ones within 1e-4 of each gradient's largest magnitude: x's for its
+    rows, the leaves' summed over "data"."""
+    errs = {}
+    for key, want in flat.items():
+        if key in ("lb_share", "wall_s"):
+            continue
+        if key == "x":
+            want = want[coords["data"]:coords["data"] + 1]
+        errs[key] = _mx_err(res[key], want)
+        check(errs[key] <= 1e-4, f"{tag}: the gradient of {key} differs "
+              f"by {errs[key]:.3e} of its scale")
+    return {"errs": errs, "wall_s": res["wall_s"]}
+
+
+def mesh_xlstm_rank(mesh, flat_path: str):
+    """One rank of a gloo world on the one card: its blocks of
+    xlstm-350m (the whole model drawn first), :func:`mx_run`, held here
+    to the flat run saved at ``flat_path`` (:func:`mx_compare`; only the
+    errors travel back); on a mesh with "data" 2 also the MoE routing
+    group gathered over "data" (:func:`mx_moe_grad`)."""
+    import torch
+    from repro_torch.configs import get_config
+    flat = torch.load(flat_path, weights_only=False)
+    cfg, params = mx_model(mesh.device)
+    t0 = time.perf_counter()
+    res = mx_run(mesh, cfg, params, mx_feed(cfg))
+    res["coords"] = mesh.coords
+    shape = (mesh.shape["data"], mesh.shape["model"])
+    tag = f"mesh-xlstm {shape[0]}x{shape[1]} rank {mesh.rank}"
+    out = mx_compare(tag, cfg, shape, res, flat["xlstm"])
+    del params, res
+    if shape[0] == 2:
+        mcfg = get_config(MX_MOE[0]).replace(dtype="float32")
+        out["moe"] = mx_moe_compare(f"{tag} moe", mcfg,
+                                    mx_moe_grad(mesh, mcfg), flat["moe"],
+                                    mesh.coords)
+    out["coords"] = mesh.coords
+    out["wall_s"] = time.perf_counter() - t0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mx_meta(cfg, shape, backend) -> dict:
+    """Rank (0, 0)'s collective bytes of the phase's bundles on ``meta``
+    over a fake group standing for ``backend``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.steps import make_bundle
+    from repro_torch.roofline.counter import WorkCounter
+    out = {}
+    with M.fake_mesh(shape, backend=backend) as mesh:
+        res = None
+        for tag, spec in (("train", MX_TRAIN), ("prefill", MX_PREFILL)):
+            b = make_bundle(cfg, ms_shape(spec), use_wgkv=False, mesh=mesh)
+            ops._identity_tables.cache_clear()
+            with WorkCounter(aten=False) as wc:
+                res = b.fn(*b.args)
+            out[tag] = dict(wc.record()["collective_bytes_by_axis"])
+        name, s, bb, _ = MX_PREFILL
+        d = make_bundle(cfg, ms_shape(("decode_" + name, s, bb, "decode")),
+                        use_wgkv=False, caches=res[2], mesh=mesh)
+        with WorkCounter(aten=False) as wc:
+            d.fn(*d.args)
+        out["decode"] = dict(wc.record()["collective_bytes_by_axis"])
+    return out
+
+
+def mx_host_runs(cfg) -> tuple:
+    """The phase's runs on ``meta``: the 16 x 16 dry run's rank-0 records
+    of xlstm-350m (every layer) at the shapes it applies to, and rank
+    (0, 0)'s collective bytes of the phase's bundles on each mesh."""
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    recs = {name: D.run_dryrun("xlstm-350m", name, mesh="single")
+            for name in ("train_4k", "prefill_32k", "decode_32k",
+                         "long_500k")}
+    recs["host_s"] = time.perf_counter() - t0
+    meta = {(1, 1): mx_meta(cfg, (1, 1), "nccl")}
+    for shape in MX_SHAPES:
+        meta[shape] = mx_meta(cfg, shape, "gloo")
+    return recs, meta
+
+
+def mesh_xlstm_phase(card: str):
+    """xlstm-350m on a ``data x model`` mesh at full width (d 1,024, 4
+    heads), f32, depth cut to ``MX_REPEATS`` of 12 repeats (printed): the
+    full-parameter train step at 2 x 256 (remat; from AdamW step
+    ``MX_START_STEP``; its gradients read from AdamW's moments), a prefill of 1 x 512 and 8 greedy decode steps on its
+    states, flat, on a 1 x 1 NCCL mesh (in this process), a 1 x 2 gloo
+    mesh (2 heads a rank: the mLSTM and sLSTM split by head, the sLSTM's
+    MLP by its width) and a 2 x 1 gloo mesh (rows and FSDP over "data"),
+    each held to the flat run (:func:`mx_compare`) and its collective
+    bytes to the fake-group meta run's; in the 2 x 1 world also
+    granite-moe-3b-a800m's ``moe_ffn`` at full width over 2 x 64 rows in
+    one routing group gathered over "data", under a gradient, against
+    the flat gradient (:func:`mx_moe_compare`). Then the 16 x 16 dry
+    run's rank-0 records of xlstm-350m, each peak below the card's
+    process bytes. No kernel runs on these paths; returns each run's
+    launches (all empty)."""
+    import socket
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.roofline import analysis as RA
+    cfg, params = mx_model("cuda")
+    whole = get_config("xlstm-350m")
+    print("mesh-xlstm depth: " + json.dumps(
+        {"n_layers": cfg.n_layers, "of": whole.n_layers,
+         "repeats": cfg.n_repeats, "d_model": cfg.d_model,
+         "n_heads": cfg.n_heads, "train": MX_TRAIN, "prefill": MX_PREFILL,
+         "decode_steps": MX_DECODE_STEPS}), flush=True)
+    out, counts = {}, {}
+    t0 = time.perf_counter()
+    feed = mx_feed(cfg)
+    flat = mx_run(None, cfg, params, feed)
+    out["flat"] = {"wall_s": time.perf_counter() - t0,
+                   "train_wall_s": flat["train"]["wall_s"],
+                   "prefill_wall_s": flat["prefill"]["wall_s"],
+                   "decode_ms_per_step": flat["decode"]["ms_per_step"]}
+    counts["flat"] = flat["train"]["launches"]
+    del flat["train"]["old"]      # each rank reads its own blocks' start
+    check(flat["train"]["counts"] == {},
+          "mesh-xlstm flat: collectives counted")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = M.init_mesh((1, 1), backend="nccl", device="cuda")
+        one = mx_run(mesh, cfg, params, feed)
+        one["coords"] = mesh.coords
+    finally:
+        dist.destroy_process_group()
+    del params
+    free_cuda()
+    mcfg = get_config(MX_MOE[0]).replace(dtype="float32")
+    moe_flat = mx_moe_grad(None, mcfg)
+    free_cuda()
+    out["1x1 nccl"] = mx_compare("mesh-xlstm 1x1 nccl", cfg, (1, 1), one,
+                                 flat)
+    out["1x1 nccl"]["wall_s"] = time.perf_counter() - t0
+    del one
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "flat.pt")
+        torch.save({"xlstm": flat, "moe": moe_flat}, path)
+        # the host runs and both gloo worlds side by side: the ranks are
+        # host-bound and share the card
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1 + len(MX_SHAPES)) as pool:
+            host = pool.submit(mx_host_runs, cfg)
+            worlds = {shape: pool.submit(M.spawn, mesh_xlstm_rank, shape,
+                                         args=(path,), backend="gloo",
+                                         device="cuda", timeout_s=600)
+                      for shape in MX_SHAPES}
+            ranks = {shape: w.result() for shape, w in worlds.items()}
+            recs, meta = host.result()
+        out["gloo worlds wall_s"] = time.perf_counter() - t0
+    out["dryrun_host_s"] = recs.pop("host_s")
+    want = meta[(1, 1)]
+    got = out["1x1 nccl"]["collective_bytes"]
+    check(got == want, f"mesh-xlstm 1x1 nccl: collective bytes {got} != "
+          f"the meta run's {want}")
+    for shape, rr in ranks.items():
+        tag = f"{shape[0]}x{shape[1]} gloo"
+        for r, res in sorted(rr.items()):
+            check(res["collective_bytes"] == meta[shape],
+                  f"mesh-xlstm {tag} rank {r}: collective bytes "
+                  f"{res['collective_bytes']} != the meta run's "
+                  f"{meta[shape]}")
+            out[f"{tag} rank {r}"] = res
+        counts[tag] = {}
+    check(all("model" in v for v in meta[(1, 2)].values()),
+          f"mesh-xlstm 1x2: no collective over \"model\": {meta[(1, 2)]}")
+    check("data" in meta[(2, 1)]["train"],
+          f"mesh-xlstm 2x1: no FSDP collective: {meta[(2, 1)]}")
+    out["moe flat"] = {"lb_share": moe_flat["lb_share"],
+                       "wall_s": moe_flat["wall_s"]}
+    for name, rec in recs.items():
+        if rec.get("skipped"):
+            print(f"mesh-xlstm dryrun 16x16 xlstm-350m {name}: skipped "
+                  f"({rec['reason']})", flush=True)
+            continue
+        check(rec["memory"]["peak_bytes"] < RA.H100_PROCESS_BYTES,
+              f"mesh-xlstm dryrun 16x16 {name}: peak "
+              f"{rec['memory']['peak_bytes']} over the card's process bytes")
+        print(f"mesh-xlstm dryrun 16x16 xlstm-350m {name} rank 0: "
+              + json.dumps({k: rec.get(k) for k in (
+                  "knobs", "memory", "collectives", "compute_s", "memory_s",
+                  "collective_s", "bottleneck", "slstm_hidden_flops")}
+                  | {"flops": rec["cost"]["flops"],
+                     "bytes": rec["cost"]["bytes"],
+                     "h100_process_bytes": RA.H100_PROCESS_BYTES,
+                     "peak_over_h100_process_bytes":
+                         rec["memory"]["peak_bytes"] / RA.H100_PROCESS_BYTES}),
+              flush=True)
+    print("mesh-xlstm: " + json.dumps({"card": card, "runs": out},
+                                       default=str), flush=True)
+    return counts
+
+
 PHASE_S: dict = {}        # phase group -> seconds, in run order
 _LAP = [0.0]
 
@@ -6761,6 +7288,13 @@ def main() -> int:
     mesh_counts.update({f"encdec {k}": c for k, c in
                         mesh_encdec_phase(card).items()})
     lap("mesh-encdec")
+    # xlstm-350m on the mesh (1 x 1 NCCL, 1 x 2 and 2 x 1 gloo), its
+    # full-parameter train step, and an MoE routing group gathered over
+    # "data" under a gradient
+    free_cuda()
+    mesh_counts.update({f"xlstm {k}": c for k, c in
+                        mesh_xlstm_phase(card).items()})
+    lap("mesh-xlstm")
     # gate-distillation training (this slice's paths)
     free_cuda()
     train_counts, train_stats = train_arch(card, "qwen3-0.6b", steps=4,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.sharding import comm
 
 
 def _specials(vocab: int):
@@ -135,11 +136,18 @@ class DistillStream:
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
             loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Next-token cross entropy."""
+    """Next-token cross entropy. On a mesh (``sharding.comm.active``) the
+    mean over every rank's rows: the rank's summed loss and its count are
+    added over the axes the rows are split over (``comm.sum_rows``)."""
     lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     tgt = tokens[:, 1:].long()
     nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
+    if loss_mask is None and comm.ACTIVE is None:
+        return nll.mean()
     if loss_mask is not None:
         m = loss_mask[:, 1:]
-        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
-    return nll.mean()
+        num, den = (nll * m).sum(), m.sum().to(nll.dtype)
+    else:
+        num, den = nll.sum(), nll.new_tensor(float(nll.numel()))
+    tot = comm.sum_rows(torch.stack([num, den]))
+    return tot[0] / torch.clamp(tot[1], min=1.0)

@@ -196,7 +196,19 @@ def dense_cache_attention(q, cache, window=None, end=None, block=None):
     ``t`` stays global). The read's length and window start are clipped
     to the block, so a block that holds none of a row's keys reads
     nothing; returns (out, the read's log-sum-exp [B, Hq] f32), for
-    ``sharding.comm.combine_lse``."""
+    ``sharding.comm.combine_lse``.
+
+    With ``window`` and ``end`` (the ragged scan's buffer limit, at most
+    ``t``), a row whose window lies wholly at or past ``end`` reads what
+    the reference's softmax over no valid key gives: the mean of V over
+    its first ``end`` entries (:func:`_empty_window_mean`; on a block its
+    share, weighted by count in the combine)."""
+    empty = None
+    if window is not None and end is not None:
+        # a row whose window lies wholly at or past ``end`` reads no key
+        empty = torch.clamp(cache.t.to(torch.int32) - window, min=0) >= \
+            end.to(torch.int32)
+    limit = end
     end = cache.t if end is None else end
     starts = None
     if block is not None:
@@ -213,9 +225,41 @@ def dense_cache_attention(q, cache, window=None, end=None, block=None):
     qf, seg, g = dense_cache_segment(q, cache._replace(t=end))
     kw = {} if window is None else {"starts": starts, "span": window}
     if block is None:
-        return paged_decode(qf, *seg, group=g, **kw).reshape(q.shape)
+        out = paged_decode(qf, *seg, group=g, **kw).reshape(q.shape)
+        if empty is None:
+            return out
+        return _empty_window_mean(out, None, cache, limit, empty, g)
     out, lse = paged_decode(qf, *seg, group=g, lse=True, **kw)
-    return out.reshape(q.shape), lse.reshape(q.shape[:2])
+    out, lse = out.reshape(q.shape), lse.reshape(q.shape[:2])
+    if empty is None:
+        return out, lse
+    return _empty_window_mean(out, lse, cache, end, empty, g)
+
+
+def _empty_window_mean(out, lse, cache, n, empty, group):
+    """The reference's read of a row whose window holds no key (its
+    softmax over all-masked scores weighs every entry alike): the mean
+    of V over the row's first ``n`` [B] buffer entries (the buffer of
+    ``limit`` entries; on a block, the block's share of it, with the lse
+    of ``n`` equal scores of 0, ``log n``, so the blocks' combine weighs
+    each block's mean by its count) in place of the kernel's empty read,
+    for the rows ``empty`` [B]. No host sync: every row's mean is
+    computed and ``empty`` selects."""
+    b, hkv, s_max, _ = cache.v.shape
+    n = torch.clamp(n.to(torch.int64), 0, s_max)
+    keep = (torch.arange(s_max, device=out.device)[None] < n[:, None])
+    vsum = torch.einsum("bs,bhsd->bhd", keep.to(torch.float32),
+                        cache.v.float())
+    mean = (vsum / torch.clamp(n, min=1).to(torch.float32)[:, None, None])
+    mean = mean.repeat_interleave(group, dim=1).to(out.dtype)
+    out = torch.where(empty[:, None, None], mean, out)
+    if lse is None:
+        return out
+    lse_n = torch.where(n > 0, torch.log(n.to(torch.float32)),
+                        torch.full_like(n, 0, dtype=torch.float32)
+                        - float("inf"))
+    return out, torch.where(empty[:, None], lse_n[:, None].expand_as(lse),
+                            lse)
 
 
 def windowed_causal_attention(q, k, v, window: int):

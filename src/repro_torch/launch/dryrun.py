@@ -35,7 +35,8 @@ one by one at these shapes. On ``meta`` its loop does not run
 products from ``roofline.analysis.slstm_hidden_flops`` to the f32 FLOPs
 (``slstm_hidden_flops`` in the record), as the reference adds them for
 its own hidden loop; the loop's elementwise ops, its bytes and its
-backward are not counted.
+backward are not counted. On a mesh the rank adds its share: the loop's
+products over the ways its batch rows and its xLSTM heads split.
 """
 from __future__ import annotations
 
@@ -153,6 +154,11 @@ def run_dryrun(arch: str, shape: Union[str, InputShape], *,
         "collectives": {"per_chip_bytes": cost.pop("collective_bytes"),
                         "by_axis": cost.pop("collective_bytes_by_axis")},
     }
+    slstm = A.slstm_hidden_flops(cfg, shape, _slstm_ways(cfg, shape, mesh))
+    if torch.device(device).type == "meta" and slstm and \
+            shape.kind != "decode":
+        rec["slstm_hidden_flops"] = int(slstm)
+        cost["flops"]["f32"] += int(slstm)
     if mesh is not None:
         rec["mesh"] = "x".join(str(v) for v in mesh.shape.values())
         rec["coords"] = mesh.coords
@@ -164,12 +170,18 @@ def run_dryrun(arch: str, shape: Union[str, InputShape], *,
                 bundle.args, bundle.in_shardings).items()}
         rec.update(A.roofline_terms(cost["flops"], cost["bytes"],
                                     rec["collectives"]["per_chip_bytes"]))
-    slstm = A.slstm_hidden_flops(cfg, shape, 1)
-    if torch.device(device).type == "meta" and slstm and \
-            shape.kind != "decode":
-        rec["slstm_hidden_flops"] = int(slstm)
-        cost["flops"]["f32"] += int(slstm)
     return rec
+
+
+def _slstm_ways(cfg: ModelConfig, shape: InputShape, mesh) -> int:
+    """How many ranks share the sLSTM loop's products: the ways the batch
+    rows split times the ways the xLSTM heads split (1 on one card)."""
+    if mesh is None:
+        return 1
+    rows = rules.tokens_spec(mesh.shape, shape.global_batch, 0)[0]
+    plan = rules.tp_plan(cfg, mesh.shape)
+    return rules._axsize(mesh.shape, rules._axes_of(rows) or None) * \
+        (plan.ways if plan.xlstm else 1)
 
 
 def append_record(rec: Dict[str, Any], path: Optional[str] = None) -> None:

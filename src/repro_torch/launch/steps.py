@@ -31,9 +31,11 @@ baseline, ``use_wgkv=False``) by block. Inputs are split as the
 reference's ``_input_shardings`` splits them: by batch rows, M-RoPE
 ``positions`` [3, B, S] on dim 1. The mesh takes the archs
 ``rules.check_mesh_arch`` admits (GQA attention with M-RoPE or cross
-attention, MoE, RG-LRU and encoder blocks); the xLSTM on a mesh and
-building params already sharded wait for ROADMAP Queue 1 items 8b.5 and
-8b.6. ``knobs["moe_groups"]`` is
+attention, MoE, RG-LRU, encoder and xLSTM blocks: every registered
+arch); each rank builds the whole weights and keeps its blocks (building
+them already sharded is ROADMAP Queue 1 item 8b.6). A WG-KV-inapplicable
+arch trains every parameter (``trainer.lm_train_step``): the state's
+AdamW moments are shaped like the rank's blocks. ``knobs["moe_groups"]`` is
 the reference's count over the whole batch; ``models/moe.py`` turns it
 into the rank's own groups (the rows' share) or, when it is not a
 multiple of the rows' ways, routes a group gathered over "data". The
@@ -232,7 +234,7 @@ def make_train_bundle(cfg: ModelConfig, shape: InputShape, knobs, *,
                          (_replicated_tree(state), on.param_specs, in_sh))
 
     # WG-KV-inapplicable arch (xlstm): standard full-parameter LM training
-    # (on a mesh lm_train_step raises: ROADMAP Queue 1 item 8b.5)
+    # (on a mesh every rank updates its blocks)
     state = TR.init_lm_train_state(on.params)
 
     def fn(state, batch):
@@ -302,7 +304,9 @@ def make_decode_bundle(cfg: ModelConfig, shape: InputShape, knobs, *,
         c_sh = rules.cache_shardings(
             S.decode_cache_structs(cfg, shape, use_wgkv=use_wgkv), mesh,
             cfg, seq_shard=seq_shard)
-    if seq_shard:
+    if seq_shard and cfg.has_attention_cache:
+        # (a recurrent state has no token axis to split: every data rank
+        # steps the row's whole state)
         if cfg.is_encdec:
             raise NotImplementedError(
                 f"{cfg.name}: a decode batch narrower than the batch axes "

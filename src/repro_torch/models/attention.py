@@ -482,9 +482,9 @@ def attn_decode_dense(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     as the reference's ``where`` append and read over a buffer of that
     size do (the ragged scan's masked rows; its active rows pass
     ``INT32_MAX``); a window still starts ``window`` before ``t``. A
-    masked row whose window lies wholly at or past ``limit`` reads no key
-    and returns 0, the kernels' empty read (the reference's softmax over
-    no valid key averages its buffer); such a row's output is dropped.
+    masked row whose window lies wholly at or past ``limit`` reads no key;
+    it returns the mean of V over its ``limit`` entries, as the
+    reference's softmax over no valid key does (``ops.dense_cache_attention``).
     On a seq-sharded buffer (``comm.seq_block``) the rank whose block
     holds position ``t`` writes it, every rank reads its block (length
     and window clipped to it) and the reads are combined by their

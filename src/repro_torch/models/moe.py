@@ -25,7 +25,9 @@ are layout hints to XLA and left out.
 
 On a mesh (``sharding.comm``) the block is expert-parallel. The router is
 whole on every rank, and x is the same on every "model" rank, so every
-model rank routes alike; the expert products run over the rank's experts
+model rank routes alike (outside the model-split region: x and the
+routing weights enter the rank's experts through ``copy_to_model``); the
+expert products run over the rank's experts
 (the plan's "experts") or its block of every expert's FFN width
 ("width"), the combine reads the rank's slots (zeros for the others),
 and one ``reduce_model("moe")`` of ``y`` closes the block. Routing groups
@@ -34,7 +36,10 @@ reference's "one per data shard"); when it is a multiple of the ways the
 batch rows are split over, a rank routes its share of the groups over
 its own rows, else the group spans data ranks (serving's one group over
 the tick) and the rank gathers the rows over "data", routes the whole
-group and keeps its own rows.
+group and keeps its own rows. Under a gradient that gather's backward
+sums the ranks' gradients and keeps the rank's rows, and the group's
+load-balance loss, whole on every rank, enters with its gradient divided
+by the rows' ways (``comm.shared_term``), so it counts once.
 """
 from __future__ import annotations
 
@@ -177,7 +182,6 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     groups' averaged over the rows' axes)."""
     mc = cfg.moe
     e, k = mc.n_experts, mc.top_k
-    x = comm.copy_to_model(x, "moe")
     _, rows_i, rows_n = comm.rows_block()
     own = None
     if spans_rows(cfg, groups, rows_n):
@@ -193,10 +197,15 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     tg = tot // groups
     cap = capacity(tg, e, k, mc.capacity_factor)
     xf = x.reshape(groups, tg, d)
+    # routing is whole and alike on every "model" rank; the rank's
+    # experts take x and the routing weights through ``copy_to_model``,
+    # so the gradients of both sum the ranks' parts while the router's
+    # and the load-balance loss's stay whole
     r = route(p, cfg, xf)
+    r = r._replace(top_w=comm.copy_to_model(r.top_w, "moe"))
     plan = comm.ACTIVE.plan if comm.ACTIVE is not None else None
     e0, ne = plan.experts if plan is not None and plan.n_experts else (0, e)
-    dp = dispatch(xf, r, cap, e, (e0, ne))
+    dp = dispatch(comm.copy_to_model(xf, "moe"), r, cap, e, (e0, ne))
     # Switch-style load-balance aux loss (before the experts: a
     # rematerialized block's recompute then stops at the combine, short
     # of the collectives below)
@@ -222,7 +231,10 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     rows = torch.arange(groups, device=x.device)[:, None, None]
     y = table[rows, slot].sum(dim=2).reshape(b, s, d)
     if own is not None:
+        # the group's terms are whole and alike on every rank: they count
+        # once in the gradients summed over the rows' ranks
         y = y[own]
+        lb = comm.shared_term(lb)
     y = comm.reduce_model(y, "moe")
     if own is None and rows_n > 1:
         lb, dropped = comm.mean_blocks(torch.stack([lb, dropped]),

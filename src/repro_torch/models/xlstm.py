@@ -16,6 +16,19 @@ Neither block keeps a KV cache, so WG-KV does not apply
 (``configs/xlstm_350m.py``); no kernel of the port runs here. The products
 are plain ``torch.matmul`` / ``einsum``, as the reference computes them
 outside any Pallas kernel.
+
+On a mesh whose plan splits the xLSTM blocks (``rules.xlstm_split``: the
+head count divides "model") a rank runs its heads, keeping the whole
+model's head width. mLSTM: the normed input enters through
+``comm.copy_to_model``, the up-projections and conv run on the rank's
+channels (its heads' block of dm), ``comm.gather_model`` assembles the
+conv output and the up-projection for ``w_q`` / ``w_k`` / ``w_v`` and
+the gates over all of dm, ``out_norm``'s sum of squares is added over
+"model" (``comm.sum_model``), and ``comm.reduce_model`` sums ``w_down``'s
+partials. sLSTM: ``w_in`` holds the rank's heads' columns of each gate,
+the recurrence runs on its heads with no collective inside the token
+loop, the cell outputs are gathered once after it, and the gated MLP
+splits over its width. Every state leaf holds the rank's heads.
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.sharding import comm
 
 Params = Dict[str, torch.Tensor]
 
@@ -45,6 +59,28 @@ def _mdims(cfg: ModelConfig) -> Tuple[int, int, int]:
     dm = int(cfg.xlstm_proj_factor * cfg.d_model)
     h = cfg.n_heads
     return dm, h, dm // h
+
+
+def _local_mdims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(the rank's channels of dm, its heads, the whole model's head
+    width): the whole block off a mesh or when the plan keeps it
+    whole."""
+    _, h, dh = _mdims(cfg)
+    hl = comm.xlstm_heads(h)[1]
+    return hl * dh, hl, dh
+
+
+def _split_rmsnorm(p: Params, x: torch.Tensor, width: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rmsnorm`` over a width of ``width`` channels of which
+    ``x`` holds the rank's (``p``: their scales): the sum of squares is
+    added over "model". The whole norm when the block is whole."""
+    if x.shape[-1] == width:
+        return L.rmsnorm(p, x, eps)
+    x32 = x.float()
+    ss = comm.sum_model(x32.square().sum(-1, keepdim=True), "xlstm")
+    y = x32 * torch.rsqrt(ss / width + eps)
+    return (y * p["scale"].float()).to(x.dtype)
 
 
 def init_mlstm(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -76,10 +112,12 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 def _mlstm_proj(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 conv_state: Optional[torch.Tensor]):
-    """Shared projections. x: [B, S, D] -> (xm, z, q, k, v [B, H, S, dh],
-    i_t, f_t [B, S, H] f32, the new conv state)."""
-    dm, h, dh = _mdims(cfg)
+    """Shared projections. x: [B, S, D] (normed) -> (xm, z, q, k, v [B,
+    H, S, dh], i_t, f_t [B, S, H] f32, the new conv state); on a split
+    mesh the rank's heads and channels."""
+    dm, h, dh = _local_mdims(cfg)
     dt = x.dtype
+    x = comm.copy_to_model(x, "xlstm")
     xm = x @ p["w_up_x"].to(dt)                               # [B, S, dm]
     z = F.silu(x @ p["w_up_z"].to(dt))
     cw = p["conv"].shape[0]
@@ -92,25 +130,39 @@ def _mlstm_proj(p: Params, cfg: ModelConfig, x: torch.Tensor,
     for i in range(cw):
         xc = xc + xp[:, i:i + s] * p["conv"][i].to(dt)
     xc = F.silu(xc)
+    xc_all, xm_all = _gather_channels(xc, xm)
 
     def heads(y):
         return y.reshape(y.shape[0], y.shape[1], h, dh).transpose(1, 2)
-    q = heads(xc @ p["w_q"].to(dt))
-    k = heads(xc @ p["w_k"].to(dt)) / (dh ** 0.5)
-    v = heads(xm @ p["w_v"].to(dt))
-    i_t = xc @ p["w_i"].to(dt) + p["b_i"].to(dt)              # [B, S, H]
-    f_t = xc @ p["w_f"].to(dt) + p["b_f"].to(dt)
+    q = heads(xc_all @ p["w_q"].to(dt))
+    k = heads(xc_all @ p["w_k"].to(dt)) / (dh ** 0.5)
+    v = heads(xm_all @ p["w_v"].to(dt))
+    i_t = xc_all @ p["w_i"].to(dt) + p["b_i"].to(dt)          # [B, S, H]
+    f_t = xc_all @ p["w_f"].to(dt) + p["b_f"].to(dt)
     return (xm, z, q, k, v, i_t.float(), f_t.float(),
             xp[:, xp.shape[1] - (cw - 1):])
 
 
-def _mlstm_out(p: Params, x: torch.Tensor, hsa: torch.Tensor,
-               z: torch.Tensor) -> torch.Tensor:
+def _gather_channels(xc: torch.Tensor, xm: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The conv output and the up-projection over all of dm (one gather
+    over "model" of both; their gradients reduce-scattered back), which
+    the rank's heads' ``w_q`` / ``w_k`` / ``w_v`` and gates contract
+    over; (xc, xm) when the block is whole."""
+    if comm.splits("xlstm"):
+        both = comm.gather_model(torch.stack([xc, xm]), "xlstm",
+                                 grad_sum=True)
+        return both[0], both[1]
+    return xc, xm
+
+
+def _mlstm_out(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               hsa: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """hsa [B, H, S, dh] f32 -> the block's output x + y."""
     b, h, s, dh = hsa.shape
     hsa = hsa.transpose(1, 2).reshape(b, s, h * dh).to(x.dtype)
-    out = L.rmsnorm(p["out_norm"], hsa) * z
-    return x + out @ p["w_down"].to(x.dtype)
+    out = _split_rmsnorm(p["out_norm"], hsa, _mdims(cfg)[0]) * z
+    return x + comm.reduce_model(out @ p["w_down"].to(x.dtype), "xlstm")
 
 
 def mlstm_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -143,7 +195,7 @@ def mlstm_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     wfin = torch.exp(tail - m_fin[..., None])                 # [B, H, S]
     c_fin = torch.einsum("bhs,bhsd,bhse->bhde", wfin, k.float(), v.float())
     n_fin = torch.einsum("bhs,bhsd->bhd", wfin, k.float())
-    return (_mlstm_out(p, x, hsa, z),
+    return (_mlstm_out(p, cfg, x, hsa, z),
             MLSTMState(conv=new_conv, c=c_fin, n=n_fin, m=m_fin))
 
 
@@ -210,7 +262,7 @@ def mlstm_block_chunkwise(p: Params, cfg: ModelConfig, x: torch.Tensor,
     xm, z, q, k, v, i_t, f_t, new_conv = _mlstm_proj(p, cfg, xin,
                                                      conv_state)
     b, s, _ = xin.shape
-    _, h, dh = _mdims(cfg)
+    _, h, dh = _local_mdims(cfg)
     nl = chunk
     if s % nl:
         raise ValueError(f"seq {s} must be a multiple of the chunk {nl}")
@@ -276,7 +328,7 @@ def mlstm_block_chunkwise(p: Params, cfg: ModelConfig, x: torch.Tensor,
         c_fin = w0[..., None, None] * state.c + wp[..., None, None] * c_fin
         n_fin = w0[..., None] * state.n + wp[..., None] * n_fin
         m_fin = mm
-    return (_mlstm_out(p, x, hsa, z),
+    return (_mlstm_out(p, cfg, x, hsa, z),
             MLSTMState(conv=new_conv, c=c_fin, n=n_fin, m=m_fin))
 
 
@@ -295,21 +347,23 @@ def mlstm_step(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
                state: MLSTMState) -> Tuple[torch.Tensor, MLSTMState]:
     """O(1) recurrent decode step. x_t: [B, D]."""
     xin = L.rmsnorm(p["norm"], x_t)[:, None]                  # [B, 1, D]
-    dm, h, dh = _mdims(cfg)
+    dm, h, dh = _local_mdims(cfg)
     dt = xin.dtype
+    xin = comm.copy_to_model(xin, "xlstm")
     xm = xin @ p["w_up_x"].to(dt)
     z = F.silu(xin @ p["w_up_z"].to(dt))
     window = torch.cat([state.conv.to(xm.dtype), xm], dim=1)  # [B, cw, dm]
     xc = F.silu(torch.einsum("bcd,cd->bd", window, p["conv"].to(xm.dtype)))
     b = x_t.shape[0]
+    xc_all, xm_all = _gather_channels(xc, xm[:, 0])
 
     def heads(y):
         return y.reshape(b, h, dh)
-    q = heads(xc @ p["w_q"].to(dt)).float()
-    k = heads(xc @ p["w_k"].to(dt)).float() / (dh ** 0.5)
-    v = heads(xm[:, 0] @ p["w_v"].to(dt)).float()
-    i_t = (xc @ p["w_i"].to(dt) + p["b_i"].to(dt)).float()
-    f_t = (xc @ p["w_f"].to(dt) + p["b_f"].to(dt)).float()
+    q = heads(xc_all @ p["w_q"].to(dt)).float()
+    k = heads(xc_all @ p["w_k"].to(dt)).float() / (dh ** 0.5)
+    v = heads(xm_all @ p["w_v"].to(dt)).float()
+    i_t = (xc_all @ p["w_i"].to(dt) + p["b_i"].to(dt)).float()
+    f_t = (xc_all @ p["w_f"].to(dt) + p["b_f"].to(dt)).float()
     logf = F.logsigmoid(f_t)                                  # [B, H]
     m_new = torch.maximum(logf + state.m, i_t)
     fprime = torch.exp(logf + state.m - m_new)
@@ -321,8 +375,8 @@ def mlstm_step(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
     den = torch.maximum(torch.einsum("bhd,bhd->bh", n_new, q).abs(),
                         torch.exp(-m_new))
     hsa = (num / den[..., None]).reshape(b, dm).to(x_t.dtype)
-    out = L.rmsnorm(p["out_norm"], hsa) * z[:, 0]
-    y = out @ p["w_down"].to(x_t.dtype)
+    out = _split_rmsnorm(p["out_norm"], hsa, _mdims(cfg)[0]) * z[:, 0]
+    y = comm.reduce_model(out @ p["w_down"].to(x_t.dtype), "xlstm")
     return x_t + y, MLSTMState(conv=window[:, 1:], c=c_new, n=n_new,
                                m=m_new)
 
@@ -384,14 +438,16 @@ def _recurrent_weights(p: Params) -> torch.Tensor:
     return p["r"].permute(1, 2, 0, 3).reshape(h, dh, g * dh)
 
 
-def _slstm_cell(cfg: ModelConfig, r_t: torch.Tensor, pre: torch.Tensor,
+def _slstm_cell(r_t: torch.Tensor, pre: torch.Tensor,
                 state: SLSTMState) -> SLSTMState:
     """pre: [B, 4D] input pre-activations (W x + b), the z, i, f, o
     blocks in order; r_t: the recurrent weights of
-    :func:`_recurrent_weights`. One time step, with the reference's
-    arithmetic element by element."""
-    d, h = cfg.d_model, cfg.n_heads
-    dh = d // h
+    :func:`_recurrent_weights` [H, dh, 4 dh]. One time step, with the
+    reference's arithmetic element by element. H and dh come from
+    ``r_t``, so on a split mesh the cell runs the rank's heads (D their
+    channels) at the whole model's head width."""
+    h, dh = r_t.shape[0], r_t.shape[1]
+    d = h * dh
     b = state.h.shape[0]
     hp = state.h.reshape(b, h, dh).transpose(0, 1)           # [H, B, dh]
     rec = torch.bmm(hp.to(r_t.dtype), r_t)                   # [H, B, 4 dh]
@@ -412,12 +468,16 @@ def _slstm_cell(cfg: ModelConfig, r_t: torch.Tensor, pre: torch.Tensor,
 
 def _slstm_mlp(p: Params, x: torch.Tensor, hs: torch.Tensor
                ) -> torch.Tensor:
-    """The post-cell gated MLP over the cell outputs ``hs`` -> x + y."""
+    """The post-cell gated MLP over the cell outputs ``hs`` -> x + y. On
+    a split mesh ``hs`` holds the rank's heads' channels: they are
+    gathered over "model" once, the norm runs whole, and the MLP over
+    the rank's block of its width."""
     dt = x.dtype
-    out = L.rmsnorm(p["out_norm"], hs.to(dt))
+    hs = comm.gather_model(hs, "xlstm", grad_sum=False)
+    out = comm.copy_to_model(L.rmsnorm(p["out_norm"], hs.to(dt)), "xlstm")
     y = (F.gelu(out @ p["w_up1"].to(dt), approximate="tanh")
          * (out @ p["w_up2"].to(dt))) @ p["w_down"].to(dt)
-    return x + y
+    return x + comm.reduce_model(y, "xlstm")
 
 
 def slstm_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -427,29 +487,32 @@ def slstm_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     loop. x: [B, S, D]."""
     b, s, _ = x.shape
     if state is None:
-        state = init_slstm_state(cfg, b, device=x.device)
-    xin = L.rmsnorm(p["norm"], x)
+        state = init_slstm_state(cfg, b, device=x.device,
+                                 width=p["w_in"].shape[-1] // 4)
+    xin = comm.copy_to_model(L.rmsnorm(p["norm"], x), "xlstm")
     pre = xin @ p["w_in"].to(x.dtype) + p["b"].to(x.dtype)   # [B, S, 4D]
-    hs, state = _slstm_scan(cfg, _recurrent_weights(p), pre, state)
+    hs, state = _slstm_scan(_recurrent_weights(p), pre, state)
     return _slstm_mlp(p, x, hs), state
 
 
-def _slstm_scan(cfg: ModelConfig, r_t: torch.Tensor, pre: torch.Tensor,
+def _slstm_scan(r_t: torch.Tensor, pre: torch.Tensor,
                 state: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
     """The cell over pre [B, S, 4D], one step per token -> (the stacked
     cell outputs [B, S, D], the last state). On the ``meta`` device (the
-    dry run) the loop does not run: the outputs are empty tensors of the
-    loop's shapes, and the dry run adds the loop's recurrent products
+    dry run) the loop does not run: the outputs are views of ``pre`` of
+    the loop's shapes (so a backward reaches ``pre``), and the dry run
+    adds the loop's recurrent products
     from ``roofline.analysis.slstm_hidden_flops``, as the reference adds
     them to XLA's count of its hidden scan."""
     if pre.device.type == "meta":
-        b, s, _ = pre.shape
-        d = cfg.d_model
-        return pre.new_empty((b, s, d), dtype=torch.float32), SLSTMState(
-            *(pre.new_empty((b, d), dtype=torch.float32) for _ in range(4)))
+        # views of the input, so that a backward on meta reaches what the
+        # loop reads, as it does on a device
+        d = pre.shape[-1] // 4
+        last = pre[:, -1, :d].float()
+        return pre[..., :d].float(), SLSTMState(last, last, last, last)
     hs = []
     for t in range(pre.shape[1]):
-        state = _slstm_cell(cfg, r_t, pre[:, t], state)
+        state = _slstm_cell(r_t, pre[:, t], state)
         hs.append(state.h)
     return torch.stack(hs, dim=1), state
 
@@ -457,13 +520,16 @@ def _slstm_scan(cfg: ModelConfig, r_t: torch.Tensor, pre: torch.Tensor,
 def slstm_step(p: Params, cfg: ModelConfig, x_t: torch.Tensor,
                state: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
     """One decode step. x_t: [B, D]."""
-    xin = L.rmsnorm(p["norm"], x_t)
+    xin = comm.copy_to_model(L.rmsnorm(p["norm"], x_t), "xlstm")
     pre = xin @ p["w_in"].to(x_t.dtype) + p["b"].to(x_t.dtype)
-    st = _slstm_cell(cfg, _recurrent_weights(p), pre, state)
+    st = _slstm_cell(_recurrent_weights(p), pre, state)
     return _slstm_mlp(p, x_t, st.h), st
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int,
-                     device=None) -> SLSTMState:
-    z = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+def init_slstm_state(cfg: ModelConfig, batch: int, device=None,
+                     width: Optional[int] = None) -> SLSTMState:
+    """The zero state over ``width`` channels (default d_model; a split
+    mesh rank's heads' channels)."""
+    z = torch.zeros((batch, width or cfg.d_model), dtype=torch.float32,
+                    device=device)
     return SLSTMState(c=z, n=z + 1e-6, h=z, m=z - 1e30)

@@ -104,6 +104,13 @@ class ShardedDecodeMixin:
         if mesh is None:
             return params, cfg
         rules.check_mesh_arch(cfg)
+        if not cfg.has_attention_cache:
+            # as the reference's serve: an arch with no KV cache runs on a
+            # mesh through the step bundles
+            raise NotImplementedError(
+                f"{cfg.name} has no KV cache; the mesh engine serves "
+                "attention archs (the xLSTM runs on a mesh through the "
+                "step bundles, launch/steps.py)")
         if cfg.is_encdec:
             # as the reference's serve: its mesh path is the step bundles
             raise NotImplementedError(

@@ -24,15 +24,22 @@ the reference; the model's seams then read the context:
   runs, and dropped after it;
 * :func:`sum_rows` — loss terms (sums and counts) added over the axes
   the batch rows are split over (and over "model" for a per-kv-head
-  term when the heads are split), and :func:`sum_grads` the gate
-  gradients over the rows' axes;
+  term when the heads are split), and :func:`sum_grads` the gradients
+  over the rows' axes (an FSDP leaf's were summed by its gather's
+  backward, a reduce-scatter);
 * :func:`combine_lse` — context-parallel decode: each "data" rank's read
   of its block of the global cache, combined by its log-sum-exp;
 * :func:`gather_moe_rows` — an MoE block's input gathered over the rows'
   axes when its routing group spans the data ranks (:func:`rows_block`
-  says where this rank's rows sit).
+  says where this rank's rows sit), and :func:`shared_term` — a term
+  every such rank computes from the whole group, counted once in the
+  summed gradients;
+* :func:`gather_model` / :func:`sum_model` — the xLSTM blocks' seams:
+  the rank's channels assembled over "model" (the mLSTM's before its
+  heads' q / k / v, the sLSTM's cell outputs before its MLP), and the
+  mLSTM ``out_norm``'s sum of squares over the whole width.
 
-The first four go through autograd: forward and backward are the
+The first four, the gathers and the sums go through autograd: forward and backward are the
 tensor-parallel pair (a sum over "model" forward is the identity
 backward, and the reverse), written here because torch's ready-made
 differentiable all-reduce also sums in its backward.
@@ -186,7 +193,15 @@ def _splits(part: str, plan) -> bool:
         return plan.moe != "whole"
     if part == "rec":
         return plan.rec
+    if part == "xlstm":
+        return plan.xlstm
     raise ValueError(f"unknown part {part!r}")
+
+
+def splits(part: str) -> bool:
+    """The active plan splits ``part`` (``reduce_model``'s parts) over
+    "model"."""
+    return ACTIVE is not None and _splits(part, ACTIVE.plan)
 
 
 def heads_split() -> bool:
@@ -198,8 +213,9 @@ def reduce_model(x: torch.Tensor, part: str) -> torch.Tensor:
     """Sum a row-parallel product's partials over "model" when the active
     plan splits ``part`` ("attn", "ffn", "moe": the rank's experts' or
     expert-width share of the combine, "rec": the RG-LRU block's
-    ``w_out`` over the rank's channels); else ``x``. Its backward is the
-    identity."""
+    ``w_out`` over the rank's channels, "xlstm": the mLSTM's ``w_down``
+    over the rank's heads and the sLSTM MLP's over its width block);
+    else ``x``. Its backward is the identity."""
     if ACTIVE is None or not _splits(part, ACTIVE.plan):
         return x
     return _sum(x, ACTIVE.mesh, "model")
@@ -212,9 +228,12 @@ def copy_to_model(x: torch.Tensor, part: str) -> torch.Tensor:
     split; "ffn": ``w_gate`` / ``w_up``), or, "kv", the whole k, v and
     gates that the "gather_q" plan's per-head read consumes on every
     rank; "moe": the MoE FFN's input (the router and the rank's experts);
-    "rec": the RG-LRU block's input (``w_gelu`` / ``w_x`` columns). The
-    identity forward; backward sums the gradient over "model". Without a
-    graph, or when the plan does not split ``part``, ``x``."""
+    "rec": the RG-LRU block's input (``w_gelu`` / ``w_x`` columns);
+    "xlstm": an xLSTM block's normed input (the mLSTM's up-projections,
+    the sLSTM's ``w_in``, the rank's heads' columns) and the sLSTM MLP's
+    (its width block's columns). The identity forward; backward sums the
+    gradient over "model". Without a graph, or when the plan does not
+    split ``part``, ``x``."""
     if ACTIVE is None or not _wants_grad(x) or \
             not _splits(part, ACTIVE.plan):
         return x
@@ -252,21 +271,21 @@ def _axes_tuple(axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
-class _GatherQ(torch.autograd.Function):
-    """Forward: every rank's q heads assembled over "model"
-    (:func:`_gather_dim` of the last dimension); backward: this rank's
-    heads' slice of the gradient."""
+class _Gather(torch.autograd.Function):
+    """Forward: every rank's block of dimension ``dim`` over ``axes``
+    assembled (:func:`_gather_dim`); backward: this rank's block of the
+    gradient, summed first over ``sum_axes`` (:func:`_scatter_sum`: over
+    all of ``axes`` a reduce-scatter, over none a slice)."""
 
     @staticmethod
-    def forward(ctx, q, mesh, first, n, n_heads):
-        hd = q.shape[-1] // n
-        ctx.cols = (first * hd, (first + n) * hd)
-        return _gather_dim(q, mesh, "model", -1)
+    def forward(ctx, x, mesh, axes, dim, sum_axes):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.sum_axes = mesh, axes, dim, sum_axes
+        return _gather_dim(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
-        a, b = ctx.cols
-        return g[..., a:b], None, None, None, None
+        return (_scatter_sum(g, ctx.mesh, ctx.axes, ctx.dim, ctx.sum_axes),
+                None, None, None, None)
 
 
 def gather_q(q: torch.Tensor) -> torch.Tensor:
@@ -274,9 +293,8 @@ def gather_q(q: torch.Tensor) -> torch.Tensor:
     "gather_q" plan; else ``q``. Backward keeps this rank's heads."""
     if ACTIVE is None or ACTIVE.plan.attn != "gather_q":
         return q
-    plan = ACTIVE.plan
-    first, n = plan.q_heads
-    return _GatherQ.apply(q, ACTIVE.mesh, first, n, plan.n_heads)
+    # the rank's q heads are its block of the last dimension
+    return _Gather.apply(q, ACTIVE.mesh, "model", -1, ())
 
 
 def local_q(o: torch.Tensor) -> torch.Tensor:
@@ -288,6 +306,89 @@ def local_q(o: torch.Tensor) -> torch.Tensor:
     first, n = plan.q_heads
     hd = o.shape[-1] // plan.n_heads
     return o[..., first * hd:(first + n) * hd]
+
+
+def gather_model(x: torch.Tensor, part: str, *,
+                 grad_sum: bool) -> torch.Tensor:
+    """[..., c] -> [..., ways * c]: every "model" rank's channels of a
+    tensor the active plan splits by ``part`` ("xlstm"), assembled in
+    rank order (the mLSTM's conv output and up-projection before its
+    heads' ``w_q`` / ``w_k`` / ``w_v``, the sLSTM's cell outputs before
+    its MLP); else ``x``. Backward: this rank's block of the gradient,
+    summed over "model" first when ``grad_sum`` (the gathered tensor
+    feeds this rank's heads only), as it is when every rank computes the
+    same downstream."""
+    if ACTIVE is None or not _splits(part, ACTIVE.plan):
+        return x
+    x = x.contiguous()
+    if _wants_grad(x):
+        return _Gather.apply(x, ACTIVE.mesh, "model", -1,
+                             ("model",) if grad_sum else ())
+    return _gather_dim(x, ACTIVE.mesh, "model", -1)
+
+
+class _SumBoth(torch.autograd.Function):
+    """Forward and backward: the sum over ``axis`` (the summed tensor
+    feeds each rank's own slice of the computation)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce(x.contiguous().clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, ctx.axis), \
+            None, None
+
+
+def sum_model(x: torch.Tensor, part: str) -> torch.Tensor:
+    """``x`` summed over "model" when the active plan splits ``part``,
+    for a statistic of the whole width that each rank's own channels
+    then use (the mLSTM's ``out_norm`` sum of squares); its backward sums
+    the ranks' gradients too. Else ``x``."""
+    if ACTIVE is None or not _splits(part, ACTIVE.plan):
+        return x
+    if _wants_grad(x):
+        return _SumBoth.apply(x, ACTIVE.mesh, "model")
+    return all_reduce(x.contiguous(), ACTIVE.mesh, "model")
+
+
+def xlstm_heads(n_heads: int) -> Tuple[int, int]:
+    """(first, count) of the xLSTM heads this rank runs: its block when
+    the active plan splits the xLSTM blocks, else all ``n_heads``."""
+    if ACTIVE is None or not ACTIVE.plan.xlstm:
+        return 0, n_heads
+    return ACTIVE.plan.xlstm_heads
+
+
+def _scatter_sum(g: torch.Tensor, mesh, axes, dim: int,
+                 sum_axes: Tuple[str, ...]) -> torch.Tensor:
+    """The backward of :func:`_gather_dim`: this rank's block of ``g``
+    along ``dim`` over ``axes``, summed first over those of ``axes`` in
+    ``sum_axes`` (() for none: a slice). Over all of ``axes`` on
+    ``nccl`` (and a ``fake`` group standing for it) one
+    ``reduce_scatter_tensor`` (counted as a reduce-scatter); else an
+    ``all_reduce`` over them (counted) and the rank's slice."""
+    axes = _axes_tuple(axes)
+    sum_axes = tuple(a for a in axes if a in sum_axes)
+    group, n = mesh.group(axes)
+    if n == 1:
+        return g
+    dim = dim % g.ndim
+    size = g.shape[dim] // n
+    if sum_axes == axes and mesh.backend != "gloo":
+        src = g.movedim(dim, 0).contiguous()
+        out = src.new_empty((size,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        _count(mesh.axes_key(axes), "reduce_scatter", src, n)
+        return out.movedim(0, dim)
+    if sum_axes and mesh.group(sum_axes)[1] > 1:
+        g = all_reduce(g.contiguous().clone(), mesh, sum_axes)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.coords[a]
+    return g.narrow(dim, idx * size, size).contiguous()
 
 
 def rows_block() -> Tuple[Tuple[str, ...], int, int]:
@@ -310,20 +411,44 @@ def gather_moe_rows(x: torch.Tensor) -> torch.Tensor:
     """An MoE block's input [rows, ...] assembled over the axes the batch
     rows are split over, for a routing group that spans data ranks (the
     reference routes serving's whole tick as one group): every rank's
-    rows in their order, counted like every other gather. Without a
-    graph only: a step that trains through such a group (the step
-    bundles' groups are a multiple of the rows' ways) waits for ROADMAP
-    Queue 1 item 8b.5, since its load-balance loss reads every rank's
-    rows."""
+    rows in their order, counted like every other gather. Under a
+    gradient its backward sums the ranks' gradients and keeps this
+    rank's rows; a term every rank computes from the whole group (the
+    load-balance loss) must then enter the loss through
+    :func:`shared_term`."""
     axes, _, n = rows_block()
     if n == 1:
         return x
+    x = x.contiguous()
     if _wants_grad(x):
-        raise NotImplementedError(
-            "a gradient through an MoE routing group gathered over the "
-            "data ranks waits for ROADMAP Queue 1 item 8b.5; route a "
-            "multiple of the rows' ways in groups")
-    return _gather_dim(x.contiguous(), ACTIVE.mesh, axes, 0)
+        # each rank differentiates its own rows' outputs and its share of
+        # the group's terms: the gradient is the ranks' sum
+        return _Gather.apply(x, ACTIVE.mesh, axes, 0, axes)
+    return _gather_dim(x, ACTIVE.mesh, axes, 0)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Forward: the identity; backward: the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def shared_term(x: torch.Tensor) -> torch.Tensor:
+    """A loss term that every rank of the rows' axes computes whole and
+    alike (an MoE routing group gathered over them): its value as it is,
+    its gradient divided by the rows' ways, so that the ranks' gradients,
+    summed over those axes, count it once."""
+    _, _, n = rows_block()
+    if n == 1 or not _wants_grad(x):
+        return x
+    return _ScaleGrad.apply(x, 1.0 / n)
 
 
 def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -418,12 +543,21 @@ def gather_fsdp(x: torch.Tensor, mesh, spec) -> torch.Tensor:
     :func:`repro_torch.sharding.rules.param_placement`), assembled over
     every entry's FSDP axes; its "model" entries stay split. On ``gloo``
     a zero-filled ``all_reduce`` (counted as one), else
-    ``all_gather_into_tensor`` (counted as an all-gather). No gradient
-    flows through: only frozen leaves are held in blocks."""
+    ``all_gather_into_tensor`` (counted as an all-gather). A frozen
+    block (no grad) assembles without a graph; a trained one (the
+    full-parameter step) through :class:`_Gather`, whose backward hands
+    the rank its block of the gradient summed over the axes the batch
+    rows split (each data rank's gradient is its rows' part; a
+    reduce-scatter when they are all of the leaf's;
+    :func:`sum_grads` adds the rest)."""
+    rows = _fsdp_entry(ACTIVE.rows) if ACTIVE is not None else ()
     for dim, entry in enumerate(spec):
         axes = _fsdp_entry(entry)
         if axes:
-            x = _gather_dim(x.detach(), mesh, axes, dim)
+            if _wants_grad(x):
+                x = _Gather.apply(x, mesh, axes, dim, rows)
+            else:
+                x = _gather_dim(x.detach(), mesh, axes, dim)
     return x
 
 
@@ -489,14 +623,20 @@ def mean_blocks(x: torch.Tensor, heads: bool = True) -> torch.Tensor:
 
 
 def sum_grads(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Gate gradients summed in place over the axes the batch rows are
-    split over: each data rank's gradient is its rows' part."""
+    """Gradients (by ``/``-joined path) summed in place over the axes the
+    batch rows are split over, less those a leaf's FSDP gather already
+    summed in its backward (:func:`gather_fsdp`): every leaf then holds,
+    in the rank's block, the gradient of the global loss. Serves the gate
+    step and the full-parameter step alike."""
     if ACTIVE is None:
         return grads
-    axes = _fsdp_entry(ACTIVE.rows)
-    if axes and ACTIVE.mesh.group(axes)[1] > 1:
-        for g in grads.values():
-            all_reduce(g, ACTIVE.mesh, axes)
+    rows = _fsdp_entry(ACTIVE.rows)
+    for path, g in grads.items():
+        done = {a for e in ACTIVE.fsdp.get(path, ())
+                for a in _fsdp_entry(e)}
+        left = tuple(a for a in rows if a not in done)
+        if left and ACTIVE.mesh.group(left)[1] > 1:
+            all_reduce(g, ACTIVE.mesh, left)
     return grads
 
 

@@ -35,7 +35,13 @@ column-parallel with its bias ``b_in`` and ``w_out`` row-parallel (its
 leaves by expert or, where the experts do not divide, by the expert FFN
 width (:func:`moe_split`; the router whole on every rank), and the
 RG-LRU block's leaves by channel, its 1-D leaves too (:func:`rec_split`,
-whose gate blocks must divide with the channels). Each rank holds its block
+whose gate blocks must divide with the channels), and the xLSTM blocks'
+leaves by head (:func:`xlstm_split`): the mLSTM's up-projections, conv
+and ``w_q`` / ``w_k`` / ``w_v`` columns, ``w_down`` rows; the sLSTM's
+``w_in`` and ``b`` by head within each of their four gate blocks
+(:func:`gate_parts`; the reference's spec splits the 4D axis
+contiguously), its block-diagonal ``r`` by head and its gated MLP over
+its width. Each rank holds its block
 as a plain local tensor (:func:`local_shard`); the model adds the
 row-parallel partials with ``sharding.comm.reduce_model``. Leaves the
 reference splits only by inserting another collective stay whole on
@@ -47,10 +53,13 @@ gate computes for those heads. It is never held in "data" blocks, and
 its optimizer state follows it. Two more placements differ from the
 spec the same way: ``b_in`` follows ``w_in``'s columns at every size
 (the reference splits a 1-D leaf only from 4,096, so a rank would
-otherwise add the whole bias to its columns' slice), and the cross
+otherwise add the whole bias to its columns' slice), the cross
 cache's ``valid`` [B, H, S], which the reference's generic rule keeps
 whole over "model", is sliced by the rank's kv heads as its ``k`` and
-``v`` are.
+``v`` are, and an xLSTM block that splits holds its heads' share of the
+leaves the spec keeps whole: the mLSTM's ``w_i`` / ``w_f`` columns,
+``b_i`` / ``b_f`` and ``out_norm``, and every leaf of its recurrent
+state (the mLSTM's ``n`` and ``m``, the sLSTM's ``c``, ``n`` and ``m``).
 
 Under ``seq_shard`` (a decode batch narrower than the batch axes, the
 reference's long_500k) a cache's global token axis (``gk``, ``gv``,
@@ -65,16 +74,17 @@ from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_BLOCKS, ModelConfig
 from repro_torch.tree import tree_map_with_path
 
 Spec = Tuple[Any, ...]
 # the block types the port runs on a mesh: GQA attention (global or
-# windowed) with a dense FFN, with the MoE FFN, the RG-LRU block, and
+# windowed) with a dense FFN, with the MoE FFN, the RG-LRU block,
 # whisper's decoder block (self and cross attention, a GELU MLP) and
-# encoder block; the xLSTM blocks wait for ROADMAP Queue 1 item 8b.5
+# encoder block, and the xLSTM's mLSTM and sLSTM blocks
 MESH_BLOCKS = ("attn", "local_attn", "attn_moe", "rglru", "attn_cross",
-               "enc_attn")
+               "enc_attn", "mlstm", "slstm")
+XLSTM_BLOCKS = ("mlstm", "slstm")
 # the blocks whose FFN is dense, the SwiGLU or the GELU MLP (``plan.ffn``
 # splits its d_ff)
 DENSE_FFN_BLOCKS = ("attn", "local_attn", "rglru", "attn_cross", "enc_attn")
@@ -359,10 +369,18 @@ def block(dim: int, entry, coords: Mapping[str, int], mesh) -> slice:
 
 
 def local_shard(x: torch.Tensor, spec: Spec, coords: Mapping[str, int],
-                mesh) -> torch.Tensor:
+                mesh, parts: int = 1) -> torch.Tensor:
     """The block of ``x`` that the device at ``coords`` holds under
     ``spec`` (:func:`block` of each split dimension). A fresh contiguous
-    tensor (the whole leaf can be freed)."""
+    tensor (the whole leaf can be freed). ``parts``: the last dimension
+    holds that many equal parts (:func:`gate_parts`), and its spec entry
+    splits each of them alike: the device's block of every part, in
+    order."""
+    if parts > 1 and _axes_of(spec[-1]):
+        y = x.reshape(tuple(x.shape[:-1]) + (parts, x.shape[-1] // parts))
+        y = local_shard(y, tuple(spec[:-1]) + (None, spec[-1]), coords,
+                        mesh)
+        return y.reshape(tuple(y.shape[:-2]) + (-1,))
     out = x
     for i, entry in enumerate(spec):
         if _axes_of(entry):
@@ -402,7 +420,10 @@ class TPPlan:
     split (:func:`moe_split`): "experts" (the rank holds experts
     :attr:`experts`), "width" (every expert's ``expert_d_ff`` columns and
     rows split) or "whole"; the router is whole on every rank either way.
-    ``rec``: the RG-LRU block's channels split (:func:`rec_split`)."""
+    ``rec``: the RG-LRU block's channels split (:func:`rec_split`).
+    ``xlstm``: the xLSTM blocks split by head and the sLSTM's gated MLP
+    by its width (:func:`xlstm_split`; the rank's heads are
+    :attr:`xlstm_heads`)."""
     ways: int = 1
     index: int = 0
     attn: str = "whole"
@@ -412,6 +433,7 @@ class TPPlan:
     moe: str = "whole"
     n_experts: int = 0
     rec: bool = False
+    xlstm: bool = False
 
     @property
     def q_heads(self) -> Tuple[int, int]:
@@ -430,6 +452,15 @@ class TPPlan:
         return self.index * n, n
 
     @property
+    def xlstm_heads(self) -> Tuple[int, int]:
+        """(first, count) of this rank's heads of an xLSTM block (all of
+        them unless the plan splits the blocks)."""
+        if not self.xlstm:
+            return 0, self.n_heads
+        n = self.n_heads // self.ways
+        return self.index * n, n
+
+    @property
     def experts(self) -> Tuple[int, int]:
         """(first, count) of this rank's experts (all of them unless the
         plan splits the experts)."""
@@ -440,16 +471,15 @@ class TPPlan:
 
 
 def check_mesh_arch(cfg: ModelConfig) -> None:
-    """Raises for an arch the port does not run on a mesh yet (serving
-    and the step bundles alike)."""
+    """Raises for a block type the mesh does not take (every registered
+    arch's are in :data:`MESH_BLOCKS`)."""
     odd = sorted({b for b in _blocks(cfg) + tuple(cfg.enc_block_pattern)
                   if b not in MESH_BLOCKS})
     if odd:
         raise NotImplementedError(
             f"{cfg.name}: the mesh takes GQA attention (M-RoPE and cross "
-            "attention included), MoE, RG-LRU and encoder blocks; "
-            f"{', '.join(odd)} on a mesh waits for ROADMAP Queue 1 item "
-            "8b.5")
+            "attention included), MoE, RG-LRU, encoder and xLSTM blocks, "
+            f"not {', '.join(odd)}")
 
 
 def _blocks(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -484,27 +514,78 @@ def rec_split(cfg: ModelConfig, mesh) -> bool:
             and _fits(cfg.n_heads, mesh, "model"))
 
 
+def mlstm_width(cfg: ModelConfig) -> int:
+    """The mLSTM's up-projected width dm."""
+    return int(cfg.xlstm_proj_factor * cfg.d_model)
+
+
+def slstm_mlp_width(cfg: ModelConfig) -> int:
+    """The sLSTM's post-cell gated MLP width (projection factor 4/3)."""
+    return int(cfg.d_model * 4 / 3 / 2) * 2
+
+
+def xlstm_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether the xLSTM blocks split by head over "model": the head
+    count divides it, and with it the mLSTM's width dm and the sLSTM's
+    d_model (heads are contiguous blocks of both), so each rank runs the
+    mLSTM and the sLSTM recurrence on whole heads, and so does the
+    sLSTM's MLP width (xlstm-350m's 1,364 at 2 and 4 ways). Else both
+    blocks stay whole on every rank."""
+    blocks = _blocks(cfg)
+    return (any(b in XLSTM_BLOCKS for b in blocks)
+            and mesh_shape(mesh).get("model", 1) > 1
+            and _fits(cfg.n_heads, mesh, "model")
+            and _fits(mlstm_width(cfg), mesh, "model")
+            and _fits(cfg.d_model, mesh, "model")
+            and ("slstm" not in blocks
+                 or _fits(slstm_mlp_width(cfg), mesh, "model")))
+
+
+def gate_parts(path: Tuple[str, ...], cfg: ModelConfig) -> int:
+    """How many equal parts a leaf's last dimension holds, each split
+    alike over "model": 4 for the sLSTM's ``w_in`` [D, 4D] and ``b``
+    [4D], whose columns are the z, i, f, o gates in blocks of D (a rank
+    takes its heads' columns of every gate), else 1."""
+    if path[-1] in ("w_in", "b") and "cell" in path and \
+            _block_type(path, cfg) == "slstm":
+        return 4
+    return 1
+
+
+def _block_type(path: Tuple[str, ...], cfg: ModelConfig) -> str:
+    """The block type of a leaf under ``blocks/bI`` or ``stem/J``, else
+    ""."""
+    if len(path) > 1 and path[0] == "blocks" and path[1].startswith("b"):
+        return cfg.block_pattern[int(path[1][1:])]
+    if len(path) > 1 and path[0] == "stem":
+        return cfg.stem_pattern[int(path[1])]
+    return ""
+
+
 def tp_plan(cfg: ModelConfig, mesh, index: int = 0) -> TPPlan:
     """The tensor-parallel plan of ``cfg`` on ``mesh``'s "model" axis for
     the rank at model index ``index``; the reference's rules decide
-    (``_param_spec`` of ``w_q``, ``w_k``, ``w_down``, the expert leaves
-    and the RG-LRU leaves)."""
+    (``_param_spec`` of ``w_q``, ``w_k``, ``w_down``, the expert leaves,
+    the RG-LRU and the xLSTM leaves). An arch without attention blocks
+    has no attention plan ("whole")."""
     m = mesh_shape(mesh).get("model", 1)
     n_exp = cfg.moe.n_experts if cfg.moe is not None else 0
     if m == 1:
         return TPPlan(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                       n_experts=n_exp)
+    blocks = _blocks(cfg) + tuple(cfg.enc_block_pattern)
     q_split = _fits(cfg.n_heads, mesh, "model")
     kv_split = _fits(cfg.n_kv_heads, mesh, "model")
     attn = ("split" if q_split and kv_split
             else "gather_q" if q_split else "whole")
-    dense_ffn = any(b in DENSE_FFN_BLOCKS
-                    for b in _blocks(cfg) + tuple(cfg.enc_block_pattern))
+    if not any(b in ATTN_BLOCKS or b == "enc_attn" for b in blocks):
+        attn = "whole"
+    dense_ffn = any(b in DENSE_FFN_BLOCKS for b in blocks)
     return TPPlan(ways=m, index=index, attn=attn,
                   ffn=dense_ffn and _fits(cfg.d_ff, mesh, "model"),
                   n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                   moe=moe_split(cfg, mesh), n_experts=n_exp,
-                  rec=rec_split(cfg, mesh))
+                  rec=rec_split(cfg, mesh), xlstm=xlstm_split(cfg, mesh))
 
 
 def local_config(cfg: ModelConfig, plan: TPPlan) -> ModelConfig:
@@ -576,6 +657,8 @@ def param_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
             out = [e if e == "model" else None for e in spec]
             if len(shape) == lead + 1:
                 out[lead] = "model"
+    elif "cell" in path:
+        out = _xlstm_placement(path, shape, lead, cfg, mesh)
     elif path[-1] == "b_in":
         # the GELU MLP's bias goes with w_in's columns whenever those
         # split (the reference splits a 1-D leaf only from 4,096); b_out
@@ -593,16 +676,50 @@ def param_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
     return tuple(out)
 
 
+# the mLSTM leaves a rank holds by its heads' columns
+_MLSTM_COLS = ("w_up_x", "w_up_z", "conv", "w_q", "w_k", "w_v", "w_i",
+               "w_f")
+
+
+def _xlstm_placement(path: Tuple[str, ...], shape: Tuple[int, ...],
+                     lead: int, cfg: ModelConfig, mesh) -> list:
+    """The "model" entries of an xLSTM leaf (``.../cell/...``) when
+    :func:`xlstm_split` holds, else none. mLSTM: the up-projections,
+    conv, ``w_q`` / ``w_k`` / ``w_v`` and the port's ``w_i`` / ``w_f``
+    by their columns, ``b_i`` / ``b_f`` and ``out_norm`` by head,
+    ``w_down`` by its rows. sLSTM: ``w_in`` / ``b`` per gate
+    (:func:`gate_parts`), ``r`` by head; its gated MLP's ``w_up1`` /
+    ``w_up2`` columns and ``w_down`` rows; the norms whole."""
+    out = [None] * len(shape)
+    if not xlstm_split(cfg, mesh):
+        return out
+    name = path[-1]
+    bt = _block_type(path, cfg)
+    if bt == "mlstm":
+        if name in _MLSTM_COLS:
+            out[lead + 1] = "model"
+        elif name in ("b_i", "b_f", "w_down") or "out_norm" in path:
+            out[lead] = "model"
+    elif bt == "slstm":
+        if name in ("w_in", "r"):
+            out[lead + 1] = "model"
+        elif name == "b":
+            out[lead] = "model"
+        elif name in ("w_up1", "w_up2", "w_down"):
+            out[lead + (0 if name == "w_down" else 1)] = "model"
+    return out
+
+
 def local_params(params: Any, cfg: ModelConfig, mesh,
                  coords: Mapping[str, int], *,
                  replicate_fsdp: bool = True) -> Any:
     """One rank's block of every leaf of ``params`` under
     :func:`param_placement` (whole leaves are shared, not copied)."""
     def walk(path, leaf):
-        spec = param_placement(tuple(str(k) for k in path),
-                               tuple(leaf.shape), mesh, cfg,
+        keys = tuple(str(k) for k in path)
+        spec = param_placement(keys, tuple(leaf.shape), mesh, cfg,
                                replicate_fsdp=replicate_fsdp)
-        return local_shard(leaf, spec, coords, mesh)
+        return local_shard(leaf, spec, coords, mesh, gate_parts(keys, cfg))
     return tree_map_with_path(walk, params)
 
 
@@ -661,12 +778,23 @@ def cache_placement(path: Tuple[str, ...], shape: Tuple[int, ...], mesh,
     they divide "model"), and the per-head counters ``gcnt`` /
     ``overflow`` and the cross cache's ``valid`` split with them (a
     rank's model code counts and reads its own heads); an RG-LRU state
-    by its channels when :func:`rec_split`. Under ``seq_shard`` the
+    by its channels when :func:`rec_split`, an xLSTM state by the rank's
+    heads when :func:`xlstm_split` (every leaf: the spec keeps the
+    mLSTM's ``n`` / ``m`` and the sLSTM's ``c`` / ``n`` / ``m`` whole,
+    but a rank computes only its heads' part). Under ``seq_shard`` the
     global token axis of ``gk`` / ``gv`` / ``gpos`` (a dense cache's
     ``k`` / ``v``) goes over "data" while the ring, ``gcnt``, ``t``,
     ``ptr`` and the page metadata stay whole."""
     spec = list(_cache_leaf_spec(path, shape, mesh, cfg, seq_shard))
     lead = 1 if "blocks" in path else 0
+    if _block_type(path, cfg) in XLSTM_BLOCKS:
+        # an xLSTM state by the rank's heads when the blocks split (the
+        # conv by its channels, every other leaf by its head or channel
+        # dimension), else whole
+        spec = [None if e == "model" else e for e in spec]
+        if xlstm_split(cfg, mesh):
+            spec[lead + (2 if path[-1] == "conv" else 1)] = "model"
+        return tuple(spec)
     if path[-1] in _REC_STATES and not rec_split(cfg, mesh):
         # the RG-LRU state follows the plan's channels: whole unless the
         # gate blocks split with them

@@ -25,8 +25,12 @@ each rank's gate leaves are its kv heads' slices, and the gate gradients
 are summed over the axes the batch rows are split over before AdamW
 updates the rank's slices (AdamW is elementwise). The MoE and RG-LRU
 blocks run expert- and channel-parallel there (``models/moe.py``,
-``models/rglru.py``). Full-parameter LM training on a mesh waits for
-ROADMAP Queue 1 item 8b.5.
+``models/rglru.py``), the xLSTM blocks head-parallel
+(``models/xlstm.py``). Full-parameter LM training (:func:`lm_train_step`)
+runs there too: the next-token loss is the global mean, every leaf the
+rank holds gets the gradient of it (an FSDP block's summed by its
+gather's backward, the rest by ``comm.sum_grads``), and AdamW
+updates the rank's blocks with moments shaped like them.
 """
 from __future__ import annotations
 
@@ -162,7 +166,8 @@ def lm_loss_fn(params, cfg: ModelConfig, batch, *, moe_groups=1,
                q_chunk=None, remat=False
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The next-token loss plus 0.01 times the summed MoE load-balance
-    loss (0 without ``attn_moe`` blocks), as in the reference."""
+    loss (0 without ``attn_moe`` blocks), as in the reference; on a mesh
+    both over the whole batch."""
     out = T.forward(params, cfg, batch.get("tokens"), mode="teacher",
                     moe_groups=moe_groups, q_chunk=q_chunk, remat=remat,
                     **_forward_kw(batch))
@@ -170,20 +175,30 @@ def lm_loss_fn(params, cfg: ModelConfig, batch, *, moe_groups=1,
     return ll + 0.01 * out.lb_loss, {"lm_loss": ll, "lb_loss": out.lb_loss}
 
 
+def lm_loss_and_grads(params, cfg: ModelConfig, batch, *, moe_groups=1,
+                      q_chunk=None, remat=False):
+    """(loss, aux, grads): :func:`lm_loss_fn` and its gradient with
+    respect to every leaf of ``params`` (a tree of the same structure),
+    the reference's ``jax.value_and_grad``. On a mesh ``params`` are the
+    rank's blocks and each gradient is the global loss's in that block,
+    summed over the batch rows' ranks (``comm.sum_grads``)."""
+    leaves = tree_map(lambda v: v.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss, aux = lm_loss_fn(leaves, cfg, batch, moe_groups=moe_groups,
+                               q_chunk=q_chunk, remat=remat)
+        flat = torch.autograd.grad(loss, tree_leaves(leaves),
+                                   materialize_grads=True)
+    comm.sum_grads(dict(zip((k for k, _ in flat_paths(params)), flat)))
+    grads = iter(flat)
+    grads = tree_map(lambda _: next(grads), params)
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
 def lm_train_step(state: LMTrainState, cfg: ModelConfig, batch, *, lr,
                   moe_groups=1, q_chunk=None, remat=False
                   ) -> Tuple[LMTrainState, Dict[str, torch.Tensor]]:
-    if comm.ACTIVE is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: full-parameter LM training on a mesh waits for "
-            "ROADMAP Queue 1 item 8b.5")
-    params = tree_map(lambda v: v.detach().requires_grad_(), state.params)
-    with torch.enable_grad():
-        loss, aux = lm_loss_fn(params, cfg, batch, moe_groups=moe_groups,
-                               q_chunk=q_chunk, remat=remat)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(params),
-                                         materialize_grads=True))
-    grads = tree_map(lambda _: next(grads), state.params)
+    loss, aux, grads = lm_loss_and_grads(state.params, cfg, batch,
+                                         moe_groups=moe_groups,
+                                         q_chunk=q_chunk, remat=remat)
     new_params, new_opt = adamw_update(grads, state.opt, state.params, lr=lr)
-    return LMTrainState(new_params, new_opt), dict(
-        {k: v.detach() for k, v in aux.items()}, loss=loss.detach())
+    return LMTrainState(new_params, new_opt), dict(aux, loss=loss)

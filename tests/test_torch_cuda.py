@@ -665,6 +665,47 @@ def test_dense_cache_attention_matches_plain_on_gpu(max_len, dtype):
         ops.dense_cache_attention(q, odd)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_window_read_of_empty_windows_on_gpu(dtype):
+    """The windowed dense read with a buffer limit (the ragged scan's
+    masked rows) on the card: a row whose window lies wholly at or past
+    its limit returns the mean of V over its ``limit`` entries (the
+    reference's softmax over no valid key), whole and by two blocks
+    joined by their log-sum-exp, equal to the plain read on the CPU; one
+    ``paged_decode`` launch from a start offset a read."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import DenseCache
+    rng = np.random.default_rng(41)
+    b, hq, hkv, hd, s_max, w = 3, 6, 2, 64, 96, 16
+    k, v = _cuda(*(rng.standard_normal((b, hkv, s_max, hd)).astype(
+        np.float32) for _ in range(2)), dtype=TDT[dtype])
+    q = _cuda(rng.standard_normal((b, hq, hd)).astype(np.float32),
+              dtype=TDT[dtype])[0]
+    t = torch.tensor([90, 63, 80], dtype=torch.int32, device="cuda")
+    end = torch.minimum(t, torch.full_like(t, 64))
+    cache = DenseCache(k, v, t)
+    before = PD.start_launches.count
+    out = ops.dense_cache_attention(q, cache, window=w, end=end)
+    torch.cuda.synchronize()
+    assert PD.start_launches.count == before + 1
+    cpu = DenseCache(*(x.cpu() for x in cache))
+    plain = ops.dense_cache_attention(q.cpu(), cpu, window=w, end=end.cpu())
+    assert float((out.cpu().float() - plain.float()).abs().max()) \
+        <= TOL[dtype]
+    mean = cpu.v[0, :, :64].float().mean(1).repeat_interleave(hq // hkv, 0)
+    assert float((out[0].cpu().float() - mean).abs().max()) <= TOL[dtype]
+    half = s_max // 2
+    parts = [ops.dense_cache_attention(
+        q, DenseCache(k[:, :, i * half:(i + 1) * half].contiguous(),
+                      v[:, :, i * half:(i + 1) * half].contiguous(), t),
+        window=w, end=end, block=(i, 2)) for i in range(2)]
+    lse = torch.stack([p[1] for p in parts])
+    wts = torch.exp(lse - lse.max(0).values)
+    joined = sum(wt[..., None] * p[0].float() for wt, p in zip(wts, parts)) \
+        / wts.sum(0)[..., None]
+    assert float((joined.cpu() - plain.float()).abs().max()) <= TOL[dtype]
+
+
 @pytest.mark.parametrize("s", [200, 2048])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_causal_attention_matches_plain_causal_on_gpu(s, dtype):

@@ -446,9 +446,10 @@ def test_dense_window_read_matches_reference_core(t, limit, w):
     (rows past it read the buffer's end), one softmax per query head. The
     starts are not page-aligned; a window wider than ``t`` starts at 0. A
     row with ``t >= limit + W`` (its window wholly past the buffer) reads
-    no key: the port returns 0 there, where the reference's softmax over
-    no valid key averages the buffer (the documented divergence: such a
-    masked row's output is dropped)."""
+    no key: the port returns what the reference's softmax over no valid
+    key gives there, the mean of V over the buffer's ``limit`` entries;
+    so does the read by blocks of a buffer split in two, its blocks
+    combined by their log-sum-exp."""
     from repro_torch.models.attention import DenseCache
     rng = np.random.default_rng(sum(t) + w)
     b, hkv, grp, hd, s_max = len(t), 2, 3, 16, 96
@@ -476,8 +477,27 @@ def test_dense_window_read_matches_reference_core(t, limit, w):
                                      end=end).numpy().reshape(want.shape)
     empty = tt >= cap + w
     assert empty.any() == (t == [90, 63, 80])
-    np.testing.assert_array_equal(got[empty], 0.0)
-    np.testing.assert_allclose(got[~empty], want[~empty], atol=5e-5, rtol=0)
+    assert np.abs(got[empty]).max(initial=1.0) > 0.0
+    np.testing.assert_allclose(got, want, atol=5e-5, rtol=0)
+    if end is None:
+        return
+    # the same read by blocks of the buffer split in two, combined as the
+    # context-parallel decode combines them
+    half = s_max // 2
+    outs, lses = [], []
+    for i in range(2):
+        part = DenseCache(cache.k[:, :, i * half:(i + 1) * half],
+                          cache.v[:, :, i * half:(i + 1) * half], cache.t)
+        o, lse = tops.dense_cache_attention(torch.from_numpy(q), part,
+                                            window=w, end=end, block=(i, 2))
+        outs.append(o.numpy())
+        lses.append(lse.numpy())
+    lse = np.stack(lses)
+    m = lse.max(0)
+    wts = np.where(np.isfinite(lse), np.exp(lse - m), 0.0)
+    joined = (wts[..., None] * np.stack(outs)).sum(0) / wts.sum(0)[..., None]
+    np.testing.assert_allclose(joined.reshape(want.shape), want, atol=5e-5,
+                               rtol=0)
 
 
 def test_paged_decode_starts_mask_and_walk():

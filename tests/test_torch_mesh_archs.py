@@ -326,9 +326,12 @@ def test_plans_cover_experts_width_and_channels():
 
 def test_gathered_routing_group_refuses_a_gradient():
     """``moe.spans_rows`` marks the group counts whose groups span the
-    data ranks (an MoE arch only); such a group's rows are gathered
-    without a graph only: with a gradient wanted the gather raises,
-    naming 8b.5."""
+    data ranks (an MoE arch only); such a group's rows are gathered with
+    or without a graph. On meta the gradient reaches the rank's rows of
+    x: the backward sums the ranks' gradients (one all-reduce on gloo)
+    and keeps this rank's rows, and ``shared_term`` halves a whole-group
+    term's gradient on each of the two ranks
+    (``tests/test_torch_mesh_xlstm.py`` holds the values to jax.grad)."""
     gr, rg = port_cfg(_jcfg(ARCHS[1])), port_cfg(_jcfg(ARCHS[2]))
     assert MoE.spans_rows(gr, 1, 2) and MoE.spans_rows(gr, 3, 2)
     assert not MoE.spans_rows(gr, 2, 2) and not MoE.spans_rows(gr, 1, 1)
@@ -337,10 +340,18 @@ def test_gathered_routing_group_refuses_a_gradient():
         with comm.active(mesh, R.tp_plan(gr, mesh.shape), rows="data"):
             x = torch.zeros((1, 4, gr.d_model), device="meta",
                             requires_grad=True)
-            with pytest.raises(NotImplementedError, match="8b.5"):
-                comm.gather_moe_rows(x)
             with torch.no_grad():
                 assert comm.gather_moe_rows(x).shape == (2, 4, gr.d_model)
+            full = comm.gather_moe_rows(x)
+            assert full.shape == (2, 4, gr.d_model) and full.requires_grad
+            with WorkCounter() as wc:
+                (gx,) = torch.autograd.grad(full.sum(), [x])
+            assert gx.shape == x.shape and gx.device.type == "meta"
+            assert dict(wc.record()["collective_bytes_by_axis"]) == {
+                "data": 2 * 2 * 4 * gr.d_model * 4 // 2}
+            lb = torch.ones((), requires_grad=True)
+            (g,) = torch.autograd.grad(comm.shared_term(lb), [lb])
+            assert float(g) == 0.5
 
 
 @pytest.mark.parametrize("arch", ARCHS)

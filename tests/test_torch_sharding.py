@@ -284,22 +284,33 @@ def test_cache_blocks_are_the_cache_spec_blocks(trees, arch, shape, slots):
 
 
 def test_unsupported_archs_raise_naming_8b(trees):
-    """The mesh admits GQA attention (M-RoPE and cross attention
-    included), MoE, RG-LRU and encoder archs; the xLSTM blocks still
-    raise, naming the ROADMAP item. whisper-medium and qwen2-vl-7b plan
+    """The mesh admits every arch: GQA attention (M-RoPE and cross
+    attention included), MoE, RG-LRU, encoder and xLSTM blocks. xlstm-350m
+    (4 heads) splits by head at 2 and 4 ways (the sLSTM's MLP, 1,364
+    wide, too) and stays whole at 16, its leaves held whole there; its
+    sLSTM ``w_in`` is sliced per gate. whisper-medium and qwen2-vl-7b plan
     on the production mesh: heads split (whole for qwen2-vl's 28 q heads
     at 16 ways), the GELU MLP's d_ff split with its ``b_in``."""
-    refused = {"xlstm-350m"}
     for arch in ARCH_NAMES:
-        cfg = trees[arch][2]
-        if arch not in refused:
-            R.check_mesh_arch(cfg)
-            continue
-        with pytest.raises(NotImplementedError, match="8b.5"):
-            R.check_mesh_arch(cfg)
-    assert {"granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
-            "recurrentgemma-9b", "whisper-medium",
-            "qwen2-vl-7b"} <= set(ARCH_NAMES) - refused
+        R.check_mesh_arch(trees[arch][2])
+    assert len(ARCH_NAMES) == 10
+    xl = trees["xlstm-350m"][2]
+    for m, split in ((2, True), (4, True), (16, False)):
+        mesh = {"data": 2, "model": m}
+        plan = R.tp_plan(xl, mesh, m - 1)
+        assert plan.xlstm == split
+        assert plan.attn == "whole" and not plan.ffn
+        assert plan.xlstm_heads == (((m - 1) * (4 // m), 4 // m) if split
+                                    else (0, 4))
+        whole = R.held_whole(trees["xlstm-350m"][3], xl, mesh)
+        assert ("blocks/b0/cell/w_up_x" in whole) == (not split)
+    w_in = torch.arange(4 * 8, dtype=torch.float32).reshape(1, 2, 16)
+    mesh = {"data": 1, "model": 2}
+    blk = R.local_shard(w_in, (None, None, "model"), {"data": 0, "model": 1},
+                        mesh, R.gate_parts(("blocks", "b1", "cell", "w_in"),
+                                           xl))
+    assert torch.equal(blk, w_in.reshape(1, 2, 4, 4)[..., 2:].reshape(
+        1, 2, 8))
     mesh = {"data": 16, "model": 16}
     wh, vl = trees["whisper-medium"][2], trees["qwen2-vl-7b"][2]
     assert R.tp_plan(wh, mesh).attn == "split" and R.tp_plan(wh, mesh).ffn

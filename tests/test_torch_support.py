@@ -147,9 +147,9 @@ def test_entry_points_need_cuda_without_explicit_cpu():
 
 @pytest.mark.parametrize("flag,says", [
     (["--arch", "xlstm-350m", "--backend", "dense", "--mesh", "1x1"],
-     "item 8b"),
+     "no KV cache"),
     (["--arch", "xlstm-350m", "--prefix-cache", "--mesh", "2x4"],
-     "item 8b"),
+     "no KV cache"),
     (["--arch", "whisper-medium", "--mesh", "1x2"], "enc-dec serving"),
     (["--arch", "qwen3-0.6b", "--mesh", "0x2"], "mesh"),
 ])
@@ -157,10 +157,10 @@ def test_serve_rejects_unported_flags(flag, says, capsys):
     """``--mesh`` serves the archs of GQA attention, MoE and RG-LRU
     blocks, qwen2-vl-7b's text included (tests/test_torch_sharded_serving.py,
     tests/test_torch_mesh_archs.py, tests/test_torch_mesh_encdec.py); on
-    an arch whose mesh split is not ported (the xLSTM blocks: ROADMAP
-    Queue 1 item 8b), with any backend or the prefix store, on the
-    encoder-decoder (refused as the reference refuses it), and on a
-    malformed mesh, it exits 2 before any rank starts."""
+    an arch with no KV cache (xlstm-350m, which runs on a mesh through
+    the step bundles) with any backend or the prefix store, and on the
+    encoder-decoder (both refused as the reference refuses them), and on
+    a malformed mesh, it exits 2 before any rank starts."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit) as ex:
         serve.main(["--reduced", "--device", "cpu", *flag])

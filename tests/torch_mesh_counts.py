@@ -30,8 +30,10 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
     ``backend``: "nccl" assembles blocks with all-gathers, "gloo" with
     all-reduces of the whole buffer. ``moe_groups``: the bundle's
     routing groups when a knob override sets them (default
-    ``exec_knobs``'). The mesh archs only (GQA attention, MoE, RG-LRU,
-    cross attention and encoder blocks; WG-KV for the train step).
+    ``exec_knobs``'). Every mesh arch (GQA attention, MoE, RG-LRU,
+    cross attention, encoder and xLSTM blocks); the train step is the
+    gate distillation where WG-KV applies, else the full-parameter LM
+    step.
 
     * every pass of the model over a layer: under "gather_q" the q heads
       gathered over "model"; the attention's, the dense FFN's, the MoE
@@ -53,6 +55,17 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
       attention layer: the gates under "gather_q", the FFN's and the MoE
       block's x), then the loss terms and the gate gradients over the
       batch rows' axes;
+    * an xLSTM block split by head gathers, per pass, the mLSTM's conv
+      output and up-projection over "model" and sums its ``out_norm``
+      sum of squares and ``w_down`` partials, and gathers the sLSTM's
+      cell outputs and sums its MLP's partials; the full-parameter train
+      step makes one forward pass and a remat recompute, and its
+      backward sums each split block's input gradient over "model",
+      reduce-scatters the mLSTM's gathered channels and sums its norm's
+      gradient, sums the MLP input's, hands each FSDP gather's gradient
+      back as a reduce-scatter over the rows' axes (an all-reduce on
+      ``gloo``), then adds the loss over the rows' axes and every other
+      leaf's gradient over the rows' axes its FSDP gather did not sum;
     * an encoder-decoder's encoder runs once per forward pass (twice in
       a train step, never in decode), its blocks' attention and FFN
       seams and FSDP gathers as a layer's; an ``attn_cross`` block adds
@@ -85,6 +98,7 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
     plan = R.tp_plan(cfg, mesh)
     lcfg = R.local_config(cfg, plan)
     b, s, d = shape.global_batch, shape.seq_len, cfg.d_model
+    dm = R.mlstm_width(cfg)
     rows = R.tokens_spec(mesh, b, 0)[0]
     row_axes = R._axes_of(rows)
     row_n = R._axsize(mesh, row_axes or None)
@@ -177,6 +191,19 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
                 attention(tokens)
         if bt == "rglru" and plan.rec:
             add("model", "all_reduce", tokens * d * act)
+        if bt == "mlstm" and plan.xlstm:
+            # the conv output and up-projection gathered, out_norm's sum
+            # of squares and (short of a recompute) w_down's partials
+            gather("model", 2 * tokens * dm * act)
+            add("model", "all_reduce", tokens * 4)
+            if not recompute:
+                add("model", "all_reduce", tokens * d * act)
+        if bt == "slstm" and plan.xlstm:
+            # the cell outputs (f32) gathered after the token loop, and
+            # (short of a recompute) the MLP's partials
+            gather("model", tokens * d * 4)
+            if not recompute:
+                add("model", "all_reduce", tokens * d * act)
         if bt == "attn_moe":
             if not moe_local:
                 gather(row_axes, tokens * row_n * d * act)
@@ -200,6 +227,58 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
             key, nbytes = embed_gathers["embed/tok"]
             gather(tuple(key.split("+")), nbytes)
 
+    def scatter(axes, nbytes):
+        """The backward of an FSDP gather of ``nbytes`` over ``axes``: a
+        reduce-scatter when the rows split over all of them (nccl), else
+        the gradient summed over the rows' share of them and sliced."""
+        axes = tuple(axes.split("+"))
+        summed = tuple(a for a in axes if a in row_axes)
+        if backend != "gloo" and summed == axes:
+            add(axes, "reduce_scatter", nbytes)
+        elif summed:
+            add(summed, "all_reduce", nbytes)
+
+    if shape.kind == "train" and not cfg.wgkv_applicable():
+        # full-parameter LM training (the xLSTM): the forward, each
+        # repeated layer's remat recompute, then the backward's seams,
+        # the FSDP gradients' reduce-scatters, the loss's sums and the
+        # other leaves' gradients summed over the rows' axes
+        for bt, gathers, repeated, _ in layers:
+            layer_pass(bt, gathers)
+            if repeated and knobs["remat"]:
+                layer_pass(bt, gathers, recompute=True)
+        embed_pass(True)
+        for bt, gathers, _, _ in layers:
+            if bt in ("mlstm", "slstm") and plan.xlstm:
+                add("model", "all_reduce", tokens * d * act)
+            if bt == "mlstm" and plan.xlstm:
+                if backend == "gloo":
+                    add("model", "all_reduce", 2 * tokens * dm * act)
+                else:
+                    add("model", "reduce_scatter", 2 * tokens * dm * act)
+                add("model", "all_reduce", tokens * 4)
+            if bt == "slstm" and plan.xlstm:
+                add("model", "all_reduce", tokens * d * act)
+            for axes, nbytes in gathers.items():
+                scatter(axes, nbytes)
+        for path, (key, nbytes) in embed_gathers.items():
+            scatter(key, nbytes)
+            if path == "embed/tok" and "embed/unembed" not in leaves:
+                scatter(key, nbytes)
+        add(row_axes, "all_reduce", 2 * 4)
+        for path, leaf in leaves.items():
+            done = {a for e in fsdp.get(path, ()) for a in R._axes_of(e)}
+            left = tuple(a for a in row_axes if a not in done)
+            if left:
+                spec = R.param_placement(tuple(path.split("/")),
+                                         tuple(leaf.shape), mesh, cfg,
+                                         replicate_fsdp=False)
+                loc = R.shard_shape(tuple(leaf.shape), spec, mesh)
+                numel = 1
+                for v in loc:
+                    numel *= v
+                add(left, "all_reduce", numel * par)
+        return out
     if shape.kind == "train":
         encode()                                          # the teacher's
         encode()                                          # the student's
@@ -233,7 +312,10 @@ def mesh_collective_bytes(cfg: ModelConfig, shape: InputShape, mesh, *,
                 add("model", "all_reduce", tokens * d * act)
             if bt == "attn_moe":
                 if plan.moe != "whole":
-                    add("model", "all_reduce", tokens * d * act)
+                    # x and the routing weights of the rank's experts
+                    routed = tokens * (1 if moe_local else row_n)
+                    add("model", "all_reduce", routed * d * act)
+                    add("model", "all_reduce", routed * cfg.moe.top_k * 4)
             elif plan.ffn and (bt in ATTN_BLOCKS or grad_in):
                 add("model", "all_reduce", tokens * d * act)
         heads = row_axes + (("model",) if plan.attn == "split" else ())
